@@ -1,0 +1,86 @@
+"""LSQ quantization, serve half (port of ``repro.core.quant``).
+
+    v_int = round( clamp(v_FP / gamma, Q_n, Q_p) )
+    v_quant = v_int * gamma
+
+Activations are unsigned (Q_n = 0, Q_p = 2^b - 1); weights are signed
+(Q_n = -2^{b-1}, Q_p = 2^{b-1} - 1).  The STE/LSQ training half is not
+ported yet.
+
+Dtype note: JAX promotes ``bf16 / f32`` to f32, torch keeps bf16 when the
+f32 operand is 0-d.  Every divide here therefore casts both operands to
+f32 first, so the integer codes match the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = ["QuantSpec", "qrange", "act_spec", "weight_spec",
+           "quantize_int", "dequantize"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """How one tensor is quantized.
+
+    Attributes:
+      bits:         word-length b.
+      signed:       signed two's-complement range (weights) vs unsigned.
+      channel_axis: axis for per-channel step sizes (None = per-tensor).
+    """
+
+    bits: int
+    signed: bool
+    channel_axis: Optional[int] = None
+
+    def __post_init__(self):
+        if self.bits < 1 or self.bits > 32:
+            raise ValueError(f"unsupported word-length: {self.bits}")
+
+
+def qrange(spec: QuantSpec) -> Tuple[int, int]:
+    """(Q_n, Q_p) clamp bounds."""
+    if spec.signed:
+        return -(2 ** (spec.bits - 1)), 2 ** (spec.bits - 1) - 1
+    return 0, 2 ** spec.bits - 1
+
+
+def act_spec(bits: int = 8) -> QuantSpec:
+    """Activations are unsigned, fixed 8 bit in the paper."""
+    return QuantSpec(bits=bits, signed=False, channel_axis=None)
+
+
+def weight_spec(bits: int, channel_axis: Optional[int] = None) -> QuantSpec:
+    """Weights are signed; per-channel axis optional."""
+    return QuantSpec(bits=bits, signed=True, channel_axis=channel_axis)
+
+
+def _broadcast_gamma(gamma: torch.Tensor, v: torch.Tensor,
+                     spec: QuantSpec) -> torch.Tensor:
+    if spec.channel_axis is None:
+        return gamma
+    shape = [1] * v.ndim
+    shape[spec.channel_axis % v.ndim] = v.shape[spec.channel_axis % v.ndim]
+    return gamma.reshape(shape)
+
+
+def quantize_int(v: torch.Tensor, gamma: torch.Tensor,
+                 spec: QuantSpec) -> torch.Tensor:
+    """Integer codes ``v_int`` in [Q_n, Q_p] (int32); round half to even."""
+    qn, qp = qrange(spec)
+    g = _broadcast_gamma(torch.as_tensor(gamma, dtype=torch.float32,
+                                         device=v.device), v, spec)
+    return torch.clamp(torch.round(v.to(torch.float32) / g), qn,
+                       qp).to(torch.int32)
+
+
+def dequantize(v_int: torch.Tensor, gamma: torch.Tensor,
+               spec: QuantSpec) -> torch.Tensor:
+    """v_quant = v_int * gamma (f32)."""
+    vf = v_int.to(torch.float32)
+    g = _broadcast_gamma(torch.as_tensor(gamma, dtype=torch.float32,
+                                         device=vf.device), vf, spec)
+    return vf * g

@@ -1,0 +1,80 @@
+"""Parameter specification trees (port of ``repro.nn.param``).
+
+A model is a nested dict of :class:`ParamSpec`; ``init_params`` turns it
+into a dict of tensors from an explicit ``torch.Generator``.  The numbers
+differ from the JAX package's ``jax.random`` ones for the same seed; tests
+that compare the two packages make their inputs with numpy instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+
+__all__ = ["ParamSpec", "init_params", "is_spec", "QMARK", "strip_markers"]
+
+# Marker key identifying a quantized-linear subtree in spec trees; it
+# carries the layer class and name and never materializes into params.
+QMARK = "__q__"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One parameter tensor.
+
+    init: 'normal' (fan-in scaled), 'zeros', 'ones', 'constant'.
+    fan_in_axes: dims counted as fan-in for the scaled-normal init.
+    """
+
+    shape: Tuple[int, ...]
+    dtype: Any = torch.float32
+    axes: Tuple[Optional[str], ...] = ()
+    init: str = "normal"
+    const: float = 0.0
+    fan_in_axes: Tuple[int, ...] = (0,)
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} vs shape {self.shape}")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def strip_markers(tree):
+    if isinstance(tree, dict):
+        return {k: strip_markers(v) for k, v in tree.items() if k != QMARK}
+    return tree
+
+
+def _materialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype)
+    if spec.init == "constant":
+        return torch.full(spec.shape, spec.const, dtype=spec.dtype)
+    if spec.init != "normal":
+        raise ValueError(f"unknown init {spec.init!r}")
+    fan_in = 1
+    for a in spec.fan_in_axes:
+        if spec.shape:
+            fan_in *= spec.shape[a % len(spec.shape)]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
+    return (std * x).to(spec.dtype)
+
+
+def init_params(specs, generator: torch.Generator, device="cpu"):
+    """Materialize a spec tree into a tensor tree on ``device``.
+
+    Leaves are drawn in sorted-key order, so a seed fixes every tensor.
+    """
+    def walk(node):
+        if is_spec(node):
+            return _materialize(node, generator).to(device)
+        return {k: walk(node[k]) for k in sorted(node)}
+    return walk(strip_markers(specs))

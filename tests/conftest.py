@@ -28,6 +28,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where torch sees none")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
