@@ -5,8 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. Build both CUDA kernels from ``src/repro_torch/kernels/mpmm/csrc`` with
-   nvcc for sm_90a, one process per source, in parallel.
+1. Build the four CUDA kernels (K1, K2 from ``kernels/mpmm/csrc``, K3, K4
+   from ``kernels/flashattn/csrc``) with nvcc for sm_90a, one process per
+   source, in parallel.
 2. K1 (``mpmm_cuda``) against its plain version ``mpmm_torch``: every
    weight format (w in 1/2/4/8, k dividing 8, k <= w), both variants, the
    three epilogues, ragged M/N/K, an int32-accumulator check, and the serve
@@ -14,31 +15,69 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K2 (``conv_mpmm_cuda``) against ``conv_mpmm_torch`` at every ResNet-18
    conv shape at batch 8 with the path's epilogue, and at batch 2 with
    Sum-Apart and the residual epilogue.
-4. End to end: full-width ResNet-18 (224x224, width 64, 1000 classes) with
-   random weights from a seeded generator, packed under
+4. ResNet end to end: full-width ResNet-18 (224x224, width 64, 1000
+   classes) with random weights from a seeded generator, packed under
    ``examples/plans/resnet18_mixed.json`` and served by ``ImageServer`` with
    buckets (1, 2, 4, 8) for requests of 1, 3, 8 and 13 images.  The launch
    counters must show K1 twice and K2 19 times per bucket call; the logits
    are compared with the same forward through the plain versions.
-5. Timing at the serve path's shapes (batch 8): each kernel, its plain
-   version, one PyTorch library call for the same product, and the bound
-   (the larger of bytes over 3.35 TB/s and int8 operations over 1979 TOP/s,
-   the H100 SXM data-sheet peaks); frames/s per bucket.
+5. ResNet timing at the serve path's shapes (batch 8): each kernel, its
+   plain version, one PyTorch library call for the same product, and the
+   bound (the larger of bytes over 3.35 TB/s and int8 operations over
+   1979 TOP/s, the H100 SXM data-sheet peaks); frames/s per bucket.
+6. K3 (``flash_fwd_cuda``) against ``flash_fwd_torch`` at granite-8b's
+   attention shapes (B 4, H 32, KV 8, D 128, bf16): causal at Sq = Sk of
+   1000 and 1024, a 256 window, a q_offset continuation (Sq 8, Sk 1024) and
+   a non-causal ragged Sk (forced causal, as the reference's padding does).
+7. K4 (``flash_fwd_packed_cuda``) against ``flash_fwd_packed_torch`` on the
+   cache formats of ``examples/plans/granite_8b_mixed.json`` (kv2 k2, kv4
+   k4, kv8 k4), K and V in different formats, a q_offset continuation and a
+   ragged Sk; and against K3 run on ``unpack_kv`` of the same cache.
+8. LM end to end: granite-8b at full width (d_model 4096, 32 heads, 8 KV
+   heads, head_dim 128, d_ff 14336, vocab 49152) with random weights from
+   a seeded CUDA generator, all 36 layers, drawn and packed layer by layer
+   on the card under ``granite_8b_mixed.json``, served by ``Generator``: 4
+   prompts of
+   1000 tokens, 16 new tokens, greedy.  The counters must show K4 once per
+   layer per prefill, K1 7 times per layer plus the head per prefill and
+   per decode step, K3 never.  The same weights served again under the plan
+   without its KV keys (a bf16 cache) must launch K3 once per layer per
+   prefill and K4 never.  Each run is held against the same model through
+   the plain versions of K1, K3 and K4: finite, non-constant logits; in the
+   prefill, every plain layer fed the kernel path's own input lands within
+   2% of the largest |output| with at most 2% of its bf16 outputs
+   different, and so do the last token's logits and head-input codes taken
+   through the plain last layer; every decode step, fed the kernel path's
+   token and a copy of its cache, gives bitwise-equal logits (decode runs
+   no flash kernel and K1 is bitwise).  The two paths run free through all
+   layers are printed per layer (``[drift]`` lines), not held: 8-bit
+   requantization carries the flash kernels' sub-ulp differences onward.
+9. LM timing at the path's shapes (batch 4, S 1000): K3 and K4 per layer
+   and per prefill against their plain versions, ``F.scaled_dot_product_
+   attention`` in bf16 (for K4 on the unpacked K/V: it reads unpacked
+   bytes) and the bound (bytes over 3.35 TB/s or causal attention FLOPs
+   over 989 TFLOP/s, the H100 SXM dense bf16 peak); K1 at the prefill
+   shapes; prefill tokens/s, decode ms per step and the share of a prefill
+   spent in K4, K1 and the rest.
 
-Kernel outputs are compared bitwise with the plain version run on the CPU
-copy of the same inputs -- the version the CPU tests hold bitwise against
-the JAX package (numeric contract in
-``src/repro_torch/kernels/mpmm/epilogue.py``).  End to end, kernel and
-plain logits on the card are held to 2% of the largest logit and at most
-2% flipped classifier-input codes.  Per-shape times are printed as
-``[time]`` lines.
+Kernel outputs of K1 and K2 are compared bitwise with the plain version run
+on the CPU copy of the inputs -- the version the CPU tests hold bitwise
+against the JAX package (numeric contract in
+``src/repro_torch/kernels/mpmm/epilogue.py``).  K3 and K4 are compared
+with their plain versions on the card: f32 accumulation in another order,
+so bf16 outputs within one bf16 ulp plus 1e-5 (the f32 tolerance, for
+outputs near zero); K4 against K3 on the unpacked cache within 3e-2
+absolute plus 3e-2 relative (K3 reads the bf16-rounded values code*s + z,
+K4 the exact ones; the reference's own packed-vs-qdq tolerance).  Per-shape
+times are printed as ``[time]`` lines.
 
-The last two lines are the kernel summary and
-``{"ok": true, "device": {...}}``; nothing is printed there unless every
-phase passed.
+The last three lines are the kernel summary, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``; nothing is printed there
+unless every phase passed.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -59,6 +98,15 @@ E2E_LOGIT_TOL = 0.02
 E2E_MAX_FLIP_RATE = 0.02
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+PEAK_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+LM_ARCH = "granite-8b"
+LM_PLAN = ROOT / "examples" / "plans" / "granite_8b_mixed.json"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 1000, 16
+K3_DEPTH = 4           # the bf16-cache (K3) run: l0-l2 overrides + a default
+LM_LOGIT_TOL = 0.02
+LM_MAX_FLIP_RATE = 0.02
+ATTN_HEADS, ATTN_KV, ATTN_D = 32, 8, 128
+K4_VS_K3_TOL = 3e-2
 FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8) if k <= w]
 EPILOGUES = ("none", "bn_relu", "bn_res_relu")
 
@@ -75,7 +123,8 @@ class Smoke:
         self.device = device
         self.gen = torch.Generator().manual_seed(SEED)
         self.failures = []
-        self.max_err = {"mpmm_cuda": 0.0, "conv_mpmm_cuda": 0.0}
+        self.max_err = {"mpmm_cuda": 0.0, "conv_mpmm_cuda": 0.0,
+                        "flash_fwd_cuda": 0.0, "flash_fwd_packed_cuda": 0.0}
 
     # --- inputs ---------------------------------------------------------
 
@@ -437,26 +486,498 @@ def measure(sm, path_k1, convs):
     return rows
 
 
+# --- phases 6-7: K3 and K4 -----------------------------------------------------
+
+
+def bf16_ulp(t, x):
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    _, e = t.frexp(x.abs().clamp_min(2.0 ** -126))
+    return t.ldexp(t.ones_like(x), e - 8)
+
+
+def compare_close(sm, kernel_name, label, got, want, tol=None):
+    """A flash kernel's output against another version of the same function
+    on the card: bf16 within one ulp of the larger value plus 1e-5 (the f32
+    tolerance: outputs near zero come from cancelling sums, more so in K4's
+    affine scores), or within ``tol`` absolute plus ``tol`` relative.  Only
+    comparisons with the plain version (tol None) enter the kernel's
+    max_abs_err."""
+    t = sm.torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        sm.failures.append(f"{label}: {tuple(got.shape)}/{got.dtype} vs "
+                           f"{tuple(want.shape)}/{want.dtype}")
+        return 0.0
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if tol is None:
+        bound = bf16_ulp(t, t.maximum(g.abs(), w.abs())) + 1e-5
+    else:
+        bound = tol + tol * w.abs()
+    max_err = float(err.max())
+    if tol is None:
+        sm.max_err[kernel_name] = max(sm.max_err[kernel_name], max_err)
+    n_bad = int((err > bound).sum())
+    if n_bad:
+        sm.failures.append(f"{label}: {n_bad} of {err.numel()} outside the "
+                           f"tolerance, max abs err {max_err}")
+    return max_err
+
+
+def attn_inputs(sm, b, sq, sk, seed):
+    """bf16 q (B, Sq, H, D) and k, v (B, Sk, KV, D) at granite's heads."""
+    t = sm.torch
+    g = t.Generator(device=sm.device).manual_seed(seed)
+    mk = lambda s, h: t.randn((b, s, h, ATTN_D), generator=g,  # noqa: E731
+                              device=sm.device).to(t.bfloat16)
+    return mk(sq, ATTN_HEADS), mk(sk, ATTN_KV), mk(sk, ATTN_KV)
+
+
+K3_CASES = [dict(sq=1000, sk=1000), dict(sq=1024, sk=1024),
+            dict(sq=1024, sk=1024, window=256),
+            dict(sq=8, sk=1024, q_offset=1016),
+            dict(sq=1000, sk=1000, causal=False)]
+
+
+def phase_k3(sm, block_k):
+    from repro_torch.kernels.flashattn import ops as fops
+    for i, case in enumerate(K3_CASES):
+        kw = {k: v for k, v in case.items() if k not in ("sq", "sk")}
+        q, k, v = attn_inputs(sm, LM_BATCH, case["sq"], case["sk"], 100 + i)
+        got = fops.flash_attention(q, k, v, block_k=block_k, impl="cuda",
+                                   **kw)
+        want = fops.flash_attention(q, k, v, block_k=block_k, impl="torch",
+                                    **kw)
+        sm.torch.cuda.synchronize()
+        err = compare_close(sm, "flash_fwd_cuda", f"K3 {case}", got, want)
+        log(f"[K3] {case}: max abs err vs plain {err}")
+    sm.check_phase("K3 flash_fwd_cuda vs flash_fwd_torch")
+
+
+K4_CASES = [((2, 2), (2, 2), dict(sq=1000, sk=1000)),
+            ((4, 4), (4, 4), dict(sq=1000, sk=1000)),
+            ((8, 4), (8, 4), dict(sq=1000, sk=1000)),
+            ((2, 2), (4, 4), dict(sq=1024, sk=1024)),
+            ((8, 4), (2, 2), dict(sq=8, sk=1024, q_offset=1016))]
+
+
+def phase_k4(sm, block_k):
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.nn import kvcache
+    for i, (fk, fv, case) in enumerate(K4_CASES):
+        kw = {k: v for k, v in case.items() if k not in ("sq", "sk")}
+        q, k, v = attn_inputs(sm, LM_BATCH, case["sq"], case["sk"], 200 + i)
+        fmt_k = kvcache.KVFormat(*fk, ATTN_D)
+        fmt_v = kvcache.KVFormat(*fv, ATTN_D)
+        kq, vq = kvcache.pack_kv(k, fmt_k), kvcache.pack_kv(v, fmt_v)
+        got = fops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
+                                          block_k=block_k, impl="cuda", **kw)
+        want = fops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
+                                           block_k=block_k, impl="torch",
+                                           **kw)
+        k3 = fops.flash_attention(q, kvcache.unpack_kv(kq, fmt_k),
+                                  kvcache.unpack_kv(vq, fmt_v),
+                                  block_k=block_k, impl="cuda", **kw)
+        sm.torch.cuda.synchronize()
+        label = f"K4 k{fk} v{fv} {case}"
+        err = compare_close(sm, "flash_fwd_packed_cuda", label, got, want)
+        err_k3 = compare_close(sm, "flash_fwd_packed_cuda", label + " vs K3",
+                               got, k3, tol=K4_VS_K3_TOL)
+        log(f"[K4] kv bits/slice k{fk} v{fv} {case}: max abs err vs plain "
+            f"{err}, vs K3 on the unpacked cache {err_k3} (tol "
+            f"{K4_VS_K3_TOL} absolute + relative)")
+    sm.check_phase("K4 flash_fwd_packed_cuda vs flash_fwd_packed_torch "
+                   "and vs K3")
+
+
+# --- phase 8: the LM end to end -----------------------------------------------
+
+
+COUNTED = (("mpmm_cuda", "repro_torch.kernels.mpmm.kernel"),
+           ("conv_mpmm_cuda", "repro_torch.kernels.mpmm.conv_kernel"),
+           ("flash_fwd_cuda", "repro_torch.kernels.flashattn.kernel"),
+           ("flash_fwd_packed_cuda", "repro_torch.kernels.flashattn.kernel"))
+
+
+def reset_counts():
+    import importlib
+    for name, mod in COUNTED:
+        getattr(importlib.import_module(mod), name).launches = 0
+
+
+def read_counts():
+    import importlib
+    return {name: getattr(importlib.import_module(mod), name).launches
+            for name, mod in COUNTED}
+
+
+def lm_api(depth, plan):
+    """granite-8b at full width under ``plan``; ``depth`` keeps the first
+    layers (None: all of them)."""
+    from repro_torch import configs
+    api = configs.get(LM_ARCH)
+    cfg = dataclasses.replace(api.cfg, n_layers=depth or api.cfg.n_layers)
+    return dataclasses.replace(api, cfg=cfg, policy=plan)
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def prefill_contract(sm, api, params, prompts, label):
+    """The prefill, layer by layer.  One-layer error: each plain layer fed
+    the kernel path's own input, against the kernel layer -- held to
+    ``LM_LOGIT_TOL`` of the largest |output| and ``LM_MAX_FLIP_RATE`` of
+    differing bf16 outputs, and so are the last token's logits and head-
+    input codes taken through the plain last layer.  Carried drift: each
+    path fed its own previous output, printed per layer as ``[drift]``
+    lines (8-bit requantization carries any sub-ulp difference onward)."""
+    from repro_torch.kernels.mpmm import ops
+    from repro_torch.models import transformer as T
+    t = sm.torch
+    cfg, plan = api.cfg, api.policy
+    kv = T.kv_formats(cfg, plan)
+    store, fmts = kv if kv is not None else ("packed", [None] * cfg.n_layers)
+    ga = params["head"]["ga"]
+
+    def stats(a, b):
+        a, b = a.float(), b.float()
+        return (float((a - b).abs().max()) / float(a.abs().max()),
+                float((a != b).float().mean()))
+
+    def flips(a, b):
+        return float((ops.quantize_activations(T._head_input(cfg, params, a),
+                                               ga)
+                      != ops.quantize_activations(
+                          T._head_input(cfg, params, b), ga)).float().mean())
+
+    worst = [0.0, 0.0]
+    with t.inference_mode():
+        tt = t.as_tensor(prompts, device=sm.device)
+        x_k = x_p = T._embed(params, tt)
+        sin, cos = T._rotary(cfg, T._positions(LM_BATCH, LM_PROMPT, 0,
+                                                sm.device))
+        for i, lp in enumerate(params["layers"]):
+            kw = dict(lname=f"l{i}.", kv_fmts=fmts[i], kv_store=store)
+            y_k, _ = T._layer_fwd(cfg, lp, x_k, plan, sin, cos, impl="cuda",
+                                  **kw)
+            y_1, _ = T._layer_fwd(cfg, lp, x_k, plan, sin, cos,
+                                  impl="torch", **kw)
+            y_p, _ = T._layer_fwd(cfg, lp, x_p, plan, sin, cos,
+                                  impl="torch", **kw)
+            rel, diff = stats(y_k, y_1)
+            c_rel, c_diff = stats(y_k, y_p)
+            log(f"[drift] {label} layer {i}: one-layer {rel:.6f} of the "
+                f"largest |output|, {diff:.6f} of outputs differ; carried "
+                f"{c_rel:.6f}, {c_diff:.6f}")
+            worst = [max(worst[0], rel), max(worst[1], diff)]
+            if rel > LM_LOGIT_TOL or diff > LM_MAX_FLIP_RATE:
+                raise SystemExit(f"{label} layer {i}: one-layer error "
+                                 f"{rel:.5f} of the largest |output|, "
+                                 f"{diff:.5f} of outputs differ (tol "
+                                 f"{LM_LOGIT_TOL}, {LM_MAX_FLIP_RATE})")
+            x_k, x_p = y_k, y_p
+        last = (x_k[:, -1:], y_1[:, -1:], x_p[:, -1:])
+        l_k = T._head(cfg, params, last[0], plan, "cuda")
+        l_1 = T._head(cfg, params, last[1], plan, "torch")
+        l_p = T._head(cfg, params, last[2], plan, "torch")
+    out = {"layer_rel": worst[0], "layer_diff": worst[1],
+           "logits_rel": stats(l_k, l_1)[0], "flips": flips(last[0], last[1]),
+           "carried_rel": stats(l_k, l_p)[0],
+           "carried_flips": flips(last[0], last[2])}
+    if out["logits_rel"] > LM_LOGIT_TOL or out["flips"] > LM_MAX_FLIP_RATE:
+        raise SystemExit(f"{label}: last-token logits {out['logits_rel']:.5f}"
+                         f" of the largest |logit| apart, {out['flips']} "
+                         f"head-input codes flipped")
+    return out
+
+
+def decode_contract(sm, gen, plain, prompts, toks, label):
+    """Every decode step, teacher-forced: the plain path runs on a copy of
+    the kernel path's own cache with the kernel path's token; decode has no
+    flash kernel and K1 is bitwise, so the logits must be equal."""
+    t = sm.torch
+    with t.inference_mode():
+        logits, pre = gen.prefill(t.as_tensor(prompts, device=sm.device))
+        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT + LM_NEW)
+        for i in range(LM_NEW - 1):
+            feed = t.as_tensor(toks[:, i:i + 1], device=sm.device)
+            l_p, _ = plain.decode(clone_tree(cache), feed, LM_PROMPT + i)
+            l_k, cache = gen.decode(cache, feed, LM_PROMPT + i)
+            if not t.equal(l_k, l_p):
+                err = float((l_k.float() - l_p.float()).abs().max())
+                raise SystemExit(f"{label} decode step {i}: kernel and plain "
+                                 f"logits differ (max {err})")
+
+
+def serve_lm(sm, api, params, prompts, label, expect):
+    """One Generator run through the kernels, counted; then the contract
+    against the same model through the plain versions."""
+    import numpy as np
+    from repro_torch.runtime.serve import Generator
+    t = sm.torch
+    depth = api.cfg.n_layers
+    gen = Generator(api, params, device=sm.device)
+    plain = Generator(api, params, device=sm.device, impl="torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, logits = gen.run(prompts, LM_NEW)
+    t.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = dict(expect, mpmm_cuda=(7 * depth + 1) * LM_NEW, conv_mpmm_cuda=0)
+    log(f"[lm] {label}: depth {depth}, {LM_BATCH} prompts x {LM_PROMPT} "
+        f"tokens, {LM_NEW} new tokens in {wall:.2f} s (1 prefill + "
+        f"{LM_NEW - 1} decode steps); launches {launches}")
+    if launches != want:
+        raise SystemExit(f"{label}: launch counts {launches} != {want}")
+    for step, a in enumerate(logits):
+        a = a.float()
+        if a.shape != (LM_BATCH, api.cfg.vocab) or not bool(
+                t.isfinite(a).all()) or float(a.std()) == 0.0:
+            raise SystemExit(f"{label} step {step}: logits {tuple(a.shape)} "
+                             f"not finite or constant")
+    pc = prefill_contract(sm, api, params, prompts, label)
+    decode_contract(sm, gen, plain, prompts, toks, label)
+    log(f"[lm] {label}: tokens[0] {toks[0].tolist()}; prefill one-layer "
+        f"error <= {pc['layer_rel']:.5f} of the largest |output|, <= "
+        f"{pc['layer_diff']:.5f} of outputs differ; last-token logits "
+        f"{pc['logits_rel']:.5f}, head-input flips {pc['flips']:.5f} (tol "
+        f"{LM_LOGIT_TOL}, {LM_MAX_FLIP_RATE}); {LM_NEW - 1} decode steps "
+        f"bitwise equal; carried through {depth} layers: logits "
+        f"{pc['carried_rel']:.5f}, head-input flips "
+        f"{pc['carried_flips']:.5f}")
+    return {"launches": launches, "tokens": np.asarray(toks), "wall": wall,
+            "contract": pc}
+
+
+def phase_lm(sm):
+    import numpy as np
+    from repro_torch.core.plan import PrecisionPlan, strip_kv
+    from repro_torch.runtime.serve import init_packed_lm
+    t = sm.torch
+    plan = PrecisionPlan.load(LM_PLAN)
+    api = lm_api(None, plan)
+    cfg = api.cfg
+    depth = cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_packed_lm(api, t.Generator(device=sm.device).manual_seed(
+        SEED), device=sm.device)
+    t.cuda.synchronize()
+    log(f"[lm] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv} KV heads, head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, depth {depth}, plan {plan.name}; drawn and "
+        f"packed layer by layer in {time.perf_counter() - t0:.2f} s, "
+        f"{t.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                   (LM_BATCH, LM_PROMPT))
+    run = serve_lm(sm, api, params, prompts, "packed KV cache (K4)",
+                   {"flash_fwd_packed_cuda": depth, "flash_fwd_cuda": 0})
+    api3 = lm_api(K3_DEPTH, strip_kv(plan))
+    params3 = dict(params, layers=params["layers"][:K3_DEPTH])
+    run3 = serve_lm(sm, api3, params3, prompts, "bf16 KV cache (K3)",
+                    {"flash_fwd_packed_cuda": 0, "flash_fwd_cuda": K3_DEPTH})
+    log("[lm] ok")
+    return api, params, prompts, run, run3
+
+
+# --- phase 9: LM timing -------------------------------------------------------
+
+
+def causal_pairs(sq, sk, q_offset=0):
+    """(query, key) pairs a causal mask leaves: sum_i min(q_offset+i+1, Sk)."""
+    return sum(min(q_offset + i + 1, sk) for i in range(sq))
+
+
+def attn_bound(bytes_moved, pairs, b):
+    tb = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    to = 4 * b * ATTN_HEADS * ATTN_D * pairs / PEAK_BF16_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sdpa_call(sm, q, k, v):
+    """The library yardstick: F.scaled_dot_product_attention in bf16,
+    causal, GQA by enable_gqa (or K/V heads expanded beforehand)."""
+    t = sm.torch
+    F = t.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)), "enable_gqa"
+    except TypeError:
+        g = ATTN_HEADS // ATTN_KV
+        ke, ve = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+        return (lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, is_causal=True)), "K/V heads expanded"
+
+
+def measure_attention(sm, api):
+    """K3 and K4 per layer at the path's prefill shapes, and summed per
+    prefill (K4 over the plan's per-layer cache formats)."""
+    from collections import Counter
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import kvcache
+    t = sm.torch
+    block_k = api.cfg.attn_chunk
+    q, k, v = attn_inputs(sm, LM_BATCH, LM_PROMPT, LM_PROMPT, 300)
+    pairs = causal_pairs(LM_PROMPT, LM_PROMPT)
+    rows = []
+    out = fops.flash_attention(q, k, v, block_k=block_k, impl="cuda")
+    lib, lib_how = sdpa_call(sm, q, k, v)
+    b_ms, b_by = attn_bound(nbytes(q, k, v, out), pairs, LM_BATCH)
+    rows.append({
+        "kernel": "flash_fwd_cuda", "layer": "any", "count": K3_DEPTH,
+        "shape": f"B={LM_BATCH} S={LM_PROMPT} H={ATTN_HEADS} KV={ATTN_KV} "
+                 f"D={ATTN_D} bf16 causal",
+        "ms": sm.time_ms(lambda: fops.flash_attention(
+            q, k, v, block_k=block_k, impl="cuda"), reps=10),
+        "plain_ms": sm.time_ms(lambda: fops.flash_attention(
+            q, k, v, block_k=block_k, impl="torch"), reps=3, warmup=1),
+        "library_ms": sm.time_ms(lib, reps=10),
+        "library": f"F.scaled_dot_product_attention bf16 causal ({lib_how})",
+        "bound_ms": b_ms, "bound_by": b_by})
+    fmts = Counter(
+        tuple((f.bits, f.k) for f in pair)
+        for pair in T.kv_formats(api.cfg, api.policy)[1])
+    for (fk, fv), count in sorted(fmts.items()):
+        fmt_k = kvcache.KVFormat(*fk, ATTN_D)
+        fmt_v = kvcache.KVFormat(*fv, ATTN_D)
+        kq, vq = kvcache.pack_kv(k, fmt_k), kvcache.pack_kv(v, fmt_v)
+        kd, vd = kvcache.unpack_kv(kq, fmt_k), kvcache.unpack_kv(vq, fmt_v)
+        run = lambda impl: fops.flash_attention_packed(  # noqa: E731
+            q, kq, vq, fmt_k, fmt_v, block_k=block_k, impl=impl)
+        out = run("cuda")
+        lib, lib_how = sdpa_call(sm, q, kd, vd)
+        b_ms, b_by = attn_bound(nbytes(q, *kq.values(), *vq.values(), out),
+                                pairs, LM_BATCH)
+        rows.append({
+            "kernel": "flash_fwd_packed_cuda", "layer": f"k{fk} v{fv}",
+            "count": count,
+            "shape": f"B={LM_BATCH} S={LM_PROMPT} H={ATTN_HEADS} "
+                     f"KV={ATTN_KV} D={ATTN_D} K kv{fk[0]}k{fk[1]} "
+                     f"V kv{fv[0]}k{fv[1]} causal",
+            "ms": sm.time_ms(lambda: run("cuda"), reps=10),
+            "plain_ms": sm.time_ms(lambda: run("torch"), reps=3, warmup=1),
+            "library_ms": sm.time_ms(lib, reps=10),
+            "library": f"F.scaled_dot_product_attention bf16 causal on the "
+                       f"unpacked K/V, reading unpacked bytes ({lib_how})",
+            "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def lm_k1_shapes(api):
+    """Distinct K1 calls of one prefill: (K, N, w_bits, k) -> count, and
+    the head's (K, N, w_bits, k) at M = batch."""
+    from collections import Counter
+    from repro_torch.core import plan as plan_lib
+    cfg = api.cfg
+    hd = cfg.hd
+    calls = Counter()
+    for i in range(cfg.n_layers):
+        for name, kdim, n in (("q", cfg.d_model, cfg.n_heads * hd),
+                              ("k", cfg.d_model, cfg.n_kv * hd),
+                              ("v", cfg.d_model, cfg.n_kv * hd),
+                              ("o", cfg.n_heads * hd, cfg.d_model),
+                              ("mlp", cfg.d_model, cfg.d_ff),
+                              ("mlp", cfg.d_model, cfg.d_ff),
+                              ("mlp", cfg.d_ff, cfg.d_model)):
+            pol = plan_lib.resolve_policy(api.policy, f"l{i}.{name}")
+            calls[(kdim, n, pol.bits_for("inner"), pol.k)] += 1
+    head = plan_lib.resolve_policy(api.policy, "head")
+    from repro_torch.nn.layers import pad_vocab
+    return calls, (cfg.d_model, pad_vocab(cfg.vocab),
+                   head.bits_for("boundary"), head.k)
+
+
+def measure_k1_lm(sm, api):
+    """K1 at the LM's shapes, per distinct shape: the prefill's projections
+    (M = batch x prompt) and head (M = batch), and a decode step's
+    projections and head (M = batch)."""
+    from repro_torch.kernels.mpmm import kernel
+    t = sm.torch
+    calls, head = lm_k1_shapes(api)
+    shapes = [("prefill", LM_BATCH * LM_PROMPT, key, count)
+              for key, count in sorted(calls.items())]
+    shapes += [("prefill", LM_BATCH, head, 1)]
+    shapes += [("decode", LM_BATCH, key, count)
+               for key, count in sorted(calls.items())]
+    shapes += [("decode", LM_BATCH, head, 1)]
+    rows = []
+    for phase, m, (kdim, n, w_bits, k), count in shapes:
+        cpu, kw = k1_call(sm, m, kdim, n, w_bits, k, "none", "st",
+                          t.bfloat16, 128)
+        d = sm.on_device(cpu)
+        out = kernel.mpmm_cuda(**d, **kw)
+        by = nbytes(d["a_biased"], d["planes"], d["gamma"], d["colsum"], out)
+        b_ms, b_by = bound_ms(by, 2 * m * n * kdim)
+        rows.append({"kernel": "mpmm_cuda", "phase": phase,
+                     "shape": f"M={m} K={kdim} N={n} w{w_bits}k{k}",
+                     "count": count,
+                     "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw),
+                                      reps=5, warmup=1),
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def measure_lm_end_to_end(sm, api, params, prompts):
+    """Prefill and decode through the kernels, timed with CUDA events."""
+    from repro_torch.runtime.serve import Generator
+    t = sm.torch
+    gen = Generator(api, params, device=sm.device)
+    tt = t.as_tensor(prompts, device=sm.device)
+    with t.inference_mode():
+        prefill_ms = sm.time_ms(lambda: gen.prefill(tt), reps=2, warmup=1)
+        logits, pre = gen.prefill(tt)
+        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT + LM_NEW)
+        tok = t.argmax(logits, -1)[:, None]
+        steps = iter(range(LM_NEW - 1))
+        decode_ms = sm.time_ms(
+            lambda: gen.decode(cache, tok, LM_PROMPT + next(steps)),
+            reps=LM_NEW - 3, warmup=2)
+    return prefill_ms, decode_ms
+
+
+KERNELS = (
+    ("mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/mpmm.cu",
+     "src/repro/kernels/mpmm/kernel.py:164"),
+    ("conv_mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/conv_mpmm.cu",
+     "src/repro/kernels/mpmm/conv_kernel.py:140"),
+    ("flash_fwd_cuda", "src/repro_torch/kernels/flashattn/csrc/flash_fwd.cu",
+     "src/repro/kernels/flashattn/kernel.py:233"),
+    ("flash_fwd_packed_cuda",
+     "src/repro_torch/kernels/flashattn/csrc/flash_fwd_packed.cu",
+     "src/repro/kernels/flashattn/kernel.py:178"),
+)
+
+
 def summarize(rows, launches, max_err):
+    """One entry per kernel.  K1 and K2: times summed over one batch-8
+    ResNet-18 forward; K3 and K4: over one prefill of the run that launched
+    them (per-layer rows times their layer counts).  ``launches`` sums the
+    main-path runs (ResNet, and the LM's two Generator runs)."""
     out = []
-    for name, src, replaces in (
-            ("mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/mpmm.cu",
-             "src/repro/kernels/mpmm/kernel.py:164"),
-            ("conv_mpmm_cuda",
-             "src/repro_torch/kernels/mpmm/csrc/conv_mpmm.cu",
-             "src/repro/kernels/mpmm/conv_kernel.py:140")):
+    for name, src, replaces in KERNELS:
         rs = [r for r in rows if r["kernel"] == name]
-        by_bytes = sum(r["bound_ms"] for r in rs if r["bound_by"] == "bytes")
-        by_ops = sum(r["bound_ms"] for r in rs if r["bound_by"] != "bytes")
+        w = [r.get("count", 1) for r in rs]
+        by_bytes = sum(c * r["bound_ms"] for c, r in zip(w, rs)
+                       if r["bound_by"] == "bytes")
+        by_ops = sum(c * r["bound_ms"] for c, r in zip(w, rs)
+                     if r["bound_by"] != "bytes")
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max_err[name],
-            "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "ms": sum(c * r["ms"] for c, r in zip(w, rs)),
+            "plain_ms": sum(c * r["plain_ms"] for c, r in zip(w, rs)),
             "bound_ms": by_bytes + by_ops,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in rs)})
+            "library_ms": sum(c * r["library_ms"] for c, r in zip(w, rs))})
     return out
 
 
@@ -480,6 +1001,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -504,12 +1027,52 @@ def main() -> int:
     server, cfg, plan, launches, _ = phase_end_to_end(sm)
     fps = frames_per_second(sm, server, cfg)
     rows = measure(sm, path_k1, convs)
+    del server
+    log(f"[resnet] done at {time.perf_counter() - t_start:.1f} s")
+
+    lm_block_k = configs.get(LM_ARCH).cfg.attn_chunk
+    phase_k3(sm, lm_block_k)
+    phase_k4(sm, lm_block_k)
+    api, params, prompts, run, run3 = phase_lm(sm)
+    depth = api.cfg.n_layers
+    for r in (run, run3):
+        launches = {k: launches.get(k, 0) + r["launches"][k]
+                    for k in r["launches"]}
+    attn_rows = measure_attention(sm, api)
+    k1_rows = measure_k1_lm(sm, api)
+    prefill_ms, decode_ms = measure_lm_end_to_end(sm, api, params, prompts)
+    rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err)
+
     for r in rows:
         log(f"[time] {r['kernel']} {r['layer']:7s} {r['shape']}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']})" + (f", x{r['count']} per prefill"
+                                    if "count" in r else ""))
+    k1 = {ph: sum(r["count"] * r["ms"] for r in k1_rows if r["phase"] == ph)
+          for ph in ("prefill", "decode")}
+    for r in k1_rows:
+        log(f"[time] mpmm_cuda LM {r['phase']} {r['shape']}: kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), x{r['count']} per {r['phase']}")
+    k4_prefill = sum(r["count"] * r["ms"] for r in attn_rows
+                     if r["kernel"] == "flash_fwd_packed_cuda")
+    k3_layer = [r["ms"] for r in attn_rows if r["kernel"] == "flash_fwd_cuda"]
+    log(f"[lm-time] depth {depth}: prefill {prefill_ms:.2f} ms = "
+        f"{LM_BATCH * LM_PROMPT / prefill_ms * 1e3:.1f} tokens/s; decode "
+        f"{decode_ms:.2f} ms per step = {LM_BATCH / decode_ms * 1e3:.1f} "
+        f"tokens/s at batch {LM_BATCH}  ({card})")
+    log(f"[lm-time] prefill share: K4 {k4_prefill:.2f} ms "
+        f"({k4_prefill / prefill_ms:.1%}), K1 {k1['prefill']:.2f} ms "
+        f"({k1['prefill'] / prefill_ms:.1%}), rest "
+        f"{prefill_ms - k4_prefill - k1['prefill']:.2f} ms "
+        f"({1 - (k4_prefill + k1['prefill']) / prefill_ms:.1%}); decode "
+        f"step share: K1 {k1['decode']:.2f} ms "
+        f"({k1['decode'] / decode_ms:.1%}), rest "
+        f"{decode_ms - k1['decode']:.2f} ms; K3 per layer {k3_layer[0]:.4f} "
+        f"ms, x{depth} = {k3_layer[0] * depth:.2f} ms per "
+        f"full-depth prefill")
     log("[fps] " + ", ".join(f"bucket {b}: {v:.1f} frames/s"
                              for b, v in fps.items()) + f"  ({card})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

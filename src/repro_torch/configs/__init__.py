@@ -1,4 +1,5 @@
-"""Architecture configs (port of ``repro.configs``, CNN names only).
+"""Architecture configs (port of ``repro.configs``): the ResNets and
+granite-8b.
 
 ``get(name)`` returns a ``ModelAPI``; ``reduced=True`` gives the same
 family at smoke-test scale.
@@ -12,8 +13,9 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models.api import ModelAPI
 
 RESNET_NAMES = ["resnet18", "resnet50", "resnet152"]
+LM_NAMES = ["granite-8b"]
 
-_MODULES = {name: name for name in RESNET_NAMES}
+_MODULES = {name: name.replace("-", "_") for name in RESNET_NAMES + LM_NAMES}
 
 
 def get(name: str, *, policy: Optional[PrecisionPolicy] = None,

@@ -6,8 +6,16 @@ into the port's packed serve tree on a device; ``from_jax_train_params``
 does the same for the float QAT parameters and BN state, so that the
 port's own ``pack_for_serve`` can be checked against the JAX one.  Both
 keep the tree's structure (dicts, and the (scale, shift) tuples of folded
-BN) and every value bit for bit.  This module imports no JAX: the caller
-hands over numpy.
+BN) and every value bit for bit.
+
+``from_jax_lm_serve_tree`` and ``from_jax_lm_train_params`` do the same
+for LM trees (``repro.runtime.serve.pack_for_serving`` output, and
+``init_params`` trees), whose layer stack the JAX package keeps scanned:
+one subtree with a leading depth axis, or under a depth-heterogeneous plan
+one such subtree per format group ``g0``, ``g1``, ... in depth order.  The
+port keeps a per-layer list, so the stack is unstacked layer by layer.
+
+This module imports no JAX: the caller hands over numpy.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["from_numpy", "from_jax_serve_tree", "from_jax_train_params"]
+__all__ = ["from_numpy", "from_jax_serve_tree", "from_jax_train_params",
+           "from_jax_lm_serve_tree", "from_jax_lm_train_params"]
 
 
 def from_numpy(arr, device) -> torch.Tensor:
@@ -48,3 +57,48 @@ def from_jax_train_params(params, state, device="cuda") -> Tuple[dict, dict]:
     """QAT params and BN state (numpy leaves) -> tensors on ``device``."""
     dev = resolve_device(device)
     return _convert(params, dev), _convert(state, dev)
+
+
+def _slice_lead(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _slice_lead(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _lead_len(tree) -> int:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            n = _lead_len(v)
+            if n:
+                return n
+        return 0
+    arr = np.asarray(tree)
+    return arr.shape[0] if arr.ndim else 0
+
+
+def _unstack_layers(layers):
+    """A scanned stack (or its ``g{j}`` groups) -> per-layer subtrees."""
+    if isinstance(layers, dict) and "g0" in layers:
+        groups = [layers[f"g{j}"] for j in range(len(layers))]
+    else:
+        groups = [layers]
+    return [_slice_lead(g, i) for g in groups for i in range(_lead_len(g))]
+
+
+def _convert_lm(tree, device):
+    dev = resolve_device(device)
+    out = {k: _convert(v, dev) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_convert(lp, dev) for lp in _unstack_layers(tree["layers"])]
+    return out
+
+
+def from_jax_lm_serve_tree(tree, device="cuda"):
+    """Packed LM serve tree (numpy leaves) -> the port's tree on
+    ``device``, the layer stack as a per-layer list."""
+    return _convert_lm(tree, device)
+
+
+def from_jax_lm_train_params(params, device="cuda"):
+    """LM QAT parameters (numpy leaves) -> tensors on ``device``, the layer
+    stack as a per-layer list."""
+    return _convert_lm(params, device)

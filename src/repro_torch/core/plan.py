@@ -4,11 +4,13 @@ Port of the serving half of ``repro.core.plan``.  The JSON schema is the
 JAX package's, so the port reads ``examples/plans/*.json`` in place:
 
     {
-      "version": 1,
+      "version": 2,
       "a_bits": 8, "variant": "st",
       "default": {"w_bits": 8, "k": 4, "channel_wise": false,
                   "dataflow": "auto"},
-      "layers": {"s0b0c1": {"w_bits": 2, "k": 2}, ...}
+      "kv": {"bits": 4, "k": 4, "store": "packed"},
+      "layers": {"s0b0c1": {"w_bits": 2, "k": 2},
+                 "k": {"w_bits": 4, "k": 4, "kv_bits": 2}, ...}
     }
 
 Layer names are the model's ``gemm_workload`` names.  Resolution is
@@ -16,9 +18,11 @@ hierarchical: an exact entry wins, else scope prefixes are stripped one
 at a time (``l3.q`` falls back to ``q``), else the plan default applies.
 Boundary layers stay pinned through ``PrecisionPolicy.bits_for``.
 
-The decode KV-cache keys of schema v2 (``kv``, ``kv_bits``) belong to the
-LM decode path, which the port does not serve yet: a plan carrying them
-is refused rather than silently served without its cache format.
+Schema v2 adds the decode KV cache: the plan-level ``kv`` section sets the
+cache-wide word-length, slice and store ('packed' digit planes or the
+'qdq' bf16 oracle layout), and ``kv_bits`` on a ``k``/``v`` entry (or a
+scoped ``l{i}.k``) overrides it through the same lookup.  A version-1
+file carrying kv keys is refused.
 """
 from __future__ import annotations
 
@@ -32,14 +36,20 @@ from repro_torch.core.precision import (PrecisionPolicy, VALID_SLICES,
 
 __all__ = [
     "LayerPlan",
+    "KVCachePlan",
     "PrecisionPlan",
     "resolve_policy",
     "resolve_dataflow",
+    "resolve_kv_bits",
+    "strip_kv",
     "validate_plan_json",
+    "VALID_KV_BITS",
 ]
 
 SUPPORTED_PLAN_VERSIONS = (1, 2)
 VALID_DATAFLOWS = ("auto", "im2col", "implicit")
+VALID_KV_BITS = (2, 4, 8)
+VALID_KV_STORES = ("packed", "qdq")
 
 PolicyOrPlan = Union[PrecisionPolicy, "PrecisionPlan"]
 
@@ -52,6 +62,7 @@ class LayerPlan:
     k: int = 4
     channel_wise: bool = False
     dataflow: str = "auto"
+    kv_bits: Optional[int] = None   # cache word-length of a k/v entry
 
     def __post_init__(self):
         if self.w_bits not in VALID_WBITS:
@@ -62,25 +73,72 @@ class LayerPlan:
         if self.dataflow not in VALID_DATAFLOWS:
             raise ValueError(f"dataflow must be in {VALID_DATAFLOWS}, "
                              f"got {self.dataflow!r}")
+        if self.kv_bits is not None and self.kv_bits not in VALID_KV_BITS:
+            raise ValueError(f"kv_bits must be in {VALID_KV_BITS}, "
+                             f"got {self.kv_bits}")
 
     def to_json(self) -> Dict[str, object]:
-        return {"w_bits": self.w_bits, "k": self.k,
-                "channel_wise": self.channel_wise, "dataflow": self.dataflow}
+        out: Dict[str, object] = {
+            "w_bits": self.w_bits, "k": self.k,
+            "channel_wise": self.channel_wise, "dataflow": self.dataflow}
+        if self.kv_bits is not None:
+            out["kv_bits"] = self.kv_bits
+        return out
 
     @classmethod
     def from_json(cls, obj: Mapping[str, object]) -> "LayerPlan":
-        if "kv_bits" in obj:
-            raise ValueError("kv_bits (decode KV-cache word-length) is not "
-                             "served by the port yet")
-        extra = set(obj) - {"w_bits", "k", "channel_wise", "dataflow"}
+        extra = set(obj) - {"w_bits", "k", "channel_wise", "dataflow",
+                            "kv_bits"}
         if extra:
             raise ValueError(f"unknown layer-plan keys: {sorted(extra)}")
+        kv_bits = obj.get("kv_bits")
         return cls(
             w_bits=int(obj.get("w_bits", 8)),
             k=int(obj.get("k", 4)),
             channel_wise=bool(obj.get("channel_wise", False)),
             dataflow=str(obj.get("dataflow", "auto")),
+            kv_bits=None if kv_bits is None else int(kv_bits),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCachePlan:
+    """Plan-wide decode KV-cache section (schema v2).
+
+    bits: cache-wide default word-length (None: layers without their own
+    ``kv_bits`` keep a bf16 cache); k: digit-plane slice (a layer's slice
+    is ``min(bits, k)``); store: 'packed' or 'qdq'.
+    """
+
+    bits: Optional[int] = None
+    k: int = 4
+    store: str = "packed"
+
+    def __post_init__(self):
+        if self.bits is not None and self.bits not in VALID_KV_BITS:
+            raise ValueError(f"kv bits must be in {VALID_KV_BITS}, "
+                             f"got {self.bits}")
+        if self.k not in VALID_SLICES:
+            raise ValueError(f"kv k must be in {VALID_SLICES}, got {self.k}")
+        if self.store not in VALID_KV_STORES:
+            raise ValueError(f"kv store must be in {VALID_KV_STORES}, "
+                             f"got {self.store!r}")
+
+    def to_json(self) -> Dict[str, object]:
+        out: Dict[str, object] = {"k": self.k, "store": self.store}
+        if self.bits is not None:
+            out["bits"] = self.bits
+        return out
+
+    @classmethod
+    def from_json(cls, obj: Mapping[str, object]) -> "KVCachePlan":
+        extra = set(obj) - {"bits", "k", "store"}
+        if extra:
+            raise ValueError(f"unknown kv-section keys: {sorted(extra)}")
+        bits = obj.get("bits")
+        return cls(bits=None if bits is None else int(bits),
+                   k=int(obj.get("k", 4)),
+                   store=str(obj.get("store", "packed")))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +157,16 @@ class PrecisionPlan:
     quantize: bool = True
     name: str = ""
     arch: str = ""
+    kv: Optional[KVCachePlan] = None
 
     def __post_init__(self):
         if self.variant not in ("st", "sa"):
             raise ValueError("variant must be 'st' or 'sa'")
         if self.boundary_bits not in VALID_WBITS:
             raise ValueError(f"boundary_bits must be in {VALID_WBITS}")
+        if self.default.kv_bits is not None:
+            raise ValueError("the plan default may not carry kv_bits; set "
+                             "the plan-level 'kv' section instead")
         names = [n for n, _ in self.layers]
         if len(set(names)) != len(names):
             dupes = sorted({n for n in names if names.count(n) > 1})
@@ -137,6 +199,29 @@ class PrecisionPlan:
     def dataflow_for(self, name: str) -> str:
         return self.layer(name).dataflow
 
+    # --- decode KV cache (schema v2) ---------------------------------------
+
+    def kv_enabled(self) -> bool:
+        """True when the plan quantizes the decode KV cache at all."""
+        if self.kv is not None and self.kv.bits is not None:
+            return True
+        return any(lp.kv_bits is not None for _, lp in self.layers)
+
+    def kv_bits_for(self, name: str) -> Optional[int]:
+        """Cache word-length of one cached tensor (``k``, ``v`` or a scoped
+        form) through the ``layer()`` lookup; None keeps it bf16."""
+        lp = self.layer(name)
+        if lp.kv_bits is not None:
+            return lp.kv_bits
+        return self.kv.bits if self.kv is not None else None
+
+    def kv_store(self) -> str:
+        return self.kv.store if self.kv is not None else "packed"
+
+    def kv_slice(self, bits: int) -> int:
+        """Digit-plane slice of a cache tensor at ``bits``."""
+        return min(bits, self.kv.k if self.kv is not None else 4)
+
     def validate_layers(self, known: Iterable[str]) -> None:
         """Every named layer must exist in the model's workload."""
         known_set = set(known)
@@ -148,7 +233,8 @@ class PrecisionPlan:
 
     def to_json(self) -> Dict[str, object]:
         out: Dict[str, object] = {
-            "version": 1,
+            # the least version the plan's keys need
+            "version": 2 if self.kv_enabled() or self.kv is not None else 1,
             "name": self.name,
             "a_bits": self.a_bits,
             "boundary_bits": self.boundary_bits,
@@ -159,26 +245,31 @@ class PrecisionPlan:
         }
         if self.arch:
             out["arch"] = self.arch
+        if self.kv is not None:
+            out["kv"] = self.kv.to_json()
         return out
 
     @classmethod
     def from_json(cls, obj: Mapping[str, object]) -> "PrecisionPlan":
         if not isinstance(obj, Mapping):
             raise ValueError(f"plan JSON must be an object, got {type(obj)}")
-        version = obj.get("version", 1)
+        version = obj.get("version", 2)
         if version not in SUPPORTED_PLAN_VERSIONS:
             raise ValueError(f"unsupported plan version {version}")
-        if "kv" in obj:
-            raise ValueError("the 'kv' section (decode KV-cache format) is "
-                             "not served by the port yet")
         known = {"version", "name", "arch", "a_bits", "boundary_bits",
-                 "variant", "quantize", "default", "layers"}
+                 "variant", "quantize", "default", "layers", "kv"}
         extra = set(obj) - known
         if extra:
             raise ValueError(f"unknown plan keys: {sorted(extra)}")
         layers_obj = obj.get("layers", {})
         if not isinstance(layers_obj, Mapping):
             raise ValueError("'layers' must map layer name -> entry")
+        entries = list(layers_obj.values()) + [obj.get("default", {})]
+        if version < 2 and ("kv" in obj or any(
+                isinstance(e, Mapping) and "kv_bits" in e for e in entries)):
+            raise ValueError("KV-cache keys (kv, kv_bits) need plan "
+                             f"version 2; this file says version {version}")
+        kv_obj = obj.get("kv")
         return cls(
             layers=tuple((str(n), LayerPlan.from_json(e))
                          for n, e in layers_obj.items()),
@@ -189,6 +280,7 @@ class PrecisionPlan:
             quantize=bool(obj.get("quantize", True)),
             name=str(obj.get("name", "")),
             arch=str(obj.get("arch", "")),
+            kv=None if kv_obj is None else KVCachePlan.from_json(kv_obj),
         )
 
     def dumps(self) -> str:
@@ -233,6 +325,24 @@ def resolve_dataflow(policy: PolicyOrPlan, layer_name: str,
     return "auto"
 
 
+def resolve_kv_bits(policy: PolicyOrPlan, layer_name: str) -> Optional[int]:
+    """Cache word-length of one cached tensor; uniform policies and plans
+    without kv keys resolve to None (a bf16 cache)."""
+    if isinstance(policy, PrecisionPlan):
+        return policy.kv_bits_for(layer_name)
+    return None
+
+
+def strip_kv(policy: PolicyOrPlan) -> PolicyOrPlan:
+    """The same plan with its KV-cache keys removed (a bf16 cache); the
+    weight formats, and so a packed tree, stay valid."""
+    if not isinstance(policy, PrecisionPlan) or not policy.kv_enabled():
+        return policy
+    layers = tuple((n, dataclasses.replace(lp, kv_bits=None))
+                   for n, lp in policy.layers)
+    return dataclasses.replace(policy, layers=layers, kv=None)
+
+
 def validate_plan_json(path, arch: Optional[str] = None) -> PrecisionPlan:
     """Load and schema-check a plan file; with ``arch`` (or the plan's own
     ``arch`` key) also check every named layer against that architecture.
@@ -241,5 +351,10 @@ def validate_plan_json(path, arch: Optional[str] = None) -> PrecisionPlan:
     arch = arch or plan.arch or None
     if arch is not None:
         from repro_torch import configs  # configs imports the model modules
-        plan.validate_layers(configs.get(arch).plan_layer_names())
+        api = configs.get(arch)
+        plan.validate_layers(api.plan_layer_names())
+        bad = [n for n, lp in plan.layers if lp.kv_bits is not None
+               and n not in set(api.kv_layer_names())]
+        if bad:
+            raise ValueError(f"kv_bits set on layers with no KV cache: {bad}")
     return plan

@@ -4,8 +4,9 @@
     v_quant = v_int * gamma
 
 Activations are unsigned (Q_n = 0, Q_p = 2^b - 1); weights are signed
-(Q_n = -2^{b-1}, Q_p = 2^{b-1} - 1).  The STE/LSQ training half is not
-ported yet.
+(Q_n = -2^{b-1}, Q_p = 2^{b-1} - 1).  ``init_step_size`` (LSQ's initial
+step, which also sets the embedding table's serve step) is here; the
+STE/LSQ training half is not ported yet.
 
 Dtype note: JAX promotes ``bf16 / f32`` to f32, torch keeps bf16 when the
 f32 operand is 0-d.  Every divide here therefore casts both operands to
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["QuantSpec", "qrange", "act_spec", "weight_spec",
-           "quantize_int", "dequantize"]
+           "init_step_size", "quantize_int", "dequantize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +57,28 @@ def act_spec(bits: int = 8) -> QuantSpec:
 def weight_spec(bits: int, channel_axis: Optional[int] = None) -> QuantSpec:
     """Weights are signed; per-channel axis optional."""
     return QuantSpec(bits=bits, signed=True, channel_axis=channel_axis)
+
+
+def init_step_size(v: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """LSQ initialization: gamma = 2 * mean(|v|) / sqrt(Q_p), at least 1e-9.
+
+    A 0-d f32 tensor (per-tensor) or a vector over ``channel_axis``.  The
+    mean is taken in float64 and rounded once to f32; XLA's f32 tree sum
+    can land one ulp away on large tensors.
+    """
+    _, qp = qrange(spec)
+    qp = max(qp, 1)
+    a = v.to(torch.float64).abs()
+    if spec.channel_axis is None:
+        mean_abs = a.mean()
+    else:
+        axes = tuple(d for d in range(v.ndim)
+                     if d != spec.channel_axis % v.ndim)
+        mean_abs = a.mean(dim=axes)
+    mean_abs = mean_abs.to(torch.float32)
+    gamma = 2.0 * mean_abs / torch.sqrt(torch.tensor(float(qp),
+                                                     device=v.device))
+    return torch.clamp_min(gamma, 1e-9)
 
 
 def _broadcast_gamma(gamma: torch.Tensor, v: torch.Tensor,

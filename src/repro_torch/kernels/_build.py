@@ -28,6 +28,8 @@ _PKG = Path(__file__).resolve().parent
 KERNEL_SOURCES: Dict[str, Path] = {
     "mpmm": _PKG / "mpmm" / "csrc" / "mpmm.cu",
     "conv_mpmm": _PKG / "mpmm" / "csrc" / "conv_mpmm.cu",
+    "flash_fwd": _PKG / "flashattn" / "csrc" / "flash_fwd.cu",
+    "flash_fwd_packed": _PKG / "flashattn" / "csrc" / "flash_fwd_packed.cu",
 }
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,6 @@
-"""Uniform model API (port of ``repro.models.api``), with what CNN serving
-uses: specs, parameter init and the plan namespace."""
+"""Uniform model API (port of ``repro.models.api``): specs, parameter init,
+the plan namespace and, for LM families, prefill / decode and the cache
+layout."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,9 +28,38 @@ class ModelAPI:
         return self.mod.specs(self.cfg, mode, self.policy)
 
     def init_params(self, generator: torch.Generator, mode: str = "train",
-                    device="cpu"):
+                    device="cuda"):
+        """Random parameters on ``device``: CUDA by default, and raises
+        without a card unless ``device="cpu"``."""
         return nnp.init_params(self.specs(mode), generator, device=device)
 
     def plan_layer_names(self):
         """Every layer name a ``PrecisionPlan`` may bind for this arch."""
         return self.mod.plan_layer_names(self.cfg)
+
+    # --- LM families ----------------------------------------------------------
+
+    def prefill(self, params, tokens, *, impl: str = "auto", **kw):
+        return self.mod.prefill(self.cfg, params, tokens, self.policy,
+                                impl=impl, **kw)
+
+    def decode_step(self, params, cache, tokens, length: int, *,
+                    impl: str = "auto"):
+        return self.mod.decode_step(self.cfg, params, cache, tokens, length,
+                                    self.policy, impl=impl)
+
+    def cache_specs(self, batch: int, max_len: int):
+        return self.mod.cache_specs(self.cfg, batch, max_len,
+                                    policy=self.policy)
+
+    def kv_layer_names(self):
+        """Cached-tensor names a plan may bind ``kv_bits`` to; empty for
+        models with no decode KV cache."""
+        fn = getattr(self.mod, "kv_layer_names", None)
+        return fn(self.cfg) if fn is not None else []
+
+    def kv_cache_workload(self):
+        """{cached tensor name: (kv_heads, head_dim)}; empty without a KV
+        cache."""
+        fn = getattr(self.mod, "kv_cache_workload", None)
+        return fn(self.cfg) if fn is not None else {}

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.device import resolve_device
 from repro_torch.kernels.mpmm import ref as mpmm_ref
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
@@ -81,8 +82,11 @@ def bn_spec(c: int) -> Dict:
             "bias": ParamSpec(shape=(c,), init="zeros")}
 
 
-def init_bn_state(specs_tree, device="cpu"):
-    """Running-stats state tree parallel to every bn param subtree."""
+def init_bn_state(specs_tree, device="cuda"):
+    """Running-stats state tree parallel to every bn param subtree, on
+    ``device`` (CUDA by default; raises without a card unless
+    ``device="cpu"``)."""
+    device = resolve_device(device)
     out = {}
     for k, v in specs_tree.items():
         if isinstance(v, dict):

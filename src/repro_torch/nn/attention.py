@@ -1,0 +1,304 @@
+"""GQA attention, serve half (port of ``repro.nn.attention``).
+
+Prefill runs the flash kernels: K4 (``flash_attention_packed``) when the
+layer's K and V are both cached in packed digit planes, else K3
+(``flash_attention``) on bf16 K/V -- the fp cache and the 'qdq' store, whose
+K/V hold the quantization-grid values.  ``attn_impl='xla'`` keeps the
+reference's other route, ``chunked_attention``, a plain online softmax in
+torch.  Decode has no kernel in the reference: ``decode_attention`` (fp
+cache) and ``decode_attention_streamed`` (kv-quantizing plans, either
+store) are plain torch with bf16 operands widened to f32 and f32 products
+(TF32 must be off on a card, PyTorch's default).  A packed cache streams in
+chunks and is dequantized one chunk at a time, so packed and qdq decode run
+the same arithmetic on the same values and agree bitwise.
+
+``impl`` routes every kernel of a call: 'auto' (CUDA tensors to the kernels,
+CPU tensors to their plain versions), 'cuda' or 'torch'.  The GQA block is
+the causal, rotary one the dense LMs use; ``gqa_verify``, the reference's
+non-causal / windowed / rotary-free block options (whisper, recurrentgemma),
+MLA and the sharded (mesh) branches are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels.flashattn import ops as flash_ops
+from repro_torch.nn import kvcache
+from repro_torch.nn import layers
+from repro_torch.nn import quantized as Q
+from repro_torch.nn.param import ParamSpec
+
+__all__ = [
+    "NEG_INF", "chunked_attention", "decode_attention",
+    "decode_attention_streamed", "gqa_spec", "gqa_serve_spec", "gqa_prefill",
+    "gqa_decode",
+]
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV * groups, D), each KV head repeated over
+    its group of query heads."""
+    return k if groups == 1 else torch.repeat_interleave(k, groups, dim=2)
+
+
+def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (the reference's matmul operand type), then widen to
+    f32 so the product runs in f32 with exact operands."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, q_offset: int = 0,
+                      window: Optional[int] = None, chunk: int = 1024,
+                      softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks; q (B, Sq, H, D), k/v
+    (B, Sk, H, D) already GQA-expanded -> (B, Sq, H, D) in q's dtype."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dv = v.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    qt = _bf16_f32(q * scale).permute(0, 2, 1, 3)          # (B, H, Sq, D)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb = _bf16_f32(k[:, c0:c0 + chunk]).permute(0, 2, 1, 3)
+        vb = _bf16_f32(v[:, c0:c0 + chunk]).permute(0, 2, 1, 3)
+        s = torch.matmul(qt, kb.transpose(-1, -2))         # (B, H, Sq, c)
+        kv_pos = c0 + torch.arange(kb.shape[2], device=q.device)
+        mask = (kv_pos[None, :] <= q_pos[:, None] if causal
+                else torch.ones((sq, kb.shape[2]), dtype=torch.bool,
+                                device=q.device))
+        if window is not None:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = s + torch.where(mask, 0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(_bf16_f32(p), vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: int, *,
+                     window: Optional[int] = None,
+                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention against the whole cache, masked by
+    ``length`` (valid entries, the new token included).  q (B, 1, H, D),
+    caches (B, Smax, KV, D) -> (B, 1, H, D)."""
+    b, smax, kvh, d = k_cache.shape
+    h = q.shape[2]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    qg = _bf16_f32(q[:, 0] * scale).reshape(b, kvh, h // kvh, d)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, _bf16_f32(k_cache))
+    pos = torch.arange(smax, device=q.device)
+    mask = pos < length
+    if window is not None:
+        mask = mask & (pos > length - 1 - window)
+    s = s + torch.where(mask, 0.0, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", _bf16_f32(p), _bf16_f32(v_cache))
+    return o.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def _kv_chunk(cache, fmt, start: int, c: int) -> torch.Tensor:
+    """One sequence chunk of a decode cache tensor as bf16 (B, c, KV, D): a
+    bf16 tensor (fmt None) is sliced, a packed leaf has only the chunk's
+    bytes unpacked."""
+    if fmt is None:
+        return cache[:, start:start + c]
+    return kvcache.unpack_kv({"p": cache["p"][:, :, start:start + c],
+                              "s": cache["s"][:, start:start + c],
+                              "z": cache["z"][:, start:start + c]}, fmt)
+
+
+def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
+                              length: int, *, window: Optional[int] = None,
+                              softmax_scale: Optional[float] = None,
+                              chunk: int = 1024) -> torch.Tensor:
+    """Single-token attention streaming the cache in sequence chunks with an
+    online softmax.  ``ck``/``cv`` are bf16 (B, Smax, KV, D) tensors or
+    packed leaves; a packed chunk dequantizes to exactly the qdq store's
+    values, and both stores run this routine with the same chunking."""
+    smax = ck["p"].shape[2] if fmt_k is not None else ck.shape[1]
+    kvh = ck["s"].shape[2] if fmt_k is not None else ck.shape[2]
+    b, _, h, d = q.shape
+    groups = h // kvh
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    c = min(chunk, smax)
+    if smax % c:
+        c = smax  # a ragged max_len runs as one whole-cache chunk
+    qg = _bf16_f32(q[:, 0] * scale).reshape(b, kvh, groups, d)
+    acc = torch.zeros((b, kvh, groups, d), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, kvh, groups), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, groups), dtype=torch.float32, device=q.device)
+    for start in range(0, smax, c):
+        kc = _bf16_f32(_kv_chunk(ck, fmt_k, start, c))
+        vc = _bf16_f32(_kv_chunk(cv, fmt_v, start, c))
+        s = torch.einsum("bkgd,bskd->bkgs", qg, kc)
+        pos = start + torch.arange(c, device=q.device)
+        mask = pos < length
+        if window is not None:
+            mask = mask & (pos > length - 1 - window)
+        s = s + torch.where(mask, 0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        pexp = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgs,bskd->bkgd", _bf16_f32(pexp), vc)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# --- the GQA block ---------------------------------------------------------------
+
+
+def _gqa_names(lname: str) -> Dict[str, str]:
+    """Workload layer names of the four projections: ``lname`` + q/k/v/o."""
+    return {k: lname + k for k in ("q", "k", "v", "o")}
+
+
+def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
+             lname: str = "") -> Dict[str, Dict[str, ParamSpec]]:
+    """Train-mode (float QAT) spec of the four projections."""
+    nm = _gqa_names(lname)
+    return {
+        "q": Q.qlinear_spec(d_model, n_heads * head_dim, name=nm["q"]),
+        "k": Q.qlinear_spec(d_model, n_kv * head_dim, name=nm["k"]),
+        "v": Q.qlinear_spec(d_model, n_kv * head_dim, name=nm["v"]),
+        "o": Q.qlinear_spec(n_heads * head_dim, d_model, name=nm["o"]),
+    }
+
+
+def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
+                   policy, lname: str = ""):
+    """Serve-mode (packed) spec of the four projections."""
+    nm = _gqa_names(lname)
+    mk = Q.qlinear_serve_spec
+    return {
+        "q": mk(d_model, n_heads * head_dim, policy=policy, name=nm["q"]),
+        "k": mk(d_model, n_kv * head_dim, policy=policy, name=nm["k"]),
+        "v": mk(d_model, n_kv * head_dim, policy=policy, name=nm["v"]),
+        "o": mk(n_heads * head_dim, d_model, policy=policy, name=nm["o"]),
+    }
+
+
+def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm):
+    """The q/k/v projections, rotary applied to q and k."""
+    b, s, _ = x.shape
+    proj = lambda key, n: Q.qlinear_serve_apply(  # noqa: E731
+        p[key], x, policy, impl=impl, name=nm[key]).reshape(b, s, n, head_dim)
+    q, k, v = proj("q", n_heads), proj("k", n_kv), proj("v", n_kv)
+    return (layers.apply_rotary(q, sin, cos), layers.apply_rotary(k, sin, cos),
+            v)
+
+
+def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
+                n_kv: int, head_dim: int, sin: torch.Tensor,
+                cos: torch.Tensor, chunk: int = 1024, impl: str = "auto",
+                attn_impl: str = "xla", lname: str = "", kv_fmts=None,
+                kv_store: str = "packed"):
+    """Causal serve prefill of one GQA block -> (out (B, S, D), cache).
+
+    With ``kv_fmts=None`` the cache is the bf16 ``(k, v)`` pair (B, S, KV,
+    Dh).  A kv-quantizing layer passes ``(fmt_k, fmt_v)`` (either may be None,
+    keeping that tensor bf16): attention then reads the quantization-grid
+    values, so prefill agrees with decode against the quantized cache, and
+    the cache is ``{"k": leaf, "v": leaf}`` of packed leaves (store
+    'packed') or the bf16 pair of grid values (store 'qdq')."""
+    b, s, _ = x.shape
+    nm = _gqa_names(lname)
+    q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
+                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm)
+    fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
+    packed = kv_fmts is not None and kv_store == "packed"
+    kq = kvcache.pack_kv(k, fmt_k) if packed and fmt_k is not None else None
+    vq = kvcache.pack_kv(v, fmt_v) if packed and fmt_v is not None else None
+    if attn_impl == "flash" and kq is not None and vq is not None:
+        # K4: the codes travel to the kernel, never bf16 K/V
+        o = flash_ops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
+                                             block_k=chunk, impl=impl)
+    else:
+        # grid values in bf16; unpack_kv(pack_kv(x)) == qdq_kv(x) bitwise
+        if fmt_k is not None:
+            k = (kvcache.unpack_kv(kq, fmt_k) if kq is not None
+                 else kvcache.qdq_kv(k, fmt_k))
+        if fmt_v is not None:
+            v = (kvcache.unpack_kv(vq, fmt_v) if vq is not None
+                 else kvcache.qdq_kv(v, fmt_v))
+        if attn_impl == "flash":
+            o = flash_ops.flash_attention(q, k, v, block_k=chunk, impl=impl)
+        elif attn_impl == "xla":
+            o = chunked_attention(q, _repeat_kv(k, n_heads // n_kv),
+                                  _repeat_kv(v, n_heads // n_kv), chunk=chunk)
+        else:
+            raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
+                             f"{attn_impl!r}")
+    o = o.reshape(b, s, n_heads * head_dim)
+    out = Q.qlinear_serve_apply(p["o"], o, policy, impl=impl, name=nm["o"])
+    if packed:
+        return out, {"k": kq if fmt_k is not None else k,
+                     "v": vq if fmt_v is not None else v}
+    return out, (k, v)
+
+
+def _append_packed(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                   length: int) -> None:
+    """Write packed tokens at ``length`` in place: planes at sequence axis 2
+    (after the plane axis and batch), scale/zero at axis 1."""
+    t = new["s"].shape[1]
+    cache["p"][:, :, length:length + t] = new["p"]
+    cache["s"][:, length:length + t] = new["s"]
+    cache["z"][:, length:length + t] = new["z"]
+
+
+def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
+               n_heads: int, n_kv: int, head_dim: int, sin: torch.Tensor,
+               cos: torch.Tensor, impl: str = "auto", lname: str = "",
+               kv_fmts=None, kv_store: str = "packed"):
+    """One-token step: x (B, 1, D); ``cache`` is the decode-sized cache of
+    this layer (the bf16 pair, or the packed ``{"k", "v"}`` tree), updated
+    IN PLACE at index ``length`` (the reference returns a new one; the port
+    saves the copy).  Returns (out (B, 1, D), cache)."""
+    b = x.shape[0]
+    nm = _gqa_names(lname)
+    q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
+                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm)
+    fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
+    if kv_fmts is not None and kv_store == "packed":
+        ck, cv = cache["k"], cache["v"]
+        for c, new, fmt in ((ck, k, fmt_k), (cv, v, fmt_v)):
+            if fmt is not None:
+                _append_packed(c, kvcache.pack_kv(new, fmt), length)
+            else:
+                c[:, length:length + 1] = new.to(c.dtype)
+        o = decode_attention_streamed(q, ck, cv, fmt_k, fmt_v, length + 1)
+    else:
+        if fmt_k is not None:
+            k = kvcache.qdq_kv(k, fmt_k)  # qdq store: grid values, bf16
+        if fmt_v is not None:
+            v = kvcache.qdq_kv(v, fmt_v)
+        k_cache, v_cache = cache
+        k_cache[:, length:length + 1] = k.to(k_cache.dtype)
+        v_cache[:, length:length + 1] = v.to(v_cache.dtype)
+        if kv_fmts is not None:
+            # the packed store's routine, so the two stores agree bitwise
+            o = decode_attention_streamed(q, k_cache, v_cache, None, None,
+                                          length + 1)
+        else:
+            o = decode_attention(q, k_cache, v_cache, length + 1)
+    o = o.reshape(b, 1, n_heads * head_dim)
+    return Q.qlinear_serve_apply(p["o"], o, policy, impl=impl,
+                                 name=nm["o"]), cache

@@ -1,0 +1,135 @@
+"""Common layers (port of ``repro.nn.layers``): norms, the embedding and its
+int8 serve form, rotary position embeddings and the MLP activations.
+
+Norms and rotary run in f32 and cast back to the input's dtype, as in the
+JAX package.  ``rsqrt``, ``sin``/``cos`` and ``silu`` are not bitwise equal
+between the two frameworks, so the LM is held to the JAX package by
+tolerance.  The causal depthwise conv waits for the SSM models.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.nn.param import ParamSpec
+
+__all__ = [
+    "rmsnorm_spec", "rmsnorm_apply",
+    "layernorm_spec", "layernorm_apply",
+    "pad_vocab", "embed_spec", "embed_serve_spec", "embed_serve_apply",
+    "pack_embed",
+    "rotary_cache", "apply_rotary",
+    "squared_relu", "swiglu_combine", "gelu",
+]
+
+
+def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec(shape=(dim,), init="ones")}
+
+
+def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def layernorm_spec(dim: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec(shape=(dim,), init="ones"),
+            "bias": ParamSpec(shape=(dim,), init="zeros")}
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# --- embeddings -----------------------------------------------------------------
+
+
+def pad_vocab(v: int, mult: int = 256) -> int:
+    """The embedding table's vocab padded to a multiple of ``mult``; logits
+    are cut back to the true vocab at the head."""
+    return -(-v // mult) * mult
+
+
+def embed_spec(vocab: int, dim: int) -> Dict[str, ParamSpec]:
+    return {"table": ParamSpec(shape=(vocab, dim), init="embed")}
+
+
+def embed_serve_spec(vocab: int, dim: int,
+                     policy: PrecisionPolicy) -> Dict[str, ParamSpec]:
+    """Boundary class: int8 codes and a per-tensor step."""
+    if not policy.quantize:
+        return {"table": ParamSpec(shape=(vocab, dim), dtype=torch.bfloat16,
+                                   init="embed")}
+    return {"codes": ParamSpec(shape=(vocab, dim), dtype=torch.int8,
+                               init="zeros"),
+            "gamma": ParamSpec(shape=(), init="constant", const=0.02)}
+
+
+def embed_serve_apply(p, ids: torch.Tensor,
+                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+    if "table" in p:
+        return p["table"][ids].to(compute_dtype)
+    codes = p["codes"][ids]
+    return (codes.to(torch.float32) * p["gamma"]).to(compute_dtype)
+
+
+def pack_embed(p, policy: PrecisionPolicy):
+    """Float table -> int8 codes and the LSQ-initialized step."""
+    if not policy.quantize:
+        return {"table": p["table"].to(torch.bfloat16)}
+    spec = quant.weight_spec(8)
+    table = p["table"].to(torch.float32)
+    gamma = quant.init_step_size(table, spec)
+    codes = quant.quantize_int(table, gamma, spec)
+    return {"codes": codes.to(torch.int8), "gamma": gamma}
+
+
+# --- rotary embeddings ---------------------------------------------------------
+
+
+def rotary_cache(positions: torch.Tensor, dim: int, base: float = 10000.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) of shape positions.shape + (dim / 2,), in f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rotary(x: torch.Tensor, sin: torch.Tensor,
+                 cos: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D); sin/cos (..., S, D/2), broadcast over heads."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    s, c = sin[..., None, :], cos[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# --- activations ---------------------------------------------------------------
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    """Nemotron-4's activation: relu(x)^2."""
+    r = torch.clamp_min(x, 0)
+    return r * r
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def swiglu_combine(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
+

@@ -4,6 +4,8 @@ A model is a nested dict of :class:`ParamSpec`; ``init_params`` turns it
 into a dict of tensors from an explicit ``torch.Generator``.  The numbers
 differ from the JAX package's ``jax.random`` ones for the same seed; tests
 that compare the two packages make their inputs with numpy instead.
+Tensors are drawn on the generator's device (a CUDA generator draws on the
+card) and land on ``device``, CUDA unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+
+from repro_torch.device import resolve_device
 
 __all__ = ["ParamSpec", "init_params", "is_spec", "QMARK", "strip_markers"]
 
@@ -24,7 +28,8 @@ QMARK = "__q__"
 class ParamSpec:
     """One parameter tensor.
 
-    init: 'normal' (fan-in scaled), 'zeros', 'ones', 'constant'.
+    init: 'normal' (fan-in scaled), 'embed' (unit normal), 'zeros', 'ones',
+    'constant'.
     fan_in_axes: dims counted as fan-in for the scaled-normal init.
     """
 
@@ -47,6 +52,8 @@ def is_spec(x) -> bool:
 def strip_markers(tree):
     if isinstance(tree, dict):
         return {k: strip_markers(v) for k, v in tree.items() if k != QMARK}
+    if isinstance(tree, list):
+        return [strip_markers(v) for v in tree]
     return tree
 
 
@@ -57,24 +64,33 @@ def _materialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         return torch.ones(spec.shape, dtype=spec.dtype)
     if spec.init == "constant":
         return torch.full(spec.shape, spec.const, dtype=spec.dtype)
-    if spec.init != "normal":
+    if spec.init not in ("normal", "embed"):
         raise ValueError(f"unknown init {spec.init!r}")
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    if spec.init == "embed":
+        return x.to(spec.dtype)
     fan_in = 1
     for a in spec.fan_in_axes:
         if spec.shape:
             fan_in *= spec.shape[a % len(spec.shape)]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32)
     return (std * x).to(spec.dtype)
 
 
-def init_params(specs, generator: torch.Generator, device="cpu"):
-    """Materialize a spec tree into a tensor tree on ``device``.
+def init_params(specs, generator: torch.Generator, device="cuda"):
+    """Materialize a spec tree into a tensor tree on ``device`` (CUDA by
+    default; raises without a card unless ``device="cpu"``).
 
-    Leaves are drawn in sorted-key order, so a seed fixes every tensor.
+    Leaves are drawn in sorted-key order (lists in order), so a seed fixes
+    every tensor.
     """
+    dev = resolve_device(device)
+
     def walk(node):
         if is_spec(node):
-            return _materialize(node, generator).to(device)
+            return _materialize(node, generator).to(dev)
+        if isinstance(node, list):
+            return [walk(n) for n in node]
         return {k: walk(node[k]) for k in sorted(node)}
     return walk(strip_markers(specs))

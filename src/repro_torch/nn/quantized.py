@@ -21,6 +21,7 @@ from repro_torch.core import packing, quant
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.packing import PlaneFormat
 from repro_torch.core.plan import PolicyOrPlan
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels.mpmm import epilogue as mpmm_epilogue
 from repro_torch.kernels.mpmm import ops as mpmm_ops
 from repro_torch.kernels.mpmm import ref as mpmm_ref
@@ -29,6 +30,7 @@ from repro_torch.nn.param import QMARK, ParamSpec
 
 __all__ = [
     "qlinear_spec",
+    "qlinear_serve_spec",
     "qconv_spec",
     "qlinear_serve_apply",
     "qconv_serve_apply",
@@ -59,6 +61,26 @@ def qlinear_spec(in_dim: int, out_dim: int, *, layer_class: str = "inner",
                        fan_in_axes=(-2,)),
         "gw": ParamSpec(shape=(out_dim,) if channel_wise else (),
                         init="constant", const=0.05),
+        "ga": ParamSpec(shape=(), init="constant", const=0.05),
+    }
+
+
+def qlinear_serve_spec(in_dim: int, out_dim: int, *,
+                       layer_class: str = "inner",
+                       policy: PolicyOrPlan = PrecisionPolicy(),
+                       name: str = "") -> Dict[str, ParamSpec]:
+    """Spec of the deployed (packed) form at the layer's own resolved
+    format: what ``pack_qlinear`` returns for a (in_dim, out_dim) weight."""
+    pol = plan_lib.resolve_policy(policy, name)
+    fmt = PlaneFormat(w_bits=pol.bits_for(layer_class), k=pol.k,
+                      k_dim=in_dim)
+    return {
+        QMARK: _marker(layer_class, name),
+        "planes": ParamSpec(shape=(fmt.planes, fmt.packed_k, out_dim),
+                            dtype=torch.uint8, init="zeros"),
+        "colsum": ParamSpec(shape=(1, out_dim), dtype=torch.int32,
+                            init="zeros"),
+        "gamma": ParamSpec(shape=(1, out_dim), init="constant", const=1e-3),
         "ga": ParamSpec(shape=(), init="constant", const=0.05),
     }
 
@@ -248,4 +270,6 @@ def pack_tree(params, specs, policy: PolicyOrPlan):
     if isinstance(specs, dict):
         return {k: pack_tree(params[k], specs[k], policy)
                 for k in specs if k != QMARK}
+    if isinstance(specs, list):  # per-layer stacks
+        return [pack_tree(p, sp, policy) for p, sp in zip(params, specs)]
     return params

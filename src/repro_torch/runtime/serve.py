@@ -1,19 +1,156 @@
-"""Bucketed image serving (port of ``repro.runtime.serve.ImageServer``).
+"""Serving runtime (port of ``repro.runtime.serve``): packed-weight
+deployment, greedy LM generation and bucketed image serving.
 
-The LM ``Generator``, meshes and telemetry of the JAX module are not
-ported yet.
+``pack_for_serving`` packs every linear of a trained LM tree at its own
+plan-resolved format and the embedding table to int8 codes;
+``init_packed_lm`` does the same for random weights one layer at a time,
+so a full-width model never holds its float tree whole.  ``Generator`` runs
+prefill and decode on packed weights; ``ImageServer`` batches CNN requests.
+Meshes, telemetry and the schedulers of the JAX module are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, tree_to
+from repro_torch.nn import param as nnp
+from repro_torch.nn import quantized as Q
+from repro_torch.nn.layers import pack_embed
 
-__all__ = ["ImageServer"]
+__all__ = ["pack_for_serving", "init_packed_lm", "Generator", "ImageServer"]
+
+
+def _pack_embed(policy, embed):
+    if policy.quantize and "table" in embed:
+        return pack_embed(embed, policy)
+    return embed
+
+
+def pack_for_serving(api, train_params):
+    """Trained QAT tree -> packed serve tree, for any ``api.policy``
+    (uniform or a layer-wise plan): every linear at its own resolved
+    format, the embedding table as int8 codes and a step."""
+    packed = Q.pack_tree(train_params, api.specs("train"), api.policy)
+    if "embed" in packed:
+        packed["embed"] = _pack_embed(api.policy, packed["embed"])
+    return packed
+
+
+def init_packed_lm(api, generator: torch.Generator, device="cuda"):
+    """Random LM weights, packed as ``pack_for_serving`` packs them, made
+    piece by piece: each layer's float weights are drawn on ``device``
+    (CUDA by default) from ``generator``, packed, and freed before the next
+    layer is drawn."""
+    dev = resolve_device(device)
+    tspecs = api.specs("train")
+    out = {}
+    for key in ("embed", "final_norm", "head"):
+        p = nnp.init_params(tspecs[key], generator, device=dev)
+        p = Q.pack_tree(p, tspecs[key], api.policy)
+        out[key] = _pack_embed(api.policy, p) if key == "embed" else p
+    out["layers"] = []
+    for spec in tspecs["layers"]:
+        p = nnp.init_params(spec, generator, device=dev)
+        out["layers"].append(Q.pack_tree(p, spec, api.policy))
+        del p
+    return out
+
+
+@dataclasses.dataclass
+class Generator:
+    """Greedy batched generator over the model API (LM families).
+
+    ``plan`` overrides the api's uniform policy with a layer-wise one;
+    ``params`` must then be packed under the same plan (its weight
+    formats; the plan's KV-cache keys decide the cache layout alone).
+    ``params`` move to ``device``, CUDA by default, which raises without a
+    card unless ``device="cpu"``.  ``impl`` routes every kernel: 'auto'
+    (the kernels on CUDA, their plain versions on the CPU), 'cuda', or
+    'torch' (the plain versions on any device).
+
+    ``sample_fn(logits (B, V), generator) -> tokens (B,)`` replaces the
+    greedy head; ``generate(..., generator=...)`` hands it a seeded
+    ``torch.Generator``.  The default stays ``argmax`` (first maximum).
+    """
+
+    api: Any
+    params: Any
+    plan: Any = None
+    impl: str = "auto"
+    device: Any = "cuda"
+    sample_fn: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.plan is not None:
+            self.api = dataclasses.replace(self.api, policy=self.plan)
+        self.device = resolve_device(self.device)
+        self.params = tree_to(self.params, self.device)
+
+    def _sample(self, logits: torch.Tensor, generator) -> torch.Tensor:
+        if self.sample_fn is None:
+            return torch.argmax(logits, dim=-1)
+        return self.sample_fn(logits, generator)
+
+    def prefill(self, tokens: torch.Tensor):
+        """tokens (B, S) on the device -> (logits (B, V), prefill cache)."""
+        return self.api.prefill(self.params, tokens, impl=self.impl)
+
+    def decode(self, cache, tokens: torch.Tensor, length: int):
+        """One step: tokens (B, 1) at ``length`` -> (logits (B, V), cache)."""
+        return self.api.decode_step(self.params, cache, tokens, length,
+                                    impl=self.impl)
+
+    def run(self, tokens: np.ndarray, n_new: int,
+            forced: Optional[np.ndarray] = None,
+            generator: Optional[torch.Generator] = None
+            ) -> Tuple[np.ndarray, List[torch.Tensor]]:
+        """Prefill, then ``n_new - 1`` decode steps -> (tokens (B, n_new),
+        the logits of every step).  With ``forced`` (B, n_new) the decode
+        steps are fed ``forced[:, i]`` instead of the sampled tokens
+        (teacher forcing); the sampled tokens are still returned."""
+        b, s = tokens.shape
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                   device=self.device)
+            logits, pre = self.prefill(toks)
+            cache = self._grow_cache(pre, b, s + n_new)
+            out, all_logits = [], [logits]
+            tok = self._sample(logits, generator)
+            out.append(tok)
+            for i in range(n_new - 1):
+                feed = (tok if forced is None else torch.as_tensor(
+                    forced[:, i], dtype=torch.long, device=self.device))
+                logits, cache = self.decode(cache, feed[:, None], s + i)
+                all_logits.append(logits)
+                tok = self._sample(logits, generator)
+                out.append(tok)
+            return torch.stack(out, dim=1).cpu().numpy(), all_logits
+
+    def generate(self, tokens: np.ndarray, n_new: int,
+                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+        """tokens (B, S) int -> the ``n_new`` generated tokens (B, n_new)."""
+        return self.run(tokens, n_new, generator=generator)[0]
+
+    def _grow_cache(self, pre_cache, b: int, max_len: int):
+        """Copy the prefill cache into decode-sized zero buffers (sequence
+        axis left-aligned); decode then writes into them in place."""
+        def grow(spec, pre):
+            buf = torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
+            buf[tuple(slice(0, n) for n in pre.shape)] = pre
+            return buf
+
+        def walk(spec, pre):
+            if nnp.is_spec(spec):
+                return grow(spec, pre)
+            if isinstance(spec, dict):
+                return {k: walk(spec[k], pre[k]) for k in spec}
+            return type(spec)(walk(s, p) for s, p in zip(spec, pre))
+
+        return walk(self.api.cache_specs(b, max_len), pre_cache)
 
 
 @dataclasses.dataclass

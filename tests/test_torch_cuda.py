@@ -6,8 +6,10 @@ file imports no JAX, so it also runs on a machine without it:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 The plain versions run on the CPU copy of the inputs, the version the CPU
-tests hold bitwise against the JAX package; the kernels must match them
-bitwise (contract in ``repro_torch/kernels/mpmm/epilogue.py``).
+tests hold against the JAX package.  K1 and K2 must match them bitwise
+(contract in ``repro_torch/kernels/mpmm/epilogue.py``); K3 and K4 sum in
+another order, so they are held to one bf16 ulp (1e-5 in f32), and with f32
+I/O to within 1e-5 of a float64 evaluation.
 """
 import pytest
 
@@ -101,3 +103,144 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         kernel.mpmm_cuda(torch.zeros((4, 12), device=cuda_device),
                          planes.to(cuda_device), gamma.to(cuda_device),
                          colsum.to(cuda_device), fmt=fmt, act_zero=128)
+
+
+# --- K3 / K4: flash attention -------------------------------------------------
+
+from repro_torch.kernels.flashattn import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flashattn import ops as fops  # noqa: E402
+from repro_torch.nn import kvcache  # noqa: E402
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _assert_attention_close(got, want, tol=None):
+    """f32 I/O: 1e-5 absolute (f32 sums in another order); bf16 I/O: one
+    bf16 ulp of the larger of the two values plus that 1e-5 for outputs
+    near zero, where cancelling sums show the f32 order (more so in K4's
+    affine scores); or ``tol`` absolute plus ``tol`` relative."""
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if tol is not None:
+        bound = tol + tol * w.abs()
+    elif want.dtype == torch.float32:
+        bound = torch.full_like(w, 1e-5)
+    else:
+        bound = _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-5
+    err = (g - w).abs()
+    assert bool((err <= bound).all()), (float(err.max()),
+                                        int((err > bound).sum()))
+
+
+def _qkv(gen, b, sq, sk, h, kvh, d, dtype):
+    q = torch.randn((b, sq, h, d), generator=gen).to(dtype)
+    k = torch.randn((b, sk, kvh, d), generator=gen).to(dtype)
+    v = torch.randn((b, sk, kvh, d), generator=gen).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    dict(sq=256, sk=256),                        # aligned, causal
+    dict(sq=200, sk=200),                        # ragged: pad rows + causal
+    dict(sq=256, sk=256, window=48),
+    dict(sq=8, sk=300, q_offset=292),            # a continuation chunk
+    dict(sq=128, sk=128, causal=False),
+    dict(sq=100, sk=100, causal=False, d=64),    # padded -> forced causal
+])
+def test_flash_fwd_cuda_matches_plain(cuda_device, dtype, case):
+    case = dict(case)
+    d = case.pop("d", 128)
+    sq, sk = case.pop("sq"), case.pop("sk")
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v = _qkv(gen, 2, sq, sk, 8, 2, d, dtype)
+    before = fkernel.flash_fwd_cuda.launches
+    got = fops.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                               v.to(cuda_device), impl="cuda", **case)
+    torch.cuda.synchronize()
+    assert fkernel.flash_fwd_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_attention_close(got, fops.flash_attention(q, k, v, impl="torch",
+                                                      **case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fk,fv", [((2, 2), (2, 2)), ((4, 4), (4, 4)),
+                                   ((8, 4), (8, 4)), ((2, 2), (8, 4))])
+@pytest.mark.parametrize("case", [dict(sq=200, sk=200),
+                                  dict(sq=8, sk=300, q_offset=292)])
+def test_flash_fwd_packed_cuda_matches_plain(cuda_device, fk, fv, case):
+    gen = torch.Generator().manual_seed(fk[0] * 10 + fv[0])
+    d = 128
+    q, k, v = _qkv(gen, 2, case["sq"], case["sk"], 8, 2, d, torch.bfloat16)
+    fmt_k, fmt_v = kvcache.KVFormat(*fk, d), kvcache.KVFormat(*fv, d)
+    kq, vq = kvcache.pack_kv(k, fmt_k), kvcache.pack_kv(v, fmt_v)
+    kw = {key: val for key, val in case.items() if key == "q_offset"}
+    dev = lambda leaf: {n: t.to(cuda_device) for n, t in leaf.items()}  # noqa
+    before = fkernel.flash_fwd_packed_cuda.launches
+    got = fops.flash_attention_packed(q.to(cuda_device), dev(kq), dev(vq),
+                                      fmt_k, fmt_v, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert fkernel.flash_fwd_packed_cuda.launches == before + 1
+    _assert_attention_close(got, fops.flash_attention_packed(
+        q, kq, vq, fmt_k, fmt_v, impl="torch", **kw))
+    # the packed kernel against K3 on the unpacked (qdq) values
+    k3 = fops.flash_attention(q.to(cuda_device),
+                              kvcache.unpack_kv(kq, fmt_k).to(cuda_device),
+                              kvcache.unpack_kv(vq, fmt_v).to(cuda_device),
+                              impl="cuda", **kw)
+    # the reference's own packed-vs-qdq tolerance (tests/test_flashattn.py):
+    # K3 reads the bf16-rounded values code * s + z, K4 the exact ones
+    _assert_attention_close(got, k3, tol=3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((1, 4, 4, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fkernel.flash_fwd_cuda(q, q, q)
+    q = torch.zeros((1, 4, 4, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        fkernel.flash_fwd_cuda(q, q.to(torch.bfloat16), q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fkernel.flash_fwd_cuda(q.cpu(), q.cpu(), q.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_flash_kernels_f32_against_float64(cuda_device, packed):
+    """With f32 I/O each kernel lands within 1e-5 of the same function
+    evaluated in float64 (on the exact values code * s + z for K4)."""
+    gen = torch.Generator().manual_seed(7)
+    d, b, s, h, kvh = 128, 2, 200, 8, 2
+    q, k, v = _qkv(gen, b, s, s, h, kvh, d, torch.float32)
+    if packed:
+        fmt = kvcache.KVFormat(4, 4, d)
+        kq, vq = kvcache.pack_kv(k, fmt), kvcache.pack_kv(v, fmt)
+        dev = {n: t.to(cuda_device) for n, t in kq.items()}
+        dvv = {n: t.to(cuda_device) for n, t in vq.items()}
+        got = fops.flash_attention_packed(q.to(cuda_device), dev, dvv, fmt,
+                                          fmt, impl="cuda")
+        exact = lambda leaf: (kvcache.unpack_codes(leaf["p"], fmt).double()  # noqa
+                              * leaf["s"].double()[..., None]
+                              + leaf["z"].double()[..., None])
+        k64, v64 = exact(kq), exact(vq)
+    else:
+        got = fops.flash_attention(q.to(cuda_device), k.to(cuda_device),
+                                   v.to(cuda_device), impl="cuda")
+        k64, v64 = k.double(), v.double()
+    k64 = k64.repeat_interleave(h // kvh, dim=2)
+    v64 = v64.repeat_interleave(h // kvh, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.double() * d ** -0.5, k64)
+    causal = torch.ones((s, s), dtype=torch.bool).tril()
+    scores = scores.masked_fill(~causal, float("-inf"))
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v64)
+    torch.cuda.synchronize()
+    err = (got.cpu().double() - want).abs().max().item()
+    assert err <= 1e-5, err
