@@ -27,12 +27,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1979 TOP/s, the H100 SXM data-sheet peaks); frames/s per bucket.
 6. K3 (``flash_fwd_cuda``) against ``flash_fwd_torch`` at granite-8b's
    attention shapes (B 4, H 32, KV 8, D 128, bf16): causal at Sq = Sk of
-   1000 and 1024, a 256 window, a q_offset continuation (Sq 8, Sk 1024) and
-   a non-causal ragged Sk (forced causal, as the reference's padding does).
+   1000 and 1024, a 256 window, q_offset continuations (Sq 8 and the
+   speculative verify chunk Sq 9, Sk 1024) and a non-causal ragged Sk
+   (forced causal, as the reference's padding does).
 7. K4 (``flash_fwd_packed_cuda``) against ``flash_fwd_packed_torch`` on the
    cache formats of ``examples/plans/granite_8b_mixed.json`` (kv2 k2, kv4
-   k4, kv8 k4), K and V in different formats, a q_offset continuation and a
-   ragged Sk; and against K3 run on ``unpack_kv`` of the same cache.
+   k4, kv8 k4), K and V in different formats, q_offset continuations (Sq 8
+   and 9) and a ragged Sk; and against K3 run on ``unpack_kv`` of the same
+   cache.
 8. LM end to end: granite-8b at full width (d_model 4096, 32 heads, 8 KV
    heads, head_dim 128, d_ff 14336, vocab 49152) with random weights from
    a seeded CUDA generator, all 36 layers, drawn and packed layer by layer
@@ -57,8 +59,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention`` in bf16 (for K4 on the unpacked K/V: it reads unpacked
    bytes) and the bound (bytes over 3.35 TB/s or causal attention FLOPs
    over 989 TFLOP/s, the H100 SXM dense bf16 peak); K1 at the prefill
-   shapes; prefill tokens/s, decode ms per step and the share of a prefill
-   spent in K4, K1 and the rest.
+   and decode shapes beside one library call for the same product
+   (``torch._int_mm`` where it takes the shape, else ``torch.mm`` in f32);
+   prefill tokens/s, decode ms per step and the share of a prefill spent
+   in K4, K1 and the rest.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -424,6 +428,25 @@ def bound_ms(bytes_moved, ops_done):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def k1_library(sm, d, fmt):
+    """K1's yardstick: one PyTorch call for the same product on the
+    combined int8 weights -> (callable, its name)."""
+    from repro_torch.kernels.mpmm import ref
+    t = sm.torch
+    a = d["a_biased"]
+    w8 = ref.combined_int8_weights(d["planes"], fmt)
+    (m, kdim), n = a.shape, w8.shape[1]
+    if m > 16 and kdim % 8 == 0 and n % 8 == 0:
+        try:
+            t._int_mm(a, w8)
+            return (lambda: t._int_mm(a, w8)), "torch._int_mm (int8)"
+        except RuntimeError as e:  # a cuBLASLt refusal: the f32 yardstick
+            log(f"[time] torch._int_mm refuses M={m} K={kdim} N={n}: {e}")
+    # _int_mm needs M > 16 and K, N multiples of 8
+    af, wf = a.float(), w8.float()
+    return (lambda: t.mm(af, wf)), "torch.mm (f32, TF32 off)"
+
+
 def measure(sm, path_k1, convs):
     from repro_torch.kernels.mpmm import conv_kernel, kernel, ref
     t = sm.torch
@@ -433,15 +456,8 @@ def measure(sm, path_k1, convs):
     for call in path_k1:
         d, kw = call["dev"], call["kw"]
         out = kernel.mpmm_cuda(**d, **kw)
-        w8 = ref.combined_int8_weights(d["planes"], kw["fmt"])
         m, kdim, n = call["m"], call["k"], call["n"]
-        if m > 16 and kdim % 8 == 0 and n % 8 == 0:
-            lib_name = "torch._int_mm (int8)"
-            lib = lambda: t._int_mm(d["a_biased"], w8)  # noqa: E731
-        else:  # _int_mm needs M > 16 and K, N multiples of 8
-            af, wf = d["a_biased"].float(), w8.float()
-            lib_name = "torch.mm (f32, TF32 off)"
-            lib = lambda: t.mm(af, wf)  # noqa: E731
+        lib, lib_name = k1_library(sm, d, kw["fmt"])
         by = nbytes(d["a_biased"], d["planes"], d["gamma"], d["colsum"],
                     d.get("scale"), d.get("shift"), d.get("residual"), out)
         b_ms, b_by = bound_ms(by, 2 * m * n * kdim)
@@ -535,6 +551,7 @@ def attn_inputs(sm, b, sq, sk, seed):
 K3_CASES = [dict(sq=1000, sk=1000), dict(sq=1024, sk=1024),
             dict(sq=1024, sk=1024, window=256),
             dict(sq=8, sk=1024, q_offset=1016),
+            dict(sq=9, sk=1024, q_offset=1015),
             dict(sq=1000, sk=1000, causal=False)]
 
 
@@ -557,7 +574,8 @@ K4_CASES = [((2, 2), (2, 2), dict(sq=1000, sk=1000)),
             ((4, 4), (4, 4), dict(sq=1000, sk=1000)),
             ((8, 4), (8, 4), dict(sq=1000, sk=1000)),
             ((2, 2), (4, 4), dict(sq=1024, sk=1024)),
-            ((8, 4), (2, 2), dict(sq=8, sk=1024, q_offset=1016))]
+            ((8, 4), (2, 2), dict(sq=8, sk=1024, q_offset=1016)),
+            ((2, 2), (4, 4), dict(sq=9, sk=1024, q_offset=1015))]
 
 
 def phase_k4(sm, block_k):
@@ -916,12 +934,16 @@ def measure_k1_lm(sm, api):
         out = kernel.mpmm_cuda(**d, **kw)
         by = nbytes(d["a_biased"], d["planes"], d["gamma"], d["colsum"], out)
         b_ms, b_by = bound_ms(by, 2 * m * n * kdim)
+        lib, lib_name = k1_library(sm, d, kw["fmt"])
         rows.append({"kernel": "mpmm_cuda", "phase": phase,
                      "shape": f"M={m} K={kdim} N={n} w{w_bits}k{k}",
                      "count": count,
                      "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw),
                                       reps=5, warmup=1),
+                     "library_ms": sm.time_ms(lib, reps=5, warmup=1),
+                     "library": lib_name,
                      "bound_ms": b_ms, "bound_by": b_by})
+        del lib, d, cpu
     return rows
 
 
@@ -981,6 +1003,36 @@ def summarize(rows, launches, max_err):
     return out
 
 
+def ptxas_lines(text):
+    """nvcc -Xptxas -v output -> one line per kernel instantiation: its
+    template arguments, registers, stack and spills."""
+    import re
+
+    def short(mangled):  # _ZN..16flash_fwd_kernelILi128ELi4E..EEv.. -> name<args>
+        end = mangled.find("I")
+        while end >= 0 and not mangled[:end].endswith("kernel"):
+            end = mangled.find("I", end + 1)
+        if end < 0:
+            return mangled
+        for run in re.finditer(r"\d+", mangled[:end]):
+            for k in range(len(run.group())):  # the length prefix's digits
+                start = run.end()
+                if start + int(run.group()[k:]) == end:
+                    args = re.findall(r"Li(\d+)E", mangled[end:])
+                    args.append("bf16" if "bfloat16" in mangled else "f32")
+                    return f"{mangled[start:end]}<{','.join(args)}>"
+        return mangled
+
+    name, out = "?", []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = short(m.group(1))
+        elif "registers" in line or "spill" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def card_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1010,9 +1062,8 @@ def main() -> int:
     log(f"[build] {sorted(_build.KERNEL_SOURCES)} built in "
         f"{built['seconds']:.2f} s (parallel nvcc)")
     for name, text in built["logs"].items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_lines(text):
+            log(f"[build] {name}: {line}")
 
     sm = Smoke(torch, device)
     cfg = configs.get(ARCH).cfg
@@ -1054,8 +1105,15 @@ def main() -> int:
           for ph in ("prefill", "decode")}
     for r in k1_rows:
         log(f"[time] mpmm_cuda LM {r['phase']} {r['shape']}: kernel "
-            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), x{r['count']} per {r['phase']}")
+            f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"({r['library']}; kernel/library "
+            f"{r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), x{r['count']} per {r['phase']}")
+    for ph in ("prefill", "decode"):
+        lib = sum(r["count"] * r["library_ms"] for r in k1_rows
+                  if r["phase"] == ph)
+        log(f"[time] mpmm_cuda LM per {ph}: kernel {k1[ph]:.2f} ms, library "
+            f"{lib:.2f} ms (kernel/library {k1[ph] / lib:.2f}x)")
     k4_prefill = sum(r["count"] * r["ms"] for r in attn_rows
                      if r["kernel"] == "flash_fwd_packed_cuda")
     k3_layer = [r["ms"] for r in attn_rows if r["kernel"] == "flash_fwd_cuda"]

@@ -12,96 +12,345 @@
 //
 // What bounds it on this card: at the serve path's prefill (granite-8b,
 // B 4, S 1000, H 32, KV 8, D 128, causal) the two products are about
-// 2 * B * H * S^2 * D / 2 * 2 = 33 GFLOP against 82 MB of q, k, v and O, so
-// the function is bound by operations (tens of microseconds at the bf16
-// tensor-core peak), not by bytes.
+// 4 * B * H * D * S^2 / 2 = 33 GFLOP against 82 MB of q, k, v and O, so the
+// function is bound by operations (33 us at the 989 TFLOP/s bf16
+// tensor-core peak), not by bytes (25 us at 3.35 TB/s).
 //
-// What the design does about it, in this first version: the score tile never
-// leaves the SM.  Each block keeps its pre-scaled 64-row query tile in shared
-// memory, reads each 64-key K and V tile once per query tile, and runs both
-// products as f32 FMAs on CUDA cores from conflict-free shared-memory rows,
-// 16 scores and 32 accumulators per thread.  GQA is an index (KV head
-// h / (H / KV)), so K/V are never copied per query head; KV tiles past the
-// causal band and below the window are never read.  Tensor cores (mma /
-// wgmma on bf16 tiles), TMA and a software pipeline are later work.
+// What the design does about it:
+// - Tile: a block owns 128 query rows of one (b, h) (64 when Sq <= 64, the
+//   verify chunk) and sweeps 64-key tiles of KV head h / (H / KV); GQA is
+//   an index, K/V are never copied per query head, and tiles past the
+//   causal band or below the window are never read.  Scores, the online
+//   softmax (row max and sum by quad shuffles, in the log2 domain), alpha
+//   and the accumulator stay in registers; a rescale by alpha = 1 is
+//   skipped.
+// - Copies: q, K and V move with cp.async, 16 bytes a transaction, into
+//   swizzled shared memory.  K/V tiles sit in a two-stage ring: the copy of
+//   tile t + 1 is in flight while the warps run the products of tile t
+//   (cp.async groups, wait_group 1, one block-wide barrier per stage
+//   hand-over).
+// - Products, bf16 at D 128 (the serve path): wgmma.  Two warpgroups of 64
+//   rows; QK^T is m64n32k16 with q and K read from shared memory through
+//   descriptors (128-byte-swizzled panels), PV is m64n128k16 with P from
+//   registers and V read transposed from shared memory.  Scoring 32 keys at
+//   a time keeps a thread at 124 registers, so two blocks share an SM and
+//   one block's softmax runs while the other's products do.
+// - Products, f32 I/O and D 64: mma.sync.m16n8k16 bf16 fed by ldmatrix
+//   (ldmatrix.trans for V), 8 warps of 16 rows, P reused from the score
+//   registers as the A operand of PV.
+// - Split precision (flash_common.cuh): QK^T on the raw bf16 q, the scale
+//   (times log2 e) applied to the f32 score; PV with p = p_hi + p_lo (two
+//   bf16 terms); with f32 I/O q, K, V and p in three bf16 terms each (six
+//   term products).
+//
+// Registers (nvcc -Xptxas -v, sm_90a) and shared memory a block; no
+// variant spills:
+//   flash_fwd_wgmma_kernel<2> (Sq > 64)   124 regs, 99328 B, 2 blocks an SM
+//   flash_fwd_wgmma_kernel<1> (Sq <= 64)  128 regs, 82944 B
+//   flash_fwd_kernel<D, warps, T>:  <128,8,f32> 194 regs, 202752 B;
+//   <128,4,f32> 194, 168960 B;  <64,8,f32> 160, 104448 B;
+//   <64,4,f32> 160, 87040 B;  <64,8,bf16> 142, 49152 B;  <64,4,bf16> 142,
+//   40960 B.
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
 
-template <int D, typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, Shape s) {
-  using L = Layout<D>;
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / (s.H / s.KV);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  load_q<D>(smem, q, s, b, h, q0);
+// --- bf16, D 128: wgmma ------------------------------------------------------
 
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.0f;
+constexpr int WG_KEYS = 32;  // keys a warpgroup scores at once
+
+template <int WG>
+struct K3WgSmem {
+  static constexpr int BQ = 64 * WG;
+  static constexpr size_t TILE = 64 * 128 * 2;  // one K or V tile
+  static constexpr size_t Q = 0;                 // every offset 1024-aligned
+  static constexpr size_t KV = Q + BQ * 128 * 2;
+  static constexpr size_t STAGE = 2 * TILE;
+  static constexpr size_t BYTES = KV + 2 * STAGE + 1024;  // + alignment
+};
+
+// WG warpgroups of 64 query rows.
+template <int WG>
+__global__ void __launch_bounds__(128 * WG, 2)
+    flash_fwd_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           Shape s) {
+  using S = K3WgSmem<WG>;
+  constexpr int BQ = S::BQ;
+  constexpr int THREADS = 128 * WG;
+  constexpr int D = 128;
+  constexpr int KEYS = WG_KEYS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  bf16* q_tile = reinterpret_cast<bf16*>(smem + S::Q);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int g = h / (s.H / s.KV);
+  const int wgi = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 64 * wgi + 16 * warp;  // the warp's first row
+  const int q_lo = s.q_offset + q0 + row0;
+  const int wg_lo = s.q_offset + q0 + 64 * wgi;  // the warpgroup's first
+  const bool live = q0 + 64 * wgi < s.Sq;       // warpgroup-uniform
+  const float scale2 = s.scale * LOG2E;         // scores in the log2 domain
+
+  wg::copy_rows<BQ, THREADS>(
+      q_tile,
+      [&](int r) -> const bf16* {
+        const int row = q0 + r;
+        return row < s.Sq ? q + (static_cast<size_t>(b) * s.Sq + row) * s.H * D +
+                                static_cast<size_t>(h) * D
+                          : nullptr;
+      },
+      q);
+  cp_commit();
+  auto stage_k = [&](int st) {
+    return reinterpret_cast<bf16*>(smem + S::KV + st * S::STAGE);
+  };
+  auto stage_v = [&](int st) {
+    return reinterpret_cast<bf16*>(smem + S::KV + st * S::STAGE + S::TILE);
+  };
+  auto issue = [&](int kv0, int st) {
+    auto row_of = [&](const bf16* base) {
+      return [=](int r) -> const bf16* {
+        const int key = kv0 + r;
+        return key < s.Sk ? base + ((static_cast<size_t>(b) * s.Sk + key) *
+                                        s.KV + g) * D
+                          : nullptr;
+      };
+    };
+    wg::copy_rows<BKV, THREADS>(stage_k(st), row_of(k), k);
+    wg::copy_rows<BKV, THREADS>(stage_v(st), row_of(v), v);
+  };
 
   int begin, end;
-  sweep_range(s, q0, &begin, &end);
-  for (int kv0 = begin; kv0 < end; kv0 += BKV) {
-    const int n_cols = min(BKV, s.Sk_total - kv0);
-    __syncthreads();  // the previous tile's P.V is done with the buffers
-    for (int idx = threadIdx.x; idx < BKV * D; idx += THREADS) {
-      const int c = idx / D;
-      const int d = idx % D;
-      const int key = kv0 + c;
-      smem[L::KV + c * L::LD + d] =
-          key < s.Sk ? to_f32(k[((static_cast<size_t>(b) * s.Sk + key) * s.KV +
-                                 g) * D + d])
-                     : 0.0f;
-    }
+  sweep_range<BQ>(s, q0, &begin, &end);
+  if (begin < end) issue(begin, 0);
+  cp_commit();
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.0f;
+  float(&o_flat)[64] = *reinterpret_cast<float(*)[64]>(&o[0][0]);
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};
+
+  int st = 0;
+  for (int kv0 = begin; kv0 < end; kv0 += BKV, st ^= 1) {
+    if (kv0 + BKV < end) issue(kv0 + BKV, st ^ 1);
+    cp_commit();
+    cp_wait<1>();       // q and tile kv0 have landed (this thread's copies)
+    wg::fence_proxy();  // ... visible to wgmma once every thread is past:
     __syncthreads();
-    float sc[4][4];
-    score_tile<D>(smem, sc, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int q_pos = s.q_offset + q0 + r;
+    for (int half = 0; half < BKV / KEYS; ++half) {
+      const int kb = kv0 + half * KEYS;
+      if (!live || tile_mask(s, wg_lo, kb, 64, KEYS) == TileMask::kAll) {
+        continue;
+      }
+      float sc[KEYS / 8][4];
+      float(&s_flat)[KEYS / 2] =
+          *reinterpret_cast<float(*)[KEYS / 2]>(&sc[0][0]);
+      const bf16* kt = stage_k(st) + half * KEYS * 64;
+      wg::fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        smem[L::S + r * L::LS + c] =
-            visible(s, q_pos, kv0 + c) ? sc[i][j] : NEG_INF;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wg::mma_ss(s_flat,
+                   wg::desc(q_tile + wg::off<BQ>(64 * wgi, 2 * kk), 16, 1024),
+                   wg::desc(kt + wg::off<BKV>(0, 2 * kk), 16, 1024), kk > 0);
+      }
+      wg::commit();
+      wg::wait0();
+      wg::pin(s_flat);
+      const TileMask mask = tile_mask(s, q_lo, kb, 16, KEYS);
+#pragma unroll
+      for (int n = 0; n < KEYS / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = __fmul_rn(sc[n][c], scale2);
+          sc[n][c] = mask == TileMask::kNone
+                         ? x
+                         : mask_score(s, x, q_lo + (lane >> 2) + 8 * (c >> 1),
+                                      kb + 8 * n + 2 * (lane & 3) + (c & 1));
+        }
+      float alpha[2];
+      softmax_step<KEYS>(sc, m, l, alpha);
+      rescale<D>(o, alpha);
+      uint32_t a[KEYS / 16][2][4];  // p_hi, p_lo per 16 keys
+#pragma unroll
+      for (int ks = 0; ks < KEYS / 16; ++ks) p_fragment<2>(sc, ks, a[ks]);
+      const bf16* vt = stage_v(st) + half * KEYS * 64;
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < KEYS / 16; ++ks) {
+        const uint64_t dv =
+            wg::desc(vt + wg::off<BKV>(16 * ks, 0), BKV * 128, 1024);
+        wg::mma_rs(o_flat, a[ks][1], dv);  // the smaller term first
+        wg::mma_rs(o_flat, a[ks][0], dv);
+      }
+      wg::commit();
+      wg::wait0();
+      wg::pin(o_flat);
+#pragma unroll
+      for (int ks = 0; ks < KEYS / 16; ++ks) {
+        wg::pin(a[ks][0]);
+        wg::pin(a[ks][1]);
       }
     }
-    __syncthreads();  // scores are in; K is no longer read
-    softmax_step<D>(smem, n_cols, nullptr, nullptr);
-    for (int idx = threadIdx.x; idx < BKV * D; idx += THREADS) {
-      const int c = idx / D;
-      const int d = idx % D;
-      const int key = kv0 + c;
-      smem[L::KV + c * L::LD + d] =
-          key < s.Sk ? to_f32(v[((static_cast<size_t>(b) * s.Sk + key) * s.KV +
-                                 g) * D + d])
-                     : 0.0f;
-    }
-    __syncthreads();
-    pv_tile<D>(smem, acc, n_cols, false, ty, tx);
+    __syncthreads();  // stage st is free for the copy issued next iteration
   }
-  store_out<D>(smem, acc, out, s, b, h, q0, ty, tx);
+  cp_wait<0>();
+  const float z[2] = {0.0f, 0.0f};
+  store_out<D>(o, l, z, out, s, b, h, q0 + row0 + (lane >> 2));
 }
 
+// --- f32 I/O and D 64: mma.sync ---------------------------------------------
+
+template <int D, int WARPS, typename T>
+struct K3Smem {
+  static constexpr int BQ = 16 * WARPS;
+  static constexpr size_t Q = 0;
+  static constexpr size_t KV = Q + tile_bytes<T, D>(BQ);  // 2 stages of K, V
+  static constexpr size_t STAGE = 2 * tile_bytes<T, D>(BKV);
+  static constexpr size_t BYTES = KV + 2 * STAGE;
+};
+
+template <int D, int WARPS, typename T>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out, Shape s) {
+  using S = K3Smem<D, WARPS, T>;
+  constexpr int BQ = S::BQ;
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int PT = Tile<T, D>::TERMS == 1 ? 2 : 3;  // terms of p
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* q_tile = reinterpret_cast<T*>(smem + S::Q);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int g = h / (s.H / s.KV);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = 16 * warp;
+  const int q_lo = s.q_offset + q0 + row0;  // the warp's first position
+  const bool live = q0 + row0 < s.Sq;  // rows past Sq are never stored
+  const float scale2 = s.scale * LOG2E;  // scores in the log2 domain
+
+  copy_rows<T, D, BQ, THREADS>(
+      q_tile,
+      [&](int r) -> const T* {
+        const int row = q0 + r;
+        return row < s.Sq ? q + (static_cast<size_t>(b) * s.Sq + row) * s.H * D +
+                                static_cast<size_t>(h) * D
+                          : nullptr;
+      },
+      q);
+  cp_commit();
+
+  auto stage_k = [&](int st) {
+    return reinterpret_cast<T*>(smem + S::KV + st * S::STAGE);
+  };
+  auto stage_v = [&](int st) {
+    return reinterpret_cast<T*>(smem + S::KV + st * S::STAGE +
+                                tile_bytes<T, D>(BKV));
+  };
+  auto issue = [&](int kv0, int st) {
+    auto row_of = [&](const T* base) {
+      return [=](int r) -> const T* {
+        const int key = kv0 + r;
+        return key < s.Sk ? base + ((static_cast<size_t>(b) * s.Sk + key) *
+                                        s.KV + g) * D
+                          : nullptr;
+      };
+    };
+    copy_rows<T, D, BKV, THREADS>(stage_k(st), row_of(k), k);
+    copy_rows<T, D, BKV, THREADS>(stage_v(st), row_of(v), v);
+  };
+
+  int begin, end;
+  sweep_range<BQ>(s, q0, &begin, &end);
+  if (begin < end) issue(begin, 0);
+  cp_commit();
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};
+
+  int st = 0;
+  for (int kv0 = begin; kv0 < end; kv0 += BKV, st ^= 1) {
+    if (kv0 + BKV < end) issue(kv0 + BKV, st ^ 1);
+    cp_commit();
+    cp_wait<1>();  // q and tile kv0 have landed (this thread's copies)
+    __syncthreads();  // ... and every thread's
+    const TileMask mask = tile_mask(s, q_lo, kv0, 16, BKV);
+    if (live && mask != TileMask::kAll) {
+      float sc[BKV / 8][4];
+      qk_tile<D>(q_tile, stage_k(st), row0, sc);
+#pragma unroll
+      for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float x = __fmul_rn(sc[n][c], scale2);
+          sc[n][c] = mask == TileMask::kNone
+                         ? x
+                         : mask_score(s, x, q_lo + (lane >> 2) + 8 * (c >> 1),
+                                      kv0 + 8 * n + 2 * (lane & 3) + (c & 1));
+        }
+      float alpha[2];
+      softmax_step<BKV>(sc, m, l, alpha);
+      rescale<D>(o, alpha);
+      pv_tile<D, PT>(stage_v(st), sc, o);
+    }
+    __syncthreads();  // stage st is free for the copy issued next iteration
+  }
+  cp_wait<0>();
+  const float z[2] = {0.0f, 0.0f};
+  store_out<D>(o, l, z, out, s, b, h, q0 + row0 + (lane >> 2));
+}
+
+// --- launch --------------------------------------------------------------------
+
+template <int WG>
+int launch_wg(const void* q, const void* k, const void* v, void* out,
+              const Shape& s, cudaStream_t stream) {
+  return launch(flash_fwd_wgmma_kernel<WG>, K3WgSmem<WG>::BYTES,
+                grid_of(s, 64 * WG), 128 * WG, stream,
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<bf16*>(out), s);
+}
+
+template <int D, int WARPS, typename T>
+int launch_w(const void* q, const void* k, const void* v, void* out,
+             const Shape& s, cudaStream_t stream) {
+  return launch(flash_fwd_kernel<D, WARPS, T>, K3Smem<D, WARPS, T>::BYTES,
+                grid_of(s, 16 * WARPS), 32 * WARPS, stream,
+                static_cast<const T*>(q), static_cast<const T*>(k),
+                static_cast<const T*>(v), static_cast<T*>(out), s);
+}
+
+// 128 query rows a block, 64 for short query chunks (the verify chunk).
 template <int D, typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out,
              const Shape& s, cudaStream_t stream) {
-  const dim3 grid((s.Sq + BQ - 1) / BQ, s.H, s.B);
-  return launch(flash_fwd_kernel<D, T>, Layout<D>::BYTES, grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(out), s);
+  if constexpr (D == 128 && Tile<T, D>::TERMS == 1) {
+    return s.Sq <= 64 ? launch_wg<1>(q, k, v, out, s, stream)
+                      : launch_wg<2>(q, k, v, out, s, stream);
+  } else {
+    return s.Sq <= 64 ? launch_w<D, 4, T>(q, k, v, out, s, stream)
+                      : launch_w<D, 8, T>(q, k, v, out, s, stream);
+  }
 }
 
 template <typename T>

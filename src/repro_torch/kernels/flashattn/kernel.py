@@ -172,6 +172,13 @@ def _check_attention(q: torch.Tensor, kvh: int, sk: int, window, q_offset,
     return device
 
 
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels copy rows in 16-byte chunks (cp.async)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _scale(softmax_scale: Optional[float], d: int) -> float:
     return softmax_scale if softmax_scale is not None else d ** -0.5
 
@@ -196,6 +203,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device = _check_attention(q, kvh, sk, window, q_offset, pad_k)
     for name, t in (("k", k), ("v", v)):
         check_operand(name, t, device, (q.dtype,), (b, sk, kvh, d))
+    _check_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -246,6 +254,7 @@ def flash_fwd_packed_cuda(q: torch.Tensor, kp: torch.Tensor,
                              f"exceed 8-bit codes")
     for name, t in (("ks", ks), ("kz", kz), ("vs", vs), ("vz", vz)):
         check_operand(name, t, device, (torch.bfloat16,), (b, sk, kvh))
+    _check_aligned(q=q, kp=kp, vp=vp)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -153,6 +153,11 @@ def _qkv(gen, b, sq, sk, h, kvh, d, dtype):
     dict(sq=8, sk=300, q_offset=292),            # a continuation chunk
     dict(sq=128, sk=128, causal=False),
     dict(sq=100, sk=100, causal=False, d=64),    # padded -> forced causal
+    # the tile edges of the tensor-core kernels (128-row blocks, 64-key tiles)
+    dict(sq=1000, sk=1000),                      # Sq % 128 != 0, pad_k 24
+    dict(sq=9, sk=200, q_offset=191),            # the verify chunk: 64 rows
+    dict(sq=200, sk=200, window=48),             # a window inside one tile
+    dict(sq=200, sk=200, d=64),                  # D 64, ragged, causal
 ])
 def test_flash_fwd_cuda_matches_plain(cuda_device, dtype, case):
     case = dict(case)
@@ -172,16 +177,22 @@ def test_flash_fwd_cuda_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fk,fv", [((2, 2), (2, 2)), ((4, 4), (4, 4)),
-                                   ((8, 4), (8, 4)), ((2, 2), (8, 4))])
+                                   ((8, 4), (8, 4)), ((2, 2), (8, 4)),
+                                   ((8, 4), (2, 2))])
 @pytest.mark.parametrize("case", [dict(sq=200, sk=200),
-                                  dict(sq=8, sk=300, q_offset=292)])
+                                  dict(sq=8, sk=300, q_offset=292),
+                                  dict(sq=1000, sk=1000),
+                                  dict(sq=9, sk=200, q_offset=191),
+                                  dict(sq=200, sk=200, window=48),
+                                  dict(sq=200, sk=200, d=64)])
 def test_flash_fwd_packed_cuda_matches_plain(cuda_device, fk, fv, case):
     gen = torch.Generator().manual_seed(fk[0] * 10 + fv[0])
-    d = 128
+    d = case.get("d", 128)
     q, k, v = _qkv(gen, 2, case["sq"], case["sk"], 8, 2, d, torch.bfloat16)
     fmt_k, fmt_v = kvcache.KVFormat(*fk, d), kvcache.KVFormat(*fv, d)
     kq, vq = kvcache.pack_kv(k, fmt_k), kvcache.pack_kv(v, fmt_v)
-    kw = {key: val for key, val in case.items() if key == "q_offset"}
+    kw = {key: val for key, val in case.items()
+          if key in ("q_offset", "window")}
     dev = lambda leaf: {n: t.to(cuda_device) for n, t in leaf.items()}  # noqa
     before = fkernel.flash_fwd_packed_cuda.launches
     got = fops.flash_attention_packed(q.to(cuda_device), dev(kq), dev(vq),
