@@ -5,13 +5,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. Build the four CUDA kernels (K1, K2 from ``kernels/mpmm/csrc``, K3, K4
-   from ``kernels/flashattn/csrc``) with nvcc for sm_90a, one process per
-   source, in parallel.
-2. K1 (``mpmm_cuda``) against its plain version ``mpmm_torch``: every
-   weight format (w in 1/2/4/8, k dividing 8, k <= w), both variants, the
-   three epilogues, ragged M/N/K, an int32-accumulator check, and the serve
-   path's own shapes (stem as im2col, classifier).
+1. Build the four CUDA kernels (K1's two routes and K2 from
+   ``kernels/mpmm/csrc``, K3, K4 from ``kernels/flashattn/csrc``) with nvcc
+   for sm_90a, one process per source, in parallel.
+2. K1 (``mpmm_cuda``) against its plain version ``mpmm_torch``, through
+   both routes (M 100 on the tensor-core route ``wgmma``, M 4 on the
+   split-K route ``splitk``): every weight format (w in 1/2/4/8, k dividing
+   8, k <= w), both variants, the three epilogues, both output dtypes,
+   ragged M/N/K, an int32-accumulator check; the ResNet serve path's own
+   shapes (stem as im2col, classifier); and granite-8b's prefill and decode
+   shapes, held against the plain version run on the card.
 3. K2 (``conv_mpmm_cuda``) against ``conv_mpmm_torch`` at every ResNet-18
    conv shape at batch 8 with the path's epilogue, and at batch 2 with
    Sum-Apart and the residual epilogue.
@@ -19,8 +22,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    classes) with random weights from a seeded generator, packed under
    ``examples/plans/resnet18_mixed.json`` and served by ``ImageServer`` with
    buckets (1, 2, 4, 8) for requests of 1, 3, 8 and 13 images.  The launch
-   counters must show K1 twice and K2 19 times per bucket call; the logits
-   are compared with the same forward through the plain versions.
+   counters must show K1 twice (the stem on ``wgmma``, the classifier on
+   ``splitk``) and K2 19 times per bucket call; the logits are compared
+   with the same forward through the plain versions.
 5. ResNet timing at the serve path's shapes (batch 8): each kernel, its
    plain version, one PyTorch library call for the same product, and the
    bound (the larger of bytes over 3.35 TB/s and int8 operations over
@@ -42,7 +46,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prompts of
    1000 tokens, 16 new tokens, greedy.  The counters must show K4 once per
    layer per prefill, K1 7 times per layer plus the head per prefill and
-   per decode step, K3 never.  The same weights served again under the plan
+   per decode step (the prefill's projections on ``wgmma``, its head and
+   all of a decode step's calls on ``splitk``), K3 never.  The same weights
+   served again under the plan
    without its KV keys (a bf16 cache) must launch K3 once per layer per
    prefill and K4 never.  Each run is held against the same model through
    the plain versions of K1, K3 and K4: finite, non-constant logits; in the
@@ -59,7 +65,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention`` in bf16 (for K4 on the unpacked K/V: it reads unpacked
    bytes) and the bound (bytes over 3.35 TB/s or causal attention FLOPs
    over 989 TFLOP/s, the H100 SXM dense bf16 peak); K1 at the prefill
-   and decode shapes beside one library call for the same product
+   and decode shapes, with its route and its share of the bound, beside its
+   plain version and one library call for the same product
    (``torch._int_mm`` where it takes the shape, else ``torch.mm`` in f32);
    prefill tokens/s, decode ms per step and the share of a prefill spent
    in K4, K1 and the rest.
@@ -224,36 +231,72 @@ def k1_call(sm, m, kdim, n, w_bits, k, epi, variant, out_dtype, act_zero):
     return args, kw
 
 
-def phase_k1(sm, path_k1):
+K1_ROWS = (100, 4)  # route A (M > 16) and route B (M <= 16)
+
+
+def phase_k1(sm, path_k1, lm_shapes):
     from repro_torch.kernels.mpmm import kernel, ref
     t = sm.torch
-    for w_bits, k in FORMATS:
-        for variant in ("st", "sa"):
-            # int32 accumulators: gamma = 1, act_zero = 0, f32 out gives
-            # float(acc) exactly; held against the oracle's own decode.
-            args, kw = k1_call(sm, 100, 45, 70, w_bits, k, "none", variant,
-                               t.float32, 0)
-            args["gamma"] = t.ones_like(args["gamma"])
-            got = kernel.mpmm_cuda(**sm.on_device(args), **kw)
-            want = ref.mpmm_ref_codes(args["a_biased"], args["planes"],
-                                      kw["fmt"], act_zero=0).to(t.float32)
-            sm.compare("mpmm_cuda", f"K1 acc w{w_bits}k{k} {variant}", got,
-                       want)
-            for epi in EPILOGUES:
-                for out_dtype in (t.float32, t.bfloat16):
-                    args, kw = k1_call(sm, 100, 45, 70, w_bits, k, epi,
-                                       variant, out_dtype, 128)
-                    got = kernel.mpmm_cuda(**sm.on_device(args), **kw)
-                    sm.compare("mpmm_cuda",
-                               f"K1 w{w_bits}k{k} {variant} {epi} {out_dtype}",
-                               got, kernel.mpmm_torch(**args, **kw))
+    for m in K1_ROWS:
+        route = kernel.mpmm_route(m, 45, 70)
+        for w_bits, k in FORMATS:
+            for variant in ("st", "sa"):
+                # int32 accumulators: gamma = 1, act_zero = 0, f32 out gives
+                # float(acc) exactly; held against the oracle's own decode.
+                args, kw = k1_call(sm, m, 45, 70, w_bits, k, "none", variant,
+                                   t.float32, 0)
+                args["gamma"] = t.ones_like(args["gamma"])
+                got = kernel.mpmm_cuda(**sm.on_device(args), **kw)
+                want = ref.mpmm_ref_codes(args["a_biased"], args["planes"],
+                                          kw["fmt"], act_zero=0).to(t.float32)
+                sm.compare("mpmm_cuda",
+                           f"K1 {route} acc M={m} w{w_bits}k{k} {variant}",
+                           got, want)
+                for epi in EPILOGUES:
+                    for out_dtype in (t.float32, t.bfloat16):
+                        args, kw = k1_call(sm, m, 45, 70, w_bits, k, epi,
+                                           variant, out_dtype, 128)
+                        got = kernel.mpmm_cuda(**sm.on_device(args), **kw)
+                        sm.compare("mpmm_cuda",
+                                   f"K1 {route} M={m} w{w_bits}k{k} "
+                                   f"{variant} {epi} {out_dtype}",
+                                   got, kernel.mpmm_torch(**args, **kw))
     for call in path_k1:
         for variant in ("st", "sa"):
             kw = dict(call["kw"], variant=variant)
             got = kernel.mpmm_cuda(**call["dev"], **kw)
             sm.compare("mpmm_cuda", f"K1 path {call['name']} {variant}", got,
                        kernel.mpmm_torch(**call["cpu"], **kw))
+    # granite-8b's own prefill and decode shapes, against the plain version
+    # on the card (its float64 integer product is exact there too)
+    for phase, m, (kdim, n, w_bits, k), _ in lm_shapes:
+        d, kw = k1_device_call(sm, m, kdim, n, w_bits, k, seed=m + kdim + n)
+        got = kernel.mpmm_cuda(**d, **kw)
+        want = kernel.mpmm_torch(**d, **kw)
+        sm.compare("mpmm_cuda", f"K1 {kernel.mpmm_route(m, kdim, n)} LM "
+                   f"{phase} M={m} K={kdim} N={n} w{w_bits}k{k}", got,
+                   want.cpu())
+        del d, got, want
     sm.check_phase("K1 mpmm_cuda vs mpmm_torch")
+
+
+def k1_device_call(sm, m, kdim, n, w_bits, k, seed):
+    """A K1 call drawn on the card (bf16 out, no epilogue): the LM shapes
+    are too large to draw and pack on the host."""
+    from repro_torch.core import packing
+    t = sm.torch
+    g = t.Generator(device=sm.device).manual_seed(seed)
+    fmt = packing.PlaneFormat(w_bits=w_bits, k=k, k_dim=kdim)
+    w_int = t.randint(-(2 ** (w_bits - 1)), 2 ** (w_bits - 1), (kdim, n),
+                      generator=g, device=sm.device, dtype=t.int32)
+    d = dict(a_biased=t.randint(-128, 128, (m, kdim), generator=g,
+                                device=sm.device, dtype=t.int32).to(t.int8),
+             planes=packing.pack_planes(w_int, fmt),
+             gamma=t.rand((1, n), generator=g, device=sm.device) * 0.009
+             + 0.001,
+             colsum=w_int.sum(0, dtype=t.int32).reshape(1, n))
+    return d, dict(fmt=fmt, act_zero=128, variant="st",
+                   out_dtype=t.bfloat16, epilogue=None)
 
 
 # --- phase 3: K2 -----------------------------------------------------------
@@ -342,18 +385,22 @@ def phase_end_to_end(sm):
                 .astype(np.float32) for n in REQUESTS]
 
     bucket_calls = sum(-(-n // BUCKETS[-1]) for n in REQUESTS)
-    kernel.mpmm_cuda.launches = 0
-    conv_kernel.conv_mpmm_cuda.launches = 0
+    reset_counts()
     outs = [server.predict(x) for x in requests]
     t.cuda.synchronize()
     launches = {"mpmm_cuda": kernel.mpmm_cuda.launches,
                 "conv_mpmm_cuda": conv_kernel.conv_mpmm_cuda.launches}
     log(f"[e2e] {bucket_calls} bucket calls, launches {launches}, "
         f"compiled buckets {server.compiled_buckets}")
+    routes = dict(kernel.mpmm_cuda.routes)
+    log(f"[e2e] K1 routes {routes} (stem on wgmma, classifier on splitk)")
     if launches != {"mpmm_cuda": 2 * bucket_calls,
                     "conv_mpmm_cuda": 19 * bucket_calls}:
         raise SystemExit(f"launch counts {launches} != 2 and 19 per bucket "
                          f"call ({bucket_calls} calls)")
+    if routes != {"wgmma": bucket_calls, "splitk": bucket_calls}:
+        raise SystemExit(f"K1 routes {routes}: expected the stem on wgmma and "
+                         f"the classifier on splitk, once per bucket call")
 
     for n, x, y in zip(REQUESTS, requests, outs):
         if y.shape != (n, cfg.n_classes) or not np.isfinite(y).all():
@@ -378,7 +425,7 @@ def phase_end_to_end(sm):
             raise SystemExit(f"request of {n}: outside the end-to-end "
                              f"contract")
     log("[e2e] ok")
-    return server, cfg, plan, launches, requests
+    return server, cfg, plan, launches, routes
 
 
 def frames_per_second(sm, server, cfg):
@@ -463,6 +510,7 @@ def measure(sm, path_k1, convs):
         b_ms, b_by = bound_ms(by, 2 * m * n * kdim)
         rows.append({
             "kernel": "mpmm_cuda", "layer": call["name"],
+            "route": kernel.mpmm_route(m, kdim, n),
             "shape": f"M={m} K={kdim} N={n} w{kw['fmt'].w_bits}k{kw['fmt'].k}",
             "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw)),
             "plain_ms": sm.time_ms(lambda: kernel.mpmm_torch(**d, **kw)),
@@ -618,8 +666,10 @@ COUNTED = (("mpmm_cuda", "repro_torch.kernels.mpmm.kernel"),
 
 def reset_counts():
     import importlib
+    from repro_torch.kernels.mpmm import kernel
     for name, mod in COUNTED:
         getattr(importlib.import_module(mod), name).launches = 0
+    kernel.mpmm_cuda.routes = dict.fromkeys(kernel.ROUTES, 0)
 
 
 def read_counts():
@@ -746,12 +796,21 @@ def serve_lm(sm, api, params, prompts, label, expect):
     t.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    from repro_torch.kernels.mpmm import kernel
+    routes = dict(kernel.mpmm_cuda.routes)
     want = dict(expect, mpmm_cuda=(7 * depth + 1) * LM_NEW, conv_mpmm_cuda=0)
+    # the prefill's projections on route A, its head and every decode
+    # step's projections and head on route B
+    want_routes = {"wgmma": 7 * depth,
+                   "splitk": 1 + (LM_NEW - 1) * (7 * depth + 1)}
     log(f"[lm] {label}: depth {depth}, {LM_BATCH} prompts x {LM_PROMPT} "
         f"tokens, {LM_NEW} new tokens in {wall:.2f} s (1 prefill + "
-        f"{LM_NEW - 1} decode steps); launches {launches}")
+        f"{LM_NEW - 1} decode steps); launches {launches}; K1 routes "
+        f"{routes}")
     if launches != want:
         raise SystemExit(f"{label}: launch counts {launches} != {want}")
+    if routes != want_routes:
+        raise SystemExit(f"{label}: K1 routes {routes} != {want_routes}")
     for step, a in enumerate(logits):
         a = a.float()
         if a.shape != (LM_BATCH, api.cfg.vocab) or not bool(
@@ -768,8 +827,8 @@ def serve_lm(sm, api, params, prompts, label, expect):
         f"bitwise equal; carried through {depth} layers: logits "
         f"{pc['carried_rel']:.5f}, head-input flips "
         f"{pc['carried_flips']:.5f}")
-    return {"launches": launches, "tokens": np.asarray(toks), "wall": wall,
-            "contract": pc}
+    return {"launches": launches, "routes": routes,
+            "tokens": np.asarray(toks), "wall": wall, "contract": pc}
 
 
 def phase_lm(sm):
@@ -913,12 +972,11 @@ def lm_k1_shapes(api):
                    head.bits_for("boundary"), head.k)
 
 
-def measure_k1_lm(sm, api):
-    """K1 at the LM's shapes, per distinct shape: the prefill's projections
-    (M = batch x prompt) and head (M = batch), and a decode step's
-    projections and head (M = batch)."""
-    from repro_torch.kernels.mpmm import kernel
-    t = sm.torch
+def lm_k1_calls(api):
+    """K1's calls at the LM's shapes, per distinct shape: (phase, M, (K, N,
+    w_bits, k), count) for the prefill's projections (M = batch x prompt)
+    and head (M = batch), and a decode step's projections and head (M =
+    batch)."""
     calls, head = lm_k1_shapes(api)
     shapes = [("prefill", LM_BATCH * LM_PROMPT, key, count)
               for key, count in sorted(calls.items())]
@@ -926,24 +984,33 @@ def measure_k1_lm(sm, api):
     shapes += [("decode", LM_BATCH, key, count)
                for key, count in sorted(calls.items())]
     shapes += [("decode", LM_BATCH, head, 1)]
+    return shapes
+
+
+def measure_k1_lm(sm, api):
+    """K1 at the LM's shapes (``lm_k1_calls``): kernel, plain version and
+    one library call, each shape's route and its bound."""
+    from repro_torch.kernels.mpmm import kernel
     rows = []
-    for phase, m, (kdim, n, w_bits, k), count in shapes:
-        cpu, kw = k1_call(sm, m, kdim, n, w_bits, k, "none", "st",
-                          t.bfloat16, 128)
-        d = sm.on_device(cpu)
+    for phase, m, (kdim, n, w_bits, k), count in lm_k1_calls(api):
+        d, kw = k1_device_call(sm, m, kdim, n, w_bits, k, seed=7 * m + n)
         out = kernel.mpmm_cuda(**d, **kw)
         by = nbytes(d["a_biased"], d["planes"], d["gamma"], d["colsum"], out)
         b_ms, b_by = bound_ms(by, 2 * m * n * kdim)
         lib, lib_name = k1_library(sm, d, kw["fmt"])
         rows.append({"kernel": "mpmm_cuda", "phase": phase,
+                     "route": kernel.mpmm_route(m, kdim, n),
                      "shape": f"M={m} K={kdim} N={n} w{w_bits}k{k}",
                      "count": count,
                      "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw),
-                                      reps=5, warmup=1),
-                     "library_ms": sm.time_ms(lib, reps=5, warmup=1),
+                                      reps=10, warmup=2),
+                     "plain_ms": sm.time_ms(
+                         lambda: kernel.mpmm_torch(**d, **kw), reps=2,
+                         warmup=1),
+                     "library_ms": sm.time_ms(lib, reps=10, warmup=2),
                      "library": lib_name,
                      "bound_ms": b_ms, "bound_by": b_by})
-        del lib, d, cpu
+        del lib, d
     return rows
 
 
@@ -966,7 +1033,7 @@ def measure_lm_end_to_end(sm, api, params, prompts):
 
 
 KERNELS = (
-    ("mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/mpmm.cu",
+    ("mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/mpmm_wgmma.cu",
      "src/repro/kernels/mpmm/kernel.py:164"),
     ("conv_mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/conv_mpmm.cu",
      "src/repro/kernels/mpmm/conv_kernel.py:140"),
@@ -978,11 +1045,12 @@ KERNELS = (
 )
 
 
-def summarize(rows, launches, max_err):
+def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward; K3 and K4: over one prefill of the run that launched
     them (per-layer rows times their layer counts).  ``launches`` sums the
-    main-path runs (ResNet, and the LM's two Generator runs)."""
+    main-path runs (ResNet, and the LM's two Generator runs); K1's entry
+    also counts them by route and names both route sources."""
     out = []
     for name, src, replaces in KERNELS:
         rs = [r for r in rows if r["kernel"] == name]
@@ -1000,6 +1068,10 @@ def summarize(rows, launches, max_err):
             "bound_ms": by_bytes + by_ops,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": sum(c * r["library_ms"] for c, r in zip(w, rs))})
+        if name == "mpmm_cuda":
+            out[-1]["routes"] = k1_routes
+            out[-1]["sources"] = [src, src.replace("mpmm_wgmma.cu",
+                                                   "mpmm_splitk.cu")]
     return out
 
 
@@ -1018,8 +1090,13 @@ def ptxas_lines(text):
             for k in range(len(run.group())):  # the length prefix's digits
                 start = run.end()
                 if start + int(run.group()[k:]) == end:
-                    args = re.findall(r"Li(\d+)E", mangled[end:])
-                    args.append("bf16" if "bfloat16" in mangled else "f32")
+                    args = [v if t == "i" else ("true" if v == "1"
+                                                  else "false")
+                            for t, v in re.findall(r"L([ib])(\d+)E",
+                                                   mangled[end:])]
+                    if mangled[start:end].startswith("flash"):
+                        args.append("bf16" if "bfloat16" in mangled
+                                    else "f32")
                     return f"{mangled[start:end]}<{','.join(args)}>"
         return mangled
 
@@ -1073,9 +1150,10 @@ def main() -> int:
     if len(convs) != 19:
         raise SystemExit(f"expected 19 K2 convs, found {len(convs)}")
 
-    phase_k1(sm, path_k1)
+    lm_plan = PrecisionPlan.load(LM_PLAN)
+    phase_k1(sm, path_k1, lm_k1_calls(lm_api(None, lm_plan)))
     phase_k2(sm, convs)
-    server, cfg, plan, launches, _ = phase_end_to_end(sm)
+    server, cfg, plan, launches, k1_routes = phase_end_to_end(sm)
     fps = frames_per_second(sm, server, cfg)
     rows = measure(sm, path_k1, convs)
     del server
@@ -1089,31 +1167,44 @@ def main() -> int:
     for r in (run, run3):
         launches = {k: launches.get(k, 0) + r["launches"][k]
                     for k in r["launches"]}
+        k1_routes = {k: k1_routes[k] + r["routes"][k] for k in k1_routes}
     attn_rows = measure_attention(sm, api)
     k1_rows = measure_k1_lm(sm, api)
     prefill_ms, decode_ms = measure_lm_end_to_end(sm, api, params, prompts)
     rows += attn_rows
-    kernels = summarize(rows, launches, sm.max_err)
+    kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
     for r in rows:
-        log(f"[time] {r['kernel']} {r['layer']:7s} {r['shape']}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})" + (f", x{r['count']} per prefill"
-                                    if "count" in r else ""))
+        log(f"[time] {r['kernel']} {r['layer']:7s} {r['shape']}"
+            + (f" route {r['route']}" if "route" in r else "")
+            + f": kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)"
+            + (f", x{r['count']} per prefill" if "count" in r else ""))
     k1 = {ph: sum(r["count"] * r["ms"] for r in k1_rows if r["phase"] == ph)
           for ph in ("prefill", "decode")}
     for r in k1_rows:
-        log(f"[time] mpmm_cuda LM {r['phase']} {r['shape']}: kernel "
-            f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+        log(f"[time] mpmm_cuda LM {r['phase']} {r['shape']} route "
+            f"{r['route']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
             f"({r['library']}; kernel/library "
             f"{r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']}), x{r['count']} per {r['phase']}")
+            f"ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it), "
+            f"x{r['count']} per {r['phase']}")
     for ph in ("prefill", "decode"):
-        lib = sum(r["count"] * r["library_ms"] for r in k1_rows
-                  if r["phase"] == ph)
-        log(f"[time] mpmm_cuda LM per {ph}: kernel {k1[ph]:.2f} ms, library "
-            f"{lib:.2f} ms (kernel/library {k1[ph] / lib:.2f}x)")
+        tot = {key: sum(r["count"] * r[key] for r in k1_rows
+                        if r["phase"] == ph)
+               for key in ("library_ms", "plain_ms", "bound_ms")}
+        by_route = {rt: sum(r["count"] * r["ms"] for r in k1_rows
+                            if r["phase"] == ph and r["route"] == rt)
+                    for rt in ("wgmma", "splitk")}
+        log(f"[time] mpmm_cuda LM per {ph}: kernel {k1[ph]:.2f} ms (wgmma "
+            f"{by_route['wgmma']:.2f}, splitk {by_route['splitk']:.2f}), "
+            f"library {tot['library_ms']:.2f} ms (kernel/library "
+            f"{k1[ph] / tot['library_ms']:.2f}x; kernel below library: "
+            f"{k1[ph] < tot['library_ms']}), plain {tot['plain_ms']:.2f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms ({tot['bound_ms'] / k1[ph]:.1%} "
+            f"of it)  ({card})")
     k4_prefill = sum(r["count"] * r["ms"] for r in attn_rows
                      if r["kernel"] == "flash_fwd_packed_cuda")
     k3_layer = [r["ms"] for r in attn_rows if r["kernel"] == "flash_fwd_cuda"]

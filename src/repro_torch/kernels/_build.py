@@ -26,7 +26,8 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "nvcc_path", "build_all", "load"]
 _PKG = Path(__file__).resolve().parent
 # Kernel name -> its source, relative to this package.
 KERNEL_SOURCES: Dict[str, Path] = {
-    "mpmm": _PKG / "mpmm" / "csrc" / "mpmm.cu",
+    "mpmm_wgmma": _PKG / "mpmm" / "csrc" / "mpmm_wgmma.cu",
+    "mpmm_splitk": _PKG / "mpmm" / "csrc" / "mpmm_splitk.cu",
     "conv_mpmm": _PKG / "mpmm" / "csrc" / "conv_mpmm.cu",
     "flash_fwd": _PKG / "flashattn" / "csrc" / "flash_fwd.cu",
     "flash_fwd_packed": _PKG / "flashattn" / "csrc" / "flash_fwd_packed.cu",

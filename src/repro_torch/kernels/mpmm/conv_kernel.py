@@ -33,7 +33,10 @@ from repro_torch.kernels.mpmm.kernel import (check_common, check_operand,
                                              epilogue_flags, ptr,
                                              raise_on_error)
 
-__all__ = ["conv_mpmm_cuda", "conv_mpmm_torch"]
+__all__ = ["TILE", "conv_mpmm_cuda", "conv_mpmm_torch"]
+
+# The kernel's fixed (bm, bk, bn) tile (csrc/mpmm_common.cuh BM, BK, BN).
+TILE = (64, 32, 64)
 
 
 @functools.cache

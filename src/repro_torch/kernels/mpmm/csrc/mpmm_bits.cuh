@@ -1,0 +1,244 @@
+// Shared pieces of K1's two routes (mpmm_wgmma.cu, mpmm_splitk.cu): the bit
+// assembly that turns packed k-bit digit planes into int8 weight codes in
+// registers, the byte transpose that makes the codes K-contiguous per
+// column, the copy helpers, and the int8 warpgroup product.
+//
+// Storage format (repro_torch/core/packing.py; see mpmm_common.cuh): a w-bit
+// signed code is split into P = w/k planes of k-bit fields, lower planes
+// unsigned, the top plane the sign-carrying field.  Planes are uint8
+// (P, ceil(K/f), N), f = 8/k digits a byte along K, field index minor.
+//
+// Bit assembly, four columns at once: a 32-bit word read from a plane row
+// holds one byte of each of four neighbouring columns (N is the planes'
+// minor axis), so every operation below acts on four byte lanes.  Digit j
+// of a byte is (x >> k*(j % f)) & lane_mask; the planes are disjoint bit
+// fields of the code, so the w-bit code is the OR of each plane's field
+// shifted by k*p, and the int8 weight is that code sign-extended from w
+// bits, per lane: (u ^ s) - s with s = 2^(w-1) in every lane (__vsub4
+// subtracts lane by lane, without borrows across lanes).  This is
+// ref.combined_int8_weights bit for bit (tests/test_torch_mpmm_routes.py
+// holds a numpy twin of these operations against it).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "mpmm_common.cuh"
+
+namespace k1 {
+
+template <int W, int K>
+struct Format {
+  static_assert(K == 1 || K == 2 || K == 4 || K == 8, "k divides 8");
+  static_assert(W % K == 0 && W <= 8, "k divides w, w <= 8");
+  static constexpr int P = W / K;                 // planes
+  static constexpr int F = 8 / K;                 // digits a byte
+  static constexpr uint32_t LANE_MASK = 0x01010101u * ((1u << K) - 1u);
+};
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// Sign-extend each byte lane of `u` from BITS bits to 8.
+template <int BITS>
+__device__ __forceinline__ uint32_t sext_lanes(uint32_t u) {
+  if constexpr (BITS == 8) {
+    return u;
+  } else {
+    constexpr uint32_t s = 0x01010101u << (BITS - 1);
+    return __vsub4(u ^ s, s);
+  }
+}
+
+// Lane-wise field of digit j (0 <= j < R*F) of plane p, from the plane's
+// row words x[p][r] (row r holds digits r*F .. r*F + F - 1).
+template <int W, int K, int R>
+__device__ __forceinline__ uint32_t field(const uint32_t (&x)[W / K][R],
+                                          int p, int j) {
+  using Fm = Format<W, K>;
+  return (x[p][j / Fm::F] >> (K * (j % Fm::F))) & Fm::LANE_MASK;
+}
+
+// Sum-Together: the int8 weight codes of digit j, four columns a word.
+template <int W, int K, int R>
+__device__ __forceinline__ uint32_t code_word(const uint32_t (&x)[W / K][R],
+                                              int j) {
+  uint32_t u = 0;
+#pragma unroll
+  for (int p = 0; p < W / K; ++p) u |= field<W, K, R>(x, p, j) << (K * p);
+  return sext_lanes<W>(u);
+}
+
+// Sum-Apart: plane p's digits of position j as int8 (the top plane's
+// field sign-extended from k bits, the lower planes' unsigned).
+template <int W, int K, int R>
+__device__ __forceinline__ uint32_t digit_word(const uint32_t (&x)[W / K][R],
+                                               int p, int j) {
+  const uint32_t u = field<W, K, R>(x, p, j);
+  return p == W / K - 1 ? sext_lanes<K>(u) : u;
+}
+
+// 4 x 4 byte transpose: r[i] holds digit i of columns 0..3 (lane c =
+// column c); afterwards r[c] holds digits 0..3 of column c (lane i =
+// digit i), the K-contiguous order of dp4a and of wgmma's K-major operand.
+__device__ __forceinline__ void transpose4(uint32_t (&r)[4]) {
+  const uint32_t t0 = prmt(r[0], r[1], 0x5140);
+  const uint32_t t1 = prmt(r[0], r[1], 0x7362);
+  const uint32_t t2 = prmt(r[2], r[3], 0x5140);
+  const uint32_t t3 = prmt(r[2], r[3], 0x7362);
+  r[0] = prmt(t0, t2, 0x5410);
+  r[1] = prmt(t0, t2, 0x7632);
+  r[2] = prmt(t1, t3, 0x5410);
+  r[3] = prmt(t1, t3, 0x7632);
+}
+
+// --- epilogue -------------------------------------------------------------------
+
+// mpmm_common.cuh's epilogue_store up to the cast, op for op (zero-point
+// correction -> dequant -> BN -> residual -> ReLU, each step rounded once),
+// on operands the caller has loaded: route A loads a column's gamma,
+// colsum, scale and shift once for all the rows it stores, with read-only
+// loads that need not wait for the stores before them.
+__device__ __forceinline__ float epilogue_value(int acc, int act_zero,
+                                               int colsum, float gamma,
+                                               int flags, float scale,
+                                               float shift, float res) {
+  const int corrected = acc + act_zero * colsum;
+  float y = __fmul_rn(__int2float_rn(corrected), gamma);
+  if (flags & mpmm::EPI_BN) y = __fmaf_rn(y, scale, shift);
+  if (flags & mpmm::EPI_RESIDUAL) y = __fadd_rn(y, res);
+  if (flags & mpmm::EPI_RELU) y = fmaxf(y, 0.0f);
+  return y;
+}
+
+// Residual element idx (f32 or bf16), read-only.
+__device__ __forceinline__ float load_residual(const mpmm::Epilogue& e,
+                                               size_t idx) {
+  return (e.flags & mpmm::RES_BF16)
+             ? __bfloat162float(
+                   __ldg(static_cast<const __nv_bfloat16*>(e.residual) + idx))
+             : __ldg(static_cast<const float*>(e.residual) + idx);
+}
+
+// --- copies ------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous 16-byte global -> shared copy; `valid` false writes zeros
+// (src-size 0, src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// --- int8 warpgroup products (wgmma, sm_90a) ----------------------------------
+
+// Four warps issue one asynchronous product of 64 rows; warp w of the group
+// owns rows 16w .. 16w + 15 of it.  The int32 accumulator of m64nNk32 has
+// the f32 layout of m64nNk16: register 4j + 2i + c of lane l holds row
+// l/4 + 8i, column 8j + 2(l%4) + c.  Both operands are read from shared
+// memory through descriptors and, for 8-bit types, must be K-major.
+namespace wg {
+
+// Shared-memory matrix descriptor for a K-major operand in 128-byte-swizzled
+// rows (row r's 16-byte chunk c at c ^ (r % 8), 8-row groups 1024 bytes
+// apart, tile 1024-aligned).  Advancing the start address by 32 bytes steps
+// one k32 slice along the row.
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Offset in bytes of byte `k` (0 .. 127) of row `row` in that layout.
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * 128 + ((((k >> 4) ^ row) & 7) << 4) + (k & 15);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Generic-proxy shared-memory writes (cp.async, st.shared) before reads by
+// the async proxy (wgmma): each writer fences before the barrier.
+__device__ __forceinline__ void fence_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// After wait0: keep the finished product's registers where it wrote them.
+__device__ __forceinline__ void pin(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 128, s32) = A . B^T (+ d when `accumulate`): A (64 x 32) and B
+// (128 x 32) s8, both K-major in shared memory.
+__device__ __forceinline__ void mma_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+}  // namespace wg
+
+// Raise the dynamic shared-memory limit of KERNEL, then launch it.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
+           cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace k1
+
+// Instantiate KERNEL<W, K, ...> for every weight format (w in 1/2/4/8, k
+// dividing 8, k <= w) and launch it through k1::launch; an unsupported
+// format returns cudaErrorInvalidValue without launching.
+#define K1_FORMAT_CASE(W, K, LAUNCH) \
+  case W * 16 + K: return LAUNCH(W, K);
+#define K1_DISPATCH(w_bits, k_bits, LAUNCH)                                  \
+  switch ((w_bits) * 16 + (k_bits)) {                                        \
+    K1_FORMAT_CASE(1, 1, LAUNCH)                                             \
+    K1_FORMAT_CASE(2, 1, LAUNCH)                                             \
+    K1_FORMAT_CASE(2, 2, LAUNCH)                                             \
+    K1_FORMAT_CASE(4, 1, LAUNCH)                                             \
+    K1_FORMAT_CASE(4, 2, LAUNCH)                                             \
+    K1_FORMAT_CASE(4, 4, LAUNCH)                                             \
+    K1_FORMAT_CASE(8, 1, LAUNCH)                                             \
+    K1_FORMAT_CASE(8, 2, LAUNCH)                                             \
+    K1_FORMAT_CASE(8, 4, LAUNCH)                                             \
+    K1_FORMAT_CASE(8, 8, LAUNCH)                                             \
+    default: return static_cast<int>(cudaErrorInvalidValue);                 \
+  }

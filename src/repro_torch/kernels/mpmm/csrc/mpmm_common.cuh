@@ -1,6 +1,7 @@
-// Shared pieces of the two mixed-precision kernels (mpmm.cu, conv_mpmm.cu):
-// the fixed tile, the in-shared-memory decode of packed k-bit digit planes,
-// the int8 dot-product inner loop, and the fused f32 epilogue.
+// Pieces of the mixed-precision kernels: K2's (conv_mpmm.cu) fixed tile,
+// in-shared-memory decode of packed k-bit digit planes and int8 dot-product
+// inner loop, and the fused f32 epilogue that K2 and both routes of K1
+// (mpmm_wgmma.cu, mpmm_splitk.cu) share.
 //
 // Storage format (repro_torch/core/packing.py): a w-bit signed weight code
 // is split into P = ceil(w/k) k-bit digit planes, lower planes unsigned, the

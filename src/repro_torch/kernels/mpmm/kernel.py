@@ -1,14 +1,27 @@
 """K1: the mixed-precision matmul kernel and its plain PyTorch version.
 
-``mpmm_cuda`` wraps the hand-written CUDA kernel ``csrc/mpmm.cu``, which
-replaces the Pallas TPU kernel ``repro.kernels.mpmm.kernel.mpmm_pallas``:
+``mpmm_cuda`` wraps K1, which replaces the Pallas TPU kernel
+``repro.kernels.mpmm.kernel.mpmm_pallas``:
 
     y[M, N] = epilogue(gamma * ((a_biased @ W_int) + act_zero * colsum))
 
 with ``a_biased`` int8 (M, K) and ``W_int`` decoded in the kernel from the
-packed uint8 digit planes (P, ceil(K/f), N).  ``variant='st'`` shift-adds
-the planes into one int32 accumulator, ``'sa'`` keeps one per plane and
-combines them in the epilogue; both give the same integers.
+packed uint8 digit planes (P, ceil(K/f), N), read as stored: no copy of the
+weights in another format is made.  K1 has two hand-written CUDA routes,
+picked from the shape by ``mpmm_route``:
+
+  * ``wgmma`` (``csrc/mpmm_wgmma.cu``, M > 16): int8 tensor-core products
+    over 256 x 128 output tiles (``TILE``), the planes decoded into int8
+    weights in shared memory while the previous K-step's products run;
+  * ``splitk`` (``csrc/mpmm_splitk.cu``, M <= 16): K cut into byte-aligned
+    chunks across blocks (``split_plan``), the planes streamed with vector
+    loads and decoded in registers, ``__dp4a`` products, int32 partials in
+    a workspace added in a fixed order by a second kernel.
+
+``variant='st'`` turns the planes into one int8 operand (one product
+whatever P is); ``'sa'`` runs one product per plane and shift-adds them.
+Both give the same integers, so both routes are bitwise equal to the plain
+version.  Neither route falls back to the other or to the plain version.
 
 ``mpmm_torch`` is the plain version (the twin of the JAX package's
 ``ops._xla_impl``): one exact integer product against the recombined int8
@@ -16,14 +29,17 @@ weights, then ``epilogue.finish``.  The CPU tests hold it against the JAX
 package, and ``chip_smoke.py`` holds the kernel against it on the card.
 
 The wrapper checks device, dtype, shape and contiguity and raises on
-anything the kernel does not take; it never falls back to the plain
-version.  ``mpmm_cuda.launches`` counts the kernel's launches.
+anything the kernel does not take.  ``mpmm_cuda.launches`` counts calls of
+K1 (a split-K call is one, though it launches two CUDA kernels), and
+``mpmm_cuda.routes`` counts them by route.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional, Sequence
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,10 +49,22 @@ from repro_torch.kernels.mpmm import epilogue as _epi
 from repro_torch.kernels.mpmm import ref as _ref
 from repro_torch.kernels.mpmm.epilogue import EpilogueSpec
 
-__all__ = ["TILE", "mpmm_cuda", "mpmm_torch", "epilogue_flags"]
+__all__ = ["TILE", "ROUTES", "SPLITK_MAX_M", "SplitPlan", "mpmm_route",
+           "split_plan", "workspace_bytes", "mpmm_cuda", "mpmm_torch",
+           "epilogue_flags"]
 
-# The kernel's fixed (bm, bk, bn) tile (csrc/mpmm_common.cuh BM, BK, BN).
-TILE = (64, 32, 64)
+# Route A's fixed (bm, bk, bn) tile under Sum-Together (csrc/mpmm_wgmma.cu
+# Smem<2>::BM, BK, BN; Sum-Apart runs bm = 128).
+TILE = (256, 128, 128)
+
+ROUTES = ("wgmma", "splitk")
+# Route B takes M <= SPLITK_MAX_M rows (csrc/mpmm_splitk.cu: 4 rows x 16
+# columns a thread up to M = 4, 16 x 8 above).
+SPLITK_MAX_M = 16
+SPLITK_WARPS = 8                # warps a block; each takes a digit group
+SPLITK_TARGET_BLOCKS = 4 * 132  # four blocks for each of the H100's SMs
+SPLITK_MIN_GROUPS = 2           # digit groups a warp at least
+SPLITK_MAX_CHUNK_DIGITS = 2048  # csrc/mpmm_splitk.cu MAX_CHUNK_DIGITS
 
 # Epilogue flag bits, as csrc/mpmm_common.cuh defines them.
 EPI_BN, EPI_RESIDUAL, EPI_RELU, RES_BF16, OUT_BF16 = 1, 2, 4, 8, 16
@@ -114,10 +142,89 @@ def raise_on_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def mpmm_route(m: int, kdim: int, n: int) -> str:
+    """K1's route for an (M, K) x (K, N) product: ``splitk`` for M <= 16
+    (decode, the LM head, the ResNet classifier: too few rows for a
+    64-row tensor-core tile, so the parallelism has to come from K),
+    ``wgmma`` above.  K and N do not change the choice."""
+    del kdim, n
+    return "splitk" if m <= SPLITK_MAX_M else "wgmma"
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """Route B's cut of K: ``splits`` chunks of ``chunk_bytes`` packed
+    bytes (the last one shorter), one per grid row of blocks."""
+
+    chunk_bytes: int
+    splits: int
+
+    def byte_ranges(self, fmt: PlaneFormat) -> List[Tuple[int, int]]:
+        """[start, end) of each chunk in packed bytes of a plane row."""
+        kp = fmt.packed_k
+        return [(s * self.chunk_bytes, min((s + 1) * self.chunk_bytes, kp))
+                for s in range(self.splits)]
+
+    def digit_ranges(self, fmt: PlaneFormat) -> List[Tuple[int, int]]:
+        """[start, end) of each chunk in digits of K."""
+        f = fmt.digits_per_byte
+        return [(b0 * f, min(b1 * f, fmt.k_dim))
+                for b0, b1 in self.byte_ranges(fmt)]
+
+
+def _group_rows(fmt: PlaneFormat) -> int:
+    """Packed rows of a plane in one digit group of route B (4 digits, 8
+    for k = 1): csrc/mpmm_splitk.cu Group::ROWS."""
+    return max(1, 4 // fmt.digits_per_byte)
+
+
+def strip_cols(m: int) -> int:
+    """Columns of a route-B block: 32 threads x 16 columns (8 at M > 4)."""
+    return 32 * (16 if m <= 4 else 8)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, kdim: int, n: int, fmt: PlaneFormat) -> SplitPlan:
+    """Route B's split of K for an (M, K) x (K, N) product.
+
+    Chunks start on whole packed bytes, are whole digit groups for each of
+    the block's eight warps (a multiple of ``_group_rows``), hold at most
+    ``SPLITK_MAX_CHUNK_DIGITS`` digits (the activation rows staged in
+    shared memory) and at least ``SPLITK_MIN_GROUPS`` groups a warp, and
+    are as many as fill ``SPLITK_TARGET_BLOCKS`` blocks with the N strips.
+    They cover K exactly and none is empty.
+    """
+    if kdim != fmt.k_dim:
+        raise ValueError(f"K={kdim} but the format says {fmt.k_dim}")
+    f = fmt.digits_per_byte
+    kp = fmt.packed_k
+    unit = SPLITK_WARPS * _group_rows(fmt)
+    strips = math.ceil(n / strip_cols(m))
+    want = max(1, math.ceil(SPLITK_TARGET_BLOCKS / strips))
+    chunk = max(math.ceil(kp / want), SPLITK_MIN_GROUPS * unit)
+    chunk = math.ceil(chunk / unit) * unit
+    chunk = min(chunk, SPLITK_MAX_CHUNK_DIGITS // f // unit * unit)
+    return SplitPlan(chunk_bytes=chunk, splits=math.ceil(kp / chunk))
+
+
+def workspace_bytes(m: int, kdim: int, n: int, fmt: PlaneFormat) -> int:
+    """Device bytes a K1 call allocates beside its output: route B's int32
+    partials, one per (split, row, column); route A none."""
+    if mpmm_route(m, kdim, n) == "wgmma":
+        return 0
+    return split_plan(m, kdim, n, fmt).splits * m * n * 4
+
+
 @functools.cache
-def _launcher():
-    fn = _build.load("mpmm").mpmm_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+def _launcher(route: str):
+    if route == "wgmma":
+        fn = _build.load("mpmm_wgmma").mpmm_launch
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+    else:
+        fn = _build.load("mpmm_splitk").mpmm_splitk_launch
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -136,6 +243,7 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
     gamma f32 and colsum int32 with N values; scale/shift f32 with N values
     when ``epilogue.bn``; residual (M, N) f32 or bf16 when
     ``epilogue.residual``.  Ragged M, N and K are masked in the kernel.
+    The route is ``mpmm_route(M, K, N)``.
     """
     _epi.validate_operands(epilogue, scale, shift, residual)
     out_dtype = _epi.resolve_out_dtype(epilogue, out_dtype)
@@ -154,19 +262,30 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=device)
     if m == 0 or n == 0:
         return out
+    route = mpmm_route(m, kdim, n)
+    fmt_args = (fmt.packed_k, fmt.planes, fmt.k, fmt.w_bits, act_zero,
+                int(variant == "sa"),
+                epilogue_flags(epilogue, residual, out_dtype))
+    operands = (ptr(a_biased), ptr(planes), ptr(gamma), ptr(colsum),
+                ptr(scale), ptr(shift), ptr(residual), ptr(out))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            ptr(a_biased), ptr(planes), ptr(gamma), ptr(colsum), ptr(scale),
-            ptr(shift), ptr(residual), ptr(out), m, n, kdim, fmt.packed_k,
-            fmt.planes, fmt.k, fmt.w_bits, act_zero, int(variant == "sa"),
-            epilogue_flags(epilogue, residual, out_dtype), stream)
-    raise_on_error("mpmm_cuda", err)
+        if route == "wgmma":
+            err = _launcher(route)(*operands, m, n, kdim, *fmt_args, stream)
+        else:
+            plan = split_plan(m, kdim, n, fmt)
+            ws = torch.empty((plan.splits, m, n), dtype=torch.int32,
+                             device=device)
+            err = _launcher(route)(*operands, ptr(ws), m, n, kdim, *fmt_args,
+                                   plan.chunk_bytes, plan.splits, stream)
+    raise_on_error(f"mpmm_cuda ({route})", err)
     mpmm_cuda.launches += 1
+    mpmm_cuda.routes[route] += 1
     return out
 
 
 mpmm_cuda.launches = 0
+mpmm_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 def mpmm_torch(a_biased: torch.Tensor, planes: torch.Tensor,

@@ -12,9 +12,10 @@ Implementations, all bit-exact to ``ref.mpmm_ref`` / ``ref.conv_ref``:
                device.
   * ``auto``:  ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.
 
-The kernels run one fixed tile (``kernel.TILE``); the DSE autotuner waits
-for a Hopper cost model, so a ``tile``/``bn`` other than the kernel's
-raises instead of being ignored.
+Each kernel runs one fixed tile (K1's tensor-core route ``kernel.TILE``,
+K2 ``conv_kernel.TILE``); the DSE autotuner waits for a Hopper cost model,
+so a ``tile``/``bn`` other than the kernel's raises instead of being
+ignored.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ IMPLS = ("auto", "cuda", "torch")
 
 @dataclasses.dataclass(frozen=True)
 class TileShape:
-    """Kernel tile (bm, bk, bn); the kernels take only ``kernel.TILE``."""
+    """K1's tile (bm, bk, bn); the kernel takes only ``kernel.TILE``."""
 
     bm: int = _kernel.TILE[0]
     bk: int = _kernel.TILE[1]
@@ -176,9 +177,9 @@ def conv_mpmm(a_biased: torch.Tensor, planes: torch.Tensor,
     and launches K2; ``torch`` runs the plain direct conv.
     """
     _epi.validate_operands(epilogue, scale, shift, residual)
-    if bn is not None and bn != _kernel.TILE[2]:
+    if bn is not None and bn != _conv_kernel.TILE[2]:
         raise ValueError(f"the conv kernel runs the fixed N tile "
-                         f"{_kernel.TILE[2]}, got bn={bn}")
+                         f"{_conv_kernel.TILE[2]}, got bn={bn}")
     if _resolve_impl(impl, a_biased) == "torch":
         return _conv_kernel.conv_mpmm_torch(
             a_biased, planes, gamma, colsum, fmt=fmt, act_zero=act_zero,

@@ -105,6 +105,106 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                          colsum.to(cuda_device), fmt=fmt, act_zero=128)
 
 
+# --- K1's two routes -----------------------------------------------------------
+
+K1_FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8) if k <= w]
+
+
+def _k1_case(gen, m, kdim, n, w_bits, k, variant, out_dtype=torch.bfloat16):
+    fmt, planes, gamma, colsum = _weights(gen, kdim, n, w_bits, k)
+    spec, epi = _epilogue(gen, (m, n))
+    cpu = dict(a_biased=torch.randint(-128, 128, (m, kdim), generator=gen,
+                                      dtype=torch.int32).to(torch.int8),
+               planes=planes, gamma=gamma, colsum=colsum, **epi)
+    kw = dict(fmt=fmt, act_zero=128, variant=variant, out_dtype=out_dtype,
+              epilogue=spec)
+    return cpu, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["st", "sa"])
+@pytest.mark.parametrize("w_bits,k", K1_FORMATS)
+@pytest.mark.parametrize("m,kdim,n", [
+    (3, 147, 70),     # route B, ragged K and N (byte loads)
+    (13, 147, 70),    # route B, 16 rows a thread
+    (77, 147, 70),    # route A, ragged everything (byte loads)
+    (4, 256, 192),    # route B, vector loads
+    (130, 384, 192),  # route A, cp.async, ragged M and N tiles
+])
+def test_mpmm_cuda_routes_match_plain(cuda_device, m, kdim, n, w_bits, k,
+                                      variant):
+    gen = torch.Generator().manual_seed(m * 1000 + w_bits * 8 + k)
+    cpu, kw = _k1_case(gen, m, kdim, n, w_bits, k, variant)
+    route = kernel.mpmm_route(m, kdim, n)
+    before = dict(kernel.mpmm_cuda.routes)
+    got = kernel.mpmm_cuda(**_to(cpu, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert kernel.mpmm_cuda.routes[route] == before[route] + 1
+    assert torch.equal(got.cpu(), kernel.mpmm_torch(**cpu, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,route", [(16, "splitk"), (17, "wgmma")])
+def test_mpmm_cuda_route_boundary(cuda_device, m, route):
+    gen = torch.Generator().manual_seed(m)
+    cpu, kw = _k1_case(gen, m, 512, 256, 8, 4, "st", torch.float32)
+    launches = kernel.mpmm_cuda.launches
+    routes = dict(kernel.mpmm_cuda.routes)
+    got = kernel.mpmm_cuda(**_to(cpu, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert kernel.mpmm_cuda.launches == launches + 1
+    assert kernel.mpmm_cuda.routes == dict(routes, **{route: routes[route] + 1})
+    assert torch.equal(got.cpu(), kernel.mpmm_torch(**cpu, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 4000])
+def test_mpmm_cuda_granite_down_projection(cuda_device, m):
+    """granite-8b's w8k4 MLP down projection (K 14336, N 4096) at the decode
+    and prefill row counts, against the plain version on the card (its
+    float64 integer product is exact there too)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    kdim, n = 14336, 4096
+    fmt = packing.PlaneFormat(w_bits=8, k=4, k_dim=kdim)
+    w_int = torch.randint(-128, 128, (kdim, n), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    planes = packing.pack_planes(w_int, fmt)
+    args = dict(
+        a_biased=torch.randint(-128, 128, (m, kdim), generator=gen,
+                               device=cuda_device,
+                               dtype=torch.int32).to(torch.int8),
+        planes=planes,
+        gamma=torch.rand((1, n), generator=gen, device=cuda_device) * 1e-3,
+        colsum=w_int.sum(0, dtype=torch.int32).reshape(1, n))
+    del w_int
+    kw = dict(fmt=fmt, act_zero=128, out_dtype=torch.bfloat16)
+    got = kernel.mpmm_cuda(**args, **kw)
+    want = kernel.mpmm_torch(**args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 300])
+def test_mpmm_cuda_allocates_only_output_and_workspace(cuda_device, m):
+    """No copy of the weights in another format: a call's peak allocation
+    is its output plus the declared workspace (allocator-rounded)."""
+    gen = torch.Generator().manual_seed(m)
+    cpu, kw = _k1_case(gen, m, 4096, 2048, 8, 4, "st")
+    dev = _to(cpu, cuda_device)
+    kernel.mpmm_cuda(**dev, **kw)  # build and load first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = kernel.mpmm_cuda(**dev, **kw)
+    torch.cuda.synchronize()
+    ws = kernel.workspace_bytes(m, 4096, 2048, kw["fmt"])
+    rounded = lambda b: -(-b // 512) * 512  # noqa: E731
+    assert torch.cuda.max_memory_allocated() - base <= (
+        rounded(out.numel() * out.element_size()) + rounded(ws))
+    assert (ws == 0) == (kernel.mpmm_route(m, 4096, 2048) == "wgmma")
+
+
 # --- K3 / K4: flash attention -------------------------------------------------
 
 from repro_torch.kernels.flashattn import kernel as fkernel  # noqa: E402

@@ -188,7 +188,7 @@ def test_fixed_tile_is_enforced():
     args = (a, _t(planes), _t(gamma), _t(colsum))
     ops.mpmm(*args, fmt=fmt, tile=ops.TileShape())
     with pytest.raises(ValueError, match="fixed tile"):
-        ops.mpmm(*args, fmt=fmt, tile=ops.TileShape(bm=128))
+        ops.mpmm(*args, fmt=fmt, tile=ops.TileShape(bm=kernel.TILE[0] * 2))
     with pytest.raises(ValueError, match="fixed N tile"):
         ops.conv_mpmm(a.reshape(1, 2, 2, 16), _t(planes), _t(gamma),
                       _t(colsum), fmt=fmt, kh=1, kw=1, bn=128)

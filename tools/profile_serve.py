@@ -95,7 +95,7 @@ def main() -> int:
             us = e.self_device_time_total / REPS
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
         device_ms = sum(by_name.values())
-        ours = {k: v for k, v in by_name.items() if "mpmm_kernel" in k}
+        ours = {k: v for k, v in by_name.items() if "mpmm" in k}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         row = {
             "predict_ms": predict_ms, "forward_ms": forward_ms,
