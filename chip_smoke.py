@@ -15,8 +15,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ragged M/N/K, an int32-accumulator check; the ResNet serve path's own
    shapes (stem as im2col, classifier); and granite-8b's prefill and decode
    shapes, held against the plain version run on the card.
-3. K2 (``conv_mpmm_cuda``) against ``conv_mpmm_torch`` at every ResNet-18
-   conv shape at batch 8 with the path's epilogue, and at batch 2 with
+3. K2 (``conv_mpmm_cuda``, int8 tensor cores, padding in the kernel)
+   against ``conv_mpmm_torch`` at every ResNet-18 conv shape, both on the
+   unpadded input: at batches 8 and 1 with the path's epilogue (batch 1
+   runs the split plans of ``conv_kernel.conv_plan``), and at batch 2 with
    Sum-Apart and the residual epilogue.
 4. ResNet end to end: full-width ResNet-18 (224x224, width 64, 1000
    classes) with random weights from a seeded generator, packed under
@@ -25,10 +27,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    counters must show K1 twice (the stem on ``wgmma``, the classifier on
    ``splitk``) and K2 19 times per bucket call; the logits are compared
    with the same forward through the plain versions.
-5. ResNet timing at the serve path's shapes (batch 8): each kernel, its
-   plain version, one PyTorch library call for the same product, and the
-   bound (the larger of bytes over 3.35 TB/s and int8 operations over
-   1979 TOP/s, the H100 SXM data-sheet peaks); frames/s per bucket.
+5. ResNet timing at the serve path's shapes (K1 at batch 8, K2 at
+   batches 8 and 1): each kernel, its plain version, one PyTorch library
+   call for the same product (K2: ``F.conv2d`` in f32, TF32 off,
+   channels_last, on the padded input) and the bound (the larger of bytes
+   over 3.35 TB/s and int8 operations over 1979 TOP/s, the H100 SXM
+   data-sheet peaks), K2's rows with their plan (N tile, splits, blocks);
+   frames/s per bucket.  K2 and ``F.conv2d`` are timed as device time:
+   calls captured in a CUDA graph and replayed between CUDA events
+   (``Smoke.graph_ms``); K2 is also timed call by call, where the host's
+   cost of a call sets the time.
 6. K3 (``flash_fwd_cuda``) against ``flash_fwd_torch`` at granite-8b's
    attention shapes (B 4, H 32, KV 8, D 128, bf16): causal at Sq = Sk of
    1000 and 1024, a 256 window, q_offset continuations (Sq 8 and the
@@ -103,6 +111,7 @@ PLAN = ROOT / "examples" / "plans" / "resnet18_mixed.json"
 BUCKETS = (1, 2, 4, 8)
 REQUESTS = (1, 3, 8, 13)
 TIME_BATCH = 8      # batch of the timed path shapes (the largest bucket)
+SMALL_BATCH = 1     # K2's other checked and timed batch (split plans)
 CHECK_BATCH = 2     # batch of K2's extra (Sum-Apart, residual) checks
 SEED = 0
 E2E_LOGIT_TOL = 0.02
@@ -217,6 +226,34 @@ class Smoke:
         t.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def graph_ms(self, fn, reps=20, warmup=3):
+        """Device time of one call, back to back without the host: ``reps``
+        calls captured in a CUDA graph (on a stream of their own, warmed up
+        there first), the graph replayed between CUDA events; L2-warm."""
+        t = self.torch
+        if not hasattr(self, "graph_stream"):
+            self.graph_stream = t.cuda.Stream(self.device)
+        s = self.graph_stream
+        s.wait_stream(t.cuda.current_stream())
+        with t.cuda.stream(s):
+            for _ in range(warmup):
+                fn()
+        s.synchronize()
+        g = t.cuda.CUDAGraph()
+        with t.cuda.graph(g, stream=s):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        t.cuda.synchronize()
+        start = t.cuda.Event(enable_timing=True)
+        end = t.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        t.cuda.synchronize()
+        del g
+        return start.elapsed_time(end) / reps
+
 
 # --- phase 2: K1 -----------------------------------------------------------
 
@@ -325,31 +362,32 @@ def resnet_convs(cfg, plan):
 
 
 def k2_call(sm, batch, conv, epi, variant):
-    from repro_torch.kernels.mpmm import ref
+    """A K2 call at one of the path's convs: CPU and device operands (the
+    unpadded input) and its keywords."""
     name, cin, cout, kk, stride, h, w_bits, k, _ = conv
     fmt, planes, gamma, colsum = sm.weights(kk * kk * cin, cout, w_bits, k)
     ho = -(-h // stride)
     spec, ops = sm.epilogue(epi, (batch, ho, ho, cout), sm.torch.bfloat16)
-    a = sm.codes((batch, h, h, cin))
     kw = dict(fmt=fmt, act_zero=128, kh=kk, kw=kk, stride=stride,
-              variant=variant, out_dtype=sm.torch.bfloat16, epilogue=spec)
-    cpu = dict(a_biased=a, planes=planes, gamma=gamma, colsum=colsum, **ops)
-    xp = ref.pad_spatial(a, kk, kk, stride, "SAME", fill=-128)
-    dev = sm.on_device(dict(cpu, a_biased=xp.contiguous()))
-    dev["x_padded"] = dev.pop("a_biased")
-    return cpu, dev, kw, (ho, ho)
+              padding="SAME", variant=variant, out_dtype=sm.torch.bfloat16,
+              epilogue=spec)
+    cpu = dict(a_biased=sm.codes((batch, h, h, cin)), planes=planes,
+               gamma=gamma, colsum=colsum, **ops)
+    return cpu, sm.on_device(cpu), kw
 
 
 def phase_k2(sm, convs):
-    """Each conv at the path's batch with its path epilogue, and at a small
-    batch with Sum-Apart and the residual epilogue."""
+    """Each conv at the path's batch and at batch 1 with its path
+    epilogue, and at a small batch with Sum-Apart and the residual
+    epilogue."""
     from repro_torch.kernels.mpmm import conv_kernel
     for conv in convs:
         for batch, epi, variant in ((TIME_BATCH, conv[-1], "st"),
+                                    (SMALL_BATCH, conv[-1], "st"),
                                     (CHECK_BATCH, "bn_res_relu", "sa")):
-            cpu, dev, kw, out_hw = k2_call(sm, batch, conv, epi, variant)
-            got = conv_kernel.conv_mpmm_cuda(**dev, **kw, out_hw=out_hw)
-            want = conv_kernel.conv_mpmm_torch(**cpu, **kw, padding="SAME")
+            cpu, dev, kw = k2_call(sm, batch, conv, epi, variant)
+            got = conv_kernel.conv_mpmm_cuda(**dev, **kw)
+            want = conv_kernel.conv_mpmm_torch(**cpu, **kw)
             sm.compare("conv_mpmm_cuda",
                        f"K2 {conv[0]} B={batch} {epi} {variant}", got, want)
     sm.check_phase("K2 conv_mpmm_cuda vs conv_mpmm_torch")
@@ -495,7 +533,7 @@ def k1_library(sm, d, fmt):
 
 
 def measure(sm, path_k1, convs):
-    from repro_torch.kernels.mpmm import conv_kernel, kernel, ref
+    from repro_torch.kernels.mpmm import kernel
     t = sm.torch
     t.backends.cuda.matmul.allow_tf32 = False
     t.backends.cudnn.allow_tf32 = False
@@ -517,37 +555,72 @@ def measure(sm, path_k1, convs):
             "library_ms": sm.time_ms(lib), "library": lib_name,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": by,
             "ops": 2 * m * n * kdim})
-    for conv in convs:
-        cpu, dev, kw, out_hw = k2_call(sm, TIME_BATCH, conv, conv[-1], "st")
-        out = conv_kernel.conv_mpmm_cuda(**dev, **kw, out_hw=out_hw)
-        plain_args = dict(dev, a_biased=cpu["a_biased"].to(sm.device))
-        plain_args.pop("x_padded")
-        name, cin, cout, kk, stride = conv[:5]
-        xf = dev["x_padded"].permute(0, 3, 1, 2).float().contiguous(
-            memory_format=t.channels_last)
-        wf = (ref.combined_int8_weights(dev["planes"], kw["fmt"])
-              .reshape(kk, kk, cin, cout).permute(3, 2, 0, 1).float()
-              .contiguous(memory_format=t.channels_last))
-        m = out.shape[0] * out_hw[0] * out_hw[1]
-        kdim = kk * kk * cin
-        by = nbytes(dev["x_padded"], dev["planes"], dev["gamma"],
-                    dev["colsum"], dev.get("scale"), dev.get("shift"),
-                    dev.get("residual"), out)
-        b_ms, b_by = bound_ms(by, 2 * m * cout * kdim)
-        rows.append({
-            "kernel": "conv_mpmm_cuda", "layer": name,
-            "shape": (f"B={TIME_BATCH} H={conv[5]} C={cin} N={cout} "
-                      f"{kk}x{kk}/{stride} w{conv[6]}k{conv[7]} {conv[-1]}"),
-            "ms": sm.time_ms(lambda: conv_kernel.conv_mpmm_cuda(
-                **dev, **kw, out_hw=out_hw)),
-            "plain_ms": sm.time_ms(lambda: conv_kernel.conv_mpmm_torch(
-                **plain_args, **kw, padding="SAME")),
-            "library_ms": sm.time_ms(lambda: t.nn.functional.conv2d(
-                xf, wf, stride=stride)),
-            "library": "F.conv2d (f32, TF32 off, channels_last)",
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": by,
-            "ops": 2 * m * cout * kdim})
+    for batch in (TIME_BATCH, SMALL_BATCH):
+        rows += [measure_k2(sm, batch, conv) for conv in convs]
     return rows
+
+
+def measure_k2(sm, batch, conv):
+    """One K2 row: the kernel on the unpadded input, its plain version,
+    ``F.conv2d`` in f32 on the padded input, the bound and the plan.  The
+    kernel and ``F.conv2d`` are timed on the device (``graph_ms``): a K2
+    call costs the host more than the device (``call_ms``, call after
+    call), which would time the wrapper, not the kernel."""
+    from repro_torch.kernels.mpmm import conv_kernel, ref
+    t = sm.torch
+    _, dev, kw = k2_call(sm, batch, conv, conv[-1], "st")
+    out = conv_kernel.conv_mpmm_cuda(**dev, **kw)
+    name, cin, cout, kk, stride = conv[:5]
+    xp = ref.pad_spatial(dev["a_biased"], kk, kk, stride, "SAME", fill=-128)
+    xf = xp.permute(0, 3, 1, 2).float().contiguous(
+        memory_format=t.channels_last)
+    wf = (ref.combined_int8_weights(dev["planes"], kw["fmt"])
+          .reshape(kk, kk, cin, cout).permute(3, 2, 0, 1).float()
+          .contiguous(memory_format=t.channels_last))
+    _, ho, wo, _ = out.shape
+    m = batch * ho * wo
+    kdim = kk * kk * cin
+    plan = conv_kernel.conv_plan(batch, ho, wo, cout, kdim, kw["fmt"])
+    by = nbytes(dev["a_biased"], dev["planes"], dev["gamma"], dev["colsum"],
+                dev.get("scale"), dev.get("shift"), dev.get("residual"), out)
+    b_ms, b_by = bound_ms(by, 2 * m * cout * kdim)
+    return {
+        "kernel": "conv_mpmm_cuda", "layer": name, "batch": batch,
+        "shape": (f"B={batch} H={conv[5]} C={cin} N={cout} "
+                  f"{kk}x{kk}/{stride} w{conv[6]}k{conv[7]} {conv[-1]}"),
+        "plan": (f"tile {plan.bm}x{plan.bn}, {plan.splits} split(s) of "
+                 f"{plan.steps} K-step(s) ({plan.k_steps} in all), "
+                 f"{plan.blocks} blocks"),
+        "ms": sm.graph_ms(lambda: conv_kernel.conv_mpmm_cuda(**dev, **kw)),
+        "call_ms": sm.time_ms(lambda: conv_kernel.conv_mpmm_cuda(**dev,
+                                                                 **kw)),
+        "plain_ms": sm.time_ms(lambda: conv_kernel.conv_mpmm_torch(
+            **dev, **kw)),
+        "library_ms": sm.graph_ms(lambda: t.nn.functional.conv2d(
+            xf, wf, stride=stride)),
+        "library": "F.conv2d (f32, TF32 off, channels_last)",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": by,
+        "ops": 2 * m * cout * kdim}
+
+
+def k2_build_info(convs):
+    """[build] lines for the K2 instantiations the path runs: dynamic
+    shared memory and resident blocks an SM."""
+    from repro_torch.core.packing import PlaneFormat
+    from repro_torch.kernels.mpmm import conv_kernel
+    seen = set()
+    for conv in convs:
+        _, cin, cout, kk, _, _, w_bits, k, _ = conv
+        fmt = PlaneFormat(w_bits=w_bits, k=k, k_dim=kk * kk * cin)
+        for variant in ("st", "sa"):
+            key = (w_bits, k, variant, conv_kernel.n_tile(cout))
+            if key in seen:
+                continue
+            seen.add(key)
+            smem, blocks = conv_kernel.kernel_info(fmt, variant, key[3])
+            log(f"[build] conv_mpmm: w{w_bits}k{k} {variant} N tile "
+                f"{key[3]}: {smem} bytes of dynamic shared memory, {blocks} "
+                f"block(s) an SM")
 
 
 # --- phases 6-7: K3 and K4 -----------------------------------------------------
@@ -1047,13 +1120,15 @@ KERNELS = (
 
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
-    ResNet-18 forward; K3 and K4: over one prefill of the run that launched
-    them (per-layer rows times their layer counts).  ``launches`` sums the
-    main-path runs (ResNet, and the LM's two Generator runs); K1's entry
-    also counts them by route and names both route sources."""
+    ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
+    K4: over one prefill of the run that launched them (per-layer rows
+    times their layer counts).  ``launches`` sums the main-path runs
+    (ResNet, and the LM's two Generator runs); K1's entry also counts them
+    by route and names both route sources."""
     out = []
     for name, src, replaces in KERNELS:
-        rs = [r for r in rows if r["kernel"] == name]
+        rs = [r for r in rows if r["kernel"] == name
+              and r.get("batch", TIME_BATCH) == TIME_BATCH]
         w = [r.get("count", 1) for r in rs]
         by_bytes = sum(c * r["bound_ms"] for c, r in zip(w, rs)
                        if r["bound_by"] == "bytes")
@@ -1149,6 +1224,7 @@ def main() -> int:
     convs = resnet_convs(cfg, plan)
     if len(convs) != 19:
         raise SystemExit(f"expected 19 K2 convs, found {len(convs)}")
+    k2_build_info(convs)
 
     lm_plan = PrecisionPlan.load(LM_PLAN)
     phase_k1(sm, path_k1, lm_k1_calls(lm_api(None, lm_plan)))
@@ -1180,7 +1256,24 @@ def main() -> int:
             + f": kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)"
-            + (f", x{r['count']} per prefill" if "count" in r else ""))
+            + (f", x{r['count']} per prefill" if "count" in r else "")
+            + (f"; call by call {r['call_ms']:.4f} ms; {r['plan']}"
+               if "plan" in r else ""))
+    for batch in (TIME_BATCH, SMALL_BATCH):
+        k2 = [r for r in rows if r["kernel"] == "conv_mpmm_cuda"
+              and r["batch"] == batch]
+        tot = {key: sum(r[key] for r in k2)
+               for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                           "bound_ms")}
+        slower = [r["layer"] for r in k2 if r["ms"] > r["library_ms"]]
+        log(f"[time] conv_mpmm_cuda per batch-{batch} forward: kernel "
+            f"{tot['ms']:.4f} ms, F.conv2d f32 {tot['library_ms']:.4f} ms "
+            f"(kernel/library {tot['ms'] / tot['library_ms']:.2f}x; kernel "
+            f"below library: {tot['ms'] < tot['library_ms']}), plain "
+            f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['bound_ms'] / tot['ms']:.1%} of it), call by call "
+            f"{tot['call_ms']:.4f} ms; convs slower than "
+            f"F.conv2d: {slower or 'none'}  ({card})")
     k1 = {ph: sum(r["count"] * r["ms"] for r in k1_rows if r["phase"] == ph)
           for ph in ("prefill", "decode")}
     for r in k1_rows:

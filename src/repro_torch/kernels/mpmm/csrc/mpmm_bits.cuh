@@ -1,7 +1,11 @@
-// Shared pieces of K1's two routes (mpmm_wgmma.cu, mpmm_splitk.cu): the bit
-// assembly that turns packed k-bit digit planes into int8 weight codes in
-// registers, the byte transpose that makes the codes K-contiguous per
-// column, the copy helpers, and the int8 warpgroup product.
+// Shared pieces of the mixed-precision kernels on int8 tensor cores (K1's
+// route A, mpmm_wgmma.cu, and K2, conv_mpmm.cu) and of K1's route B
+// (mpmm_splitk.cu): the bit assembly that turns packed k-bit digit planes
+// into int8 weight codes in registers, the byte transpose that makes the
+// codes K-contiguous per column, the copy helpers, the int8 warpgroup
+// products, and the tile pieces both tensor-core kernels run (the swizzled
+// stage of raw planes, its decode into the B tile, a K-step's products,
+// the epilogue from the accumulator registers).
 //
 // Storage format (repro_torch/core/packing.py; see mpmm_common.cuh): a w-bit
 // signed code is split into P = w/k planes of k-bit fields, lower planes
@@ -115,15 +119,6 @@ __device__ __forceinline__ float epilogue_value(int acc, int act_zero,
   return y;
 }
 
-// Residual element idx (f32 or bf16), read-only.
-__device__ __forceinline__ float load_residual(const mpmm::Epilogue& e,
-                                               size_t idx) {
-  return (e.flags & mpmm::RES_BF16)
-             ? __bfloat162float(
-                   __ldg(static_cast<const __nv_bfloat16*>(e.residual) + idx))
-             : __ldg(static_cast<const float*>(e.residual) + idx);
-}
-
 // --- copies ------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -188,9 +183,10 @@ __device__ __forceinline__ void fence_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // After wait0: keep the finished product's registers where it wrote them.
-__device__ __forceinline__ void pin(int (&d)[64]) {
+template <int NR>
+__device__ __forceinline__ void pin(int (&d)[NR]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 128, s32) = A . B^T (+ d when `accumulate`): A (64 x 32) and B
@@ -205,7 +201,250 @@ __device__ __forceinline__ void mma_s8(int (&d)[64], uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same product at 64 columns: d (64 x 64, s32), B (64 x 32).
+__device__ __forceinline__ void mma_s8_n64(int (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x BN) (+)= A . B^T at BN = 128 or 64 columns.
+template <int BN>
+__device__ __forceinline__ void mma(int (&d)[BN / 2], uint64_t da, uint64_t db,
+                                    int accumulate) {
+  static_assert(BN == 128 || BN == 64, "N tile 128 or 64");
+  if constexpr (BN == 128) {
+    mma_s8(d, da, db, accumulate);
+  } else {
+    mma_s8_n64(d, da, db, accumulate);
+  }
+}
+
 }  // namespace wg
+
+// --- tensor-core tile pieces (route A and K2) --------------------------------
+// A block of THREADS threads (two warpgroups) steps K by BK = 128 digits,
+// one 128-byte swizzle row of int8.  Its B tile holds BN (128 or 64)
+// weight columns as rows of BK digits, K-major and swizzled; the raw
+// packed planes of a K-step are staged as rows of BN bytes, one row per
+// packed byte of K.
+namespace tc {
+
+constexpr int BK = 128;
+constexpr int THREADS = 256;
+
+// Slot of the 16-byte chunk `c` (columns 16c .. 16c + 15) of packed row
+// `kb` of a stage: XORed with the 16-digit block the row belongs to, which
+// is what a decoding thread's lane index walks.
+template <int K, int BN>
+__device__ __forceinline__ int raw_off(int plane_row, int kb, int c) {
+  constexpr int F = 8 / K;
+  return plane_row * BN + (((c ^ (kb * F / 16)) & (BN / 16 - 1)) << 4);
+}
+
+// Decode one stage's packed bytes into the K-major B tile (row n = column
+// n of the weights, BK int8 digits, swizzled).  Thread (warp h, lane
+// 8a + b) takes the four columns 16(h % CG) + 4a .. + 3 and DIG = 2 CG
+// digits from (8 (h / CG) + b) DIG on (CG = BN/16 chunks of 16 columns: at
+// BN 128 each warp owns a chunk and a thread 16 digits, at BN 64 two warps
+// share a chunk and a thread takes 8).  It reads DIG/f words of each plane
+// it needs (4 columns a word), assembles DIG code words -- Sum-Together
+// codes, or under SA plane `plane`'s digits -- transposes them four by
+// four into column order and stores each column's DIG bytes at once.
+template <int W, int K, bool SA, int BN>
+__device__ __forceinline__ void decode_stage(const unsigned char* raw,
+                                             unsigned char* bt, int plane) {
+  using Fm = Format<W, K>;
+  constexpr int RR = BK / Fm::F;
+  constexpr int CG = BN / 16;
+  constexpr int DIG = 2 * CG;
+  constexpr int R = DIG / Fm::F;  // packed rows a thread reads per plane
+  constexpr int Q = DIG / 4;
+  constexpr int NP = SA ? 1 : Fm::P;
+  const int h = threadIdx.x >> 5;
+  const int ch = h % CG;
+  const int a = (threadIdx.x >> 3) & 3;
+  const int d0 = (8 * (h / CG) + (threadIdx.x & 7)) * DIG;
+  const int kb0 = d0 / Fm::F;
+  uint32_t x[NP][R];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int pl = SA ? plane : p;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int kb = kb0 + r;
+      x[p][r] = *reinterpret_cast<const uint32_t*>(
+          raw + raw_off<K, BN>(pl * RR + kb, kb, ch) + 4 * a);
+    }
+  }
+  uint32_t col[4][Q];  // col[c][q]: digits d0 + 4q .. + 3 of column c
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (SA) {  // one plane's digits; the top plane's signed
+        const uint32_t u = field<K, K, R>(x, 0, 4 * q + i);
+        w[i] = plane == Fm::P - 1 ? sext_lanes<K>(u) : u;
+      } else {
+        w[i] = code_word<W, K, R>(x, 4 * q + i);
+      }
+    }
+    transpose4(w);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) col[c][q] = w[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int n = 16 * ch + 4 * a + c;
+    unsigned char* dst =
+        bt + n * 128 + ((((d0 >> 4) ^ n) & 7) << 4) + (d0 & 15);
+    if constexpr (Q == 4) {
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(col[c][0], col[c][1], col[c][2], col[c][3]);
+    } else {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(col[c][0], col[c][1]);
+    }
+  }
+}
+
+// The k32 products of one K-step: acc[mi] (+)= rows (wgi * MI + mi) * 64
+// .. + 63 of A . B^T, A in 128-byte rows.
+template <int MI, int BN>
+__device__ __forceinline__ void mma_step(int (&acc)[MI][BN / 2],
+                                         const unsigned char* at,
+                                         const unsigned char* bt, int wgi,
+                                         bool first_zero) {
+  wg::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      wg::mma<BN>(acc[mi],
+                  wg::desc(at + (wgi * MI + mi) * 64 * 128 + 32 * kk),
+                  wg::desc(bt + 32 * kk), (first_zero && kk == 0) ? 0 : 1);
+    }
+  }
+  wg::commit();
+}
+
+// Finish and store a block's (128 MI) x BN tile from the accumulator
+// registers (rows m0 .., columns n0 .. of the (M, N) row-major output).
+// No load waits behind a branch or a store: the block first stages its
+// BN columns' gamma, colsum, scale and shift in `scratch` (4 BN words of
+// shared memory the products no longer use), then each thread loads the
+// residual of G column pairs of all its rows at once (addresses clamped
+// into the output, values past M or N unused) before it finishes those
+// elements through epilogue_value and stores each pair together.
+template <int MI, int BN>
+__device__ __forceinline__ void store_tile(const mpmm::Epilogue& e,
+                                           const int (&acc)[MI][BN / 2],
+                                           int m0, int n0, int M, int N,
+                                           unsigned char* scratch) {
+  constexpr int G = 8 / MI;  // column groups of 8 a residual batch
+  float* s_gamma = reinterpret_cast<float*>(scratch);
+  int* s_colsum = reinterpret_cast<int*>(s_gamma + BN);
+  float* s_scale = reinterpret_cast<float*>(s_colsum + BN);
+  float* s_shift = s_scale + BN;
+  const bool bn = e.flags & mpmm::EPI_BN;
+  const bool res = e.flags & mpmm::EPI_RESIDUAL;
+  const bool res_bf16 = e.flags & mpmm::RES_BF16;
+  __syncthreads();  // every thread is past its last product
+  for (int i = threadIdx.x; i < BN; i += THREADS) {
+    const int n = min(n0 + i, N - 1);
+    s_gamma[i] = __ldg(e.gamma + n);
+    s_colsum[i] = __ldg(e.colsum + n);
+    s_scale[i] = bn ? __ldg(e.scale + n) : 0.f;
+    s_shift[i] = bn ? __ldg(e.shift + n) : 0.f;
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int rbase = m0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int cbase = 2 * (lane & 3);  // first column of j = 0 in the tile
+  const bool pair_ok = (N % 2) == 0;  // pairs 4- or 8-byte aligned
+#pragma unroll
+  for (int j0 = 0; j0 < BN / 8; j0 += G) {
+    // element (mi, jj, i, c): row rbase + (wgi MI + mi) 64 + 8i, column
+    // n0 + cbase + 8 (j0 + jj) + c; its index, clamped into the output
+    auto at = [&](int mi, int jj, int i, int c) -> size_t {
+      const int m = rbase + (wgi * MI + mi) * 64 + 8 * i;
+      const int n = n0 + cbase + 8 * (j0 + jj) + c;
+      return (m < M && n < N) ? static_cast<size_t>(m) * N + n : 0;
+    };
+    float r[MI][G][2][2] = {};
+    if (res && res_bf16) {
+      const auto* rp = static_cast<const __nv_bfloat16*>(e.residual);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              r[mi][jj][i][c] =
+                  __bfloat162float(__ldg(rp + at(mi, jj, i, c)));
+    } else if (res) {
+      const auto* rp = static_cast<const float*>(e.residual);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              r[mi][jj][i][c] = __ldg(rp + at(mi, jj, i, c));
+    }
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) {
+      const int col = cbase + 8 * (j0 + jj);
+      const int n = n0 + col;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = rbase + (wgi * MI + mi) * 64 + 8 * i;
+          float y[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            y[c] = epilogue_value(acc[mi][4 * (j0 + jj) + 2 * i + c],
+                                  e.act_zero, s_colsum[col + c],
+                                  s_gamma[col + c], e.flags, s_scale[col + c],
+                                  s_shift[col + c], r[mi][jj][i][c]);
+          }
+          if (m >= M || n >= N) continue;
+          const size_t idx = static_cast<size_t>(m) * N + n;
+          if (e.flags & mpmm::OUT_BF16) {
+            auto* out = static_cast<__nv_bfloat16*>(e.out) + idx;
+            if (pair_ok) {
+              *reinterpret_cast<__nv_bfloat162*>(out) =
+                  __floats2bfloat162_rn(y[0], y[1]);
+            } else {
+              out[0] = __float2bfloat16_rn(y[0]);
+              if (n + 1 < N) out[1] = __float2bfloat16_rn(y[1]);
+            }
+          } else {
+            auto* out = static_cast<float*>(e.out) + idx;
+            if (pair_ok) {
+              *reinterpret_cast<float2*>(out) = make_float2(y[0], y[1]);
+            } else {
+              out[0] = y[0];
+              if (n + 1 < N) out[1] = y[1];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace tc
 
 // Raise the dynamic shared-memory limit of KERNEL, then launch it.
 template <typename Kernel, typename... Args>
@@ -225,20 +464,23 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
 
 // Instantiate KERNEL<W, K, ...> for every weight format (w in 1/2/4/8, k
 // dividing 8, k <= w) and launch it through k1::launch; an unsupported
-// format returns cudaErrorInvalidValue without launching.
+// format returns cudaErrorInvalidValue without launching.  K1_FORMATS
+// lists the formats, as CASE(W, K, LAUNCH) for each.
 #define K1_FORMAT_CASE(W, K, LAUNCH) \
   case W * 16 + K: return LAUNCH(W, K);
+#define K1_FORMATS(CASE, LAUNCH)                                             \
+  CASE(1, 1, LAUNCH)                                                         \
+  CASE(2, 1, LAUNCH)                                                         \
+  CASE(2, 2, LAUNCH)                                                         \
+  CASE(4, 1, LAUNCH)                                                         \
+  CASE(4, 2, LAUNCH)                                                         \
+  CASE(4, 4, LAUNCH)                                                         \
+  CASE(8, 1, LAUNCH)                                                         \
+  CASE(8, 2, LAUNCH)                                                         \
+  CASE(8, 4, LAUNCH)                                                         \
+  CASE(8, 8, LAUNCH)
 #define K1_DISPATCH(w_bits, k_bits, LAUNCH)                                  \
   switch ((w_bits) * 16 + (k_bits)) {                                        \
-    K1_FORMAT_CASE(1, 1, LAUNCH)                                             \
-    K1_FORMAT_CASE(2, 1, LAUNCH)                                             \
-    K1_FORMAT_CASE(2, 2, LAUNCH)                                             \
-    K1_FORMAT_CASE(4, 1, LAUNCH)                                             \
-    K1_FORMAT_CASE(4, 2, LAUNCH)                                             \
-    K1_FORMAT_CASE(4, 4, LAUNCH)                                             \
-    K1_FORMAT_CASE(8, 1, LAUNCH)                                             \
-    K1_FORMAT_CASE(8, 2, LAUNCH)                                             \
-    K1_FORMAT_CASE(8, 4, LAUNCH)                                             \
-    K1_FORMAT_CASE(8, 8, LAUNCH)                                             \
+    K1_FORMATS(K1_FORMAT_CASE, LAUNCH)                                       \
     default: return static_cast<int>(cudaErrorInvalidValue);                 \
   }

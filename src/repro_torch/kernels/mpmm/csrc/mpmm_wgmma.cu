@@ -44,8 +44,9 @@
 //   epilogue; nothing is read out of bounds.
 // - Epilogue: on the int32 accumulators in registers, mpmm_common.cuh's
 //   epilogue_store op for op (epilogue_value, the op order and rounding of
-//   kernels/mpmm/epilogue.py), with each column's operands loaded once for
-//   all the rows a thread holds and two columns stored together.
+//   kernels/mpmm/epilogue.py), with the tile's column operands staged in
+//   shared memory, the residual loaded in batches that wait on no branch
+//   or store, and two columns stored together (mpmm_bits.cuh store_tile).
 #include "mpmm_bits.cuh"
 
 namespace {
@@ -57,8 +58,8 @@ using namespace k1;
 // warpgroups owns MI products of 64 rows (MI = 2 under Sum-Together, 1
 // under Sum-Apart, whose per-plane products need a second accumulator).
 constexpr int BN = 128;
-constexpr int BK = 128;
-constexpr int THREADS = 256;
+constexpr int BK = tc::BK;
+constexpr int THREADS = tc::THREADS;
 constexpr int STAGES = 4;
 constexpr int TILE_BYTES = 128 * 128;  // 128 rows of BK int8, 16 KB
 
@@ -69,15 +70,6 @@ struct Smem {
   static constexpr int STAGE_BYTES = A_BYTES + TILE_BYTES;  // + packed bytes
   static constexpr size_t BYTES = STAGES * STAGE_BYTES + 2 * TILE_BYTES;
 };
-
-// Slot of the 16-byte chunk `c` (columns 16c .. 16c + 15) of packed row
-// `kb` (0 .. 16k - 1) of a stage: XORed with the 16-digit block the row
-// belongs to, which is what a decoding thread's lane index b walks.
-template <int K>
-__device__ __forceinline__ int raw_off(int plane_row, int kb, int c) {
-  constexpr int F = 8 / K;
-  return plane_row * 128 + ((c ^ ((kb * F / 16) & 7)) << 4);
-}
 
 // Load K-step t (digits t*BK ..) into ring slot `st`: the activation tile
 // (BM rows of BK codes) into the swizzled A layout, and BK/f packed rows of
@@ -110,7 +102,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
       const int p = row / RR, kb = row % RR;
       const int gb = kb0 + kb, gn = n0 + 16 * c;
       const bool ok = gb < kp && gn < N;
-      cp_async16(raw + raw_off<K>(row, kb, c),
+      cp_async16(raw + tc::raw_off<K, BN>(row, kb, c),
                  ok ? planes + (static_cast<size_t>(p) * kp + gb) * N + gn
                     : planes,
                  ok);
@@ -126,83 +118,12 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
       const int n = i % BN, row = i / BN;
       const int p = row / RR, kb = row % RR;
       const int gb = kb0 + kb, gn = n0 + n;
-      raw[raw_off<K>(row, kb, n >> 4) + (n & 15)] =
+      raw[tc::raw_off<K, BN>(row, kb, n >> 4) + (n & 15)] =
           (gb < kp && gn < N)
               ? planes[(static_cast<size_t>(p) * kp + gb) * N + gn]
               : 0;
     }
   }
-}
-
-// Decode one stage's packed bytes into the K-major B tile (row n = column
-// n of the weights, 128 int8 digits, swizzled).  Thread (warp h, lane
-// 8a + b) takes columns 16h + 4a .. + 3 and digits 16b .. 16b + 15: it
-// reads 2k words of each plane it needs (4 columns a word), assembles 16
-// code words -- Sum-Together codes, or under SA plane `plane`'s digits --
-// transposes them into four 16-byte column rows and stores each at chunk b.
-template <int W, int K, bool SA>
-__device__ __forceinline__ void decode_stage(const unsigned char* raw,
-                                             unsigned char* bt, int plane) {
-  using Fm = Format<W, K>;
-  constexpr int RR = BK / Fm::F;
-  constexpr int R = 2 * K;  // packed rows a thread reads per plane
-  constexpr int NP = SA ? 1 : Fm::P;
-  const int h = threadIdx.x >> 5;
-  const int a = (threadIdx.x >> 3) & 3;
-  const int b = threadIdx.x & 7;
-  uint32_t x[NP][R];
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    const int pl = SA ? plane : p;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int kb = b * R + r;
-      x[p][r] = *reinterpret_cast<const uint32_t*>(
-          raw + raw_off<K>(pl * RR + kb, kb, h) + 4 * a);
-    }
-  }
-  uint32_t col[4][4];  // col[c][q]: digits 16b + 4q .. + 3 of column c
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (SA) {  // one plane's digits; the top plane's signed
-        const uint32_t u = field<K, K, R>(x, 0, 4 * q + i);
-        w[i] = plane == Fm::P - 1 ? sext_lanes<K>(u) : u;
-      } else {
-        w[i] = code_word<W, K, R>(x, 4 * q + i);
-      }
-    }
-    transpose4(w);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) col[c][q] = w[c];
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int n = 16 * h + 4 * a + c;
-    *reinterpret_cast<uint4*>(bt + n * 128 + (((b ^ n) & 7) << 4)) =
-        make_uint4(col[c][0], col[c][1], col[c][2], col[c][3]);
-  }
-}
-
-// The k32 products of one K-step: acc[mi] (+)= rows (wgi * MI + mi) * 64
-// .. + 63 of A . B^T.
-template <int MI>
-__device__ __forceinline__ void mma_step(int (&acc)[MI][64],
-                                         const unsigned char* at,
-                                         const unsigned char* bt, int wgi,
-                                         bool first_zero) {
-  wg::fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      wg::mma_s8(acc[mi], wg::desc(at + (wgi * MI + mi) * 64 * 128 + 32 * kk),
-                 wg::desc(bt + 32 * kk), (first_zero && kk == 0) ? 0 : 1);
-    }
-  }
-  wg::commit();
 }
 
 template <int W, int K, bool SA>
@@ -243,18 +164,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_wait<STAGES - 2>();
     wg::fence_proxy();
     __syncthreads();
-    decode_stage<W, K, false>(slot(0) + A_BYTES, btile, 0);
+    tc::decode_stage<W, K, false, BN>(slot(0) + A_BYTES, btile, 0);
     wg::fence_proxy();
     __syncthreads();
     for (int t = 0; t < nk; ++t) {
-      mma_step(acc, slot(t), btile + (t & 1) * TILE_BYTES, wgi, false);
+      tc::mma_step<MI, BN>(acc, slot(t), btile + (t & 1) * TILE_BYTES, wgi,
+                           false);
       load(t + STAGES - 1);
       if (t + 1 < nk) {
         cp_wait<STAGES - 2>();
         wg::fence_proxy();
         __syncthreads();
-        decode_stage<W, K, false>(slot(t + 1) + A_BYTES,
-                                  btile + ((t + 1) & 1) * TILE_BYTES, 0);
+        tc::decode_stage<W, K, false, BN>(
+            slot(t + 1) + A_BYTES, btile + ((t + 1) & 1) * TILE_BYTES, 0);
         wg::fence_proxy();
       }
       wg::wait0();
@@ -273,10 +195,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
 #pragma unroll
       for (int p = 0; p < Fm::P; ++p) {
-        decode_stage<W, K, true>(slot(t) + A_BYTES, btile, p);
+        tc::decode_stage<W, K, true, BN>(slot(t) + A_BYTES, btile, p);
         wg::fence_proxy();
         __syncthreads();
-        mma_step<1>(tmp, slot(t), btile, wgi, true);
+        tc::mma_step<1, BN>(tmp, slot(t), btile, wgi, true);
         wg::wait0();
         wg::pin(tmp[0]);
 #pragma unroll
@@ -287,64 +209,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   cp_wait<0>();
 
-  // Epilogue: for each pair of adjacent columns the thread holds, load the
-  // columns' operands once, then finish and store its 2 * MI rows.
-  const int lane = threadIdx.x & 31;
-  const int rbase = m0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-  const bool bn = e.flags & mpmm::EPI_BN;
-  const bool res = e.flags & mpmm::EPI_RESIDUAL;
-  const bool pair_ok = (N % 2) == 0;  // pairs 4- or 8-byte aligned
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int n = n0 + 8 * j + 2 * (lane & 3);
-    if (n >= N) continue;
-    float g[2], sc[2] = {0.f, 0.f}, sh[2] = {0.f, 0.f};
-    int cs[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int nc = min(n + c, N - 1);
-      g[c] = __ldg(e.gamma + nc);
-      cs[c] = __ldg(e.colsum + nc);
-      if (bn) {
-        sc[c] = __ldg(e.scale + nc);
-        sh[c] = __ldg(e.shift + nc);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = rbase + (wgi * MI + mi) * 64 + 8 * i;
-        if (m >= M) continue;
-        const size_t idx = static_cast<size_t>(m) * N + n;
-        float y[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float r = (res && n + c < N) ? load_residual(e, idx + c) : 0.f;
-          y[c] = epilogue_value(acc[mi][4 * j + 2 * i + c], e.act_zero, cs[c],
-                                g[c], e.flags, sc[c], sh[c], r);
-        }
-        if (e.flags & mpmm::OUT_BF16) {
-          auto* out = static_cast<__nv_bfloat16*>(e.out) + idx;
-          if (pair_ok) {
-            *reinterpret_cast<__nv_bfloat162*>(out) =
-                __floats2bfloat162_rn(y[0], y[1]);
-          } else {
-            out[0] = __float2bfloat16_rn(y[0]);
-            if (n + 1 < N) out[1] = __float2bfloat16_rn(y[1]);
-          }
-        } else {
-          auto* out = static_cast<float*>(e.out) + idx;
-          if (pair_ok) {
-            *reinterpret_cast<float2*>(out) = make_float2(y[0], y[1]);
-          } else {
-            out[0] = y[0];
-            if (n + 1 < N) out[1] = y[1];
-          }
-        }
-      }
-    }
-  }
+  tc::store_tile<MI, BN>(e, acc, m0, n0, M, N, smem);
 }
 
 }  // namespace

@@ -12,10 +12,11 @@ Implementations, all bit-exact to ``ref.mpmm_ref`` / ``ref.conv_ref``:
                device.
   * ``auto``:  ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.
 
-Each kernel runs one fixed tile (K1's tensor-core route ``kernel.TILE``,
-K2 ``conv_kernel.TILE``); the DSE autotuner waits for a Hopper cost model,
-so a ``tile``/``bn`` other than the kernel's raises instead of being
-ignored.
+Each kernel picks its own tile: K1's tensor-core route runs the fixed
+``kernel.TILE``, K2 the N tile ``conv_kernel.n_tile(N)`` (64 or 128) of
+its ``conv_plan``.  The DSE autotuner waits for a Hopper cost model, so a
+``tile``/``bn`` other than the one the kernel runs raises instead of
+being ignored.
 """
 from __future__ import annotations
 
@@ -29,7 +30,6 @@ from repro_torch.core.packing import PlaneFormat
 from repro_torch.kernels.mpmm import conv_kernel as _conv_kernel
 from repro_torch.kernels.mpmm import epilogue as _epi
 from repro_torch.kernels.mpmm import kernel as _kernel
-from repro_torch.kernels.mpmm import ref as _ref
 from repro_torch.kernels.mpmm.epilogue import EpilogueSpec
 from repro_torch.kernels.mpmm.ref import combined_int8_weights
 
@@ -173,26 +173,25 @@ def conv_mpmm(a_biased: torch.Tensor, planes: torch.Tensor,
     """Implicit-GEMM convolution over packed planes -> (B, Ho, Wo, N).
 
     a_biased int8 (B, H, W, C) unpadded; planes uint8 (P, kh*kw*C/f, N);
-    residual (B, Ho, Wo, N).  ``cuda`` pads the input with ``-act_zero``
-    and launches K2; ``torch`` runs the plain direct conv.
+    residual (B, Ho, Wo, N).  ``cuda`` launches K2, which pads in the
+    kernel; ``torch`` runs the plain direct conv.
     """
     _epi.validate_operands(epilogue, scale, shift, residual)
-    if bn is not None and bn != _conv_kernel.TILE[2]:
+    n = planes.shape[-1]
+    if bn is not None and bn != _conv_kernel.n_tile(n):
         raise ValueError(f"the conv kernel runs the fixed N tile "
-                         f"{_conv_kernel.TILE[2]}, got bn={bn}")
+                         f"{_conv_kernel.n_tile(n)} at N={n}, got bn={bn}")
     if _resolve_impl(impl, a_biased) == "torch":
         return _conv_kernel.conv_mpmm_torch(
             a_biased, planes, gamma, colsum, fmt=fmt, act_zero=act_zero,
             kh=kh, kw=kw, stride=stride, padding=padding, variant=variant,
             out_dtype=out_dtype, epilogue=epilogue, scale=scale, shift=shift,
             residual=residual)
-    xp = _ref.pad_spatial(a_biased, kh, kw, stride, padding, fill=-act_zero)
-    ho = (xp.shape[1] - kh) // stride + 1
-    wo = (xp.shape[2] - kw) // stride + 1
     return _conv_kernel.conv_mpmm_cuda(
-        xp.contiguous(), planes, gamma, colsum, fmt=fmt, act_zero=act_zero,
-        kh=kh, kw=kw, stride=stride, out_hw=(ho, wo), variant=variant,
-        out_dtype=out_dtype, epilogue=epilogue, scale=scale, shift=shift,
+        a_biased.contiguous(), planes, gamma, colsum, fmt=fmt,
+        act_zero=act_zero, kh=kh, kw=kw, stride=stride, padding=padding,
+        variant=variant, out_dtype=out_dtype, epilogue=epilogue, scale=scale,
+        shift=shift,
         residual=residual.contiguous() if residual is not None else None)
 
 

@@ -71,6 +71,9 @@ def test_mpmm_cuda_matches_plain(cuda_device, w_bits, k, variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kh,stride", [(3, 1), (3, 2), (1, 2)])
 def test_conv_mpmm_cuda_matches_plain(cuda_device, kh, stride):
+    """Through ops.conv_mpmm and straight into the wrapper: both hand K2
+    the unpadded input, which it pads itself (SAME's (0, 1) pads at stride
+    2 on 14, and VALID)."""
     gen = torch.Generator().manual_seed(kh * 4 + stride)
     c, n = 64, 96
     fmt, planes, gamma, colsum = _weights(gen, kh * kh * c, n, 4, 2)
@@ -87,6 +90,80 @@ def test_conv_mpmm_cuda_matches_plain(cuda_device, kh, stride):
     torch.cuda.synchronize()
     assert conv_kernel.conv_mpmm_cuda.launches == before + 1
     assert torch.equal(got.cpu(), ops.conv_mpmm(**cpu, impl="torch", **kw))
+    direct = conv_kernel.conv_mpmm_cuda(**_to(cpu, cuda_device), **kw)
+    assert torch.equal(direct.cpu(), got.cpu())
+    hv = (14 - kh) // stride + 1
+    valid = dict(cpu, residual=epi["residual"][:, :hv, :hv].contiguous())
+    got = conv_kernel.conv_mpmm_cuda(**_to(valid, cuda_device), **kw,
+                                     padding="VALID")
+    assert torch.equal(got.cpu(), conv_kernel.conv_mpmm_torch(
+        **valid, **kw, padding="VALID"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["st", "sa"])
+@pytest.mark.parametrize("b,h,c,n,kk,stride,w_bits,k", [
+    (2, 14, 1024, 256, 1, 1, 4, 4),   # ResNet-152 bottleneck c1
+    (2, 28, 512, 1024, 1, 2, 8, 4),   # ResNet-152 projection 1x1/2
+    (2, 14, 256, 256, 3, 1, 2, 2),    # ResNet-152 bottleneck c2 at 14^2
+    (2, 9, 24, 40, 3, 2, 4, 2),       # C % 16 != 0 (byte loads), N 40
+    (1, 10, 8, 96, 3, 1, 8, 4),       # C 8, ragged N 96 on the 128 tile
+    (1, 7, 512, 512, 3, 1, 2, 2),     # batch 1, 36 splits
+    (1, 56, 64, 64, 3, 1, 8, 4),      # batch 1, 5 splits at N tile 64
+    (1, 14, 256, 512, 1, 2, 4, 4),    # 2 splits, a 1x1/2 projection
+])
+def test_conv_mpmm_cuda_shapes_match_plain(cuda_device, b, h, c, n, kk,
+                                           stride, w_bits, k, variant):
+    gen = torch.Generator().manual_seed(b * 1000 + h * 10 + c + n)
+    fmt, planes, gamma, colsum = _weights(gen, kk * kk * c, n, w_bits, k)
+    ho = -(-h // stride)
+    spec, epi = _epilogue(gen, (b, ho, ho, n))
+    cpu = dict(a_biased=torch.randint(-128, 128, (b, h, h, c), generator=gen,
+                                      dtype=torch.int32).to(torch.int8),
+               planes=planes, gamma=gamma, colsum=colsum, **epi)
+    kw = dict(fmt=fmt, act_zero=128, kh=kk, kw=kk, stride=stride,
+              variant=variant, out_dtype=torch.bfloat16, epilogue=spec)
+    before = conv_kernel.conv_mpmm_cuda.launches
+    got = conv_kernel.conv_mpmm_cuda(**_to(cpu, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert conv_kernel.conv_mpmm_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), conv_kernel.conv_mpmm_torch(**cpu, **kw))
+    # the int32 accumulators alone: gamma 1, act_zero 0, f32 out
+    acc_kw = dict(kw, act_zero=0, out_dtype=torch.float32, epilogue=None)
+    ones = dict(cpu, gamma=torch.ones_like(gamma))
+    for key in ("scale", "shift", "residual"):
+        ones.pop(key)
+    got = conv_kernel.conv_mpmm_cuda(**_to(ones, cuda_device), **acc_kw)
+    assert torch.equal(got.cpu(), conv_kernel.conv_mpmm_torch(**ones,
+                                                              **acc_kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,c,n,kk", [(1, 7, 512, 512, 3),
+                                        (8, 56, 64, 64, 3)])
+def test_conv_mpmm_cuda_allocates_only_output_and_workspace(cuda_device, b,
+                                                            h, c, n, kk):
+    """No padded copy of the input, no patch matrix: a call's peak
+    allocation is its output plus, where split, its int32 partials."""
+    gen = torch.Generator().manual_seed(b + h)
+    fmt, planes, gamma, colsum = _weights(gen, kk * kk * c, n, 2, 2)
+    dev = _to(dict(a_biased=torch.randint(-128, 128, (b, h, h, c),
+                                          generator=gen,
+                                          dtype=torch.int32).to(torch.int8),
+                   planes=planes, gamma=gamma, colsum=colsum), cuda_device)
+    kw = dict(fmt=fmt, act_zero=128, kh=kk, kw=kk, out_dtype=torch.bfloat16)
+    conv_kernel.conv_mpmm_cuda(**dev, **kw)  # build, load, counters
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = conv_kernel.conv_mpmm_cuda(**dev, **kw)
+    torch.cuda.synchronize()
+    plan = conv_kernel.conv_plan(b, h, h, n, kk * kk * c, fmt)
+    ws = conv_kernel.workspace_bytes(plan)
+    rounded = lambda v: -(-v // 512) * 512  # noqa: E731
+    assert torch.cuda.max_memory_allocated() - base <= (
+        rounded(out.numel() * out.element_size()) + rounded(ws))
+    assert (ws > 0) == (b == 1)
 
 
 @pytest.mark.cuda
@@ -98,7 +175,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         conv_kernel.conv_mpmm_cuda(
             a, planes.to(cuda_device), gamma.to(cuda_device),
             colsum.to(cuda_device), fmt=fmt, act_zero=128, kh=2, kw=2,
-            stride=1, out_hw=(1, 1))
+            stride=1, padding="VALID")
     with pytest.raises(TypeError, match="dtype"):
         kernel.mpmm_cuda(torch.zeros((4, 12), device=cuda_device),
                          planes.to(cuda_device), gamma.to(cuda_device),
