@@ -7,11 +7,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Build the four CUDA kernels (K1's two routes and K2 from
    ``kernels/mpmm/csrc``, K3, K4 from ``kernels/flashattn/csrc``) with nvcc
-   for sm_90a, one process per source, in parallel.
+   for sm_90a into seven libraries (K1's tensor-core route and K2 as two
+   each, one per half of the 16 weight formats), one process per library,
+   in parallel.
 2. K1 (``mpmm_cuda``) against its plain version ``mpmm_torch``, through
    both routes (M 100 on the tensor-core route ``wgmma``, M 4 on the
-   split-K route ``splitk``): every weight format (w in 1/2/4/8, k dividing
-   8, k <= w), both variants, the three epilogues, both output dtypes,
+   split-K route ``splitk``): all 16 weight formats (w and k in 1/2/4/8,
+   k > w among them), both variants, the three epilogues, both output dtypes,
    ragged M/N/K, an int32-accumulator check; the ResNet serve path's own
    shapes (stem as im2col, classifier); and granite-8b's prefill and decode
    shapes, held against the plain version run on the card.
@@ -19,7 +21,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against ``conv_mpmm_torch`` at every ResNet-18 conv shape, both on the
    unpadded input: at batches 8 and 1 with the path's epilogue (batch 1
    runs the split plans of ``conv_kernel.conv_plan``), and at batch 2 with
-   Sum-Apart and the residual epilogue.
+   Sum-Apart and the residual epilogue; every format the plan does not
+   use (k > w among them) at two of those convs, batches 1 and 2.
 4. ResNet end to end: full-width ResNet-18 (224x224, width 64, 1000
    classes) with random weights from a seeded generator, packed under
    ``examples/plans/resnet18_mixed.json`` and served by ``ImageServer`` with
@@ -79,6 +82,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prefill tokens/s, decode ms per step and the share of a prefill spent
    in K4, K1 and the rest.
 
+10. Speculative decoding, the schedulers and the entry point, at full
+   width: (a) ``SpeculativeGenerator`` (k 4, batch 4, the 1000-token
+   prompts, 16 new tokens) over two packed views of one granite-8b weight
+   draw -- verify ``granite_8b_mixed.json``, draft
+   ``granite_8b_draft_w2.json`` -- must emit exactly the tokens of the
+   verify-only ``Generator`` (and of phase 8's, on the same draw), launch
+   K1 and K4 as often as its cycles call them, and give one verify's
+   logits and cache bitwise equal to 5 sequential decode steps on a copy
+   of the cache; (b) the ``attn_impl='flash'`` verify launches K4 once a
+   layer, whose attention stays within one bf16 ulp of K4's plain version
+   and within 3e-2 absolute plus relative of the per-query route; (c)
+   ``GenerateScheduler`` (4 slots, 6 requests of 1000 and 500 tokens, n_new
+   4/6/8) over the ``Generator`` and over the ``SpeculativeGenerator``:
+   every ticket's tokens equal its request served alone; (d)
+   ``ImageScheduler`` over the ResNet-18 ``ImageServer`` on 13 single
+   images in bursts: every ticket's logits bitwise its image's served
+   alone; (e) ``repro_torch.launch.serve.main`` in process for ResNet-18
+   and for granite-8b with ``--spec-decode 4``, whose trace and metrics
+   dump pass the port's validators.  ``[time]`` lines give speculative
+   against verify-only tokens/s, ms a cycle, the accept rate (random
+   weights: nothing to learn about a trained draft's acceptance) and the
+   scheduler's p50/p99 latency.
+
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
 against the JAX package (numeric contract in
@@ -127,7 +153,14 @@ LM_LOGIT_TOL = 0.02
 LM_MAX_FLIP_RATE = 0.02
 ATTN_HEADS, ATTN_KV, ATTN_D = 32, 8, 128
 K4_VS_K3_TOL = 3e-2
-FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8) if k <= w]
+DRAFT_PLAN = ROOT / "examples" / "plans" / "granite_8b_draft_w2.json"
+SPEC_K = 4
+# (prompt length, n_new) of the GenerateScheduler's six requests
+SCHED_TRACE = ((LM_PROMPT, 4), (LM_PROMPT, 8), (500, 6), (LM_PROMPT, 6),
+               (500, 4), (500, 8))
+SCHED_SLOTS = 4
+IMG_BURSTS = (8, 3, 1, 1)  # single images arriving together, 13 in all
+FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8)]
 EPILOGUES = ("none", "bn_relu", "bn_res_relu")
 
 
@@ -379,17 +412,27 @@ def k2_call(sm, batch, conv, epi, variant):
 def phase_k2(sm, convs):
     """Each conv at the path's batch and at batch 1 with its path
     epilogue, and at a small batch with Sum-Apart and the residual
-    epilogue."""
+    epilogue; then the formats the path's plan does not use, k > w among
+    them, at two of its convs (N tiles 64 and 128; batch 1 splits)."""
     from repro_torch.kernels.mpmm import conv_kernel
-    for conv in convs:
-        for batch, epi, variant in ((TIME_BATCH, conv[-1], "st"),
-                                    (SMALL_BATCH, conv[-1], "st"),
-                                    (CHECK_BATCH, "bn_res_relu", "sa")):
-            cpu, dev, kw = k2_call(sm, batch, conv, epi, variant)
-            got = conv_kernel.conv_mpmm_cuda(**dev, **kw)
-            want = conv_kernel.conv_mpmm_torch(**cpu, **kw)
-            sm.compare("conv_mpmm_cuda",
-                       f"K2 {conv[0]} B={batch} {epi} {variant}", got, want)
+    cases = [(conv, batch, epi, variant) for conv in convs
+             for batch, epi, variant in ((TIME_BATCH, conv[-1], "st"),
+                                         (SMALL_BATCH, conv[-1], "st"),
+                                         (CHECK_BATCH, "bn_res_relu", "sa"))]
+    path_formats = {conv[6:8] for conv in convs}
+    for w_bits, k in FORMATS:
+        if (w_bits, k) in path_formats:
+            continue
+        for conv in (convs[0], convs[5]):  # s0b0c1 (N 64), s1b0c1 (N 128)
+            conv = conv[:6] + (w_bits, k) + conv[8:]
+            cases += [(conv, SMALL_BATCH, conv[-1], "st"),
+                      (conv, CHECK_BATCH, "bn_res_relu", "sa")]
+    for conv, batch, epi, variant in cases:
+        cpu, dev, kw = k2_call(sm, batch, conv, epi, variant)
+        got = conv_kernel.conv_mpmm_cuda(**dev, **kw)
+        want = conv_kernel.conv_mpmm_torch(**cpu, **kw)
+        sm.compare("conv_mpmm_cuda", f"K2 {conv[0]} w{conv[6]}k{conv[7]} "
+                   f"B={batch} {epi} {variant}", got, want)
     sm.check_phase("K2 conv_mpmm_cuda vs conv_mpmm_torch")
 
 
@@ -604,23 +647,23 @@ def measure_k2(sm, batch, conv):
 
 
 def k2_build_info(convs):
-    """[build] lines for the K2 instantiations the path runs: dynamic
-    shared memory and resident blocks an SM."""
+    """[build] lines for the K2 instantiations the path runs, and for the
+    k > w formats at both N tiles: dynamic shared memory and resident
+    blocks an SM."""
     from repro_torch.core.packing import PlaneFormat
     from repro_torch.kernels.mpmm import conv_kernel
-    seen = set()
-    for conv in convs:
-        _, cin, cout, kk, _, _, w_bits, k, _ = conv
-        fmt = PlaneFormat(w_bits=w_bits, k=k, k_dim=kk * kk * cin)
-        for variant in ("st", "sa"):
-            key = (w_bits, k, variant, conv_kernel.n_tile(cout))
-            if key in seen:
-                continue
-            seen.add(key)
-            smem, blocks = conv_kernel.kernel_info(fmt, variant, key[3])
-            log(f"[build] conv_mpmm: w{w_bits}k{k} {variant} N tile "
-                f"{key[3]}: {smem} bytes of dynamic shared memory, {blocks} "
-                f"block(s) an SM")
+    keys = [(w_bits, k, variant, conv_kernel.n_tile(cout))
+            for _, _, cout, _, _, _, w_bits, k, _ in convs
+            for variant in ("st", "sa")]
+    keys += [(w_bits, k, variant, bn) for w_bits, k in FORMATS if k > w_bits
+             for variant in ("st", "sa") for bn in conv_kernel.N_TILES]
+    for key in dict.fromkeys(keys):
+        w_bits, k, variant, bn = key
+        fmt = PlaneFormat(w_bits=w_bits, k=k, k_dim=1152)
+        smem, blocks = conv_kernel.kernel_info(fmt, variant, bn)
+        log(f"[build] conv_mpmm: w{w_bits}k{k} {variant} N tile {bn}: "
+            f"{smem} bytes of dynamic shared memory, {blocks} block(s) an "
+            f"SM")
 
 
 # --- phases 6-7: K3 and K4 -----------------------------------------------------
@@ -843,7 +886,8 @@ def decode_contract(sm, gen, plain, prompts, toks, label):
     t = sm.torch
     with t.inference_mode():
         logits, pre = gen.prefill(t.as_tensor(prompts, device=sm.device))
-        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT + LM_NEW)
+        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT,
+                                LM_PROMPT + LM_NEW)
         for i in range(LM_NEW - 1):
             feed = t.as_tensor(toks[:, i:i + 1], device=sm.device)
             l_p, _ = plain.decode(clone_tree(cache), feed, LM_PROMPT + i)
@@ -1096,13 +1140,298 @@ def measure_lm_end_to_end(sm, api, params, prompts):
     with t.inference_mode():
         prefill_ms = sm.time_ms(lambda: gen.prefill(tt), reps=2, warmup=1)
         logits, pre = gen.prefill(tt)
-        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT + LM_NEW)
+        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT,
+                                LM_PROMPT + LM_NEW)
         tok = t.argmax(logits, -1)[:, None]
         steps = iter(range(LM_NEW - 1))
         decode_ms = sm.time_ms(
             lambda: gen.decode(cache, tok, LM_PROMPT + next(steps)),
             reps=LM_NEW - 3, warmup=2)
     return prefill_ms, decode_ms
+
+
+# --- phase 10: speculative decoding, the schedulers, the entry point ---------
+
+
+class StepClock:
+    """The schedulers' injected clock: the smoke sets it before each step
+    (``tick``: to the host clock; ``advance``: by a fixed step), so every
+    read inside a step sees one time and admission never races the host."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def tick(self):
+        self.t = time.perf_counter()
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def phase_spec(sm, depth=None, phase8_tokens=None):
+    """(a) ``SpeculativeGenerator`` (k = SPEC_K) over granite-8b at full
+    width: two packed views of one weight draw, verify under
+    ``granite_8b_mixed.json``, draft under ``granite_8b_draft_w2.json``.
+    Its tokens must equal the verify-only ``Generator``'s on the same
+    view (and phase 8's, which drew the same weights); its launch counts
+    must be the calls the path makes, cycle by cycle; one verify cycle's
+    logits must equal SPEC_K + 1 sequential decode steps on a copy of the
+    cache, bitwise, caches included.  (b) The ``attn_impl='flash'``
+    verify: K4 once a layer, its attention within one bf16 ulp of K4's
+    plain version and within K4_VS_K3_TOL of the default per-query route
+    on the cache the verify wrote.  -> (generator, prompts, results)."""
+    import numpy as np
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import attention as attn
+    from repro_torch.runtime import telemetry as tele
+    from repro_torch.runtime.serve import init_packed_views
+    from repro_torch.runtime.specdec import SpeculativeGenerator
+    t = sm.torch
+    vplan, dplan = PrecisionPlan.load(LM_PLAN), PrecisionPlan.load(DRAFT_PLAN)
+    api = lm_api(depth, vplan)
+    cfg, n = api.cfg, api.cfg.n_layers
+    t0 = time.perf_counter()
+    views = init_packed_views(api, [vplan, dplan], t.Generator(
+        device=sm.device).manual_seed(SEED), device=sm.device)
+    t.cuda.synchronize()
+    log(f"[spec] {cfg.name} depth {n}: verify [{vplan.name}] and draft "
+        f"[{dplan.name}] drawn once and packed in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{t.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    tracer = tele.Tracer()
+    sg = SpeculativeGenerator(api=api, packed_views=tuple(views),
+                              draft_plan=dplan, k=SPEC_K, device=sm.device,
+                              tracer=tracer)
+    del views
+    gen = sg.gen_verify
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab,
+                                                   (LM_BATCH, LM_PROMPT))
+    t0 = time.perf_counter()
+    want = gen.generate(prompts, LM_NEW)  # host numpy: synchronised
+    verify_s = time.perf_counter() - t0
+    reset_counts()
+    n0 = len(tracer.events)
+    t0 = time.perf_counter()
+    got = sg.generate(prompts, LM_NEW)
+    spec_s = time.perf_counter() - t0
+    launches = read_counts()
+    routes = dict(kernel.mpmm_cuda.routes)
+    cycles = [e for e in list(tracer.events)[n0:] if e[1] == "specdec.accept"]
+    k_effs = [e[6]["drafted"] // LM_BATCH for e in cycles]
+    per_step = 7 * n + 1  # a step's projections and its head
+    want_routes = {"wgmma": 2 * 7 * n, "splitk": 2}  # the two prefills
+    for k in k_effs:
+        want_routes["splitk"] += (k + 1) * per_step if k else 0  # draft
+        want_routes[kernel.mpmm_route(LM_BATCH * (k + 1), 1, 1)] += per_step
+    want_launches = {"mpmm_cuda": sum(want_routes.values()),
+                     "conv_mpmm_cuda": 0, "flash_fwd_cuda": 0,
+                     "flash_fwd_packed_cuda": 2 * n}
+    log(f"[spec] k={SPEC_K}: {len(cycles)} cycles (k_eff {k_effs}), "
+        f"drafted {sg.drafted_tokens}, accepted {sg.accepted_tokens}; "
+        f"launches {launches}; K1 routes {routes}; tokens[0] "
+        f"{got[0].tolist()}")
+    if launches != want_launches or routes != want_routes:
+        raise SystemExit(f"spec: launches {launches} / routes {routes} != "
+                         f"{want_launches} / {want_routes}")
+    if not np.array_equal(got, want):
+        raise SystemExit(f"spec: tokens differ from the verify-only "
+                         f"Generator's:\n{got}\n{want}")
+    if phase8_tokens is not None and not np.array_equal(got, phase8_tokens):
+        raise SystemExit("spec: tokens differ from phase 8's Generator on "
+                         "the same weight draw")
+    with t.inference_mode():
+        _, pre = gen.prefill(t.as_tensor(prompts, device=sm.device))
+        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT, LM_PROMPT + LM_NEW)
+        del pre
+        fresh = clone_tree(cache)
+        seq_cache = clone_tree(cache)
+        feed = t.as_tensor(got[:, :SPEC_K + 1], device=sm.device)
+        bat, cache = sg.api_verify.decode_steps(gen.params, cache, feed,
+                                                LM_PROMPT)
+        seq = t.stack([gen.decode(seq_cache, feed[:, i:i + 1],
+                                  LM_PROMPT + i)[0]
+                       for i in range(SPEC_K + 1)], dim=1)
+        same_cache = all(t.equal(a, b) for a, b in zip(
+            tree_leaves(cache), tree_leaves(seq_cache)))
+        if not t.equal(bat, seq) or not same_cache:
+            err = float((bat.float() - seq.float()).abs().max())
+            raise SystemExit(f"spec: a verify's logits (max diff {err}) or "
+                             f"cache (equal {same_cache}) differ from "
+                             f"{SPEC_K + 1} sequential decode steps")
+        del seq_cache, seq
+        reset_counts()
+        flash, _ = sg.api_verify.decode_steps(gen.params, fresh, feed,
+                                              LM_PROMPT, attn_impl="flash")
+        t.cuda.synchronize()
+        k4 = read_counts()["flash_fwd_packed_cuda"]
+        del fresh
+        rel = float((flash.float() - bat.float()).abs().max()
+                    / bat.float().abs().max())
+        fmt_k, fmt_v = T.kv_formats(cfg, api.policy)[1][0]
+        ck, cv = cache[0]["k"], cache[0]["v"]
+        g = t.Generator(device=sm.device).manual_seed(SEED + 10)
+        q = t.randn((LM_BATCH, SPEC_K + 1, ATTN_HEADS, ATTN_D), generator=g,
+                    device=sm.device).to(t.bfloat16)
+        run = lambda impl: fops.flash_attention_packed(  # noqa: E731
+            q, ck, cv, fmt_k, fmt_v, q_offset=LM_PROMPT, impl=impl)
+        k4_out, k4_plain = run("cuda"), run("torch")
+        per_query = t.cat([attn.decode_attention_streamed(
+            q[:, i:i + 1], ck, cv, fmt_k, fmt_v, LM_PROMPT + 1 + i)
+            for i in range(SPEC_K + 1)], dim=1)
+        t.cuda.synchronize()
+    err = compare_close(sm, "flash_fwd_packed_cuda",
+                        "flash verify K4 vs plain", k4_out, k4_plain)
+    err_q = compare_close(sm, "flash_fwd_packed_cuda",
+                          "flash verify K4 vs per-query route", k4_out,
+                          per_query, tol=K4_VS_K3_TOL)
+    log(f"[spec] verify bitwise equal to {SPEC_K + 1} decode steps; flash "
+        f"verify: K4 launched {k4} times ({n} layers), attention vs plain "
+        f"{err}, vs the per-query route {err_q} (tol {K4_VS_K3_TOL}), "
+        f"logits {rel:.5f} of the largest apart through {n} layers (not "
+        f"held: the routes round differently and 8-bit requantization "
+        f"carries it on)")
+    if k4 != n:
+        sm.failures.append(f"flash verify launched K4 {k4} times, not {n}")
+    sm.check_phase("speculative decoding (verify-only tokens, launches, "
+                   "verify vs sequential decode, flash verify)")
+    res = {"spec_s": spec_s, "verify_s": verify_s, "cycles": len(cycles),
+           "cycle_ms": [e[5] * 1e3 for e in cycles],
+           "accept_rate": sg.accept_rate, "launches": launches,
+           "routes": routes}
+    return sg, prompts, res
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def phase_lm_schedulers(sm, sg):
+    """(c) ``GenerateScheduler`` with SCHED_SLOTS slots over SCHED_TRACE
+    (two prompt lengths, three n_new), over the verify view's
+    ``Generator`` and then over the ``SpeculativeGenerator``: every
+    ticket's tokens must equal the same request served alone by the
+    ``Generator``.  The injected clock reads the host clock once a step."""
+    import numpy as np
+    from repro_torch.runtime.scheduler import GenerateScheduler
+    gen = sg.gen_verify
+    rng = np.random.default_rng(SEED + 2)
+    trace = [(rng.integers(0, gen.api.cfg.vocab, plen), n_new)
+             for plen, n_new in SCHED_TRACE]
+    max_len = max(plen + n_new for plen, n_new in SCHED_TRACE)
+    alone = [gen.generate(p[None], n_new)[0] for p, n_new in trace]
+    out = {}
+    for label, g in (("generator", gen), ("speculative", sg)):
+        clock = StepClock()
+        s = GenerateScheduler(g, slots=SCHED_SLOTS, max_len=max_len,
+                              clock=clock)
+        t0 = time.perf_counter()
+        tickets = []
+        for req in trace:
+            clock.tick()
+            tickets.append(s.submit(*req))
+            clock.tick()
+            s.step()
+        for _ in range(1000):
+            if not s.pending and not s.active:
+                break
+            clock.tick()
+            s.step(flush=True)
+        wall = time.perf_counter() - t0
+        st = s.stats()
+        bad = [tk.id for tk, want in zip(tickets, alone)
+               if not tk.done or not np.array_equal(tk.result, want)]
+        log(f"[sched] GenerateScheduler over the {label}: {len(trace)} "
+            f"requests {list(SCHED_TRACE)} (prompt, n_new), "
+            f"{SCHED_SLOTS} slots, {wall:.2f} s; events "
+            f"{[(e[1], e[2]) for e in s.events]}; p50 "
+            f"{st['p50_latency_s'] * 1e3:.1f} ms, p99 "
+            f"{st['p99_latency_s'] * 1e3:.1f} ms; tickets unlike served "
+            f"alone: {bad or 'none'}")
+        if bad:
+            sm.failures.append(f"GenerateScheduler over the {label}: tickets "
+                               f"{bad} differ from their requests served "
+                               f"alone")
+        out[label] = {"wall": wall, "stats": st}
+    sm.check_phase("GenerateScheduler tickets vs requests served alone")
+    return out
+
+
+def phase_image_scheduler(sm, server, cfg):
+    """(d) ``ImageScheduler`` over the ResNet-18 ``ImageServer`` (buckets
+    1/2/4/8) on single images arriving in bursts (IMG_BURSTS, 13 in all):
+    every ticket's logits must be bitwise the image's served alone."""
+    import numpy as np
+    from repro_torch.runtime.scheduler import ImageScheduler
+    rng = np.random.default_rng(SEED + 3)
+    images = rng.normal(0, 1, (sum(IMG_BURSTS), cfg.img_size, cfg.img_size,
+                               3)).astype(np.float32)
+    clock = StepClock()
+    s = ImageScheduler(server, max_wait_s=0.005, clock=clock)
+    tickets, i = [], 0
+    for burst in IMG_BURSTS:  # a full bucket goes at once, the rest waits
+        tickets += [s.submit(im) for im in images[i:i + burst]]
+        i += burst
+        s.step()
+        clock.advance(0.01)
+        s.step()
+    s.drain()
+    bad = [tk.id for tk, im in zip(tickets, images)
+           if not tk.done or not np.array_equal(tk.result,
+                                                server.predict(im[None])[0])]
+    log(f"[sched] ImageScheduler: {len(images)} images in batches "
+        f"{list(s.dispatched_batches)}; tickets unlike served alone: "
+        f"{bad or 'none'}")
+    if bad:
+        sm.failures.append(f"ImageScheduler tickets {bad} differ from their "
+                           f"images served alone")
+    sm.check_phase("ImageScheduler tickets vs images served alone")
+    return list(s.dispatched_batches)
+
+
+def phase_cli(sm):
+    """(e) ``repro_torch.launch.serve.main`` in process, for ResNet-18 and
+    for granite-8b with speculative decoding, at full width, each with a
+    trace and a metrics dump that must pass the port's validators."""
+    import json
+    import tempfile
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime import telemetry as tele
+    runs = {
+        "resnet18": ["--arch", "resnet18", "--plan", str(PLAN), "--batch",
+                     "8"],
+        "granite-8b": ["--arch", "granite-8b", "--plan", str(LM_PLAN),
+                       "--spec-decode", str(SPEC_K), "--draft-plan",
+                       str(DRAFT_PLAN), "--batch", str(LM_BATCH),
+                       "--prompt-len", "128", "--new-tokens", "8"],
+    }
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        for arch, argv in runs.items():
+            trace, prom = Path(d) / f"{arch}.json", Path(d) / f"{arch}.prom"
+            t0 = time.perf_counter()
+            rc = launch.main(argv + ["--trace", str(trace),
+                                     "--metrics-dump", str(prom)])
+            sm.torch.cuda.empty_cache()
+            problems = (tele.validate_chrome_trace(json.loads(
+                trace.read_text())) + tele.validate_metrics_text(
+                    prom.read_text()))
+            log(f"[cli] launch.serve {arch}: rc {rc} in "
+                f"{time.perf_counter() - t0:.2f} s; trace and metrics "
+                f"problems: {problems or 'none'}")
+            if rc != 0 or problems:
+                sm.failures.append(f"launch.serve {arch}: rc {rc}, "
+                                   f"{problems}")
+    sm.check_phase("launch.serve on the card")
 
 
 KERNELS = (
@@ -1212,7 +1541,8 @@ def main() -> int:
 
     built = _build.build_all()
     log(f"[build] {sorted(_build.KERNEL_SOURCES)} built in "
-        f"{built['seconds']:.2f} s (parallel nvcc)")
+        f"{built['seconds']:.2f} s (parallel nvcc); each: " + ", ".join(
+            f"{n} {sec:.2f} s" for n, sec in built["per_source"].items()))
     for name, text in built["logs"].items():
         for line in ptxas_lines(text):
             log(f"[build] {name}: {line}")
@@ -1232,7 +1562,6 @@ def main() -> int:
     server, cfg, plan, launches, k1_routes = phase_end_to_end(sm)
     fps = frames_per_second(sm, server, cfg)
     rows = measure(sm, path_k1, convs)
-    del server
     log(f"[resnet] done at {time.perf_counter() - t_start:.1f} s")
 
     lm_block_k = configs.get(LM_ARCH).cfg.attn_chunk
@@ -1247,6 +1576,20 @@ def main() -> int:
     attn_rows = measure_attention(sm, api)
     k1_rows = measure_k1_lm(sm, api)
     prefill_ms, decode_ms = measure_lm_end_to_end(sm, api, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[lm] done at {time.perf_counter() - t_start:.1f} s")
+
+    sg, _, spec = phase_spec(sm, phase8_tokens=run["tokens"])
+    launches = {k: launches[k] + spec["launches"][k] for k in launches}
+    k1_routes = {k: k1_routes[k] + spec["routes"][k] for k in k1_routes}
+    sched = phase_lm_schedulers(sm, sg)
+    del sg
+    torch.cuda.empty_cache()
+    img_batches = phase_image_scheduler(sm, server, cfg)
+    del server
+    phase_cli(sm)
+    log(f"[spec] done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
@@ -1317,6 +1660,27 @@ def main() -> int:
         f"full-depth prefill")
     log("[fps] " + ", ".join(f"bucket {b}: {v:.1f} frames/s"
                              for b, v in fps.items()) + f"  ({card})")
+    toks = LM_BATCH * LM_NEW
+    cyc = spec["cycle_ms"]
+    log(f"[time] speculative decoding, k={SPEC_K}, batch {LM_BATCH}, "
+        f"{LM_PROMPT} + {LM_NEW} tokens: {toks / spec['spec_s']:.1f} "
+        f"tokens/s ({spec['spec_s']:.2f} s, prefill of both views "
+        f"included) against {toks / spec['verify_s']:.1f} tokens/s "
+        f"verify-only ({spec['verify_s']:.2f} s); {spec['cycles']} cycles, "
+        f"{sum(cyc) / len(cyc):.1f} ms a cycle (min {min(cyc):.1f}, max "
+        f"{max(cyc):.1f}); accept rate {spec['accept_rate']:.4f} -- random "
+        f"weights: says nothing of how often a trained draft is accepted "
+        f"({card})")
+    for label, r in sched.items():
+        st = r["stats"]
+        log(f"[time] GenerateScheduler over the {label}: {len(SCHED_TRACE)} "
+            f"requests in {r['wall']:.2f} s, latency p50 "
+            f"{st['p50_latency_s'] * 1e3:.1f} ms, p99 "
+            f"{st['p99_latency_s'] * 1e3:.1f} ms (host clock read once a "
+            f"step), accept rate {st['accept_rate']:.4f} -- random weights "
+            f"({card})")
+    log(f"[time] ImageScheduler: {sum(IMG_BURSTS)} images in batches "
+        f"{img_batches}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -179,8 +179,8 @@ def workspace_bytes(plan: ConvPlan) -> int:
 
 
 @functools.cache
-def _lib():
-    lib = _build.load("conv_mpmm")
+def _lib(w_bits: int):
+    lib = _build.load(_build.format_lib("conv_mpmm", w_bits))
     lib.conv_mpmm_launch.argtypes = ([ctypes.c_void_p] * 10
                                      + [ctypes.c_int] * 22
                                      + [ctypes.c_void_p])
@@ -204,8 +204,8 @@ def kernel_info(fmt: PlaneFormat, variant: str, bn: int) -> Tuple[int, int]:
     instantiation for ``fmt``, ``variant`` and N tile ``bn``, on the
     current device."""
     info = (ctypes.c_int * 2)()
-    err = _lib().conv_mpmm_info(fmt.w_bits, fmt.k, int(variant == "sa"), bn,
-                                ctypes.addressof(info))
+    err = _lib(fmt.w_bits).conv_mpmm_info(
+        fmt.w_bits, fmt.k, int(variant == "sa"), bn, ctypes.addressof(info))
     raise_on_error("conv_mpmm_info", err)
     return info[0], info[1]
 
@@ -239,9 +239,6 @@ def conv_mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
             f"implicit-GEMM conv needs C divisible by the packed "
             f"digits-per-byte: C={c}, 8//k={fmt.digits_per_byte}; route "
             f"this layer to the im2col dataflow")
-    if fmt.planes * fmt.k != fmt.w_bits:
-        raise ValueError(f"K2 takes formats whose k divides w, got "
-                         f"w{fmt.w_bits}k{fmt.k}")
     if fmt.k_dim != kh * kw * c:
         raise ValueError(f"format K={fmt.k_dim} != kh*kw*C={kh * kw * c}")
     if not 0 <= act_zero <= 128:
@@ -266,7 +263,7 @@ def conv_mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
             ws = torch.empty((plan.splits, plan.tiles, plan.bm, plan.bn),
                              dtype=torch.int32, device=device)
             counters = _counters(device, stream)
-        err = _lib().conv_mpmm_launch(
+        err = _lib(fmt.w_bits).conv_mpmm_launch(
             ptr(a_biased), ptr(planes), ptr(gamma), ptr(colsum), ptr(scale),
             ptr(shift), ptr(residual), ptr(out), ptr(ws), ptr(counters), b, h,
             w, c, ho, wo, n, kh, kw, stride, ph[0], pw[0], fmt.packed_k,

@@ -70,14 +70,15 @@ constexpr int THREADS = tc::THREADS;
 constexpr int STAGES = 4;
 constexpr int A_BYTES = BM * BK;  // 16 KB
 
-// A stage holds the A tile and the P * BK/f = 16 w packed rows of BN bytes;
-// two B tiles of BN rows of BK digits follow the ring.  Every piece is a
-// multiple of 1024 bytes, as the 128-byte swizzle needs.
-__host__ __device__ constexpr int stage_bytes(int w_bits, int bn) {
-  return A_BYTES + 16 * w_bits * bn;
+// A stage holds the A tile and the P * BK/f = 16 P k packed rows of BN
+// bytes (P k = w, or k where k > w); two B tiles of BN rows of BK digits
+// follow the ring.  Every piece is a multiple of 1024 bytes, as the
+// 128-byte swizzle needs.
+__host__ __device__ constexpr int stage_bytes(int plane_bits, int bn) {
+  return A_BYTES + 16 * plane_bits * bn;
 }
-__host__ __device__ constexpr int smem_bytes(int w_bits, int bn) {
-  return STAGES * stage_bytes(w_bits, bn) + 2 * bn * BK;
+__host__ __device__ constexpr int smem_bytes(int plane_bits, int bn) {
+  return STAGES * stage_bytes(plane_bits, bn) + 2 * bn * BK;
 }
 
 // After the products the ring is free: a split block stages its int32
@@ -242,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   __shared__ int3 rows[BM];
   __shared__ int last;
   using Fm = Format<W, K>;
-  constexpr int STAGE = stage_bytes(W, BN);
+  constexpr int STAGE = stage_bytes(Fm::P * K, BN);
   constexpr int B_BYTES = BN * BK;
   constexpr int NA = BN / 2;  // accumulator registers a thread
   const int m0 = blockIdx.x * BM;
@@ -455,8 +456,9 @@ extern "C" int conv_mpmm_launch(
   const KernelFn kernel = kernel_for(w_bits, k_bits, sa, bn);
   const int kd = kh * kw * C;
   const int nk = (kd + BK - 1) / BK;
-  if (kernel == nullptr || n_planes * k_bits != w_bits || steps < 1 ||
-      splits < 1 || (splits - 1) * steps >= nk || splits * steps < nk ||
+  if (kernel == nullptr || n_planes != planes_of(w_bits, k_bits) ||
+      steps < 1 || splits < 1 || (splits - 1) * steps >= nk ||
+      splits * steps < nk ||
       (splits > 1 && (ws == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -468,7 +470,7 @@ extern "C" int conv_mpmm_launch(
                N % 16 == 0 && reinterpret_cast<uintptr_t>(planes) % 16 == 0,
                fill};
   const dim3 grid((g.m + BM - 1) / BM, (N + bn - 1) / bn, splits);
-  return launch(kernel, smem_bytes(w_bits, bn), grid, THREADS,
+  return launch(kernel, smem_bytes(n_planes * k_bits, bn), grid, THREADS,
                 static_cast<cudaStream_t>(stream),
                 static_cast<const int8_t*>(x),
                 static_cast<const uint8_t*>(planes), g, e,
@@ -481,7 +483,7 @@ extern "C" int conv_mpmm_info(int w_bits, int k_bits, int sa, int bn,
                               int* info) {
   const KernelFn kernel = kernel_for(w_bits, k_bits, sa, bn);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = smem_bytes(w_bits, bn);
+  const int smem = smem_bytes(planes_of(w_bits, k_bits) * k_bits, bn);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) {

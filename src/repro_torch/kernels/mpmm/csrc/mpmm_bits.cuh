@@ -9,19 +9,22 @@
 //
 // Storage format (repro_torch/core/packing.py; see mpmm_common.cuh): a w-bit
 // signed code is split into P = w/k planes of k-bit fields, lower planes
-// unsigned, the top plane the sign-carrying field.  Planes are uint8
+// unsigned, the top plane the sign-carrying field.  Where k > w there is
+// one plane (P = 1) whose k-bit fields each hold the w-bit two's-complement
+// code in their low w bits (the high bits zero).  Planes are uint8
 // (P, ceil(K/f), N), f = 8/k digits a byte along K, field index minor.
 //
 // Bit assembly, four columns at once: a 32-bit word read from a plane row
 // holds one byte of each of four neighbouring columns (N is the planes'
 // minor axis), so every operation below acts on four byte lanes.  Digit j
-// of a byte is (x >> k*(j % f)) & lane_mask; the planes are disjoint bit
-// fields of the code, so the w-bit code is the OR of each plane's field
-// shifted by k*p, and the int8 weight is that code sign-extended from w
-// bits, per lane: (u ^ s) - s with s = 2^(w-1) in every lane (__vsub4
-// subtracts lane by lane, without borrows across lanes).  This is
-// ref.combined_int8_weights bit for bit (tests/test_torch_mpmm_routes.py
-// holds a numpy twin of these operations against it).
+// of a byte is (x >> k*(j % f)) & lane_mask, the mask keeping the field's
+// low min(k, w) bits; the planes are disjoint bit fields of the code, so
+// the w-bit code is the OR of each plane's field shifted by k*p, and the
+// int8 weight is that code sign-extended from w bits, per lane: (u ^ s) -
+// s with s = 2^(w-1) in every lane (__vsub4 subtracts lane by lane,
+// without borrows across lanes).  This is ref.combined_int8_weights bit
+// for bit (tests/test_torch_mpmm_routes.py holds a numpy twin of these
+// operations against it).
 #pragma once
 
 #include <cstdint>
@@ -34,11 +37,18 @@ namespace k1 {
 template <int W, int K>
 struct Format {
   static_assert(K == 1 || K == 2 || K == 4 || K == 8, "k divides 8");
-  static_assert(W % K == 0 && W <= 8, "k divides w, w <= 8");
-  static constexpr int P = W / K;                 // planes
+  static_assert(W == 1 || W == 2 || W == 4 || W == 8, "w in 1, 2, 4, 8");
+  static constexpr int P = W > K ? W / K : 1;     // planes
   static constexpr int F = 8 / K;                 // digits a byte
-  static constexpr uint32_t LANE_MASK = 0x01010101u * ((1u << K) - 1u);
+  static constexpr int FB = W < K ? W : K;        // code bits of a field
+  static constexpr uint32_t LANE_MASK = 0x01010101u * ((1u << FB) - 1u);
 };
+
+// Planes of a (w, k) format on the host side of a launch: w/k, or 1 where
+// k > w.  The C entry points refuse a plane count that disagrees.
+constexpr int planes_of(int w_bits, int k_bits) {
+  return w_bits > k_bits ? w_bits / k_bits : 1;
+}
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
                                          uint32_t sel) {
@@ -60,30 +70,34 @@ __device__ __forceinline__ uint32_t sext_lanes(uint32_t u) {
 
 // Lane-wise field of digit j (0 <= j < R*F) of plane p, from the plane's
 // row words x[p][r] (row r holds digits r*F .. r*F + F - 1).
-template <int W, int K, int R>
-__device__ __forceinline__ uint32_t field(const uint32_t (&x)[W / K][R],
-                                          int p, int j) {
+template <int W, int K, int NP, int R>
+__device__ __forceinline__ uint32_t field(const uint32_t (&x)[NP][R], int p,
+                                          int j) {
   using Fm = Format<W, K>;
   return (x[p][j / Fm::F] >> (K * (j % Fm::F))) & Fm::LANE_MASK;
 }
 
 // Sum-Together: the int8 weight codes of digit j, four columns a word.
 template <int W, int K, int R>
-__device__ __forceinline__ uint32_t code_word(const uint32_t (&x)[W / K][R],
-                                              int j) {
+__device__ __forceinline__ uint32_t code_word(
+    const uint32_t (&x)[Format<W, K>::P][R], int j) {
   uint32_t u = 0;
 #pragma unroll
-  for (int p = 0; p < W / K; ++p) u |= field<W, K, R>(x, p, j) << (K * p);
+  for (int p = 0; p < Format<W, K>::P; ++p) {
+    u |= field<W, K>(x, p, j) << (K * p);
+  }
   return sext_lanes<W>(u);
 }
 
 // Sum-Apart: plane p's digits of position j as int8 (the top plane's
-// field sign-extended from k bits, the lower planes' unsigned).
+// field sign-extended from its code bits -- k, or w where k > w -- the
+// lower planes' unsigned).
 template <int W, int K, int R>
-__device__ __forceinline__ uint32_t digit_word(const uint32_t (&x)[W / K][R],
-                                               int p, int j) {
-  const uint32_t u = field<W, K, R>(x, p, j);
-  return p == W / K - 1 ? sext_lanes<K>(u) : u;
+__device__ __forceinline__ uint32_t digit_word(
+    const uint32_t (&x)[Format<W, K>::P][R], int p, int j) {
+  using Fm = Format<W, K>;
+  const uint32_t u = field<W, K>(x, p, j);
+  return p == Fm::P - 1 ? sext_lanes<Fm::FB>(u) : u;
 }
 
 // 4 x 4 byte transpose: r[i] holds digit i of columns 0..3 (lane c =
@@ -288,8 +302,8 @@ __device__ __forceinline__ void decode_stage(const unsigned char* raw,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if constexpr (SA) {  // one plane's digits; the top plane's signed
-        const uint32_t u = field<K, K, R>(x, 0, 4 * q + i);
-        w[i] = plane == Fm::P - 1 ? sext_lanes<K>(u) : u;
+        const uint32_t u = field<W, K>(x, 0, 4 * q + i);
+        w[i] = plane == Fm::P - 1 ? sext_lanes<Fm::FB>(u) : u;
       } else {
         w[i] = code_word<W, K, R>(x, 4 * q + i);
       }
@@ -462,23 +476,46 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
 
 }  // namespace k1
 
-// Instantiate KERNEL<W, K, ...> for every weight format (w in 1/2/4/8, k
-// dividing 8, k <= w) and launch it through k1::launch; an unsupported
-// format returns cudaErrorInvalidValue without launching.  K1_FORMATS
-// lists the formats, as CASE(W, K, LAUNCH) for each.
+// Instantiate KERNEL<W, K, ...> for every weight format (w and k in
+// 1/2/4/8: the 16 formats, k > w among them) and launch it through
+// k1::launch; an unsupported format returns cudaErrorInvalidValue without
+// launching.  K1_FORMATS lists the formats, as CASE(W, K, LAUNCH) for each.
+//
+// The build names the word lengths whose formats a library holds, each
+// as -DK1_BUILD_W<w>=0|1 (kernels/_build.py's FORMAT_PARTS, the one place
+// the split is written: route A and K2 are built as two libraries, one
+// per half of the formats, so that the halves compile in parallel).
+#if !defined(K1_BUILD_W1) || !defined(K1_BUILD_W2) || \
+    !defined(K1_BUILD_W4) || !defined(K1_BUILD_W8)
+#error "define K1_BUILD_W1/2/4/8 (0 or 1): the word lengths to instantiate"
+#endif
 #define K1_FORMAT_CASE(W, K, LAUNCH) \
   case W * 16 + K: return LAUNCH(W, K);
+#define K1_FORMATS_OF(W, CASE, LAUNCH)                                       \
+  CASE(W, 1, LAUNCH) CASE(W, 2, LAUNCH) CASE(W, 4, LAUNCH) CASE(W, 8, LAUNCH)
+#if K1_BUILD_W1
+#define K1_FORMATS_W1(CASE, LAUNCH) K1_FORMATS_OF(1, CASE, LAUNCH)
+#else
+#define K1_FORMATS_W1(CASE, LAUNCH)
+#endif
+#if K1_BUILD_W2
+#define K1_FORMATS_W2(CASE, LAUNCH) K1_FORMATS_OF(2, CASE, LAUNCH)
+#else
+#define K1_FORMATS_W2(CASE, LAUNCH)
+#endif
+#if K1_BUILD_W4
+#define K1_FORMATS_W4(CASE, LAUNCH) K1_FORMATS_OF(4, CASE, LAUNCH)
+#else
+#define K1_FORMATS_W4(CASE, LAUNCH)
+#endif
+#if K1_BUILD_W8
+#define K1_FORMATS_W8(CASE, LAUNCH) K1_FORMATS_OF(8, CASE, LAUNCH)
+#else
+#define K1_FORMATS_W8(CASE, LAUNCH)
+#endif
 #define K1_FORMATS(CASE, LAUNCH)                                             \
-  CASE(1, 1, LAUNCH)                                                         \
-  CASE(2, 1, LAUNCH)                                                         \
-  CASE(2, 2, LAUNCH)                                                         \
-  CASE(4, 1, LAUNCH)                                                         \
-  CASE(4, 2, LAUNCH)                                                         \
-  CASE(4, 4, LAUNCH)                                                         \
-  CASE(8, 1, LAUNCH)                                                         \
-  CASE(8, 2, LAUNCH)                                                         \
-  CASE(8, 4, LAUNCH)                                                         \
-  CASE(8, 8, LAUNCH)
+  K1_FORMATS_W1(CASE, LAUNCH) K1_FORMATS_W2(CASE, LAUNCH)                    \
+  K1_FORMATS_W4(CASE, LAUNCH) K1_FORMATS_W8(CASE, LAUNCH)
 #define K1_DISPATCH(w_bits, k_bits, LAUNCH)                                  \
   switch ((w_bits) * 16 + (k_bits)) {                                        \
     K1_FORMATS(K1_FORMAT_CASE, LAUNCH)                                       \

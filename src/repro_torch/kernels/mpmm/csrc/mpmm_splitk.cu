@@ -281,8 +281,8 @@ extern "C" int mpmm_splitk_launch(const void* a, const void* planes,
                    static_cast<const float*>(shift),
                    residual, out, act_zero, flags};
   const int group_rows = k_bits == 8 ? 4 : k_bits == 4 ? 2 : 1;
-  if (n_planes * k_bits != w_bits || M < 1 || M > 16 || chunk_bytes < 1 ||
-      chunk_bytes % group_rows != 0 ||
+  if (n_planes != planes_of(w_bits, k_bits) || M < 1 || M > 16 ||
+      chunk_bytes < 1 || chunk_bytes % group_rows != 0 ||
       chunk_bytes * (8 / k_bits) > MAX_CHUNK_DIGITS ||
       static_cast<long long>(splits - 1) * chunk_bytes >= kp ||
       static_cast<long long>(splits) * chunk_bytes < kp) {

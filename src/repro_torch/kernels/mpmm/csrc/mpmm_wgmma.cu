@@ -228,7 +228,7 @@ extern "C" int mpmm_launch(const void* a, const void* planes,
                    static_cast<const float*>(scale),
                    static_cast<const float*>(shift),
                    residual, out, act_zero, flags};
-  if (n_planes * k_bits != w_bits) {
+  if (n_planes != planes_of(w_bits, k_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int vec = (Kd % 16 == 0 && N % 16 == 0 &&

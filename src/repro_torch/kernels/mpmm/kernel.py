@@ -216,9 +216,10 @@ def workspace_bytes(m: int, kdim: int, n: int, fmt: PlaneFormat) -> int:
 
 
 @functools.cache
-def _launcher(route: str):
+def _launcher(route: str, w_bits: int):
     if route == "wgmma":
-        fn = _build.load("mpmm_wgmma").mpmm_launch
+        lib = _build.load(_build.format_lib("mpmm_wgmma", w_bits))
+        fn = lib.mpmm_launch
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
     else:
@@ -268,16 +269,17 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
                 epilogue_flags(epilogue, residual, out_dtype))
     operands = (ptr(a_biased), ptr(planes), ptr(gamma), ptr(colsum),
                 ptr(scale), ptr(shift), ptr(residual), ptr(out))
+    launch = _launcher(route, fmt.w_bits)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if route == "wgmma":
-            err = _launcher(route)(*operands, m, n, kdim, *fmt_args, stream)
+            err = launch(*operands, m, n, kdim, *fmt_args, stream)
         else:
             plan = split_plan(m, kdim, n, fmt)
             ws = torch.empty((plan.splits, m, n), dtype=torch.int32,
                              device=device)
-            err = _launcher(route)(*operands, ptr(ws), m, n, kdim, *fmt_args,
-                                   plan.chunk_bytes, plan.splits, stream)
+            err = launch(*operands, ptr(ws), m, n, kdim, *fmt_args,
+                         plan.chunk_bytes, plan.splits, stream)
     raise_on_error(f"mpmm_cuda ({route})", err)
     mpmm_cuda.launches += 1
     mpmm_cuda.routes[route] += 1

@@ -43,9 +43,14 @@ def combined_int8_weights(planes_u8: torch.Tensor,
     """Packed digit planes (P, Kp, N) uint8 -> W_int (K, N) int8.
 
     The planes are disjoint k-bit fields of the w_Q-bit two's-complement
-    code, so recombination is an OR of shifted fields followed by one
-    sign extension (port of ``repro.kernels.mpmm.ops.combined_int8_weights``,
-    bit-exact to it).
+    code (where k > w, one plane whose fields hold the code in their low
+    w bits), so recombination is an OR of shifted fields, a mask to w bits
+    and one sign extension from bit w - 1.  Port of
+    ``repro.kernels.mpmm.ops.combined_int8_weights``, and bit-exact to it
+    except at k = 8 with w < 8: there the reference returns the packed
+    byte unextended (its one-plane, one-digit-a-byte shortcut), so its
+    ``impl="xla"`` product is wrong, and this decode agrees with the codes
+    and with ``repro``'s ``ref.mpmm_ref`` instead.
     """
     f = fmt.digits_per_byte
     k = fmt.k

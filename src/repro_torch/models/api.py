@@ -48,6 +48,17 @@ class ModelAPI:
         return self.mod.decode_step(self.cfg, params, cache, tokens, length,
                                     self.policy, impl=impl)
 
+    def decode_steps(self, params, cache, tokens, length: int, *,
+                     impl: str = "auto", attn_impl: str = "xla"):
+        """T-token cache extension (the speculative verify): logits (B, T,
+        V) equal to T ``decode_step`` calls."""
+        fn = getattr(self.mod, "decode_steps", None)
+        if fn is None:
+            raise NotImplementedError(
+                f"{self.family} has no multi-token decode_steps")
+        return fn(self.cfg, params, cache, tokens, length, self.policy,
+                  impl=impl, attn_impl=attn_impl)
+
     def cache_specs(self, batch: int, max_len: int):
         return self.mod.cache_specs(self.cfg, batch, max_len,
                                     policy=self.policy)

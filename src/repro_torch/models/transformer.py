@@ -13,11 +13,12 @@ stack.  The decode cache is per layer too: the bf16 pair ``(k, v)``
 (B, Smax, KV, Dh) for fp and 'qdq' caches, or ``{"k", "v"}`` holding packed
 leaves (``nn.kvcache``) where the plan packs that tensor.
 
-Entry points: ``prefill`` (full prompt -> last-token logits and the cache)
-and ``decode_step`` (one token against the cache, updated in place); both
-take ``impl`` ('auto', 'cuda', 'torch'), which routes every kernel of the
-call.  The training forward, MoE, MLA and the dense-prefix stacks are not
-ported yet.
+Entry points: ``prefill`` (full prompt -> last-token logits and the cache),
+``decode_step`` (one token against the cache, updated in place) and
+``decode_steps`` (T tokens against the cache in one forward, the
+speculative verify); all take ``impl`` ('auto', 'cuda', 'torch'), which
+routes every kernel of the call.  The training forward, MoE, MLA and the
+dense-prefix stacks are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from repro_torch.nn.param import ParamSpec
 
 __all__ = ["TransformerConfig", "plan_layer_names", "kv_layer_names",
            "kv_cache_workload", "scan_format_groups", "specs", "forward",
-           "prefill", "decode_step", "cache_specs", "kv_formats"]
+           "prefill", "decode_step", "decode_steps", "cache_specs",
+           "kv_formats"]
 
 LAYER_BASES = ("q", "k", "v", "o", "mlp")
 
@@ -326,3 +328,36 @@ def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
         x = x + o
         x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname)
     return _head(cfg, params, x, policy, impl)[:, 0, :], cache
+
+
+def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
+                 length: int, policy, *, impl: str = "auto",
+                 attn_impl: str = "xla"):
+    """T new tokens per row in ONE forward, the speculative verify: tokens
+    (B, T) go to positions ``length .. length + T - 1`` of the per-layer
+    cache (updated in place) -> (logits (B, T, V), cache), where logits[:,
+    t] is the next-token row after tokens[:, :t + 1].
+
+    The T rows equal T sequential ``decode_step`` calls over the same
+    tokens: the projections' int32 accumulation is exact, norms, rotary
+    (per position ``length + t``) and activation quantization act per row,
+    and attention runs ``gqa_decode``'s single-query routine per position
+    (``nn.attention.gqa_verify``).  ``attn_impl='flash'`` takes K4 for a
+    packed cache instead, within K4's contract."""
+    kv_info = kv_formats(cfg, policy)
+    store = kv_info[0] if kv_info is not None else "packed"
+    b, t_new = tokens.shape
+    sin, cos = _rotary(cfg, _positions(b, t_new, length, tokens.device))
+    _, napply = cfg.norm_fns
+    x = _embed(params, tokens)
+    for i, lp in enumerate(params["layers"]):
+        lname = f"l{i}."
+        o, cache[i] = attn.gqa_verify(
+            lp["attn"], napply(lp["ln1"], x), cache[i], length, policy,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd, sin=sin,
+            cos=cos, impl=impl, attn_impl=attn_impl, lname=lname,
+            kv_fmts=kv_info[1][i] if kv_info is not None else None,
+            kv_store=store)
+        x = x + o
+        x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname)
+    return _head(cfg, params, x, policy, impl), cache

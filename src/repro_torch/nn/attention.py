@@ -14,9 +14,10 @@ the same arithmetic on the same values and agree bitwise.
 
 ``impl`` routes every kernel of a call: 'auto' (CUDA tensors to the kernels,
 CPU tensors to their plain versions), 'cuda' or 'torch'.  The GQA block is
-the causal, rotary one the dense LMs use; ``gqa_verify``, the reference's
-non-causal / windowed / rotary-free block options (whisper, recurrentgemma),
-MLA and the sharded (mesh) branches are not ported yet.
+the causal, rotary one the dense LMs use; ``gqa_verify`` extends the decode
+cache by T tokens at once, the verify step of speculative decoding.  The
+reference's non-causal / windowed / rotary-free block options (whisper,
+recurrentgemma), MLA and the sharded (mesh) branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from repro_torch.nn.param import ParamSpec
 __all__ = [
     "NEG_INF", "chunked_attention", "decode_attention",
     "decode_attention_streamed", "gqa_spec", "gqa_serve_spec", "gqa_prefill",
-    "gqa_decode",
+    "gqa_decode", "gqa_verify",
 ]
 
 NEG_INF = -1e30
@@ -43,6 +44,39 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     """(B, S, KV, D) -> (B, S, KV * groups, D), each KV head repeated over
     its group of query heads."""
     return k if groups == 1 else torch.repeat_interleave(k, groups, dim=2)
+
+
+def _fixed_order_einsum(eq: str, x: torch.Tensor,
+                        y: torch.Tensor) -> torch.Tensor:
+    """One of the decode attention's two products as an elementwise
+    product into a buffer laid out with the summed axis last, then one sum
+    over that axis."""
+    if eq == "bkgd,bskd->bkgs":  # sum over D
+        a, b = x[:, :, :, None, :], y.permute(0, 2, 1, 3)[:, :, None]
+    elif eq == "bkgs,bskd->bkgd":  # sum over S
+        a, b = x[:, :, :, None, :], y.permute(0, 2, 3, 1)[:, :, None]
+    else:
+        raise ValueError(f"no fixed-order form for {eq!r}")
+    buf = torch.empty(torch.broadcast_shapes(a.shape, b.shape),
+                      dtype=torch.float32, device=x.device)
+    return torch.mul(a, b, out=buf).sum(-1)
+
+
+def _batch_invariant_einsum(eq: str, x: torch.Tensor,
+                            y: torch.Tensor) -> torch.Tensor:
+    """The decode attention's two products, ``torch.einsum`` over operands
+    whose axis 0 is the batch.  On a CUDA device each runs in its fixed
+    order form (``_fixed_order_einsum``): cuBLAS picks its kernel, and so
+    the order of a dot product's sums, by the shape, batch count included,
+    and a row must give the same bits whether a decode step holds it alone
+    or beside other requests (the schedulers' contract).  The sum adds
+    each row in the same order at batches 1 to 8 and lengths 16 to 8192
+    (``tools/decode_products.py``), in as many launches as the batched
+    product.  On the CPU the batched product already computes each row
+    alone."""
+    if x.is_cuda:
+        return _fixed_order_einsum(eq, x, y)
+    return torch.einsum(eq, x, y)
 
 
 def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
@@ -98,14 +132,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     h = q.shape[2]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     qg = _bf16_f32(q[:, 0] * scale).reshape(b, kvh, h // kvh, d)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, _bf16_f32(k_cache))
+    s = _batch_invariant_einsum("bkgd,bskd->bkgs", qg, _bf16_f32(k_cache))
     pos = torch.arange(smax, device=q.device)
     mask = pos < length
     if window is not None:
         mask = mask & (pos > length - 1 - window)
     s = s + torch.where(mask, 0.0, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", _bf16_f32(p), _bf16_f32(v_cache))
+    o = _batch_invariant_einsum("bkgs,bskd->bkgd", _bf16_f32(p),
+                                _bf16_f32(v_cache))
     return o.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 
 
@@ -145,7 +180,7 @@ def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
     for start in range(0, smax, c):
         kc = _bf16_f32(_kv_chunk(ck, fmt_k, start, c))
         vc = _bf16_f32(_kv_chunk(cv, fmt_v, start, c))
-        s = torch.einsum("bkgd,bskd->bkgs", qg, kc)
+        s = _batch_invariant_einsum("bkgd,bskd->bkgs", qg, kc)
         pos = start + torch.arange(c, device=q.device)
         mask = pos < length
         if window is not None:
@@ -155,7 +190,7 @@ def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
         pexp = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + pexp.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + _batch_invariant_einsum(
             "bkgs,bskd->bkgd", _bf16_f32(pexp), vc)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
@@ -302,3 +337,64 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     o = o.reshape(b, 1, n_heads * head_dim)
     return Q.qlinear_serve_apply(p["o"], o, policy, impl=impl,
                                  name=nm["o"]), cache
+
+
+def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
+               n_heads: int, n_kv: int, head_dim: int, sin: torch.Tensor,
+               cos: torch.Tensor, impl: str = "auto", attn_impl: str = "xla",
+               lname: str = "", kv_fmts=None, kv_store: str = "packed"):
+    """T-token cache extension, the verify step of speculative decoding.
+
+    x (B, T, D): the T candidate tokens land at cache positions ``length ..
+    length + T - 1`` in one write (``pack_kv`` of a T-block equals T
+    per-token packs: the grid is per (token, head)), updated IN PLACE as
+    ``gqa_decode`` does.  Then every query t runs the single-query routine
+    ``gqa_decode`` runs, at valid length ``length + 1 + t``; cache rows at
+    or past a query's valid length add an exact f32 zero, so the T rows
+    equal T sequential ``gqa_decode`` steps over the same tokens bitwise,
+    whatever the rejected rows of an earlier cycle hold.
+
+    ``attn_impl='flash'`` sends a cache whose K and V are both packed
+    through K4 (``flash_attention_packed``) with ``q_offset=length``: the
+    same function within K4's contract (one bf16 ulp), not bitwise.
+    Returns (out (B, T, D), cache)."""
+    b, t_new = x.shape[0], x.shape[1]
+    nm = _gqa_names(lname)
+    q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
+                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm)
+    fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
+    packed = kv_fmts is not None and kv_store == "packed"
+    if packed:
+        ck, cv = cache["k"], cache["v"]
+        for c, new, fmt in ((ck, k, fmt_k), (cv, v, fmt_v)):
+            if fmt is not None:
+                _append_packed(c, kvcache.pack_kv(new, fmt), length)
+            else:
+                c[:, length:length + t_new] = new.to(c.dtype)
+    else:
+        if fmt_k is not None:
+            k = kvcache.qdq_kv(k, fmt_k)  # qdq store: grid values, bf16
+        if fmt_v is not None:
+            v = kvcache.qdq_kv(v, fmt_v)
+        ck, cv = cache
+        ck[:, length:length + t_new] = k.to(ck.dtype)
+        cv[:, length:length + t_new] = v.to(cv.dtype)
+    if attn_impl == "flash" and packed and fmt_k is not None \
+            and fmt_v is not None:
+        o = flash_ops.flash_attention_packed(q, ck, cv, fmt_k, fmt_v,
+                                             q_offset=length, impl=impl)
+    elif attn_impl not in ("flash", "xla"):
+        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
+                         f"{attn_impl!r}")
+    elif kv_fmts is not None:
+        fk, fv = (fmt_k, fmt_v) if packed else (None, None)
+        o = torch.cat([decode_attention_streamed(q[:, t:t + 1], ck, cv, fk,
+                                                 fv, length + 1 + t)
+                       for t in range(t_new)], dim=1)
+    else:
+        o = torch.cat([decode_attention(q[:, t:t + 1], ck, cv,
+                                        length + 1 + t)
+                       for t in range(t_new)], dim=1)
+    o = o.reshape(b, t_new, n_heads * head_dim)
+    out = Q.qlinear_serve_apply(p["o"], o, policy, impl=impl, name=nm["o"])
+    return out, ({"k": ck, "v": cv} if packed else (ck, cv))

@@ -31,9 +31,26 @@ def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
     return {"scale": ParamSpec(shape=(dim,), init="ones")}
 
 
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last axis, keeping it.  On a CUDA device
+    the sum runs in two stages of fixed shape (32 partial sums a row, then
+    their sum): torch's reduction kernel lays its threads out by the
+    number of rows, so one stage would round a row differently in a call
+    of 8 rows than of 4 or 20, and a row must give the same bits whatever
+    the batch (a speculative verify's B*T rows against a decode step's B,
+    a request alone or coalesced).  On the CPU ``torch.mean`` already sums
+    each row alone."""
+    d = xf.shape[-1]
+    sq = xf * xf
+    if not xf.is_cuda or d % 32:
+        return torch.mean(sq, dim=-1, keepdim=True)
+    part = sq.reshape(*sq.shape[:-1], 32, d // 32).sum(dim=-1)
+    return part.sum(dim=-1, keepdim=True) / d
+
+
 def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _mean_square(xf)
     y = xf * torch.rsqrt(var + eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 

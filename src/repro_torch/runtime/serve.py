@@ -4,9 +4,16 @@ deployment, greedy LM generation and bucketed image serving.
 ``pack_for_serving`` packs every linear of a trained LM tree at its own
 plan-resolved format and the embedding table to int8 codes;
 ``init_packed_lm`` does the same for random weights one layer at a time,
-so a full-width model never holds its float tree whole.  ``Generator`` runs
-prefill and decode on packed weights; ``ImageServer`` batches CNN requests.
-Meshes, telemetry and the schedulers of the JAX module are not ported yet.
+so a full-width model never holds its float tree whole, and
+``init_packed_views`` packs each layer so drawn under several plans at
+once (the two views of speculative decoding).  ``Generator`` runs prefill
+and decode on packed weights; ``ImageServer`` batches CNN requests.  Both
+take a ``tracer`` and a ``metrics`` registry (``runtime.telemetry``) and
+record the JAX module's device spans (``prefill``, ``decode``,
+``predict``) and ``repro_device_time_seconds``.  The schedulers
+(``runtime.scheduler``) drive a ``Generator`` through its step hooks
+``_prefill``, ``_decode``, ``_grow_cache`` and ``params``, as they drive
+the JAX one.  Meshes are not ported: the port serves on one device.
 """
 from __future__ import annotations
 
@@ -17,11 +24,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, tree_to
+from repro_torch.launch import steps as steps_lib
 from repro_torch.nn import param as nnp
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.layers import pack_embed
+from repro_torch.runtime.telemetry import (as_metrics, as_tracer,
+                                           device_span, device_timed)
 
-__all__ = ["pack_for_serving", "init_packed_lm", "Generator", "ImageServer"]
+__all__ = ["pack_for_serving", "init_packed_lm", "init_packed_views",
+           "Generator", "ImageServer"]
 
 
 def _pack_embed(policy, embed):
@@ -45,19 +56,42 @@ def init_packed_lm(api, generator: torch.Generator, device="cuda"):
     piece by piece: each layer's float weights are drawn on ``device``
     (CUDA by default) from ``generator``, packed, and freed before the next
     layer is drawn."""
+    return init_packed_views(api, [api.policy], generator, device)[0]
+
+
+def init_packed_views(api, policies, generator: torch.Generator,
+                      device="cuda"):
+    """Random LM weights drawn once and packed under each of ``policies``
+    (plans or uniform policies over the same layer namespace) -> one
+    packed tree per policy, each as ``pack_for_serving`` of the same float
+    tree would give.  Each piece's float weights are drawn on ``device``
+    from ``generator``, packed into every view, and freed before the next
+    piece is drawn, so a full-width model never holds its float tree
+    whole."""
     dev = resolve_device(device)
     tspecs = api.specs("train")
-    out = {}
+    views = [{"layers": []} for _ in policies]
     for key in ("embed", "final_norm", "head"):
         p = nnp.init_params(tspecs[key], generator, device=dev)
-        p = Q.pack_tree(p, tspecs[key], api.policy)
-        out[key] = _pack_embed(api.policy, p) if key == "embed" else p
-    out["layers"] = []
+        for view, pol in zip(views, policies):
+            q = Q.pack_tree(p, tspecs[key], pol)
+            view[key] = _pack_embed(pol, q) if key == "embed" else q
+        del p
     for spec in tspecs["layers"]:
         p = nnp.init_params(spec, generator, device=dev)
-        out["layers"].append(Q.pack_tree(p, spec, api.policy))
+        for view, pol in zip(views, policies):
+            view["layers"].append(Q.pack_tree(p, spec, pol))
         del p
-    return out
+    return views
+
+
+def _pad_batch(arr: np.ndarray, to: int) -> np.ndarray:
+    """Pad the leading axis up to ``to`` by repeating the last row (the
+    padded rows' outputs are discarded; batch entries never mix)."""
+    if arr.shape[0] == to:
+        return arr
+    reps = np.repeat(arr[-1:], to - arr.shape[0], axis=0)
+    return np.concatenate([arr, reps])
 
 
 @dataclasses.dataclass
@@ -75,6 +109,14 @@ class Generator:
     ``sample_fn(logits (B, V), generator) -> tokens (B,)`` replaces the
     greedy head; ``generate(..., generator=...)`` hands it a seeded
     ``torch.Generator``.  The default stays ``argmax`` (first maximum).
+
+    Step hooks (what ``runtime.scheduler`` and ``runtime.specdec`` call):
+    ``_prefill(params, {"tokens": (B, S)})`` -> (logits (B, V), prefill
+    cache); ``_decode(params, cache, tokens (B, 1), length)`` -> (logits,
+    cache), the cache updated in place; ``_grow_cache(pre, b, s,
+    max_len)``.  With a live ``tracer`` each step records a ``prefill`` /
+    ``decode`` device span and ``metrics`` observes
+    ``repro_device_time_seconds``.
     """
 
     api: Any
@@ -83,12 +125,26 @@ class Generator:
     impl: str = "auto"
     device: Any = "cuda"
     sample_fn: Optional[Callable] = None
+    tracer: Any = None   # telemetry.Tracer; None = the no-op fast path
+    metrics: Any = None  # telemetry.MetricsRegistry; None = no-op
 
     def __post_init__(self):
         if self.plan is not None:
             self.api = dataclasses.replace(self.api, policy=self.plan)
         self.device = resolve_device(self.device)
         self.params = tree_to(self.params, self.device)
+        self.tracer = as_tracer(self.tracer)
+        self.metrics = as_metrics(self.metrics)
+        hist = self.metrics.histogram("repro_device_time_seconds")
+        step = torch.inference_mode()
+        self._prefill = device_timed(
+            self.tracer, "prefill",
+            step(steps_lib.make_prefill_fn(self.api, impl=self.impl)), hist,
+            self.device)
+        self._decode = device_timed(
+            self.tracer, "decode",
+            step(steps_lib.make_decode_fn(self.api, impl=self.impl)), hist,
+            self.device)
 
     def _sample(self, logits: torch.Tensor, generator) -> torch.Tensor:
         if self.sample_fn is None:
@@ -97,12 +153,11 @@ class Generator:
 
     def prefill(self, tokens: torch.Tensor):
         """tokens (B, S) on the device -> (logits (B, V), prefill cache)."""
-        return self.api.prefill(self.params, tokens, impl=self.impl)
+        return self._prefill(self.params, {"tokens": tokens})
 
     def decode(self, cache, tokens: torch.Tensor, length: int):
         """One step: tokens (B, 1) at ``length`` -> (logits (B, V), cache)."""
-        return self.api.decode_step(self.params, cache, tokens, length,
-                                    impl=self.impl)
+        return self._decode(self.params, cache, tokens, length)
 
     def run(self, tokens: np.ndarray, n_new: int,
             forced: Optional[np.ndarray] = None,
@@ -117,7 +172,7 @@ class Generator:
             toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                    device=self.device)
             logits, pre = self.prefill(toks)
-            cache = self._grow_cache(pre, b, s + n_new)
+            cache = self._grow_cache(pre, b, s, s + n_new)
             out, all_logits = [], [logits]
             tok = self._sample(logits, generator)
             out.append(tok)
@@ -135,9 +190,11 @@ class Generator:
         """tokens (B, S) int -> the ``n_new`` generated tokens (B, n_new)."""
         return self.run(tokens, n_new, generator=generator)[0]
 
-    def _grow_cache(self, pre_cache, b: int, max_len: int):
-        """Copy the prefill cache into decode-sized zero buffers (sequence
-        axis left-aligned); decode then writes into them in place."""
+    @torch.inference_mode()
+    def _grow_cache(self, pre_cache, b: int, s: int, max_len: int):
+        """Copy the prefill cache of ``b`` rows and ``s`` tokens into
+        decode-sized zero buffers of ``max_len`` (sequence axis
+        left-aligned); decode then writes into them in place."""
         def grow(spec, pre):
             buf = torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
             buf[tuple(slice(0, n) for n in pre.shape)] = pre
@@ -148,7 +205,7 @@ class Generator:
                 return grow(spec, pre)
             if isinstance(spec, dict):
                 return {k: walk(spec[k], pre[k]) for k in spec}
-            return type(spec)(walk(s, p) for s, p in zip(spec, pre))
+            return type(spec)(walk(sp, p) for sp, p in zip(spec, pre))
 
         return walk(self.api.cache_specs(b, max_len), pre_cache)
 
@@ -176,6 +233,8 @@ class ImageServer:
     dataflow: str = "auto"
     plan: Any = None
     device: Any = "cuda"
+    tracer: Any = None   # telemetry.Tracer; None = the no-op fast path
+    metrics: Any = None  # telemetry.MetricsRegistry; None = no-op
 
     def __post_init__(self):
         if self.api.family != "cnn":
@@ -185,6 +244,9 @@ class ImageServer:
         self.params = tree_to(self.params, self.device)
         self.batch_buckets = tuple(sorted(set(self.batch_buckets)))
         self._served = set()
+        self.tracer = as_tracer(self.tracer)
+        self.metrics = as_metrics(self.metrics)
+        self._m_device = self.metrics.histogram("repro_device_time_seconds")
 
     def _forward(self, bucket: int, chunk: torch.Tensor) -> torch.Tensor:
         """One network forward at a bucket's batch size."""
@@ -218,7 +280,14 @@ class ImageServer:
                                    chunk.dtype)
                     chunk = np.concatenate([chunk, pad])
                 x = torch.from_numpy(chunk).to(self.device)
-                y = self._forward(bucket, x)
+                if self.tracer.enabled:
+                    # host dispatch vs device remainder of the forward;
+                    # waiting changes when the host waits, never values
+                    with device_span(self.tracer, "predict", self.device,
+                                     self._m_device, {"bucket": bucket}):
+                        y = self._forward(bucket, x)
+                else:
+                    y = self._forward(bucket, x)
                 outs.append(y[:take].to(torch.float32).cpu().numpy())
                 i += take
         return np.concatenate(outs)

@@ -258,7 +258,7 @@ def decode_stage_twin(raw, w, k, bn, plane=None):
     """tc::decode_stage thread by thread: thread (warp h, lane 8a + b) of
     CG = bn/16 chunks takes columns 16(h % CG) + 4a .. + 3 and DIG = 2 CG
     digits from (8 (h / CG) + b) DIG."""
-    f, p_ = 8 // k, w // k
+    f, p_ = 8 // k, k1twin.n_planes(w, k)
     rr, cg = BK // f, bn // 16
     dig = 2 * cg
     r_ = dig // f
@@ -278,10 +278,11 @@ def decode_stage_twin(raw, w, k, bn, plane=None):
                         ws = [k1twin.code_word(x, 4 * q + i, w, k)
                               for i in range(4)]
                     else:
-                        ws = [k1twin.field(x, 0, 4 * q + i, k)
+                        ws = [k1twin.field(x, 0, 4 * q + i, w, k)
                               for i in range(4)]
                         if plane == p_ - 1:
-                            ws = [k1twin.sext_lanes(u, k) for u in ws]
+                            ws = [k1twin.sext_lanes(u, k1twin.field_bits(w, k))
+                                  for u in ws]
                     ws = k1twin.transpose4(ws)
                     for c in range(4):
                         col[c][q] = ws[c]
@@ -310,7 +311,7 @@ def test_decode_twin_at_both_n_tiles(w, k, bn):
                                       k1twin.stage_raw(planes.numpy(), k))
         np.testing.assert_array_equal(bt, k1twin.decode_stage_twin(raw, w, k))
     digits = packing.unpack_planes(planes, fmt).numpy()  # (P, K, N)
-    for p in range(fmt.planes if w > k else 0):  # Sum-Apart's digit tiles
+    for p in range(fmt.planes):  # Sum-Apart's digit tiles
         sa = decode_stage_twin(raw, w, k, bn, plane=p)
         np.testing.assert_array_equal(
             k1twin.descriptor_read(sa, bn).view(np.int8).T, digits[p])

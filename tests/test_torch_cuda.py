@@ -138,6 +138,33 @@ def test_conv_mpmm_cuda_shapes_match_plain(cuda_device, b, h, c, n, kk,
                                                               **acc_kw))
 
 
+# The formats whose k-bit fields hold a narrower w-bit code (one plane).
+K_ABOVE_W = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8) if k > w]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["st", "sa"])
+@pytest.mark.parametrize("w_bits,k", K_ABOVE_W)
+@pytest.mark.parametrize("b,h,c,n,kk,stride", [
+    (2, 14, 64, 96, 3, 1),    # one split, ragged N on the 128 tile
+    (1, 7, 256, 64, 3, 2),    # batch 1, split plan at N tile 64
+])
+def test_conv_mpmm_cuda_k_above_w_matches_plain(cuda_device, b, h, c, n, kk,
+                                                stride, w_bits, k, variant):
+    gen = torch.Generator().manual_seed(b * 100 + w_bits * 8 + k)
+    fmt, planes, gamma, colsum = _weights(gen, kk * kk * c, n, w_bits, k)
+    ho = -(-h // stride)
+    spec, epi = _epilogue(gen, (b, ho, ho, n))
+    cpu = dict(a_biased=torch.randint(-128, 128, (b, h, h, c), generator=gen,
+                                      dtype=torch.int32).to(torch.int8),
+               planes=planes, gamma=gamma, colsum=colsum, **epi)
+    kw = dict(fmt=fmt, act_zero=128, kh=kk, kw=kk, stride=stride,
+              variant=variant, out_dtype=torch.bfloat16, epilogue=spec)
+    got = conv_kernel.conv_mpmm_cuda(**_to(cpu, cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), conv_kernel.conv_mpmm_torch(**cpu, **kw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,c,n,kk", [(1, 7, 512, 512, 3),
                                         (8, 56, 64, 64, 3)])
@@ -184,7 +211,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 # --- K1's two routes -----------------------------------------------------------
 
-K1_FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8) if k <= w]
+K1_FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8)]
 
 
 def _k1_case(gen, m, kdim, n, w_bits, k, variant, out_dtype=torch.bfloat16):
@@ -432,3 +459,25 @@ def test_flash_kernels_f32_against_float64(cuda_device, packed):
     torch.cuda.synchronize()
     err = (got.cpu().double() - want).abs().max().item()
     assert err <= 1e-5, err
+
+
+# --- the decode attention's products: one row's bits at any batch -------------
+
+from repro_torch.nn import attention as attn  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eq", ["bkgd,bskd->bkgs", "bkgs,bskd->bkgd"])
+@pytest.mark.parametrize("b,s", [(2, 256), (4, 1016), (8, 100), (8, 4096)])
+def test_decode_products_batch_invariant_on_card(cuda_device, eq, b, s):
+    """Batch row 0 of the decode attention's products on the card is the
+    same bits as the product of that row alone (cuBLAS's batched product
+    is not, at most of these shapes: ``tools/decode_products.py``)."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * 10000 + s)
+    bf = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=g, device=cuda_device).bfloat16().float()
+    y = bf(b, s, 8, 128)
+    x = bf(b, 8, 4, 128) if eq.startswith("bkgd") else bf(b, 8, 4, s)
+    got = attn._batch_invariant_einsum(eq, x, y)
+    alone = attn._batch_invariant_einsum(eq, x[:1], y[:1])
+    assert torch.equal(got[:1], alone)

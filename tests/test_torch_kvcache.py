@@ -190,3 +190,21 @@ def test_streamed_decode_packed_equals_qdq_and_jax():
                                        window=window)
         np.testing.assert_allclose(_np(full), _np(jfull), rtol=0,
                                    atol=2 ** -7 * np.abs(_np(jfull)).max())
+
+
+@pytest.mark.parametrize("eq", ["bkgd,bskd->bkgs", "bkgs,bskd->bkgd"])
+@pytest.mark.parametrize("b,s", [(1, 7), (3, 40)])
+def test_fixed_order_products_equal_einsum(eq, b, s):
+    """The card's form of the decode attention's two products
+    (``attn._fixed_order_einsum``, an elementwise product and one sum)
+    computes the einsum: within 1e-5 of it in float64 on bf16 operands."""
+    g = torch.Generator().manual_seed(b * 100 + s)
+    bf = lambda *shape: torch.randn(shape, generator=g).bfloat16().float()  # noqa: E731
+    y = bf(b, s, 2, 16)
+    x = bf(b, 2, 4, 16) if eq.startswith("bkgd") else bf(b, 2, 4, s)
+    got = attn._fixed_order_einsum(eq, x, y)
+    want = torch.einsum(eq, x.double(), y.double())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got.double() - want).abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="no fixed-order form"):
+        attn._fixed_order_einsum("bqd,bkd->bqk", x[:, 0], y[:, :, 0])

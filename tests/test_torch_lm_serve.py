@@ -205,8 +205,8 @@ def test_packed_and_qdq_stores_decode_bitwise(case):
         pre_q = [tuple(kvcache.unpack_kv(c[t], f) if f is not None else c[t]
                        for t, f in zip(("k", "v"), pair))
                  for c, pair in zip(pre, fmts)]
-        cp = gp._grow_cache(pre, BATCH, PROMPT + NEW)
-        cq = gq._grow_cache(pre_q, BATCH, PROMPT + NEW)
+        cp = gp._grow_cache(pre, BATCH, PROMPT, PROMPT + NEW)
+        cq = gq._grow_cache(pre_q, BATCH, PROMPT, PROMPT + NEW)
         for i in range(NEW - 1):
             feed = torch.as_tensor(case.jtokens[:, i:i + 1])
             lp, cp = gp.decode(cp, feed, PROMPT + i)

@@ -117,6 +117,95 @@ def test_mpmm_torch_matches_jax(w_bits, k, m, kdim, n, epi):
             assert torch.equal(via_ops, got)
 
 
+K_ABOVE_W = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8) if k > w]
+
+
+@pytest.mark.parametrize("w_bits,k", K_ABOVE_W)
+def test_mpmm_torch_k_above_w(w_bits, k):
+    """One plane whose k-bit fields hold the w-bit code.  At k < 8 both the
+    JAX package's ``impl="xla"`` and its ``ref`` hold the port; at k = 8 its
+    ``ref`` alone (ROADMAP R4: ``impl="xla"`` skips the sign extension)."""
+    rng = np.random.default_rng(w_bits * 16 + k)
+    m, kdim, n = 13, 147, 37
+    planes, gamma, colsum, jfmt, fmt = make_weights(rng, kdim, n, w_bits, k)
+    a = rng.integers(-128, 128, (m, kdim)).astype(np.int8)
+    jspec, tspec, ops_j, ops_t = make_epilogue(rng, *EPILOGUES[2], (m, n),
+                                               jnp.bfloat16)
+    args_j = (jnp.asarray(a), jnp.asarray(planes))
+    oracle = jref.mpmm_ref(*args_j, jfmt, jnp.asarray(gamma), act_zero=128,
+                           out_dtype=jnp.bfloat16, epilogue=jspec, **ops_j)
+    wants = [oracle]
+    if k < 8:
+        wants.append(jops.mpmm(*args_j, jnp.asarray(gamma),
+                               jnp.asarray(colsum), fmt=jfmt, impl="xla",
+                               out_dtype=jnp.bfloat16, epilogue=jspec,
+                               **ops_j))
+    for variant in ("st", "sa"):
+        got = kernel.mpmm_torch(_t(a), _t(planes), _t(gamma), _t(colsum),
+                                fmt=fmt, act_zero=128, variant=variant,
+                                out_dtype=torch.bfloat16, epilogue=tspec,
+                                **ops_t)
+        for want in wants:
+            np.testing.assert_array_equal(_np(got), _jnp_f32(want))
+    acc = ref.mpmm_ref_codes(_t(a), _t(planes), fmt, act_zero=128)
+    want_acc = jref.mpmm_ref_codes(*args_j, jfmt, act_zero=128)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want_acc))
+
+
+@pytest.mark.parametrize("w_bits", [2, 4])
+def test_jax_xla_mpmm_is_wrong_at_k8_below_w8(w_bits):
+    """ROADMAP R4: at k = 8 with w < 8 the JAX package's ``impl="xla"``
+    returns the packed byte as the weight, unextended, so its product is
+    not the integer product; ``ref.mpmm_ref`` of both packages and the
+    port's ``mpmm_torch`` are."""
+    rng = np.random.default_rng(w_bits)
+    m, kdim, n = 5, 64, 24
+    planes, gamma, colsum, jfmt, fmt = make_weights(rng, kdim, n, w_bits, 8)
+    a = rng.integers(-128, 128, (m, kdim)).astype(np.int8)
+    args_j = (jnp.asarray(a), jnp.asarray(planes))
+    ones = np.ones((1, n), np.float32)
+    oracle = jref.mpmm_ref(*args_j, jfmt, jnp.asarray(ones), act_zero=128)
+    xla = jops.mpmm(*args_j, jnp.asarray(ones), jnp.asarray(colsum),
+                    fmt=jfmt, impl="xla")
+    got = kernel.mpmm_torch(_t(a), _t(planes), _t(ones), _t(colsum), fmt=fmt,
+                            act_zero=128)
+    port_oracle = ref.mpmm_ref(_t(a), _t(planes), fmt, _t(ones),
+                               act_zero=128)
+    w_int = ref.unpack_to_int(_t(planes), fmt).numpy().astype(np.int64)
+    exact = (a.astype(np.int64) + 128) @ w_int
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
+    np.testing.assert_array_equal(port_oracle.numpy(), got.numpy())
+    np.testing.assert_array_equal(np.asarray(oracle), got.numpy())
+    assert not np.array_equal(np.asarray(xla), got.numpy())
+
+
+def test_conv_mpmm_torch_k_above_w():
+    """The implicit-GEMM conv at a k > w format (w2k4) against the JAX
+    package's ``impl="xla"`` conv and its ``ref.conv_ref``."""
+    rng = np.random.default_rng(24)
+    b, h, c, n, kh = 2, 9, 8, 24, 3
+    planes, gamma, colsum, jfmt, fmt = make_weights(rng, kh * kh * c, n, 2, 4)
+    a = rng.integers(-128, 128, (b, h, h, c)).astype(np.int8)
+    ho = -(-h // 2)
+    jspec, tspec, ops_j, ops_t = make_epilogue(rng, *EPILOGUES[2],
+                                               (b, ho, ho, n), jnp.bfloat16)
+    kw = dict(kh=kh, kw=kh, stride=2, padding="SAME")
+    args_j = (jnp.asarray(a), jnp.asarray(planes))
+    want = jops.conv_mpmm(*args_j, jnp.asarray(gamma), jnp.asarray(colsum),
+                          fmt=jfmt, impl="xla", out_dtype=jnp.bfloat16,
+                          epilogue=jspec, **kw, **ops_j)
+    oracle = jref.conv_ref(*args_j, jfmt, jnp.asarray(gamma), act_zero=128,
+                           out_dtype=jnp.bfloat16, epilogue=jspec, **kw,
+                           **ops_j)
+    for variant in ("st", "sa"):
+        got = conv_kernel.conv_mpmm_torch(
+            _t(a), _t(planes), _t(gamma), _t(colsum), fmt=fmt, act_zero=128,
+            variant=variant, out_dtype=torch.bfloat16, epilogue=tspec, **kw,
+            **ops_t)
+        np.testing.assert_array_equal(_np(got), _jnp_f32(want))
+        np.testing.assert_array_equal(_np(got), _jnp_f32(oracle))
+
+
 def test_accumulators_bitwise():
     rng = np.random.default_rng(5)
     planes, _, _, jfmt, fmt = make_weights(rng, 300, 40, 4, 2)
@@ -192,3 +281,31 @@ def test_fixed_tile_is_enforced():
     with pytest.raises(ValueError, match="fixed N tile"):
         ops.conv_mpmm(a.reshape(1, 2, 2, 16), _t(planes), _t(gamma),
                       _t(colsum), fmt=fmt, kh=1, kw=1, bn=128)
+
+
+# --- which library holds which format (kernels/_build.py) -------------------
+
+from repro_torch.kernels import _build  # noqa: E402
+
+
+@pytest.mark.parametrize("base", ["mpmm_wgmma", "conv_mpmm"])
+@pytest.mark.parametrize("w_bits", [1, 2, 4, 8])
+def test_format_lib_builds_the_word_length(base, w_bits):
+    """The library ``format_lib`` names for a format is built with that
+    word length switched on, and every other library of the source with
+    it off: the split is written once, in ``FORMAT_PARTS``."""
+    lib = _build.format_lib(base, w_bits)
+    assert _build.KERNEL_SOURCES[lib].name == f"{base}.cu"
+    for name, defines in _build.KERNEL_DEFINES.items():
+        if name.startswith(base):
+            on = f"-DK1_BUILD_W{w_bits}=1" in defines
+            assert on == (name == lib), (name, defines)
+
+
+def test_every_build_of_the_format_list_names_its_word_lengths():
+    """A source that includes ``mpmm_bits.cuh`` stops at an ``#error``
+    unless its build defines K1_BUILD_W1/2/4/8."""
+    for name, src in _build.KERNEL_SOURCES.items():
+        if '#include "mpmm_bits.cuh"' in src.read_text():
+            flags = {d.split("=")[0] for d in _build.KERNEL_DEFINES[name]}
+            assert flags == {f"-DK1_BUILD_W{w}" for w in (1, 2, 4, 8)}, name

@@ -108,8 +108,9 @@ def main() -> int:
     from repro_torch.kernels.mpmm import conv_kernel as ck
 
     nvcc = _build.nvcc_path()
-    procs = {n: build(n, p, nvcc, _build.NVCC_FLAGS)
-             for n, p in VARIANTS.items()}
+    flags = (*_build.NVCC_FLAGS,  # the variants instantiate w2k2 only
+             *_build.KERNEL_DEFINES[_build.format_lib("conv_mpmm", 2)])
+    procs = {n: build(n, p, nvcc, flags) for n, p in VARIANTS.items()}
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()

@@ -101,7 +101,7 @@ def main() -> int:
             wall = (time.perf_counter() - t0) * 1e3
         report(f"prefill {BATCH} x {PROMPT} tokens", prof, 1, wall)
 
-        cache = gen._grow_cache(pre, BATCH, PROMPT + 2 + DECODE_STEPS)
+        cache = gen._grow_cache(pre, BATCH, PROMPT, PROMPT + 2 + DECODE_STEPS)
         tok = torch.argmax(logits, -1)[:, None]
         for i in range(2):  # warm-up
             _, cache = gen.decode(cache, tok, PROMPT + i)
