@@ -27,9 +27,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    classes) with random weights from a seeded generator, packed under
    ``examples/plans/resnet18_mixed.json`` and served by ``ImageServer`` with
    buckets (1, 2, 4, 8) for requests of 1, 3, 8 and 13 images.  The launch
-   counters must show K1 twice (the stem on ``wgmma``, the classifier on
-   ``splitk``) and K2 19 times per bucket call; the logits are compared
-   with the same forward through the plain versions.
+   counters must show, per bucket call, K2 once for each conv that the
+   layer's dataflow choice sends to the implicit conv and K1 once for the
+   others and the classifier, by K1's route rule (``resnet_launches``:
+   under ``dataflow="auto"`` the H100 cost model chooses); the logits are
+   compared with the same forward through the plain versions.
 5. ResNet timing at the serve path's shapes (K1 at batch 8, K2 at
    batches 8 and 1): each kernel, its plain version, one PyTorch library
    call for the same product (K2: ``F.conv2d`` in f32, TF32 off,
@@ -105,6 +107,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights: nothing to learn about a trained draft's acceptance) and the
    scheduler's p50/p99 latency.
 
+11. The design-space exploration and the control plane at full ResNet-18
+   width (random weights from SEED): (a) ``weight_ptq_sensitivity`` and
+   ``calibration_sensitivity`` (8 random images through the card: the fp
+   reference through the fp baseline, each probe through K1/K2, packed
+   layers cached by format after one bitwise check against a fresh pack)
+   feed ``plan_search`` under the H100 cost model; the frontier rows, the
+   chosen plan (which then packs and serves) and the H100 entry beside the
+   card's SMs and shared memory (must agree); (b) the fp baseline through
+   ``ImageServer`` at buckets 1 and 8 within FP_LOGIT_TOL of a float64 run
+   of the same bf16 weights, its bytes against the mixed plan's; (c)
+   ``layer_attribution`` of a batch-8 forward timed by CUDA events:
+   roofline fraction and achieved TOps/s, and the model's time of each
+   conv beside phase 5's measured one with their rank correlation; (d)
+   ``examples/frontiers/resnet18_frontier.json`` through
+   ``frontier_from_manifest``: every level held to phase 4's contract and
+   launch rule, frames/s and measured rel_latency at bucket 8; (e)
+   ``SLOScheduler`` over that frontier with seeded faults (transient
+   errors, latency spikes, malformed payloads), its deadline SLO_BATCHES
+   level-0 batch times: a burst degrades, a trickle recovers, every
+   ticket is terminal and every served one bitwise its image served alone
+   at its level; (f) ``launch.serve.main`` with ``--frontier``,
+   ``--fp-baseline`` and ``--plan --trace --metrics-dump`` (roofline line
+   timed by CUDA events; the telemetry validate command on the files);
+   (g) granite-8b at full width, first 4 layers, two points drawn once
+   behind ``SLOScheduler`` through ``GenerateBackend``: K1 and K4 launched
+   as the generate calls need, tickets bitwise their requests served
+   alone; (h) the per-layer dataflow the H100 model picks and frames/s at
+   buckets 1 and 8 under ``auto`` and with ``implicit`` forced.
+
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
 against the JAX package (numeric contract in
@@ -162,6 +193,17 @@ SCHED_SLOTS = 4
 IMG_BURSTS = (8, 3, 1, 1)  # single images arriving together, 13 in all
 FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8)]
 EPILOGUES = ("none", "bn_relu", "bn_res_relu")
+FRONTIER = ROOT / "examples" / "frontiers" / "resnet18_frontier.json"
+P11_BATCH = 8        # phase 11's workload and timed batch
+CALIB_IMAGES = 8     # calibration_sensitivity's random images
+FP_LOGIT_TOL = 0.05  # fp baseline vs float64, of the largest |logit|
+SLO_SEED = 11        # FaultInjector's seed in phase 11 (e)
+SLO_BATCHES = 6      # the deadline in level-0 batch times
+SLO_BURST = 64       # images of phase 11 (e)'s burst
+LM_FRONTIER_DEPTH = 4
+# (prompt length, n_new) of phase 11 (g)'s requests
+LM_FRONTIER_REQS = ((128, 4), (128, 4), (64, 3), (128, 4), (64, 3),
+                    (128, 4), (128, 4), (64, 3), (128, 4), (128, 4))
 
 
 def log(msg: str) -> None:
@@ -465,23 +507,29 @@ def phase_end_to_end(sm):
     requests = [rng.normal(0, 1, (n, cfg.img_size, cfg.img_size, 3))
                 .astype(np.float32) for n in REQUESTS]
 
-    bucket_calls = sum(-(-n // BUCKETS[-1]) for n in REQUESTS)
+    # The expected launches come from the layers' own dataflow choices at
+    # each bucket's batch (the H100 cost model under 'auto').
+    buckets = [b for n in REQUESTS for b in bucket_calls(server, n)]
+    want, want_routes = {}, dict.fromkeys(kernel.ROUTES, 0)
+    for b in buckets:
+        w, r, flows = resnet_launches(cfg, plan, b)
+        want = add_counts(want, w)
+        want_routes = add_counts(want_routes, r)
+        log(f"[e2e] bucket {b}: K1 {w['mpmm_cuda']} (routes {r}), K2 "
+            f"{w['conv_mpmm_cuda']}; im2col convs "
+            f"{[k for k, f in flows.items() if f == 'im2col']}")
     reset_counts()
     outs = [server.predict(x) for x in requests]
     t.cuda.synchronize()
     launches = {"mpmm_cuda": kernel.mpmm_cuda.launches,
                 "conv_mpmm_cuda": conv_kernel.conv_mpmm_cuda.launches}
-    log(f"[e2e] {bucket_calls} bucket calls, launches {launches}, "
+    log(f"[e2e] {len(buckets)} bucket calls {buckets}, launches {launches}, "
         f"compiled buckets {server.compiled_buckets}")
     routes = dict(kernel.mpmm_cuda.routes)
-    log(f"[e2e] K1 routes {routes} (stem on wgmma, classifier on splitk)")
-    if launches != {"mpmm_cuda": 2 * bucket_calls,
-                    "conv_mpmm_cuda": 19 * bucket_calls}:
-        raise SystemExit(f"launch counts {launches} != 2 and 19 per bucket "
-                         f"call ({bucket_calls} calls)")
-    if routes != {"wgmma": bucket_calls, "splitk": bucket_calls}:
-        raise SystemExit(f"K1 routes {routes}: expected the stem on wgmma and "
-                         f"the classifier on splitk, once per bucket call")
+    log(f"[e2e] K1 routes {routes}")
+    if launches != want or routes != want_routes:
+        raise SystemExit(f"launch counts {launches} / routes {routes} != the "
+                         f"layers' choices {want} / {want_routes}")
 
     for n, x, y in zip(REQUESTS, requests, outs):
         if y.shape != (n, cfg.n_classes) or not np.isfinite(y).all():
@@ -1434,6 +1482,831 @@ def phase_cli(sm):
     sm.check_phase("launch.serve on the card")
 
 
+# --- phase 11: design-space exploration, fp baseline, frontier and SLO ------
+
+
+def resnet_layer_shapes(cfg):
+    """Every conv of a basic-block ResNet in serve order: (name, input
+    size, C in, C out, kernel, stride, layer class), the stem first."""
+    from repro_torch.models import resnet as R
+    out = [("stem", cfg.img_size, 3, cfg.width, 7, 2, "boundary")]
+    h = cfg.img_size // 4
+    for si, bi, cin, cmid, stride in R._block_channels(cfg):
+        key = f"s{si}b{bi}"
+        if stride != 1 or cin != cmid:
+            out.append((key + "p", h, cin, cmid, 1, stride, "inner"))
+        out.append((key + "c1", h, cin, cmid, 3, stride, "inner"))
+        h = -(-h // stride)
+        out.append((key + "c2", h, cmid, cmid, 3, 1, "inner"))
+    return out
+
+
+def resnet_launches(cfg, plan, batch):
+    """One quantized ResNet forward at ``batch``: its K1/K2 launches, K1's
+    routes and each conv's dataflow, from the layers' own choices -- the
+    plan's per-layer entry, else the H100 cost model
+    (``nn.quantized.conv_serve_dataflow``), gated by K2's feasibility, as
+    ``qconv_serve_apply`` resolves them -- and K1's route rule."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.packing import PlaneFormat
+    from repro_torch.kernels.mpmm import kernel, ops
+    from repro_torch.nn import quantized as Q
+    k2, routes, flows = 0, dict.fromkeys(kernel.ROUTES, 0), {}
+    for name, h, cin, cout, kk, s, cls in resnet_layer_shapes(cfg):
+        pol = plan_lib.resolve_policy(plan, name)
+        flow = plan_lib.resolve_dataflow(plan, name)
+        if flow == "auto":
+            flow = Q.conv_serve_dataflow((batch, h, h, cin), pol, k=kk,
+                                         stride=s, padding="SAME",
+                                         layer_class=cls, n_out=cout)
+        elif not ops.conv_implicit_feasible(cin, PlaneFormat(
+                pol.bits_for(cls), pol.k, kk * kk * cin)):
+            flow = "im2col"
+        flows[name] = flow
+        ho = -(-h // s)
+        if flow == "implicit":
+            k2 += 1
+        else:
+            routes[kernel.mpmm_route(batch * ho * ho, kk * kk * cin,
+                                     cout)] += 1
+    routes[kernel.mpmm_route(batch, cfg.fc_in, cfg.n_classes)] += 1
+    return ({"mpmm_cuda": sum(routes.values()), "conv_mpmm_cuda": k2},
+            routes, flows)
+
+
+def bucket_calls(server, n):
+    """The bucket sizes ``ImageServer.predict`` runs for ``n`` images."""
+    out, i = [], 0
+    while i < n:
+        b = server._bucket_for(n - i)
+        out.append(b)
+        i += min(n - i, b)
+    return out
+
+
+def read_p11():
+    """The launch counts and K1's routes (``route:<name>``) since the last
+    ``reset_counts``."""
+    from repro_torch.kernels.mpmm import kernel
+    counts = read_counts()
+    counts.update({f"route:{k}": v
+                   for k, v in kernel.mpmm_cuda.routes.items()})
+    return counts
+
+
+def runs(seq):
+    """[1, 2, 2, 2, 0] -> '1, 2x3, 0'."""
+    out = []
+    for v in seq:
+        if out and out[-1][0] == v:
+            out[-1][1] += 1
+        else:
+            out.append([v, 1])
+    return ", ".join(f"{v}x{n}" if n > 1 else f"{v}" for v, n in out)
+
+
+def add_counts(total, counts):
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def logits_contract(sm, label, cfg, plan, server, plain, x):
+    """Phase 4's contract for one batch: the kernel path's logits within
+    E2E_LOGIT_TOL of the largest plain |logit|, at most E2E_MAX_FLIP_RATE
+    of the classifier-input codes flipped."""
+    import numpy as np
+    from repro_torch.kernels.mpmm import ops
+    from repro_torch.models import resnet as R
+    t = sm.torch
+    y, ref_y = server.predict(x), plain.predict(x)
+    tol = E2E_LOGIT_TOL * float(np.abs(ref_y).max())
+    err = float(np.abs(y - ref_y).max())
+    xt = t.from_numpy(x).to(sm.device)
+    f_k = R.serve_features(cfg, server.params, xt, plan)
+    f_p = R.serve_features(cfg, server.params, xt, plan, impl="torch")
+    ga = server.params["fc"]["ga"]
+    flips = float((ops.quantize_activations(f_k, ga)
+                   != ops.quantize_activations(f_p, ga)).float().mean())
+    ok = (np.isfinite(y).all() and float(y.std()) > 0 and err <= tol
+          and flips <= E2E_MAX_FLIP_RATE)
+    log(f"[p11] {label}: max |kernel - plain| {err} (tol {tol}), flipped "
+        f"fc-input codes {flips}")
+    if not ok:
+        sm.failures.append(f"{label}: outside the end-to-end contract")
+    return y
+
+
+def spearman(a, b):
+    """Rank correlation of two equal-length sequences (average ranks)."""
+    import numpy as np
+
+    def ranks(v):
+        v = np.asarray(v, np.float64)
+        order = np.argsort(v, kind="stable")
+        r = np.empty(len(v))
+        r[order] = np.arange(len(v), dtype=np.float64)
+        for val in np.unique(v):
+            idx = v == val
+            r[idx] = r[idx].mean()
+        return r
+    ra, rb = ranks(a), ranks(b)
+    ra, rb = ra - ra.mean(), rb - rb.mean()
+    return float((ra * rb).sum() / np.sqrt((ra ** 2).sum() * (rb ** 2).sum()))
+
+
+def device_smem(torch):
+    """(SMs, shared memory a block may opt into, shared memory an SM) of
+    card 0, from torch's device properties or else the CUDA runtime."""
+    props = torch.cuda.get_device_properties(0)
+    block = getattr(props, "shared_memory_per_block_optin", None)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", None)
+    if block is None or per_sm is None:
+        import ctypes
+        rt = ctypes.CDLL("libcudart.so")
+        v = ctypes.c_int()
+        vals = []
+        for attr in (97, 81):  # MaxSharedMemoryPerBlockOptin, ...PerSM
+            if rt.cudaDeviceGetAttribute(ctypes.byref(v), attr, 0) != 0:
+                raise SystemExit("cudaDeviceGetAttribute failed")
+            vals.append(v.value)
+        block, per_sm = vals
+    return props.multi_processor_count, int(block), int(per_sm)
+
+
+def fp64_forward(t, cfg, packed, x):
+    """The fp baseline's network in float64 on the same (bf16) weights,
+    with ``F.conv2d`` on XLA-SAME-padded inputs: the reference of phase
+    11 (b)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.mpmm import ref
+    from repro_torch.models import resnet as R
+    f64 = t.float64
+
+    def conv(p, x, k, stride, bn, relu, res=None):
+        xp = ref.pad_spatial(x, k, k, stride, "SAME", fill=0.0)
+        w = p["w"].to(f64).reshape(k, k, x.shape[-1], -1).permute(3, 2, 0, 1)
+        y = F.conv2d(xp.permute(0, 3, 1, 2), w, stride=stride)
+        y = y.permute(0, 2, 3, 1)
+        y = y * bn[0].to(f64).reshape(-1) + bn[1].to(f64).reshape(-1)
+        if res is not None:
+            y = y + res
+        return y.clamp_min(0.0) if relu else y
+
+    h = conv(packed["stem"], x.to(f64), 7, 2, packed["bn_stem"], True)
+    h = R.max_pool_same(h)
+    for si, bi, cin, cmid, stride in R._block_channels(cfg):
+        p = packed[f"s{si}b{bi}"]
+        sc = (conv(p["proj"], h, 1, stride, p["bn_proj"], False)
+              if "proj" in p else h)
+        m = conv(p["conv1"], h, 3, stride, p["bn1"], True)
+        h = conv(p["conv2"], m, 3, 1, p["bn2"], True, res=sc)
+    return h.mean(dim=(1, 2)) @ packed["fc"]["w"].to(f64)
+
+
+class SpikeClock:
+    """The SLO scheduler's clock on the card: the host clock plus the
+    latency spikes the fault injector adds (``advance``)."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self):
+        return time.perf_counter() + self.offset
+
+    def advance(self, dt):
+        self.offset += dt
+
+
+def p11_dse(sm, api, params, state, images):
+    """(a) ``plan_search`` at full ResNet-18 width under the H100 cost
+    model, fed by ``weight_ptq_sensitivity`` of the random weights and by
+    ``calibration_sensitivity`` of ``images`` through the card (the fp
+    reference through the fp baseline, each probe through K1/K2); the
+    H100 entry beside the card's own properties."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.core import planner
+    from repro_torch.core.plan import (LayerPlan, PrecisionPlan,
+                                       plan_footprint_report)
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.roofline import H100
+    from repro_torch.models import resnet as R
+    t = sm.torch
+    cfg = api.cfg
+    sms, smem_block, smem_sm = device_smem(t)
+    log(f"[p11] H100 entry: {H100.sm_count} SMs, {H100.smem_per_block:.0f} B "
+        f"shared memory a block, {H100.smem_bytes:.0f} B an SM, "
+        f"{H100.peak_ops_int8 / 1e12:.0f} TOP/s int8, "
+        f"{H100.hbm_bw / 1e12:.2f} TB/s; the card: {sms} SMs, {smem_block} "
+        f"B a block (opt-in), {smem_sm} B an SM")
+    if (sms, smem_block, smem_sm) != (H100.sm_count, H100.smem_per_block,
+                                     H100.smem_bytes):
+        sm.failures.append("the H100 entry disagrees with the card")
+    inner = R.inner_layer_names(cfg)
+    t0 = time.perf_counter()
+    weights = R.layer_weights(cfg, params)
+    w_sens = planner.weight_ptq_sensitivity({n: weights[n] for n in inner})
+    t_w = time.perf_counter() - t0
+
+    x = t.from_numpy(images).to(sm.device)
+    trees = {}
+    inv = {sfx: key for key, sfx in R._PLAN_SUFFIX.items()}
+
+    def tree_of(pol):
+        key = (pol.inner_bits, pol.k, pol.quantize)
+        if key not in trees:
+            trees[key] = R.pack_for_serve(cfg, params, state, pol)
+        return trees[key]
+
+    def cached(plan):
+        """The plan's serve tree from uniform trees packed once: the base
+        tree with each named layer's conv taken from the tree of its
+        format."""
+        if not plan.quantize:
+            return tree_of(PrecisionPolicy(quantize=False))
+        d = plan.default
+        tree = dict(tree_of(PrecisionPolicy(inner_bits=d.w_bits, k=d.k)))
+        for name, lp in plan.layers:
+            sfx = next(s for s in inv if name.endswith(s))
+            blk = name[:-len(sfx)]
+            src = tree_of(PrecisionPolicy(inner_bits=lp.w_bits, k=lp.k))
+            tree[blk] = dict(tree[blk])
+            tree[blk][inv[sfx]] = src[blk][inv[sfx]]
+        return tree
+
+    calls = []
+
+    def forward(plan):
+        calls.append(plan.name)
+        with t.inference_mode():
+            y = R.serve_forward(cfg, cached(plan), x, plan)
+        return y.float().cpu().numpy()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    c_sens = planner.calibration_sensitivity(forward, inner)
+    t.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    counts = read_p11()
+    probe = dc.replace(PrecisionPlan.uniform(PrecisionPolicy(inner_bits=8,
+                                                             k=4)),
+                       layers=(("s1b1c2", LayerPlan(2, 2)),))
+    with t.inference_mode():
+        fresh = R.serve_forward(cfg, R.pack_for_serve(cfg, params, state,
+                                                      probe), x, probe)
+        same = t.equal(fresh, R.serve_forward(cfg, cached(probe), x, probe))
+    log(f"[p11] sensitivities: weight PTQ in {t_w:.2f} s; calibration on "
+        f"{len(images)} images through the card in {t_c:.2f} s, "
+        f"{len(calls)} forwards (fp reference through the fp baseline, "
+        f"{len(trees)} uniform trees packed once), launches {counts}; the "
+        f"cached probe tree's logits bitwise a fresh pack_for_serve's: "
+        f"{same}")
+    if not same:
+        sm.failures.append("calibration: the cached probe tree's logits "
+                           "differ from a fresh pack_for_serve's")
+    if not counts["mpmm_cuda"] or not counts["conv_mpmm_cuda"]:
+        sm.failures.append(f"calibration probes launched {counts}")
+    gemms = api.gemm_workload(P11_BATCH)
+    lp = R.layer_param_counts(cfg)
+    mixed = PrecisionPlan.load(PLAN)
+    budget = plan_footprint_report(lp, R.layer_classes(cfg),
+                                   mixed)["quant_bytes"]
+    results = {}
+    for label, sens in (("weight PTQ", w_sens), ("calibration", c_sens)):
+        res = planner.plan_search(gemms, sens, layer_params=lp,
+                                  budget_bytes=budget)
+        results[label] = res
+        log(f"[p11] plan_search ({label} sensitivities, batch "
+            f"{P11_BATCH}, H100 latencies, footprint budget {budget:.0f} B "
+            f"= resnet18_mixed.json's): {len(res.points)} points, "
+            f"{len(res.frontier)} on the frontier")
+        for r in res.frontier_rows():
+            log(f"[p11]   {r['name']:<14} error {r['error']:.6g} latency "
+                f"{r['latency_s'] * 1e6:.3f} us ({r['fps']:.1f} /s) "
+                f"footprint {r['footprint_bytes']:.0f} B w_bits "
+                f"{r['distinct_wbits']}")
+        ch = res.chosen
+        log(f"[p11]   chosen {ch.name}: bits "
+            f"{dict(ch.bits)}; latency {ch.latency_s * 1e6:.3f} us, "
+            f"footprint {ch.footprint_bytes:.0f} B")
+        lats = [p.latency_s for p in res.frontier]
+        if lats != sorted(lats) or ch not in res.frontier:
+            sm.failures.append(f"plan_search ({label}): frontier not "
+                               f"sorted or the choice is off it")
+    chosen = results["calibration"].chosen.plan
+    with t.inference_mode():
+        y = R.serve_forward(cfg, R.pack_for_serve(cfg, params, state,
+                                                  chosen), x, chosen)
+    ok = bool(t.isfinite(y.float()).all())
+    log(f"[p11] the chosen plan packs and serves: logits {tuple(y.shape)}, "
+        f"finite {ok}")
+    if not ok:
+        sm.failures.append("the chosen plan's logits are not finite")
+    sm.check_phase("11 (a) plan_search at full width, H100 entry")
+    return counts, tree_of(PrecisionPolicy(quantize=False))
+
+
+def p11_fp_baseline(sm, api, packed_fp, mixed_server, images):
+    """(b) The fp baseline through ``ImageServer`` at buckets 1 and 8,
+    against a float64 run of the same bf16 weights; its packed bytes
+    against the mixed plan's."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.core.plan import PrecisionPlan, plan_footprint_report
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.launch.serve import _tree_bytes
+    from repro_torch.models import resnet as R
+    from repro_torch.runtime.serve import ImageServer
+    t = sm.torch
+    cfg = api.cfg
+    fp = PrecisionPolicy(quantize=False)
+    server = ImageServer(api=dc.replace(api, policy=fp), params=packed_fp,
+                         batch_buckets=(1, P11_BATCH), device=sm.device)
+    reset_counts()
+    y8 = server.predict(images)
+    y1 = server.predict(images[:1])
+    counts = read_p11()
+    with t.inference_mode():
+        ref = fp64_forward(t, cfg, server.params,
+                           t.from_numpy(images).to(sm.device)).cpu().numpy()
+    tol = FP_LOGIT_TOL * float(np.abs(ref).max())
+    err8 = float(np.abs(y8 - ref).max())
+    err1 = float(np.abs(y1 - ref[:1]).max())
+    top = float(np.mean(np.argmax(y8, -1) == np.argmax(ref, -1)))
+    lp, cls = R.layer_param_counts(cfg), R.layer_classes(cfg)
+    rep_fp = plan_footprint_report(lp, cls, fp)
+    rep_mx = plan_footprint_report(lp, cls, PrecisionPlan.load(PLAN))
+    b_fp, b_mx = _tree_bytes(server.params), _tree_bytes(mixed_server.params)
+    fps = {}
+    for b in (1, P11_BATCH):
+        x = images[:b]
+        server.predict(x)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            server.predict(x)
+        fps[b] = 10 * b / (time.perf_counter() - t0)
+    log(f"[p11] fp baseline (bf16 weights, bf16 products, every conv "
+        f"through im2col): logits at bucket 8 and 1 within {err8} and "
+        f"{err1} of a float64 run of the same bf16 weights (tol {tol} = "
+        f"{FP_LOGIT_TOL} of the largest |logit|), top-1 agreement {top}; "
+        f"launches {counts} (no kernel of ours); frames/s bucket 1 "
+        f"{fps[1]:.1f}, bucket 8 {fps[P11_BATCH]:.1f}")
+    log(f"[p11] footprint (plan_footprint_report): fp baseline "
+        f"{rep_fp['quant_bytes']:.0f} B (32 bits a weight), "
+        f"resnet18_mixed.json {rep_mx['quant_bytes']:.0f} B, compression "
+        f"{rep_mx['compression']:.3f}x; served trees on the card: fp "
+        f"{b_fp} B (bf16), mixed {b_mx} B, {b_fp / b_mx:.3f}x")
+    if max(err8, err1) > tol or not np.isfinite(y8).all():
+        sm.failures.append(f"fp baseline: {max(err8, err1)} > {tol}")
+    if counts["mpmm_cuda"] or counts["conv_mpmm_cuda"]:
+        sm.failures.append(f"fp baseline launched {counts}")
+    sm.check_phase("11 (b) the fp baseline")
+    return fps
+
+
+def p11_roofline(sm, api, server, plan, images, rows, card):
+    """(c) ``layer_attribution`` of a measured batch-8 forward under the
+    mixed plan; the cost model's per-conv time beside phase 5's measured
+    K2 (and K1) times."""
+    from repro_torch.core import dse
+    from repro_torch.core.packing import PlaneFormat
+    from repro_torch.models import resnet as R
+    from repro_torch.runtime.telemetry import layer_attribution
+    t = sm.torch
+    cfg = api.cfg
+    x = t.from_numpy(images).to(sm.device)
+    fwd = lambda: R.serve_forward(cfg, server.params, x, plan)  # noqa: E731
+    with t.inference_mode():
+        ms = sm.time_ms(fwd)
+        ms_graph = sm.graph_ms(fwd)
+    gemms = api.gemm_workload(P11_BATCH)
+    rep = layer_attribution(gemms, plan, ms / 1e3)
+    rep_g = layer_attribution(gemms, plan, ms_graph / 1e3)
+    log(f"[p11] roofline: batch-{P11_BATCH} forward under {plan.name}: "
+        f"measured {ms:.4f} ms (CUDA events, 20 forwards back to back), "
+        f"roofline {rep['roofline_s'] * 1e3:.4f} ms, roofline_fraction "
+        f"{rep['roofline_fraction']:.4f}, achieved "
+        f"{rep['achieved_tops']:.3f} TOps/s against "
+        f"{rep['roofline_tops']:.1f} at the roofline and "
+        f"{rep['peak_int8_tops']:.0f} peak  ({card})")
+    log(f"[p11] roofline, device time alone: the same forward replayed in a "
+        f"CUDA graph takes {ms_graph:.4f} ms: roofline_fraction "
+        f"{rep_g['roofline_fraction']:.4f}, achieved "
+        f"{rep_g['achieved_tops']:.3f} TOps/s  ({card})")
+    pred, meas, names = [], [], []
+    shapes = {s[0]: s for s in resnet_layer_shapes(cfg)}
+    for r in rows:
+        if r.get("batch", TIME_BATCH) != TIME_BATCH:
+            continue
+        name = r["layer"]
+        if r["kernel"] == "conv_mpmm_cuda":
+            _, h, cin, cout, kk, s, cls = shapes[name]
+            pol = plan.policy_for(name)
+            conv = dse.ConvShape(P11_BATCH, h, h, cin, cout, kk, kk, s)
+            p = dse.choose_conv_dataflow(conv, w_bits=pol.bits_for(cls),
+                                         k=pol.k).time_implicit_s
+        elif r["kernel"] == "mpmm_cuda":
+            g = next(g for g in gemms if g.name == name)
+            pol = plan.policy_for(name)
+            w, k = pol.bits_for(g.layer_class), pol.k
+            tile = dse.autotune_tile(g.m, g.k, g.n, w_bits=w, k=k)
+            p = max(dse.gemm_time(g, tile, PlaneFormat(w, k, g.k)))
+        else:
+            continue
+        names.append(f"{r['kernel']}:{name}")
+        pred.append(p * 1e3)
+        meas.append(r["ms"])
+        log(f"[p11]   {r['kernel']:<15} {name:<7} model {p * 1e3:.5f} ms, "
+            f"measured {r['ms']:.5f} ms ({r['ms'] / (p * 1e3):.2f}x)")
+    k2 = [i for i, n in enumerate(names) if n.startswith("conv")]
+    rho = spearman(pred, meas)
+    rho_k2 = spearman([pred[i] for i in k2], [meas[i] for i in k2])
+    log(f"[p11] model vs measured: rank correlation {rho:.4f} over "
+        f"{len(names)} calls (K2 alone {rho_k2:.4f} over {len(k2)}); sum "
+        f"model {sum(pred):.4f} ms, measured {sum(meas):.4f} ms")
+    if not 0 < rep["roofline_fraction"] < 1:
+        sm.failures.append(f"roofline_fraction {rep['roofline_fraction']}")
+    sm.check_phase("11 (c) roofline attribution")
+    return {"ms": ms, "ms_graph": ms_graph, "rep": rep, "rho": rho,
+            "rho_k2": rho_k2}
+
+
+def p11_frontier(sm, api, params, state):
+    """(d) ``examples/frontiers/resnet18_frontier.json`` through
+    ``frontier_from_manifest`` on the card: every level held to phase 4's
+    contract against its plain path, its launches against the layers' own
+    choices, its frames/s at bucket 8 against the manifest's
+    ``rel_latency``."""
+    import numpy as np
+    from repro_torch.core.plan import FrontierManifest
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.runtime.frontier import frontier_from_manifest
+    from repro_torch.runtime.serve import ImageServer
+    cfg = api.cfg
+    manifest = FrontierManifest.load(FRONTIER)
+    t0 = time.perf_counter()
+    fr = frontier_from_manifest(api, params, manifest, state=state,
+                                batch_buckets=BUCKETS, device=sm.device)
+    sm.torch.cuda.synchronize()
+    log(f"[p11] frontier {manifest.name}: {' -> '.join(fr.names)} packed "
+        f"from one weight draw in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 11)
+    x = rng.normal(0, 1, (P11_BATCH, cfg.img_size, cfg.img_size,
+                          3)).astype(np.float32)
+    total, times = {}, []
+    for lvl, entry in enumerate(manifest.points):
+        srv = fr.server(lvl).server
+        plain = ImageServer(api=srv.api, params=srv.params, plan=srv.plan,
+                            batch_buckets=BUCKETS, device=sm.device,
+                            impl="torch")
+        plan = srv.plan if srv.plan is not None else srv.api.policy
+        reset_counts()
+        fr.serve(list(x), level=lvl)
+        sm.torch.cuda.synchronize()
+        counts = read_p11()
+        want, routes, flows = resnet_launches(cfg, plan, P11_BATCH)
+        got = {k: counts[k] for k in want}
+        if got != want or dict(kernel.mpmm_cuda.routes) != routes:
+            sm.failures.append(f"frontier level {lvl}: launches {got} != "
+                               f"{want} (routes {routes})")
+        total = add_counts(total, counts)
+        logits_contract(sm, f"frontier level {lvl} ({entry.name})", cfg,
+                        plan, srv, plain, x)
+        for _ in range(2):
+            fr.serve(list(x), level=lvl)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fr.serve(list(x), level=lvl)  # host numpy: synchronised
+        times.append((time.perf_counter() - t0) / 10)
+        log(f"[p11] frontier level {lvl} {entry.name}: launches {got}, K1 "
+            f"routes {routes}, implicit convs "
+            f"{sum(f == 'implicit' for f in flows.values())}/{len(flows)}")
+    for lvl, entry in enumerate(manifest.points):
+        log(f"[p11] frontier level {lvl} {entry.name}: "
+            f"{P11_BATCH / times[lvl]:.1f} frames/s at bucket {P11_BATCH} "
+            f"({times[lvl] * 1e3:.3f} ms a batch), measured rel_latency "
+            f"{times[lvl] / times[0]:.4f} against the manifest's "
+            f"{entry.rel_latency}")
+    sm.check_phase("11 (d) the frontier's levels")
+    return fr, times, total
+
+
+def p11_slo(sm, fr, times, cfg):
+    """(e) ``SLOScheduler`` over the frontier on the card, with seeded
+    faults: a burst that degrades, a trickle that recovers; every ticket
+    terminal, every served one bitwise its image served alone at its
+    level.  The deadline is set from the measured level-0 batch time."""
+    import numpy as np
+    from repro_torch.runtime.faults import FaultInjector, FaultSpec
+    from repro_torch.runtime.slo import HysteresisConfig, SLOScheduler
+    t0_batch = times[0]
+    slo_s = SLO_BATCHES * t0_batch
+    clock = SpikeClock()
+    inj = FaultInjector(FaultSpec(
+        step_error_rate=0.3, latency_spike_rate=0.2,
+        latency_spike_s=t0_batch, malformed_rate=0.15), SLO_SEED)
+    faulty = inj.wrap_frontier(fr, advance=clock.advance)
+    s = SLOScheduler(faulty, slo_s=slo_s, clock=clock,
+                     est_serve_s=list(times), max_retries=4, backoff_s=1e-3,
+                     hysteresis=HysteresisConfig(up_after=1, down_after=2))
+    rng = np.random.default_rng(SEED + 12)
+    imgs = rng.normal(0, 1, (SLO_BURST + 24, cfg.img_size, cfg.img_size,
+                             3)).astype(np.float32)
+    tickets, refused, levels = [], 0, []
+    reset_counts()
+    t_start = time.perf_counter()
+    for im in imgs[:SLO_BURST]:
+        p, bad = inj.maybe_malform(im)
+        try:
+            tickets.append((im, s.submit(p)))
+        except ValueError:
+            refused += 1
+    for _ in range(100_000):
+        if not s.pending:
+            break
+        s.step()
+        levels.append(s.level)
+    for im in imgs[SLO_BURST:]:
+        tickets.append((im, s.submit(im)))
+        s.drain()
+        levels.append(s.level)
+        if s.level == 0 and max(levels) > 0:
+            break
+    wall = time.perf_counter() - t_start
+    counts = read_p11()
+    st = s.stats()
+    bad = []
+    for im, tk in tickets:
+        if not tk.done:
+            bad.append(tk.id)
+        elif tk.plan_point:
+            lvl = fr.level_of(tk.plan_point)
+            alone = fr.restricted(lvl).serve([im], level=0)[0]
+            if not np.array_equal(tk.result, alone):
+                bad.append(tk.id)
+    outcomes = {}
+    for _, tk in tickets:
+        key = tk.plan_point or tk.outcome
+        outcomes[key] = outcomes.get(key, 0) + 1
+    log(f"[p11] SLOScheduler: slo {slo_s * 1e3:.3f} ms ({SLO_BATCHES} x the "
+        f"level-0 batch time), burst {SLO_BURST} images then a trickle; "
+        f"{len(tickets)} tickets in {wall:.2f} s, {refused} malformed "
+        f"refused at submit; served by {outcomes}; level after each step "
+        f"{runs(levels)}; transitions {list(s.controller.transitions)}; "
+        f"faults "
+        f"{dict(inj.counts)}; stats degraded {st['degraded']:.0f}, expired "
+        f"{st['expired']:.0f}, retried {st['retried']:.0f}, failed "
+        f"{st['failed']:.0f}, p50 {st['p50_latency_s'] * 1e3:.2f} ms, p99 "
+        f"{st['p99_latency_s'] * 1e3:.2f} ms; launches {counts}; tickets "
+        f"unlike served alone or not terminal: {bad or 'none'}")
+    if bad or max(levels) == 0 or s.level != 0:
+        sm.failures.append(f"SLO: bad tickets {bad}, levels {levels}")
+    if not refused or refused != inj.counts["malformed"]:
+        # the malformed rolls come first and are as many as the burst, so
+        # the seed fixes them; the serve-side rolls follow the timing
+        sm.failures.append(f"SLO: {refused} refused at submit, "
+                           f"{inj.counts['malformed']} malformed rolled")
+    sm.check_phase("11 (e) SLOScheduler under faults")
+    return counts, st
+
+
+def p11_cli(sm, slo_ms):
+    """(f) ``launch.serve.main`` with ``--frontier``/``--slo-ms``, with
+    ``--fp-baseline``, and with ``--plan --trace --metrics-dump``: exit
+    codes, the roofline line, and ``python -m repro_torch.runtime.
+    telemetry validate`` on the written files."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime import telemetry as tele
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        trace, prom = Path(d) / "t.json", Path(d) / "m.prom"
+        runs = {
+            "frontier": ["--frontier", str(FRONTIER), "--slo-ms",
+                         f"{slo_ms:.3f}"],
+            "fp-baseline": ["--fp-baseline"],
+            "plan": ["--plan", str(PLAN), "--trace", str(trace),
+                     "--metrics-dump", str(prom)],
+        }
+        for label, extra in runs.items():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = launch.main(["--arch", "resnet18", "--batch",
+                                  str(P11_BATCH), *extra])
+            sm.torch.cuda.empty_cache()
+            out = buf.getvalue()
+            for line in out.splitlines():
+                log(f"[p11] cli {label}: {line}")
+            roof = [ln for ln in out.splitlines() if "roofline:" in ln]
+            log(f"[p11] cli {label}: rc {rc} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            if rc != 0:
+                sm.failures.append(f"launch.serve {label}: rc {rc}")
+            if label != "frontier" and not (roof and "CUDA events" in roof[0]):
+                sm.failures.append(f"launch.serve {label}: no roofline line "
+                                   f"timed by CUDA events")
+            if label == "frontier" and "drained back to level 0" not in out:
+                sm.failures.append("launch.serve --frontier did not drain "
+                                   "back to level 0")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tele._main(["validate", "--trace", str(trace), "--metrics",
+                             str(prom)])
+        log(f"[p11] telemetry validate: rc {rc}: "
+            f"{buf.getvalue().strip()}")
+        if rc != 0:
+            sm.failures.append("telemetry validate failed")
+    sm.check_phase("11 (f) launch.serve --frontier / --fp-baseline / "
+                   "--plan, telemetry validate")
+
+
+def p11_lm_frontier(sm):
+    """(g) granite-8b at full width, first LM_FRONTIER_DEPTH layers, two
+    points drawn once (``granite_8b_mixed.json``, ``granite_8b_draft_w2.
+    json``) behind ``SLOScheduler`` through ``GenerateBackend``: K1 and K4
+    launched as often as the generate calls made need, every served ticket
+    bitwise its request served alone at its level."""
+    import numpy as np
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.runtime.frontier import build_frontier
+    from repro_torch.runtime.slo import HysteresisConfig, SLOScheduler
+    t = sm.torch
+    vplan, dplan = PrecisionPlan.load(LM_PLAN), PrecisionPlan.load(DRAFT_PLAN)
+    api = lm_api(LM_FRONTIER_DEPTH, vplan)
+    n, cfg = api.cfg.n_layers, api.cfg
+    max_len = max(p + k for p, k in LM_FRONTIER_REQS)
+    t0 = time.perf_counter()
+    fr = build_frontier(api, None, [(vplan.name, vplan), (dplan.name, dplan)],
+                        max_len=max_len, device=sm.device,
+                        generator=t.Generator(device=sm.device).manual_seed(
+                            SEED))
+    t.cuda.synchronize()
+    log(f"[p11] LM frontier: {cfg.name} depth {n}, {' -> '.join(fr.names)} "
+        f"drawn once and packed in {time.perf_counter() - t0:.2f} s")
+    calls = []
+    for lvl in range(fr.n_levels):
+        gen = fr.server(lvl).gen
+        inner = gen.generate
+
+        def counted(tokens, n_new, _inner=inner, **kw):
+            calls.append((tokens.shape[0], n_new))
+            return _inner(tokens, n_new, **kw)
+        gen.generate = counted
+    rng = np.random.default_rng(SEED + 13)
+    reqs = [(rng.integers(0, cfg.vocab, plen).astype(np.int32), n_new)
+            for plen, n_new in LM_FRONTIER_REQS]
+    alone = {}
+    for lvl in range(fr.n_levels):  # warm, and each request alone
+        alone[lvl] = [fr.server(lvl).gen.generate(tk[None], k)[0]
+                      for tk, k in reqs]
+    t0 = time.perf_counter()
+    fr.serve(reqs[:8], level=0)
+    t_batch = time.perf_counter() - t0
+    calls.clear()
+    reset_counts()
+    s = SLOScheduler(fr, slo_s=1.5 * t_batch, est_serve_s=t_batch,
+                     hysteresis=HysteresisConfig(up_after=1))
+    tickets = [(i, s.submit(r)) for i, r in enumerate(reqs)]
+    s.drain()
+    # then deadline-free requests one at a time: no pressure, so the
+    # controller climbs back and the accurate point serves too
+    for i in range(2 * len(reqs)):
+        j = i % len(reqs)
+        tickets.append((j, s.submit(reqs[j], slo_s=float("inf"))))
+        s.drain()
+        if tickets[-1][1].plan_point == fr.name(0):
+            break
+    t.cuda.synchronize()
+    counts = read_p11()
+    per_call = 7 * n + 1  # a step's projections and its head
+    want_k1 = sum(per_call * k for _, k in calls)
+    want_k4 = n * len(calls)
+    bad = [tk.id for i, tk in tickets
+           if tk.plan_point and not np.array_equal(
+               tk.result, alone[fr.level_of(tk.plan_point)][i])]
+    pts = {}
+    for _, tk in tickets:
+        key = tk.plan_point or tk.outcome
+        pts[key] = pts.get(key, 0) + 1
+    log(f"[p11] LM frontier behind SLOScheduler (slo {1.5 * t_batch:.3f} s "
+        f"= 1.5 x a batch of 8): {len(reqs)} requests "
+        f"{list(LM_FRONTIER_REQS)} (prompt, n_new), then one at a time "
+        f"with no deadline; served by {pts}; levels' transitions "
+        f"{list(s.controller.transitions)}; "
+        f"generate calls (rows, n_new) {calls}; launches {counts}, "
+        f"expected K1 {want_k1} and K4 {want_k4}; tickets unlike served "
+        f"alone: {bad or 'none'}")
+    if (counts["mpmm_cuda"], counts["flash_fwd_packed_cuda"]) != (want_k1,
+                                                                  want_k4):
+        sm.failures.append(f"LM frontier launches {counts} != K1 {want_k1}, "
+                           f"K4 {want_k4}")
+    if counts["flash_fwd_cuda"] or counts["conv_mpmm_cuda"]:
+        sm.failures.append(f"LM frontier launched {counts}")
+    if bad or not all(tk.done for _, tk in tickets) or not calls \
+            or set(pts) != set(fr.names):
+        sm.failures.append(f"LM frontier tickets {bad}, served by {pts}")
+    sm.check_phase("11 (g) the LM frontier through GenerateBackend")
+    del fr
+    t.cuda.empty_cache()
+    return counts
+
+
+def p11_dataflow(sm, api, server, plan, card):
+    """(h) The per-layer dataflow the H100 model picks, and frames/s at
+    buckets 1 and 8 under ``auto`` and with ``implicit`` forced (runs in
+    turns: auto, implicit, implicit, auto)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.runtime.serve import ImageServer
+    cfg = api.cfg
+    for b in (1, P11_BATCH):
+        _, routes, flows = resnet_launches(cfg, plan, b)
+        log(f"[p11] dataflow auto at batch {b}: "
+            + ", ".join(f"{k} {v}" for k, v in flows.items())
+            + f"; K1 routes {routes}")
+    forced = ImageServer(api=server.api, params=server.params,
+                         plan=server.plan, batch_buckets=server.batch_buckets,
+                         device=sm.device, dataflow="implicit")
+    rng = np.random.default_rng(SEED + 14)
+    x = rng.normal(0, 1, (P11_BATCH, cfg.img_size, cfg.img_size,
+                          3)).astype(np.float32)
+    res = {("auto", 1): [], ("auto", P11_BATCH): [],
+           ("implicit", 1): [], ("implicit", P11_BATCH): []}
+    for label, srv in (("auto", server), ("implicit", forced),
+                       ("implicit", forced), ("auto", server)):
+        for b in (1, P11_BATCH):
+            xb = x[:b]
+            srv.predict(xb)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                srv.predict(xb)
+            res[(label, b)].append(20 * b / (time.perf_counter() - t0))
+    same = np.array_equal(server.predict(x), forced.predict(x))
+    from repro_torch.models import resnet as R
+    dev = {}
+    with sm.torch.inference_mode():
+        for label in ("auto", "implicit", "implicit", "auto"):
+            for b in (1, P11_BATCH):
+                xb = sm.torch.from_numpy(x[:b]).to(sm.device)
+                dev.setdefault((label, b), []).append(sm.graph_ms(
+                    lambda: R.serve_forward(cfg, server.params, xb, plan,
+                                            dataflow=label)))
+    for b in (1, P11_BATCH):
+        a, i = res[("auto", b)], res[("implicit", b)]
+        da, di = dev[("auto", b)], dev[("implicit", b)]
+        log(f"[p11] frames/s at bucket {b}: auto {a[0]:.1f} / {a[1]:.1f}, "
+            f"implicit forced {i[0]:.1f} / {i[1]:.1f} (runs in turns); "
+            f"auto/implicit {sum(a) / sum(i):.4f}; device time a forward "
+            f"(CUDA graph): auto {da[0]:.4f} / {da[1]:.4f} ms, implicit "
+            f"{di[0]:.4f} / {di[1]:.4f} ms  ({card})")
+    log(f"[p11] auto and implicit logits bitwise equal: {same}")
+    if not same:
+        sm.failures.append("dataflow auto vs implicit: logits differ")
+    sm.check_phase("11 (h) dataflow auto vs implicit")
+    return res
+
+
+def phase_p11(sm, server, rows, card):
+    """Phase 11 at full ResNet-18 width (random weights from SEED): (a)-(h)
+    above.  -> (launches of its main-path runs, results)."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import resnet as R
+    t = sm.torch
+    t_start = time.perf_counter()
+    api = configs.get(ARCH)
+    cfg = api.cfg
+    plan = PrecisionPlan.load(PLAN)
+    gen = t.Generator(device=sm.device).manual_seed(SEED)
+    params = api.init_params(gen, device=sm.device)
+    state = R.init_bn_state(api.specs(), device=sm.device)
+    images = np.random.default_rng(SEED + 10).normal(
+        0, 1, (CALIB_IMAGES, cfg.img_size, cfg.img_size, 3)).astype(
+            np.float32)
+    launches = {}
+    counts, packed_fp = p11_dse(sm, api, params, state, images)
+    launches = add_counts(launches, counts)
+    fps_fp = p11_fp_baseline(sm, api, packed_fp, server, images)
+    del packed_fp
+    roof = p11_roofline(sm, api, server, plan, images, rows, card)
+    fr, times, counts = p11_frontier(sm, api, params, state)
+    launches = add_counts(launches, counts)
+    counts, slo_stats = p11_slo(sm, fr, times, cfg)
+    launches = add_counts(launches, counts)
+    del fr, params, state
+    t.cuda.empty_cache()
+    p11_cli(sm, SLO_BATCHES * times[0] * 1e3)
+    launches = add_counts(launches, p11_lm_frontier(sm))
+    flows = p11_dataflow(sm, api, server, plan, card)
+    log(f"[p11] done in {time.perf_counter() - t_start:.1f} s; launches of "
+        f"its runs {launches}")
+    return launches, {"fps_fp": fps_fp, "roof": roof, "times": times,
+                      "flows": flows, "slo": slo_stats}
+
+
 KERNELS = (
     ("mpmm_cuda", "src/repro_torch/kernels/mpmm/csrc/mpmm_wgmma.cu",
      "src/repro/kernels/mpmm/kernel.py:164"),
@@ -1587,9 +2460,14 @@ def main() -> int:
     del sg
     torch.cuda.empty_cache()
     img_batches = phase_image_scheduler(sm, server, cfg)
-    del server
     phase_cli(sm)
     log(f"[spec] done at {time.perf_counter() - t_start:.1f} s")
+    p11_launches, p11 = phase_p11(sm, server, rows, card)
+    launches = {k: launches[k] + p11_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p11_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    del server
+    log(f"[p11] phase 11 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 

@@ -14,6 +14,12 @@ from repro_torch.models.api import ModelAPI
 
 RESNET_NAMES = ["resnet18", "resnet50", "resnet152"]
 LM_NAMES = ["granite-8b"]
+ARCH_NAMES = RESNET_NAMES + LM_NAMES
+# The JAX package's archs that the port does not have yet (ROADMAP Queue 1):
+# the plan CLI names them as such instead of as unknown.
+NOT_PORTED = ("granite-34b", "nemotron-4-340b", "yi-34b", "mamba2-1.3b",
+              "chameleon-34b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+              "whisper-base", "recurrentgemma-9b")
 
 _MODULES = {name: name.replace("-", "_") for name in RESNET_NAMES + LM_NAMES}
 

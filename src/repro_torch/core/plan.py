@@ -18,6 +18,10 @@ hierarchical: an exact entry wins, else scope prefixes are stripped one
 at a time (``l3.q`` falls back to ``q``), else the plan default applies.
 Boundary layers stay pinned through ``PrecisionPolicy.bits_for``.
 
+A ``FrontierManifest`` orders N plans of one model accurate -> fast (the
+serving degradation ladder; ``examples/frontiers/*.json``), each point an
+inline plan or a path relative to the manifest.
+
 Schema v2 adds the decode KV cache: the plan-level ``kv`` section sets the
 cache-wide word-length, slice and store ('packed' digit planes or the
 'qdq' bf16 oracle layout), and ``kv_bits`` on a ``k``/``v`` entry (or a
@@ -26,10 +30,12 @@ file carrying kv keys is refused.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import sys
 from pathlib import Path
-from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.precision import (PrecisionPolicy, VALID_SLICES,
                                         VALID_WBITS)
@@ -38,15 +44,23 @@ __all__ = [
     "LayerPlan",
     "KVCachePlan",
     "PrecisionPlan",
+    "FrontierEntry",
+    "FrontierManifest",
+    "as_plan",
     "resolve_policy",
     "resolve_dataflow",
     "resolve_kv_bits",
     "strip_kv",
+    "kv_cache_token_bytes",
+    "plan_footprint_report",
     "validate_plan_json",
+    "validate_frontier_json",
+    "main",
     "VALID_KV_BITS",
 ]
 
 SUPPORTED_PLAN_VERSIONS = (1, 2)
+FRONTIER_VERSION = 1
 VALID_DATAFLOWS = ("auto", "im2col", "implicit")
 VALID_KV_BITS = (2, 4, 8)
 VALID_KV_STORES = ("packed", "qdq")
@@ -175,6 +189,22 @@ class PrecisionPlan:
                            tuple(sorted(self.layers, key=lambda e: e[0])))
         object.__setattr__(self, "_entries", dict(self.layers))
 
+    @classmethod
+    def build(cls, layers: Mapping[str, LayerPlan], **kw) -> "PrecisionPlan":
+        return cls(layers=tuple(layers.items()), **kw)
+
+    @classmethod
+    def uniform(cls, policy: PrecisionPolicy,
+                name: str = "") -> "PrecisionPlan":
+        """The degenerate single-entry plan of a uniform policy."""
+        return cls(
+            layers=(),
+            default=LayerPlan(w_bits=policy.inner_bits, k=policy.k,
+                              channel_wise=policy.channel_wise),
+            a_bits=policy.a_bits, boundary_bits=policy.boundary_bits,
+            variant=policy.variant, quantize=policy.quantize,
+            name=name or f"uniform_w{policy.inner_bits}k{policy.k}")
+
     def layer(self, name: str) -> LayerPlan:
         """Exact entry, else the name with scope prefixes stripped one
         segment at a time, else the plan default."""
@@ -221,6 +251,40 @@ class PrecisionPlan:
     def kv_slice(self, bits: int) -> int:
         """Digit-plane slice of a cache tensor at ``bits``."""
         return min(bits, self.kv.k if self.kv is not None else 4)
+
+    def distinct_kvbits(self) -> Tuple[int, ...]:
+        bits = {lp.kv_bits for _, lp in self.layers
+                if lp.kv_bits is not None}
+        if self.kv is not None and self.kv.bits is not None:
+            bits.add(self.kv.bits)
+        return tuple(sorted(bits))
+
+    def validate_kv(self, kv_names: Iterable[str], arch: str = "") -> None:
+        """Reject kv word-lengths on layers with no decode cache
+        (``kv_names`` is empty for models without one: the CNNs)."""
+        if not self.kv_enabled():
+            return
+        kv_set = set(kv_names)
+        if not kv_set:
+            raise ValueError(
+                f"plan {self.name or '<unnamed>'!r} sets KV-cache "
+                f"word-lengths (kv section / kv_bits) but "
+                f"{arch or 'this model'} has no decode KV cache; "
+                f"remove the kv keys")
+        bad = [n for n, lp in self.layers
+               if lp.kv_bits is not None and n not in kv_set]
+        if bad:
+            raise ValueError(
+                f"kv_bits set on layers with no KV cache: {bad}; "
+                f"cacheable tensors: {sorted(kv_set)}")
+
+    @property
+    def layer_names(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.layers)
+
+    def distinct_wbits(self) -> Tuple[int, ...]:
+        bits = {lp.w_bits for _, lp in self.layers} | {self.default.w_bits}
+        return tuple(sorted(bits))
 
     def validate_layers(self, known: Iterable[str]) -> None:
         """Every named layer must exist in the model's workload."""
@@ -293,6 +357,9 @@ class PrecisionPlan:
         return cls.from_json(json.loads(
             text, object_pairs_hook=_reject_duplicate_keys))
 
+    def save(self, path) -> None:
+        Path(path).write_text(self.dumps())
+
     @classmethod
     def load(cls, path) -> "PrecisionPlan":
         return cls.loads(Path(path).read_text())
@@ -305,6 +372,161 @@ def _reject_duplicate_keys(pairs):
         dupes = sorted({k for k in keys if keys.count(k) > 1})
         raise ValueError(f"duplicate keys in plan JSON: {dupes}")
     return dict(pairs)
+
+
+# --- frontier manifests (the serving degradation axis) ----------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontierEntry:
+    """One operating point of a serving frontier: its plan, its serve cost
+    relative to the accurate point (``rel_latency``, 1.0 at index 0) and
+    the planner's accuracy-loss proxy (``error``); ``source`` is the plan
+    file's path as the manifest wrote it, or 'inline'."""
+
+    plan: PrecisionPlan
+    rel_latency: float = 1.0
+    error: float = 0.0
+    source: str = "inline"
+
+    @property
+    def name(self) -> str:
+        return self.plan.name
+
+    def to_json(self) -> Dict[str, object]:
+        out: Dict[str, object] = {"rel_latency": self.rel_latency,
+                                  "error": self.error}
+        out["plan"] = (self.source if self.source != "inline"
+                       else self.plan.to_json())
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontierManifest:
+    """N plan points of ONE model, ordered accurate -> fast.
+
+    Each point's ``plan`` is an inline plan object or a path relative to
+    the manifest file.  Position 0 is the accurate point; ``error`` must
+    not fall and ``rel_latency`` must not rise along the list, every plan
+    must target the manifest's ``arch`` (an empty plan ``arch`` inherits
+    it), and point names are unique and non-empty.
+    """
+
+    name: str
+    arch: str
+    points: Tuple[FrontierEntry, ...]
+
+    def __post_init__(self):
+        if not self.points:
+            raise ValueError("a frontier needs at least one plan point")
+        if not self.arch:
+            raise ValueError("frontier manifests must name their arch")
+        names = [e.name for e in self.points]
+        if len(set(names)) != len(names):
+            dupes = sorted({n for n in names if names.count(n) > 1})
+            raise ValueError(f"duplicate frontier point names: {dupes}")
+        if any(not n for n in names):
+            raise ValueError("every frontier plan must carry a name")
+        for prev, cur in zip(self.points, self.points[1:]):
+            if cur.error < prev.error - 1e-12:
+                raise ValueError(
+                    f"frontier points must be ordered accurate -> fast: "
+                    f"error drops from {prev.error} ({prev.name}) to "
+                    f"{cur.error} ({cur.name})")
+            if cur.rel_latency > prev.rel_latency + 1e-12:
+                raise ValueError(
+                    f"frontier points must be ordered accurate -> fast: "
+                    f"rel_latency rises from {prev.rel_latency} "
+                    f"({prev.name}) to {cur.rel_latency} ({cur.name})")
+        for e in self.points:
+            if e.plan.arch and e.plan.arch != self.arch:
+                raise ValueError(
+                    f"frontier point {e.name!r} targets arch "
+                    f"{e.plan.arch!r}, manifest says {self.arch!r}")
+
+    @property
+    def point_names(self) -> Tuple[str, ...]:
+        return tuple(e.name for e in self.points)
+
+    def plans(self) -> Tuple[Tuple[str, PrecisionPlan], ...]:
+        """(name, plan) pairs in degradation order (accurate first)."""
+        return tuple((e.name, e.plan) for e in self.points)
+
+    def validate_layers(self, known: Iterable[str]) -> None:
+        known = list(known)
+        for e in self.points:
+            e.plan.validate_layers(known)
+
+    def to_json(self) -> Dict[str, object]:
+        return {"version": FRONTIER_VERSION, "name": self.name,
+                "arch": self.arch,
+                "points": [e.to_json() for e in self.points]}
+
+    def dumps(self) -> str:
+        return json.dumps(self.to_json(), indent=2, sort_keys=True) + "\n"
+
+    def save(self, path) -> None:
+        Path(path).write_text(self.dumps())
+
+    @classmethod
+    def from_json(cls, obj: Mapping[str, object],
+                  base_dir: Optional[Path] = None) -> "FrontierManifest":
+        if not isinstance(obj, Mapping):
+            raise ValueError(
+                f"frontier JSON must be an object, got {type(obj)}")
+        version = obj.get("version", FRONTIER_VERSION)
+        if version != FRONTIER_VERSION:
+            raise ValueError(f"unsupported frontier version {version}")
+        extra = set(obj) - {"version", "name", "arch", "points"}
+        if extra:
+            raise ValueError(f"unknown frontier keys: {sorted(extra)}")
+        pts_obj = obj.get("points", [])
+        if not isinstance(pts_obj, Sequence) or isinstance(pts_obj, str):
+            raise ValueError("'points' must be a list of frontier entries")
+        entries = []
+        for i, p in enumerate(pts_obj):
+            if not isinstance(p, Mapping):
+                raise ValueError(f"frontier point {i} must be an object")
+            p_extra = set(p) - {"plan", "rel_latency", "error"}
+            if p_extra:
+                raise ValueError(
+                    f"unknown keys in frontier point {i}: {sorted(p_extra)}")
+            plan_ref = p.get("plan")
+            if isinstance(plan_ref, str):
+                path = Path(plan_ref)
+                if not path.is_absolute():
+                    path = (base_dir or Path(".")) / path
+                plan, source = PrecisionPlan.load(path), str(plan_ref)
+            elif isinstance(plan_ref, Mapping):
+                plan, source = PrecisionPlan.from_json(plan_ref), "inline"
+            else:
+                raise ValueError(
+                    f"frontier point {i}: 'plan' must be a plan object or "
+                    f"a path string, got {type(plan_ref)}")
+            entries.append(FrontierEntry(
+                plan=plan, rel_latency=float(p.get("rel_latency", 1.0)),
+                error=float(p.get("error", 0.0)), source=source))
+        return cls(name=str(obj.get("name", "")),
+                   arch=str(obj.get("arch", "")), points=tuple(entries))
+
+    @classmethod
+    def loads(cls, text: str,
+              base_dir: Optional[Path] = None) -> "FrontierManifest":
+        return cls.from_json(
+            json.loads(text, object_pairs_hook=_reject_duplicate_keys),
+            base_dir=base_dir)
+
+    @classmethod
+    def load(cls, path) -> "FrontierManifest":
+        path = Path(path)
+        return cls.loads(path.read_text(), base_dir=path.parent)
+
+
+def as_plan(policy: PolicyOrPlan, name: str = "") -> PrecisionPlan:
+    """Uniform policy -> its degenerate plan; a plan passes through."""
+    if isinstance(policy, PrecisionPlan):
+        return policy
+    return PrecisionPlan.uniform(policy, name=name)
 
 
 def resolve_policy(policy: PolicyOrPlan, layer_name: str) -> PrecisionPolicy:
@@ -343,18 +565,198 @@ def strip_kv(policy: PolicyOrPlan) -> PolicyOrPlan:
     return dataclasses.replace(policy, layers=layers, kv=None)
 
 
+# --- footprint accounting (Table III, per layer) -----------------------------
+
+
+def kv_cache_token_bytes(bits: Optional[int], heads: int, head_dim: int,
+                         slice_k: int = 4) -> float:
+    """Bytes ONE token of one cached K or V tensor occupies: bf16 rows at
+    ``bits=None``, else ``ceil(head_dim * bits / 8)`` code bytes (digit
+    planes pack densely) plus 4 bytes of bf16 scale and zero, per head."""
+    if bits is None:
+        return heads * head_dim * 2.0
+    k = min(bits, slice_k)
+    planes = -(-bits // k)
+    packed_d = -(-head_dim // (8 // k))
+    return float(heads * (planes * packed_d + 4))
+
+
+def plan_footprint_report(
+    layer_params: Mapping[str, int],
+    layer_classes: Mapping[str, str],
+    plan: PolicyOrPlan,
+    *,
+    kv_layers: Optional[Mapping[str, Tuple[int, int]]] = None,
+    kv_tokens: int = 0,
+) -> Dict[str, float]:
+    """Table III accounting at per-layer word-lengths.
+
+    ``layer_params`` maps layer name -> weight count, ``layer_classes``
+    name -> 'inner' | 'boundary'; ``kv_layers`` (cached tensor -> (kv
+    heads, head_dim)) adds the decode cache at ``kv_tokens`` tokens a
+    sequence (``kv_*`` and ``total_*`` keys).  The fp baseline counts 32
+    bits a weight, as the reference does.
+    """
+    p = as_plan(plan)
+    if p.kv_enabled() and not kv_layers:
+        raise ValueError(
+            f"plan {p.name or '<unnamed>'!r} sets KV-cache word-lengths "
+            f"but this workload has no KV cache (pass kv_layers for "
+            f"models with a decode cache; CNN plans must not carry kv "
+            f"keys)")
+    fp_bytes = 4.0 * sum(layer_params.values())
+    q_bytes = 0.0
+    n_inner = n_bound = 0
+    for name, count in layer_params.items():
+        cls = layer_classes.get(name, "inner")
+        pol = p.policy_for(name)
+        bits = pol.bits_for(cls) if p.quantize else 32
+        q_bytes += count * bits / 8.0
+        if cls == "boundary":
+            n_bound += count
+        else:
+            n_inner += count
+    out = {
+        "fp32_bytes": fp_bytes,
+        "quant_bytes": q_bytes,
+        "compression": fp_bytes / max(q_bytes, 1.0),
+        "inner_params": float(n_inner),
+        "boundary_params": float(n_bound),
+    }
+    if kv_layers:
+        tokens = max(int(kv_tokens), 1)
+        kv_fp = kv_q = 0.0
+        for name, (heads, head_dim) in kv_layers.items():
+            bits = p.kv_bits_for(name)
+            kv_fp += tokens * kv_cache_token_bytes(None, heads, head_dim)
+            kv_q += tokens * kv_cache_token_bytes(
+                bits, heads, head_dim, p.kv_slice(bits or 8))
+        out.update({
+            "kv_tokens": float(tokens),
+            "kv_fp16_bytes": kv_fp,
+            "kv_quant_bytes": kv_q,
+            "kv_compression": kv_fp / max(kv_q, 1.0),
+            "total_fp_bytes": fp_bytes + kv_fp,
+            "total_quant_bytes": q_bytes + kv_q,
+        })
+    return out
+
+
+# --- schema validation CLI ---------------------------------------------------
+
+
 def validate_plan_json(path, arch: Optional[str] = None) -> PrecisionPlan:
     """Load and schema-check a plan file; with ``arch`` (or the plan's own
-    ``arch`` key) also check every named layer against that architecture.
-    An arch outside the registry raises ``KeyError``."""
+    ``arch`` key) also check every named layer and ``kv_bits`` against
+    that architecture.  An arch outside the port's registry raises
+    ``KeyError``."""
     plan = PrecisionPlan.load(path)
     arch = arch or plan.arch or None
     if arch is not None:
         from repro_torch import configs  # configs imports the model modules
         api = configs.get(arch)
         plan.validate_layers(api.plan_layer_names())
-        bad = [n for n, lp in plan.layers if lp.kv_bits is not None
-               and n not in set(api.kv_layer_names())]
-        if bad:
-            raise ValueError(f"kv_bits set on layers with no KV cache: {bad}")
+        plan.validate_kv(api.kv_layer_names(), arch=arch)
     return plan
+
+
+def validate_frontier_json(path) -> FrontierManifest:
+    """Load and schema-check a frontier manifest, and check every point's
+    layer names against the manifest's arch."""
+    manifest = FrontierManifest.load(path)
+    from repro_torch import configs
+    api = configs.get(manifest.arch)
+    manifest.validate_layers(api.plan_layer_names())
+    return manifest
+
+
+def _unknown_arch(kind: str, arch: str, where: str) -> str:
+    from repro_torch import configs
+    if arch in configs.NOT_PORTED:
+        return (f"[{kind}] arch {arch!r}{where} is not ported to "
+                f"repro_torch yet; ported: {', '.join(configs.ARCH_NAMES)}")
+    return (f"[{kind}] unknown arch {arch!r}{where}; available: "
+            f"{', '.join(configs.ARCH_NAMES)}")
+
+
+def _main_validate_frontier(paths: Sequence[str]) -> int:
+    rc = 0
+    for path in paths:
+        try:
+            manifest = validate_frontier_json(path)
+        except KeyError:
+            arch = FrontierManifest.load(path).arch
+            print(_unknown_arch("frontier", arch, f" in {path}"),
+                  file=sys.stderr)
+            rc = 2
+            continue
+        except (ValueError, OSError, json.JSONDecodeError) as e:
+            print(f"[frontier] INVALID {path}: {e}", file=sys.stderr)
+            rc = max(rc, 1)
+            continue
+        pts = ", ".join(
+            f"{e.name}(w{'/'.join(map(str, e.plan.distinct_wbits()))}"
+            f"@{e.rel_latency:g})" for e in manifest.points)
+        print(f"[frontier] ok {path}: arch {manifest.arch}, "
+              f"{len(manifest.points)} points accurate->fast: {pts}")
+    return rc
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """``python -m repro_torch.core.plan validate|validate-frontier
+    PATHS``: exit 0 when every file is valid, 1 on a schema or layer
+    error, 2 on an arch the port does not have (ported or not yet)."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.core.plan",
+        description="Validate precision-plan JSON files (schema + the "
+                    "arch's layer names; the arch comes from --arch or "
+                    "each plan's 'arch' key) or frontier manifests "
+                    "(validate-frontier: ordering, arch agreement, every "
+                    "point's layer names).")
+    ap.add_argument("command", choices=["validate", "validate-frontier"])
+    ap.add_argument("paths", nargs="+",
+                    help="plan (or frontier-manifest) JSON files")
+    ap.add_argument("--arch", default=None,
+                    help="check layer names against this arch's workload "
+                         "(overrides the plans' own arch)")
+    ap.add_argument("--schema-only", action="store_true",
+                    help="allow plans with no arch (schema check only)")
+    args = ap.parse_args(argv)
+    if args.command == "validate-frontier":
+        return _main_validate_frontier(args.paths)
+    from repro_torch import configs
+    if args.arch is not None and args.arch not in configs.ARCH_NAMES:
+        print(_unknown_arch("plan", args.arch, ""), file=sys.stderr)
+        return 2
+    rc = 0
+    for path in args.paths:
+        try:
+            plan = validate_plan_json(path, arch=args.arch)
+            if not (args.arch or plan.arch) and not args.schema_only:
+                print(f"[plan] INVALID {path}: no arch to validate layer "
+                      f"names against (embed an 'arch' key, pass --arch, "
+                      f"or pass --schema-only)", file=sys.stderr)
+                rc = 1
+                continue
+        except KeyError:
+            plan_arch = PrecisionPlan.load(path).arch
+            print(_unknown_arch("plan", plan_arch, f" in {path}"),
+                  file=sys.stderr)
+            rc = 2
+            continue
+        except (ValueError, OSError, json.JSONDecodeError) as e:
+            print(f"[plan] INVALID {path}: {e}", file=sys.stderr)
+            rc = max(rc, 1)
+            continue
+        print(f"[plan] ok {path}: {len(plan.layers)} named layers, "
+              f"w_bits {plan.distinct_wbits()}, default "
+              f"w{plan.default.w_bits}k{plan.default.k}"
+              + (f", kv_bits {plan.distinct_kvbits()} "
+                 f"({plan.kv_store()})" if plan.kv_enabled() else "")
+              + (f", arch {args.arch or plan.arch}"
+                 if (args.arch or plan.arch) else ""))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

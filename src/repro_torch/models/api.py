@@ -1,10 +1,11 @@
 """Uniform model API (port of ``repro.models.api``): specs, parameter init,
-the plan namespace and, for LM families, prefill / decode and the cache
-layout."""
+the plan namespace, the workload the cost model and the planner read
+(GEMMs, FLOPs, parameter counts) and, for LM families, prefill / decode
+and the cache layout."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict
 
 import torch
 
@@ -36,6 +37,35 @@ class ModelAPI:
     def plan_layer_names(self):
         """Every layer name a ``PrecisionPlan`` may bind for this arch."""
         return self.mod.plan_layer_names(self.cfg)
+
+    # --- analysis (DSE, planner, roofline) -----------------------------------
+
+    def gemm_workload(self, tokens: int):
+        """The model's GEMMs at ``tokens`` rows (a CNN: images)."""
+        return self.mod.gemm_workload(self.cfg, tokens)
+
+    def model_flops(self, *, tokens: int, step: str) -> float:
+        return self.mod.model_flops(self.cfg, tokens=tokens, step=step)
+
+    def active_params(self) -> int:
+        return self.mod.active_params(self.cfg)
+
+    def total_params(self) -> int:
+        return self.mod.total_params(self.cfg)
+
+    def param_class_counts(self, mode: str = "train") -> Dict[str, int]:
+        """{'inner': n, 'boundary': n} weight counts for Table III."""
+        def classify(path: str) -> str:
+            p = path.lower()
+            if "embed" in p or "head" in p or "norm" in p or "'fc'" in p \
+                    or "stem" in p or "bn" in p or "ln" in p:
+                return "boundary"
+            if path.endswith("['w']"):
+                return "inner"
+            return "other"
+        counts = nnp.count_params(self.specs(mode), classify)
+        return {"inner": counts.get("inner", 0),
+                "boundary": counts.get("boundary", 0)}
 
     # --- LM families ----------------------------------------------------------
 

@@ -18,15 +18,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import plan as plan_lib
+from repro_torch.core.dse import Gemm
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mpmm import ref as mpmm_ref
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
-__all__ = ["ResNetConfig", "RESNET_STAGES", "Gemm", "specs", "init_bn_state",
+__all__ = ["ResNetConfig", "RESNET_STAGES", "specs", "init_bn_state",
            "pack_for_serve", "serve_features", "serve_forward",
-           "gemm_workload", "plan_layer_names"]
+           "gemm_workload", "plan_layer_names", "param_counts",
+           "layer_param_counts", "layer_classes", "inner_layer_names",
+           "layer_weights", "model_flops", "total_params", "active_params"]
 
 RESNET_STAGES = {
     18: ("basic", (2, 2, 2, 2)),
@@ -61,17 +64,6 @@ class ResNetConfig:
     def fc_in(self) -> int:
         """Channels entering the classifier."""
         return self.width * 2 ** (len(self.stages) - 1) * self.expansion
-
-
-@dataclasses.dataclass(frozen=True)
-class Gemm:
-    """One conv or linear layer as a GEMM (M x K) @ (K x N)."""
-
-    name: str
-    m: int
-    k: int
-    n: int
-    layer_class: str = "inner"
 
 
 # --- specs ------------------------------------------------------------------
@@ -302,7 +294,8 @@ def serve_forward(cfg: ResNetConfig, packed, images: torch.Tensor, policy, *,
 
 
 def gemm_workload(cfg: ResNetConfig, batch: int = 1) -> List[Gemm]:
-    """Conv layers as GEMMs at the config's image size."""
+    """Conv layers as GEMMs at the config's image size (the DSE's and the
+    planner's input)."""
     hw = cfg.img_size // 2  # stem stride 2
     gemms = [Gemm("stem", batch * hw * hw, 3 * 49, cfg.width,
                   layer_class="boundary")]
@@ -330,3 +323,59 @@ def gemm_workload(cfg: ResNetConfig, batch: int = 1) -> List[Gemm]:
 def plan_layer_names(cfg: ResNetConfig) -> List[str]:
     """The plan namespace: the workload layer names."""
     return [g.name for g in gemm_workload(cfg, batch=1)]
+
+
+# Param-tree key of each conv of a block -> its workload-name suffix.
+_PLAN_SUFFIX = {"conv1": "c1", "conv2": "c2", "conv3": "c3", "proj": "p"}
+
+
+def param_counts(cfg: ResNetConfig) -> Dict[str, int]:
+    inner = bound = 0
+    for g in gemm_workload(cfg, batch=1):
+        if g.layer_class == "boundary":
+            bound += g.k * g.n
+        else:
+            inner += g.k * g.n
+    return {"inner": inner, "boundary": bound}
+
+
+def layer_param_counts(cfg: ResNetConfig) -> Dict[str, int]:
+    """{workload layer name: weight count}: the planner's footprint input."""
+    return {g.name: g.k * g.n for g in gemm_workload(cfg, batch=1)}
+
+
+def layer_classes(cfg: ResNetConfig) -> Dict[str, str]:
+    return {g.name: g.layer_class for g in gemm_workload(cfg, batch=1)}
+
+
+def inner_layer_names(cfg: ResNetConfig) -> List[str]:
+    return [g.name for g in gemm_workload(cfg, batch=1)
+            if g.layer_class != "boundary"]
+
+
+def layer_weights(cfg: ResNetConfig, params) -> Dict[str, torch.Tensor]:
+    """{workload layer name: float weight matrix (K, N)} of a QAT param
+    tree: the planner's PTQ-sensitivity input."""
+    out = {"stem": params["stem"]["w"], "fc": params["fc"]["w"]}
+    for si, bi, cin, cmid, stride in _block_channels(cfg):
+        key = f"s{si}b{bi}"
+        for pkey, sfx in _PLAN_SUFFIX.items():
+            if pkey in params[key]:
+                out[key + sfx] = params[key][pkey]["w"]
+    return out
+
+
+def model_flops(cfg: ResNetConfig, *, batch: Optional[int] = None,
+                tokens: Optional[int] = None, step: str = "train") -> float:
+    b = batch if batch is not None else (tokens or 1)
+    macs = sum(g.macs for g in gemm_workload(cfg, b))
+    return (6.0 if step == "train" else 2.0) * macs
+
+
+def total_params(cfg: ResNetConfig) -> int:
+    c = param_counts(cfg)
+    return c["inner"] + c["boundary"]
+
+
+def active_params(cfg: ResNetConfig) -> int:
+    return total_params(cfg)  # a dense CNN: every weight is active

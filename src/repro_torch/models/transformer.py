@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import plan as plan_lib
+from repro_torch.core.dse import Gemm
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.nn import attention as attn
 from repro_torch.nn import kvcache
@@ -38,7 +39,8 @@ from repro_torch.nn.param import ParamSpec
 __all__ = ["TransformerConfig", "plan_layer_names", "kv_layer_names",
            "kv_cache_workload", "scan_format_groups", "specs", "forward",
            "prefill", "decode_step", "decode_steps", "cache_specs",
-           "kv_formats"]
+           "kv_formats", "gemm_workload", "total_params", "active_params",
+           "model_flops"]
 
 LAYER_BASES = ("q", "k", "v", "o", "mlp")
 
@@ -71,7 +73,7 @@ class TransformerConfig:
         return nnl.layernorm_spec, nnl.layernorm_apply
 
 
-# --- layer namespace and formats ---------------------------------------------------
+# --- layer namespace and formats ---------------------------------------------
 
 
 def plan_layer_names(cfg: TransformerConfig) -> List[str]:
@@ -142,7 +144,7 @@ def scan_format_groups(cfg: TransformerConfig,
     return [tuple(g) for g in groups]
 
 
-# --- specs -------------------------------------------------------------------------
+# --- specs -------------------------------------------------------------------
 
 
 def _mlp_spec(cfg, *, serve, policy, lname):
@@ -192,7 +194,7 @@ def specs(cfg: TransformerConfig, mode: str = "train",
     }
 
 
-# --- forward -------------------------------------------------------------------------
+# --- forward -----------------------------------------------------------------
 
 
 def _apply_mlp(cfg, p, x, policy, impl, lname):
@@ -361,3 +363,44 @@ def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
         x = x + o
         x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname)
     return _head(cfg, params, x, policy, impl), cache
+
+
+# --- workload descriptions (DSE, planner, roofline) --------------------------
+
+
+def _per_layer_gemms(cfg: TransformerConfig, tokens: int) -> List[Gemm]:
+    """The GEMMs of one decoder layer at ``tokens`` activation rows (every
+    layer of the per-layer list has the same shapes)."""
+    d, hd = cfg.d_model, cfg.hd
+    n_mats = 3 if cfg.act == "swiglu" else 2
+    return [Gemm("q", tokens, d, cfg.n_heads * hd),
+            Gemm("k", tokens, d, cfg.n_kv * hd),
+            Gemm("v", tokens, d, cfg.n_kv * hd),
+            Gemm("o", tokens, cfg.n_heads * hd, d),
+            Gemm("mlp", tokens, d, cfg.d_ff, count=n_mats)]
+
+
+def gemm_workload(cfg: TransformerConfig, tokens: int) -> List[Gemm]:
+    """All GEMMs of one forward over ``tokens`` tokens: each projection
+    counted once a layer, and the boundary head."""
+    gemms = [dataclasses.replace(g, count=g.count * cfg.n_layers)
+             for g in _per_layer_gemms(cfg, tokens)]
+    gemms.append(Gemm("head", tokens, cfg.d_model, cfg.vocab,
+                      layer_class="boundary"))
+    return gemms
+
+
+def total_params(cfg: TransformerConfig) -> int:
+    """Projection weights of every layer plus the embedding and head."""
+    per = sum(g.k * g.n * g.count for g in _per_layer_gemms(cfg, 1))
+    return per * cfg.n_layers + 2 * cfg.vocab * cfg.d_model
+
+
+def active_params(cfg: TransformerConfig) -> int:
+    """N_active: weights a token touches (all of them: a dense family)."""
+    return total_params(cfg)
+
+
+def model_flops(cfg: TransformerConfig, *, tokens: int, step: str) -> float:
+    """6·N_active·tokens (train) or 2·N_active·tokens (prefill, decode)."""
+    return (6.0 if step == "train" else 2.0) * active_params(cfg) * tokens

@@ -11,13 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ParamSpec", "init_params", "is_spec", "QMARK", "strip_markers"]
+__all__ = ["ParamSpec", "init_params", "is_spec", "QMARK", "strip_markers",
+           "count_params"]
 
 # Marker key identifying a quantized-linear subtree in spec trees; it
 # carries the layer class and name and never materializes into params.
@@ -55,6 +56,28 @@ def strip_markers(tree):
     if isinstance(tree, list):
         return [strip_markers(v) for v in tree]
     return tree
+
+
+def count_params(specs, classify: Optional[Callable[[str], str]] = None
+                 ) -> Dict[str, int]:
+    """Parameter counts, bucketed by ``classify(path)`` (else 'total');
+    ``path`` is written as ``jax.tree_util.keystr`` writes it
+    (``['layers'][0]['q']['w']``), so a classifier of the JAX package's
+    paths reads the port's."""
+    counts: Dict[str, int] = {}
+
+    def walk(node, path):
+        if is_spec(node):
+            key = classify(path) if classify else "total"
+            counts[key] = counts.get(key, 0) + math.prod(node.shape)
+        elif isinstance(node, dict):
+            for k in node:
+                walk(node[k], f"{path}[{k!r}]")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+    walk(specs, "")
+    return counts
 
 
 def _materialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:

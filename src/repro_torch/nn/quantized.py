@@ -8,16 +8,21 @@ the shortcut add and ReLU run in the kernel epilogue.
 A quantized-linear param subtree is marked by the key ``QMARK``; in spec
 trees the marker carries the layer class and its workload layer name, so a
 layer-wise ``PrecisionPlan`` resolves each layer's format at pack and
-serve time.  The QAT (training) forward is not ported yet.
+serve time.  Under ``quantize=False`` (the fp baseline the paper compares
+against) ``pack_qlinear`` keeps the weight in bf16 under ``"w"`` and the
+serve forward is a plain bf16 matrix product followed by the same f32
+epilogue; convs then always go through im2col.  The QAT (training)
+forward is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import packing, quant
+from repro_torch.core import dse, packing, quant
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.packing import PlaneFormat
 from repro_torch.core.plan import PolicyOrPlan
@@ -118,11 +123,16 @@ def _fold_bias(p, epilogue, scale, shift):
     return epilogue, scale, shift
 
 
-def _check_packed(p: Dict) -> None:
-    if "planes" not in p:
-        raise NotImplementedError(
-            "the port serves packed digit planes only; the fp baseline "
-            "(policy.quantize=False) is not ported yet")
+def _fp_serve_apply(p, x, *, compute_dtype, epilogue, scale, shift,
+                    residual) -> torch.Tensor:
+    """The fp baseline: a bf16 matrix product, the bias, then the f32
+    epilogue (the reference's order: the bias is not folded)."""
+    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    out_dtype = mpmm_epilogue.resolve_out_dtype(epilogue, compute_dtype)
+    return mpmm_epilogue.apply(y.to(torch.float32), epilogue, scale, shift,
+                               residual).to(out_dtype)
 
 
 def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -143,7 +153,10 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """
     policy = plan_lib.resolve_policy(policy, name)
     mpmm_epilogue.validate_operands(epilogue, scale, shift, residual)
-    _check_packed(p)
+    if "w" in p:  # the fp baseline
+        return _fp_serve_apply(p, x, compute_dtype=compute_dtype,
+                               epilogue=epilogue, scale=scale, shift=shift,
+                               residual=residual)
     epilogue, scale, shift = _fold_bias(p, epilogue, scale, shift)
     fmt = PlaneFormat(w_bits=policy.bits_for(layer_class), k=policy.k,
                       k_dim=x.shape[-1])
@@ -167,16 +180,22 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int,
     return mpmm_ref.gather_patches(xp, kh, kw, stride)
 
 
-def conv_serve_dataflow(c_in: int, policy, *, k: int,
-                        layer_class: str) -> str:
-    """'implicit' where the implicit-GEMM kernel can run the layer
-    (C divisible by 8//k), else 'im2col'.  Both dataflows are bit-exact to
-    each other; the DSE-based choice waits for a Hopper cost model."""
-    fmt = PlaneFormat(w_bits=policy.bits_for(layer_class), k=policy.k,
-                      k_dim=k * k * c_in)
-    if mpmm_ops.conv_implicit_feasible(c_in, fmt):
-        return "implicit"
-    return "im2col"
+@functools.lru_cache(maxsize=4096)
+def conv_serve_dataflow(x_shape, policy, *, k: int, stride: int,
+                        padding: str, layer_class: str, n_out: int) -> str:
+    """A conv's dataflow under 'auto': the H100 cost model's choice
+    (``core.dse.choose_conv_dataflow``), which charges im2col its patch
+    matrix written and read back and the implicit conv only the raw
+    feature map, and scores each at the tile its kernel runs; a layer K2
+    cannot run (C not a multiple of 8//k) has no implicit candidate.
+    Both dataflows are bit-exact to each other.  Cached by shape and
+    policy: every forward asks again for every conv."""
+    b, h, w, cin = x_shape
+    conv = dse.ConvShape(batch=b, h=h, w=w, c_in=cin, c_out=n_out, kh=k,
+                         kw=k, stride=stride, padding=padding)
+    return dse.choose_conv_dataflow(
+        conv, w_bits=policy.bits_for(layer_class), k=policy.k,
+        variant=policy.variant).dataflow
 
 
 def qconv_serve_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
@@ -193,19 +212,25 @@ def qconv_serve_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
     """Deployed conv forward with a per-layer dataflow.
 
     'im2col' materializes the patch matrix and runs the matmul (K1);
-    'implicit' runs the implicit-GEMM conv (K2); 'auto' picks implicit
-    wherever K2 can run the layer.  An explicit argument beats the plan's
-    per-layer entry, which beats 'auto'; a layer K2 cannot run goes to
-    im2col whatever was asked.
+    'implicit' runs the implicit-GEMM conv (K2); 'auto' asks the H100 cost
+    model (``conv_serve_dataflow``).  An explicit argument beats the
+    plan's per-layer entry, which beats 'auto'; a layer K2 cannot run goes
+    to im2col whatever was asked, and so does the fp baseline.
     """
     dataflow = plan_lib.resolve_dataflow(policy, name, dataflow)
     policy = plan_lib.resolve_policy(policy, name)
-    _check_packed(p)
     if dataflow not in ("auto", "im2col", "implicit"):
         raise ValueError(f"unknown dataflow {dataflow!r}")
-    if dataflow != "im2col":
-        dataflow = conv_serve_dataflow(x.shape[-1], policy, k=k,
-                                       layer_class=layer_class)
+    if "w" in p or not policy.quantize:
+        dataflow = "im2col"  # the fp baseline: the bf16 matrix product
+    elif dataflow == "auto":
+        dataflow = conv_serve_dataflow(
+            tuple(x.shape), policy, k=k, stride=stride, padding=padding,
+            layer_class=layer_class, n_out=p["planes"].shape[-1])
+    elif dataflow == "implicit" and not mpmm_ops.conv_implicit_feasible(
+            x.shape[-1], PlaneFormat(w_bits=policy.bits_for(layer_class),
+                                     k=policy.k, k_dim=k * k * x.shape[-1])):
+        dataflow = "im2col"
     if dataflow == "im2col":
         cols = im2col(x, k, k, stride, padding)
         return qlinear_serve_apply(
@@ -236,9 +261,11 @@ def pack_qlinear(p: Dict[str, torch.Tensor], policy: PolicyOrPlan,
     """Trained QAT params -> deployed packed params, at the layer's own
     resolved format under a ``PrecisionPlan``."""
     policy = plan_lib.resolve_policy(policy, name)
-    if not policy.quantize:
-        raise NotImplementedError("the fp baseline (quantize=False) is not "
-                                  "ported yet")
+    if not policy.quantize:  # the fp baseline: bf16 weights
+        out = {"w": p["w"].to(torch.bfloat16)}
+        if "b" in p:
+            out["b"] = p["b"]
+        return out
     w, gw, ga = p["w"], p["gw"], p["ga"]
     w_bits = policy.bits_for(layer_class)
     kdim, n = w.shape

@@ -27,12 +27,10 @@ time between them); on the CPU, where torch runs synchronously, it is the
 host clock after the call returns.  ``repro`` blocks on the result with
 ``block_until_ready`` instead.
 
-Not ported yet: ``layer_attribution``, which joins a measured device time
-against the planner's per-layer roofline model; it needs the Hopper cost
-model (``core/dse``, ``core/roofline``; ROADMAP Queue 1, label 8).  The
-``python -m repro.runtime.telemetry validate`` command line is not ported
-either: ``validate_chrome_trace`` and ``validate_metrics_text`` are the
-same checks as functions.
+``layer_attribution`` joins a measured device time against the planner's
+per-layer roofline model (``core/dse`` at the H100's kernel tiles), and
+``python -m repro_torch.runtime.telemetry validate --trace T --metrics M``
+checks written trace and metrics files (exit 1 on a problem).
 """
 from __future__ import annotations
 
@@ -58,6 +56,7 @@ __all__ = [
     "device_span",
     "device_timed",
     "device_time_split",
+    "layer_attribution",
     "validate_chrome_trace",
     "parse_prometheus_text",
     "validate_metrics_text",
@@ -565,6 +564,64 @@ def device_time_split(tracer: Tracer, since: int = 0) -> Dict[str, float]:
 
 
 # ---------------------------------------------------------------------------
+# Roofline attribution
+# ---------------------------------------------------------------------------
+
+
+def layer_attribution(gemms, plan_or_policy, measured_s: float, *,
+                      hw=None, variant: str = "st",
+                      batch_note: str = "") -> Dict[str, Any]:
+    """Join a MEASURED device time against the planner's per-layer
+    roofline: achieved vs roofline TOps/s and HBM bytes/s per layer at the
+    plan's resolved word-lengths (boundary layers pinned to 8 bit; the fp
+    baseline's layers as bf16 products at the bf16 peak).
+
+    ``gemms`` is the model's ``gemm_workload`` at the measured batch; each
+    (layer, w_Q)'s tile comes from ``dse.autotune_tile``, which on the
+    H100 (the default ``hw``) is the tile K1 runs at that shape, so the
+    model side is the planner's own latency table.  The measured time is
+    attributed in proportion to the layers' roofline times
+    (``roofline.attribute_measured_time``); ``roofline_fraction`` (sum of
+    roofline / measured) is the one whole-model utilization scalar, the
+    quantity the paper's 1.13 TOps/s maps onto.
+    """
+    from repro_torch.core.dse import PlaneFormat, autotune_tile, gemm_time
+    from repro_torch.core.plan import resolve_policy
+    from repro_torch.core.roofline import H100, attribute_measured_time
+    hw = hw if hw is not None else H100
+
+    layers = []
+    for g in gemms:
+        pol = resolve_policy(plan_or_policy, g.name)
+        if pol.quantize:
+            bits = pol.bits_for(g.layer_class)
+            kk = min(pol.k, bits)
+            fmt = PlaneFormat(w_bits=bits, k=kk, k_dim=g.k)
+            tile = autotune_tile(g.m, g.k, g.n, w_bits=bits, k=kk,
+                                 variant=variant, hw=hw)
+            compute_s, memory_s = gemm_time(g, tile, fmt, hw, variant)
+        else:
+            bits = 16
+            compute_s = 2.0 * g.macs / hw.peak_flops_bf16
+            memory_s = g.count * (2 * g.m * g.k + 2 * g.k * g.n
+                                  + 4 * g.m * g.n) / hw.hbm_bw
+        layers.append({
+            "name": g.name,
+            "w_bits": bits,
+            "layer_class": g.layer_class,
+            "macs": float(g.macs),
+            "roofline_s": max(compute_s, memory_s),
+            "compute_s": compute_s,
+            "memory_s": memory_s,
+            "hbm_bytes": memory_s * hw.hbm_bw,
+        })
+    out = attribute_measured_time(layers, measured_s, hw=hw)
+    if batch_note:
+        out["note"] = batch_note
+    return out
+
+
+# ---------------------------------------------------------------------------
 def validate_chrome_trace(trace: Mapping[str, Any]) -> List[str]:
     """Structural checks on an exported Chrome trace; returns problems
     (empty = well-formed): required keys per phase, non-negative
@@ -652,3 +709,54 @@ def validate_metrics_text(text: str,
             if bkts and not sums:
                 problems.append(f"{name}: buckets without _sum")
     return problems
+
+
+def _main(argv=None) -> int:
+    """``python -m repro_torch.runtime.telemetry validate [--trace T]
+    [--metrics M] [--golden]``: 0 when every given file passes, else 1."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.runtime.telemetry",
+        description="validate telemetry artifacts")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    v = sub.add_parser("validate", help="check trace/metrics artifacts")
+    v.add_argument("--trace", default=None,
+                   help="Chrome trace JSON to validate")
+    v.add_argument("--metrics", default=None,
+                   help="Prometheus exposition to validate")
+    v.add_argument("--golden", action="store_true",
+                   help="require the golden metric-name set")
+    args = ap.parse_args(argv)
+
+    rc = 0
+    if args.trace is None and args.metrics is None:
+        ap.error("nothing to validate: pass --trace and/or --metrics")
+    if args.trace:
+        with open(args.trace) as f:
+            trace = json.load(f)
+        problems = validate_chrome_trace(trace)
+        n = len(trace.get("traceEvents", []))
+        if problems:
+            rc = 1
+            for p in problems:
+                print(f"[telemetry] TRACE {args.trace}: {p}")
+        else:
+            print(f"[telemetry] trace OK: {args.trace} ({n} events)")
+    if args.metrics:
+        with open(args.metrics) as f:
+            text = f.read()
+        problems = validate_metrics_text(text, require_golden=args.golden)
+        if problems:
+            rc = 1
+            for p in problems:
+                print(f"[telemetry] METRICS {args.metrics}: {p}")
+        else:
+            names = len(parse_prometheus_text(text))
+            print(f"[telemetry] metrics OK: {args.metrics} ({names} metrics"
+                  f"{', golden set present' if args.golden else ''})")
+    return rc
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(_main())
