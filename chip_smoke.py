@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    both routes (M 100 on the tensor-core route ``wgmma``, M 4 on the
    split-K route ``splitk``): all 16 weight formats (w and k in 1/2/4/8,
    k > w among them), both variants, the three epilogues, both output dtypes,
-   ragged M/N/K, an int32-accumulator check; the ResNet serve path's own
+   ragged M/N/K, an int32-accumulator check; expert banks (3 experts in one
+   launch, each its own weights and epilogue operands) at every format and
+   variant on both routes; the ResNet serve path's own
    shapes (stem as im2col, classifier); and granite-8b's prefill and decode
    shapes, held against the plain version run on the card.
 3. K2 (``conv_mpmm_cuda``, int8 tensor cores, padding in the kernel)
@@ -51,7 +53,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cache formats of ``examples/plans/granite_8b_mixed.json`` (kv2 k2, kv4
    k4, kv8 k4), K and V in different formats, q_offset continuations (Sq 8
    and 9) and a ragged Sk; and against K3 run on ``unpack_kv`` of the same
-   cache.
+   cache.  Then both at head dim 192, nemotron-4-340b's attention (B 2, H
+   96, KV 8, bf16): causal at Sq = Sk = 512, a q_offset continuation (Sq 9)
+   and a window, K4 at kv4k4, K kv2k2 with V kv8k4, and K kv2k1 (24-byte
+   rows of 1-bit digits) with V kv8k8.
 8. LM end to end: granite-8b at full width (d_model 4096, 32 heads, 8 KV
    heads, head_dim 128, d_ff 14336, vocab 49152) with random weights from
    a seeded CUDA generator, all 36 layers, drawn and packed layer by layer
@@ -135,6 +140,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    as the generate calls need, tickets bitwise their requests served
    alone; (h) the per-layer dataflow the H100 model picks and frames/s at
    buckets 1 and 8 under ``auto`` and with ``implicit`` forced.
+
+12. The rest of the decoder family at full width, random weights from a
+   seeded CUDA generator, drawn and packed layer by layer: (a)
+   olmoe-1b-7b, all 16 layers (64 experts top-8, expert ff 1024), under a
+   plan of its default policy (w4k4, channel-wise) with ``l0.expert``
+   w2k2, ``l1.expert`` w8k4 and a packed kv4 cache (K4); (b)
+   deepseek-v2-lite-16b, all 27 layers (MLA, 64 experts top-6 + 2 shared,
+   layer 0 dense), its default policy, the bf16 latent cache; each for 4
+   prompts of 1000 tokens and 16 new tokens, greedy, through ``Generator``.
+   The counters must show the calls the path makes (``k1_calls``): one K1
+   launch per expert bank, not per expert (olmoe 7 a layer and the head per
+   prefill and per decode step, deepseek 11 a MoE layer and 8 in layer 0,
+   uk and uv over M = 4 x Smax at decode), each on the route its M picks,
+   and K4 once a layer per prefill for olmoe.  Held as phase 8 holds
+   granite (the prefill layer by layer within 2%, every decode step
+   bitwise), ``decode_steps`` over 4 tokens bitwise equal to 4 sequential
+   decode steps (logits and cache), and ``GenerateScheduler`` (4 slots,
+   phase 10's six requests): every ticket bitwise its request served
+   alone.  (c) granite-34b (MQA), yi-34b, chameleon-34b and
+   nemotron-4-340b (head dim 192, vocab 256000), full width, first 2
+   layers, 2 prompts of 512 tokens and 8 new tokens, under their default
+   policy with a bf16 cache (K3), granite-34b and nemotron also with a
+   packed kv4 cache (K4); the same counters and phase 8's contract, an
+   MoE layer's block by block (``moe_prefill_contract``: the router turns
+   K4's sub-ulp differences into another expert for a few tokens).
+   ``[p12-time]`` lines: prefill ms and tokens/s, decode ms a step, the
+   split (K1 and K3/K4 as their calls timed alone, the rest) per arch; each
+   distinct bank call of K1 against its bound and a PyTorch loop over the
+   experts; K3 and K4 at D 192 against their bound and SDPA.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -373,6 +407,16 @@ def phase_k1(sm, path_k1, lm_shapes):
                                    f"K1 {route} M={m} w{w_bits}k{k} "
                                    f"{variant} {epi} {out_dtype}",
                                    got, kernel.mpmm_torch(**args, **kw))
+    # expert banks: E products in one launch, both routes, all 16 formats
+    for m in K1_ROWS:
+        route = kernel.mpmm_route(m, 45, 70)
+        for w_bits, k in FORMATS:
+            for variant in ("st", "sa"):
+                args, kw = k1_bank_call(sm, m, 45, 70, w_bits, k, variant)
+                got = kernel.mpmm_cuda(**sm.on_device(args), **kw)
+                sm.compare("mpmm_cuda", f"K1 {route} bank E={BANK_E} M={m} "
+                           f"w{w_bits}k{k} {variant}", got,
+                           kernel.mpmm_torch(**args, **kw))
     for call in path_k1:
         for variant in ("st", "sa"):
             kw = dict(call["kw"], variant=variant)
@@ -390,6 +434,30 @@ def phase_k1(sm, path_k1, lm_shapes):
                    want.cpu())
         del d, got, want
     sm.check_phase("K1 mpmm_cuda vs mpmm_torch")
+
+
+BANK_E = 3  # experts of phase 2's bank calls
+
+
+def k1_bank_call(sm, m, kdim, n, w_bits, k, variant):
+    """A bank of BANK_E experts (each its own weights, gamma, colsum and
+    residual) with the residual epilogue, bf16 out."""
+    from repro_torch.core import packing
+    t = sm.torch
+    fmt = packing.PlaneFormat(w_bits=w_bits, k=k, k_dim=kdim)
+    w_int = t.randint(-(2 ** (w_bits - 1)), 2 ** (w_bits - 1),
+                      (BANK_E, kdim, n), generator=sm.gen, dtype=t.int32)
+    spec, ops = sm.epilogue("bn_res_relu", (BANK_E, m, n), t.bfloat16)
+    ops.update(scale=t.rand((BANK_E, 1, n), generator=sm.gen) + 0.5,
+               shift=t.randn((BANK_E, 1, n), generator=sm.gen) * 0.3)
+    args = dict(a_biased=sm.codes((BANK_E, m, kdim)),
+                planes=packing.pack_planes(w_int, fmt).movedim(0, -3)
+                .contiguous(),
+                gamma=t.rand((BANK_E, 1, n), generator=sm.gen) * 0.009
+                + 0.001,
+                colsum=w_int.sum(-2, dtype=t.int32)[:, None], **ops)
+    return args, dict(fmt=fmt, act_zero=128, variant=variant,
+                      out_dtype=t.bfloat16, epilogue=spec)
 
 
 def k1_device_call(sm, m, kdim, n, w_bits, k, seed):
@@ -887,11 +955,11 @@ def prefill_contract(sm, api, params, prompts, label):
                           T._head_input(cfg, params, b), ga)).float().mean())
 
     worst = [0.0, 0.0]
+    b, s = prompts.shape
     with t.inference_mode():
         tt = t.as_tensor(prompts, device=sm.device)
         x_k = x_p = T._embed(params, tt)
-        sin, cos = T._rotary(cfg, T._positions(LM_BATCH, LM_PROMPT, 0,
-                                                sm.device))
+        sin, cos = T._rotary(cfg, T._positions(b, s, 0, sm.device))
         for i, lp in enumerate(params["layers"]):
             kw = dict(lname=f"l{i}.", kv_fmts=fmts[i], kv_store=store)
             y_k, _ = T._layer_fwd(cfg, lp, x_k, plan, sin, cos, impl="cuda",
@@ -930,16 +998,17 @@ def prefill_contract(sm, api, params, prompts, label):
 def decode_contract(sm, gen, plain, prompts, toks, label):
     """Every decode step, teacher-forced: the plain path runs on a copy of
     the kernel path's own cache with the kernel path's token; decode has no
-    flash kernel and K1 is bitwise, so the logits must be equal."""
+    flash kernel and K1 is bitwise, so the logits must be equal.  prompts
+    (B, S), toks (B, n_new): the run's shape."""
     t = sm.torch
+    (b, s), n_new = prompts.shape, toks.shape[1]
     with t.inference_mode():
         logits, pre = gen.prefill(t.as_tensor(prompts, device=sm.device))
-        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT,
-                                LM_PROMPT + LM_NEW)
-        for i in range(LM_NEW - 1):
+        cache = gen._grow_cache(pre, b, s, s + n_new)
+        for i in range(n_new - 1):
             feed = t.as_tensor(toks[:, i:i + 1], device=sm.device)
-            l_p, _ = plain.decode(clone_tree(cache), feed, LM_PROMPT + i)
-            l_k, cache = gen.decode(cache, feed, LM_PROMPT + i)
+            l_p, _ = plain.decode(clone_tree(cache), feed, s + i)
+            l_k, cache = gen.decode(cache, feed, s + i)
             if not t.equal(l_k, l_p):
                 err = float((l_k.float() - l_p.float()).abs().max())
                 raise SystemExit(f"{label} decode step {i}: kernel and plain "
@@ -1179,22 +1248,23 @@ def measure_k1_lm(sm, api):
     return rows
 
 
-def measure_lm_end_to_end(sm, api, params, prompts):
-    """Prefill and decode through the kernels, timed with CUDA events."""
+def measure_lm_end_to_end(sm, api, params, prompts, n_new=LM_NEW):
+    """Prefill and decode through the kernels, timed with CUDA events;
+    prompts (B, S), ``n_new`` tokens of cache room."""
     from repro_torch.runtime.serve import Generator
     t = sm.torch
+    b, s = prompts.shape
     gen = Generator(api, params, device=sm.device)
     tt = t.as_tensor(prompts, device=sm.device)
     with t.inference_mode():
         prefill_ms = sm.time_ms(lambda: gen.prefill(tt), reps=2, warmup=1)
         logits, pre = gen.prefill(tt)
-        cache = gen._grow_cache(pre, LM_BATCH, LM_PROMPT,
-                                LM_PROMPT + LM_NEW)
+        cache = gen._grow_cache(pre, b, s, s + n_new)
         tok = t.argmax(logits, -1)[:, None]
-        steps = iter(range(LM_NEW - 1))
+        steps = iter(range(n_new - 1))
         decode_ms = sm.time_ms(
-            lambda: gen.decode(cache, tok, LM_PROMPT + next(steps)),
-            reps=LM_NEW - 3, warmup=2)
+            lambda: gen.decode(cache, tok, s + next(steps)),
+            reps=n_new - 3, warmup=2)
     return prefill_ms, decode_ms
 
 
@@ -1363,52 +1433,64 @@ def tree_leaves(tree):
     return [tree]
 
 
+def run_scheduler(sm, g, trace, alone, label):
+    """``GenerateScheduler`` with SCHED_SLOTS slots over ``g`` (a
+    ``Generator`` or a ``SpeculativeGenerator``) on ``trace`` [(prompt,
+    n_new)], the injected clock read once a step; each ticket against its
+    request served alone (``alone``) -> (bad ticket ids, wall, stats)."""
+    import numpy as np
+    from repro_torch.runtime.scheduler import GenerateScheduler
+    max_len = max(len(p) + n_new for p, n_new in trace)
+    clock = StepClock()
+    s = GenerateScheduler(g, slots=SCHED_SLOTS, max_len=max_len, clock=clock)
+    t0 = time.perf_counter()
+    tickets = []
+    for req in trace:
+        clock.tick()
+        tickets.append(s.submit(*req))
+        clock.tick()
+        s.step()
+    for _ in range(1000):
+        if not s.pending and not s.active:
+            break
+        clock.tick()
+        s.step(flush=True)
+    wall = time.perf_counter() - t0
+    st = s.stats()
+    bad = [tk.id for tk, want in zip(tickets, alone)
+           if not tk.done or not np.array_equal(tk.result, want)]
+    log(f"[sched] GenerateScheduler over the {label}: {len(trace)} requests "
+        f"{[(len(p), n) for p, n in trace]} (prompt, n_new), {SCHED_SLOTS} "
+        f"slots, {wall:.2f} s; events {[(e[1], e[2]) for e in s.events]}; "
+        f"p50 {st['p50_latency_s'] * 1e3:.1f} ms, p99 "
+        f"{st['p99_latency_s'] * 1e3:.1f} ms; tickets unlike served alone: "
+        f"{bad or 'none'}")
+    if bad:
+        sm.failures.append(f"GenerateScheduler over the {label}: tickets "
+                           f"{bad} differ from their requests served alone")
+    return bad, wall, st
+
+
+def sched_trace(vocab):
+    """SCHED_TRACE's requests, prompts drawn from SEED + 2."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    return [(rng.integers(0, vocab, plen), n_new)
+            for plen, n_new in SCHED_TRACE]
+
+
 def phase_lm_schedulers(sm, sg):
     """(c) ``GenerateScheduler`` with SCHED_SLOTS slots over SCHED_TRACE
     (two prompt lengths, three n_new), over the verify view's
     ``Generator`` and then over the ``SpeculativeGenerator``: every
     ticket's tokens must equal the same request served alone by the
-    ``Generator``.  The injected clock reads the host clock once a step."""
-    import numpy as np
-    from repro_torch.runtime.scheduler import GenerateScheduler
+    ``Generator``."""
     gen = sg.gen_verify
-    rng = np.random.default_rng(SEED + 2)
-    trace = [(rng.integers(0, gen.api.cfg.vocab, plen), n_new)
-             for plen, n_new in SCHED_TRACE]
-    max_len = max(plen + n_new for plen, n_new in SCHED_TRACE)
+    trace = sched_trace(gen.api.cfg.vocab)
     alone = [gen.generate(p[None], n_new)[0] for p, n_new in trace]
     out = {}
     for label, g in (("generator", gen), ("speculative", sg)):
-        clock = StepClock()
-        s = GenerateScheduler(g, slots=SCHED_SLOTS, max_len=max_len,
-                              clock=clock)
-        t0 = time.perf_counter()
-        tickets = []
-        for req in trace:
-            clock.tick()
-            tickets.append(s.submit(*req))
-            clock.tick()
-            s.step()
-        for _ in range(1000):
-            if not s.pending and not s.active:
-                break
-            clock.tick()
-            s.step(flush=True)
-        wall = time.perf_counter() - t0
-        st = s.stats()
-        bad = [tk.id for tk, want in zip(tickets, alone)
-               if not tk.done or not np.array_equal(tk.result, want)]
-        log(f"[sched] GenerateScheduler over the {label}: {len(trace)} "
-            f"requests {list(SCHED_TRACE)} (prompt, n_new), "
-            f"{SCHED_SLOTS} slots, {wall:.2f} s; events "
-            f"{[(e[1], e[2]) for e in s.events]}; p50 "
-            f"{st['p50_latency_s'] * 1e3:.1f} ms, p99 "
-            f"{st['p99_latency_s'] * 1e3:.1f} ms; tickets unlike served "
-            f"alone: {bad or 'none'}")
-        if bad:
-            sm.failures.append(f"GenerateScheduler over the {label}: tickets "
-                               f"{bad} differ from their requests served "
-                               f"alone")
+        _, wall, st = run_scheduler(sm, g, trace, alone, label)
         out[label] = {"wall": wall, "stats": st}
     sm.check_phase("GenerateScheduler tickets vs requests served alone")
     return out
@@ -2320,6 +2402,626 @@ KERNELS = (
 )
 
 
+# --- phase 12: the rest of the decoder family ------------------------------
+
+
+P12_SHAPE = (4, 1000, 16)     # olmoe, deepseek: batch, prompt, new tokens
+DENSE_SHAPE = (2, 512, 8)     # the four dense archs, their first layers
+DENSE_DEPTH = 2
+DENSE_ARCHS = ("granite-34b", "yi-34b", "chameleon-34b", "nemotron-4-340b")
+KV4_ARCHS = ("granite-34b", "nemotron-4-340b")  # also under a kv4 cache
+VERIFY_T = 4                  # decode_steps against sequential steps
+
+
+def release(sm):
+    """Free the card's memory of what the last run left: its objects may
+    sit in reference cycles (a Generator and its step closures), which only
+    the cycle collector frees."""
+    import gc
+    gc.collect()
+    sm.torch.cuda.empty_cache()
+
+
+def family_api(arch, plan=None, depth=None):
+    """``arch`` at full width under ``plan`` (else its default policy),
+    cut to its first ``depth`` layers (None: all)."""
+    from repro_torch import configs
+    api = configs.get(arch)
+    cfg = dataclasses.replace(api.cfg, n_layers=depth or api.cfg.n_layers)
+    return dataclasses.replace(api, cfg=cfg, policy=plan or api.policy)
+
+
+def with_kv4(policy, **layers):
+    """``policy`` as a plan (its default format, the named ``layers``
+    overrides) with a packed kv4 cache, or without a cache section when
+    ``kv`` is False."""
+    from repro_torch.core.plan import KVCachePlan, LayerPlan, PrecisionPlan
+    kv = layers.pop("kv", True)
+    return PrecisionPlan.build(
+        {name.replace("_", "."): LayerPlan(w_bits=w, k=k,
+                                           channel_wise=policy.channel_wise)
+         for name, (w, k) in layers.items()},
+        default=LayerPlan(w_bits=policy.inner_bits, k=policy.k,
+                          channel_wise=policy.channel_wise),
+        a_bits=policy.a_bits, boundary_bits=policy.boundary_bits,
+        kv=KVCachePlan(bits=4, k=4, store="packed") if kv else None,
+        name="p12" + "".join(f"-{n.replace('_', '.')}w{w}k{k}"
+                             for n, (w, k) in layers.items())
+        + ("-kv4" if kv else ""))
+
+
+def k1_calls(api, b, s, smax, step):
+    """K1's calls of one prefill of ``b`` x ``s`` tokens (step 'prefill') or
+    one decode step against an ``smax`` cache ('decode'), in order: [(name,
+    M of one group, K, N, groups, w_bits, k)].  An expert bank is one call
+    (groups = E) of ``b`` x capacity rows an expert; MLA's uk / uv expand
+    the whole cache at decode."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.nn.layers import pad_vocab
+    from repro_torch.nn.moe import capacity
+    cfg, pol = api.cfg, api.policy
+    rows = b * s if step == "prefill" else b
+    d, h = cfg.d_model, cfg.n_heads
+    out = []
+
+    def add(name, lname, m, kdim, n, groups=1, cls="inner"):
+        p = plan_lib.resolve_policy(pol, lname)
+        out.append((name, m, kdim, n, groups, p.bits_for(cls), p.k))
+    for i in range(cfg.n_layers):
+        ln = f"l{i}."
+        if cfg.mla is not None:
+            m = cfg.mla
+            lat = rows if step == "prefill" else b * smax
+            add("q", ln + "q", rows, d, h * (m.qk_nope + m.qk_rope))
+            add("dkv", ln + "dkv", rows, d, m.kv_lora + m.qk_rope)
+            add("uk", ln + "uk", lat, m.kv_lora, h * m.qk_nope)
+            add("uv", ln + "uv", lat, m.kv_lora, h * m.v_head)
+            add("o", ln + "o", rows, h * m.v_head, d)
+        else:
+            for name, n in (("q", h * cfg.hd), ("k", cfg.n_kv * cfg.hd),
+                            ("v", cfg.n_kv * cfg.hd)):
+                add(name, ln + name, rows, d, n)
+            add("o", ln + "o", rows, h * cfg.hd, d)
+        if cfg.moe is not None and i >= cfg.dense_first_n:
+            mc = cfg.moe
+            me = b * capacity(mc, s if step == "prefill" else 1)
+            for kdim, n in ((d, mc.d_ff), (d, mc.d_ff), (mc.d_ff, d)):
+                add("expert", ln + "expert", me, kdim, n, mc.n_experts)
+            if mc.n_shared:
+                sh = mc.shared_hidden
+                for kdim, n in ((d, sh), (d, sh), (sh, d)):
+                    add("shared", ln + "shared", rows, kdim, n)
+        else:
+            ff = (cfg.dense_ff if i < cfg.dense_first_n and cfg.dense_ff
+                  else cfg.d_ff)
+            mats = ((d, ff), (d, ff), (ff, d)) if cfg.act == "swiglu" \
+                else ((d, ff), (ff, d))
+            for kdim, n in mats:
+                add("mlp", ln + "mlp", rows, kdim, n)
+    add("head", "head", b, d, pad_vocab(cfg.vocab), cls="boundary")
+    return out
+
+
+def expected_counts(api, b, s, n_new):
+    """(K1 launches by route, K3 and K4 launches) of one ``Generator.run``
+    of ``b`` prompts of ``s`` tokens and ``n_new`` new tokens."""
+    from collections import Counter
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.models import transformer as T
+    routes = Counter()
+    for step, reps in (("prefill", 1), ("decode", n_new - 1)):
+        for _, m, kdim, n, *_ in k1_calls(api, b, s, s + n_new, step):
+            routes[kernel.mpmm_route(m, kdim, n)] += reps
+    cfg = api.cfg
+    kv = T.kv_formats(cfg, api.policy)
+    flash = cfg.mla is None and cfg.attn_impl == "flash"
+    k4 = cfg.n_layers if flash and kv is not None else 0
+    k3 = cfg.n_layers if flash and kv is None else 0
+    return dict(routes), k3, k4
+
+
+def serve_family(sm, api, params, prompts, n_new, label):
+    """One ``Generator`` run through the kernels, counted against the calls
+    the path makes (``expected_counts``); then phase 8's contracts against
+    the same model through the plain versions: the prefill layer by layer,
+    every decode step bitwise."""
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.runtime.serve import Generator
+    t = sm.torch
+    b, s = prompts.shape
+    gen = Generator(api, params, device=sm.device)
+    plain = Generator(api, params, device=sm.device, impl="torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, logits = gen.run(prompts, n_new)
+    t.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    routes = {k: v for k, v in kernel.mpmm_cuda.routes.items() if v}
+    want_routes, k3, k4 = expected_counts(api, b, s, n_new)
+    want = {"mpmm_cuda": sum(want_routes.values()), "conv_mpmm_cuda": 0,
+            "flash_fwd_cuda": k3, "flash_fwd_packed_cuda": k4}
+    log(f"[p12] {label}: depth {api.cfg.n_layers}, {b} prompts x {s} "
+        f"tokens, {n_new} new tokens in {wall:.2f} s; launches {launches}; "
+        f"K1 routes {routes}")
+    if launches != want or routes != want_routes:
+        raise SystemExit(f"{label}: launches {launches} / routes {routes} "
+                         f"!= {want} / {want_routes}")
+    for step, a in enumerate(logits):
+        a = a.float()
+        if a.shape != (b, api.cfg.vocab) or not bool(
+                t.isfinite(a).all()) or float(a.std()) == 0.0:
+            raise SystemExit(f"{label} step {step}: logits {tuple(a.shape)} "
+                             f"not finite or constant")
+    if api.cfg.moe is not None:
+        pc = moe_prefill_contract(sm, api, params, prompts, label)
+        held = (f"prefill attention blocks <= {pc['attn'][0]:.5f} of the "
+                f"largest |output|, <= {pc['attn'][1]:.5f} of outputs "
+                f"differ, MoE/MLP blocks and the head bitwise, whole layers "
+                f"<= {pc['layer'][1]:.5f} of outputs differ (largest "
+                f"difference {pc['layer'][0]:.5f} of the largest |output|)")
+    else:
+        pc = prefill_contract(sm, api, params, prompts, label)
+        held = (f"prefill one-layer error <= {pc['layer_rel']:.5f} of the "
+                f"largest |output|, <= {pc['layer_diff']:.5f} of outputs "
+                f"differ; last-token logits {pc['logits_rel']:.5f}, "
+                f"head-input flips {pc['flips']:.5f}; carried through "
+                f"{api.cfg.n_layers} layers: logits {pc['carried_rel']:.5f}")
+    decode_contract(sm, gen, plain, prompts, toks, label)
+    log(f"[p12] {label}: tokens[0] {toks[0].tolist()}; {held} (tol "
+        f"{LM_LOGIT_TOL}, {LM_MAX_FLIP_RATE}); {n_new - 1} decode steps "
+        f"bitwise equal")
+    return {"launches": launches, "routes": routes, "tokens": toks,
+            "gen": gen, "wall": wall}
+
+
+def moe_prefill_contract(sm, api, params, prompts, label):
+    """The prefill of an MoE model, layer by layer and block by block.
+    The router decides discretely, so a sub-ulp difference from K4 that
+    moves a token across a rounding boundary of its codes can send it to
+    another expert: the whole layer then differs in that token's row by
+    much more than phase 8's 2% of the largest output.  So each block is
+    held on its own, fed the kernel path's own input: the attention block
+    (K4 or MLA, and K1) within phase 8's bounds (``LM_LOGIT_TOL`` of the
+    largest output, ``LM_MAX_FLIP_RATE`` of bf16 outputs different), the
+    MoE (or dense) block bitwise (K1 is exact and the routing the same code
+    on the same input), the whole layer's share of differing outputs
+    within ``LM_MAX_FLIP_RATE`` (its largest difference printed), and the
+    head on the last token bitwise."""
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import attention as attn
+    t = sm.torch
+    cfg, plan = api.cfg, api.policy
+    kv = T.kv_formats(cfg, plan)
+    store, fmts = kv if kv is not None else ("packed", [None] * cfg.n_layers)
+    _, napply = cfg.norm_fns
+
+    def stats(a, b):
+        a, b = a.float(), b.float()
+        return (float((a - b).abs().max()) / float(a.abs().max()),
+                float((a != b).float().mean()))
+
+    def attend(lp, x, impl, i):
+        h = napply(lp["ln1"], x)
+        if cfg.mla is not None:
+            o, _ = attn.mla_prefill(lp["attn"], h, plan, sin=sin, cos=cos,
+                                    impl=impl, chunk=cfg.attn_chunk,
+                                    lname=f"l{i}.", **T._mla_kw(cfg))
+        else:
+            o, _ = attn.gqa_prefill(
+                lp["attn"], h, plan, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                head_dim=cfg.hd, sin=sin, cos=cos, impl=impl,
+                chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl,
+                lname=f"l{i}.", kv_fmts=fmts[i], kv_store=store)
+        return x + o
+
+    def mlp(lp, y, impl, i):
+        return y + T._apply_mlp(cfg, lp, napply(lp["ln2"], y), plan, impl,
+                                f"l{i}.")
+    worst = {"attn": [0.0, 0.0], "layer": [0.0, 0.0]}
+    b, s = prompts.shape
+    with t.inference_mode():
+        x = T._embed(params, t.as_tensor(prompts, device=sm.device))
+        sin, cos = T._rotary(cfg, T._positions(b, s, 0, sm.device))
+        for i, lp in enumerate(params["layers"]):
+            y_k, y_1 = attend(lp, x, "cuda", i), attend(lp, x, "torch", i)
+            z_k, z_1 = mlp(lp, y_k, "cuda", i), mlp(lp, y_k, "torch", i)
+            a_rel, a_diff = stats(y_k, y_1)
+            l_rel, l_diff = stats(z_k, mlp(lp, y_1, "torch", i))
+            log(f"[drift] {label} layer {i}: attention block {a_rel:.6f} of "
+                f"the largest |output|, {a_diff:.6f} of outputs differ; "
+                f"{'MoE' if 'moe' in lp else 'MLP'} block bitwise "
+                f"{t.equal(z_k, z_1)}; whole layer {l_rel:.6f}, "
+                f"{l_diff:.6f}")
+            if a_rel > LM_LOGIT_TOL or a_diff > LM_MAX_FLIP_RATE \
+                    or l_diff > LM_MAX_FLIP_RATE or not t.equal(z_k, z_1):
+                raise SystemExit(
+                    f"{label} layer {i}: attention block {a_rel:.5f} / "
+                    f"{a_diff:.5f} (tol {LM_LOGIT_TOL}, {LM_MAX_FLIP_RATE}), "
+                    f"MLP block bitwise {t.equal(z_k, z_1)}, whole layer "
+                    f"{l_diff:.5f} of outputs differ (tol "
+                    f"{LM_MAX_FLIP_RATE})")
+            worst = {"attn": [max(worst["attn"][0], a_rel),
+                              max(worst["attn"][1], a_diff)],
+                     "layer": [max(worst["layer"][0], l_rel),
+                               max(worst["layer"][1], l_diff)]}
+            x = z_k
+        head_k = T._head(cfg, params, x[:, -1:], plan, "cuda")
+        head_1 = T._head(cfg, params, x[:, -1:], plan, "torch")
+    if not t.equal(head_k, head_1):
+        raise SystemExit(f"{label}: the head's kernel and plain logits "
+                         f"differ on the same input")
+    return worst
+
+
+def verify_contract(sm, gen, prompts, toks, label):
+    """``decode_steps`` over VERIFY_T tokens against as many sequential
+    decode steps on a copy of the cache: logits and cache bitwise."""
+    t = sm.torch
+    b, s = prompts.shape
+    with t.inference_mode():
+        _, pre = gen.prefill(t.as_tensor(prompts, device=sm.device))
+        cache = gen._grow_cache(pre, b, s, s + toks.shape[1])
+        del pre
+        seq_cache = clone_tree(cache)
+        feed = t.as_tensor(toks[:, :VERIFY_T], device=sm.device)
+        bat, cache = gen.api.decode_steps(gen.params, cache, feed, s)
+        seq = t.stack([gen.decode(seq_cache, feed[:, i:i + 1], s + i)[0]
+                       for i in range(VERIFY_T)], dim=1)
+        same = all(t.equal(x, y) for x, y in zip(tree_leaves(cache),
+                                                 tree_leaves(seq_cache)))
+    if not t.equal(bat, seq) or not same:
+        raise SystemExit(f"{label}: decode_steps over {VERIFY_T} tokens "
+                         f"differs from sequential decode steps (cache "
+                         f"equal {same})")
+    log(f"[p12] {label}: decode_steps over {VERIFY_T} tokens bitwise equal "
+        f"to {VERIFY_T} sequential decode steps, logits and cache")
+
+
+def k1_operands(sm, m, kdim, n, groups, w_bits, k):
+    """One K1 call's operands drawn on the card (a bank of ``groups``
+    experts when groups > 1), bf16 out, no epilogue.  The weights are drawn
+    and packed in column slices of about 2^28 codes (nemotron's head is
+    4.7e9)."""
+    from repro_torch.core import packing
+    t = sm.torch
+    g = t.Generator(device=sm.device).manual_seed(m + kdim + n + groups)
+    fmt = packing.PlaneFormat(w_bits=w_bits, k=k, k_dim=kdim)
+    lead = (groups,) if groups > 1 else ()
+    step = max(1, (1 << 28) // (kdim * groups))
+    planes, colsum = [], []
+    for c0 in range(0, n, step):
+        w_int = t.randint(-(2 ** (w_bits - 1)), 2 ** (w_bits - 1),
+                          lead + (kdim, min(step, n - c0)), generator=g,
+                          device=sm.device, dtype=t.int32)
+        planes.append(packing.pack_planes(w_int, fmt).movedim(0, -3))
+        colsum.append(w_int.sum(-2, dtype=t.int32)[..., None, :])
+        del w_int
+    d = dict(a_biased=t.randint(-128, 128, lead + (m, kdim), generator=g,
+                                device=sm.device, dtype=t.int32).to(t.int8),
+             planes=t.cat(planes, -1).contiguous(), colsum=t.cat(colsum, -1),
+             gamma=t.rand(lead + (1, n), generator=g, device=sm.device)
+             * 0.01)
+    return d, dict(fmt=fmt, act_zero=128, out_dtype=t.bfloat16)
+
+
+def k1_split(sm, api, b, s, smax):
+    """K1's time in one prefill and in one decode step: each distinct call
+    of ``k1_calls`` timed alone at its shape (CUDA events, call by call),
+    times its count -- the kernels' own times, as phase 9's split, which
+    need no profiler."""
+    from repro_torch.kernels.mpmm import kernel
+    cache, out = {}, {}
+    for step in ("prefill", "decode"):
+        total = 0.0
+        for call in k1_calls(api, b, s, smax, step):
+            key = call[1:]
+            if key not in cache:
+                d, kw = k1_operands(sm, *key)
+                cache[key] = sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw),
+                                        reps=5, warmup=2)
+                del d
+            total += cache[key]
+        out[step] = total
+    return out
+
+
+def flash_split(sm, api, b, s):
+    """K3's or K4's time in one prefill: the layer's call at its prefill
+    shape (bf16, causal; K4 at each layer's cache formats), timed alone,
+    summed over the layers; 0 for MLA (no flash kernel)."""
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import kvcache
+    t = sm.torch
+    cfg = api.cfg
+    if cfg.mla is not None or cfg.attn_impl != "flash":
+        return 0.0
+    g = t.Generator(device=sm.device).manual_seed(420)
+    mk = lambda h: t.randn((b, s, h, cfg.hd), generator=g,  # noqa: E731
+                           device=sm.device).to(t.bfloat16)
+    q, k, v = mk(cfg.n_heads), mk(cfg.n_kv), mk(cfg.n_kv)
+    kv = T.kv_formats(cfg, api.policy)
+    if kv is None:
+        ms = sm.time_ms(lambda: fops.flash_attention(
+            q, k, v, block_k=cfg.attn_chunk, impl="cuda"), reps=5)
+        return ms * cfg.n_layers
+    total, cache = 0.0, {}
+    for fk, fv in kv[1]:
+        key = (fk, fv)
+        if key not in cache:
+            kq, vq = kvcache.pack_kv(k, fk), kvcache.pack_kv(v, fv)
+            cache[key] = sm.time_ms(lambda: fops.flash_attention_packed(
+                q, kq, vq, fk, fv, block_k=cfg.attn_chunk, impl="cuda"),
+                reps=5)
+        total += cache[key]
+    return total
+
+
+def k1_bank_row(sm, label, m, kdim, n, e, w_bits, k):
+    """An expert bank's K1 call timed against its bound and against a
+    PyTorch loop over the experts (``torch._int_mm`` where it takes the
+    shape, else ``torch.mm`` in f32), both on the same combined weights."""
+    from repro_torch.kernels.mpmm import kernel, ref
+    t = sm.torch
+    d, kw = k1_operands(sm, m, kdim, n, e, w_bits, k)
+    fmt = kw["fmt"]
+    out = kernel.mpmm_cuda(**d, **kw)
+    a, w8 = d["a_biased"], ref.combined_int8_weights(d["planes"], fmt)
+    if m > 16 and kdim % 8 == 0 and n % 8 == 0:
+        lib = lambda: [t._int_mm(a[i], w8[i]) for i in range(e)]  # noqa
+        lib_name = f"torch._int_mm loop over {e} experts"
+    else:  # _int_mm needs M > 16
+        af, wf = a.float(), w8.float()
+        lib = lambda: [t.mm(af[i], wf[i]) for i in range(e)]  # noqa: E731
+        lib_name = f"torch.mm (f32) loop over {e} experts"
+    by = nbytes(d["a_biased"], d["planes"], d["gamma"], d["colsum"], out)
+    b_ms, b_by = bound_ms(by, 2 * e * m * n * kdim)
+    row = {"kernel": "mpmm_cuda", "layer": label,
+           "route": kernel.mpmm_route(m, kdim, n),
+           "shape": f"E={e} M={m} K={kdim} N={n} w{w_bits}k{k}",
+           "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw), reps=10),
+           "plain_ms": sm.time_ms(lambda: kernel.mpmm_torch(**d, **kw),
+                                  reps=2, warmup=1),
+           "library_ms": sm.time_ms(lib, reps=5, warmup=2),
+           "library": lib_name, "bound_ms": b_ms, "bound_by": b_by}
+    del d, out, w8
+    return row
+
+
+D192_CASES = [dict(sq=512, sk=512), dict(sq=9, sk=521, q_offset=512),
+              dict(sq=512, sk=512, window=128)]
+D192_FORMATS = [((4, 4), (4, 4)), ((2, 2), (8, 4)), ((2, 1), (8, 8))]
+
+
+def phase_d192(sm):
+    """K3 and K4 at head dim 192, nemotron's attention (H 96, KV 8, bf16,
+    DENSE_SHAPE's batch): causal at Sq = Sk = 512, a q_offset continuation
+    and a window, K4 at three cache formats (1-bit digits: 24-byte rows),
+    each against its plain version within one bf16 ulp."""
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.nn import kvcache
+    t = sm.torch
+    b = DENSE_SHAPE[0]
+    for i, case in enumerate(D192_CASES):
+        kw = {k: v for k, v in case.items() if k not in ("sq", "sk")}
+        g = t.Generator(device=sm.device).manual_seed(400 + i)
+        mk = lambda s, h: t.randn((b, s, h, 192), generator=g,  # noqa: E731
+                                  device=sm.device).to(t.bfloat16)
+        q, k, v = mk(case["sq"], 96), mk(case["sk"], 8), mk(case["sk"], 8)
+        got = fops.flash_attention(q, k, v, impl="cuda", **kw)
+        want = fops.flash_attention(q, k, v, impl="torch", **kw)
+        t.cuda.synchronize()
+        err = compare_close(sm, "flash_fwd_cuda", f"K3 D192 {case}", got,
+                            want)
+        errs = []
+        for fk, fv in D192_FORMATS:
+            fmt_k, fmt_v = (kvcache.KVFormat(*fk, 192),
+                            kvcache.KVFormat(*fv, 192))
+            kq, vq = kvcache.pack_kv(k, fmt_k), kvcache.pack_kv(v, fmt_v)
+            got = fops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
+                                              impl="cuda", **kw)
+            want = fops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
+                                               impl="torch", **kw)
+            t.cuda.synchronize()
+            errs.append(compare_close(sm, "flash_fwd_packed_cuda",
+                                      f"K4 D192 k{fk} v{fv} {case}", got,
+                                      want))
+        log(f"[D192] {case}: K3 max abs err vs plain {err}; K4 "
+            f"{dict(zip(map(str, D192_FORMATS), errs))}")
+    sm.check_phase("K3 / K4 at head dim 192 vs their plain versions")
+
+
+def measure_d192(sm):
+    """K3 and K4 at nemotron's prefill (B 2, S 512, H 96, KV 8, D 192,
+    causal, bf16; K4 at kv4): kernel, plain version, SDPA and the bound."""
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.nn import kvcache
+    t = sm.torch
+    F = t.nn.functional
+    b, s = DENSE_SHAPE[:2]
+    g = t.Generator(device=sm.device).manual_seed(410)
+    mk = lambda h: t.randn((b, s, h, 192), generator=g,  # noqa: E731
+                           device=sm.device).to(t.bfloat16)
+    q, k, v = mk(96), mk(8), mk(8)
+    fmt = kvcache.KVFormat(4, 4, 192)
+    kq, vq = kvcache.pack_kv(k, fmt), kvcache.pack_kv(v, fmt)
+    kd, vd = kvcache.unpack_kv(kq, fmt), kvcache.unpack_kv(vq, fmt)
+    pairs = causal_pairs(s, s)
+    rows = []
+    for name, run, ins, kv in (
+            ("flash_fwd_cuda", lambda impl: fops.flash_attention(
+                q, k, v, impl=impl), (q, k, v), (k, v)),
+            ("flash_fwd_packed_cuda", lambda impl: fops.flash_attention_packed(
+                q, kq, vq, fmt, fmt, impl=impl),
+             (q, *kq.values(), *vq.values()), (kd, vd))):
+        out = run("cuda")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, *kv))
+        ke, ve = (x.repeat_interleave(12, dim=1) for x in (kt, vt))
+        tb = nbytes(*ins, out) / PEAK_BYTES_PER_S * 1e3
+        to = 4 * b * 96 * 192 * pairs / PEAK_BF16_FLOPS_PER_S * 1e3
+        rows.append({
+            "kernel": name, "layer": "D192",
+            "shape": f"B={b} S={s} H=96 KV=8 D=192 bf16 causal"
+                     + (" K/V kv4k4" if "packed" in name else ""),
+            "count": DENSE_DEPTH,
+            "ms": sm.time_ms(lambda: run("cuda"), reps=10),
+            "plain_ms": sm.time_ms(lambda: run("torch"), reps=2, warmup=1),
+            "library_ms": sm.time_ms(lambda: F.scaled_dot_product_attention(
+                qt, ke, ve, is_causal=True), reps=10),
+            "library": "F.scaled_dot_product_attention bf16 causal, K/V "
+                       "heads expanded" + (" (unpacked K/V)" if "packed" in
+                                           name else ""),
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"})
+    return rows
+
+
+def p12_moe(sm, arch, plan, card):
+    """(a)/(b): one MoE arch at full width and depth, its Generator run
+    counted and held to the contracts, decode_steps against sequential
+    steps, the scheduler's tickets against requests served alone, and the
+    timing: prefill, decode step, the profiled split, the bank's K1 calls."""
+    import numpy as np
+    from repro_torch.runtime.serve import init_packed_lm
+    t = sm.torch
+    b, s, n_new = P12_SHAPE
+    api = family_api(arch, plan)
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params = init_packed_lm(api, t.Generator(device=sm.device).manual_seed(
+        SEED), device=sm.device)
+    t.cuda.synchronize()
+    log(f"[p12] {arch}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv} KV heads, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.topk} (ff {cfg.moe.d_ff}, shared {cfg.moe.n_shared}), "
+        f"mla {cfg.mla}, dense prefix {cfg.dense_first_n}, vocab "
+        f"{cfg.vocab}, depth {cfg.n_layers}, plan "
+        f"{getattr(api.policy, 'name', '') or api.policy}; "
+        f"drawn and packed layer by layer in {time.perf_counter() - t0:.2f} "
+        f"s, {t.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s))
+    run = serve_family(sm, api, params, prompts, n_new, arch)
+    gen = run["gen"]
+    verify_contract(sm, gen, prompts, run["tokens"], arch)
+    trace = sched_trace(cfg.vocab)
+    alone = [gen.generate(p[None], n)[0] for p, n in trace]
+    run_scheduler(sm, gen, trace, alone, f"{arch} Generator")
+    sm.check_phase(f"12 {arch}: GenerateScheduler tickets vs requests "
+                   f"served alone")
+    prefill_ms, decode_ms = measure_lm_end_to_end(sm, api, params, prompts,
+                                                  n_new)
+    split = dict(k1_split(sm, api, b, s, s + n_new),
+                 flash=flash_split(sm, api, b, s))
+    bank = {}
+    for step in ("prefill", "decode"):
+        for call in k1_calls(api, b, s, s + n_new, step):
+            if call[4] > 1:
+                bank.setdefault((step,) + call[1:], 0)
+                bank[(step,) + call[1:]] += 1
+    rows = [dict(k1_bank_row(sm, f"{arch} {step} bank", *key), count=n,
+                 phase=step)
+            for (step, *key), n in sorted(bank.items())]
+    counts = dict(run["launches"], **{f"route:{k}": v
+                                       for k, v in run["routes"].items()})
+    del params, gen, run
+    release(sm)
+    return {"arch": arch, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "split": split, "rows": rows, "shape": P12_SHAPE,
+            "counts": counts}
+
+
+def p12_dense(sm, arch, kv4, card):
+    """(c): a dense arch at full width, its first DENSE_DEPTH layers, under
+    its default policy (bf16 cache, K3) or a packed kv4 cache (K4)."""
+    import numpy as np
+    from repro_torch.runtime.serve import init_packed_lm
+    t = sm.torch
+    b, s, n_new = DENSE_SHAPE
+    base = family_api(arch, depth=DENSE_DEPTH)
+    api = dataclasses.replace(base, policy=with_kv4(base.policy, kv=kv4))
+    cfg = api.cfg
+    label = f"{arch} {'kv4 cache (K4)' if kv4 else 'bf16 cache (K3)'}"
+    t0 = time.perf_counter()
+    params = init_packed_lm(api, t.Generator(device=sm.device).manual_seed(
+        SEED), device=sm.device)
+    t.cuda.synchronize()
+    log(f"[p12] {label}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv} KV heads, head_dim {cfg.hd}, d_ff {cfg.d_ff} "
+        f"({cfg.act}), vocab {cfg.vocab}, depth {cfg.n_layers} of "
+        f"{family_api(arch).cfg.n_layers}; drawn and packed in "
+        f"{time.perf_counter() - t0:.2f} s, peak "
+        f"{t.cuda.max_memory_allocated() / 2**30:.2f} GiB, now "
+        f"{t.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s))
+    run = serve_family(sm, api, params, prompts, n_new, label)
+    prefill_ms, decode_ms = measure_lm_end_to_end(sm, api, params, prompts,
+                                                  n_new)
+    split = dict(k1_split(sm, api, b, s, s + n_new),
+                 flash=flash_split(sm, api, b, s))
+    counts = dict(run["launches"], **{f"route:{k}": v
+                                       for k, v in run["routes"].items()})
+    del params, run
+    release(sm)
+    t.cuda.reset_peak_memory_stats()
+    return {"arch": label, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "split": split, "rows": [], "shape": DENSE_SHAPE,
+            "counts": counts}
+
+
+def print_p12(p12, p12_rows, card):
+    """Phase 12's ``[p12-time]`` lines."""
+    for res in p12:
+        b, s_, n_new = res["shape"]
+        sp = res["split"]
+        pf_ms, dc_ms = res["prefill_ms"], res["decode_ms"]
+        log(f"[p12-time] {res['arch']}: prefill {pf_ms:.2f} ms = "
+            f"{b * s_ / pf_ms * 1e3:.1f} tokens/s ({b} x {s_}); decode "
+            f"{dc_ms:.2f} ms per step = {b / dc_ms * 1e3:.1f} tokens/s at "
+            f"batch {b}  ({card})")
+        rest = pf_ms - sp["prefill"] - sp["flash"]
+        log(f"[p12-time] {res['arch']} split (each kernel's calls timed "
+            f"alone): prefill K1 {sp['prefill']:.2f} ms "
+            f"({sp['prefill'] / pf_ms:.1%}), K3/K4 {sp['flash']:.2f} ms "
+            f"({sp['flash'] / pf_ms:.1%}), rest {rest:.2f} ms "
+            f"({rest / pf_ms:.1%}); decode step K1 {sp['decode']:.2f} ms "
+            f"call by call ({sp['decode'] / dc_ms:.1%}), rest "
+            f"{dc_ms - sp['decode']:.2f} ms")
+    for r in p12_rows:
+        log(f"[p12-time] {r['kernel']} {r['layer']} {r['shape']}"
+            + (f" route {r['route']}" if "route" in r else "")
+            + f": kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms ({r['library']}; "
+            f"kernel/library {r['ms'] / r['library_ms']:.2f}x), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it), x{r['count']}"
+            + (f" per {r['phase']}" if "phase" in r else " per prefill")
+            + f"  ({card})")
+
+
+def phase_p12(sm, card):
+    """Phase 12 -> (summed launches of its main-path runs, results, timed
+    rows).  Each arch's Generator run is counted from zero."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    release(sm)
+    log(f"[p12] {sm.torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+        f"card before phase 12")
+    olmoe = configs.get("olmoe-1b-7b").policy
+    results = [p12_moe(sm, "olmoe-1b-7b", with_kv4(
+        olmoe, l0_expert=(2, 2), l1_expert=(8, 4)), card),
+        p12_moe(sm, "deepseek-v2-lite-16b", None, card)]
+    for arch in DENSE_ARCHS:
+        for kv4 in ((False, True) if arch in KV4_ARCHS else (False,)):
+            results.append(p12_dense(sm, arch, kv4, card))
+    launches = {}
+    for res in results:
+        launches = add_counts(launches, res["counts"])
+    rows = [r for res in results for r in res["rows"]] + measure_d192(sm)
+    log(f"[p12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return launches, results, rows
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -2440,6 +3142,7 @@ def main() -> int:
     lm_block_k = configs.get(LM_ARCH).cfg.attn_chunk
     phase_k3(sm, lm_block_k)
     phase_k4(sm, lm_block_k)
+    phase_d192(sm)
     api, params, prompts, run, run3 = phase_lm(sm)
     depth = api.cfg.n_layers
     for r in (run, run3):
@@ -2467,7 +3170,13 @@ def main() -> int:
     k1_routes = {k: k1_routes[k] + p11_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     del server
+    torch.cuda.empty_cache()
     log(f"[p11] phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    p12_launches, p12, p12_rows = phase_p12(sm, card)
+    launches = {k: launches[k] + p12_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p12_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p12] phase 12 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
@@ -2559,6 +3268,7 @@ def main() -> int:
             f"({card})")
     log(f"[time] ImageScheduler: {sum(IMG_BURSTS)} images in batches "
         f"{img_batches}")
+    print_p12(p12, p12_rows, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,7 @@
-"""Architecture configs (port of ``repro.configs``): the ResNets and
-granite-8b.
+"""Architecture configs (port of ``repro.configs``): the ResNets and the
+decoder LMs -- dense (granite-8b/34b, yi-34b, nemotron-4-340b), the VLM
+backbone (chameleon-34b) and MoE (olmoe-1b-7b, deepseek-v2-lite-16b, whose
+attention is MLA).
 
 ``get(name)`` returns a ``ModelAPI``; ``reduced=True`` gives the same
 family at smoke-test scale.
@@ -13,15 +15,15 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models.api import ModelAPI
 
 RESNET_NAMES = ["resnet18", "resnet50", "resnet152"]
-LM_NAMES = ["granite-8b"]
+LM_NAMES = ["granite-34b", "granite-8b", "nemotron-4-340b", "yi-34b",
+            "chameleon-34b", "olmoe-1b-7b", "deepseek-v2-lite-16b"]
 ARCH_NAMES = RESNET_NAMES + LM_NAMES
 # The JAX package's archs that the port does not have yet (ROADMAP Queue 1):
 # the plan CLI names them as such instead of as unknown.
-NOT_PORTED = ("granite-34b", "nemotron-4-340b", "yi-34b", "mamba2-1.3b",
-              "chameleon-34b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
-              "whisper-base", "recurrentgemma-9b")
+NOT_PORTED = ("mamba2-1.3b", "whisper-base", "recurrentgemma-9b")
 
-_MODULES = {name: name.replace("-", "_") for name in RESNET_NAMES + LM_NAMES}
+_MODULES = {name: name.replace("-", "_").replace(".", "_")
+            for name in RESNET_NAMES + LM_NAMES}
 
 
 def get(name: str, *, policy: Optional[PrecisionPolicy] = None,

@@ -12,8 +12,11 @@ BN) and every value bit for bit.
 for LM trees (``repro.runtime.serve.pack_for_serving`` output, and
 ``init_params`` trees), whose layer stack the JAX package keeps scanned:
 one subtree with a leading depth axis, or under a depth-heterogeneous plan
-one such subtree per format group ``g0``, ``g1``, ... in depth order.  The
-port keeps a per-layer list, so the stack is unstacked layer by layer.
+one such subtree per format group ``g0``, ``g1``, ... in depth order, and
+a dense prefix (deepseek's first layer) unrolled beside it as
+``dense_layer_{i}``.  The port keeps one per-layer list, so the prefix
+comes first and the stack is unstacked layer by layer after it; an expert
+bank keeps its expert axis once the depth axis is sliced off.
 
 This module imports no JAX: the caller hands over numpy.
 """
@@ -87,8 +90,12 @@ def _unstack_layers(layers):
 
 def _convert_lm(tree, device):
     dev = resolve_device(device)
-    out = {k: _convert(v, dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_convert(lp, dev) for lp in _unstack_layers(tree["layers"])]
+    prefix = sorted((k for k in tree if k.startswith("dense_layer_")),
+                    key=lambda k: int(k.rsplit("_", 1)[1]))
+    out = {k: _convert(v, dev) for k, v in tree.items()
+           if k != "layers" and k not in prefix}
+    out["layers"] = [_convert(tree[k], dev) for k in prefix] + [
+        _convert(lp, dev) for lp in _unstack_layers(tree["layers"])]
     return out
 
 

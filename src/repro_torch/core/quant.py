@@ -59,6 +59,11 @@ def weight_spec(bits: int, channel_axis: Optional[int] = None) -> QuantSpec:
     return QuantSpec(bits=bits, signed=True, channel_axis=channel_axis)
 
 
+# Values of a per-tensor mean taken at a time in float64 (above it the sum
+# runs slice by slice, each slice's partial sum in float64).
+MEAN_SLICE_VALUES = 1 << 28
+
+
 def init_step_size(v: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """LSQ initialization: gamma = 2 * mean(|v|) / sqrt(Q_p), at least 1e-9.
 
@@ -68,13 +73,17 @@ def init_step_size(v: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """
     _, qp = qrange(spec)
     qp = max(qp, 1)
-    a = v.to(torch.float64).abs()
-    if spec.channel_axis is None:
-        mean_abs = a.mean()
-    else:
+    if spec.channel_axis is not None:
         axes = tuple(d for d in range(v.ndim)
                      if d != spec.channel_axis % v.ndim)
-        mean_abs = a.mean(dim=axes)
+        mean_abs = v.to(torch.float64).abs().mean(dim=axes)
+    elif v.numel() <= MEAN_SLICE_VALUES:
+        mean_abs = v.to(torch.float64).abs().mean()
+    else:  # a large table (a 256000 x 18432 embedding), slice by slice
+        flat = v.reshape(-1)
+        mean_abs = sum(
+            flat[i:i + MEAN_SLICE_VALUES].to(torch.float64).abs().sum()
+            for i in range(0, flat.numel(), MEAN_SLICE_VALUES)) / flat.numel()
     mean_abs = mean_abs.to(torch.float32)
     gamma = 2.0 * mean_abs / torch.sqrt(torch.tensor(float(qp),
                                                      device=v.device))

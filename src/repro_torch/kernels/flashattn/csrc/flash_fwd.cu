@@ -35,9 +35,10 @@
 //   registers and V read transposed from shared memory.  Scoring 32 keys at
 //   a time keeps a thread at 124 registers, so two blocks share an SM and
 //   one block's softmax runs while the other's products do.
-// - Products, f32 I/O and D 64: mma.sync.m16n8k16 bf16 fed by ldmatrix
-//   (ldmatrix.trans for V), 8 warps of 16 rows, P reused from the score
-//   registers as the A operand of PV.
+// - Products, f32 I/O, D 64 and D 192 (nemotron-4-340b; bf16 only, an f32
+//   q tile and two f32 K/V stages exceed a block's shared memory there):
+//   mma.sync.m16n8k16 bf16 fed by ldmatrix (ldmatrix.trans for V), 8 warps
+//   of 16 rows, P reused from the score registers as the A operand of PV.
 // - Split precision (flash_common.cuh): QK^T on the raw bf16 q, the scale
 //   (times log2 e) applied to the f32 score; PV with p = p_hi + p_lo (two
 //   bf16 terms); with f32 I/O q, K, V and p in three bf16 terms each (six
@@ -50,7 +51,7 @@
 //   flash_fwd_kernel<D, warps, T>:  <128,8,f32> 194 regs, 202752 B;
 //   <128,4,f32> 194, 168960 B;  <64,8,f32> 160, 104448 B;
 //   <64,4,f32> 160, 87040 B;  <64,8,bf16> 142, 49152 B;  <64,4,bf16> 142,
-//   40960 B.
+//   40960 B;  <192,8,bf16> 239, 147456 B;  <192,4,bf16> 239, 122880 B.
 #include "flash_common.cuh"
 
 namespace {
@@ -359,6 +360,12 @@ int launch_t(const void* q, const void* k, const void* v, void* out, int D,
   switch (D) {
     case 64: return launch_d<64, T>(q, k, v, out, s, stream);
     case 128: return launch_d<128, T>(q, k, v, out, s, stream);
+    case 192:  // bf16 only: an f32 q tile and two f32 K/V stages exceed
+               // a block's shared memory at D 192
+      if constexpr (Tile<T, 192>::TERMS == 1) {
+        return launch_d<192, T>(q, k, v, out, s, stream);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,13 +27,14 @@
 // - Products, bf16 q at D 128 (the serve path): wgmma, two warpgroups of 64
 //   rows; QK^T m64n64k16 with q and the K codes read from shared memory
 //   through descriptors, PV m64n128k16 with p * s_v from registers and the
-//   V codes read transposed.  f32 I/O and D 64: mma.sync.m16n8k16 bf16 fed
-//   by ldmatrix, 8 warps of 16 rows.
+//   V codes read transposed.  f32 I/O, D 64 and D 192 (bf16 only):
+//   mma.sync.m16n8k16 bf16 fed by ldmatrix, 8 warps of 16 rows.
 // - Copies: q and the packed bytes of each K and V tile (P planes x 64 keys
 //   x pd bytes, pd = D * k / 8, keys KV * pd bytes apart) move with
-//   cp.async, 16 bytes a transaction (8 where pd is 8), into a two-stage raw
-//   ring.  Each key's bf16 scale and zero (2 bytes, KV apart: too small for
-//   cp.async) are loaded into registers two tiles ahead.
+//   cp.async, 16 bytes a transaction (8 where pd is not a multiple of 16:
+//   1-bit digits at D 64 and D 192), into a two-stage raw ring.  Each key's
+//   bf16 scale and zero (2 bytes, KV apart: too small for cp.async) are
+//   loaded into registers two tiles ahead.
 // - Pipeline, one barrier a tile: between two barriers a warp multiplies
 //   tile t from one pair of code tiles and decodes tile t + 1 into the
 //   other, while tile t + 2's bytes land; warps at different points of the
@@ -52,13 +53,14 @@
 //   the weights p * s_v split into two bf16 terms (three with f32 I/O, where
 //   q is split into three terms too), the V zero one f32 sum per row.
 //
-// Registers (nvcc -Xptxas -v, sm_90a) and shared memory a block; no variant
-// spills; one block an SM:
+// Registers (nvcc -Xptxas -v, sm_90a) and shared memory a block; one block
+// an SM; no variant spills but <192,8,bf16> (112 bytes stored, 128 loaded):
 //   flash_fwd_packed_wgmma_kernel<2> (Sq > 64)   252 regs, 135168 B
 //   flash_fwd_packed_wgmma_kernel<1> (Sq <= 64)  255 regs, 118784 B
 //   flash_fwd_packed_kernel<D, warps, T>:  <128,8,f32> 237 regs, 168960 B;
 //   <128,4,f32> 242, 135168 B;  <64,8,f32> 179, 87040 B;  <64,4,f32> 186,
-//   69632 B;  <64,8,bf16> 169, 68608 B;  <64,4,bf16> 179, 60416 B.
+//   69632 B;  <64,8,bf16> 169, 68608 B;  <64,4,bf16> 179, 60416 B;
+//   <192,8,bf16> 255, 199680 B;  <192,4,bf16> 254, 175104 B.
 #include "flash_common.cuh"
 
 namespace {
@@ -103,13 +105,13 @@ __device__ __forceinline__ void copy_planes(uint8_t* raw, const Planes& pl,
     return pl.p + p * plane_stride +
            ((static_cast<size_t>(b) * s.Sk + key) * s.KV + g) * pd + byte % pd;
   };
-  if (pd >= 16) {
+  if (pd % 16 == 0) {
     for (int byte = 16 * threadIdx.x; byte < bytes; byte += 16 * THREADS) {
       bool valid;
       const uint8_t* p = src(byte, &valid);
       cp_async<16>(raw + byte, valid ? p : pl.p, valid);
     }
-  } else {  // D 64 with 1-bit digits: 8-byte rows
+  } else {  // 1-bit digits at D 64 and D 192: rows of 8 and 24 bytes
     for (int byte = 8 * threadIdx.x; byte < bytes; byte += 8 * THREADS) {
       bool valid;
       const uint8_t* p = src(byte, &valid);
@@ -665,6 +667,12 @@ int launch_t(const void* q, const Planes& kp, const Planes& vp, void* out,
   switch (D) {
     case 64: return launch_d<64, T>(q, kp, vp, out, s, stream);
     case 128: return launch_d<128, T>(q, kp, vp, out, s, stream);
+    case 192:  // bf16 only: an f32 q tile does not fit beside the code
+               // tiles of D 192 in 8 warps' shared memory
+      if constexpr (Tile<T, 192>::TERMS == 1) {
+        return launch_d<192, T>(q, kp, vp, out, s, stream);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -54,7 +54,8 @@ __all__ = ["NEG_INF", "HEAD_DIMS", "flash_fwd_cuda", "flash_fwd_torch",
            "flash_fwd_packed_cuda", "flash_fwd_packed_torch"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)   # head_dim values the kernels are built for
+HEAD_DIMS = (64, 128, 192)  # head_dim values the kernels are built for
+BF16_ONLY_DIMS = (192,)      # too wide for an f32 q tile in shared memory
 IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -162,6 +163,8 @@ def _check_attention(q: torch.Tensor, kvh: int, sk: int, window, q_offset,
     h, d = q.shape[2], q.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if d in BF16_ONLY_DIMS and q.dtype != torch.bfloat16:
+        raise TypeError(f"head_dim {d} takes bf16 q/k/v only, got {q.dtype}")
     if kvh < 1 or h % kvh:
         raise ValueError(f"{kvh} KV heads do not divide {h} query heads")
     if window is not None and window < 1:
@@ -197,7 +200,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_offset: int = 0, softmax_scale: Optional[float] = None,
                    pad_k: int = 0) -> torch.Tensor:
     """Launch K3 on CUDA tensors: q (B, Sq, H, D), k/v (B, Sk, KV, D) of
-    q's dtype (f32 or bf16), D in ``HEAD_DIMS`` -> (B, Sq, H, D)."""
+    q's dtype (f32 or bf16; bf16 only at D 192), D in ``HEAD_DIMS`` ->
+    (B, Sq, H, D)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     device = _check_attention(q, kvh, sk, window, q_offset, pad_k)
@@ -238,7 +242,8 @@ def flash_fwd_packed_cuda(q: torch.Tensor, kp: torch.Tensor,
                           q_offset: int = 0,
                           softmax_scale: Optional[float] = None,
                           pad_k: int = 0) -> torch.Tensor:
-    """Launch K4 on CUDA tensors: q (B, Sq, H, D) f32 or bf16; planes
+    """Launch K4 on CUDA tensors: q (B, Sq, H, D) f32 or bf16 (bf16 only
+    at D 192), D in ``HEAD_DIMS``; planes
     (P, B, Sk, KV, ceil(D / (8 // slice))) uint8; scale/zero (B, Sk, KV)
     bf16 -> (B, Sq, H, D) of q's dtype."""
     b, sq, h, d = q.shape

@@ -37,6 +37,27 @@ struct Epilogue {
   int flags;
 };
 
+// The epilogue of group g of a grouped call (an expert bank: E products of
+// M x K by K x N, one launch): each per-column operand holds E rows of N
+// values, the residual and the output E matrices of M x N, one after the
+// other.  Group 0 is the call's own operands.
+__device__ __forceinline__ Epilogue group_epilogue(const Epilogue& e, int g,
+                                                   int M, int N) {
+  Epilogue r = e;
+  const size_t col = static_cast<size_t>(g) * N;
+  const size_t mat = col * M;
+  r.gamma += col;
+  r.colsum += col;
+  if (r.scale != nullptr) r.scale += col;
+  if (r.shift != nullptr) r.shift += col;
+  if (r.residual != nullptr) {
+    r.residual = static_cast<const char*>(r.residual) +
+                 mat * ((e.flags & RES_BF16) ? 2 : 4);
+  }
+  r.out = static_cast<char*>(r.out) + mat * ((e.flags & OUT_BF16) ? 2 : 4);
+  return r;
+}
+
 // zero-point correction -> dequant -> BN -> residual -> ReLU -> cast, in the
 // op order of kernels/mpmm/epilogue.py.  Each step rounds once: __fmul_rn
 // and __fadd_rn are never contracted, and BN is one fused multiply-add,

@@ -17,6 +17,9 @@
 // - Work split: a block owns an N strip (512 columns, 256 at M > 4) and
 //   one chunk of K; kernel.py::split_plan cuts K into byte-aligned chunks so
 //   that the grid fills the 132 SMs several times over even at N = 4096.
+//   A grouped call (an MoE expert bank: E products in one launch, as the
+//   reference's jax.vmap batches its kernel) adds the group as the grid's
+//   z, and split_plan counts its blocks over all groups.
 //   Within a block the eight warps take the chunk's digit groups in turn.
 // - Loads: each thread streams 16 (8 at M > 4) neighbouring columns of
 //   each plane row with one vector load -- N is the planes' minor axis, so
@@ -90,10 +93,10 @@ __device__ __forceinline__ void load_row(uint32_t (&w)[CT / 4],
 
 template <int W, int K, int MT, int CT, bool SA>
 __global__ void __launch_bounds__(THREADS)
-    mpmm_splitk_kernel(const int8_t* __restrict__ a,
-                       const uint8_t* __restrict__ planes,
-                       int* __restrict__ ws, int M, int N, int Kd, int kp,
-                       int chunk_bytes, int vec) {
+    mpmm_splitk_kernel(const int8_t* __restrict__ a_all,
+                       const uint8_t* __restrict__ planes_all,
+                       int* __restrict__ ws_all, int M, int N, int Kd,
+                       int kp, int chunk_bytes, int vec) {
   using Fm = Format<W, K>;
   using Gr = Group<K>;
   constexpr int P = Fm::P;
@@ -108,6 +111,13 @@ __global__ void __launch_bounds__(THREADS)
   auto a_s = reinterpret_cast<int8_t(*)[MAX_CHUNK_DIGITS]>(smem);
   auto red = reinterpret_cast<int(*)[32][CT + 1]>(smem);
 
+  // Group (expert) blockIdx.z: its own activations, planes and partials.
+  const int grp = blockIdx.z;
+  const int8_t* __restrict__ a = a_all + static_cast<size_t>(grp) * M * Kd;
+  const uint8_t* __restrict__ planes =
+      planes_all + static_cast<size_t>(grp) * P * kp * N;
+  int* __restrict__ ws =
+      ws_all + static_cast<size_t>(grp) * gridDim.y * M * N;
   const int split = blockIdx.y;
   const int n_strip = blockIdx.x * STRIP;
   const int cb0 = split * chunk_bytes;
@@ -239,16 +249,21 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// y = epilogue(sum over splits of the partials, in split order).
+// y = epilogue(sum over splits of the partials, in split order), for every
+// (group, row, column).
 __global__ void __launch_bounds__(THREADS)
     mpmm_splitk_epilogue(const int* __restrict__ ws, int M, int N, int splits,
-                         Epilogue e) {
+                         int groups, Epilogue e) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
   const size_t mn = static_cast<size_t>(M) * N;
-  if (idx >= mn) return;
+  if (idx >= mn * groups) return;
+  const int g = static_cast<int>(idx / mn);
+  const size_t at = idx % mn;
+  const int* part = ws + static_cast<size_t>(g) * splits * mn + at;
   int total = 0;
-  for (int s = 0; s < splits; ++s) total += ws[s * mn + idx];
-  epilogue_store(e, total, static_cast<int>(idx % N), idx);
+  for (int s = 0; s < splits; ++s) total += part[s * mn];
+  epilogue_store(mpmm::group_epilogue(e, g, M, N), total,
+                 static_cast<int>(at % N), at);
 }
 
 template <int W, int K, int MT, int CT>
@@ -263,8 +278,11 @@ int launch_splitk(bool sa, dim3 grid, cudaStream_t s, const int8_t* a,
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes (kernels/mpmm/kernel.py).  `ws`
-// holds splits * M * N int32 partials; chunk_bytes and splits come from
+// Plain C entry point, loaded with ctypes (kernels/mpmm/kernel.py).  Runs
+// `groups` products of the same shape in one call, their operands stored
+// one after the other (a (groups, M, Kd), planes (groups, P, kp, N), gamma
+// and colsum (groups, N), out (groups, M, N)); `ws` holds groups * splits *
+// M * N int32 partials; chunk_bytes and splits come from
 // kernel.py::split_plan.  Launches both kernels on `stream` and returns the
 // first nonzero cudaGetLastError() (0 on success).
 extern "C" int mpmm_splitk_launch(const void* a, const void* planes,
@@ -274,7 +292,7 @@ extern "C" int mpmm_splitk_launch(const void* a, const void* planes,
                                   int M, int N, int Kd, int kp, int n_planes,
                                   int k_bits, int w_bits, int act_zero, int sa,
                                   int flags, int chunk_bytes, int splits,
-                                  void* stream) {
+                                  int groups, void* stream) {
   const Epilogue e{static_cast<const float*>(gamma),
                    static_cast<const int*>(colsum),
                    static_cast<const float*>(scale),
@@ -285,14 +303,15 @@ extern "C" int mpmm_splitk_launch(const void* a, const void* planes,
       chunk_bytes < 1 || chunk_bytes % group_rows != 0 ||
       chunk_bytes * (8 / k_bits) > MAX_CHUNK_DIGITS ||
       static_cast<long long>(splits - 1) * chunk_bytes >= kp ||
-      static_cast<long long>(splits) * chunk_bytes < kp) {
+      static_cast<long long>(splits) * chunk_bytes < kp || groups < 1 ||
+      groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool wide = M <= 4;  // 4 rows x 16 columns, else 16 x 8
   const int strip = wide ? 512 : 256;
   const int vec = (N % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(planes) % 16 == 0);
-  const dim3 grid((N + strip - 1) / strip, splits);
+  const dim3 grid((N + strip - 1) / strip, splits, groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a8 = static_cast<const int8_t*>(a);
   const auto* p8 = static_cast<const uint8_t*>(planes);
@@ -305,8 +324,9 @@ extern "C" int mpmm_splitk_launch(const void* a, const void* planes,
   int err = [&]() -> int { K1_DISPATCH(w_bits, k_bits, K1_SPLITK_LAUNCH) }();
 #undef K1_SPLITK_LAUNCH
   if (err != 0) return err;
-  const size_t mn = static_cast<size_t>(M) * N;
-  const dim3 egrid(static_cast<unsigned>((mn + THREADS - 1) / THREADS));
-  mpmm_splitk_epilogue<<<egrid, THREADS, 0, s>>>(wsi, M, N, splits, e);
+  const size_t total = static_cast<size_t>(M) * N * groups;
+  const dim3 egrid(static_cast<unsigned>((total + THREADS - 1) / THREADS));
+  mpmm_splitk_epilogue<<<egrid, THREADS, 0, s>>>(wsi, M, N, splits, groups,
+                                                 e);
   return static_cast<int>(cudaGetLastError());
 }

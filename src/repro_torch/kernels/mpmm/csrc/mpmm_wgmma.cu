@@ -40,6 +40,10 @@
 //   while the products of stage s run.
 // - Grid: M tiles fastest, so the blocks that share an N strip of packed
 //   weights run together and find it in L2 (the TPU kernel's digit cache).
+//   A grouped call (an MoE expert bank, which the reference batches over
+//   the expert axis with jax.vmap) adds the group as the grid's z: each
+//   block offsets its activations, planes and epilogue operands by its
+//   group, so one launch covers the whole bank.
 // - Ragged M/N/K are zero-filled in shared memory and masked in the
 //   epilogue; nothing is read out of bounds.
 // - Epilogue: on the int32 accumulators in registers, mpmm_common.cuh's
@@ -128,14 +132,20 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
 
 template <int W, int K, bool SA>
 __global__ void __launch_bounds__(THREADS, 1)
-    mpmm_wgmma_kernel(const int8_t* __restrict__ a,
-                      const uint8_t* __restrict__ planes, int M, int N,
-                      int Kd, int kp, int vec, Epilogue e) {
+    mpmm_wgmma_kernel(const int8_t* __restrict__ a_all,
+                      const uint8_t* __restrict__ planes_all, int M, int N,
+                      int Kd, int kp, int vec, Epilogue e_all) {
   extern __shared__ __align__(1024) unsigned char smem[];
   using Fm = Format<W, K>;
   constexpr int MI = SA ? 1 : 2;
   using S = Smem<MI>;
   constexpr int A_BYTES = S::A_BYTES;
+  // Group (expert) blockIdx.z: its own activations, planes and epilogue.
+  const int grp = blockIdx.z;
+  const int8_t* __restrict__ a = a_all + static_cast<size_t>(grp) * M * Kd;
+  const uint8_t* __restrict__ planes =
+      planes_all + static_cast<size_t>(grp) * Fm::P * kp * N;
+  const Epilogue e = mpmm::group_epilogue(e_all, grp, M, N);
   const int m0 = blockIdx.x * S::BM;
   const int n0 = blockIdx.y * BN;
   const int nk = (Kd + BK - 1) / BK;
@@ -214,28 +224,32 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes (kernels/mpmm/kernel.py).  Launches
-// on `stream` and returns cudaGetLastError() of the launch (0 on success).
+// Plain C entry point, loaded with ctypes (kernels/mpmm/kernel.py).  Runs
+// `groups` products of the same shape in one launch, their operands stored
+// one after the other (a (groups, M, Kd), planes (groups, P, kp, N), gamma
+// and colsum (groups, N), out (groups, M, N)).  Launches on `stream` and
+// returns cudaGetLastError() of the launch (0 on success).
 extern "C" int mpmm_launch(const void* a, const void* planes,
                            const void* gamma, const void* colsum,
                            const void* scale, const void* shift,
                            const void* residual, void* out, int M, int N,
                            int Kd, int kp, int n_planes, int k_bits,
                            int w_bits, int act_zero, int sa, int flags,
-                           void* stream) {
+                           int groups, void* stream) {
   const Epilogue e{static_cast<const float*>(gamma),
                    static_cast<const int*>(colsum),
                    static_cast<const float*>(scale),
                    static_cast<const float*>(shift),
                    residual, out, act_zero, flags};
-  if (n_planes != planes_of(w_bits, k_bits)) {
+  if (n_planes != planes_of(w_bits, k_bits) || groups < 1 ||
+      groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int vec = (Kd % 16 == 0 && N % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(planes) % 16 == 0);
   const int bm = sa ? Smem<1>::BM : Smem<2>::BM;
-  const dim3 grid((M + bm - 1) / bm, (N + BN - 1) / BN);
+  const dim3 grid((M + bm - 1) / bm, (N + BN - 1) / BN, groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* a8 = static_cast<const int8_t*>(a);
   const auto* p8 = static_cast<const uint8_t*>(planes);

@@ -18,6 +18,13 @@ picked from the shape by ``mpmm_route``:
     loads and decoded in registers, ``__dp4a`` products, int32 partials in
     a workspace added in a fixed order by a second kernel.
 
+A grouped call -- an MoE expert bank, which the reference runs through
+K1 under ``jax.vmap`` over the expert axis -- takes a_biased (E, M, K),
+planes (E, P, Kp, N) and gamma/colsum with E x N values, and runs all E
+products in one launch of the route that M (the rows of one group) picks:
+the group is one more grid dimension, and each block offsets its operands
+by its group.
+
 ``variant='st'`` turns the planes into one int8 operand (one product
 whatever P is); ``'sa'`` runs one product per plane and shift-adds them.
 Both give the same integers, so both routes are bitwise equal to the plain
@@ -51,7 +58,7 @@ from repro_torch.kernels.mpmm.epilogue import EpilogueSpec
 
 __all__ = ["TILE", "ROUTES", "SPLITK_MAX_M", "SplitPlan", "mpmm_route",
            "split_plan", "workspace_bytes", "mpmm_cuda", "mpmm_torch",
-           "epilogue_flags"]
+           "epilogue_flags", "PLAIN_SLICE_VALUES"]
 
 # Route A's fixed (bm, bk, bn) tile under Sum-Together (csrc/mpmm_wgmma.cu
 # Smem<2>::BM, BK, BN; Sum-Apart runs bm = 128).
@@ -109,21 +116,24 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
 def check_common(device: torch.device, planes: torch.Tensor, fmt: PlaneFormat,
                  gamma: torch.Tensor, colsum: torch.Tensor,
                  scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
-                 variant: str, out_dtype) -> None:
-    """Checks shared by both kernel wrappers (everything but the input)."""
+                 variant: str, out_dtype, groups: int = 1) -> None:
+    """Checks shared by both kernel wrappers (everything but the input).
+    ``groups`` products share one launch: planes then carry a leading
+    group axis and each column operand holds ``groups`` x N values."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}; "
                          f"use impl='torch' (or 'auto') for CPU tensors")
     n = planes.shape[-1]
+    lead = (groups,) if planes.ndim == 4 else ()
     check_operand("planes", planes, device, (torch.uint8,),
-                  (fmt.planes, fmt.packed_k, n))
+                  lead + (fmt.planes, fmt.packed_k, n))
     check_operand("gamma", gamma, device, (torch.float32,))
     check_operand("colsum", colsum, device, (torch.int32,))
     for name, t in (("gamma", gamma), ("colsum", colsum), ("scale", scale),
                     ("shift", shift)):
-        if t is not None and t.numel() != n:
-            raise ValueError(f"{name} must hold N={n} values, got "
-                             f"{tuple(t.shape)}")
+        if t is not None and t.numel() != groups * n:
+            raise ValueError(f"{name} must hold {groups} x N={n} values, "
+                             f"got {tuple(t.shape)}")
     for name, t in (("scale", scale), ("shift", shift)):
         if t is not None:
             check_operand(name, t, device, (torch.float32,))
@@ -184,22 +194,24 @@ def strip_cols(m: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(m: int, kdim: int, n: int, fmt: PlaneFormat) -> SplitPlan:
-    """Route B's split of K for an (M, K) x (K, N) product.
+def split_plan(m: int, kdim: int, n: int, fmt: PlaneFormat,
+               groups: int = 1) -> SplitPlan:
+    """Route B's split of K for an (M, K) x (K, N) product, or for
+    ``groups`` of them in one launch (an expert bank).
 
     Chunks start on whole packed bytes, are whole digit groups for each of
     the block's eight warps (a multiple of ``_group_rows``), hold at most
     ``SPLITK_MAX_CHUNK_DIGITS`` digits (the activation rows staged in
     shared memory) and at least ``SPLITK_MIN_GROUPS`` groups a warp, and
-    are as many as fill ``SPLITK_TARGET_BLOCKS`` blocks with the N strips.
-    They cover K exactly and none is empty.
+    are as many as fill ``SPLITK_TARGET_BLOCKS`` blocks with the N strips
+    of every group.  They cover K exactly and none is empty.
     """
     if kdim != fmt.k_dim:
         raise ValueError(f"K={kdim} but the format says {fmt.k_dim}")
     f = fmt.digits_per_byte
     kp = fmt.packed_k
     unit = SPLITK_WARPS * _group_rows(fmt)
-    strips = math.ceil(n / strip_cols(m))
+    strips = groups * math.ceil(n / strip_cols(m))
     want = max(1, math.ceil(SPLITK_TARGET_BLOCKS / strips))
     chunk = max(math.ceil(kp / want), SPLITK_MIN_GROUPS * unit)
     chunk = math.ceil(chunk / unit) * unit
@@ -207,12 +219,13 @@ def split_plan(m: int, kdim: int, n: int, fmt: PlaneFormat) -> SplitPlan:
     return SplitPlan(chunk_bytes=chunk, splits=math.ceil(kp / chunk))
 
 
-def workspace_bytes(m: int, kdim: int, n: int, fmt: PlaneFormat) -> int:
+def workspace_bytes(m: int, kdim: int, n: int, fmt: PlaneFormat,
+                    groups: int = 1) -> int:
     """Device bytes a K1 call allocates beside its output: route B's int32
-    partials, one per (split, row, column); route A none."""
+    partials, one per (group, split, row, column); route A none."""
     if mpmm_route(m, kdim, n) == "wgmma":
         return 0
-    return split_plan(m, kdim, n, fmt).splits * m * n * 4
+    return groups * split_plan(m, kdim, n, fmt, groups).splits * m * n * 4
 
 
 @functools.cache
@@ -220,11 +233,11 @@ def _launcher(route: str, w_bits: int):
     if route == "wgmma":
         lib = _build.load(_build.format_lib("mpmm_wgmma", w_bits))
         fn = lib.mpmm_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
     else:
         fn = _build.load("mpmm_splitk").mpmm_splitk_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -243,25 +256,34 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
     a_biased int8 (M, K) with K == fmt.k_dim; planes uint8 (P, Kp, N);
     gamma f32 and colsum int32 with N values; scale/shift f32 with N values
     when ``epilogue.bn``; residual (M, N) f32 or bf16 when
-    ``epilogue.residual``.  Ragged M, N and K are masked in the kernel.
-    The route is ``mpmm_route(M, K, N)``.
+    ``epilogue.residual``.  A group of E products (an expert bank) is one
+    launch: a_biased (E, M, K), planes (E, P, Kp, N), E x N values in
+    every column operand, residual (E, M, N) -> (E, M, N).  Ragged M, N
+    and K are masked in the kernel.  The route is ``mpmm_route(M, K, N)``,
+    M the rows of one group.
     """
     _epi.validate_operands(epilogue, scale, shift, residual)
     out_dtype = _epi.resolve_out_dtype(epilogue, out_dtype)
     device = a_biased.device
+    if a_biased.ndim not in (2, 3) or planes.ndim != a_biased.ndim + 1:
+        raise ValueError(f"a_biased (M, K) with planes (P, Kp, N), or "
+                         f"a_biased (E, M, K) with planes (E, P, Kp, N); got "
+                         f"{tuple(a_biased.shape)} and {tuple(planes.shape)}")
+    groups = a_biased.shape[0] if a_biased.ndim == 3 else 1
     check_common(device, planes, fmt, gamma, colsum, scale, shift, variant,
-                 out_dtype)
-    m, kdim = a_biased.shape
+                 out_dtype, groups)
+    m, kdim = a_biased.shape[-2:]
     n = planes.shape[-1]
     if kdim != fmt.k_dim:
         raise ValueError(f"a_biased has K={kdim}, the format says "
                          f"{fmt.k_dim}")
     check_operand("a_biased", a_biased, device, (torch.int8,))
+    lead = a_biased.shape[:-2]
     if residual is not None:
         check_operand("residual", residual, device,
-                      (torch.float32, torch.bfloat16), (m, n))
-    out = torch.empty((m, n), dtype=out_dtype, device=device)
-    if m == 0 or n == 0:
+                      (torch.float32, torch.bfloat16), (*lead, m, n))
+    out = torch.empty((*lead, m, n), dtype=out_dtype, device=device)
+    if m == 0 or n == 0 or groups == 0:
         return out
     route = mpmm_route(m, kdim, n)
     fmt_args = (fmt.packed_k, fmt.planes, fmt.k, fmt.w_bits, act_zero,
@@ -273,13 +295,13 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if route == "wgmma":
-            err = launch(*operands, m, n, kdim, *fmt_args, stream)
+            err = launch(*operands, m, n, kdim, *fmt_args, groups, stream)
         else:
-            plan = split_plan(m, kdim, n, fmt)
-            ws = torch.empty((plan.splits, m, n), dtype=torch.int32,
+            plan = split_plan(m, kdim, n, fmt, groups)
+            ws = torch.empty((groups, plan.splits, m, n), dtype=torch.int32,
                              device=device)
             err = launch(*operands, ptr(ws), m, n, kdim, *fmt_args,
-                         plan.chunk_bytes, plan.splits, stream)
+                         plan.chunk_bytes, plan.splits, groups, stream)
     raise_on_error(f"mpmm_cuda ({route})", err)
     mpmm_cuda.launches += 1
     mpmm_cuda.routes[route] += 1
@@ -288,6 +310,12 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
 
 mpmm_cuda.launches = 0
 mpmm_cuda.routes = dict.fromkeys(ROUTES, 0)
+
+
+# Columns of one slice of the plain version: its float64 product and its
+# recombined weights stay near 2^28 values, so a weight as wide as a
+# 256000-word head does not hold several copies of itself in memory.
+PLAIN_SLICE_VALUES = 1 << 28
 
 
 def mpmm_torch(a_biased: torch.Tensor, planes: torch.Tensor,
@@ -299,12 +327,32 @@ def mpmm_torch(a_biased: torch.Tensor, planes: torch.Tensor,
                shift: Optional[torch.Tensor] = None,
                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K1 (twin of ``ops._xla_impl``): one exact integer
-    product against the recombined weights, then the shared epilogue.
-    ``variant`` does not change the integers, so it is accepted and unused."""
+    product against the recombined weights, then the shared epilogue; a
+    group (a_biased (E, M, K), planes (E, P, Kp, N), E x N column values)
+    is E such products, as the reference's ``jax.vmap`` runs them.  Wide
+    weights run in column slices (``PLAIN_SLICE_VALUES``): every output
+    column depends on its own weight column only, so the bits are those of
+    one product.  ``variant`` does not change the integers, so it is
+    accepted and unused."""
     del variant
     _epi.validate_operands(epilogue, scale, shift, residual)
-    w8 = _ref.combined_int8_weights(planes, fmt)
-    acc = _ref.int_matmul(a_biased, w8)
-    return _epi.finish(acc, gamma, colsum, act_zero=act_zero, spec=epilogue,
-                       scale=scale, shift=shift, residual=residual,
-                       out_dtype=_epi.resolve_out_dtype(epilogue, out_dtype))
+    out_dtype = _epi.resolve_out_dtype(epilogue, out_dtype)
+    lead = a_biased.shape[:-2]
+    n = planes.shape[-1]
+    cols = lambda t: (None if t is None  # noqa: E731
+                      else t.reshape(*lead, 1, n))
+    gamma, colsum, scale, shift = map(cols, (gamma, colsum, scale, shift))
+    step = max(1, PLAIN_SLICE_VALUES // max(1, fmt.k_dim * math.prod(lead)))
+    outs = []
+    for c0 in range(0, max(n, 1), step):
+        sl = slice(c0, min(c0 + step, n))
+        w8 = _ref.combined_int8_weights(planes[..., sl], fmt)
+        acc = _ref.int_matmul(a_biased, w8)
+        del w8
+        part = lambda t: None if t is None else t[..., sl]  # noqa: E731
+        outs.append(_epi.finish(
+            acc, gamma[..., sl], colsum[..., sl], act_zero=act_zero,
+            spec=epilogue, scale=part(scale), shift=part(shift),
+            residual=part(residual), out_dtype=out_dtype))
+        del acc
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)

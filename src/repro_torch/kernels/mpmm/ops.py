@@ -135,17 +135,26 @@ def mpmm(a_biased: torch.Tensor, planes: torch.Tensor, gamma: torch.Tensor,
     a_biased int8 (..., K); planes uint8 (P, Kp, N); gamma/colsum (1, N);
     scale/shift f32 (1, N) when ``epilogue.bn``; residual (..., N) with the
     leading shape of ``a_biased`` when ``epilogue.residual``.
+
+    An expert bank (planes (E, P, Kp, N), gamma/colsum (E, 1, N)) takes
+    a_biased (E, ..., K), expert e's rows against expert e's weights, and
+    is ONE kernel call over all E experts (the reference's ``jax.vmap`` of
+    its kernel over the expert axis) -> (E, ..., N).
     """
     _epi.validate_operands(epilogue, scale, shift, residual)
     if tile is not None and tile.as_tuple() != _kernel.TILE:
         raise ValueError(f"the mpmm kernel runs the fixed tile "
                          f"{_kernel.TILE}, got {tile.as_tuple()}")
-    lead = a_biased.shape[:-1]
     kdim = a_biased.shape[-1]
     n = planes.shape[-1]
-    a2 = a_biased.reshape(-1, kdim).contiguous()
-    res2 = (residual.reshape(-1, n).contiguous() if residual is not None
-            else None)
+    group = (planes.shape[0],) if planes.ndim == 4 else ()
+    if group and a_biased.shape[0] != group[0]:
+        raise ValueError(f"a bank of {group[0]} experts needs a_biased "
+                         f"(E, ..., K), got {tuple(a_biased.shape)}")
+    lead = a_biased.shape[:-1]
+    a2 = a_biased.reshape(*group, -1, kdim).contiguous()
+    res2 = (residual.reshape(*group, -1, n).contiguous()
+            if residual is not None else None)
     fn = (_kernel.mpmm_cuda if _resolve_impl(impl, a_biased) == "cuda"
           else _kernel.mpmm_torch)
     out = fn(a2, planes, gamma, colsum, fmt=fmt, act_zero=act_zero,

@@ -40,7 +40,8 @@ def unpack_to_int(packed: torch.Tensor, fmt: PlaneFormat) -> torch.Tensor:
 
 def combined_int8_weights(planes_u8: torch.Tensor,
                           fmt: PlaneFormat) -> torch.Tensor:
-    """Packed digit planes (P, Kp, N) uint8 -> W_int (K, N) int8.
+    """Packed digit planes (..., P, Kp, N) uint8 -> W_int (..., K, N) int8
+    (leading axes: the experts of a bank).
 
     The planes are disjoint k-bit fields of the w_Q-bit two's-complement
     code (where k > w, one plane whose fields hold the code in their low
@@ -56,13 +57,15 @@ def combined_int8_weights(planes_u8: torch.Tensor,
     k = fmt.k
     p32 = planes_u8.to(torch.int32)
     parts = [(p32 >> (k * i)) & ((1 << k) - 1) for i in range(f)]
+    lead = planes_u8.shape[:-3]
     kp, n = planes_u8.shape[-2], planes_u8.shape[-1]
-    # (P, Kp, f, N) -> (P, Kp*f, N): field index minor within a byte.
-    dig = torch.stack(parts, dim=-2).reshape(fmt.planes, kp * f, n)
-    w = dig[0]
+    # (..., P, Kp, f, N) -> (..., P, Kp*f, N): field index minor in a byte.
+    dig = torch.stack(parts, dim=-2).reshape(*lead, fmt.planes, kp * f, n)
+    del parts
+    w = dig[..., 0, :, :]
     for p in range(1, fmt.planes):
-        w = w | (dig[p] << (k * p))
-    w = w[: fmt.k_dim] & 0xFF
+        w = w | (dig[..., p, :, :] << (k * p))
+    w = w[..., : fmt.k_dim, :] & 0xFF
     bits = fmt.w_bits if fmt.signed else 8
     w = w & ((1 << bits) - 1)
     w = torch.where(w >= (1 << (bits - 1)), w - (1 << bits), w)
@@ -70,7 +73,8 @@ def combined_int8_weights(planes_u8: torch.Tensor,
 
 
 def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact integer product (M, K) @ (K, N) -> int32, through float64."""
+    """Exact integer product (..., M, K) @ (..., K, N) -> int32, through
+    float64."""
     return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(
         torch.int32)
 

@@ -24,6 +24,9 @@ class ModelAPI:
     cfg: Any
     mod: Any                     # the family module
     policy: PrecisionPolicy
+    microbatches: int = 1        # train grad-accumulation factor
+    long_context_ok: bool = False  # may run the long_500k shape
+    opt_dtype: Any = torch.float32  # AdamW moment storage dtype
 
     def specs(self, mode: str = "train"):
         return self.mod.specs(self.cfg, mode, self.policy)

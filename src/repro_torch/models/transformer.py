@@ -1,24 +1,30 @@
-"""Decoder-only LM, dense family, serve half (port of
-``repro.models.transformer``): granite-style GQA blocks with a SwiGLU (or
-squared-ReLU / GELU) MLP.
+"""Decoder-only LM, serve half (port of ``repro.models.transformer``):
+dense GQA blocks with a SwiGLU (or squared-ReLU / GELU) MLP, Mixture-of-
+Experts blocks (olmoe, deepseek), MLA attention (deepseek) and a dense
+prefix of layers before an MoE stack (deepseek's first layer), through one
+config dataclass -- granite-8b/34b, yi-34b, nemotron-4-340b, chameleon-34b
+(token ids already include the VQ image range), olmoe-1b-7b and
+deepseek-v2-lite-16b.
 
 The JAX package scans the layer stack and, under a depth-heterogeneous
 ``PrecisionPlan``, splits it into contiguous FORMAT GROUPS (``g0``, ``g1``,
-...) so that each ``lax.scan`` is homogeneous.  The port runs the layers in
-a Python loop and keeps them as a per-layer list, ``params["layers"][i]``,
-each layer packed at the formats the plan resolves for ``l{i}.*`` -- the
-same formats ``_layer_signature`` gives the group holding layer i, so
+...) so that each ``lax.scan`` is homogeneous; its dense prefix is unrolled
+beside the stack as ``dense_layer_{i}``.  The port runs the layers in a
+Python loop and keeps them as one per-layer list, ``params["layers"][i]``
+for model layer i (the dense prefix at i < ``dense_first_n``), each layer
+packed at the formats the plan resolves for ``l{i}.*`` -- the same formats
+``_layer_signature`` gives the group holding layer i, so
 ``scan_format_groups`` stays only as the reference's description of the
 stack.  The decode cache is per layer too: the bf16 pair ``(k, v)``
-(B, Smax, KV, Dh) for fp and 'qdq' caches, or ``{"k", "v"}`` holding packed
-leaves (``nn.kvcache``) where the plan packs that tensor.
+(B, Smax, KV, Dh) for fp and 'qdq' caches, ``{"k", "v"}`` holding packed
+leaves (``nn.kvcache``) where the plan packs that tensor, or MLA's latent
+pair ``(c_kv (B, Smax, r), k_rope (B, Smax, qk_rope))``, always bf16.
 
 Entry points: ``prefill`` (full prompt -> last-token logits and the cache),
 ``decode_step`` (one token against the cache, updated in place) and
 ``decode_steps`` (T tokens against the cache in one forward, the
 speculative verify); all take ``impl`` ('auto', 'cuda', 'torch'), which
-routes every kernel of the call.  The training forward, MoE, MLA and the
-dense-prefix stacks are not ported yet.
+routes every kernel of the call.  The training forward is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,16 +39,24 @@ from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.nn import attention as attn
 from repro_torch.nn import kvcache
 from repro_torch.nn import layers as nnl
+from repro_torch.nn import moe as nnmoe
 from repro_torch.nn import quantized as Q
+from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.param import ParamSpec
 
-__all__ = ["TransformerConfig", "plan_layer_names", "kv_layer_names",
-           "kv_cache_workload", "scan_format_groups", "specs", "forward",
-           "prefill", "decode_step", "decode_steps", "cache_specs",
-           "kv_formats", "gemm_workload", "total_params", "active_params",
-           "model_flops"]
+__all__ = ["MLAConfig", "TransformerConfig", "plan_layer_names",
+           "kv_layer_names", "kv_cache_workload", "scan_format_groups",
+           "specs", "forward", "prefill", "decode_step", "decode_steps",
+           "cache_specs", "kv_formats", "gemm_workload", "total_params",
+           "active_params", "model_flops"]
 
-LAYER_BASES = ("q", "k", "v", "o", "mlp")
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +71,22 @@ class TransformerConfig:
     head_dim: Optional[int] = None
     act: str = "swiglu"            # 'swiglu' | 'sq_relu' | 'gelu'
     norm: str = "rms"
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rope_base: float = 10000.0
     attn_impl: str = "xla"         # 'xla' | 'flash' (the K3 / K4 kernels)
+    dense_first_n: int = 0         # deepseek: the first N layers' MLP dense
+    dense_ff: int = 0
     attn_chunk: int = 1024
     family: str = "dense"
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def rope_dim(self) -> int:
+        return self.mla.qk_rope if self.mla is not None else self.hd
 
     @property
     def norm_fns(self):
@@ -76,17 +98,37 @@ class TransformerConfig:
 # --- layer namespace and formats ---------------------------------------------
 
 
+def _layer_bases(cfg: TransformerConfig, dense_mlp: bool) -> Tuple[str, ...]:
+    """Base workload layer names of one decoder layer."""
+    a = (("q", "dkv", "uk", "uv", "o") if cfg.mla is not None
+         else ("q", "k", "v", "o"))
+    if cfg.moe is not None and not dense_mlp:
+        m = ("expert",) + (("shared",) if cfg.moe.n_shared else ())
+    else:
+        m = ("mlp",)
+    return a + m
+
+
+def _dense_mlp(cfg: TransformerConfig, i: int) -> bool:
+    return i < cfg.dense_first_n
+
+
 def plan_layer_names(cfg: TransformerConfig) -> List[str]:
     """Every name a plan may bind: the base projection names, their
     depth-scoped ``l{i}.name`` forms, and the boundary ``head``."""
-    names = {"head", *LAYER_BASES}
+    names = {"head"}
     for i in range(cfg.n_layers):
-        names.update(f"l{i}.{b}" for b in LAYER_BASES)
+        bases = _layer_bases(cfg, _dense_mlp(cfg, i))
+        names.update(bases)
+        names.update(f"l{i}.{b}" for b in bases)
     return sorted(names)
 
 
 def kv_layer_names(cfg: TransformerConfig) -> List[str]:
-    """Cached-tensor names a plan may bind ``kv_bits`` to."""
+    """Cached-tensor names a plan may bind ``kv_bits`` to; none for MLA,
+    whose latent cache is not a per-head tensor and stays bf16."""
+    if cfg.mla is not None:
+        return []
     names = {"k", "v"}
     for i in range(cfg.n_layers):
         names.update((f"l{i}.k", f"l{i}.v"))
@@ -94,7 +136,9 @@ def kv_layer_names(cfg: TransformerConfig) -> List[str]:
 
 
 def kv_cache_workload(cfg: TransformerConfig) -> Dict[str, Tuple[int, int]]:
-    """{cached tensor name: (kv_heads, head_dim)}."""
+    """{cached tensor name: (kv_heads, head_dim)}; empty for MLA."""
+    if cfg.mla is not None:
+        return {}
     return {f"l{i}.{t}": (cfg.n_kv, cfg.hd)
             for i in range(cfg.n_layers) for t in ("k", "v")}
 
@@ -108,7 +152,9 @@ def _kv_fmt(cfg, policy, name: str) -> Optional[kvcache.KVFormat]:
 
 def kv_formats(cfg, policy):
     """None for a bf16 cache everywhere, else ``(store, [(fmt_k, fmt_v)]
-    per depth)`` -- the one gate every cache-shaped code path asks."""
+    per depth)`` -- the one gate every cache-shaped code path asks.  A plan
+    that quantizes the cache of an MLA model or of one with a dense prefix
+    raises, as the reference's ``_kv_formats`` does."""
     if not isinstance(policy, plan_lib.PrecisionPlan) \
             or not policy.kv_enabled():
         return None
@@ -116,6 +162,14 @@ def kv_formats(cfg, policy):
             for i in range(cfg.n_layers)]
     if all(fk is None and fv is None for fk, fv in fmts):
         return None
+    if cfg.mla is not None:
+        raise ValueError(
+            f"plan {policy.name or '<unnamed>'!r} sets KV-cache "
+            f"word-lengths but {cfg.name} uses MLA latent caches, which "
+            f"have no per-head K/V tensors to quantize")
+    if cfg.dense_first_n:
+        raise ValueError("KV-cache quantization does not support "
+                         "dense-prefix (unrolled) layer stacks")
     return policy.kv_store(), fmts
 
 
@@ -123,18 +177,19 @@ def _layer_signature(cfg, policy, i: int):
     """The formats of depth i: the weight policy of each projection and the
     cache word-lengths of its K and V."""
     sig = tuple(plan_lib.resolve_policy(policy, f"l{i}.{b}")
-                for b in LAYER_BASES)
+                for b in _layer_bases(cfg, dense_mlp=False))
     return sig + (plan_lib.resolve_kv_bits(policy, f"l{i}.k"),
                   plan_lib.resolve_kv_bits(policy, f"l{i}.v"))
 
 
 def scan_format_groups(cfg: TransformerConfig,
                        policy) -> List[Tuple[int, int]]:
-    """Contiguous runs of identical per-layer formats, [(start, length)] in
-    depth order: the reference's scan groups ``g{j}``."""
+    """Contiguous runs of identical per-layer formats past the dense
+    prefix, [(start, length)] in depth order: the reference's scan groups
+    ``g{j}``."""
     groups: List[List[int]] = []
     prev = None
-    for i in range(cfg.n_layers):
+    for i in range(cfg.dense_first_n, cfg.n_layers):
         sig = _layer_signature(cfg, policy, i)
         if groups and sig == prev:
             groups[-1][1] += 1
@@ -147,31 +202,51 @@ def scan_format_groups(cfg: TransformerConfig,
 # --- specs -------------------------------------------------------------------
 
 
-def _mlp_spec(cfg, *, serve, policy, lname):
+def _mlp_spec(cfg, d_ff, *, serve, policy, lname):
     nm = lname + "mlp"
     if serve:
         mk = lambda i, o: Q.qlinear_serve_spec(  # noqa: E731
             i, o, policy=policy, name=nm)
     else:
         mk = lambda i, o: Q.qlinear_spec(i, o, name=nm)  # noqa: E731
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     if cfg.act == "swiglu":
-        return {"gate": mk(d, f), "up": mk(d, f), "down": mk(f, d)}
-    return {"up": mk(d, f), "down": mk(f, d)}
+        return {"gate": mk(d, d_ff), "up": mk(d, d_ff), "down": mk(d_ff, d)}
+    return {"up": mk(d, d_ff), "down": mk(d_ff, d)}
+
+
+def _attn_spec(cfg, *, serve, policy, lname):
+    if cfg.mla is not None:
+        m = cfg.mla
+        return attn.mla_spec(cfg.d_model, cfg.n_heads, kv_lora=m.kv_lora,
+                             qk_nope=m.qk_nope, qk_rope=m.qk_rope,
+                             v_head=m.v_head, serve=serve, policy=policy,
+                             lname=lname)
+    if serve:
+        return attn.gqa_serve_spec(cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                   cfg.hd, policy=policy, lname=lname)
+    return attn.gqa_spec(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                         lname=lname)
 
 
 def layer_spec(cfg: TransformerConfig, i: int, mode: str = "train",
                policy=PrecisionPolicy()) -> Dict[str, Any]:
-    """Spec of decoder layer i, its projections named ``l{i}.*``."""
+    """Spec of decoder layer i, its projections named ``l{i}.*``: MoE (or
+    a dense MLP in the dense prefix, of width ``dense_ff``), MLA or GQA."""
     serve = mode == "serve"
     nspec, _ = cfg.norm_fns
     lname = f"l{i}."
-    a = (attn.gqa_serve_spec(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
-                             policy=policy, lname=lname) if serve else
-         attn.gqa_spec(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
-                       lname=lname))
-    return {"ln1": nspec(cfg.d_model), "ln2": nspec(cfg.d_model), "attn": a,
-            "mlp": _mlp_spec(cfg, serve=serve, policy=policy, lname=lname)}
+    spec = {"ln1": nspec(cfg.d_model), "ln2": nspec(cfg.d_model),
+            "attn": _attn_spec(cfg, serve=serve, policy=policy, lname=lname)}
+    dense = _dense_mlp(cfg, i)
+    if cfg.moe is not None and not dense:
+        spec["moe"] = nnmoe.moe_spec(cfg.moe, serve=serve, policy=policy,
+                                     lname=lname)
+    else:
+        ff = cfg.dense_ff if dense and cfg.dense_ff else cfg.d_ff
+        spec["mlp"] = _mlp_spec(cfg, ff, serve=serve, policy=policy,
+                                lname=lname)
+    return spec
 
 
 def specs(cfg: TransformerConfig, mode: str = "train",
@@ -197,7 +272,16 @@ def specs(cfg: TransformerConfig, mode: str = "train",
 # --- forward -----------------------------------------------------------------
 
 
-def _apply_mlp(cfg, p, x, policy, impl, lname):
+def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False):
+    """The layer's MLP.  ``per_token``: an MoE block routes each token as
+    a group of its own (capacity 1, every expert runs it), as a decode
+    step routes its one token -- so a verify's T tokens are T decode
+    steps."""
+    if "moe" in p:
+        b, s, d = x.shape
+        xg = x.reshape(b * s, 1, d) if per_token else x
+        return nnmoe.moe_apply(p["moe"], xg, policy, cfg.moe, impl=impl,
+                               lname=lname).reshape(b, s, d)
     nm = lname + "mlp"
     fn = lambda w, h: Q.qlinear_serve_apply(  # noqa: E731
         w, h, policy, impl=impl, name=nm)
@@ -210,15 +294,27 @@ def _apply_mlp(cfg, p, x, policy, impl, lname):
     return fn(mp["down"], h)
 
 
+def _mla_kw(cfg):
+    m = cfg.mla
+    return dict(n_heads=cfg.n_heads, kv_lora=m.kv_lora, qk_nope=m.qk_nope,
+                qk_rope=m.qk_rope, v_head=m.v_head)
+
+
 def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
                kv_store="packed"):
     """Pre-norm block -> (x, this layer's cache)."""
     _, napply = cfg.norm_fns
-    o, cache = attn.gqa_prefill(
-        p["attn"], napply(p["ln1"], x), policy, n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv, head_dim=cfg.hd, sin=sin, cos=cos, impl=impl,
-        chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl, lname=lname,
-        kv_fmts=kv_fmts, kv_store=kv_store)
+    h = napply(p["ln1"], x)
+    if cfg.mla is not None:
+        o, cache = attn.mla_prefill(p["attn"], h, policy, sin=sin, cos=cos,
+                                    impl=impl, chunk=cfg.attn_chunk,
+                                    lname=lname, **_mla_kw(cfg))
+    else:
+        o, cache = attn.gqa_prefill(
+            p["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.hd, sin=sin, cos=cos, impl=impl,
+            chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl, lname=lname,
+            kv_fmts=kv_fmts, kv_store=kv_store)
     x = x + o
     x = x + _apply_mlp(cfg, p, napply(p["ln2"], x), policy, impl, lname)
     return x, cache
@@ -242,7 +338,7 @@ def _head(cfg, params, x, policy, impl):
 
 
 def _rotary(cfg, positions):
-    return nnl.rotary_cache(positions, cfg.hd, cfg.rope_base)
+    return nnl.rotary_cache(positions, cfg.rope_dim, cfg.rope_base)
 
 
 def _run_layers(cfg, params, x, policy, sin, cos, *, impl):
@@ -284,13 +380,20 @@ def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
 
 def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
                 policy=None) -> List[Any]:
-    """Per-layer decode-cache specs (``ParamSpec``, init zeros): the bf16
-    pair for fp and 'qdq' caches; under a 'packed' plan ``{"k", "v"}`` of
-    packed leaves ``{"p": (P, B, Smax, KV, pd) uint8, "s"/"z": (B, Smax,
-    KV) bf16}``, or a bf16 tensor where that tensor stays unquantized."""
+    """Per-layer decode-cache specs (``ParamSpec``, init zeros): MLA's bf16
+    latent pair (c_kv (B, Smax, r), k_rope (B, Smax, qk_rope)); else the
+    bf16 pair for fp and 'qdq' caches, or under a 'packed' plan ``{"k",
+    "v"}`` of packed leaves ``{"p": (P, B, Smax, KV, pd) uint8, "s"/"z":
+    (B, Smax, KV) bf16}``, or a bf16 tensor where that tensor stays
+    unquantized."""
+    kv_info = kv_formats(cfg, policy)  # raises on MLA under a kv plan
+    if cfg.mla is not None:
+        lat = lambda d: ParamSpec(shape=(batch, max_len, d),  # noqa: E731
+                                  dtype=torch.bfloat16, init="zeros")
+        return [(lat(cfg.mla.kv_lora), lat(cfg.mla.qk_rope))
+                for _ in range(cfg.n_layers)]
     bf16 = ParamSpec(shape=(batch, max_len, cfg.n_kv, cfg.hd),
                      dtype=torch.bfloat16, init="zeros")
-    kv_info = kv_formats(cfg, policy)
     if kv_info is None or kv_info[0] != "packed":
         return [(bf16, bf16) for _ in range(cfg.n_layers)]
 
@@ -308,28 +411,45 @@ def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
             for fk, fv in kv_info[1]]
 
 
-def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
-                length: int, policy, *, impl: str = "auto"):
-    """One new token per row: tokens (B, 1) at position ``length`` against
-    the per-layer cache from ``cache_specs`` (updated in place) ->
-    (logits (B, V), cache)."""
+def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl):
+    """T tokens per row at positions ``length ..`` against the per-layer
+    cache (updated in place) -> (logits (B, T, V), cache)."""
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
-    b = tokens.shape[0]
-    sin, cos = _rotary(cfg, _positions(b, 1, length, tokens.device))
+    b, t_new = tokens.shape
+    sin, cos = _rotary(cfg, _positions(b, t_new, length, tokens.device))
     _, napply = cfg.norm_fns
     x = _embed(params, tokens)
     for i, lp in enumerate(params["layers"]):
         lname = f"l{i}."
-        o, cache[i] = attn.gqa_decode(
-            lp["attn"], napply(lp["ln1"], x), cache[i], length, policy,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd, sin=sin,
-            cos=cos, impl=impl, lname=lname,
-            kv_fmts=kv_info[1][i] if kv_info is not None else None,
-            kv_store=store)
+        h = napply(lp["ln1"], x)
+        if cfg.mla is not None:
+            o, cache[i] = attn.mla_verify(
+                lp["attn"], h, cache[i], length, policy, sin=sin, cos=cos,
+                impl=impl, lname=lname, **_mla_kw(cfg))
+        else:
+            o, cache[i] = attn.gqa_verify(
+                lp["attn"], h, cache[i], length, policy,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+                sin=sin, cos=cos, impl=impl, attn_impl=attn_impl,
+                lname=lname,
+                kv_fmts=kv_info[1][i] if kv_info is not None else None,
+                kv_store=store)
         x = x + o
-        x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname)
-    return _head(cfg, params, x, policy, impl)[:, 0, :], cache
+        x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname,
+                           per_token=True)
+    return _head(cfg, params, x, policy, impl), cache
+
+
+def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
+                length: int, policy, *, impl: str = "auto"):
+    """One new token per row: tokens (B, 1) at position ``length`` against
+    the per-layer cache from ``cache_specs`` (updated in place) ->
+    (logits (B, V), cache).  It is ``decode_steps`` at T = 1: the verify's
+    per-query attention at one query is the decode attention itself."""
+    logits, cache = _extend(cfg, params, cache, tokens, length, policy,
+                            impl=impl, attn_impl="xla")
+    return logits[:, 0, :], cache
 
 
 def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
@@ -343,41 +463,48 @@ def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
     The T rows equal T sequential ``decode_step`` calls over the same
     tokens: the projections' int32 accumulation is exact, norms, rotary
     (per position ``length + t``) and activation quantization act per row,
-    and attention runs ``gqa_decode``'s single-query routine per position
-    (``nn.attention.gqa_verify``).  ``attn_impl='flash'`` takes K4 for a
-    packed cache instead, within K4's contract."""
-    kv_info = kv_formats(cfg, policy)
-    store = kv_info[0] if kv_info is not None else "packed"
-    b, t_new = tokens.shape
-    sin, cos = _rotary(cfg, _positions(b, t_new, length, tokens.device))
-    _, napply = cfg.norm_fns
-    x = _embed(params, tokens)
-    for i, lp in enumerate(params["layers"]):
-        lname = f"l{i}."
-        o, cache[i] = attn.gqa_verify(
-            lp["attn"], napply(lp["ln1"], x), cache[i], length, policy,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd, sin=sin,
-            cos=cos, impl=impl, attn_impl=attn_impl, lname=lname,
-            kv_fmts=kv_info[1][i] if kv_info is not None else None,
-            kv_store=store)
-        x = x + o
-        x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname)
-    return _head(cfg, params, x, policy, impl), cache
+    attention runs the decode step's single-query routine per position
+    (``nn.attention.gqa_verify``, ``mla_verify``), and an MoE block routes
+    each token alone, as a decode step does.  The reference routes a row's
+    T tokens as one group there, whose capacity (1 expert slot for 4
+    tokens at olmoe's and deepseek's widths) drops tokens that a decode
+    step would run, so its own verify is not its decode steps for MoE.
+    ``attn_impl='flash'`` takes K4 for a packed cache instead, within K4's
+    contract."""
+    return _extend(cfg, params, cache, tokens, length, policy, impl=impl,
+                   attn_impl=attn_impl)
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------
 
 
 def _per_layer_gemms(cfg: TransformerConfig, tokens: int) -> List[Gemm]:
-    """The GEMMs of one decoder layer at ``tokens`` activation rows (every
-    layer of the per-layer list has the same shapes)."""
+    """The GEMMs of one decoder layer at ``tokens`` activation rows, as the
+    reference counts them (every layer at the stack's shapes)."""
     d, hd = cfg.d_model, cfg.hd
     n_mats = 3 if cfg.act == "swiglu" else 2
-    return [Gemm("q", tokens, d, cfg.n_heads * hd),
-            Gemm("k", tokens, d, cfg.n_kv * hd),
-            Gemm("v", tokens, d, cfg.n_kv * hd),
-            Gemm("o", tokens, cfg.n_heads * hd, d),
-            Gemm("mlp", tokens, d, cfg.d_ff, count=n_mats)]
+    if cfg.mla is not None:
+        m = cfg.mla
+        out = [Gemm("q", tokens, d, cfg.n_heads * (m.qk_nope + m.qk_rope)),
+               Gemm("dkv", tokens, d, m.kv_lora + m.qk_rope),
+               Gemm("uk", tokens, m.kv_lora, cfg.n_heads * m.qk_nope),
+               Gemm("uv", tokens, m.kv_lora, cfg.n_heads * m.v_head),
+               Gemm("o", tokens, cfg.n_heads * m.v_head, d)]
+    else:
+        out = [Gemm("q", tokens, d, cfg.n_heads * hd),
+               Gemm("k", tokens, d, cfg.n_kv * hd),
+               Gemm("v", tokens, d, cfg.n_kv * hd),
+               Gemm("o", tokens, cfg.n_heads * hd, d)]
+    if cfg.moe is not None:
+        mc = cfg.moe
+        out.append(Gemm("expert", tokens * mc.topk, d, mc.d_ff,
+                        count=n_mats))
+        if mc.n_shared:
+            out.append(Gemm("shared", tokens, d, mc.shared_hidden,
+                            count=n_mats))
+    else:
+        out.append(Gemm("mlp", tokens, d, cfg.d_ff, count=n_mats))
+    return out
 
 
 def gemm_workload(cfg: TransformerConfig, tokens: int) -> List[Gemm]:
@@ -390,15 +517,28 @@ def gemm_workload(cfg: TransformerConfig, tokens: int) -> List[Gemm]:
     return gemms
 
 
+def _params(cfg: TransformerConfig, experts: int) -> int:
+    """Projection weights of every layer (``experts`` of each bank) plus
+    the embedding and head."""
+    n = 0
+    for g in _per_layer_gemms(cfg, 1):
+        per = g.k * g.n * g.count
+        if g.name == "expert":
+            per = experts * cfg.d_model * cfg.moe.d_ff * \
+                (3 if cfg.act == "swiglu" else 2)
+        n += per
+    return n * cfg.n_layers + 2 * cfg.vocab * cfg.d_model
+
+
 def total_params(cfg: TransformerConfig) -> int:
-    """Projection weights of every layer plus the embedding and head."""
-    per = sum(g.k * g.n * g.count for g in _per_layer_gemms(cfg, 1))
-    return per * cfg.n_layers + 2 * cfg.vocab * cfg.d_model
+    """Every weight: all experts of each bank."""
+    return _params(cfg, cfg.moe.n_experts if cfg.moe is not None else 0)
 
 
 def active_params(cfg: TransformerConfig) -> int:
-    """N_active: weights a token touches (all of them: a dense family)."""
-    return total_params(cfg)
+    """N_active: weights a token touches (MoE: its top-k experts and the
+    shared ones)."""
+    return _params(cfg, cfg.moe.topk if cfg.moe is not None else 0)
 
 
 def model_flops(cfg: TransformerConfig, *, tokens: int, step: str) -> float:

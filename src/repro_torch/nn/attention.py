@@ -15,9 +15,21 @@ the same arithmetic on the same values and agree bitwise.
 ``impl`` routes every kernel of a call: 'auto' (CUDA tensors to the kernels,
 CPU tensors to their plain versions), 'cuda' or 'torch'.  The GQA block is
 the causal, rotary one the dense LMs use; ``gqa_verify`` extends the decode
-cache by T tokens at once, the verify step of speculative decoding.  The
-reference's non-causal / windowed / rotary-free block options (whisper,
-recurrentgemma), MLA and the sharded (mesh) branches are not ported yet.
+cache by T tokens at once, the verify step of speculative decoding.
+
+MLA (DeepSeek-V2's multi-head latent attention, ``mla_*``) caches one
+compressed latent ``c_kv`` (rank ``kv_lora``) and one shared rotary key per
+token, and expands them to per-head K and V through the ``uk``/``uv``
+projections (K1) at every call -- at decode over the whole ``Smax`` cache,
+as the reference does.  Its attention has no kernel in the reference (qk
+192 = 128 + 64 against v 128): prefill is ``chunked_attention`` and decode
+``decode_attention``, in torch.  On a card the prefill runs one batch row
+at a time, so that a row's bits do not depend on the batch (cuBLAS picks
+its kernel by the batch count too); decode's products are the fixed-order
+form already.
+
+The reference's non-causal / windowed / rotary-free block options (whisper,
+recurrentgemma) and the sharded (mesh) branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,7 +46,8 @@ from repro_torch.nn.param import ParamSpec
 __all__ = [
     "NEG_INF", "chunked_attention", "decode_attention",
     "decode_attention_streamed", "gqa_spec", "gqa_serve_spec", "gqa_prefill",
-    "gqa_decode", "gqa_verify",
+    "gqa_decode", "gqa_verify", "mla_spec", "mla_prefill", "mla_decode",
+    "mla_verify",
 ]
 
 NEG_INF = -1e30
@@ -85,17 +98,26 @@ def _bf16_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q times the softmax scale, the scale first rounded to q's dtype: JAX
+    converts a Python scalar to the array's dtype (bf16) before it
+    multiplies, torch multiplies by the unrounded value (head dims 8 and
+    MLA's 192 have scales that bf16 does not hold)."""
+    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_offset: int = 0,
                       window: Optional[int] = None, chunk: int = 1024,
                       softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention over KV chunks; q (B, Sq, H, D), k/v
-    (B, Sk, H, D) already GQA-expanded -> (B, Sq, H, D) in q's dtype."""
+    (B, Sk, H, D) already GQA-expanded (v's head dim may differ, MLA) ->
+    (B, Sq, H, Dv) in q's dtype."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dv = v.shape[-1]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    qt = _bf16_f32(q * scale).permute(0, 2, 1, 3)          # (B, H, Sq, D)
+    qt = _bf16_f32(_scaled(q, scale)).permute(0, 2, 1, 3)  # (B, H, Sq, D)
     q_pos = q_offset + torch.arange(sq, device=q.device)
     acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -131,7 +153,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, smax, kvh, d = k_cache.shape
     h = q.shape[2]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    qg = _bf16_f32(q[:, 0] * scale).reshape(b, kvh, h // kvh, d)
+    qg = _bf16_f32(_scaled(q[:, 0], scale)).reshape(b, kvh, h // kvh, d)
     s = _batch_invariant_einsum("bkgd,bskd->bkgs", qg, _bf16_f32(k_cache))
     pos = torch.arange(smax, device=q.device)
     mask = pos < length
@@ -171,7 +193,7 @@ def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
     c = min(chunk, smax)
     if smax % c:
         c = smax  # a ragged max_len runs as one whole-cache chunk
-    qg = _bf16_f32(q[:, 0] * scale).reshape(b, kvh, groups, d)
+    qg = _bf16_f32(_scaled(q[:, 0], scale)).reshape(b, kvh, groups, d)
     acc = torch.zeros((b, kvh, groups, d), dtype=torch.float32,
                       device=q.device)
     m = torch.full((b, kvh, groups), NEG_INF, dtype=torch.float32,
@@ -299,44 +321,15 @@ def _append_packed(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     cache["z"][:, length:length + t] = new["z"]
 
 
-def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
-               n_heads: int, n_kv: int, head_dim: int, sin: torch.Tensor,
-               cos: torch.Tensor, impl: str = "auto", lname: str = "",
-               kv_fmts=None, kv_store: str = "packed"):
+def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy,
+               **kw):
     """One-token step: x (B, 1, D); ``cache`` is the decode-sized cache of
     this layer (the bf16 pair, or the packed ``{"k", "v"}`` tree), updated
     IN PLACE at index ``length`` (the reference returns a new one; the port
-    saves the copy).  Returns (out (B, 1, D), cache)."""
-    b = x.shape[0]
-    nm = _gqa_names(lname)
-    q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
-                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm)
-    fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
-    if kv_fmts is not None and kv_store == "packed":
-        ck, cv = cache["k"], cache["v"]
-        for c, new, fmt in ((ck, k, fmt_k), (cv, v, fmt_v)):
-            if fmt is not None:
-                _append_packed(c, kvcache.pack_kv(new, fmt), length)
-            else:
-                c[:, length:length + 1] = new.to(c.dtype)
-        o = decode_attention_streamed(q, ck, cv, fmt_k, fmt_v, length + 1)
-    else:
-        if fmt_k is not None:
-            k = kvcache.qdq_kv(k, fmt_k)  # qdq store: grid values, bf16
-        if fmt_v is not None:
-            v = kvcache.qdq_kv(v, fmt_v)
-        k_cache, v_cache = cache
-        k_cache[:, length:length + 1] = k.to(k_cache.dtype)
-        v_cache[:, length:length + 1] = v.to(v_cache.dtype)
-        if kv_fmts is not None:
-            # the packed store's routine, so the two stores agree bitwise
-            o = decode_attention_streamed(q, k_cache, v_cache, None, None,
-                                          length + 1)
-        else:
-            o = decode_attention(q, k_cache, v_cache, length + 1)
-    o = o.reshape(b, 1, n_heads * head_dim)
-    return Q.qlinear_serve_apply(p["o"], o, policy, impl=impl,
-                                 name=nm["o"]), cache
+    saves the copy).  It is ``gqa_verify`` at T = 1, whose per-query
+    routine at one query is the decode attention itself.  Returns (out
+    (B, 1, D), cache)."""
+    return gqa_verify(p, x, cache, length, policy, **kw)
 
 
 def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
@@ -398,3 +391,126 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     o = o.reshape(b, t_new, n_heads * head_dim)
     out = Q.qlinear_serve_apply(p["o"], o, policy, impl=impl, name=nm["o"])
     return out, ({"k": ck, "v": cv} if packed else (ck, cv))
+
+
+# --- MLA: multi-head latent attention (DeepSeek-V2) -------------------------
+
+
+def mla_spec(d_model: int, n_heads: int, *, kv_lora: int, qk_nope: int,
+             qk_rope: int, v_head: int, serve: bool = False,
+             policy=None, lname: str = "") -> Dict:
+    """The five projections (q, dkv = down to the latent plus the rotary
+    key, uk / uv = the latent up to per-head K and V, o) and the latent's
+    rmsnorm ``kv_norm``."""
+    def mk(i, o, name):
+        if serve:
+            return Q.qlinear_serve_spec(i, o, policy=policy,
+                                        name=lname + name)
+        return Q.qlinear_spec(i, o, name=lname + name)
+    return {
+        "q": mk(d_model, n_heads * (qk_nope + qk_rope), "q"),
+        "dkv": mk(d_model, kv_lora + qk_rope, "dkv"),
+        "uk": mk(kv_lora, n_heads * qk_nope, "uk"),
+        "uv": mk(kv_lora, n_heads * v_head, "uv"),
+        "o": mk(n_heads * v_head, d_model, "o"),
+        "kv_norm": layers.rmsnorm_spec(kv_lora),
+    }
+
+
+def _mla_proj(p, x, policy, impl, name):
+    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+
+
+def _mla_qkv(p, x, policy, *, n_heads, qk_nope, qk_rope, kv_lora, sin, cos,
+             impl, lname):
+    """-> q_nope, q_rope (rotary), the normed latent c_kv and the rotary
+    key k_rope of the tokens x (B, S, D)."""
+    b, s, _ = x.shape
+    q = _mla_proj(p["q"], x, policy, impl, lname + "q").reshape(
+        b, s, n_heads, qk_nope + qk_rope)
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    q_rope = layers.apply_rotary(q_rope, sin, cos)
+    ckv = _mla_proj(p["dkv"], x, policy, impl, lname + "dkv")
+    c_kv = layers.rmsnorm_apply(p["kv_norm"], ckv[..., :kv_lora])
+    k_rope = layers.apply_rotary(ckv[..., kv_lora:][:, :, None, :], sin,
+                                 cos)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy, *, n_heads,
+                qk_nope, qk_rope, v_head, impl, lname):
+    """The latent (B, Sk, r) and rotary key up to per-head K (B, Sk, H,
+    qk_nope + qk_rope) and V (B, Sk, H, v_head); q joined the same way."""
+    b, sk = c_kv.shape[:2]
+    k_nope = _mla_proj(p["uk"], c_kv, policy, impl, lname + "uk").reshape(
+        b, sk, n_heads, qk_nope)
+    v = _mla_proj(p["uv"], c_kv, policy, impl, lname + "uv").reshape(
+        b, sk, n_heads, v_head)
+    k_rope_b = k_rope[:, :, None, :].expand(b, sk, n_heads, qk_rope)
+    k = torch.cat([k_nope, k_rope_b.to(k_nope.dtype)], dim=-1)
+    q = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
+    return q, k, v
+
+
+def mla_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
+                kv_lora: int, qk_nope: int, qk_rope: int, v_head: int,
+                sin: torch.Tensor, cos: torch.Tensor, impl: str = "auto",
+                chunk: int = 1024, lname: str = ""):
+    """Causal serve prefill of one MLA block -> (out (B, S, D), cache
+    (c_kv (B, S, r), k_rope (B, S, qk_rope)))."""
+    b, s, _ = x.shape
+    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(
+        p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
+        lname=lname, **kw)
+    q, k, v = _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy,
+                          v_head=v_head, impl=impl, lname=lname, **kw)
+    attend = lambda q, k, v: chunked_attention(  # noqa: E731
+        q, k, v, causal=True, chunk=chunk,
+        softmax_scale=(qk_nope + qk_rope) ** -0.5)
+    if x.is_cuda:  # one batch row at a time: the same bits in any batch
+        o = torch.cat([attend(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                       for i in range(b)])
+    else:
+        o = attend(q, k, v)
+    o = o.reshape(b, s, n_heads * v_head)
+    return _mla_proj(p["o"], o, policy, impl, lname + "o"), (c_kv, k_rope)
+
+
+def mla_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
+               n_heads: int, kv_lora: int, qk_nope: int, qk_rope: int,
+               v_head: int, sin: torch.Tensor, cos: torch.Tensor,
+               impl: str = "auto", lname: str = ""):
+    """T-token latent-cache extension (the MLA counterpart of
+    ``gqa_verify``): x (B, T, D) lands at ``length .. length + T - 1`` of
+    the cache ``(c_kv (B, Smax, r), k_rope (B, Smax, qk_rope))``, updated
+    IN PLACE; the whole cache is expanded to K/V once (per position, so
+    rows past a query's length may hold anything) and each query t runs
+    ``decode_attention`` at valid length ``length + 1 + t`` -- the T rows
+    are T sequential ``mla_decode`` steps, bitwise.  -> (out (B, T, D),
+    cache)."""
+    b, t_new = x.shape[0], x.shape[1]
+    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope)
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(
+        p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
+        lname=lname, **kw)
+    c_cache, kr_cache = cache
+    c_cache[:, length:length + t_new] = c_new.to(c_cache.dtype)
+    kr_cache[:, length:length + t_new] = kr_new.to(kr_cache.dtype)
+    q, k, v = _mla_expand(p, q_nope, q_rope, c_cache, kr_cache, policy,
+                          v_head=v_head, impl=impl, lname=lname, **kw)
+    scale = (qk_nope + qk_rope) ** -0.5
+    o = torch.cat([decode_attention(q[:, t:t + 1], k, v, length + 1 + t,
+                                    softmax_scale=scale)
+                   for t in range(t_new)], dim=1)
+    o = o.reshape(b, t_new, n_heads * v_head)
+    return (_mla_proj(p["o"], o, policy, impl, lname + "o"),
+            (c_cache, kr_cache))
+
+
+def mla_decode(p: Dict, x: torch.Tensor, cache, length: int, policy, **kw):
+    """One-token step: x (B, 1, D) against the latent cache, which is
+    updated IN PLACE at ``length``; uk and uv expand the whole ``Smax``
+    cache and scores past ``length`` are masked, as in the reference.
+    -> (out (B, 1, D), cache)."""
+    return mla_verify(p, x, cache, length, policy, **kw)

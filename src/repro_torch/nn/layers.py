@@ -108,8 +108,12 @@ def pack_embed(p, policy: PrecisionPolicy):
     spec = quant.weight_spec(8)
     table = p["table"].to(torch.float32)
     gamma = quant.init_step_size(table, spec)
-    codes = quant.quantize_int(table, gamma, spec)
-    return {"codes": codes.to(torch.int8), "gamma": gamma}
+    # row slices of about 2^28 values keep the quantize temporaries small
+    rows = max(1, (1 << 28) // max(1, table.shape[-1]))
+    codes = torch.cat([quant.quantize_int(table[i:i + rows], gamma,
+                                          spec).to(torch.int8)
+                       for i in range(0, max(table.shape[0], 1), rows)])
+    return {"codes": codes, "gamma": gamma}
 
 
 # --- rotary embeddings ---------------------------------------------------------

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -57,36 +57,42 @@ def _marker(layer_class: str, name: str = "") -> ParamSpec:
 
 
 def qlinear_spec(in_dim: int, out_dim: int, *, layer_class: str = "inner",
-                 channel_wise: bool = False,
+                 channel_wise: bool = False, lead: Tuple[int, ...] = (),
                  name: str = "") -> Dict[str, ParamSpec]:
-    """Spec of one QAT linear: master weight + LSQ step sizes."""
+    """Spec of one QAT linear: master weight + LSQ step sizes.  ``lead``
+    adds leading axes -- ``(E,)`` for an MoE expert bank, one weight and
+    one pair of step sizes per expert."""
     return {
         QMARK: _marker(layer_class, name),
-        "w": ParamSpec(shape=(in_dim, out_dim), init="normal",
+        "w": ParamSpec(shape=lead + (in_dim, out_dim), init="normal",
                        fan_in_axes=(-2,)),
-        "gw": ParamSpec(shape=(out_dim,) if channel_wise else (),
+        "gw": ParamSpec(shape=lead + ((out_dim,) if channel_wise else ()),
                         init="constant", const=0.05),
-        "ga": ParamSpec(shape=(), init="constant", const=0.05),
+        "ga": ParamSpec(shape=lead, init="constant", const=0.05),
     }
 
 
 def qlinear_serve_spec(in_dim: int, out_dim: int, *,
                        layer_class: str = "inner",
                        policy: PolicyOrPlan = PrecisionPolicy(),
+                       lead: Tuple[int, ...] = (),
                        name: str = "") -> Dict[str, ParamSpec]:
     """Spec of the deployed (packed) form at the layer's own resolved
-    format: what ``pack_qlinear`` returns for a (in_dim, out_dim) weight."""
+    format: what ``pack_qlinear`` returns for a ``lead + (in_dim,
+    out_dim)`` weight (``lead=(E,)``: an expert bank, one format for the
+    whole bank)."""
     pol = plan_lib.resolve_policy(policy, name)
     fmt = PlaneFormat(w_bits=pol.bits_for(layer_class), k=pol.k,
                       k_dim=in_dim)
     return {
         QMARK: _marker(layer_class, name),
-        "planes": ParamSpec(shape=(fmt.planes, fmt.packed_k, out_dim),
+        "planes": ParamSpec(shape=lead + (fmt.planes, fmt.packed_k, out_dim),
                             dtype=torch.uint8, init="zeros"),
-        "colsum": ParamSpec(shape=(1, out_dim), dtype=torch.int32,
+        "colsum": ParamSpec(shape=lead + (1, out_dim), dtype=torch.int32,
                             init="zeros"),
-        "gamma": ParamSpec(shape=(1, out_dim), init="constant", const=1e-3),
-        "ga": ParamSpec(shape=(), init="constant", const=0.05),
+        "gamma": ParamSpec(shape=lead + (1, out_dim), init="constant",
+                           const=1e-3),
+        "ga": ParamSpec(shape=lead, init="constant", const=0.05),
     }
 
 
@@ -150,6 +156,12 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     ``act_signed=True`` uses symmetric signed codes (act_zero = 0), for
     inputs that straddle zero such as a CNN stem's pixels.  ``policy`` may
     be a ``PrecisionPlan``; ``name`` picks this layer's entry.
+
+    An expert bank (``p`` packed with ``lead=(E,)``) takes x (E, ..., K):
+    each expert's rows are quantized with that expert's ``ga`` (the
+    reference maps ``qlinear_serve_apply`` over the experts with
+    ``jax.vmap``, so each carries its own step), and the product is ONE
+    kernel call over the bank -> (E, ..., N).
     """
     policy = plan_lib.resolve_policy(policy, name)
     mpmm_epilogue.validate_operands(epilogue, scale, shift, residual)
@@ -160,7 +172,10 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     epilogue, scale, shift = _fold_bias(p, epilogue, scale, shift)
     fmt = PlaneFormat(w_bits=policy.bits_for(layer_class), k=policy.k,
                       k_dim=x.shape[-1])
-    a = mpmm_ops.quantize_activations(x, p["ga"], policy.a_bits,
+    ga = p["ga"]
+    if ga.ndim:  # an expert bank: one step per expert, over its rows
+        ga = ga.reshape(ga.shape + (1,) * (x.ndim - ga.ndim))
+    a = mpmm_ops.quantize_activations(x, ga, policy.a_bits,
                                       signed=act_signed)
     y = mpmm_ops.mpmm(
         a, p["planes"], p["gamma"], p["colsum"], scale, shift, residual,
@@ -255,11 +270,21 @@ def qconv_serve_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
     return y
 
 
+# Weight values packed at a time: a wider weight is packed in column slices
+# (each output column packs on its own), so the quantize and bit-plane
+# temporaries of a 256000-word head stay a fraction of the weight.
+PACK_SLICE_VALUES = 1 << 28
+
+
 def pack_qlinear(p: Dict[str, torch.Tensor], policy: PolicyOrPlan,
                  layer_class: str = "inner",
                  name: str = "") -> Dict[str, torch.Tensor]:
     """Trained QAT params -> deployed packed params, at the layer's own
-    resolved format under a ``PrecisionPlan``."""
+    resolved format under a ``PrecisionPlan``.  Leading axes (an expert
+    bank's E) are kept: each expert packs with its own step sizes -- a
+    per-tensor ``gw`` of shape ``lead``, a channel-wise one of shape
+    ``lead + (N,)`` -- into planes ``lead + (P, Kp, N)``, colsum and gamma
+    ``lead + (1, N)``, as ``repro.nn.quantized.pack_qlinear`` does."""
     policy = plan_lib.resolve_policy(policy, name)
     if not policy.quantize:  # the fp baseline: bf16 weights
         out = {"w": p["w"].to(torch.bfloat16)}
@@ -268,18 +293,31 @@ def pack_qlinear(p: Dict[str, torch.Tensor], policy: PolicyOrPlan,
         return out
     w, gw, ga = p["w"], p["gw"], p["ga"]
     w_bits = policy.bits_for(layer_class)
-    kdim, n = w.shape
-    channel_wise = policy.channel_wise and gw.ndim == 1
+    kdim, n = w.shape[-2:]
+    channel_wise = policy.channel_wise and gw.ndim == w.ndim - 1
     gww = gw.to(torch.float32)
-    g_b = gww.reshape(1, n) if channel_wise else gww.reshape(1, 1)
-    w_int = quant.quantize_int(w.to(torch.float32), g_b,
-                               quant.weight_spec(w_bits))
+    lead = w.shape[:-2]
+    g_b = gww.reshape(lead + ((1, n) if channel_wise else (1, 1)))
     fmt = PlaneFormat(w_bits=w_bits, k=policy.k, k_dim=kdim)
+    spec = quant.weight_spec(w_bits)
+    step = max(1, PACK_SLICE_VALUES // max(1, w.numel() // n))
+    planes, colsum = [], []
+    for c0 in range(0, max(n, 1), step):
+        sl = slice(c0, min(c0 + step, n))
+        w_int = quant.quantize_int(w[..., sl].to(torch.float32),
+                                   g_b[..., sl] if channel_wise else g_b,
+                                   spec)
+        planes.append(packing.pack_planes(w_int, fmt, axis=-2)
+                      .movedim(0, -3))                 # lead + (P, Kp, n')
+        colsum.append(torch.sum(w_int, dim=-2, dtype=torch.int32)[
+            ..., None, :])
+        del w_int
+    cat = lambda ts: ts[0] if len(ts) == 1 else torch.cat(ts, -1)  # noqa: E731
+    gamma_w = torch.broadcast_to(g_b, lead + (1, n))
     out = {
-        "planes": packing.pack_planes(w_int, fmt, axis=-2),
-        "colsum": torch.sum(w_int, dim=0, dtype=torch.int32).reshape(1, n),
-        "gamma": torch.broadcast_to(g_b, (1, n))
-        * ga.to(torch.float32).reshape(1, 1),
+        "planes": cat(planes).contiguous(),
+        "colsum": cat(colsum),
+        "gamma": gamma_w * ga.to(torch.float32).reshape(lead + (1, 1)),
         "ga": ga.to(torch.float32),
     }
     if "b" in p:

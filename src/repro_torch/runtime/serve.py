@@ -3,8 +3,9 @@ deployment, greedy LM generation and bucketed image serving.
 
 ``pack_for_serving`` packs every linear of a trained LM tree at its own
 plan-resolved format and the embedding table to int8 codes;
-``init_packed_lm`` does the same for random weights one layer at a time,
-so a full-width model never holds its float tree whole, and
+``init_packed_lm`` does the same for random weights one layer at a time
+(an MoE layer's expert banks with it), so a full-width model never holds
+its float tree whole, and
 ``init_packed_views`` packs each layer so drawn under several plans at
 once (the two views of speculative decoding).  ``Generator`` runs prefill
 and decode on packed weights; ``ImageServer`` batches CNN requests.  Both

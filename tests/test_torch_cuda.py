@@ -481,3 +481,131 @@ def test_decode_products_batch_invariant_on_card(cuda_device, eq, b, s):
     got = attn._batch_invariant_einsum(eq, x, y)
     alone = attn._batch_invariant_einsum(eq, x[:1], y[:1])
     assert torch.equal(got[:1], alone)
+
+
+# --- K1 over an expert bank (one launch for every expert) --------------------
+
+K1_ALL = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8)]
+
+
+def _bank(gen, e, m, kdim, n, w_bits, k):
+    fmt = packing.PlaneFormat(w_bits=w_bits, k=k, k_dim=kdim)
+    w_int = torch.randint(-(2 ** (w_bits - 1)), 2 ** (w_bits - 1),
+                          (e, kdim, n), generator=gen, dtype=torch.int32)
+    return fmt, dict(
+        a_biased=torch.randint(-128, 128, (e, m, kdim), generator=gen,
+                               dtype=torch.int32).to(torch.int8),
+        planes=packing.pack_planes(w_int, fmt).movedim(0, -3).contiguous(),
+        gamma=torch.rand((e, 1, n), generator=gen) * 0.01 + 1e-3,
+        colsum=w_int.sum(-2, dtype=torch.int32)[:, None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["st", "sa"])
+@pytest.mark.parametrize("w_bits,k", K1_ALL)
+@pytest.mark.parametrize("m", [4, 70])  # route B and route A
+def test_mpmm_cuda_bank_matches_plain(cuda_device, m, w_bits, k, variant):
+    """A bank of 5 experts (ragged K and N) in ONE launch, bitwise equal to
+    the plain version's E products, with the residual epilogue."""
+    gen = torch.Generator().manual_seed(m + w_bits * 8 + k)
+    e, kdim, n = 5, 147, 70
+    fmt, cpu = _bank(gen, e, m, kdim, n, w_bits, k)
+    spec = EpilogueSpec(bn=True, residual=True, relu=True)
+    cpu.update(scale=torch.rand((e, 1, n), generator=gen) + 0.5,
+               shift=torch.randn((e, 1, n), generator=gen),
+               residual=torch.randn((e, m, n), generator=gen).to(
+                   torch.bfloat16))
+    kw = dict(fmt=fmt, act_zero=128, variant=variant,
+              out_dtype=torch.bfloat16, epilogue=spec)
+    before = dict(kernel.mpmm_cuda.routes)
+    got = kernel.mpmm_cuda(**_to(cpu, cuda_device), **kw)
+    torch.cuda.synchronize()
+    route = kernel.mpmm_route(m, kdim, n)
+    assert kernel.mpmm_cuda.routes[route] == before[route] + 1
+    assert torch.equal(got.cpu(), kernel.mpmm_torch(**cpu, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 1000])
+def test_mpmm_cuda_olmoe_bank(cuda_device, m):
+    """olmoe's expert bank at decode (4 rows an expert) and prefill (1000:
+    4 prompts' capacity of 250), 64 experts, K 2048, N 1024, one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    fmt = packing.PlaneFormat(w_bits=4, k=4, k_dim=2048)
+    w_int = torch.randint(-8, 8, (64, 2048, 1024), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    dev = dict(a_biased=torch.randint(-128, 128, (64, m, 2048), generator=gen,
+                                      device=cuda_device,
+                                      dtype=torch.int32).to(torch.int8),
+               planes=packing.pack_planes(w_int, fmt).movedim(0, -3)
+               .contiguous(),
+               gamma=torch.rand((64, 1, 1024), generator=gen,
+                                device=cuda_device) * 0.01,
+               colsum=w_int.sum(-2, dtype=torch.int32)[:, None])
+    del w_int
+    kw = dict(fmt=fmt, act_zero=128, out_dtype=torch.bfloat16)
+    before = kernel.mpmm_cuda.launches
+    got = kernel.mpmm_cuda(**dev, **kw)
+    torch.cuda.synchronize()
+    assert kernel.mpmm_cuda.launches == before + 1
+    assert torch.equal(got, kernel.mpmm_torch(**dev, **kw))
+
+
+# --- K3 / K4 at head dim 192 (nemotron-4-340b) ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [dict(sq=512, sk=512),
+                                  dict(sq=9, sk=521, q_offset=512),
+                                  dict(sq=200, sk=200, window=48)])
+def test_flash_kernels_at_head_dim_192(cuda_device, case):
+    """nemotron's attention: 96 query heads on 8 KV heads at D 192, bf16,
+    through K3 and through K4 at every cache slice (1-bit digits give
+    24-byte rows of packed codes)."""
+    case = dict(case)
+    sq, sk = case.pop("sq"), case.pop("sk")
+    gen = torch.Generator().manual_seed(sq + sk)
+    q, k, v = _qkv(gen, 1, sq, sk, 96, 8, 192, torch.bfloat16)
+    dq, dk, dv = (t.to(cuda_device) for t in (q, k, v))
+    got = fops.flash_attention(dq, dk, dv, impl="cuda", **case)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, fops.flash_attention(q, k, v, impl="torch",
+                                                      **case))
+    for fk, fv in [((4, 4), (4, 4)), ((2, 2), (8, 4)), ((2, 1), (8, 8))]:
+        fmt_k, fmt_v = kvcache.KVFormat(*fk, 192), kvcache.KVFormat(*fv, 192)
+        kq, vq = kvcache.pack_kv(k, fmt_k), kvcache.pack_kv(v, fmt_v)
+        dev = lambda leaf: {n: t.to(cuda_device)  # noqa: E731
+                            for n, t in leaf.items()}
+        got = fops.flash_attention_packed(dq, dev(kq), dev(vq), fmt_k, fmt_v,
+                                          impl="cuda", **case)
+        torch.cuda.synchronize()
+        _assert_attention_close(got, fops.flash_attention_packed(
+            q, kq, vq, fmt_k, fmt_v, impl="torch", **case))
+
+
+@pytest.mark.cuda
+def test_head_dim_192_takes_bf16_only(cuda_device):
+    q = torch.zeros((1, 4, 4, 192), device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        fkernel.flash_fwd_cuda(q, q, q)
+
+
+# --- the MoE router: one token's scores at any batch -------------------------
+
+from repro_torch.nn import moe as nnmoe  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 16, 1000])
+def test_router_batch_invariant_on_card(cuda_device, rows):
+    """A token's f32 router scores are the same bits alone and among
+    ``rows`` tokens (olmoe's widths: D 2048, 64 experts)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((rows, 1, 2048), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    router = torch.randn((2048, 64), generator=gen, device=cuda_device) \
+        / 45.0
+    batched = nnmoe.router_logits(x.reshape(1, rows, 2048), router)[0]
+    alone = torch.cat([nnmoe.router_logits(x[i:i + 1], router)[0]
+                       for i in range(rows)])
+    assert torch.equal(batched, alone)

@@ -1,7 +1,8 @@
 """The port's entry point, ``python -m repro_torch.launch.serve``, on the
-CPU at reduced sizes: both architectures, plain and speculative
-generation, the floating-point baseline, a uniform policy, frontier
-serving under a deadline, the roofline lines, the telemetry files it
+CPU at reduced sizes: both families (the MoE and MLA archs among the
+LMs), plain and speculative generation, the floating-point baseline, a
+uniform policy, frontier serving under a deadline, the roofline lines,
+the telemetry files it
 writes (held to the JAX package's validators and to the port's own
 ``python -m repro_torch.runtime.telemetry validate``), and the flags it
 refuses, as the JAX launcher refuses them.
@@ -76,6 +77,36 @@ def test_granite_plain_and_the_same_tokens(capsys):
     assert serve.main(args + ["--spec-decode", "2", "--draft-plan",
                               str(PLANS / "granite_8b_draft_w2.json")]) == 0
     spec = capsys.readouterr().out
+
+    def sample(text):
+        return [ln for ln in text.splitlines() if "sample:" in ln]
+    assert sample(plain) == sample(spec) and len(sample(plain)) == 1
+
+
+def test_olmoe(capsys):
+    assert serve.main(["--arch", "olmoe-1b-7b", *CPU, "--batch", "2",
+                       "--prompt-len", "7", "--new-tokens", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "10 tokens in" in out and "expert" in out
+
+
+def test_deepseek_speculative_and_the_same_tokens(tmp_path, capsys):
+    """MLA and MoE under ``--spec-decode 2`` (a w2k2 draft without KV keys:
+    the latent cache is not quantized): the same sample as the model
+    served alone, since its verify equals its decode steps."""
+    draft = json.loads((PLANS / "granite_8b_draft_w2.json").read_text())
+    draft.pop("kv")
+    draft.update(arch="deepseek-v2-lite-16b", name="deepseek-draft-w2")
+    path = tmp_path / "draft.json"
+    path.write_text(json.dumps(draft))
+    args = ["--arch", "deepseek-v2-lite-16b", *CPU, "--batch", "2",
+            "--prompt-len", "6", "--new-tokens", "7", "--seed", "2"]
+    assert serve.main(args) == 0
+    plain = capsys.readouterr().out
+    assert serve.main(args + ["--spec-decode", "2", "--draft-plan",
+                              str(path)]) == 0
+    spec = capsys.readouterr().out
+    assert "spec-decode k=2" in spec and "specdec accept rate" in spec
 
     def sample(text):
         return [ln for ln in text.splitlines() if "sample:" in ln]

@@ -365,6 +365,26 @@ def test_split_k_partials_add_up_to_the_reference(w, k, m, kdim, n, variant):
             part, a[:, d0:d1].astype(np.int64) @ w8[d0:d1])
 
 
+@pytest.mark.parametrize("w,k", [(4, 4), (2, 2), (8, 4), (1, 8)])
+def test_bank_partials_add_up_per_expert(w, k):
+    """A bank of E products in one route-B launch: every group runs the
+    bank's plan on its own operands (offset by its group), and its
+    partials add up to its own product."""
+    rng = np.random.default_rng(w * 10 + k)
+    e, m, kdim, n = 3, 4, 1500, 40
+    plan = kernel.split_plan(m, kdim, n, packing.PlaneFormat(w, k, kdim), e)
+    assert plan.splits > 1
+    for _ in range(e):
+        _, fmt, planes = random_planes(rng, kdim, n, w, k)
+        a = rng.integers(-128, 128, (m, kdim)).astype(np.int8)
+        parts = splitk_twin(a, planes.numpy(), fmt, plan, "st")
+        w8 = ref.combined_int8_weights(planes, fmt).numpy().astype(np.int64)
+        got = (parts.astype(np.int64).sum(0) + 128 * w8.sum(0)).astype(
+            np.int32)
+        np.testing.assert_array_equal(got, ref.mpmm_ref_codes(
+            torch.from_numpy(a), planes, fmt, act_zero=128).numpy())
+
+
 # --- the route rule and the split plan -------------------------------------
 
 
@@ -392,13 +412,23 @@ def _resnet_shapes():
     return cases
 
 
+# The expert banks' rows per expert (olmoe and deepseek prefill at 4 x 1000
+# tokens: capacity 250 and 187 a row; decode: capacity 1) and MLA's uk at
+# decode over the whole cache (4 x 1016 rows)
+MOE_SHAPES = [("olmoe bank prefill", 1000, 2048, 1024, "wgmma"),
+              ("olmoe bank decode", 4, 2048, 1024, "splitk"),
+              ("deepseek bank prefill", 748, 2048, 1408, "wgmma"),
+              ("deepseek bank decode", 4, 1408, 2048, "splitk"),
+              ("deepseek uk decode", 4 * 1016, 512, 2048, "wgmma")]
+
 BOUNDARY = [("M 16", 16, 4096, 4096, "splitk"),
             ("M 17", 17, 4096, 4096, "wgmma"),
             ("M 1", 1, 45, 70, "splitk")]
 
 
 @pytest.mark.parametrize("name,m,kdim,n,route",
-                         _lm_shapes() + _resnet_shapes() + BOUNDARY,
+                         _lm_shapes() + _resnet_shapes() + MOE_SHAPES
+                         + BOUNDARY,
                          ids=lambda v: v if isinstance(v, str) else None)
 def test_route_rule(name, m, kdim, n, route):
     assert kernel.mpmm_route(m, kdim, n) == route
@@ -426,12 +456,16 @@ def test_split_plan_fills_the_card_at_the_path_shapes(m, kdim, n):
 
 @settings(max_examples=300, deadline=None)
 @given(m=st.integers(1, 16), kdim=st.integers(1, 40000),
-       n=st.integers(1, 70000), fmt_i=st.integers(0, len(FORMATS) - 1))
-def test_split_plan_property(m, kdim, n, fmt_i):
+       n=st.integers(1, 70000), fmt_i=st.integers(0, len(FORMATS) - 1),
+       groups=st.sampled_from([1, 1, 2, 8, 64, 160]))
+def test_split_plan_property(m, kdim, n, fmt_i, groups):
+    """The plan of one product, or of a bank of ``groups`` products in one
+    launch (each group runs the same chunks)."""
     w, k = FORMATS[fmt_i]
     fmt = packing.PlaneFormat(w_bits=w, k=k, k_dim=kdim)
     f = fmt.digits_per_byte
-    plan = kernel.split_plan(m, kdim, n, fmt)
+    plan = kernel.split_plan(m, kdim, n, fmt, groups)
+    assert plan.splits <= kernel.split_plan(m, kdim, n, fmt).splits
     group_rows = max(1, 4 // f)
     assert plan.chunk_bytes % group_rows == 0
     assert plan.chunk_bytes * f <= kernel.SPLITK_MAX_CHUNK_DIGITS

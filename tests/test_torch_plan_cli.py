@@ -219,7 +219,7 @@ def _broken(tmp_path):
     put("cnn_kv.json", dict(mixed, layers=dict(
         mixed["layers"], s0b0c1={"w_bits": 2, "k": 2, "kv_bits": 4})))
     put("not_json.json", "{not json")
-    put("unported.json", dict(mixed, arch="olmoe-1b-7b", layers={}))
+    put("unported.json", dict(mixed, arch="mamba2-1.3b", layers={}))
     fr = json.loads((ROOT / "examples/frontiers/resnet18_frontier.json")
                     .read_text())
     fr["points"][1]["plan"] = str(ROOT / "examples/plans/resnet18_mixed.json")
@@ -227,9 +227,9 @@ def _broken(tmp_path):
     put("frontier_unordered.json", dict(fr, points=fr["points"][::-1]))
     put("frontier_missing.json", dict(fr, points=[
         dict(fr["points"][0]), {"plan": "nowhere.json"}]))
-    put("frontier_unported.json", dict(fr, arch="yi-34b", points=[
+    put("frontier_unported.json", dict(fr, arch="mamba2-1.3b", points=[
         dict(fr["points"][0], plan=dict(fr["points"][0]["plan"],
-                                        arch="yi-34b"))]))
+                                        arch="mamba2-1.3b"))]))
     return out
 
 
@@ -270,9 +270,32 @@ def test_cli_schema_only_and_unknown_arch(tmp_path, capsys):
     assert tplan.main(["validate", "--arch", "not-an-arch",
                        str(PLANS[0])]) == 2
     assert "unknown arch 'not-an-arch'" in capsys.readouterr().err
-    assert tplan.main(["validate", "--arch", "olmoe-1b-7b",
+    assert tplan.main(["validate", "--arch", "mamba2-1.3b",
                        str(PLANS[0])]) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch,layers,ok", [
+    ("olmoe-1b-7b", ["expert", "l0.expert", "l15.expert", "l3.q"], True),
+    ("olmoe-1b-7b", ["shared"], False),  # olmoe has no shared experts
+    ("deepseek-v2-lite-16b", ["l0.mlp", "l1.expert", "l1.shared", "l2.dkv",
+                              "uk", "l26.uv"], True),
+    ("deepseek-v2-lite-16b", ["l0.expert"], False),  # layer 0 is dense
+    ("deepseek-v2-lite-16b", ["l1.k"], False),  # MLA has no k projection
+])
+def test_cli_resolves_moe_and_mla_names(tmp_path, capsys, arch, layers, ok):
+    """``validate --arch`` now resolves the expert bank's, the shared
+    experts' and MLA's layer names, as the reference's CLI does."""
+    obj = json.loads(PLANS[0].read_text())
+    obj.pop("kv", None)
+    obj = dict(obj, arch=arch, layers={
+        name: {"w_bits": 2, "k": 2} for name in layers})
+    path = tmp_path / "plan.json"
+    path.write_text(json.dumps(obj))
+    rc, out = _run(tplan.main, ["validate", "--arch", arch, path], capsys)
+    jrc, jout = _run(jplan.main, ["validate", "--arch", arch, path], capsys)
+    assert (rc, _verdicts(out)) == (jrc, _verdicts(jout)), (out, jout)
+    assert (rc == 0) == ok, out
 
 
 def test_cli_runs_as_a_module():
