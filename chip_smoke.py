@@ -48,7 +48,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention shapes (B 4, H 32, KV 8, D 128, bf16): causal at Sq = Sk of
    1000 and 1024, a 256 window, q_offset continuations (Sq 8 and the
    speculative verify chunk Sq 9, Sk 1024) and a non-causal ragged Sk
-   (forced causal, as the reference's padding does).
+   (forced causal, as the reference's padding does); and at head dim 256,
+   recurrentgemma-9b's attention (B 2, H 16, KV 1, bf16, window 2048):
+   Sq = Sk of 2560 and 3000 (above the window; 3000 pads its keys to
+   recurrentgemma's 1024-key block) and a q_offset continuation (Sq 9).
 7. K4 (``flash_fwd_packed_cuda``) against ``flash_fwd_packed_torch`` on the
    cache formats of ``examples/plans/granite_8b_mixed.json`` (kv2 k2, kv4
    k4, kv8 k4), K and V in different formats, q_offset continuations (Sq 8
@@ -169,6 +172,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    split (K1 and K3/K4 as their calls timed alone, the rest) per arch; each
    distinct bank call of K1 against its bound and a PyTorch loop over the
    experts; K3 and K4 at D 192 against their bound and SDPA.
+
+13. The last three families at full width, through ``Generator`` with
+   random weights drawn on the card from a seeded generator and packed
+   layer by layer under the configs' default w4k4: mamba2-1.3b (48
+   layers, 4 x 1000 tokens -- not a multiple of its 256-token chunk -- and
+   16 new), recurrentgemma-9b (38 layers, 2 x 3000 tokens, above its 2048
+   window, so K3's window and the decode ring's wrap are live, 16 new) and
+   whisper-base (6 + 6 layers, 4 x (1536 stub frames, 64 tokens), 16 new).
+   Per arch: the launch counts (K1 by route and K3) against the arch's
+   ``gemm_workload``; phase 8's contract layer by layer (whisper's encoder
+   layers too) and every decode step bitwise; mamba2's R6 repair (every
+   layer's prefill state against the chunk = S oracle on the same input,
+   the first layers against the prompt fed token by token);
+   ``GenerateScheduler`` tickets bitwise their requests served alone
+   (mamba2, first 4 layers; recurrentgemma, first 6); ``launch.serve`` once;
+   ``[p13-time]`` lines (prefill and decode, the split K1 / K3 / rest, K3
+   at D 256 against its bound and SDPA with the same window mask).  K1 at
+   the new shapes (N 64, N 256, K 512) joins phase 2.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -995,15 +1016,17 @@ def prefill_contract(sm, api, params, prompts, label):
     return out
 
 
-def decode_contract(sm, gen, plain, prompts, toks, label):
+def decode_contract(sm, gen, plain, prompts, toks, label, frames=None):
     """Every decode step, teacher-forced: the plain path runs on a copy of
     the kernel path's own cache with the kernel path's token; decode has no
     flash kernel and K1 is bitwise, so the logits must be equal.  prompts
-    (B, S), toks (B, n_new): the run's shape."""
+    (B, S), toks (B, n_new): the run's shape; ``frames``: whisper's audio
+    frames on the card."""
     t = sm.torch
     (b, s), n_new = prompts.shape, toks.shape[1]
     with t.inference_mode():
-        logits, pre = gen.prefill(t.as_tensor(prompts, device=sm.device))
+        logits, pre = gen.prefill(t.as_tensor(prompts, device=sm.device),
+                                  frames)
         cache = gen._grow_cache(pre, b, s, s + n_new)
         for i in range(n_new - 1):
             feed = t.as_tensor(toks[:, i:i + 1], device=sm.device)
@@ -1248,17 +1271,20 @@ def measure_k1_lm(sm, api):
     return rows
 
 
-def measure_lm_end_to_end(sm, api, params, prompts, n_new=LM_NEW):
+def measure_lm_end_to_end(sm, api, params, prompts, n_new=LM_NEW,
+                          frames=None):
     """Prefill and decode through the kernels, timed with CUDA events;
-    prompts (B, S), ``n_new`` tokens of cache room."""
+    prompts (B, S), ``n_new`` tokens of cache room, ``frames`` whisper's
+    audio frames on the card."""
     from repro_torch.runtime.serve import Generator
     t = sm.torch
     b, s = prompts.shape
     gen = Generator(api, params, device=sm.device)
     tt = t.as_tensor(prompts, device=sm.device)
     with t.inference_mode():
-        prefill_ms = sm.time_ms(lambda: gen.prefill(tt), reps=2, warmup=1)
-        logits, pre = gen.prefill(tt)
+        prefill_ms = sm.time_ms(lambda: gen.prefill(tt, frames), reps=2,
+                                warmup=1)
+        logits, pre = gen.prefill(tt, frames)
         cache = gen._grow_cache(pre, b, s, s + n_new)
         tok = t.argmax(logits, -1)[:, None]
         steps = iter(range(n_new - 1))
@@ -3022,6 +3048,505 @@ def phase_p12(sm, card):
     return launches, results, rows
 
 
+# --- phase 13: the last three families --------------------------------------
+
+
+# arch -> (batch, prompt tokens, new tokens)
+P13_RUNS = (("mamba2-1.3b", (4, 1000, 16)),
+            ("recurrentgemma-9b", (2, 3000, 16)),
+            ("whisper-base", (4, 64, 16)))
+P13_SCHED_DEPTH = {"mamba2-1.3b": 4, "recurrentgemma-9b": 6}
+R6_STEP_DEPTH = 2      # mamba2 layers fed the prompt token by token
+R6_STEP_TOL = 0.1      # tests/test_torch_ssm.py STEP_TOL
+R6_ORACLE_TOL = 1e-4   # against chunk = S: f32 sums over 4 chunks vs 1
+# K1 at the new shapes of phase 13: mamba2's in_dt (N 64), recurrentgemma's
+# MQA k / v (N 256), whisper's K 512 -- both routes, w4k4
+P13_K1_SHAPES = [("prefill", 4096, (2048, 64, 4, 4), 1),
+                 ("decode", 4, (2048, 64, 4, 4), 1),
+                 ("prefill", 6000, (4096, 256, 4, 4), 1),
+                 ("decode", 2, (4096, 256, 4, 4), 1),
+                 ("prefill", 6144, (512, 512, 4, 4), 1),
+                 ("decode", 4, (512, 2048, 4, 4), 1)]
+# K3 at head dim 256: recurrentgemma's attention (H 16, KV 1, window 2048)
+D256_CASES = [dict(sq=2560, sk=2560, window=2048),
+              dict(sq=3000, sk=3000, window=2048),
+              dict(sq=9, sk=2569, q_offset=2560, window=2048)]
+
+
+def phase_d256(sm):
+    """K3 at head dim 256 against its plain version within one bf16 ulp:
+    recurrentgemma's attention (batch 2, 16 query heads on one KV head,
+    bf16, window 2048) above the window, at its block_k 1024 (S 3000 pads
+    its keys to 3072 and so runs causal), and a q_offset continuation."""
+    from repro_torch import configs
+    from repro_torch.kernels.flashattn import ops as fops
+    t = sm.torch
+    block_k = configs.get("recurrentgemma-9b").cfg.attn_chunk
+    for i, case in enumerate(D256_CASES):
+        kw = {k: v for k, v in case.items() if k not in ("sq", "sk")}
+        g = t.Generator(device=sm.device).manual_seed(500 + i)
+        mk = lambda s, h: t.randn((2, s, h, 256), generator=g,  # noqa: E731
+                                  device=sm.device).to(t.bfloat16)
+        q, k, v = mk(case["sq"], 16), mk(case["sk"], 1), mk(case["sk"], 1)
+        got = fops.flash_attention(q, k, v, block_k=block_k, impl="cuda",
+                                   **kw)
+        want = fops.flash_attention(q, k, v, block_k=block_k, impl="torch",
+                                    **kw)
+        t.cuda.synchronize()
+        err = compare_close(sm, "flash_fwd_cuda", f"K3 D256 {case}", got,
+                            want)
+        log(f"[D256] {case}: K3 max abs err vs plain {err}")
+        del q, k, v, got, want
+    sm.check_phase("K3 at head dim 256 vs its plain version")
+
+
+def window_pairs(sq, window):
+    """(query, key) pairs a causal window leaves at q_offset 0."""
+    return sum(min(window, i + 1) for i in range(sq))
+
+
+def visited_tiles(sq, window, bq=128, bkv=64):
+    """Key tiles K3 reads for a causal window (csrc sweep_range), summed
+    over the query tiles, against the causal sweep without the skip."""
+    seen = full = 0
+    for q0 in range(0, sq, bq):
+        end = min(q0 + bq, sq)
+        begin = max(0, q0 - window + 1) // bkv * bkv
+        seen += -(-(end - begin) // bkv)
+        full += -(-end // bkv)
+    return seen, full
+
+
+def measure_d256(sm, api, b, s):
+    """K3 at recurrentgemma's prefill (B x S, H 16, KV 1, D 256, window
+    2048, bf16): kernel, plain version, SDPA with the same boolean window
+    mask, and the bound."""
+    from repro_torch.kernels.flashattn import ops as fops
+    t = sm.torch
+    F = t.nn.functional
+    cfg = api.cfg
+    g = t.Generator(device=sm.device).manual_seed(510)
+    mk = lambda h: t.randn((b, s, h, cfg.hd), generator=g,  # noqa: E731
+                           device=sm.device).to(t.bfloat16)
+    q, k, v = mk(cfg.n_heads), mk(cfg.n_kv), mk(cfg.n_kv)
+    run = lambda impl: fops.flash_attention(  # noqa: E731
+        q, k, v, window=cfg.window, block_k=cfg.attn_chunk, impl=impl)
+    out = run("cuda")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ke, ve = (x.expand(-1, cfg.n_heads, -1, -1) for x in (kt, vt))
+    pos = t.arange(s, device=sm.device)
+    mask = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - cfg.window)
+    pairs = window_pairs(s, cfg.window)
+    tb = nbytes(q, k, v, out) / PEAK_BYTES_PER_S * 1e3
+    to = 4 * b * cfg.n_heads * cfg.hd * pairs / PEAK_BF16_FLOPS_PER_S * 1e3
+    seen, full = visited_tiles(s, cfg.window)
+    row = {
+        "kernel": "flash_fwd_cuda", "layer": "D256",
+        "shape": f"B={b} S={s} H={cfg.n_heads} KV={cfg.n_kv} D={cfg.hd} "
+                 f"bf16 window {cfg.window}",
+        "count": cfg.n_super,
+        "ms": sm.time_ms(lambda: run("cuda"), reps=10),
+        "plain_ms": sm.time_ms(lambda: run("torch"), reps=2, warmup=1),
+        "library_ms": sm.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask), reps=10),
+        "library": "F.scaled_dot_product_attention bf16, the same boolean "
+                   "window mask, K/V heads expanded",
+        "bound_ms": max(tb, to),
+        "bound_by": "bytes" if tb >= to else "operations",
+        "tiles": f"per prefill; {seen} of {full} causal key tiles a head "
+                 f"read"}
+    del q, k, v, out, qt, kt, vt, ke, ve, mask
+    return row
+
+
+def measure_p13_k1(sm):
+    """K1 at phase 13's new shapes (``P13_K1_SHAPES``): kernel, plain
+    version, one library call and the bound, each on its route."""
+    from repro_torch.kernels.mpmm import kernel
+    rows = []
+    for phase, m, (kdim, n, w_bits, k), _ in P13_K1_SHAPES:
+        d, kw = k1_device_call(sm, m, kdim, n, w_bits, k, seed=3 * m + n)
+        out = kernel.mpmm_cuda(**d, **kw)
+        b_ms, b_by = bound_ms(nbytes(d["a_biased"], d["planes"], d["gamma"],
+                                     d["colsum"], out), 2 * m * n * kdim)
+        lib, lib_name = k1_library(sm, d, kw["fmt"])
+        rows.append({"kernel": "mpmm_cuda", "layer": f"K1 {phase}",
+                     "shape": f"M={m} K={kdim} N={n} w{w_bits}k{k} route "
+                              f"{kernel.mpmm_route(m, kdim, n)}",
+                     "count": 1,
+                     "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw),
+                                      reps=10, warmup=2),
+                     "plain_ms": sm.time_ms(
+                         lambda: kernel.mpmm_torch(**d, **kw), reps=2,
+                         warmup=1),
+                     "library_ms": sm.time_ms(lib, reps=10, warmup=2),
+                     "library": lib_name, "bound_ms": b_ms,
+                     "bound_by": b_by, "tiles": "one call"})
+        del lib, d, out
+    return rows
+
+
+def p13_k1_calls(api, b, s, step):
+    """K1's calls of one prefill of ``b`` x ``s`` tokens (step 'prefill';
+    mamba2's rows padded to its chunk, whisper's encoder and cross K/V over
+    its frames) or one decode step ('decode'; whisper's encoder and cross
+    K/V do not run), from the arch's ``gemm_workload``: [(name, M, K, N,
+    groups, w_bits, k)], one entry a launch; the head at M = b."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.nn.layers import pad_vocab
+    cfg = api.cfg
+    rows = s
+    if hasattr(cfg, "ssm"):
+        rows = s + (-s) % cfg.ssm.chunk
+    out = []
+    for g in api.gemm_workload(1):
+        p = plan_lib.resolve_policy(api.policy, g.name)
+        audio = g.name.startswith("enc_") or g.name == "dec_cross_kv"
+        if step == "decode" and audio:
+            continue
+        n = pad_vocab(g.n) if g.name == "head" else g.n
+        if step == "decode" or g.name == "head":
+            m = b
+        else:
+            m = b * (cfg.n_audio if audio else rows)
+        out += [(g.name, m, g.k, n, 1, p.bits_for(g.layer_class), p.k)] * \
+            g.count
+    return out
+
+
+def p13_expected(api, b, s, n_new):
+    """(K1 launches by route, K3 launches) of one ``Generator.run``."""
+    from collections import Counter
+    from repro_torch.kernels.mpmm import kernel
+    routes = Counter()
+    for step, reps in (("prefill", 1), ("decode", n_new - 1)):
+        for _, m, kdim, n, *_ in p13_k1_calls(api, b, s, step):
+            routes[kernel.mpmm_route(m, kdim, n)] += reps
+    cfg = api.cfg
+    k3 = cfg.n_super if getattr(cfg, "attn_impl", "xla") == "flash" else 0
+    return dict(routes), k3
+
+
+def p13_prefill_contract(sm, api, params, prompts, frames, label):
+    """Phase 8's contract layer by layer, each layer's kernel and plain
+    versions fed the kernel path's input (real rows only: mamba2's pads are
+    dropped): within LM_LOGIT_TOL of the largest |output| and
+    LM_MAX_FLIP_RATE of bf16 outputs different; whisper's encoder layers
+    first, then its decoder layers on the kernel path's encoder output.
+    The head on the last token, kernel against plain on the same input,
+    bitwise (K1 is exact)."""
+    from repro_torch.nn import layers as nnl
+    t = sm.torch
+    mod, cfg, plan = api.mod, api.cfg, api.policy
+    b, s = prompts.shape
+    worst = [0.0, 0.0]
+
+    def check(name, y_k, y_1):
+        a, c = y_k[:, :s].float(), y_1[:, :s].float()
+        rel = float((a - c).abs().max()) / float(a.abs().max())
+        diff = float((a != c).float().mean())
+        log(f"[drift] {label} {name}: one-layer {rel:.6f} of the largest "
+            f"|output|, {diff:.6f} of outputs differ")
+        worst[0], worst[1] = max(worst[0], rel), max(worst[1], diff)
+        if rel > LM_LOGIT_TOL or diff > LM_MAX_FLIP_RATE:
+            raise SystemExit(f"{label} {name}: one-layer error {rel:.5f} of "
+                             f"the largest |output|, {diff:.5f} of outputs "
+                             f"differ (tol {LM_LOGIT_TOL}, "
+                             f"{LM_MAX_FLIP_RATE})")
+
+    with t.inference_mode():
+        tt = t.as_tensor(prompts, device=sm.device)
+        if api.needs_frames:
+            xe = mod._enc_inputs(cfg, frames)
+            for i, lp in enumerate(params["enc_layers"]):
+                y_k = mod._enc_layer_fwd(cfg, lp, xe, plan, impl="cuda")
+                y_1 = mod._enc_layer_fwd(cfg, lp, xe, plan, impl="torch")
+                check(f"encoder layer {i}", y_k, y_1)
+                xe = y_k
+            aux = {"enc_out": nnl.layernorm_apply(params["enc_norm"], xe)}
+            x, _ = mod._prefill_inputs(cfg, params, tt, frames, plan, "cuda")
+            stack = params["dec_layers"]
+        else:
+            x, aux = mod._prefill_inputs(cfg, params, tt)
+            stack = params["layers"]
+        for i, lp in enumerate(stack):
+            y_k, _ = mod._layer_fwd(cfg, i, lp, x, plan, aux, impl="cuda")
+            y_1, _ = mod._layer_fwd(cfg, i, lp, x, plan, aux, impl="torch")
+            check(f"layer {i}", y_k, y_1)
+            x = y_k
+        last = x[:, s - 1:s]
+        l_k = mod._head(cfg, params, last, plan, "cuda")
+        l_1 = mod._head(cfg, params, last, plan, "torch")
+    if not t.equal(l_k, l_1):
+        raise SystemExit(f"{label}: the head's kernel and plain logits "
+                         f"differ on the same input")
+    return worst
+
+
+def p13_r6(sm, api, params, prompts):
+    """R6 on the card, mamba2 at full width: (a) every layer's prefill
+    state (prompt padded to its chunk, the pads' dt zeroed) against the
+    same layer run on the unpadded prompt with chunk = S, on the same
+    input -- the reference's own oracle -- within R6_ORACLE_TOL, the conv
+    cache bitwise; the state after the pads (the reference's) printed
+    beside it; (b) the first R6_STEP_DEPTH layers' prefill state against
+    the prompt fed token by token through ``ssd_decode_step`` from zero,
+    within R6_STEP_TOL (the CPU test's contract)."""
+    from repro_torch.nn import layers as nnl
+    from repro_torch.nn import ssm as nnssm
+    t = sm.torch
+    mod, cfg, plan = api.mod, api.cfg, api.policy
+    b, s = prompts.shape
+    oracle = dataclasses.replace(cfg.ssm, chunk=s)
+
+    def rel(a, c):
+        return float((a - c).abs().max()) / float(c.abs().max())
+    worst, fault, states = 0.0, 1.0, []
+    with t.inference_mode():
+        tt = t.as_tensor(prompts, device=sm.device)
+        x, aux = mod._prefill_inputs(cfg, params, tt)
+        for i, lp in enumerate(params["layers"]):
+            h = nnl.rmsnorm_apply(lp["ln"], x)
+            o, st = nnssm.ssd_forward(lp["ssm"], h, plan, cfg.ssm,
+                                      valid=aux["valid"])
+            _, st_o = nnssm.ssd_forward(lp["ssm"], h[:, :s], plan, oracle)
+            _, st_p = nnssm.ssd_forward(lp["ssm"], h, plan, cfg.ssm)
+            r = rel(st["ssm"], st_o["ssm"])
+            worst = max(worst, r)
+            fault = min(fault, rel(st_p["ssm"], st_o["ssm"]))
+            if r > R6_ORACLE_TOL or not t.equal(st["conv"], st_o["conv"]):
+                raise SystemExit(f"R6 layer {i}: state {r} from the chunk = "
+                                 f"{s} oracle (tol {R6_ORACLE_TOL}), conv "
+                                 f"equal {t.equal(st['conv'], st_o['conv'])}")
+            if i < R6_STEP_DEPTH:
+                states.append(st)
+            x = x + o
+            del h, st_o, st_p
+        xs = nnl.embed_serve_apply(params["embed"], tt)
+        run = [{k: t.zeros(sp.shape, device=sm.device)
+                for k, sp in nnssm.ssm_state_spec(cfg.ssm, b).items()}
+               for _ in range(R6_STEP_DEPTH)]
+        for pos in range(s):
+            xt = xs[:, pos:pos + 1]
+            for i in range(R6_STEP_DEPTH):
+                lp = params["layers"][i]
+                o, run[i] = nnssm.ssd_decode_step(
+                    lp["ssm"], nnl.rmsnorm_apply(lp["ln"], xt), run[i], plan,
+                    cfg.ssm)
+                xt = xt + o
+    steps = max(rel(st[k], r[k]) for st, r in zip(states, run)
+                for k in ("ssm", "conv"))
+    log(f"[p13] R6: {cfg.n_layers} layers' prefill states (S {s} padded to "
+        f"{x.shape[1]}, the pads' dt zeroed) within {worst:.3g} of the "
+        f"chunk = {s} oracle (tol {R6_ORACLE_TOL}), conv caches bitwise; the "
+        f"state after the pads (the reference's) at least {fault:.3f} away; "
+        f"first {R6_STEP_DEPTH} layers within {steps:.4f} of the prompt fed "
+        f"token by token (tol {R6_STEP_TOL})")
+    if steps > R6_STEP_TOL:
+        raise SystemExit(f"R6: prefill state {steps} from the token-by-token "
+                         f"state (tol {R6_STEP_TOL})")
+    return {"oracle": worst, "fault": fault, "steps": steps}
+
+
+def p13_scheduler(sm, api, params, depth, label):
+    """GenerateScheduler over the arch's first ``depth`` layers at full
+    width: every ticket bitwise its request served alone."""
+    from repro_torch.runtime.serve import Generator
+    sapi = dataclasses.replace(api, cfg=dataclasses.replace(
+        api.cfg, n_layers=depth))
+    gen = Generator(sapi, dict(params, layers=params["layers"][:depth]),
+                    device=sm.device)
+    trace = sched_trace(api.cfg.vocab)
+    alone = [gen.generate(p[None], n)[0] for p, n in trace]
+    _, wall, st = run_scheduler(sm, gen, trace, alone,
+                                f"{label} first {depth} layers")
+    sm.check_phase(f"13 {label}: GenerateScheduler tickets vs requests "
+                   f"served alone")
+    del gen
+    return wall
+
+
+def p13_cli(sm, arch):
+    """``launch.serve.main`` once for the arch at full width, its trace and
+    metrics through the port's validators."""
+    import json
+    import tempfile
+    from repro_torch.launch import serve as launch
+    from repro_torch.runtime import telemetry as tele
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        trace, prom = Path(d) / "trace.json", Path(d) / "metrics.prom"
+        t0 = time.perf_counter()
+        rc = launch.main(["--arch", arch, "--batch", "2", "--prompt-len",
+                          "64", "--new-tokens", "4", "--trace", str(trace),
+                          "--metrics-dump", str(prom)])
+        release(sm)
+        problems = (tele.validate_chrome_trace(json.loads(
+            trace.read_text())) + tele.validate_metrics_text(
+                prom.read_text()))
+    log(f"[cli] launch.serve {arch}: rc {rc} in "
+        f"{time.perf_counter() - t0:.2f} s; trace and metrics problems: "
+        f"{problems or 'none'}")
+    if rc != 0 or problems:
+        raise SystemExit(f"launch.serve {arch}: rc {rc}, {problems}")
+
+
+def p13_split(sm, api, b, s, n_new):
+    """K1's time in one prefill and one decode step (each distinct call
+    timed alone, times its count) and K3's in one prefill (the layer's call
+    timed alone, times the attention layers)."""
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.kernels.mpmm import kernel
+    t = sm.torch
+    cache, out = {}, {}
+    for step in ("prefill", "decode"):
+        total = 0.0
+        for call in p13_k1_calls(api, b, s, step):
+            key = call[1:]
+            if key not in cache:
+                d, kw = k1_operands(sm, *key)
+                cache[key] = sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw),
+                                        reps=5, warmup=2)
+                del d
+            total += cache[key]
+        out[step] = total
+    cfg = api.cfg
+    out["flash"] = 0.0
+    if getattr(cfg, "attn_impl", "xla") == "flash":
+        g = t.Generator(device=sm.device).manual_seed(520)
+        mk = lambda h: t.randn((b, s, h, cfg.hd), generator=g,  # noqa: E731
+                               device=sm.device).to(t.bfloat16)
+        q, k, v = mk(cfg.n_heads), mk(cfg.n_kv), mk(cfg.n_kv)
+        out["flash"] = cfg.n_super * sm.time_ms(
+            lambda: fops.flash_attention(q, k, v, window=cfg.window,
+                                         block_k=cfg.attn_chunk,
+                                         impl="cuda"), reps=5)
+    return out
+
+
+def p13_arch(sm, arch, shape):
+    """One arch at full width and depth: drawn and packed layer by layer,
+    its Generator run counted against ``gemm_workload``, the prefill layer
+    by layer and every decode step against the plain versions, R6
+    (mamba2), the scheduler (mamba2, recurrentgemma), the timing."""
+    import numpy as np
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.runtime.serve import Generator, init_packed_lm
+    t = sm.torch
+    b, s, n_new = shape
+    api = family_api(arch)
+    cfg = api.cfg
+    t0 = time.perf_counter()
+    params = init_packed_lm(api, t.Generator(device=sm.device).manual_seed(
+        SEED), device=sm.device)
+    t.cuda.synchronize()
+    log(f"[p13] {arch}: {cfg}; default policy; drawn and packed layer by "
+        f"layer in {time.perf_counter() - t0:.2f} s, "
+        f"{t.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (b, s))
+    frames_np = frames = None
+    if api.needs_frames:  # stub frame embeddings, drawn from the seed
+        frames_np = rng.normal(0, 1, (b, cfg.n_audio, cfg.d_model)).astype(
+            np.float32)
+        frames = t.as_tensor(frames_np, device=sm.device)
+    gen = Generator(api, params, device=sm.device)
+    plain = Generator(api, params, device=sm.device, impl="torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, logits = gen.run(prompts, n_new, frames=frames_np)
+    t.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    routes = {k: v for k, v in kernel.mpmm_cuda.routes.items() if v}
+    want_routes, k3 = p13_expected(api, b, s, n_new)
+    want = {"mpmm_cuda": sum(want_routes.values()), "conv_mpmm_cuda": 0,
+            "flash_fwd_cuda": k3, "flash_fwd_packed_cuda": 0}
+    log(f"[p13] {arch}: {b} prompts x {s} tokens, {n_new} new tokens in "
+        f"{wall:.2f} s; launches {launches}; K1 routes {routes}")
+    if launches != want or routes != want_routes:
+        raise SystemExit(f"{arch}: launches {launches} / routes {routes} != "
+                         f"{want} / {want_routes} (gemm_workload)")
+    for step, a in enumerate(logits):
+        a = a.float()
+        if a.shape != (b, cfg.vocab) or not bool(t.isfinite(a).all()) \
+                or float(a.std()) == 0.0:
+            raise SystemExit(f"{arch} step {step}: logits {tuple(a.shape)} "
+                             f"not finite or constant")
+    pc = p13_prefill_contract(sm, api, params, prompts, frames, arch)
+    decode_contract(sm, gen, plain, prompts, toks, arch, frames=frames)
+    log(f"[p13] {arch}: tokens[0] {toks[0].tolist()}; prefill one-layer "
+        f"error <= {pc[0]:.5f} of the largest |output|, <= {pc[1]:.5f} of "
+        f"outputs differ (tol {LM_LOGIT_TOL}, {LM_MAX_FLIP_RATE}); the head "
+        f"bitwise; {n_new - 1} decode steps bitwise equal")
+    del gen, plain
+    r6 = p13_r6(sm, api, params, prompts) if arch == "mamba2-1.3b" else None
+    sched_wall = None
+    if arch in P13_SCHED_DEPTH:
+        sched_wall = p13_scheduler(sm, api, params, P13_SCHED_DEPTH[arch],
+                                   arch)
+    prefill_ms, decode_ms = measure_lm_end_to_end(sm, api, params, prompts,
+                                                  n_new, frames=frames)
+    split = p13_split(sm, api, b, s, n_new)
+    rows = [measure_d256(sm, api, b, s)] if arch == "recurrentgemma-9b" \
+        else []
+    counts = dict(launches, **{f"route:{k}": v for k, v in routes.items()})
+    del params, frames
+    release(sm)
+    p13_cli(sm, arch)
+    return {"arch": arch, "shape": shape, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "split": split, "rows": rows,
+            "counts": counts, "r6": r6, "sched_wall": sched_wall,
+            "contract": pc}
+
+
+def print_p13(p13, card):
+    """Phase 13's ``[p13-time]`` lines."""
+    for res in p13:
+        b, s_, n_new = res["shape"]
+        sp = res["split"]
+        pf_ms, dc_ms = res["prefill_ms"], res["decode_ms"]
+        log(f"[p13-time] {res['arch']}: prefill {pf_ms:.2f} ms = "
+            f"{b * s_ / pf_ms * 1e3:.1f} tokens/s ({b} x {s_}); decode "
+            f"{dc_ms:.2f} ms per step = {b / dc_ms * 1e3:.1f} tokens/s at "
+            f"batch {b}  ({card})")
+        rest = pf_ms - sp["prefill"] - sp["flash"]
+        log(f"[p13-time] {res['arch']} split (each kernel's calls timed "
+            f"alone): prefill K1 {sp['prefill']:.2f} ms "
+            f"({sp['prefill'] / pf_ms:.1%}), K3 {sp['flash']:.2f} ms "
+            f"({sp['flash'] / pf_ms:.1%}), rest {rest:.2f} ms "
+            f"({rest / pf_ms:.1%}); decode step K1 {sp['decode']:.2f} ms "
+            f"({sp['decode'] / dc_ms:.1%}), rest "
+            f"{dc_ms - sp['decode']:.2f} ms ({1 - sp['decode'] / dc_ms:.1%})")
+        for r in res["rows"]:
+            log(f"[p13-time] {r['kernel']} {r['layer']} {r['shape']}: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms ({r['library']}; kernel/library "
+                f"{r['ms'] / r['library_ms']:.2f}x), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{r['bound_ms'] / r['ms']:.1%} of it), x{r['count']}; "
+                f"{r['tiles']}  ({card})")
+
+
+def phase_p13(sm, card):
+    """Phase 13 -> (summed launches of its main-path runs, results).  Each
+    arch's Generator run is counted from zero."""
+    t0 = time.perf_counter()
+    release(sm)
+    results = []
+    for arch, shape in P13_RUNS:
+        t1 = time.perf_counter()
+        results.append(p13_arch(sm, arch, shape))
+        log(f"[p13] {arch} took {time.perf_counter() - t1:.1f} s")
+    results[0]["rows"] = measure_p13_k1(sm) + results[0]["rows"]
+    launches = {}
+    for res in results:
+        launches = add_counts(launches, res["counts"])
+    log(f"[p13] phase 13 took {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -3132,7 +3657,7 @@ def main() -> int:
     k2_build_info(convs)
 
     lm_plan = PrecisionPlan.load(LM_PLAN)
-    phase_k1(sm, path_k1, lm_k1_calls(lm_api(None, lm_plan)))
+    phase_k1(sm, path_k1, lm_k1_calls(lm_api(None, lm_plan)) + P13_K1_SHAPES)
     phase_k2(sm, convs)
     server, cfg, plan, launches, k1_routes = phase_end_to_end(sm)
     fps = frames_per_second(sm, server, cfg)
@@ -3143,6 +3668,7 @@ def main() -> int:
     phase_k3(sm, lm_block_k)
     phase_k4(sm, lm_block_k)
     phase_d192(sm)
+    phase_d256(sm)
     api, params, prompts, run, run3 = phase_lm(sm)
     depth = api.cfg.n_layers
     for r in (run, run3):
@@ -3177,6 +3703,11 @@ def main() -> int:
     k1_routes = {k: k1_routes[k] + p12_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p12] phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    p13_launches, p13 = phase_p13(sm, card)
+    launches = {k: launches[k] + p13_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p13_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p13] phase 13 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
@@ -3269,6 +3800,7 @@ def main() -> int:
     log(f"[time] ImageScheduler: {sum(IMG_BURSTS)} images in batches "
         f"{img_batches}")
     print_p12(p12, p12_rows, card)
+    print_p13(p13, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,9 @@
 """Architecture configs (port of ``repro.configs``): the ResNets and the
-decoder LMs -- dense (granite-8b/34b, yi-34b, nemotron-4-340b), the VLM
-backbone (chameleon-34b) and MoE (olmoe-1b-7b, deepseek-v2-lite-16b, whose
-attention is MLA).
+ten LM-family archs -- dense decoders (granite-8b/34b, yi-34b,
+nemotron-4-340b), the VLM backbone (chameleon-34b), MoE (olmoe-1b-7b,
+deepseek-v2-lite-16b, whose attention is MLA), the SSM (mamba2-1.3b), the
+RG-LRU hybrid with local attention (recurrentgemma-9b) and the
+encoder-decoder (whisper-base).
 
 ``get(name)`` returns a ``ModelAPI``; ``reduced=True`` gives the same
 family at smoke-test scale.
@@ -16,11 +18,9 @@ from repro_torch.models.api import ModelAPI
 
 RESNET_NAMES = ["resnet18", "resnet50", "resnet152"]
 LM_NAMES = ["granite-34b", "granite-8b", "nemotron-4-340b", "yi-34b",
-            "chameleon-34b", "olmoe-1b-7b", "deepseek-v2-lite-16b"]
+            "mamba2-1.3b", "chameleon-34b", "olmoe-1b-7b",
+            "deepseek-v2-lite-16b", "whisper-base", "recurrentgemma-9b"]
 ARCH_NAMES = RESNET_NAMES + LM_NAMES
-# The JAX package's archs that the port does not have yet (ROADMAP Queue 1):
-# the plan CLI names them as such instead of as unknown.
-NOT_PORTED = ("mamba2-1.3b", "whisper-base", "recurrentgemma-9b")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_")
             for name in RESNET_NAMES + LM_NAMES}

@@ -16,7 +16,12 @@ one such subtree per format group ``g0``, ``g1``, ... in depth order, and
 a dense prefix (deepseek's first layer) unrolled beside it as
 ``dense_layer_{i}``.  The port keeps one per-layer list, so the prefix
 comes first and the stack is unstacked layer by layer after it; an expert
-bank keeps its expert axis once the depth axis is sliced off.
+bank keeps its expert axis once the depth axis is sliced off.  The other
+families' trees unstack the same way: mamba2's ``layers.{ln, ssm}``;
+recurrentgemma's superblocks ``supers.{r1, r2, att}`` (lead ``n_super``)
+interleave into model order, r1, r2, att of each superblock, and its
+remainder ``rem_{i}`` follows; whisper's ``enc_layers`` and ``dec_layers``
+become two lists.
 
 This module imports no JAX: the caller hands over numpy.
 """
@@ -90,6 +95,22 @@ def _unstack_layers(layers):
 
 def _convert_lm(tree, device):
     dev = resolve_device(device)
+    if "supers" in tree:  # recurrentgemma: (R, R, A) superblocks + rest
+        sup = tree["supers"]
+        n = _lead_len(sup["r1"])
+        layers = [_slice_lead(sup[k], j) for j in range(n)
+                  for k in ("r1", "r2", "att")]
+        rem = sorted((k for k in tree if k.startswith("rem_")),
+                     key=lambda k: int(k.rsplit("_", 1)[1]))
+        layers += [tree[k] for k in rem]
+        out = {k: _convert(v, dev) for k, v in tree.items()
+               if k != "supers" and k not in rem}
+        out["layers"] = [_convert(lp, dev) for lp in layers]
+        return out
+    if "enc_layers" in tree:  # whisper: two stacks
+        return {k: ([_convert(lp, dev) for lp in _unstack_layers(v)]
+                    if k in ("enc_layers", "dec_layers") else _convert(v, dev))
+                for k, v in tree.items()}
     prefix = sorted((k for k in tree if k.startswith("dense_layer_")),
                     key=lambda k: int(k.rsplit("_", 1)[1]))
     out = {k: _convert(v, dev) for k, v in tree.items()

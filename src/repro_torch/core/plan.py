@@ -672,9 +672,6 @@ def validate_frontier_json(path) -> FrontierManifest:
 
 def _unknown_arch(kind: str, arch: str, where: str) -> str:
     from repro_torch import configs
-    if arch in configs.NOT_PORTED:
-        return (f"[{kind}] arch {arch!r}{where} is not ported to "
-                f"repro_torch yet; ported: {', '.join(configs.ARCH_NAMES)}")
     return (f"[{kind}] unknown arch {arch!r}{where}; available: "
             f"{', '.join(configs.ARCH_NAMES)}")
 
@@ -705,7 +702,7 @@ def _main_validate_frontier(paths: Sequence[str]) -> int:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """``python -m repro_torch.core.plan validate|validate-frontier
     PATHS``: exit 0 when every file is valid, 1 on a schema or layer
-    error, 2 on an arch the port does not have (ported or not yet)."""
+    error, 2 on an unknown arch."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.core.plan",
         description="Validate precision-plan JSON files (schema + the "

@@ -473,8 +473,10 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
 
 // O = (o + z) / max(l, 1e-30) for the warp's rows, cast to the output type;
 // z is the lane's share of a per-row term (K4's V zero-point sum; 0 for K3)
-// and l the lane's partial row sum.  Rows past Sq are dropped.
-template <int D, typename T>
+// and l the lane's partial row sum.  Rows past Sq are dropped.  o holds D
+// columns of rows LD values long (LD > D: a block that owns a column slice
+// of the head, `out` pointing at the slice's first column).
+template <int D, typename T, int LD = D>
 __device__ __forceinline__ void store_out(const float (&o)[D / 8][4],
                                           const float (&l)[2],
                                           const float (&z)[2],
@@ -487,8 +489,8 @@ __device__ __forceinline__ void store_out(const float (&o)[D / 8][4],
     const float zi = quad_sum(z[i]);
     const int r = row + 8 * i;
     if (r >= s.Sq) continue;
-    T* dst = out + (static_cast<size_t>(b) * s.Sq + r) * s.H * D +
-             static_cast<size_t>(h) * D + 2 * (lane & 3);
+    T* dst = out + (static_cast<size_t>(b) * s.Sq + r) * s.H * LD +
+             static_cast<size_t>(h) * LD + 2 * (lane & 3);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       store2(dst + 8 * n, __fdiv_rn(__fadd_rn(o[n][2 * i], zi), li),

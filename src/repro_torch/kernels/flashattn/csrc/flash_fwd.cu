@@ -35,10 +35,14 @@
 //   registers and V read transposed from shared memory.  Scoring 32 keys at
 //   a time keeps a thread at 124 registers, so two blocks share an SM and
 //   one block's softmax runs while the other's products do.
-// - Products, f32 I/O, D 64 and D 192 (nemotron-4-340b; bf16 only, an f32
-//   q tile and two f32 K/V stages exceed a block's shared memory there):
-//   mma.sync.m16n8k16 bf16 fed by ldmatrix (ldmatrix.trans for V), 8 warps
-//   of 16 rows, P reused from the score registers as the A operand of PV.
+// - Products, f32 I/O, D 64, D 192 (nemotron-4-340b) and D 256
+//   (recurrentgemma-9b; both bf16 only, an f32 q tile and two f32 K/V
+//   stages exceed a block's shared memory there): mma.sync.m16n8k16 bf16
+//   fed by ldmatrix (ldmatrix.trans for V), 8 warps of 16 rows, P reused
+//   from the score registers as the A operand of PV.  At D 256 two blocks
+//   share a head, each scoring every key over the whole D and keeping 128
+//   of V's columns (grid x = 2H): the O accumulator of all 256 would be 128
+//   f32 registers a thread and spill; the price is QK^T done twice.
 // - Split precision (flash_common.cuh): QK^T on the raw bf16 q, the scale
 //   (times log2 e) applied to the f32 score; PV with p = p_hi + p_lo (two
 //   bf16 terms); with f32 I/O q, K, V and p in three bf16 terms each (six
@@ -51,7 +55,9 @@
 //   flash_fwd_kernel<D, warps, T>:  <128,8,f32> 194 regs, 202752 B;
 //   <128,4,f32> 194, 168960 B;  <64,8,f32> 160, 104448 B;
 //   <64,4,f32> 160, 87040 B;  <64,8,bf16> 142, 49152 B;  <64,4,bf16> 142,
-//   40960 B;  <192,8,bf16> 239, 147456 B;  <192,4,bf16> 239, 122880 B.
+//   40960 B;  <192,8,bf16> 239, 147456 B;  <192,4,bf16> 239, 122880 B;
+//   <256,8,bf16> 193, 163840 B;  <256,4,bf16> 193, 131072 B (128 of V's
+//   columns a block: template argument DV, = D at the other head dims).
 #include "flash_common.cuh"
 
 namespace {
@@ -213,28 +219,34 @@ __global__ void __launch_bounds__(128 * WG, 2)
   store_out<D>(o, l, z, out, s, b, h, q0 + row0 + (lane >> 2));
 }
 
-// --- f32 I/O and D 64: mma.sync ---------------------------------------------
+// --- f32 I/O, D 64, 192 and 256: mma.sync ------------------------------------
 
-template <int D, int WARPS, typename T>
+// A block computes DV of the head's D output columns (DV = D but at D 256,
+// where two blocks share a head, each scoring every key over the whole D
+// and keeping 128 accumulator columns: 64 f32 registers a thread instead
+// of 128, which would spill).  The K tile holds D columns, the V tile DV.
+template <int D, int DV, int WARPS, typename T>
 struct K3Smem {
   static constexpr int BQ = 16 * WARPS;
   static constexpr size_t Q = 0;
   static constexpr size_t KV = Q + tile_bytes<T, D>(BQ);  // 2 stages of K, V
-  static constexpr size_t STAGE = 2 * tile_bytes<T, D>(BKV);
+  static constexpr size_t K_TILE = tile_bytes<T, D>(BKV);
+  static constexpr size_t STAGE = K_TILE + tile_bytes<T, DV>(BKV);
   static constexpr size_t BYTES = KV + 2 * STAGE;
 };
 
-template <int D, int WARPS, typename T>
+template <int D, int DV, int WARPS, typename T>
 __global__ void __launch_bounds__(32 * WARPS, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, Shape s) {
-  using S = K3Smem<D, WARPS, T>;
+  using S = K3Smem<D, DV, WARPS, T>;
   constexpr int BQ = S::BQ;
   constexpr int THREADS = 32 * WARPS;
   constexpr int PT = Tile<T, D>::TERMS == 1 ? 2 : 3;  // terms of p
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_tile = reinterpret_cast<T*>(smem + S::Q);
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / (D / DV);
+  const int dv0 = (blockIdx.x % (D / DV)) * DV;  // the block's V columns
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int g = h / (s.H / s.KV);
@@ -260,20 +272,19 @@ __global__ void __launch_bounds__(32 * WARPS, 1)
     return reinterpret_cast<T*>(smem + S::KV + st * S::STAGE);
   };
   auto stage_v = [&](int st) {
-    return reinterpret_cast<T*>(smem + S::KV + st * S::STAGE +
-                                tile_bytes<T, D>(BKV));
+    return reinterpret_cast<T*>(smem + S::KV + st * S::STAGE + S::K_TILE);
   };
   auto issue = [&](int kv0, int st) {
-    auto row_of = [&](const T* base) {
+    auto row_of = [&](const T* base, int col0) {
       return [=](int r) -> const T* {
         const int key = kv0 + r;
         return key < s.Sk ? base + ((static_cast<size_t>(b) * s.Sk + key) *
-                                        s.KV + g) * D
+                                        s.KV + g) * D + col0
                           : nullptr;
       };
     };
-    copy_rows<T, D, BKV, THREADS>(stage_k(st), row_of(k), k);
-    copy_rows<T, D, BKV, THREADS>(stage_v(st), row_of(v), v);
+    copy_rows<T, D, BKV, THREADS>(stage_k(st), row_of(k, 0), k);
+    copy_rows<T, DV, BKV, THREADS>(stage_v(st), row_of(v, dv0), v);
   };
 
   int begin, end;
@@ -281,9 +292,9 @@ __global__ void __launch_bounds__(32 * WARPS, 1)
   if (begin < end) issue(begin, 0);
   cp_commit();
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.0f;
   float m[2] = {NEG_INF, NEG_INF};
@@ -311,14 +322,14 @@ __global__ void __launch_bounds__(32 * WARPS, 1)
         }
       float alpha[2];
       softmax_step<BKV>(sc, m, l, alpha);
-      rescale<D>(o, alpha);
-      pv_tile<D, PT>(stage_v(st), sc, o);
+      rescale<DV>(o, alpha);
+      pv_tile<DV, PT>(stage_v(st), sc, o);
     }
     __syncthreads();  // stage st is free for the copy issued next iteration
   }
   cp_wait<0>();
   const float z[2] = {0.0f, 0.0f};
-  store_out<D>(o, l, z, out, s, b, h, q0 + row0 + (lane >> 2));
+  store_out<DV, T, D>(o, l, z, out + dv0, s, b, h, q0 + row0 + (lane >> 2));
 }
 
 // --- launch --------------------------------------------------------------------
@@ -335,8 +346,11 @@ int launch_wg(const void* q, const void* k, const void* v, void* out,
 template <int D, int WARPS, typename T>
 int launch_w(const void* q, const void* k, const void* v, void* out,
              const Shape& s, cudaStream_t stream) {
-  return launch(flash_fwd_kernel<D, WARPS, T>, K3Smem<D, WARPS, T>::BYTES,
-                grid_of(s, 16 * WARPS), 32 * WARPS, stream,
+  constexpr int DV = D == 256 ? 128 : D;  // two column halves at D 256
+  dim3 grid = grid_of(s, 16 * WARPS);
+  grid.x *= D / DV;
+  return launch(flash_fwd_kernel<D, DV, WARPS, T>,
+                K3Smem<D, DV, WARPS, T>::BYTES, grid, 32 * WARPS, stream,
                 static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<T*>(out), s);
 }
@@ -361,9 +375,14 @@ int launch_t(const void* q, const void* k, const void* v, void* out, int D,
     case 64: return launch_d<64, T>(q, k, v, out, s, stream);
     case 128: return launch_d<128, T>(q, k, v, out, s, stream);
     case 192:  // bf16 only: an f32 q tile and two f32 K/V stages exceed
-               // a block's shared memory at D 192
+               // a block's shared memory at D 192 and 256
       if constexpr (Tile<T, 192>::TERMS == 1) {
         return launch_d<192, T>(q, k, v, out, s, stream);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+    case 256:
+      if constexpr (Tile<T, 256>::TERMS == 1) {
+        return launch_d<256, T>(q, k, v, out, s, stream);
       }
       return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -50,12 +50,13 @@ from repro_torch.core.packing import _unpack_bits
 from repro_torch.kernels import _build
 from repro_torch.kernels.mpmm.kernel import check_operand, ptr, raise_on_error
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "flash_fwd_cuda", "flash_fwd_torch",
+__all__ = ["NEG_INF", "HEAD_DIMS", "PACKED_HEAD_DIMS", "flash_fwd_cuda", "flash_fwd_torch",
            "flash_fwd_packed_cuda", "flash_fwd_packed_torch"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 192)  # head_dim values the kernels are built for
-BF16_ONLY_DIMS = (192,)      # too wide for an f32 q tile in shared memory
+HEAD_DIMS = (64, 128, 192, 256)  # head_dim values K3 is built for
+PACKED_HEAD_DIMS = (64, 128, 192)  # and K4
+BF16_ONLY_DIMS = (192, 256)  # too wide for an f32 q tile in shared memory
 IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -152,7 +153,7 @@ def flash_fwd_packed_torch(q: torch.Tensor, kp: torch.Tensor,
 
 
 def _check_attention(q: torch.Tensor, kvh: int, sk: int, window, q_offset,
-                     pad_k) -> torch.device:
+                     pad_k, head_dims=HEAD_DIMS) -> torch.device:
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}; "
@@ -161,8 +162,8 @@ def _check_attention(q: torch.Tensor, kvh: int, sk: int, window, q_offset,
     if q.ndim != 4:
         raise ValueError(f"q must be (B, Sq, H, D), got {tuple(q.shape)}")
     h, d = q.shape[2], q.shape[3]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in the kernel's {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in the kernel's {head_dims}")
     if d in BF16_ONLY_DIMS and q.dtype != torch.bfloat16:
         raise TypeError(f"head_dim {d} takes bf16 q/k/v only, got {q.dtype}")
     if kvh < 1 or h % kvh:
@@ -200,8 +201,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_offset: int = 0, softmax_scale: Optional[float] = None,
                    pad_k: int = 0) -> torch.Tensor:
     """Launch K3 on CUDA tensors: q (B, Sq, H, D), k/v (B, Sk, KV, D) of
-    q's dtype (f32 or bf16; bf16 only at D 192), D in ``HEAD_DIMS`` ->
-    (B, Sq, H, D)."""
+    q's dtype (f32 or bf16; bf16 only at D 192 and 256), D in
+    ``HEAD_DIMS`` -> (B, Sq, H, D)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     device = _check_attention(q, kvh, sk, window, q_offset, pad_k)
@@ -243,12 +244,13 @@ def flash_fwd_packed_cuda(q: torch.Tensor, kp: torch.Tensor,
                           softmax_scale: Optional[float] = None,
                           pad_k: int = 0) -> torch.Tensor:
     """Launch K4 on CUDA tensors: q (B, Sq, H, D) f32 or bf16 (bf16 only
-    at D 192), D in ``HEAD_DIMS``; planes
+    at D 192), D in ``PACKED_HEAD_DIMS``; planes
     (P, B, Sk, KV, ceil(D / (8 // slice))) uint8; scale/zero (B, Sk, KV)
     bf16 -> (B, Sq, H, D) of q's dtype."""
     b, sq, h, d = q.shape
     sk, kvh = ks.shape[1], ks.shape[2]
-    device = _check_attention(q, kvh, sk, window, q_offset, pad_k)
+    device = _check_attention(q, kvh, sk, window, q_offset, pad_k,
+                              PACKED_HEAD_DIMS)
     for name, planes, sl in (("kp", kp, k_slice), ("vp", vp, v_slice)):
         if sl not in (1, 2, 4, 8):
             raise ValueError(f"{name}: digit slice {sl} must divide 8")

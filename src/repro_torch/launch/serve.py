@@ -11,6 +11,8 @@ mixed-precision batched generation and image serving on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch resnet18 \
         --reduced --plan examples/plans/resnet18_mixed.json --batch 8 \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --reduced --device cpu      # (or mamba2-1.3b, recurrentgemma-9b)
 
 Weights are drawn from ``--seed`` (no checkpoint store yet) and packed under
 the plan (``--plan``; else the arch's default uniform policy).  LM archs
@@ -18,7 +20,10 @@ run batched greedy generation through ``Generator``, or with
 ``--spec-decode K --draft-plan PLAN`` through ``SpeculativeGenerator``: a
 low-bit repack of the same weights drafts K tokens a cycle and the
 serving plan verifies them in one batched forward, with output equal to
-serving the plan alone.  CNN archs serve a batch of images through
+serving the plan alone (the families with a recurrent state or an encoder
+-- mamba2, recurrentgemma, whisper -- have no multi-token step and refuse
+it); whisper is fed zero stub frames.  CNN archs serve a batch of images
+through
 ``ImageServer``.  The weights are drawn on ``--device`` and packed piece by
 piece (``serve.init_packed_views``), so a full-width LM never holds its
 float tree whole.
@@ -247,15 +252,19 @@ def _serve_lm(api, args, device) -> int:
                         tracer=tracer, metrics=metrics)
     prompts = np.asarray(np.random.default_rng(args.seed).integers(
         0, api.cfg.vocab, (args.batch, args.prompt_len)), np.int32)
+    # whisper: zero stub frames, as the reference's launcher feeds
+    gen_kw = ({"frames": np.zeros((args.batch, api.cfg.n_audio,
+                                   api.cfg.d_model), np.float32)}
+              if api.needs_frames else {})
     # warm-up (builds the kernels on a card); spec mode runs one full cycle
     warm = (2 if args.spec_decode is None
             else min(args.new_tokens, args.spec_decode + 2))
-    gen.generate(prompts, warm)
+    gen.generate(prompts, warm, **gen_kw)
     if args.spec_decode is not None:
         gen.drafted_tokens = gen.accepted_tokens = 0  # drop warm-up stats
     with _profiled(args.profile, device):
-        out, dt, dev_s = _timed(lambda: gen.generate(prompts,
-                                                     args.new_tokens), device)
+        out, dt, dev_s = _timed(lambda: gen.generate(
+            prompts, args.new_tokens, **gen_kw), device)
     toks = args.batch * args.new_tokens
     print(f"[serve] {toks} tokens in {dt:.2f}s -> {toks / dt:.1f} tok/s "
           f"(batch {args.batch}, prompt {args.prompt_len})")
@@ -435,6 +444,9 @@ def main(argv=None) -> int:
         if api.family == "cnn":
             raise SystemExit("--spec-decode serves autoregressive LM archs "
                              "only")
+        if not hasattr(api.mod, "decode_steps"):
+            raise NotImplementedError(
+                f"{api.family} has no multi-token decode_steps")
     if api.family == "cnn":
         return _serve_cnn(api, args, device)
     return _serve_lm(api, args, device)

@@ -15,10 +15,12 @@ __all__ = ["make_prefill_fn", "make_decode_fn", "make_verify_fn"]
 
 
 def make_prefill_fn(api, *, impl: str = "auto") -> Callable:
-    """prefill_fn(params, batch {"tokens": (B, S)}) -> (logits (B, V),
-    prefill cache)."""
+    """prefill_fn(params, batch {"tokens": (B, S)[, "frames": (B, T, D)]})
+    -> (logits (B, V), prefill cache); the frames go to archs that take
+    them (``api.needs_frames``, whisper; zeros when absent)."""
     def prefill_fn(params, batch):
-        return api.prefill(params, batch["tokens"], impl=impl)
+        kw = {"frames": batch.get("frames")} if api.needs_frames else {}
+        return api.prefill(params, batch["tokens"], impl=impl, **kw)
     return prefill_fn
 
 

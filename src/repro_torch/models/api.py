@@ -24,6 +24,7 @@ class ModelAPI:
     cfg: Any
     mod: Any                     # the family module
     policy: PrecisionPolicy
+    needs_frames: bool = False   # whisper: stub audio frontend
     microbatches: int = 1        # train grad-accumulation factor
     long_context_ok: bool = False  # may run the long_500k shape
     opt_dtype: Any = torch.float32  # AdamW moment storage dtype
@@ -38,8 +39,13 @@ class ModelAPI:
         return nnp.init_params(self.specs(mode), generator, device=device)
 
     def plan_layer_names(self):
-        """Every layer name a ``PrecisionPlan`` may bind for this arch."""
-        return self.mod.plan_layer_names(self.cfg)
+        """Every layer name a ``PrecisionPlan`` may bind for this arch: the
+        family's own namespace where it defines one, else the names of its
+        ``gemm_workload``."""
+        fn = getattr(self.mod, "plan_layer_names", None)
+        if fn is not None:
+            return fn(self.cfg)
+        return [g.name for g in self.gemm_workload(1)]
 
     # --- analysis (DSE, planner, roofline) -----------------------------------
 

@@ -1,0 +1,309 @@
+"""RecurrentGemma (Griffin), serve half (port of
+``repro.models.recurrentgemma``): RG-LRU blocks and local attention, one
+attention layer in three -- superblocks (R, R, A) and the remainder R
+layers.
+
+The JAX package scans the superblocks as one stacked tree ``supers.{r1,
+r2, att}`` beside the remainder ``rem_{i}``; the port keeps one per-layer
+list in model order, ``params["layers"][i]``, layer i an attention layer
+when ``layer_kind(cfg, i) == "A"``.  The prefill cache is per layer too:
+``{"h", "conv"}`` for an R layer, the bf16 pair ``(k, v)`` (B, S, KV, Dh)
+of the whole prompt (keys after rotary) for an A layer.  Decode keeps a
+ring buffer of ``min(window, max_len)`` slots per A layer, token p in slot
+p % window (``runtime.serve.Generator._grow_cache`` re-packs the prompt's
+last keys into it), so the decode state is O(window + d_rnn) whatever
+the context.
+
+On a card the attention prefill runs K3 (``attn_impl='flash'``, the FULL
+config: head dim 256, one KV head, window 2048), as the reference runs its
+Pallas kernel; decode attention is plain torch in both.  The forwards
+over every position (training, teacher forcing) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.core.dse import Gemm
+from repro_torch.nn import attention as attn
+from repro_torch.nn import layers as nnl
+from repro_torch.nn import quantized as Q
+from repro_torch.nn import rglru as nnr
+from repro_torch.nn.param import ParamSpec
+from repro_torch.nn.rglru import RGLRUConfig
+
+__all__ = ["RGConfig", "layer_kind", "specs", "prefill", "decode_step",
+           "cache_specs", "ring_cache", "gemm_workload", "active_params",
+           "total_params", "model_flops"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RGConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    window: int = 2048
+    head_dim: Optional[int] = None
+    scan_layers: bool = True
+    scan_unroll: bool = False
+    attn_impl: str = "xla"
+    remat: bool = True
+    attn_chunk: int = 1024
+    family: str = "hybrid"
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def rnn(self) -> RGLRUConfig:
+        return RGLRUConfig(d_model=self.d_model, d_rnn=self.d_model)
+
+    @property
+    def n_super(self) -> int:
+        return self.n_layers // 3
+
+    @property
+    def n_rem(self) -> int:
+        return self.n_layers - 3 * self.n_super
+
+
+# gemm_workload names of the attention projections: q/k/v/o answer to the
+# aggregated attn_q / attn_kv / attn_o workload entries.
+ATTN_NAMES = {"q": "attn_q", "k": "attn_kv", "v": "attn_kv", "o": "attn_o"}
+
+
+def layer_kind(cfg: RGConfig, i: int) -> str:
+    """'A' for the third layer of each superblock, else 'R'."""
+    return "A" if i < 3 * cfg.n_super and i % 3 == 2 else "R"
+
+
+def _mlp_spec(cfg, serve, policy):
+    if serve:
+        mk = lambda i, o: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, policy=policy, name="mlp")
+    else:
+        mk = lambda i, o: Q.qlinear_spec(i, o, name="mlp")  # noqa: E731
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"gate": mk(d, ff), "up": mk(d, ff), "down": mk(ff, d)}
+
+
+def layer_spec(cfg: RGConfig, i: int, mode: str = "train",
+               policy=None) -> Dict:
+    serve = mode == "serve"
+    if layer_kind(cfg, i) == "A":
+        mixer = ("attn", (attn.gqa_serve_spec(
+            cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, policy=policy,
+            names=ATTN_NAMES) if serve else attn.gqa_spec(
+            cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, names=ATTN_NAMES)))
+    else:
+        mixer = ("rnn", nnr.rglru_block_spec(cfg.rnn, serve=serve,
+                                             policy=policy))
+    return {"ln1": nnl.rmsnorm_spec(cfg.d_model), mixer[0]: mixer[1],
+            "ln2": nnl.rmsnorm_spec(cfg.d_model),
+            "mlp": _mlp_spec(cfg, serve, policy)}
+
+
+def specs(cfg: RGConfig, mode: str = "train", policy=None) -> Dict:
+    serve = mode == "serve"
+    vp = nnl.pad_vocab(cfg.vocab)
+    return {
+        "embed": (nnl.embed_serve_spec(vp, cfg.d_model, policy) if serve
+                  else nnl.embed_spec(vp, cfg.d_model)),
+        "final_norm": nnl.rmsnorm_spec(cfg.d_model),
+        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, layer_class="boundary",
+                                      policy=policy, name="head") if serve
+                 else Q.qlinear_spec(cfg.d_model, vp, layer_class="boundary",
+                                     name="head")),
+        "layers": [layer_spec(cfg, i, mode, policy)
+                   for i in range(cfg.n_layers)],
+    }
+
+
+def _mlp(p, h, policy, impl):
+    fn = lambda w, x: Q.qlinear_serve_apply(  # noqa: E731
+        w, x, policy, impl=impl, name="mlp")
+    return fn(p["down"], nnl.swiglu_combine(fn(p["gate"], h),
+                                            fn(p["up"], h)))
+
+
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
+    """Prefill of layer i -> (x, its cache); ``aux`` holds the rotary
+    tables."""
+    h = nnl.rmsnorm_apply(lp["ln1"], x)
+    if layer_kind(cfg, i) == "A":
+        o, cache = attn.gqa_prefill(
+            lp["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.hd, sin=aux["sin"], cos=aux["cos"],
+            window=cfg.window, impl=impl, chunk=cfg.attn_chunk,
+            attn_impl=cfg.attn_impl, names=ATTN_NAMES)
+    else:
+        o, cache = nnr.rglru_block_forward(lp["rnn"], h, policy, cfg.rnn,
+                                           impl=impl)
+    x = x + o
+    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl)
+    return x, cache
+
+
+def _embed(params, tokens):
+    return nnl.embed_serve_apply(params["embed"], tokens)
+
+
+def _prefill_inputs(cfg, params, tokens):
+    """Embedded tokens and the per-layer side inputs of a prefill."""
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    sin, cos = nnl.rotary_cache(pos, cfg.hd)
+    return _embed(params, tokens), {"sin": sin, "cos": cos}
+
+
+def _head(cfg, params, x, policy, impl):
+    x = nnl.rmsnorm_apply(params["final_norm"], x)
+    logits = Q.qlinear_serve_apply(params["head"], x, policy,
+                                   layer_class="boundary", impl=impl,
+                                   name="head")
+    return logits[..., :cfg.vocab]  # drop the vocab padding
+
+
+def prefill(cfg: RGConfig, params, tokens: torch.Tensor, policy, *,
+            impl: str = "auto"):
+    """tokens (B, S) -> (last-token logits (B, V), per-layer prefill
+    cache: R ``{"h", "conv"}``, A ``(k, v)`` over the whole prompt)."""
+    x, aux = _prefill_inputs(cfg, params, tokens)
+    caches = []
+    for i, lp in enumerate(params["layers"]):
+        x, cache = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl)
+        caches.append(cache)
+    return _head(cfg, params, x[:, -1:, :], policy, impl)[:, 0, :], caches
+
+
+def cache_specs(cfg: RGConfig, batch: int, max_len: int,
+                policy=None) -> List:
+    """Per-layer decode cache: R ``{"h": (B, d_rnn), "conv": (B, W-1,
+    d_rnn)}`` f32; A the ring pair (B, min(window, max_len), KV, Dh)
+    bf16."""
+    del policy
+    w = min(cfg.window, max_len)
+    ring = ParamSpec(shape=(batch, w, cfg.n_kv, cfg.hd),
+                     dtype=torch.bfloat16, init="zeros")
+    return [(ring, ring) if layer_kind(cfg, i) == "A"
+            else nnr.rglru_state_spec(cfg.rnn, batch)
+            for i in range(cfg.n_layers)]
+
+
+def _attn_ring_step(cfg, lp, x, ring, length, policy, sin, cos, impl):
+    """One-token local attention against the ring buffer (updated in
+    place at slot ``length % slots``)."""
+    b = x.shape[0]
+    k_cache, v_cache = ring
+    w = k_cache.shape[1]
+    fn = lambda key, h, n: Q.qlinear_serve_apply(  # noqa: E731
+        lp["attn"][key], h, policy, impl=impl,
+        name=ATTN_NAMES[key]).reshape(b, 1, n, cfg.hd)
+    h = nnl.rmsnorm_apply(lp["ln1"], x)
+    q = nnl.apply_rotary(fn("q", h, cfg.n_heads), sin, cos)
+    k = nnl.apply_rotary(fn("k", h, cfg.n_kv), sin, cos)
+    v = fn("v", h, cfg.n_kv)
+    slot = length % w
+    k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
+    v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
+    mask_len = w if length >= w - 1 else length + 1
+    o = attn.decode_attention(q, k_cache, v_cache, mask_len)
+    x = x + Q.qlinear_serve_apply(lp["attn"]["o"],
+                                  o.reshape(b, 1, cfg.n_heads * cfg.hd),
+                                  policy, impl=impl, name=ATTN_NAMES["o"])
+    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl)
+    return x, (k_cache, v_cache)
+
+
+def _r_step(cfg, lp, x, st, policy, impl):
+    o, st = nnr.rglru_block_step(lp["rnn"], nnl.rmsnorm_apply(lp["ln1"], x),
+                                 st, policy, cfg.rnn, impl=impl)
+    x = x + o
+    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl)
+    return x, st
+
+
+def decode_step(cfg: RGConfig, params, cache, tokens: torch.Tensor,
+                length: int, policy, *, impl: str = "auto"):
+    """One token per row at position ``length`` -> (logits (B, V), the
+    per-layer cache: R states replaced, A rings updated in place)."""
+    b = tokens.shape[0]
+    x = _embed(params, tokens)
+    pos = torch.full((b, 1), length, device=tokens.device)
+    sin, cos = nnl.rotary_cache(pos, cfg.hd)
+    new = []
+    for i, (lp, st) in enumerate(zip(params["layers"], cache)):
+        if layer_kind(cfg, i) == "A":
+            x, st = _attn_ring_step(cfg, lp, x, st, length, policy, sin, cos,
+                                    impl)
+        else:
+            x, st = _r_step(cfg, lp, x, st, policy, impl)
+        new.append(st)
+    return _head(cfg, params, x, policy, impl)[:, 0, :], new
+
+
+def ring_cache(cfg: RGConfig, pre_cache, s: int, specs_: List, device):
+    """Prefill cache of an ``s``-token prompt -> the decode cache of
+    ``specs_``: each A layer's last ``min(s, slots)`` keys and values in
+    their ring slots (position p in slot p % slots), R states as they
+    are (the reference's ``Generator._rg_cache``)."""
+    out = []
+    for i, (pre, spec) in enumerate(zip(pre_cache, specs_)):
+        if layer_kind(cfg, i) != "A":
+            out.append(pre)
+            continue
+        w = spec[0].shape[1]
+        take = min(s, w)
+        slots = torch.arange(s - take, s, device=device) % w
+        ring = []
+        for full, sp in zip(pre, spec):
+            buf = torch.zeros(sp.shape, dtype=sp.dtype, device=device)
+            buf[:, slots] = full[:, s - take:s].to(sp.dtype)
+            ring.append(buf)
+        out.append(tuple(ring))
+    return out
+
+
+# --- workload descriptions (DSE, planner, roofline) --------------------------
+
+
+def gemm_workload(cfg: RGConfig, tokens: int) -> List[Gemm]:
+    d, dr, hd = cfg.d_model, cfg.rnn.d_rnn, cfg.hd
+    n_r = cfg.n_layers - cfg.n_super  # recurrent layers
+    n_a = cfg.n_super
+    return [
+        Gemm("rnn_in", tokens, d, dr, count=2 * n_r),
+        Gemm("rnn_gates", tokens, dr, dr, count=2 * n_r),
+        Gemm("rnn_out", tokens, dr, d, count=n_r),
+        Gemm("attn_q", tokens, d, cfg.n_heads * hd, count=n_a),
+        Gemm("attn_kv", tokens, d, cfg.n_kv * hd, count=2 * n_a),
+        Gemm("attn_o", tokens, cfg.n_heads * hd, d, count=n_a),
+        Gemm("mlp", tokens, d, cfg.d_ff, count=3 * cfg.n_layers),
+        Gemm("head", tokens, d, cfg.vocab, layer_class="boundary"),
+    ]
+
+
+def active_params(cfg: RGConfig) -> int:
+    d, dr, hd = cfg.d_model, cfg.rnn.d_rnn, cfg.hd
+    n_r = cfg.n_layers - cfg.n_super
+    n_a = cfg.n_super
+    n = n_r * (2 * d * dr + 2 * dr * dr + dr * d)
+    n += n_a * (d * cfg.n_heads * hd + 2 * d * cfg.n_kv * hd
+                + cfg.n_heads * hd * d)
+    n += cfg.n_layers * 3 * d * cfg.d_ff
+    n += 2 * cfg.vocab * d
+    return n
+
+
+total_params = active_params
+
+
+def model_flops(cfg: RGConfig, *, tokens: int, step: str) -> float:
+    return (6.0 if step == "train" else 2.0) * active_params(cfg) * tokens

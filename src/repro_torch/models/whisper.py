@@ -1,0 +1,300 @@
+"""Whisper-style encoder-decoder, serve half (port of
+``repro.models.whisper``; the audio backbone only).
+
+The conv/mel frontend is a stub, as in the reference: the caller supplies
+frame embeddings (B, n_audio, d_model).  The encoder is bidirectional, the
+decoder causal with cross-attention onto the encoder output; positions are
+sinusoidal (no rotary).  Decode grows a self-attention cache and reads a
+static cross-attention K/V computed once from the encoder output.
+
+The JAX package scans ``enc_layers`` and ``dec_layers`` as stacked trees;
+the port keeps two per-layer lists, and the cache ``{"self": [(k, v)],
+"cross": [(k, v)]}`` per decoder layer, bf16 (B, S, H, Dh).  Attention is
+plain torch on every device (``attn_impl`` stays the reference's 'xla':
+whisper never reaches a flash kernel); the projections run on K1.  The
+forwards over every position (training, teacher forcing) are not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.core.dse import Gemm
+from repro_torch.nn import attention as attn
+from repro_torch.nn import layers as nnl
+from repro_torch.nn import quantized as Q
+from repro_torch.nn.param import ParamSpec
+
+__all__ = ["WhisperConfig", "specs", "encode", "prefill", "decode_step",
+           "cache_specs", "gemm_workload", "active_params", "total_params",
+           "model_flops"]
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig:
+    name: str
+    n_layers: int            # per side (encoder and decoder)
+    d_model: int
+    n_heads: int
+    d_ff: int
+    vocab: int
+    n_audio: int = 1500
+    scan_layers: bool = True
+    scan_unroll: bool = False
+    remat: bool = True
+    attn_chunk: int = 512
+    family: str = "audio"
+
+    @property
+    def hd(self) -> int:
+        return self.d_model // self.n_heads
+
+
+# gemm_workload name maps: the workload aggregates q/k/v/o into one entry
+# per attention kind, and cross-attention splits by operand rows (q/o run
+# over tokens -> dec_cross_q; k/v over frames -> dec_cross_kv).
+ENC_ATTN = {k: "enc_qkvo" for k in ("q", "k", "v", "o")}
+DEC_ATTN = {k: "dec_self_qkvo" for k in ("q", "k", "v", "o")}
+X_ATTN = {"q": "dec_cross_q", "o": "dec_cross_q",
+          "k": "dec_cross_kv", "v": "dec_cross_kv"}
+
+
+def _attn_spec(cfg, serve, policy, names):
+    h = cfg.n_heads
+    if serve:
+        return attn.gqa_serve_spec(cfg.d_model, h, h, cfg.hd, policy=policy,
+                                   names=names)
+    return attn.gqa_spec(cfg.d_model, h, h, cfg.hd, names=names)
+
+
+def _mlp_spec(cfg, serve, policy, name):
+    if serve:
+        mk = lambda i, o: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, policy=policy, name=name)
+    else:
+        mk = lambda i, o: Q.qlinear_spec(i, o, name=name)  # noqa: E731
+    return {"up": mk(cfg.d_model, cfg.d_ff), "down": mk(cfg.d_ff, cfg.d_model)}
+
+
+def enc_layer_spec(cfg: WhisperConfig, mode: str = "train",
+                   policy=None) -> Dict:
+    serve = mode == "serve"
+    return {"ln1": nnl.layernorm_spec(cfg.d_model),
+            "attn": _attn_spec(cfg, serve, policy, ENC_ATTN),
+            "ln2": nnl.layernorm_spec(cfg.d_model),
+            "mlp": _mlp_spec(cfg, serve, policy, "enc_mlp")}
+
+
+def dec_layer_spec(cfg: WhisperConfig, mode: str = "train",
+                   policy=None) -> Dict:
+    serve = mode == "serve"
+    return {"ln1": nnl.layernorm_spec(cfg.d_model),
+            "attn": _attn_spec(cfg, serve, policy, DEC_ATTN),
+            "ln2": nnl.layernorm_spec(cfg.d_model),
+            "mlp": _mlp_spec(cfg, serve, policy, "dec_mlp"),
+            "ln_x": nnl.layernorm_spec(cfg.d_model),
+            "xattn": _attn_spec(cfg, serve, policy, X_ATTN)}
+
+
+def specs(cfg: WhisperConfig, mode: str = "train", policy=None) -> Dict:
+    serve = mode == "serve"
+    vp = nnl.pad_vocab(cfg.vocab)
+    return {
+        "embed": (nnl.embed_serve_spec(vp, cfg.d_model, policy) if serve
+                  else nnl.embed_spec(vp, cfg.d_model)),
+        "enc_layers": [enc_layer_spec(cfg, mode, policy)
+                       for _ in range(cfg.n_layers)],
+        "enc_norm": nnl.layernorm_spec(cfg.d_model),
+        "dec_layers": [dec_layer_spec(cfg, mode, policy)
+                       for _ in range(cfg.n_layers)],
+        "dec_norm": nnl.layernorm_spec(cfg.d_model),
+        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, layer_class="boundary",
+                                      policy=policy, name="head") if serve
+                 else Q.qlinear_spec(cfg.d_model, vp, layer_class="boundary",
+                                     name="head")),
+    }
+
+
+def _sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    sin, cos = nnl.rotary_cache(positions, dim)
+    return torch.cat([sin, cos], dim=-1)
+
+
+def _proj(p, x, policy, impl, name, **kw):
+    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name, **kw)
+
+
+def _mlp(p, h, policy, impl, name):
+    return _proj(p["down"], nnl.gelu(_proj(p["up"], h, policy, impl, name)),
+                 policy, impl, name)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def _enc_layer_fwd(cfg, lp, x, policy, *, impl):
+    h = nnl.layernorm_apply(lp["ln1"], x)
+    o, _ = attn.gqa_prefill(lp["attn"], h, policy, n_heads=cfg.n_heads,
+                            n_kv=cfg.n_heads, head_dim=cfg.hd, sin=None,
+                            cos=None, causal=False, rope=False, impl=impl,
+                            chunk=cfg.attn_chunk, names=ENC_ATTN)
+    x = x + o
+    return x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
+                    impl, "enc_mlp")
+
+
+def _enc_inputs(cfg, frames: torch.Tensor) -> torch.Tensor:
+    b, t, _ = frames.shape
+    return (frames.to(torch.bfloat16)
+            + _sinusoid(_positions(b, t, frames.device),
+                        cfg.d_model).to(torch.bfloat16))
+
+
+def encode(cfg: WhisperConfig, params, frames: torch.Tensor, policy, *,
+           impl: str = "auto") -> torch.Tensor:
+    """frames (B, T, D) stub embeddings -> encoder output (B, T, D)."""
+    x = _enc_inputs(cfg, frames)
+    for lp in params["enc_layers"]:
+        x = _enc_layer_fwd(cfg, lp, x, policy, impl=impl)
+    return nnl.layernorm_apply(params["enc_norm"], x)
+
+
+def _cross_kv(cfg, lp, enc_out, policy, impl):
+    b, t, _ = enc_out.shape
+    return tuple(_proj(lp["xattn"][key], enc_out, policy, impl,
+                       X_ATTN[key]).reshape(b, t, cfg.n_heads, cfg.hd)
+                 for key in ("k", "v"))
+
+
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
+    """Prefill of decoder layer i -> (x, (self (k, v), cross (k, v)));
+    ``aux`` holds the encoder output."""
+    del i
+    h = nnl.layernorm_apply(lp["ln1"], x)
+    o, kv = attn.gqa_prefill(lp["attn"], h, policy, n_heads=cfg.n_heads,
+                             n_kv=cfg.n_heads, head_dim=cfg.hd, sin=None,
+                             cos=None, causal=True, rope=False, impl=impl,
+                             chunk=cfg.attn_chunk, names=DEC_ATTN)
+    x = x + o
+    h = nnl.layernorm_apply(lp["ln_x"], x)
+    q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"]).reshape(
+        *h.shape[:2], cfg.n_heads, cfg.hd)
+    k, v = _cross_kv(cfg, lp, aux["enc_out"], policy, impl)
+    o = attn.chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    x = x + _proj(lp["xattn"]["o"], o.reshape(*h.shape[:2], -1), policy,
+                  impl, X_ATTN["o"])
+    x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy, impl,
+                 "dec_mlp")
+    return x, (kv, (k, v))
+
+
+def _zero_frames(cfg, b, device):
+    return torch.zeros((b, cfg.n_audio, cfg.d_model), dtype=torch.bfloat16,
+                       device=device)
+
+
+def _prefill_inputs(cfg, params, tokens, frames, policy, impl):
+    """Embedded tokens plus positions, and the encoder output."""
+    b, s = tokens.shape
+    if frames is None:
+        frames = _zero_frames(cfg, b, tokens.device)
+    enc_out = encode(cfg, params, frames, policy, impl=impl)
+    x = nnl.embed_serve_apply(params["embed"], tokens)
+    x = x + _sinusoid(_positions(b, s, tokens.device),
+                      cfg.d_model).to(x.dtype)
+    return x, {"enc_out": enc_out}
+
+
+def _head(cfg, params, x, policy, impl):
+    x = nnl.layernorm_apply(params["dec_norm"], x)
+    logits = _proj(params["head"], x, policy, impl, "head",
+                   layer_class="boundary")
+    return logits[..., :cfg.vocab]  # drop the vocab padding
+
+
+def prefill(cfg: WhisperConfig, params, tokens: torch.Tensor, policy, *,
+            frames: Optional[torch.Tensor] = None, impl: str = "auto"):
+    """tokens (B, S), frames (B, n_audio, D) (zeros when None) ->
+    (last-token logits (B, V), ``{"self": [(k, v)], "cross": [(k, v)]}``)."""
+    x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl)
+    cache = {"self": [], "cross": []}
+    for i, lp in enumerate(params["dec_layers"]):
+        x, (kv, xkv) = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl)
+        cache["self"].append(kv)
+        cache["cross"].append(xkv)
+    return _head(cfg, params, x[:, -1:, :], policy, impl)[:, 0, :], cache
+
+
+def cache_specs(cfg: WhisperConfig, batch: int, max_len: int,
+                policy=None) -> Dict[str, List]:
+    del policy
+    kv = lambda s: ParamSpec(shape=(batch, s, cfg.n_heads, cfg.hd),  # noqa
+                             dtype=torch.bfloat16, init="zeros")
+    return {"self": [(kv(max_len), kv(max_len))
+                     for _ in range(cfg.n_layers)],
+            "cross": [(kv(cfg.n_audio), kv(cfg.n_audio))
+                      for _ in range(cfg.n_layers)]}
+
+
+def decode_step(cfg: WhisperConfig, params, cache, tokens: torch.Tensor,
+                length: int, policy, *, impl: str = "auto"):
+    """One token per row at ``length`` -> (logits (B, V), cache); the self
+    cache is written in place, the cross K/V only read."""
+    b = tokens.shape[0]
+    x = nnl.embed_serve_apply(params["embed"], tokens)
+    pos = torch.full((b, 1), length, device=tokens.device)
+    x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    for lp, sc, (ck, cv) in zip(params["dec_layers"], cache["self"],
+                                cache["cross"]):
+        h = nnl.layernorm_apply(lp["ln1"], x)
+        o, _ = attn.gqa_decode(lp["attn"], h, sc, length, policy,
+                               n_heads=cfg.n_heads, n_kv=cfg.n_heads,
+                               head_dim=cfg.hd, sin=None, cos=None,
+                               rope=False, impl=impl, names=DEC_ATTN)
+        x = x + o
+        h = nnl.layernorm_apply(lp["ln_x"], x)
+        q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"]).reshape(
+            b, 1, cfg.n_heads, cfg.hd)
+        o = attn.decode_attention(q, ck, cv, cfg.n_audio)
+        x = x + _proj(lp["xattn"]["o"], o.reshape(b, 1, -1), policy, impl,
+                      X_ATTN["o"])
+        x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
+                     impl, "dec_mlp")
+    return _head(cfg, params, x, policy, impl)[:, 0, :], cache
+
+
+# --- workload descriptions (DSE, planner, roofline) --------------------------
+
+
+def gemm_workload(cfg: WhisperConfig, tokens: int,
+                  frames: Optional[int] = None) -> List[Gemm]:
+    frames = frames or cfg.n_audio
+    d, hd, h = cfg.d_model, cfg.hd, cfg.n_heads
+    n = cfg.n_layers
+    return [
+        Gemm("enc_qkvo", frames, d, h * hd, count=4 * n),
+        Gemm("enc_mlp", frames, d, cfg.d_ff, count=2 * n),
+        Gemm("dec_self_qkvo", tokens, d, h * hd, count=4 * n),
+        Gemm("dec_cross_q", tokens, d, h * hd, count=2 * n),
+        Gemm("dec_cross_kv", frames, d, h * hd, count=2 * n),
+        Gemm("dec_mlp", tokens, d, cfg.d_ff, count=2 * n),
+        Gemm("head", tokens, d, cfg.vocab, layer_class="boundary"),
+    ]
+
+
+def active_params(cfg: WhisperConfig) -> int:
+    d, hd, h, n = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_layers
+    enc = n * (4 * d * h * hd + 2 * d * cfg.d_ff)
+    dec = n * (8 * d * h * hd + 2 * d * cfg.d_ff)
+    return enc + dec + 2 * cfg.vocab * d
+
+
+total_params = active_params
+
+
+def model_flops(cfg: WhisperConfig, *, tokens: int, step: str) -> float:
+    return (6.0 if step == "train" else 2.0) * active_params(cfg) * tokens

@@ -28,8 +28,12 @@ at a time, so that a row's bits do not depend on the batch (cuBLAS picks
 its kernel by the batch count too); decode's products are the fixed-order
 form already.
 
-The reference's non-causal / windowed / rotary-free block options (whisper,
-recurrentgemma) and the sharded (mesh) branches are not ported yet.
+The GQA block takes the reference's other options: ``causal=False`` and
+``rope=False`` (whisper's encoder and decoder), ``window=`` (recurrentgemma's
+local attention, on K3 in serve mode with ``attn_impl='flash'`` as the
+reference reaches its Pallas kernel there) and ``names=``, the family's map
+from projection to plan-layer name (``GQA_NAMES`` by default).  The
+sharded (mesh) branches are not ported yet.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = [
-    "NEG_INF", "chunked_attention", "decode_attention",
+    "NEG_INF", "GQA_NAMES", "chunked_attention", "decode_attention",
     "decode_attention_streamed", "gqa_spec", "gqa_serve_spec", "gqa_prefill",
     "gqa_decode", "gqa_verify", "mla_spec", "mla_prefill", "mla_decode",
     "mla_verify",
@@ -222,15 +226,23 @@ def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
 # --- the GQA block ---------------------------------------------------------------
 
 
-def _gqa_names(lname: str) -> Dict[str, str]:
-    """Workload layer names of the four projections: ``lname`` + q/k/v/o."""
-    return {k: lname + k for k in ("q", "k", "v", "o")}
+GQA_NAMES = {k: k for k in ("q", "k", "v", "o")}
+
+
+def _gqa_names(lname: str, names: Optional[Dict[str, str]] = None
+               ) -> Dict[str, str]:
+    """Workload layer names of the four projections: the scope prefix
+    ``lname`` + the family's base names (``GQA_NAMES``, or e.g. whisper's
+    map of all four to 'enc_qkvo')."""
+    base = names or GQA_NAMES
+    return {k: lname + base[k] for k in ("q", "k", "v", "o")}
 
 
 def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
-             lname: str = "") -> Dict[str, Dict[str, ParamSpec]]:
+             lname: str = "", names: Optional[Dict[str, str]] = None
+             ) -> Dict[str, Dict[str, ParamSpec]]:
     """Train-mode (float QAT) spec of the four projections."""
-    nm = _gqa_names(lname)
+    nm = _gqa_names(lname, names)
     return {
         "q": Q.qlinear_spec(d_model, n_heads * head_dim, name=nm["q"]),
         "k": Q.qlinear_spec(d_model, n_kv * head_dim, name=nm["k"]),
@@ -240,9 +252,10 @@ def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
 
 
 def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
-                   policy, lname: str = ""):
+                   policy, lname: str = "",
+                   names: Optional[Dict[str, str]] = None):
     """Serve-mode (packed) spec of the four projections."""
-    nm = _gqa_names(lname)
+    nm = _gqa_names(lname, names)
     mk = Q.qlinear_serve_spec
     return {
         "q": mk(d_model, n_heads * head_dim, policy=policy, name=nm["q"]),
@@ -252,22 +265,30 @@ def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     }
 
 
-def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm):
-    """The q/k/v projections, rotary applied to q and k."""
+def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm,
+         rope=True):
+    """The q/k/v projections, rotary applied to q and k (``rope``)."""
     b, s, _ = x.shape
     proj = lambda key, n: Q.qlinear_serve_apply(  # noqa: E731
         p[key], x, policy, impl=impl, name=nm[key]).reshape(b, s, n, head_dim)
     q, k, v = proj("q", n_heads), proj("k", n_kv), proj("v", n_kv)
+    if not rope:
+        return q, k, v
     return (layers.apply_rotary(q, sin, cos), layers.apply_rotary(k, sin, cos),
             v)
 
 
 def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
                 n_kv: int, head_dim: int, sin: torch.Tensor,
-                cos: torch.Tensor, chunk: int = 1024, impl: str = "auto",
-                attn_impl: str = "xla", lname: str = "", kv_fmts=None,
+                cos: torch.Tensor, causal: bool = True,
+                window: Optional[int] = None, rope: bool = True,
+                chunk: int = 1024, impl: str = "auto",
+                attn_impl: str = "xla", lname: str = "",
+                names: Optional[Dict[str, str]] = None, kv_fmts=None,
                 kv_store: str = "packed"):
-    """Causal serve prefill of one GQA block -> (out (B, S, D), cache).
+    """Serve prefill of one GQA block -> (out (B, S, D), cache): causal
+    (else bidirectional), over the last ``window`` keys when given, with
+    rotary q/k unless ``rope=False``.
 
     With ``kv_fmts=None`` the cache is the bf16 ``(k, v)`` pair (B, S, KV,
     Dh).  A kv-quantizing layer passes ``(fmt_k, fmt_v)`` (either may be None,
@@ -276,9 +297,10 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     the cache is ``{"k": leaf, "v": leaf}`` of packed leaves (store
     'packed') or the bf16 pair of grid values (store 'qdq')."""
     b, s, _ = x.shape
-    nm = _gqa_names(lname)
+    nm = _gqa_names(lname, names)
     q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
-                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm)
+                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
+                   rope=rope)
     fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
     packed = kv_fmts is not None and kv_store == "packed"
     kq = kvcache.pack_kv(k, fmt_k) if packed and fmt_k is not None else None
@@ -286,6 +308,7 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     if attn_impl == "flash" and kq is not None and vq is not None:
         # K4: the codes travel to the kernel, never bf16 K/V
         o = flash_ops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
+                                             causal=causal, window=window,
                                              block_k=chunk, impl=impl)
     else:
         # grid values in bf16; unpack_kv(pack_kv(x)) == qdq_kv(x) bitwise
@@ -296,10 +319,13 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
             v = (kvcache.unpack_kv(vq, fmt_v) if vq is not None
                  else kvcache.qdq_kv(v, fmt_v))
         if attn_impl == "flash":
-            o = flash_ops.flash_attention(q, k, v, block_k=chunk, impl=impl)
+            o = flash_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window, block_k=chunk,
+                                          impl=impl)
         elif attn_impl == "xla":
             o = chunked_attention(q, _repeat_kv(k, n_heads // n_kv),
-                                  _repeat_kv(v, n_heads // n_kv), chunk=chunk)
+                                  _repeat_kv(v, n_heads // n_kv),
+                                  causal=causal, window=window, chunk=chunk)
         else:
             raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                              f"{attn_impl!r}")
@@ -334,8 +360,10 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy,
 
 def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                n_heads: int, n_kv: int, head_dim: int, sin: torch.Tensor,
-               cos: torch.Tensor, impl: str = "auto", attn_impl: str = "xla",
-               lname: str = "", kv_fmts=None, kv_store: str = "packed"):
+               cos: torch.Tensor, window: Optional[int] = None,
+               rope: bool = True, impl: str = "auto", attn_impl: str = "xla",
+               lname: str = "", names: Optional[Dict[str, str]] = None,
+               kv_fmts=None, kv_store: str = "packed"):
     """T-token cache extension, the verify step of speculative decoding.
 
     x (B, T, D): the T candidate tokens land at cache positions ``length ..
@@ -352,9 +380,10 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     same function within K4's contract (one bf16 ulp), not bitwise.
     Returns (out (B, T, D), cache)."""
     b, t_new = x.shape[0], x.shape[1]
-    nm = _gqa_names(lname)
+    nm = _gqa_names(lname, names)
     q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
-                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm)
+                   head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
+                   rope=rope)
     fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
     packed = kv_fmts is not None and kv_store == "packed"
     if packed:
@@ -375,18 +404,20 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     if attn_impl == "flash" and packed and fmt_k is not None \
             and fmt_v is not None:
         o = flash_ops.flash_attention_packed(q, ck, cv, fmt_k, fmt_v,
-                                             q_offset=length, impl=impl)
+                                             window=window, q_offset=length,
+                                             impl=impl)
     elif attn_impl not in ("flash", "xla"):
         raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                          f"{attn_impl!r}")
     elif kv_fmts is not None:
         fk, fv = (fmt_k, fmt_v) if packed else (None, None)
         o = torch.cat([decode_attention_streamed(q[:, t:t + 1], ck, cv, fk,
-                                                 fv, length + 1 + t)
+                                                 fv, length + 1 + t,
+                                                 window=window)
                        for t in range(t_new)], dim=1)
     else:
         o = torch.cat([decode_attention(q[:, t:t + 1], ck, cv,
-                                        length + 1 + t)
+                                        length + 1 + t, window=window)
                        for t in range(t_new)], dim=1)
     o = o.reshape(b, t_new, n_heads * head_dim)
     out = Q.qlinear_serve_apply(p["o"], o, policy, impl=impl, name=nm["o"])

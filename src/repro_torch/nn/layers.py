@@ -4,7 +4,9 @@ int8 serve form, rotary position embeddings and the MLP activations.
 Norms and rotary run in f32 and cast back to the input's dtype, as in the
 JAX package.  ``rsqrt``, ``sin``/``cos`` and ``silu`` are not bitwise equal
 between the two frameworks, so the LM is held to the JAX package by
-tolerance.  The causal depthwise conv waits for the SSM models.
+tolerance.  The causal depthwise conv of the SSM and RG-LRU blocks keeps
+the reference's two forms: the prefill's four bf16 multiply-adds in order,
+and the decode step's one bf16 product-sum over the window.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ __all__ = [
     "pad_vocab", "embed_spec", "embed_serve_spec", "embed_serve_apply",
     "pack_embed",
     "rotary_cache", "apply_rotary",
-    "squared_relu", "swiglu_combine", "gelu",
+    "squared_relu", "swiglu_combine", "gelu", "softplus",
+    "conv1d_spec", "causal_conv1d", "causal_conv1d_step",
 ]
 
 
@@ -148,9 +151,62 @@ def squared_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    """jax.nn.gelu(approximate=True) as the JAX package computes it: each
+    operation in x's dtype and rounded there, the constants rounded to it
+    first (``F.gelu`` rounds once from f32 and differs in about half of
+    bf16 outputs)."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa
+    inner = x + c(0.044715) * (x * x * x)
+    cdf = c(0.5) * (c(1.0) + torch.tanh(c(0.7978845608028654) * inner))
+    return x * cdf
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def swiglu_combine(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate.to(torch.float32)).to(gate.dtype) * up
 
+
+
+# --- causal depthwise conv (mamba2, recurrentgemma) ----------------------------
+
+
+def conv1d_spec(channels: int, width: int = 4) -> Dict[str, ParamSpec]:
+    return {
+        "w": ParamSpec(shape=(width, channels), init="normal",
+                       fan_in_axes=(0,)),
+        "b": ParamSpec(shape=(channels,), init="zeros"),
+    }
+
+
+def causal_conv1d(p, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, C) -> the depthwise causal conv of width W, left-padded:
+    W multiply-adds in x's dtype, in tap order, each rounded as the
+    reference's unrolled loop rounds them."""
+    w = p["w"].to(x.dtype)  # (W, C)
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + xp[:, i:i + s, :] * w[i]
+    return out + p["b"].to(x.dtype)
+
+
+def causal_conv1d_step(p, cache: torch.Tensor, x_t: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode step: cache (B, W-1, C) past inputs, x_t (B, C) -> (the
+    shifted cache, y (B, C)).  y is the reference's one product-sum over
+    the window in f32, rounded once to x's dtype; the sum runs tap by tap
+    as elementwise operations, so a row's bits do not depend on the batch
+    (a batched product would pick its kernel by the shape on a card)."""
+    w = p["w"].to(x_t.dtype)
+    window = torch.cat([cache, x_t[:, None, :]], dim=1)  # (B, W, C)
+    wf, xf = w.to(torch.float32), window.to(torch.float32)
+    acc = xf[:, 0] * wf[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + xf[:, i] * wf[i]
+    y = acc.to(x_t.dtype) + p["b"].to(x_t.dtype)
+    return window[:, 1:, :], y

@@ -1,0 +1,174 @@
+"""RG-LRU recurrent block, serve half (port of ``repro.nn.rglru``; Griffin /
+RecurrentGemma):
+
+    r_t = sigmoid(W_a x_t)          recurrence gate
+    i_t = sigmoid(W_x x_t)          input gate
+    a_t = exp(-c * softplus(L) * r_t)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The prefill runs the linear recurrence as ``jax.lax.associative_scan``
+does (``associative_scan`` below: its odd/even recursion over the same
+slices, so each element is combined in the same order and rounded the
+same way); decode is the one-step recurrence.  The five projections run
+on K1 through ``nn.quantized``'s serve path; ``lam`` and the state stay
+f32.  Everything past the projections is elementwise, so a row's bits do
+not depend on the batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.nn import layers
+from repro_torch.nn import quantized as Q
+from repro_torch.nn.param import ParamSpec
+
+__all__ = ["RGLRUConfig", "rglru_block_spec", "rglru_block_forward",
+           "rglru_block_step", "rglru_state_spec", "associative_scan",
+           "linear_combine"]
+
+_C = 8.0  # Griffin's fixed temperature
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    d_model: int
+    d_rnn: int
+    conv_width: int = 4
+
+
+def rglru_block_spec(cfg: RGLRUConfig, *, serve: bool = False,
+                     policy=None) -> Dict:
+    """Plan-layer names = recurrentgemma's ``gemm_workload`` names:
+    ``rnn_in`` covers both input projections, ``rnn_gates`` the recurrence
+    gates."""
+    if serve:
+        mk = lambda i, o, nm: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, policy=policy, name=nm)
+    else:
+        mk = lambda i, o, nm: Q.qlinear_spec(i, o, name=nm)  # noqa: E731
+    d, dr = cfg.d_model, cfg.d_rnn
+    return {
+        "in_x": mk(d, dr, "rnn_in"),
+        "in_gate": mk(d, dr, "rnn_in"),
+        "w_a": mk(dr, dr, "rnn_gates"),
+        "w_x": mk(dr, dr, "rnn_gates"),
+        "out": mk(dr, d, "rnn_out"),
+        "conv": layers.conv1d_spec(dr, cfg.conv_width),
+        "lam": ParamSpec(shape=(dr,), init="constant", const=0.7),
+    }
+
+
+def rglru_state_spec(cfg: RGLRUConfig, batch: int) -> Dict[str, ParamSpec]:
+    return {"h": ParamSpec(shape=(batch, cfg.d_rnn), init="zeros"),
+            "conv": ParamSpec(shape=(batch, cfg.conv_width - 1, cfg.d_rnn),
+                              init="zeros")}
+
+
+def _proj(p, x, policy, impl, name):
+    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+
+
+def _gates(p, xb, policy, impl):
+    """xb (..., d_rnn) -> (a, gated input) in f32."""
+    r = torch.sigmoid(_proj(p["w_a"], xb, policy, impl,
+                            "rnn_gates").to(torch.float32))
+    i = torch.sigmoid(_proj(p["w_x"], xb, policy, impl,
+                            "rnn_gates").to(torch.float32))
+    log_a = -_C * layers.softplus(p["lam"].to(torch.float32)) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    return a, beta * i * xb.to(torch.float32)
+
+
+def linear_combine(left, right):
+    """The recurrence's monoid: (a1, b1) then (a2, b2) -> (a1 a2,
+    a2 b1 + b2), the product and the sum each rounded (no FMA), as the
+    JAX package computes them op by op."""
+    a1, b1 = left
+    a2, b2 = right
+    return [a1 * a2, a2 * b1 + b2]
+
+
+def _slice(x: torch.Tensor, axis: int, start: int, stop: Optional[int],
+           step: int = 1) -> torch.Tensor:
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(start, stop, step)
+    return x[tuple(idx)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+    """a at the even positions of ``axis``, b at the odd ones (a may hold
+    one more)."""
+    n = a.shape[axis] + b.shape[axis]
+    shape = list(a.shape)
+    shape[axis] = n
+    out = a.new_empty(shape)
+    _slice(out, axis, 0, None, 2).copy_(a)
+    _slice(out, axis, 1, None, 2).copy_(b)
+    return out
+
+
+def associative_scan(fn: Callable, elems: List[torch.Tensor],
+                     axis: int = 0) -> List[torch.Tensor]:
+    """Inclusive scan of ``fn`` over ``axis`` by ``jax.lax.associative_scan``'s
+    recursion: combine adjacent pairs, scan the pairs, then fill in the
+    even positions -- the same combines on the same operands in the same
+    order, so an elementwise ``fn`` rounds as the JAX package's does."""
+    n = elems[0].shape[axis]
+    if n < 2:
+        return elems
+    reduced = fn([_slice(e, axis, 0, -1, 2) for e in elems],
+                 [_slice(e, axis, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, axis)
+    if n % 2 == 0:
+        even = fn([_slice(e, axis, 0, -1) for e in odd],
+                  [_slice(e, axis, 2, None, 2) for e in elems])
+    else:
+        even = fn(odd, [_slice(e, axis, 2, None, 2) for e in elems])
+    even = [torch.cat([_slice(e, axis, 0, 1), r], dim=axis)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, axis) for e, o in zip(even, odd)]
+
+
+def rglru_block_forward(p: Dict, x: torch.Tensor, policy, cfg: RGLRUConfig,
+                        *, impl: str = "auto",
+                        h0: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, D) -> (out (B, S, D), {"h": (B, d_rnn), "conv": (B, W-1,
+    d_rnn)}); ``h0`` folds a carried state in as a step-0 contribution."""
+    xb = _proj(p["in_x"], x, policy, impl, "rnn_in")
+    gate = layers.gelu(_proj(p["in_gate"], x, policy, impl, "rnn_in"))
+    pre_conv = xb
+    xb = layers.causal_conv1d(p["conv"], xb)
+    a, b = _gates(p, xb, policy, impl)
+    if h0 is not None:
+        b = b.clone()
+        b[:, 0, :] = b[:, 0, :] + a[:, 0, :] * h0.to(torch.float32)
+    _, h_seq = associative_scan(linear_combine, [a, b], axis=1)
+    y = h_seq.to(x.dtype) * gate
+    out = _proj(p["out"], y, policy, impl, "rnn_out")
+    w1 = cfg.conv_width - 1
+    tail = pre_conv[:, -w1:, :].to(torch.float32)
+    if tail.shape[1] < w1:  # the reference's slice is as short as S
+        tail = torch.nn.functional.pad(tail, (0, 0, w1 - tail.shape[1], 0))
+    return out, {"h": h_seq[:, -1, :], "conv": tail}
+
+
+def rglru_block_step(p: Dict, x_t: torch.Tensor,
+                     state: Dict[str, torch.Tensor], policy,
+                     cfg: RGLRUConfig, *, impl: str = "auto"
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token step: x_t (B, 1, D) -> (out (B, 1, D), new state)."""
+    xb = _proj(p["in_x"], x_t, policy, impl, "rnn_in")[:, 0]
+    gate = layers.gelu(_proj(p["in_gate"], x_t, policy, impl,
+                             "rnn_in"))[:, 0]
+    conv_cache, xbc = layers.causal_conv1d_step(
+        p["conv"], state["conv"].to(xb.dtype), xb)
+    a, b = _gates(p, xbc, policy, impl)
+    h = a * state["h"] + b
+    y = (h.to(x_t.dtype) * gate)[:, None, :]
+    out = _proj(p["out"], y, policy, impl, "rnn_out")
+    return out, {"h": h, "conv": conv_cache.to(torch.float32)}

@@ -1,0 +1,238 @@
+"""Mamba-2 SSD block, serve half (port of ``repro.nn.ssm``): the chunked
+prefill and the constant-state decode step.
+
+The chunked SSD algorithm (Dao & Gu 2024) splits the sequence into chunks
+of Q tokens: inside a chunk the recurrence is a masked quadratic form,
+across chunks a (B, H, N, P) state is carried by a scan.  The four
+projections (``in_xbc``, ``in_z``, ``in_dt``, ``out``) run on K1 through
+``nn.quantized``'s serve path; the state, the scan and every einsum stay
+in f32, as in the reference.
+
+The prompt is padded up to a multiple of ``chunk`` upstream, and the pad
+tokens must not touch the state.  The reference lets them (ROADMAP Queue 3
+R6): a pad's ``softplus(dt + dt_bias)`` is positive, so it decays the
+state, its conv output carries the bias and the real tokens' tails into
+the state, and the conv cache becomes the pad's zeros.  Here ``dt`` is 0 at
+every position at or past ``valid`` (decay 1, input 0), and the conv cache
+is the last ``conv_width - 1`` real pre-conv rows, zero-filled on the left
+for a prompt shorter than that.  Real positions' outputs are unchanged:
+the conv is causal and the quadratic form sums over earlier positions
+only.
+
+On a card the einsums run one batch row at a time and the decode step's
+products as elementwise products plus one sum over the last axis, so a
+row's bits do not depend on the batch it is served in (cuBLAS and torch's
+reductions pick their kernels by the shape); on the CPU the batched forms
+already compute each row alone.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn import layers
+from repro_torch.nn import quantized as Q
+from repro_torch.nn.param import ParamSpec
+
+__all__ = ["SSMConfig", "ssm_spec", "ssd_forward", "ssd_decode_step",
+           "ssm_state_spec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_model: int
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 128
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+def ssm_spec(cfg: SSMConfig, *, serve: bool = False, policy=None) -> Dict:
+    """The block's parameters; the projections' spec names double as the
+    plan-layer names (mamba2's ``gemm_workload`` names)."""
+    if serve:
+        mk = lambda i, o, nm: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, policy=policy, name=nm)
+    else:
+        mk = lambda i, o, nm: Q.qlinear_spec(i, o, name=nm)  # noqa: E731
+    d, di = cfg.d_model, cfg.d_inner
+    gn = cfg.n_groups * cfg.d_state
+    h = cfg.n_heads
+    return {
+        "in_xbc": mk(d, di + 2 * gn, "in_xbc"),
+        "in_z": mk(d, di, "in_z"),
+        "in_dt": mk(d, h, "in_dt"),
+        "out": mk(di, d, "out"),
+        "conv": layers.conv1d_spec(cfg.conv_channels, cfg.conv_width),
+        "A_log": ParamSpec(shape=(h,), init="constant", const=0.0),
+        "D": ParamSpec(shape=(h,), init="ones"),
+        "dt_bias": ParamSpec(shape=(h,), init="zeros"),
+        "norm": layers.rmsnorm_spec(di),
+    }
+
+
+def ssm_state_spec(cfg: SSMConfig, batch: int) -> Dict[str, ParamSpec]:
+    return {
+        "ssm": ParamSpec(shape=(batch, cfg.n_heads, cfg.d_state,
+                                cfg.head_dim), init="zeros"),
+        "conv": ParamSpec(shape=(batch, cfg.conv_width - 1,
+                                 cfg.conv_channels), init="zeros"),
+    }
+
+
+def _proj(p, x, policy, impl, name):
+    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+
+
+def _split_xbc(xbc, cfg: SSMConfig):
+    di, gn = cfg.d_inner, cfg.n_groups * cfg.d_state
+    return xbc[..., :di], xbc[..., di:di + gn], xbc[..., di + gn:]
+
+
+def _gated_norm(pn, y, z):
+    return layers.rmsnorm_apply(
+        pn, y * F.silu(z.to(torch.float32)).to(y.dtype))
+
+
+def _ssd_chunks(xh, bm, cm, dtp, a, q: int):
+    """The chunked SSD of rows (B, S, ...): xh (B, S, H, P), bm/cm (B, S,
+    H, N), dtp (B, S, H), all f32, a (H,) -> (y (B, S, H, P) without the D
+    skip, the final state (B, H, N, P))."""
+    b, s, h, pdim = xh.shape
+    n = bm.shape[-1]
+    nc = s // q
+    xc = xh.reshape(b, nc, q, h, pdim)
+    bc = bm.reshape(b, nc, q, h, n)
+    cc = cm.reshape(b, nc, q, h, n)
+    dtc = dtp.reshape(b, nc, q, h)
+    cum = torch.cumsum((dtp * a).reshape(b, nc, q, h), dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Qi, Qj, H)
+    ii = torch.arange(q, device=xh.device)
+    lmask = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    ldecay = torch.where(lmask, torch.exp(seg), torch.zeros_like(seg))
+    cb = torch.einsum("bcihn,bcjhn->bcijh", cc, bc)
+    y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", cb * ldecay, dtc, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    states = torch.einsum("bcjh,bcjh,bcjhn,bcjhp->bchnp", decay_to_end, dtc,
+                          bc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
+    carry = torch.zeros((b, h, n, pdim), dtype=torch.float32,
+                        device=xh.device)
+    prev = []
+    for c in range(nc):  # emit the state entering chunk c
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (B, nc, H, N, P)
+    y_off = torch.einsum("bcihn,bchnp,bcih->bcihp", cc, prev_states,
+                         torch.exp(cum))
+    return (y_diag + y_off).reshape(b, s, h, pdim), carry
+
+
+def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
+                impl: str = "auto", valid: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x_in (B, S, D), S a multiple of ``cfg.chunk`` -> (out (B, S, D), the
+    recurrent state after the first ``valid`` positions (all of S by
+    default): ``{"ssm": (B, H, N, P), "conv": (B, W-1, C)}``, f32).
+    Positions at or past ``valid`` are padding and leave the state alone."""
+    b, s, _ = x_in.shape
+    h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
+    if s % cfg.chunk:
+        raise ValueError(f"S={s} is not a multiple of chunk {cfg.chunk}")
+    valid = s if valid is None else valid
+    xbc = _proj(p["in_xbc"], x_in, policy, impl, "in_xbc")
+    z = _proj(p["in_z"], x_in, policy, impl, "in_z")
+    dt = _proj(p["in_dt"], x_in, policy, impl, "in_dt")
+    pre_conv = F.silu(xbc.to(torch.float32)).to(xbc.dtype)
+    xbc = layers.causal_conv1d(p["conv"], pre_conv)
+    xr, bmat, cmat = _split_xbc(xbc, cfg)
+    xh = xr.reshape(b, s, h, pdim).to(torch.float32)
+    bm = torch.repeat_interleave(
+        bmat.reshape(b, s, g, n).to(torch.float32), h // g, dim=2)
+    cm = torch.repeat_interleave(
+        cmat.reshape(b, s, g, n).to(torch.float32), h // g, dim=2)
+    a = -torch.exp(p["A_log"].to(torch.float32))
+    dtp = layers.softplus(dt.to(torch.float32)
+                          + p["dt_bias"].to(torch.float32))
+    if valid < s:  # the pad tokens: decay 1, input 0
+        dtp = torch.cat([dtp[:, :valid], torch.zeros_like(dtp[:, valid:])],
+                        dim=1)
+    if x_in.is_cuda:  # one row at a time: the same bits in any batch
+        parts = [_ssd_chunks(xh[i:i + 1], bm[i:i + 1], cm[i:i + 1],
+                             dtp[i:i + 1], a, cfg.chunk) for i in range(b)]
+        y = torch.cat([pt[0] for pt in parts])
+        final = torch.cat([pt[1] for pt in parts])
+    else:
+        y, final = _ssd_chunks(xh, bm, cm, dtp, a, cfg.chunk)
+    y = y + p["D"].to(torch.float32)[None, None, :, None] * xh
+    y = y.reshape(b, s, cfg.d_inner).to(x_in.dtype)
+    y = _gated_norm(p["norm"], y, z)
+    out = _proj(p["out"], y, policy, impl, "out")
+    w1 = cfg.conv_width - 1
+    tail = pre_conv[:, max(0, valid - w1):valid, :].to(torch.float32)
+    if tail.shape[1] < w1:
+        tail = F.pad(tail, (0, 0, w1 - tail.shape[1], 0))
+    return out, {"ssm": final, "conv": tail}
+
+
+def _contract_n(cv: torch.Tensor, s_new: torch.Tensor) -> torch.Tensor:
+    """einsum('bhn,bhnp->bhp') in f32.  On a card: the elementwise product
+    into a buffer laid out with N last, then one sum over that axis (the
+    decode attention's fixed-order form); on the CPU the einsum."""
+    if not cv.is_cuda:
+        return torch.einsum("bhn,bhnp->bhp", cv, s_new)
+    a, bb = cv[:, :, None, :], s_new.transpose(-1, -2)
+    buf = torch.empty(torch.broadcast_shapes(a.shape, bb.shape),
+                      dtype=torch.float32, device=cv.device)
+    return torch.mul(a, bb, out=buf).sum(-1)
+
+
+def ssd_decode_step(p: Dict, x_t: torch.Tensor, state: Dict[str, torch.Tensor],
+                    policy, cfg: SSMConfig, *, impl: str = "auto"
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token recurrence: x_t (B, 1, D), ``state`` from
+    ``ssm_state_spec`` -> (out (B, 1, D), the new state)."""
+    b = x_t.shape[0]
+    h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
+    xbc = _proj(p["in_xbc"], x_t, policy, impl, "in_xbc")[:, 0]
+    z = _proj(p["in_z"], x_t, policy, impl, "in_z")[:, 0]
+    dt = _proj(p["in_dt"], x_t, policy, impl, "in_dt")[:, 0]
+    conv_cache, xbc = layers.causal_conv1d_step(
+        p["conv"], state["conv"].to(xbc.dtype),
+        F.silu(xbc.to(torch.float32)).to(xbc.dtype))
+    xr, bvec, cvec = _split_xbc(xbc, cfg)
+    xh = xr.reshape(b, h, pdim).to(torch.float32)
+    bv = torch.repeat_interleave(bvec.reshape(b, g, n).to(torch.float32),
+                                 h // g, dim=1)
+    cv = torch.repeat_interleave(cvec.reshape(b, g, n).to(torch.float32),
+                                 h // g, dim=1)
+    a = -torch.exp(p["A_log"].to(torch.float32))
+    dtp = layers.softplus(dt.to(torch.float32)
+                          + p["dt_bias"].to(torch.float32))
+    decay = torch.exp(dtp * a)  # (B, H)
+    # einsum('bh,bhn,bhp->bhnp') is an outer product: (dt * B) then * x
+    s_new = (state["ssm"] * decay[:, :, None, None]
+             + (dtp[:, :, None] * bv)[:, :, :, None] * xh[:, :, None, :])
+    y = _contract_n(cv, s_new)
+    y = y + p["D"].to(torch.float32)[None, :, None] * xh
+    y = y.reshape(b, 1, cfg.d_inner).to(x_t.dtype)
+    y = _gated_norm(p["norm"], y, z[:, None, :])
+    out = _proj(p["out"], y, policy, impl, "out")
+    return out, {"ssm": s_new, "conv": conv_cache.to(torch.float32)}

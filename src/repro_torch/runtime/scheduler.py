@@ -608,6 +608,9 @@ class GenerateScheduler(_SchedulerBase):
         self._speculative = bool(getattr(gen, "is_speculative", False))
         self.spec_k = int(gen.k) if self._speculative else 0
         self.api = gen.api_verify if self._speculative else gen.api
+        if self.api.needs_frames:
+            raise NotImplementedError(
+                "GenerateScheduler does not carry per-request audio frames")
         self.device = gen.device
         self.n_slots = int(slots)
         self.max_len = int(max_len)

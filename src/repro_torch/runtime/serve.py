@@ -4,8 +4,9 @@ deployment, greedy LM generation and bucketed image serving.
 ``pack_for_serving`` packs every linear of a trained LM tree at its own
 plan-resolved format and the embedding table to int8 codes;
 ``init_packed_lm`` does the same for random weights one layer at a time
-(an MoE layer's expert banks with it), so a full-width model never holds
-its float tree whole, and
+(an MoE layer's expert banks with it; every per-layer list of the tree --
+``layers``, whisper's ``enc_layers`` and ``dec_layers``), so a full-width
+model never holds its float tree whole, and
 ``init_packed_views`` packs each layer so drawn under several plans at
 once (the two views of speculative decoding).  ``Generator`` runs prefill
 and decode on packed weights; ``ImageServer`` batches CNN requests.  Both
@@ -71,18 +72,20 @@ def init_packed_views(api, policies, generator: torch.Generator,
     whole."""
     dev = resolve_device(device)
     tspecs = api.specs("train")
-    views = [{"layers": []} for _ in policies]
-    for key in ("embed", "final_norm", "head"):
+    stacks = [k for k, v in tspecs.items() if isinstance(v, list)]
+    views = [{k: [] for k in stacks} for _ in policies]
+    for key in (k for k in tspecs if k not in stacks):
         p = nnp.init_params(tspecs[key], generator, device=dev)
         for view, pol in zip(views, policies):
             q = Q.pack_tree(p, tspecs[key], pol)
             view[key] = _pack_embed(pol, q) if key == "embed" else q
         del p
-    for spec in tspecs["layers"]:
-        p = nnp.init_params(spec, generator, device=dev)
-        for view, pol in zip(views, policies):
-            view["layers"].append(Q.pack_tree(p, spec, pol))
-        del p
+    for key in stacks:
+        for spec in tspecs[key]:
+            p = nnp.init_params(spec, generator, device=dev)
+            for view, pol in zip(views, policies):
+                view[key].append(Q.pack_tree(p, spec, pol))
+            del p
     return views
 
 
@@ -111,13 +114,17 @@ class Generator:
     greedy head; ``generate(..., generator=...)`` hands it a seeded
     ``torch.Generator``.  The default stays ``argmax`` (first maximum).
 
+    An arch that takes audio frames (``api.needs_frames``, whisper) gets
+    them through ``run``/``generate(..., frames=)`` (B, n_audio, d_model),
+    zeros when omitted, as the reference does.
+
     Step hooks (what ``runtime.scheduler`` and ``runtime.specdec`` call):
-    ``_prefill(params, {"tokens": (B, S)})`` -> (logits (B, V), prefill
-    cache); ``_decode(params, cache, tokens (B, 1), length)`` -> (logits,
-    cache), the cache updated in place; ``_grow_cache(pre, b, s,
-    max_len)``.  With a live ``tracer`` each step records a ``prefill`` /
-    ``decode`` device span and ``metrics`` observes
-    ``repro_device_time_seconds``.
+    ``_prefill(params, {"tokens": (B, S)[, "frames"]})`` -> (logits (B, V),
+    prefill cache); ``_decode(params, cache, tokens (B, 1), length)`` ->
+    (logits, cache), the cache updated in place (a recurrent state is
+    replaced); ``_grow_cache(pre, b, s, max_len)``.  With a live
+    ``tracer`` each step records a ``prefill`` / ``decode`` device span
+    and ``metrics`` observes ``repro_device_time_seconds``.
     """
 
     api: Any
@@ -152,17 +159,36 @@ class Generator:
             return torch.argmax(logits, dim=-1)
         return self.sample_fn(logits, generator)
 
-    def prefill(self, tokens: torch.Tensor):
-        """tokens (B, S) on the device -> (logits (B, V), prefill cache)."""
-        return self._prefill(self.params, {"tokens": tokens})
+    def prefill(self, tokens: torch.Tensor,
+                frames: Optional[torch.Tensor] = None):
+        """tokens (B, S) on the device (and whisper's frames (B, n_audio,
+        d_model)) -> (logits (B, V), prefill cache)."""
+        batch = {"tokens": tokens}
+        if frames is not None:
+            batch["frames"] = frames
+        return self._prefill(self.params, batch)
 
     def decode(self, cache, tokens: torch.Tensor, length: int):
         """One step: tokens (B, 1) at ``length`` -> (logits (B, V), cache)."""
         return self._decode(self.params, cache, tokens, length)
 
+    def _frames(self, frames, b: int) -> Optional[torch.Tensor]:
+        """An arch's audio frames on the device (zeros when omitted), or
+        None for an arch that takes none."""
+        if not self.api.needs_frames:
+            if frames is not None:
+                raise ValueError(f"{self.api.name} takes no frames")
+            return None
+        if frames is None:
+            cfg = self.api.cfg
+            return torch.zeros((b, cfg.n_audio, cfg.d_model),
+                               dtype=torch.float32, device=self.device)
+        return torch.as_tensor(np.asarray(frames), device=self.device)
+
     def run(self, tokens: np.ndarray, n_new: int,
             forced: Optional[np.ndarray] = None,
-            generator: Optional[torch.Generator] = None
+            generator: Optional[torch.Generator] = None,
+            frames: Optional[np.ndarray] = None
             ) -> Tuple[np.ndarray, List[torch.Tensor]]:
         """Prefill, then ``n_new - 1`` decode steps -> (tokens (B, n_new),
         the logits of every step).  With ``forced`` (B, n_new) the decode
@@ -172,7 +198,7 @@ class Generator:
         with torch.inference_mode():
             toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                    device=self.device)
-            logits, pre = self.prefill(toks)
+            logits, pre = self.prefill(toks, self._frames(frames, b))
             cache = self._grow_cache(pre, b, s, s + n_new)
             out, all_logits = [], [logits]
             tok = self._sample(logits, generator)
@@ -187,15 +213,28 @@ class Generator:
             return torch.stack(out, dim=1).cpu().numpy(), all_logits
 
     def generate(self, tokens: np.ndarray, n_new: int,
-                 generator: Optional[torch.Generator] = None) -> np.ndarray:
+                 generator: Optional[torch.Generator] = None,
+                 frames: Optional[np.ndarray] = None) -> np.ndarray:
         """tokens (B, S) int -> the ``n_new`` generated tokens (B, n_new)."""
-        return self.run(tokens, n_new, generator=generator)[0]
+        return self.run(tokens, n_new, generator=generator,
+                        frames=frames)[0]
 
     @torch.inference_mode()
     def _grow_cache(self, pre_cache, b: int, s: int, max_len: int):
-        """Copy the prefill cache of ``b`` rows and ``s`` tokens into
-        decode-sized zero buffers of ``max_len`` (sequence axis
-        left-aligned); decode then writes into them in place."""
+        """The prefill cache of ``b`` rows and ``s`` tokens -> the decode
+        cache of ``max_len``, by family: an SSM's state is decode-sized
+        already; the hybrid's attention layers re-pack the prompt's last
+        keys into ring buffers (``models.recurrentgemma.ring_cache``); the
+        rest copy into zero buffers, sequence axis left-aligned.  Decode
+        then writes into them in place."""
+        family = self.api.family
+        if family == "ssm":
+            return pre_cache
+        specs = self.api.cache_specs(b, max_len)
+        if family == "hybrid":
+            return self.api.mod.ring_cache(self.api.cfg, pre_cache, s, specs,
+                                           self.device)
+
         def grow(spec, pre):
             buf = torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
             buf[tuple(slice(0, n) for n in pre.shape)] = pre
@@ -208,7 +247,7 @@ class Generator:
                 return {k: walk(spec[k], pre[k]) for k in spec}
             return type(spec)(walk(sp, p) for sp, p in zip(spec, pre))
 
-        return walk(self.api.cache_specs(b, max_len), pre_cache)
+        return walk(specs, pre_cache)
 
 
 @dataclasses.dataclass

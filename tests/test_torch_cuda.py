@@ -590,6 +590,39 @@ def test_head_dim_192_takes_bf16_only(cuda_device):
         fkernel.flash_fwd_cuda(q, q, q)
 
 
+# --- K3 at head dim 256 (recurrentgemma-9b's local MQA) ----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [dict(sq=600, sk=600, window=256),
+                                  dict(sq=300, sk=300),
+                                  dict(sq=9, sk=521, q_offset=512,
+                                       window=128)])
+def test_flash_fwd_at_head_dim_256(cuda_device, case):
+    """recurrentgemma's attention: 16 query heads on one KV head at D 256,
+    bf16, causal with a window (two blocks a head, each half of V's
+    columns), within one bf16 ulp of the plain version."""
+    case = dict(case)
+    sq, sk = case.pop("sq"), case.pop("sk")
+    gen = torch.Generator().manual_seed(sq + sk + 256)
+    q, k, v = _qkv(gen, 2, sq, sk, 16, 1, 256, torch.bfloat16)
+    dq, dk, dv = (t.to(cuda_device) for t in (q, k, v))
+    before = fkernel.flash_fwd_cuda.launches
+    got = fops.flash_attention(dq, dk, dv, impl="cuda", **case)
+    torch.cuda.synchronize()
+    assert fkernel.flash_fwd_cuda.launches == before + 1
+    _assert_attention_close(got, fops.flash_attention(q, k, v, impl="torch",
+                                                      **case))
+
+
+@pytest.mark.cuda
+def test_head_dim_256_is_k3_only_and_bf16_only(cuda_device):
+    q = torch.zeros((1, 4, 4, 256), device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        fkernel.flash_fwd_cuda(q, q, q)
+    assert 256 not in fkernel.PACKED_HEAD_DIMS
+
+
 # --- the MoE router: one token's scores at any batch -------------------------
 
 from repro_torch.nn import moe as nnmoe  # noqa: E402

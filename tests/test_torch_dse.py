@@ -38,7 +38,8 @@ from test_torch_roofline import tpu_hw  # noqa: E402
 
 EX = Path(__file__).resolve().parents[1] / "examples"
 
-ARCHS = ("resnet18", "resnet50", "resnet152", "granite-8b")
+ARCHS = ("resnet18", "resnet50", "resnet152", "granite-8b", "mamba2-1.3b",
+         "recurrentgemma-9b", "whisper-base")
 FORMATS = [(w, k) for w in (1, 2, 4, 8) for k in (1, 2, 4, 8)]
 TPU = tpu_hw()
 

@@ -200,7 +200,9 @@ def _verdicts(text):
 def _broken(tmp_path):
     """Broken copies of the shipped files: an unknown layer, a w_bits out
     of range, version 1 with kv keys, no arch, a kv entry on a CNN, an
-    unordered frontier and one pointing at a missing plan."""
+    unordered frontier and one pointing at a missing plan; and two valid
+    copies retargeted at mamba2-1.3b (a plan without layers, a one-point
+    frontier), an arch the port once lacked."""
     mixed = json.loads((ROOT / "examples/plans/resnet18_mixed.json")
                        .read_text())
     granite = json.loads((ROOT / "examples/plans/granite_8b_mixed.json")
@@ -219,7 +221,7 @@ def _broken(tmp_path):
     put("cnn_kv.json", dict(mixed, layers=dict(
         mixed["layers"], s0b0c1={"w_bits": 2, "k": 2, "kv_bits": 4})))
     put("not_json.json", "{not json")
-    put("unported.json", dict(mixed, arch="mamba2-1.3b", layers={}))
+    put("mamba2.json", dict(mixed, arch="mamba2-1.3b", layers={}))
     fr = json.loads((ROOT / "examples/frontiers/resnet18_frontier.json")
                     .read_text())
     fr["points"][1]["plan"] = str(ROOT / "examples/plans/resnet18_mixed.json")
@@ -227,7 +229,7 @@ def _broken(tmp_path):
     put("frontier_unordered.json", dict(fr, points=fr["points"][::-1]))
     put("frontier_missing.json", dict(fr, points=[
         dict(fr["points"][0]), {"plan": "nowhere.json"}]))
-    put("frontier_unported.json", dict(fr, arch="mamba2-1.3b", points=[
+    put("frontier_mamba2.json", dict(fr, arch="mamba2-1.3b", points=[
         dict(fr["points"][0], plan=dict(fr["points"][0]["plan"],
                                         arch="mamba2-1.3b"))]))
     return out
@@ -253,13 +255,12 @@ def test_cli_on_broken_copies_equals_reference(tmp_path, capsys):
         cmd = "validate-frontier" if name.startswith("frontier") \
             else "validate"
         rc, out = _run(tplan.main, [cmd, path], capsys)
-        if "unported" in name:  # repro has the arch; the port says so
-            assert rc == 2 and "not ported to repro_torch yet" in out, out
-            continue
         jrc, jout = _run(jplan.main, [cmd, path], capsys)
         assert (rc, _verdicts(out)) == (jrc, _verdicts(jout)), (name, out,
                                                                 jout)
-        if name != "frontier_abs.json":
+        if name in ("mamba2.json", "frontier_mamba2.json"):
+            assert rc == 0 and "mamba2-1.3b" in out, (name, out)
+        elif name != "frontier_abs.json":
             assert rc != 0, name
 
 
@@ -270,9 +271,11 @@ def test_cli_schema_only_and_unknown_arch(tmp_path, capsys):
     assert tplan.main(["validate", "--arch", "not-an-arch",
                        str(PLANS[0])]) == 2
     assert "unknown arch 'not-an-arch'" in capsys.readouterr().err
-    assert tplan.main(["validate", "--arch", "mamba2-1.3b",
-                       str(PLANS[0])]) == 2
-    assert "not ported" in capsys.readouterr().err
+    args = ["validate", "--arch", "mamba2-1.3b", PLANS[0]]
+    rc, out = _run(tplan.main, args, capsys)
+    jrc, jout = _run(jplan.main, args, capsys)
+    assert (rc, _verdicts(out)) == (jrc, _verdicts(jout)), (out, jout)
+    assert rc != 2 and "unknown arch" not in out
 
 
 @pytest.mark.parametrize("arch,layers,ok", [
