@@ -191,6 +191,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at D 256 against its bound and SDPA with the same window mask).  K1 at
    the new shapes (N 64, N 256, K 512) joins phase 2.
 
+14. QAT training (slice 10; ``repro``'s training path reaches no Pallas
+   kernel, so training runs torch's products under autograd, and the
+   trained weights go through the kernels).  (a) ResNet-18 at full width
+   (224x224, 1000 classes) under ``resnet18_mixed.json``, random weights
+   from a CUDA generator seeded 0: four ``make_train_step`` steps at batch
+   32 on ``SyntheticImages`` (loss and grad norm finite); one step's loss
+   and gradients on the card against the port's CPU ones on the same 2
+   images (loss within 2%; each weight leaf within 0.8 of its L2 norm,
+   each weight step nonzero where the CPU's is; the gate must also reject
+   the CPU's gradient of one image alone, a planted fault); BN
+   calibrated by ``apply_with_state(training=True)``; ``pack_for_serve``
+   and ``ImageServer.predict`` through K1/K2, counted as phase 4 counts,
+   the served logits correlated above 0.85 with the QAT eval forward (the
+   reference's ``test_serve_tracks_qat``).  (b) granite-8b at full width,
+   first 2 layers, default w4k4, remat 'dots': the ``Trainer`` for 6
+   steps (batch 4 x 1024, 2 microbatches, a checkpoint every 3 steps);
+   a fresh ``Trainer`` restored from step 3 and run to step 6, its
+   parameters, moments and losses bitwise the uninterrupted run's (the
+   reference's ``test_restart_equivalence_exact``); one microbatch
+   against two (loss within 2%, each gradient leaf, read back from the
+   step's first moment, within 0.02 of its L2 norm); a step under a
+   packed kv4 cache; ``pack_for_serving``
+   under w4k4 + kv4 and ``Generator`` (2 x 256 + 8 tokens) through K1
+   and K4, counted, the served logits correlated above 0.95 with the QAT
+   forward (``test_packed_serve_tracks_qat_logits``).  (c) ``python -m
+   repro_torch.launch.train --reduced`` then ``launch.serve --ckpt-dir``
+   as subprocesses.  ``[p14-time]`` lines: ms a step, images/s and
+   tokens/s trained, checkpoint save and restore, peak memory, and the
+   step's split (forward and backward, their bf16 products, a fake-quant
+   pass over the weights, AdamW, each timed alone).
+
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
 against the JAX package (numeric contract in
@@ -210,6 +241,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -217,6 +249,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# phase 14's train steps run deterministically: cuBLAS needs this before it
+# starts (the launch.train subprocess inherits it)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ARCH = "resnet18"
 PLAN = ROOT / "examples" / "plans" / "resnet18_mixed.json"
@@ -3547,6 +3582,493 @@ def phase_p13(sm, card):
     return launches, results
 
 
+# --- phase 14: QAT training --------------------------------------------------
+
+
+P14_CNN_BATCH, P14_CNN_STEPS = 32, 4
+P14_CPU_BATCH = 2         # images of the card-vs-CPU step
+P14_CALIB = 8             # BN calibration batches of P14_CNN_BATCH images
+P14_SERVE_IMAGES = 8
+P14_LM_DEPTH = 2
+P14_LM_BATCH, P14_LM_SEQ, P14_LM_MB = 4, 1024, 2
+P14_LM_STEPS, P14_CKPT_EVERY = 6, 3
+P14_LR = 1e-3
+P14_SERVE = (2, 256, 8)   # granite: prompts, prompt length, new tokens
+# Gradients are held leaf by leaf (tests/test_torch_resnet_step.py holds
+# the same leaves against the reference op by op on the CPU):
+# * the card's ResNet-18 step against the CPU's on the same params and
+#   batch-2 slice: both add the same bf16 products in another order, and a
+#   flipped 8-bit code moves every gradient behind it, so at full width a
+#   sound run differs from the CPU by up to 0.643 of a leaf's L2 norm (BN
+#   bias of s0b1; median 0.50; PERF.md).  The limit 0.8 passes that and
+#   fails a planted fault that the smoke computes every run: the CPU's
+#   gradient of the first image alone, over the limit on 55 of 61 leaves
+#   (worst 1.47).  A leaf zeroed or doubled gives 1.0.
+# * one microbatch against two (granite-8b): the same products, summed in
+#   another order: 0.0020 of the worst leaf; a missing 1/mb gives 1.0.
+# A step size's gradient (``gw``/``ga``) is a sum of nearly cancelling
+# terms, on the card and the CPU of opposite signs at times (6.2x the
+# CPU's value at worst): it is held to being finite, and a weight step
+# ``gw`` (f32 terms) to being nonzero exactly where the other side's is.
+P14_LOSS_RTOL = 2e-2
+P14_LEAF_RELL2_MAX = 0.8       # card vs CPU, ResNet-18, each weight leaf
+P14_MB_LEAF_RELL2_MAX = 0.02   # one microbatch vs two, granite, each leaf
+P14_QAT_CORR = {"resnet": 0.85, "granite": 0.95}  # the reference's tests
+STEP_SIZES = ("['ga']", "['gw']")
+
+
+def p14_step_grads(api, state, batch):
+    """One ``make_train_step`` from ``state`` with its moments zeroed ->
+    (metrics as floats, the gradient the step took).  From zero moments
+    AdamW's first moment is (1 - B1) times the clipped gradient, so the
+    gradient is read back from the new state: m / ((1 - B1) * clip), clip
+    = min(1, 1 / grad_norm)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import B1
+    from repro_torch.tree import tree_map
+    fresh = dict(state, opt=adamw_init(state["params"],
+                                       state_dtype=api.opt_dtype))
+    new, m = S.make_train_step(api, peak_lr=P14_LR)(fresh, batch)
+    m = {k: float(v) for k, v in m.items()}
+    clip = min(1.0, 1.0 / (m["grad_norm"] + 1e-12))
+    return m, tree_map(lambda x: x.float() / ((1 - B1) * clip),
+                       new["opt"]["m"])
+
+
+def leaf_errors(sm, got, want):
+    """{path: (relative L2 error of ``got``'s leaf against ``want``'s, the
+    two leaves' L2 norms)}, in float64 on the card."""
+    from repro_torch.tree import flatten_with_paths
+    t = sm.torch
+    w = flatten_with_paths(want)
+    out = {}
+    for path, a in flatten_with_paths(got).items():
+        a = a.detach().to(sm.device, t.float64)
+        b = w[path].detach().to(sm.device, t.float64)
+        nb = float(b.norm())
+        out[path] = (float((a - b).norm()) / max(nb, 1e-300),
+                     float(a.norm()), nb)
+    return out
+
+
+def leaf_gate(errs, limit):
+    """-> (the leaves that fail, the worst weight leaf as (error, path)).
+    Every leaf must be finite; a weight, BN or fc leaf within ``limit`` of
+    its L2 norm; a leaf but an activation step ``ga`` zero on one side
+    only fails (a ``ga`` gradient is a bf16 sum of nearly cancelling terms
+    and rounds to exactly zero at times)."""
+    import math
+    bad = [p for p, (rel, na, nb) in errs.items()
+           if not (math.isfinite(na) and math.isfinite(nb))
+           or (not p.endswith("['ga']") and (na == 0) != (nb == 0))
+           or (not p.endswith(STEP_SIZES) and not rel <= limit)]
+    worst = max((rel, p) for p, (rel, _, _) in errs.items()
+                if not p.endswith(STEP_SIZES))
+    return bad, worst
+
+
+def corr(a, b):
+    import numpy as np
+    return float(np.corrcoef(np.asarray(a, np.float64).ravel(),
+                             np.asarray(b, np.float64).ravel())[0, 1])
+
+
+def p14_split(sm, api, state, batch, rows):
+    """Where a step's time goes, CUDA events around each part alone: one
+    microbatch's forward and backward (``value_and_grad``), the bf16
+    products inside it (every projection's forward product and its two
+    backward products at ``rows`` rows, from ``gemm_workload``), the
+    weights' fake-quant (one forward pass over every quantized weight, in
+    f32) and the AdamW update -> {part: ms}."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core import quant
+    from repro_torch.launch import steps as S
+    from repro_torch.nn import quantized as Q
+    from repro_torch.optim import adamw_update
+    t = sm.torch
+    out = {}
+    loss_fn = lambda p, x, y, f: S.cross_entropy(  # noqa: E731
+        api.forward(p, x, mode="train"), y)
+    with S.deterministic(sm.device):  # as the step runs it
+        out["fwd_bwd"] = sm.time_ms(lambda: S.value_and_grad(
+            loss_fn, state["params"], batch["tokens"], batch["labels"],
+            None), reps=2, warmup=1)
+    total = 0.0
+    for g in api.gemm_workload(rows):
+        m, k, n = g.m, g.k, g.n
+        a = t.randn((m, k), device=sm.device).to(t.bfloat16)
+        w = t.randn((k, n), device=sm.device).to(t.bfloat16)
+        dy = t.randn((m, n), device=sm.device).to(t.bfloat16)
+        total += g.count * sm.time_ms(
+            lambda: (a @ w, dy @ w.T, a.T @ dy), reps=3, warmup=1)
+        del a, w, dy
+    out["products"] = total
+    specs = api.specs("train")
+
+    def weights(p, sp):
+        if Q.is_qlinear(sp):
+            pol = plan_lib.resolve_policy(api.policy, Q._layer_name_of(sp))
+            yield p["w"], p["gw"], quant.weight_spec(
+                pol.bits_for(Q._layer_class_of(sp)),
+                channel_axis=-1 if p["gw"].ndim and pol.channel_wise
+                else None)
+        elif isinstance(sp, dict):
+            for k in sp:
+                if k in p:
+                    yield from weights(p[k], sp[k])
+        elif isinstance(sp, list):
+            for pi, si in zip(p, sp):
+                yield from weights(pi, si)
+    wq = list(weights(state["params"], specs))
+
+    def fake_quant_all():
+        with t.no_grad():
+            for w, gw, spec in wq:
+                quant.fake_quant(w, gw, spec)
+    out["weight_fake_quant"] = sm.time_ms(fake_quant_all, reps=3, warmup=1)
+    grads = {"g": state["params"]}  # any tree of the parameters' shapes
+    out["adamw"] = sm.time_ms(lambda: adamw_update(
+        grads["g"], state["opt"], state["params"], lr=1e-4), reps=2,
+        warmup=1)
+    return out
+
+
+def p14_resnet(sm):
+    """(a) ResNet-18 QAT at full width under resnet18_mixed.json: four
+    steps at batch 32, one step against the CPU's, BN calibration, pack,
+    serve through K1/K2 and hold the served logits to the QAT eval
+    forward."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.device import tree_to
+    from repro_torch.launch import steps as S
+    from repro_torch.models import resnet as R
+    from repro_torch.runtime.serve import ImageServer
+    t = sm.torch
+    plan = PrecisionPlan.load(PLAN)
+    api = configs.get(ARCH, policy=plan)
+    cfg = api.cfg
+    release(sm)
+    t.cuda.reset_peak_memory_stats()
+    state = S.init_train_state(api, t.Generator(device=sm.device).manual_seed(
+        SEED), device=sm.device)
+    pipe = SyntheticImages(n_classes=cfg.n_classes, img_size=cfg.img_size,
+                           global_batch=P14_CNN_BATCH, seed=SEED)
+
+    def batch(i, n=None, dev=sm.device):
+        b = pipe.batch_at(i)
+        return {"tokens": t.as_tensor(b["images"][:n], device=dev),
+                "labels": t.as_tensor(b["labels"][:n], device=dev).long()}
+    step = S.make_train_step(api, peak_lr=P14_LR)
+    times, losses = [], []
+    for i in range(P14_CNN_STEPS):
+        b = batch(i)
+        t.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        log(f"[p14] resnet18 step {i}: loss {m['loss']:.4f}, grad_norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}, {times[-1] * 1e3:.1f} "
+            f"ms")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            sm.failures.append(f"resnet18 step {i}: {m}")
+    peak_train = t.cuda.max_memory_allocated()
+    sm.check_phase("14 (a) resnet18 QAT steps at batch 32")
+    split = p14_split(sm, api, state, batch(0), P14_CNN_BATCH)
+
+    # the card's gradients against the port's CPU ones on the same inputs,
+    # and against a planted fault the gate must reject
+    params = state["params"]
+    loss_fn = lambda p, x, y, f: S.cross_entropy(  # noqa: E731
+        api.forward(p, x, mode="train"), y)
+    bc = batch(P14_CNN_STEPS, n=P14_CPU_BATCH)
+    lc, gc = S.value_and_grad(loss_fn, params, bc["tokens"], bc["labels"],
+                              None)
+    cpu_params = tree_to(params, t.device("cpu"))
+
+    def cpu_grads(n):
+        b = batch(P14_CNN_STEPS, n=n, dev="cpu")
+        return S.value_and_grad(loss_fn, cpu_params, b["tokens"],
+                                b["labels"], None)
+    t0 = time.perf_counter()
+    lh, gh = cpu_grads(P14_CPU_BATCH)
+    cpu_s = time.perf_counter() - t0
+    errs = leaf_errors(sm, gc, gh)
+    bad, worst = leaf_gate(errs, P14_LEAF_RELL2_MAX)
+    fault_bad, fault_worst = leaf_gate(
+        leaf_errors(sm, gc, cpu_grads(P14_CPU_BATCH // 2)[1]),
+        P14_LEAF_RELL2_MAX)
+    rels = sorted(rel for p, (rel, _, _) in errs.items()
+                  if not p.endswith(STEP_SIZES))
+    dl = abs(float(lc) - float(lh)) / abs(float(lh))
+    log(f"[p14] resnet18 card vs CPU gradients (batch {P14_CPU_BATCH}; CPU "
+        f"{cpu_s:.1f} s): loss {float(lc):.6f} vs {float(lh):.6f} (rel "
+        f"{dl:.2e}, tol {P14_LOSS_RTOL}); {len(rels)} weight leaves, "
+        f"relative L2 worst {worst[1]} {worst[0]:.4f}, median "
+        f"{rels[len(rels) // 2]:.4f} (limit {P14_LEAF_RELL2_MAX}); leaves "
+        f"failing {bad or 'none'}; planted fault (the CPU's gradient of "
+        f"the first image alone): {len(fault_bad)} leaves over the limit, "
+        f"worst {fault_worst[1]} {fault_worst[0]:.4f}")
+    if dl > P14_LOSS_RTOL or bad or not fault_bad:
+        sm.failures.append(f"resnet18 card vs CPU: loss rel {dl}, leaves "
+                           f"failing {bad}, planted fault caught on "
+                           f"{len(fault_bad)} leaves")
+    del gc, gh, cpu_params
+    sm.check_phase("14 (a) resnet18 card gradients vs the CPU's")
+
+    # BN calibration, pack, serve through the kernels, vs the QAT forward
+    bn = R.init_bn_state(api.specs(), device=sm.device)
+    with t.no_grad():
+        for i in range(P14_CALIB):
+            _, bn = R.apply_with_state(cfg, params, bn,
+                                       batch(1000 + i)["tokens"], plan,
+                                       training=True)
+        packed = R.pack_for_serve(cfg, params, bn, plan)
+        x = pipe.batch_at(2000)["images"][:P14_SERVE_IMAGES]
+        server = ImageServer(api=api, params=packed, plan=plan,
+                             batch_buckets=(P14_SERVE_IMAGES,),
+                             device=sm.device)
+        server.predict(x)  # warm
+        reset_counts()
+        t.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = server.predict(x)
+        t.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_p11()
+        qat, _ = R.apply_with_state(cfg, params, bn,
+                                    t.as_tensor(x, device=sm.device), plan,
+                                    training=False)
+    want, _, _ = resnet_launches(cfg, plan, P14_SERVE_IMAGES)
+    got = {k: counts[k] for k in want}
+    c = corr(qat.float().cpu(), np.asarray(served))
+    log(f"[p14] resnet18 served {P14_SERVE_IMAGES} images from the trained "
+        f"weights in {serve_s * 1e3:.2f} ms: launches {got} (want {want}); "
+        f"served vs QAT eval forward correlation {c:.4f} (min "
+        f"{P14_QAT_CORR['resnet']})")
+    if got != want or not c > P14_QAT_CORR["resnet"]:
+        sm.failures.append(f"resnet18 serve: launches {got} vs {want}, "
+                           f"correlation {c}")
+    sm.check_phase("14 (a) resnet18 trained weights through K1/K2")
+    peak = t.cuda.max_memory_allocated()
+    del server, packed, params, state, bn
+    release(sm)
+    steady = times[1:]
+    return {"step_ms": 1e3 * sum(steady) / len(steady),
+            "first_ms": 1e3 * times[0], "peak_train": peak_train,
+            "peak": peak, "losses": losses, "counts": counts,
+            "cpu_s": cpu_s, "split": split}
+
+
+def p14_granite(sm):
+    """(b) granite-8b at full width, first 2 layers: the Trainer for six
+    steps with checkpoints, a restart from step 3 bitwise equal to the
+    uninterrupted run, one microbatch against two, a step under a packed
+    kv4 cache, then pack and serve the trained weights through K1 and
+    K4."""
+    import shutil
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.serve import Generator, pack_for_serving
+    from repro_torch.runtime.train import TrainLoopConfig, Trainer
+    from repro_torch.tree import leaves
+    t = sm.torch
+    api = dataclasses.replace(family_api(LM_ARCH, depth=P14_LM_DEPTH),
+                              microbatches=P14_LM_MB)
+    cfg = api.cfg
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=P14_LM_SEQ,
+                       global_batch=P14_LM_BATCH, seed=SEED)
+    root = ROOT / "build" / "p14"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(d, total, async_ckpt):
+        return Trainer(api, pipe, TrainLoopConfig(
+            total_steps=total, ckpt_every=P14_CKPT_EVERY,
+            ckpt_dir=str(root / d), log_every=1, async_ckpt=async_ckpt,
+            peak_lr=P14_LR), device=sm.device)
+
+    def gen():
+        return t.Generator(device=sm.device).manual_seed(SEED)
+    release(sm)
+    t.cuda.reset_peak_memory_stats()
+    full = trainer("full", P14_LM_STEPS, async_ckpt=False)
+    s_full, h_full = full.run(gen())
+    peak_train = t.cuda.max_memory_allocated()
+    log(f"[p14] granite-8b x{P14_LM_DEPTH} uninterrupted: losses "
+        f"{[round(v, 4) for v in h_full]}, steps (s) "
+        f"{[round(v, 3) for v in full.step_seconds]}, blocking saves (s) "
+        f"{[round(v, 2) for v in full.save_seconds]}")
+    ab = trainer("ab", P14_CKPT_EVERY, async_ckpt=True)
+    ab.run(gen())
+    del ab
+    release(sm)
+    ab2 = trainer("ab", P14_LM_STEPS, async_ckpt=True)
+    s_ab, h_ab = ab2.run(gen())
+    same = (h_ab == h_full[P14_CKPT_EVERY:] and all(
+        t.equal(a, b) for a, b in zip(leaves(s_full), leaves(s_ab))))
+    restore_s = ab2.restore_seconds
+    log(f"[p14] restart from step {P14_CKPT_EVERY} (restore "
+        f"{restore_s:.2f} s): losses {[round(v, 4) for v in h_ab]};"
+        f" parameters, moments and losses bitwise the uninterrupted run's: "
+        f"{same}")
+    if not same:
+        sm.failures.append("granite-8b restart is not bitwise the "
+                           "uninterrupted run")
+    del s_ab, ab2
+    release(sm)
+    sm.check_phase("14 (b) granite-8b Trainer: restart bitwise")
+
+    host = pipe.batch_at(P14_LM_STEPS)
+    b = {k: t.as_tensor(v, device=sm.device).long() for k, v in host.items()}
+    half = {k: v[:P14_LM_BATCH // P14_LM_MB] for k, v in b.items()}
+    split = p14_split(sm, api, s_full, half,
+                      P14_LM_BATCH // P14_LM_MB * P14_LM_SEQ)
+    release(sm)
+    m2, g2 = p14_step_grads(api, s_full, b)
+    release(sm)
+    m1, g1 = p14_step_grads(dataclasses.replace(api, microbatches=1),
+                            s_full, b)
+    bad, worst = leaf_gate(leaf_errors(sm, g1, g2), P14_MB_LEAF_RELL2_MAX)
+    dl = abs(m1["loss"] - m2["loss"]) / abs(m2["loss"])
+    log(f"[p14] one microbatch vs {P14_LM_MB}: loss {m1['loss']:.6f} vs "
+        f"{m2['loss']:.6f} (rel {dl:.2e}); gradients' relative L2, worst "
+        f"leaf {worst[1]} {worst[0]:.4f} (limit {P14_MB_LEAF_RELL2_MAX}); "
+        f"leaves failing {bad or 'none'}")
+    if dl > P14_LOSS_RTOL or bad:
+        sm.failures.append(f"microbatches: loss rel {dl}, leaves failing "
+                           f"{bad}")
+    del g1, g2
+    release(sm)
+    kv_api = dataclasses.replace(api, policy=with_kv4(api.policy))
+    mk, _ = p14_step_grads(kv_api, s_full, b)
+    log(f"[p14] one step under a packed kv4 cache: loss {mk['loss']:.6f} "
+        f"(unquantized cache {m2['loss']:.6f}), grad_norm "
+        f"{mk['grad_norm']:.4f}")
+    if not (np.isfinite(mk["loss"]) and np.isfinite(mk["grad_norm"])) \
+            or mk["loss"] == m2["loss"]:
+        sm.failures.append(f"kv4 step: {mk} vs {m2}")
+    release(sm)
+    sm.check_phase("14 (b) granite-8b microbatches and the kv4 step")
+
+    # pack the trained weights under w4k4 + a packed kv4 cache and serve
+    nb, ns, n_new = P14_SERVE
+    packed = pack_for_serving(kv_api, s_full["params"])
+    gen_s = Generator(kv_api, packed, device=sm.device)
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (nb, ns))
+    gen_s.run(prompts[:, :16], 2)  # warm
+    reset_counts()
+    t.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = gen_s.run(prompts, n_new)
+    t.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = read_p11()
+    want_routes, _, k4 = expected_counts(kv_api, nb, ns, n_new)
+    got = (sum(want_routes.values()), k4)
+    with t.no_grad():
+        seq = t.as_tensor(np.concatenate([prompts, toks[:, :-1]], 1),
+                          device=sm.device).long()
+        qat = kv_api.forward(s_full["params"], seq, mode="train")
+    served = np.stack([lg.float().cpu().numpy() for lg in logits], 1)
+    c = corr(qat[:, ns - 1:].float().cpu(), served)
+    log(f"[p14] granite-8b served {nb} x {ns} + {n_new} tokens from the "
+        f"trained weights in {serve_s:.2f} s: launches K1 "
+        f"{counts['mpmm_cuda']} (want {got[0]}), K4 "
+        f"{counts['flash_fwd_packed_cuda']} (want {k4}); served vs QAT "
+        f"forward correlation {c:.4f} (min {P14_QAT_CORR['granite']})")
+    if (counts["mpmm_cuda"], counts["flash_fwd_packed_cuda"]) != got \
+            or not c > P14_QAT_CORR["granite"]:
+        sm.failures.append(f"granite serve: launches {counts} vs {got}, "
+                           f"correlation {c}")
+    sm.check_phase("14 (b) granite-8b trained weights through K1/K4")
+    peak = t.cuda.max_memory_allocated()
+    del gen_s, packed, s_full, qat
+    release(sm)
+    shutil.rmtree(root / "full", ignore_errors=True)
+    shutil.rmtree(root / "ab", ignore_errors=True)
+    steps = full.step_seconds[1:]
+    return {"step_ms": 1e3 * sum(steps) / len(steps),
+            "first_ms": 1e3 * full.step_seconds[0],
+            "save_s": full.save_seconds, "restore_s": restore_s,
+            "peak_train": peak_train, "peak": peak, "losses": h_full,
+            "counts": counts, "restart": same, "split": split}
+
+
+def p14_cli(sm):
+    """(c) ``launch.train`` then ``launch.serve --ckpt-dir`` as
+    subprocesses, reduced granite-8b on the card."""
+    import shutil
+    d = ROOT / "build" / "p14" / "cli"
+    shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for argv in ([ "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+                   "--reduced", "--steps", "4", "--ckpt-dir", str(d)],
+                 ["-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+                  "--reduced", "--ckpt-dir", str(d)]):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], capture_output=True,
+                           text=True, timeout=600, env=env, cwd=ROOT)
+        runs.append(r)
+        log(f"[p14] python {' '.join(argv[:2])}: rc {r.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; last line "
+            f"{(r.stdout.strip().splitlines() or [''])[-1][:120]!r}")
+        if r.returncode != 0:
+            sm.failures.append(f"{argv[1]}: rc {r.returncode}\n"
+                               f"{r.stderr[-2000:]}")
+    if "restored params from" not in runs[1].stdout:
+        sm.failures.append("launch.serve did not say it restored")
+    shutil.rmtree(d.parent, ignore_errors=True)
+    sm.check_phase("14 (c) launch.train then launch.serve --ckpt-dir")
+
+
+def phase_p14(sm):
+    """Phase 14 -> (summed launches of its serve runs, results)."""
+    t0 = time.perf_counter()
+    cnn = p14_resnet(sm)
+    lm = p14_granite(sm)
+    p14_cli(sm)
+    log(f"[p14] phase 14 took {time.perf_counter() - t0:.1f} s")
+    return add_counts(dict(cnn["counts"]), lm["counts"]), {"resnet": cnn,
+                                                           "granite": lm}
+
+
+def print_p14(p14, card):
+    """Phase 14's ``[p14-time]`` lines."""
+    c, g = p14["resnet"], p14["granite"]
+    gib = 2 ** 30
+    log(f"[p14-time] resnet18 QAT step (224x224, batch {P14_CNN_BATCH}, "
+        f"resnet18_mixed.json): {c['step_ms']:.2f} ms (mean of steps 2-"
+        f"{P14_CNN_STEPS}; first {c['first_ms']:.1f} ms) = "
+        f"{P14_CNN_BATCH / c['step_ms'] * 1e3:.1f} images/s trained; peak "
+        f"memory {c['peak_train'] / gib:.2f} GiB training, "
+        f"{c['peak'] / gib:.2f} GiB with serving  ({card})")
+    toks = P14_LM_BATCH * P14_LM_SEQ
+    log(f"[p14-time] granite-8b x{P14_LM_DEPTH} QAT step (full width, batch "
+        f"{P14_LM_BATCH} x {P14_LM_SEQ}, {P14_LM_MB} microbatches, remat "
+        f"dots): {g['step_ms']:.2f} ms (mean of steps 2-{P14_LM_STEPS}; "
+        f"first {g['first_ms']:.1f} ms) = {toks / g['step_ms'] * 1e3:.1f} "
+        f"tokens/s trained; checkpoint save (blocking) "
+        f"{', '.join(f'{v * 1e3:.0f}' for v in g['save_s'])} ms, restore "
+        f"{g['restore_s'] * 1e3:.0f} ms (10.1 GB); peak memory "
+        f"{g['peak_train'] / gib:.2f} GiB training, {g['peak'] / gib:.2f} "
+        f"GiB with the restart, microbatch and kv4 checks and serving  "
+        f"({card})")
+    for name, r, mb in (("resnet18", c, 1), ("granite-8b", g, P14_LM_MB)):
+        sp = r["split"]
+        log(f"[p14-time] {name} step split (each part alone, CUDA events): "
+            f"{mb} x forward+backward {mb * sp['fwd_bwd']:.2f} ms, of which "
+            f"the projections' bf16 products {mb * sp['products']:.2f} ms; "
+            f"one fake-quant pass over the weights "
+            f"{sp['weight_fake_quant']:.2f} ms; AdamW "
+            f"{sp['adamw']:.2f} ms; the step {r['step_ms']:.2f} ms  ({card})")
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -3708,6 +4230,11 @@ def main() -> int:
     k1_routes = {k: k1_routes[k] + p13_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p13] phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    p14_launches, p14 = phase_p14(sm)
+    launches = {k: launches[k] + p14_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p14_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p14] phase 14 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
@@ -3801,6 +4328,7 @@ def main() -> int:
         f"{img_batches}")
     print_p12(p12, p12_rows, card)
     print_p13(p13, card)
+    print_p14(p14, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

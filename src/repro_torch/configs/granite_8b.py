@@ -7,7 +7,8 @@ from repro_torch.models.transformer import TransformerConfig
 
 FULL = TransformerConfig(
     name="granite-8b", n_layers=36, d_model=4096, n_heads=32, n_kv=8,
-    d_ff=14336, vocab=49152, act="swiglu", family="dense", attn_impl="flash")
+    d_ff=14336, vocab=49152, act="swiglu", family="dense", attn_impl="flash",
+    remat_policy="dots")
 
 REDUCED = TransformerConfig(
     name="granite-8b-smoke", n_layers=3, d_model=64, n_heads=4, n_kv=2,
@@ -17,4 +18,5 @@ REDUCED = TransformerConfig(
 def build(policy=None, reduced=False):
     return ModelAPI(name=FULL.name, family="dense",
                     cfg=REDUCED if reduced else FULL, mod=transformer,
+                    microbatches=16,
                     policy=policy or PrecisionPolicy(inner_bits=4, k=4))

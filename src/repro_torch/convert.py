@@ -8,6 +8,9 @@ port's own ``pack_for_serve`` can be checked against the JAX one.  Both
 keep the tree's structure (dicts, and the (scale, shift) tuples of folded
 BN) and every value bit for bit.
 
+``from_jax_train_state`` carries a whole train state (parameters, AdamW
+moments and counts) the same way.
+
 ``from_jax_lm_serve_tree`` and ``from_jax_lm_train_params`` do the same
 for LM trees (``repro.runtime.serve.pack_for_serving`` output, and
 ``init_params`` trees), whose layer stack the JAX package keeps scanned:
@@ -35,7 +38,8 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["from_numpy", "from_jax_serve_tree", "from_jax_train_params",
-           "from_jax_lm_serve_tree", "from_jax_lm_train_params"]
+           "from_jax_lm_serve_tree", "from_jax_lm_train_params",
+           "from_jax_train_state"]
 
 
 def from_numpy(arr, device) -> torch.Tensor:
@@ -45,7 +49,8 @@ def from_numpy(arr, device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    # np.array keeps a 0-d array 0-d (np.ascontiguousarray makes it 1-d)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def _convert(tree, device):
@@ -130,3 +135,19 @@ def from_jax_lm_train_params(params, device="cuda"):
     """LM QAT parameters (numpy leaves) -> tensors on ``device``, the layer
     stack as a per-layer list."""
     return _convert_lm(params, device)
+
+
+def from_jax_train_state(state, device="cuda"):
+    """A train state ``{"params", "opt": {"m", "v", "count"}, "step"}``
+    (numpy leaves, as ``repro.launch.steps.init_train_state`` makes it and
+    its train step returns it) -> the port's on ``device``: an LM's layer
+    stack (in the parameters and in both moments) as a per-layer list, a
+    CNN's tree as it is."""
+    dev = resolve_device(device)
+    conv = ((lambda t: _convert_lm(t, dev)) if "layers" in state["params"]
+            else (lambda t: _convert(t, dev)))
+    opt = state["opt"]
+    return {"params": conv(state["params"]),
+            "opt": {"m": conv(opt["m"]), "v": conv(opt["v"]),
+                    "count": from_numpy(opt["count"], dev)},
+            "step": from_numpy(state["step"], dev)}

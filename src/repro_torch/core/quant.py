@@ -1,12 +1,20 @@
-"""LSQ quantization, serve half (port of ``repro.core.quant``).
+"""LSQ quantization (port of ``repro.core.quant``).
 
     v_int = round( clamp(v_FP / gamma, Q_n, Q_p) )
     v_quant = v_int * gamma
 
 Activations are unsigned (Q_n = 0, Q_p = 2^b - 1); weights are signed
-(Q_n = -2^{b-1}, Q_p = 2^{b-1} - 1).  ``init_step_size`` (LSQ's initial
-step, which also sets the embedding table's serve step) is here; the
-STE/LSQ training half is not ported yet.
+(Q_n = -2^{b-1}, Q_p = 2^{b-1} - 1).  ``init_step_size`` is LSQ's initial
+step (it also sets the embedding table's serve step); ``quantize_int`` and
+``dequantize`` are the serve half.
+
+The training half is ``fake_quant``: Eq. 5 quant-dequant with LSQ
+gradients, differentiable in ``v`` (straight through the round, exact
+through the clamp) and in ``gamma`` (scaled by 1/sqrt(N * Q_p) through
+``grad_scale``).  Its gradients match ``jax.grad`` of the reference: the
+clamp is ``minimum(maximum(v, Q_n), Q_p)``, whose gradient splits 0.5/0.5
+at a value equal to a bound as ``jnp.clip`` does (``torch.clamp`` would
+pass 1 -- and after a ReLU many activations sit exactly at Q_n = 0).
 
 Dtype note: JAX promotes ``bf16 / f32`` to f32, torch keeps bf16 when the
 f32 operand is 0-d.  Every divide here therefore casts both operands to
@@ -20,7 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["QuantSpec", "qrange", "act_spec", "weight_spec",
-           "init_step_size", "quantize_int", "dequantize"]
+           "init_step_size", "grad_scale", "round_ste", "fake_quant",
+           "quantize_int", "dequantize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +97,51 @@ def init_step_size(v: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     gamma = 2.0 * mean_abs / torch.sqrt(torch.tensor(float(qp),
                                                      device=v.device))
     return torch.clamp_min(gamma, 1e-9)
+
+
+def grad_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Forward ``x`` (as ``x * s + (x * (1 - s))`` rounds it, which is not
+    always bitwise ``x``), backward the gradient times ``scale``."""
+    return x * scale + (x * (1.0 - scale)).detach()
+
+
+class _RoundSTE(torch.autograd.Function):
+    """Round half to even; the gradient passes straight through."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest-even with a straight-through (identity) gradient."""
+    return _RoundSTE.apply(x)
+
+
+def fake_quant(v: torch.Tensor, gamma: torch.Tensor,
+               spec: QuantSpec) -> torch.Tensor:
+    """Eq. 5 quant-dequant with LSQ gradients (the QAT forward), in v's
+    dtype: an activation in bf16 divides, clips, rounds and multiplies in
+    bf16 (8-bit codes are exact there), a weight in f32.
+
+    Gamma's gradient is scaled by 1/sqrt(N * Q_p), N the values sharing
+    one step; the scale is an f32 square root, as the reference takes it."""
+    qn, qp = qrange(spec)
+    n = (v.numel() if spec.channel_axis is None
+         else v.numel() // v.shape[spec.channel_axis % v.ndim])
+    gs = 1.0 / torch.sqrt(torch.tensor(float(max(n, 1)) * float(max(qp, 1)),
+                                       dtype=torch.float32, device=v.device))
+    gamma = grad_scale(gamma, gs)
+    g = _broadcast_gamma(gamma, v, spec).to(v.dtype)
+    vs = v / g
+    bound = lambda b: torch.tensor(b, dtype=vs.dtype,  # noqa: E731
+                                   device=vs.device)
+    vc = torch.minimum(torch.maximum(vs, bound(qn)), bound(qp))
+    return round_ste(vc) * g
 
 
 def _broadcast_gamma(gamma: torch.Tensor, v: torch.Tensor,

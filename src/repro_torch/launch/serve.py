@@ -14,9 +14,14 @@ mixed-precision batched generation and image serving on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
         --reduced --device cpu      # (or mamba2-1.3b, recurrentgemma-9b)
 
-Weights are drawn from ``--seed`` (no checkpoint store yet) and packed under
-the plan (``--plan``; else the arch's default uniform policy).  LM archs
-run batched greedy generation through ``Generator``, or with
+Weights are drawn from ``--seed``, or restored with ``--ckpt-dir DIR`` from
+the latest checkpoint ``launch.train`` wrote there, and packed under the
+plan (``--plan``; else the arch's default uniform policy):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --reduced --ckpt-dir build/ck --device cpu
+
+LM archs run batched greedy generation through ``Generator``, or with
 ``--spec-decode K --draft-plan PLAN`` through ``SpeculativeGenerator``: a
 low-bit repack of the same weights drafts K tokens a cycle and the
 serving plan verifies them in one batched forward, with output equal to
@@ -52,13 +57,13 @@ OUT.prom`` the metrics registry in Prometheus text, ``--profile DIR`` a
 
 Flags of the JAX launcher that wait for modules the port lacks, by their
 ROADMAP Queue 1 label: ``--mesh``/``--devices``/``--xla-serving-flags``
-(multi-device, label 16) and ``--ckpt-dir`` (the checkpoint store, with
-QAT training, label 15).
+(multi-device, label 16).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import sys
 import time
@@ -67,11 +72,13 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core.plan import FrontierManifest, PrecisionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import train_state_specs
 from repro_torch.runtime.serve import (Generator, ImageServer,
-                                       init_packed_views)
+                                       init_packed_views, pack_for_serving)
 from repro_torch.runtime.telemetry import (NULL_METRICS, NULL_TRACER,
                                            MetricsRegistry, Tracer,
                                            device_time_split,
@@ -187,6 +194,18 @@ def _tag(api, args) -> str:
     return f"w_Q={pol.inner_bits} k={pol.k}"
 
 
+def _restore_params(args, device):
+    """The float QAT parameters of the latest checkpoint in
+    ``--ckpt-dir``, restored into the arch's ``init_params("train")``
+    template (its default policy: checkpoints are written under it)."""
+    template = train_state_specs(configs.get(args.arch,
+                                             reduced=args.reduced))["params"]
+    step, state = CheckpointStore(args.ckpt_dir).restore(
+        {"params": template}, device=device)
+    print(f"[serve] restored params from {args.ckpt_dir} (step {step})")
+    return state["params"]
+
+
 def _serve_cnn(api, args, device) -> int:
     """Batched image serving of a packed CNN."""
     mod, cfg = api.mod, api.cfg
@@ -224,14 +243,22 @@ def _serve_lm(api, args, device) -> int:
     tracer, metrics = _mk_telemetry(args)
     gen_w = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
+    policies = [api.policy]
+    if args.spec_decode is not None:
+        dplan = PrecisionPlan.load(args.draft_plan)
+        dplan.validate_layers(api.plan_layer_names())
+        policies.append(dplan)
+    if args.ckpt_dir:
+        params = _restore_params(args, device)
+        views = [pack_for_serving(dataclasses.replace(api, policy=pol),
+                                  params) for pol in policies]
+        del params
+    else:
+        views = init_packed_views(api, policies, gen_w, device=device)
     if args.spec_decode is not None:
         # One weight draw, two packed views: the serving plan verifies, a
         # low-bit repack drafts (runtime/specdec.py).
         from repro_torch.runtime.specdec import SpeculativeGenerator
-        dplan = PrecisionPlan.load(args.draft_plan)
-        dplan.validate_layers(api.plan_layer_names())
-        views = init_packed_views(api, [api.policy, dplan], gen_w,
-                                  device=device)
         gen = SpeculativeGenerator(
             api=api, packed_views=tuple(views), draft_plan=dplan,
             k=args.spec_decode, device=device, tracer=tracer,
@@ -242,8 +269,7 @@ def _serve_lm(api, args, device) -> int:
               f"draw in {time.perf_counter() - t0:.2f}s on {device} "
               f"(spec-decode k={args.spec_decode})")
     else:
-        packed = init_packed_views(api, [api.policy], gen_w,
-                                   device=device)[0]
+        packed = views[0]
         _sync(device)
         print(f"[serve] packed {args.arch} at {_tag(api, args)}: "
               f"{_tree_bytes(packed) / 2**20:.1f} MiB in "
@@ -288,11 +314,15 @@ def _serve_frontier(api, args, device) -> int:
     manifest = FrontierManifest.load(args.frontier)
     gen_w = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    if api.family == "cnn":
+    state = None
+    if args.ckpt_dir:
+        params = _restore_params(args, device)
+    elif api.family == "cnn":
         params = api.init_params(gen_w, device=device)
-        state = api.mod.init_bn_state(api.specs(), device=device)
     else:
-        params = state = None  # drawn once, packed under every point
+        params = None  # drawn once, packed under every point
+    if api.family == "cnn":
+        state = api.mod.init_bn_state(api.specs(), device=device)
     frontier = frontier_from_manifest(
         api, params, manifest, state=state, batch_buckets=(args.batch,),
         max_len=args.prompt_len + args.new_tokens, device=device,
@@ -395,6 +425,10 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the float parameters of the latest "
+                         "trainer checkpoint there, then pack and serve "
+                         "them (LM archs, and --frontier)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default: the kernels; raises without a "
                          "card) or 'cpu' (the plain versions)")
@@ -448,6 +482,11 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"{api.family} has no multi-token decode_steps")
     if api.family == "cnn":
+        if args.ckpt_dir:
+            raise SystemExit("--ckpt-dir restores what launch.train wrote "
+                             "(LM archs); a CNN serves its packed weights "
+                             "with their BN state, which no trainer "
+                             "checkpoint holds")
         return _serve_cnn(api, args, device)
     return _serve_lm(api, args, device)
 

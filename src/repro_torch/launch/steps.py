@@ -1,17 +1,157 @@
-"""Serve step functions (port of ``repro.launch.steps``, serve half).
+"""Step functions (port of ``repro.launch.steps``): the QAT train step and
+the serve steps.
 
-Each closes over a ``ModelAPI`` and the kernel route ``impl`` and takes the
-packed parameters explicitly, as the JAX package's step functions do for
-``jax.jit``.  Nothing is compiled here: PyTorch runs them eagerly.  The
-training step, the abstract state specs and the sharding/input helpers
-(``input_specs``, ``input_axes``, ``batch_rules_for``) belong to the
-multi-device and training items of ROADMAP Queue 1 and are not ported yet.
+Each closes over a ``ModelAPI`` and takes parameters explicitly, as the
+JAX package's step functions do for ``jax.jit``; PyTorch runs them
+eagerly.  ``make_train_step`` accumulates microbatch gradients in f32, in
+order, and divides by their count, as the reference's ``lax.scan`` does;
+on a CUDA device a step runs under ``torch.use_deterministic_algorithms``,
+so that a restarted run repeats the uninterrupted one bit for bit (the
+reference's restart contract).  That needs ``CUBLAS_WORKSPACE_CONFIG``
+(``:4096:8``) in the environment before the process first calls cuBLAS:
+``launch.train`` sets it, and without it torch raises at the step's first
+product, naming the variable.  The sharding helpers (``train_state_axes``,
+``input_specs``, ``input_axes``, ``batch_rules_for``) wait for
+multi-device work (ROADMAP label 16).
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Any, Callable, Dict
 
-__all__ = ["make_prefill_fn", "make_decode_fn", "make_verify_fn"]
+import torch
+
+from repro_torch.nn import param as nnp
+from repro_torch.optim import (adamw_init, adamw_update, compress_decompress,
+                               warmup_cosine)
+from repro_torch.optim.adamw import global_norm
+from repro_torch.tree import leaves, tree_map, unflatten
+
+__all__ = ["cross_entropy", "deterministic", "value_and_grad",
+           "make_train_step", "train_state_specs", "init_train_state",
+           "make_prefill_fn", "make_decode_fn", "make_verify_fn"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, in f32 whatever the logits' dtype."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].to(torch.long))[..., 0]
+    return torch.mean(lse - ll)
+
+
+@contextlib.contextmanager
+def deterministic(device: torch.device):
+    """On a CUDA device: ``torch.use_deterministic_algorithms(True)`` for
+    the block (it raises at an operation that has no deterministic form);
+    nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def value_and_grad(loss_fn, params, *args):
+    """``loss_fn(params, *args)`` -> (loss, gradient tree): every leaf
+    differentiated (a leaf the loss does not reach, such as the CNN stem's
+    unused ``ga``, gets zeros, as ``jax.grad`` gives)."""
+    ps = leaves(params)
+    live = [p.detach().requires_grad_(True) for p in ps]
+    loss = loss_fn(unflatten(params, live), *args)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return loss.detach(), unflatten(params, [
+        g if g is not None else torch.zeros_like(p)
+        for g, p in zip(grads, ps)])
+
+
+def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
+                    grad_compression: bool = False) -> Callable:
+    """train_step(state, batch) -> (new state, metrics {loss, lr,
+    grad_norm}), with ``api.microbatches``-way gradient accumulation.
+
+    ``batch`` holds tensors on the state's device: ``tokens`` (B, S) and
+    ``labels`` (B, S) for an LM, or images (B, H, W, 3) as ``tokens`` and
+    labels (B,) for a CNN.  ``grad_compression``: int8 quantize-dequantize
+    of the gradients with error feedback carried in ``state["gc"]``."""
+    mb = max(api.microbatches, 1)
+
+    def loss_fn(params, tokens, labels, frames):
+        kw = {"frames": frames} if api.needs_frames else {}
+        logits = api.forward(params, tokens, mode="train", **kw)
+        return cross_entropy(logits, labels)
+
+    def train_step(state, batch):
+        params = state["params"]
+        tokens, labels = batch["tokens"], batch["labels"]
+        frames = batch.get("frames")
+        b = tokens.shape[0]
+        if b % mb:
+            raise ValueError(f"batch {b} is not a multiple of {mb} "
+                             f"microbatches")
+        with deterministic(tokens.device):
+            if mb == 1:
+                loss, grads = value_and_grad(loss_fn, params, tokens,
+                                              labels, frames)
+                losses = [loss]
+            else:
+                n = b // mb
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                losses = []
+                for i in range(mb):
+                    sl = slice(i * n, (i + 1) * n)
+                    loss, g = value_and_grad(
+                        loss_fn, params, tokens[sl], labels[sl],
+                        frames[sl] if frames is not None else None)
+                    for acc, gi in zip(leaves(grads), leaves(g)):
+                        acc.add_(gi.to(torch.float32))
+                    losses.append(loss)
+                    del g
+                grads = tree_map(lambda g: g / mb, grads)
+            new_state = {}
+            if grad_compression:
+                grads, new_state["gc"] = compress_decompress(grads,
+                                                             state["gc"])
+            lr = warmup_cosine(state["step"], peak_lr=peak_lr,
+                               total=total_steps)
+            new_params, new_opt = adamw_update(grads, state["opt"], params,
+                                               lr=lr)
+            metrics = {"loss": torch.mean(torch.stack(losses)), "lr": lr,
+                       "grad_norm": global_norm(grads)}
+        new_state.update({"params": new_params, "opt": new_opt,
+                          "step": state["step"] + 1})
+        return new_state, metrics
+
+    return train_step
+
+
+def train_state_specs(api) -> Dict[str, Any]:
+    """The train state's shapes and dtypes as ``ParamSpec`` leaves (no
+    allocation): the template a checkpoint restores into."""
+    params = nnp.strip_markers(api.specs("train"))
+    mom = lambda t: tree_map(  # noqa: E731
+        lambda s: nnp.ParamSpec(shape=s.shape, dtype=api.opt_dtype), t)
+    scalar = nnp.ParamSpec(shape=(), dtype=torch.int32)
+    return {"params": params,
+            "opt": {"m": mom(params), "v": mom(params), "count": scalar},
+            "step": scalar}
+
+
+def init_train_state(api, generator: torch.Generator, device="cuda"):
+    """Random parameters from ``generator`` on ``device`` (CUDA by default;
+    raises without a card unless ``device="cpu"``), zero moments in
+    ``api.opt_dtype``, step 0."""
+    params = api.init_params(generator, "train", device=device)
+    return {"params": params,
+            "opt": adamw_init(params, state_dtype=api.opt_dtype),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=leaves(params)[0].device)}
 
 
 def make_prefill_fn(api, *, impl: str = "auto") -> Callable:

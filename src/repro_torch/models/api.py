@@ -1,7 +1,7 @@
 """Uniform model API (port of ``repro.models.api``): specs, parameter init,
-the plan namespace, the workload the cost model and the planner read
-(GEMMs, FLOPs, parameter counts) and, for LM families, prefill / decode
-and the cache layout."""
+the QAT training forward, the plan namespace, the workload the cost model
+and the planner read (GEMMs, FLOPs, parameter counts) and, for LM
+families, prefill / decode and the cache layout."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,6 +37,22 @@ class ModelAPI:
         """Random parameters on ``device``: CUDA by default, and raises
         without a card unless ``device="cpu"``."""
         return nnp.init_params(self.specs(mode), generator, device=device)
+
+    def forward(self, params, inputs, *, mode: str = "train",
+                impl: str = "auto", **kw):
+        """Full-sequence logits (a CNN: class logits of a batch of images).
+        ``mode="train"`` is the QAT forward over an ``init_params("train")``
+        tree, ported for the dense LMs and the ResNets; the MoE, MLA,
+        mamba2, recurrentgemma and whisper train forwards wait for ROADMAP
+        Queue 1 item 15b and raise ``NotImplementedError``."""
+        fn = getattr(self.mod, "forward", None)
+        if fn is None:
+            raise NotImplementedError(
+                f"{self.name}: the {self.family} family has no full-sequence "
+                f"forward in the port yet (its train forward is ROADMAP "
+                f"Queue 1 item 15b)")
+        return fn(self.cfg, params, inputs, self.policy, mode=mode,
+                  impl=impl, **kw)
 
     def plan_layer_names(self):
         """Every layer name a ``PrecisionPlan`` may bind for this arch: the

@@ -1,5 +1,13 @@
-"""Quantized ResNet-18/50/152 serving (port of the serve half of
-``repro.models.resnet``).
+"""Quantized ResNet-18/50/152 (port of ``repro.models.resnet``): QAT
+training and packed serving.
+
+``apply_with_state`` is the QAT forward with BatchNorm on batch statistics
+(``training=True``: the biased variance, running statistics updated with
+momentum 0.9) or on the running ones; ``forward`` is its logits-only
+facade.  Plain torch under autograd: the reference's train path reaches no
+Pallas kernel.  The stem's 3x3/2 max pool passes its gradient to the first
+maximum of each window in row-major order, as XLA's ``select_and_scatter``
+does (windows of post-ReLU zeros are common).
 
 ``pack_for_serve`` turns a QAT parameter tree and BN running statistics
 into packed digit planes with every BatchNorm folded into the (scale,
@@ -26,7 +34,7 @@ from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["ResNetConfig", "RESNET_STAGES", "specs", "init_bn_state",
-           "pack_for_serve", "serve_features", "serve_forward",
+           "bn_apply", "apply_with_state", "forward", "pack_for_serve", "serve_features", "serve_forward",
            "gemm_workload", "plan_layer_names", "param_counts",
            "layer_param_counts", "layer_classes", "inner_layer_names",
            "layer_weights", "model_flops", "total_params", "active_params"]
@@ -153,6 +161,104 @@ def specs(cfg: ResNetConfig, mode: str = "train",
     return tree
 
 
+# --- QAT forward ------------------------------------------------------------
+
+
+def bn_apply(p, state, x: torch.Tensor, *, training: bool):
+    """BatchNorm over (B, H, W) in f32 -> (y in x's dtype, new state).
+    Training normalizes by the batch mean and biased variance (jnp.var's
+    two passes: the mean, then the mean of squared deviations) and moves
+    the running statistics toward them with momentum 0.9 (no gradient
+    through the state)."""
+    xf = x.to(torch.float32)
+    if training:
+        n = xf.shape[0] * xf.shape[1] * xf.shape[2]
+        mean = xf.sum(dim=(0, 1, 2)) / n
+        var = torch.square(xf - mean).sum(dim=(0, 1, 2)) / n
+        new_state = {
+            "mean": 0.9 * state["mean"] + (1 - 0.9) * mean.detach(),
+            "var": 0.9 * state["var"] + (1 - 0.9) * var.detach(),
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (xf - mean) * torch.rsqrt(var + 1e-5)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype), new_state
+
+
+def _basic_fwd(p, st, x, policy, stride, training, lname):
+    h = Q.qconv_apply(p["conv1"], x, policy, k=3, stride=stride,
+                      name=lname + "c1")
+    h, st1 = bn_apply(p["bn1"], st["bn1"], h, training=training)
+    h = torch.relu(h)
+    h = Q.qconv_apply(p["conv2"], h, policy, k=3, name=lname + "c2")
+    h, st2 = bn_apply(p["bn2"], st["bn2"], h, training=training)
+    new_st = {"bn1": st1, "bn2": st2}
+    if "proj" in p:
+        x = Q.qconv_apply(p["proj"], x, policy, k=1, stride=stride,
+                          name=lname + "p")
+        x, new_st["bn_proj"] = bn_apply(p["bn_proj"], st["bn_proj"], x,
+                                        training=training)
+    return torch.relu(x + h), new_st
+
+
+def _bottleneck_fwd(p, st, x, policy, stride, training, lname):
+    h = Q.qconv_apply(p["conv1"], x, policy, k=1, name=lname + "c1")
+    h, st1 = bn_apply(p["bn1"], st["bn1"], h, training=training)
+    h = torch.relu(h)
+    h = Q.qconv_apply(p["conv2"], h, policy, k=3, stride=stride,
+                      name=lname + "c2")
+    h, st2 = bn_apply(p["bn2"], st["bn2"], h, training=training)
+    h = torch.relu(h)
+    h = Q.qconv_apply(p["conv3"], h, policy, k=1, name=lname + "c3")
+    h, st3 = bn_apply(p["bn3"], st["bn3"], h, training=training)
+    new_st = {"bn1": st1, "bn2": st2, "bn3": st3}
+    if "proj" in p:
+        x = Q.qconv_apply(p["proj"], x, policy, k=1, stride=stride,
+                          name=lname + "p")
+        x, new_st["bn_proj"] = bn_apply(p["bn_proj"], st["bn_proj"], x,
+                                        training=training)
+    return torch.relu(x + h), new_st
+
+
+def apply_with_state(cfg: ResNetConfig, params, state, images: torch.Tensor,
+                     policy, *, training: bool = False):
+    """QAT forward: images (B, H, W, 3) -> (logits (B, classes) bf16, new
+    BN state).  The stem quantizes its weights but not the raw pixels."""
+    x = Q.qconv_apply(params["stem"], images, policy, k=7, stride=2,
+                      layer_class="boundary", quantize_act=False, name="stem")
+    x, st_stem = bn_apply(params["bn_stem"], state["bn_stem"], x,
+                          training=training)
+    x = max_pool_same(torch.relu(x))
+    new_state = {"bn_stem": st_stem}
+    fwd = _bottleneck_fwd if cfg.block == "bottleneck" else _basic_fwd
+    for si, bi, cin, cmid, stride in _block_channels(cfg):
+        key = f"s{si}b{bi}"
+        x, new_state[key] = fwd(params[key], state[key], x, policy, stride,
+                                training, key)
+    # jnp.mean on bf16 sums in f32 and returns bf16
+    x = x.to(torch.float32).mean(dim=(1, 2)).to(x.dtype)
+    logits = Q.qlinear_apply(
+        {k: v for k, v in params["fc"].items() if k != Q.QMARK}, x, policy,
+        layer_class="boundary", name="fc")
+    return logits, new_state
+
+
+def forward(cfg: ResNetConfig, params, images: torch.Tensor, policy, *,
+            mode: str = "train", impl: str = "auto", state=None):
+    """Logits only: batch statistics under ``mode="train"``, else the
+    running ones of ``state`` (a fresh state, zeros and ones, on the
+    images' device when none is given).  ``impl`` is unused: the QAT
+    forward runs no kernel."""
+    del impl
+    if state is None:
+        state = init_bn_state(specs(cfg), device=images.device)
+    logits, _ = apply_with_state(cfg, params, state, images, policy,
+                                 training=(mode == "train"))
+    return logits
+
+
 # --- packed serve path --------------------------------------------------------
 
 
@@ -238,7 +344,11 @@ def _bottleneck_serve(p, x, policy, stride, impl, tile, dataflow, lname):
 def max_pool_same(x: torch.Tensor, window: int = 3,
                   stride: int = 2) -> torch.Tensor:
     """NHWC max-pool with XLA's SAME pads (odd pixel on the high side)
-    filled with -inf, as ``lax.reduce_window(..., -inf, max, ..., 'SAME')``."""
+    filled with -inf, as ``lax.reduce_window(..., -inf, max, ..., 'SAME')``.
+    A tap replaces the running maximum only where it is strictly greater,
+    so the gradient goes to the first maximum of a window in row-major
+    order, where XLA's ``select_and_scatter`` sends it (``torch.maximum``
+    would split it between ties)."""
     _, h, w, _ = x.shape
     ph = mpmm_ref.same_pads(h, window, stride, "SAME")
     pw = mpmm_ref.same_pads(w, window, stride, "SAME")
@@ -250,7 +360,7 @@ def max_pool_same(x: torch.Tensor, window: int = 3,
         for j in range(window):
             v = xp[:, i:i + (ho - 1) * stride + 1:stride,
                    j:j + (wo - 1) * stride + 1:stride, :]
-            out = v if out is None else torch.maximum(out, v)
+            out = v if out is None else torch.where(v > out, v, out)
     return out
 
 

@@ -24,14 +24,23 @@ Entry points: ``prefill`` (full prompt -> last-token logits and the cache),
 ``decode_step`` (one token against the cache, updated in place) and
 ``decode_steps`` (T tokens against the cache in one forward, the
 speculative verify); all take ``impl`` ('auto', 'cuda', 'torch'), which
-routes every kernel of the call.  The training forward is not ported yet.
+routes every kernel of the call.  ``forward(mode="train")`` is the QAT
+training forward of the dense family (granite-8b/34b, yi-34b,
+chameleon-34b, nemotron-4-340b): fake-quant projections and the chunked
+attention under autograd, every layer under ``torch.utils.checkpoint``
+when ``cfg.remat`` (the reference's ``jax.checkpoint``; ``remat_policy=
+"dots"`` keeps the projections' 2-D products, ``aten.mm``, and recomputes
+the rest, as ``dots_with_no_batch_dims_saveable`` does).  The MoE, MLA and
+dense-prefix train forwards wait for ROADMAP Queue 1 item 15b.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.dse import Gemm
@@ -74,6 +83,8 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     rope_base: float = 10000.0
+    remat: bool = True             # train: recompute each layer's forward
+    remat_policy: str = "full"     # 'full' | 'dots' (keep the 2-D products)
     attn_impl: str = "xla"         # 'xla' | 'flash' (the K3 / K4 kernels)
     dense_first_n: int = 0         # deepseek: the first N layers' MLP dense
     dense_ff: int = 0
@@ -272,19 +283,23 @@ def specs(cfg: TransformerConfig, mode: str = "train",
 # --- forward -----------------------------------------------------------------
 
 
-def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False):
-    """The layer's MLP.  ``per_token``: an MoE block routes each token as
-    a group of its own (capacity 1, every expert runs it), as a decode
-    step routes its one token -- so a verify's T tokens are T decode
-    steps."""
+def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
+               serve=True):
+    """The layer's MLP, packed (``serve``) or fake-quant (the QAT
+    forward).  ``per_token``: an MoE block routes each token as a group of
+    its own (capacity 1, every expert runs it), as a decode step routes its
+    one token -- so a verify's T tokens are T decode steps."""
     if "moe" in p:
         b, s, d = x.shape
         xg = x.reshape(b * s, 1, d) if per_token else x
         return nnmoe.moe_apply(p["moe"], xg, policy, cfg.moe, impl=impl,
                                lname=lname).reshape(b, s, d)
     nm = lname + "mlp"
-    fn = lambda w, h: Q.qlinear_serve_apply(  # noqa: E731
-        w, h, policy, impl=impl, name=nm)
+    if serve:
+        fn = lambda w, h: Q.qlinear_serve_apply(  # noqa: E731
+            w, h, policy, impl=impl, name=nm)
+    else:
+        fn = lambda w, h: Q.qlinear_apply(w, h, policy, name=nm)  # noqa
     mp = p["mlp"]
     if cfg.act == "swiglu":
         h = nnl.swiglu_combine(fn(mp["gate"], x), fn(mp["up"], x))
@@ -301,8 +316,9 @@ def _mla_kw(cfg):
 
 
 def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
-               kv_store="packed"):
-    """Pre-norm block -> (x, this layer's cache)."""
+               kv_store="packed", serve=True):
+    """Pre-norm block -> (x, this layer's cache); ``serve=False`` is the
+    QAT forward of a dense block."""
     _, napply = cfg.norm_fns
     h = napply(p["ln1"], x)
     if cfg.mla is not None:
@@ -314,9 +330,10 @@ def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
             p["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, sin=sin, cos=cos, impl=impl,
             chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl, lname=lname,
-            kv_fmts=kv_fmts, kv_store=kv_store)
+            kv_fmts=kv_fmts, kv_store=kv_store, serve=serve)
     x = x + o
-    x = x + _apply_mlp(cfg, p, napply(p["ln2"], x), policy, impl, lname)
+    x = x + _apply_mlp(cfg, p, napply(p["ln2"], x), policy, impl, lname,
+                       serve=serve)
     return x, cache
 
 
@@ -358,9 +375,63 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
     return (start + torch.arange(s, device=device)).expand(b, s)
 
 
+def _mm_saveable(ctx, op, *args, **kwargs):
+    """The 'dots' remat policy: keep the output of every 2-D matrix product
+    (the projections, which have no batch axis), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn, x):
+    """``fn(x)``, under ``torch.utils.checkpoint`` when ``cfg.remat`` and a
+    gradient is being recorded.  Recomputing runs the same operations on
+    the same values, so it changes no value."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return fn(x)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _mm_saveable)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy must be 'full' or 'dots', got "
+                         f"{cfg.remat_policy!r}")
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False, **kw)
+
+
+def _train_forward(cfg, params, tokens, policy):
+    if cfg.moe is not None or cfg.mla is not None or cfg.dense_first_n:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE, MLA and dense-prefix train forwards are "
+            f"not ported yet (ROADMAP Queue 1 item 15b)")
+    b, s = tokens.shape
+    sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
+    kv_info = kv_formats(cfg, policy)
+    store = kv_info[0] if kv_info is not None else "packed"
+    x = nnl.embed_apply(params["embed"], tokens)
+    for i, lp in enumerate(params["layers"]):
+        def layer(h, lp=lp, i=i):
+            return _layer_fwd(
+                cfg, lp, h, policy, sin, cos, impl="torch", lname=f"l{i}.",
+                kv_fmts=kv_info[1][i] if kv_info is not None else None,
+                kv_store=store, serve=False)[0]
+        x = _remat(cfg, layer, x)
+    logits = Q.qlinear_apply(params["head"], _head_input(cfg, params, x),
+                             policy, layer_class="boundary", name="head")
+    return logits[..., :cfg.vocab]  # drop the vocab padding
+
+
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto") -> torch.Tensor:
-    """Serve forward: tokens (B, S) -> logits (B, S, V) in bf16."""
+            mode: str = "serve", impl: str = "auto") -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
+    (``mode="serve"``, over a ``pack_for_serving`` tree) or the QAT
+    training forward (``mode="train"``, over an ``init_params("train")``
+    tree; ``impl`` unused, no kernel runs)."""
+    if mode == "train":
+        return _train_forward(cfg, params, tokens, policy)
+    if mode != "serve":
+        raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
     x, _ = _run_layers(cfg, params, _embed(params, tokens), policy, sin, cos,

@@ -1,9 +1,11 @@
-"""GQA attention, serve half (port of ``repro.nn.attention``).
+"""GQA attention (port of ``repro.nn.attention``).
 
-Prefill runs the flash kernels: K4 (``flash_attention_packed``) when the
-layer's K and V are both cached in packed digit planes, else K3
-(``flash_attention``) on bf16 K/V -- the fp cache and the 'qdq' store, whose
-K/V hold the quantization-grid values.  ``attn_impl='xla'`` keeps the
+The QAT training forward is ``gqa_prefill(serve=False)``: fake-quant
+projections and ``chunked_attention`` under autograd.  Serve prefill runs
+the flash kernels: K4 (``flash_attention_packed``) when the layer's K and V
+are both cached in packed digit planes, else K3 (``flash_attention``) on
+bf16 K/V -- the fp cache and the 'qdq' store, whose K/V hold the
+quantization-grid values.  ``attn_impl='xla'`` keeps the
 reference's other route, ``chunked_attention``, a plain online softmax in
 torch.  Decode has no kernel in the reference: ``decode_attention`` (fp
 cache) and ``decode_attention_streamed`` (kv-quantizing plans, either
@@ -59,8 +61,15 @@ NEG_INF = -1e30
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     """(B, S, KV, D) -> (B, S, KV * groups, D), each KV head repeated over
-    its group of query heads."""
-    return k if groups == 1 else torch.repeat_interleave(k, groups, dim=2)
+    its group of query heads.  A broadcast and a reshape, as the reference
+    writes it: its gradient is a sum over the group axis, where
+    ``repeat_interleave``'s is an index-add, whose atomics add in no fixed
+    order on a card."""
+    if groups == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(
+        b, s, h * groups, d)
 
 
 def _fixed_order_einsum(eq: str, x: torch.Tensor,
@@ -265,12 +274,20 @@ def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     }
 
 
+def _proj(p, x, policy, *, serve, impl, name):
+    """One projection: packed (serve) or fake-quant (train)."""
+    if serve:
+        return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+    return Q.qlinear_apply(p, x, policy, name=name)
+
+
 def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm,
-         rope=True):
+         rope=True, serve=True):
     """The q/k/v projections, rotary applied to q and k (``rope``)."""
     b, s, _ = x.shape
-    proj = lambda key, n: Q.qlinear_serve_apply(  # noqa: E731
-        p[key], x, policy, impl=impl, name=nm[key]).reshape(b, s, n, head_dim)
+    proj = lambda key, n: _proj(  # noqa: E731
+        p[key], x, policy, serve=serve, impl=impl,
+        name=nm[key]).reshape(b, s, n, head_dim)
     q, k, v = proj("q", n_heads), proj("k", n_kv), proj("v", n_kv)
     if not rope:
         return q, k, v
@@ -285,10 +302,18 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
                 chunk: int = 1024, impl: str = "auto",
                 attn_impl: str = "xla", lname: str = "",
                 names: Optional[Dict[str, str]] = None, kv_fmts=None,
-                kv_store: str = "packed"):
-    """Serve prefill of one GQA block -> (out (B, S, D), cache): causal
-    (else bidirectional), over the last ``window`` keys when given, with
-    rotary q/k unless ``rope=False``.
+                kv_store: str = "packed", serve: bool = True):
+    """Prefill of one GQA block -> (out (B, S, D), cache): causal (else
+    bidirectional), over the last ``window`` keys when given, with rotary
+    q/k unless ``rope=False``.
+
+    ``serve=False`` is the QAT training forward: fake-quant projections
+    (``qlinear_apply``) and ``chunked_attention`` under autograd, whatever
+    ``attn_impl`` says (the reference takes its flash kernel only when
+    serving).  A quantized K/V cache still runs through ``pack_kv`` /
+    ``unpack_kv`` (or ``qdq_kv``): the integer codes carry no gradient, so
+    k and v get theirs through the rows' bf16 scale and zero, which come
+    from each row's max and min -- as ``jax.grad`` of the reference gives.
 
     With ``kv_fmts=None`` the cache is the bf16 ``(k, v)`` pair (B, S, KV,
     Dh).  A kv-quantizing layer passes ``(fmt_k, fmt_v)`` (either may be None,
@@ -300,11 +325,13 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     nm = _gqa_names(lname, names)
     q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
                    head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
-                   rope=rope)
+                   rope=rope, serve=serve)
     fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
     packed = kv_fmts is not None and kv_store == "packed"
     kq = kvcache.pack_kv(k, fmt_k) if packed and fmt_k is not None else None
     vq = kvcache.pack_kv(v, fmt_v) if packed and fmt_v is not None else None
+    if not serve:
+        attn_impl = "xla"  # the reference's flash kernels serve only
     if attn_impl == "flash" and kq is not None and vq is not None:
         # K4: the codes travel to the kernel, never bf16 K/V
         o = flash_ops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
@@ -330,7 +357,7 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
             raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                              f"{attn_impl!r}")
     o = o.reshape(b, s, n_heads * head_dim)
-    out = Q.qlinear_serve_apply(p["o"], o, policy, impl=impl, name=nm["o"])
+    out = _proj(p["o"], o, policy, serve=serve, impl=impl, name=nm["o"])
     if packed:
         return out, {"k": kq if fmt_k is not None else k,
                      "v": vq if fmt_v is not None else v}

@@ -22,7 +22,8 @@ from repro_torch.nn.param import ParamSpec
 __all__ = [
     "rmsnorm_spec", "rmsnorm_apply",
     "layernorm_spec", "layernorm_apply",
-    "pad_vocab", "embed_spec", "embed_serve_spec", "embed_serve_apply",
+    "pad_vocab", "embed_spec", "embed_apply", "embed_serve_spec",
+    "embed_serve_apply",
     "pack_embed",
     "rotary_cache", "apply_rotary",
     "squared_relu", "swiglu_combine", "gelu", "softplus",
@@ -83,6 +84,12 @@ def pad_vocab(v: int, mult: int = 256) -> int:
 
 def embed_spec(vocab: int, dim: int) -> Dict[str, ParamSpec]:
     return {"table": ParamSpec(shape=(vocab, dim), init="embed")}
+
+
+def embed_apply(p, ids: torch.Tensor) -> torch.Tensor:
+    """The float table's rows in bf16 (the QAT forward; the table is not
+    quantized in training)."""
+    return F.embedding(ids, p["table"]).to(torch.bfloat16)
 
 
 def embed_serve_spec(vocab: int, dim: int,

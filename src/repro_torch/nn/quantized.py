@@ -1,6 +1,13 @@
-"""Quantized layers, serve half (port of ``repro.nn.quantized``).
+"""Quantized layers (port of ``repro.nn.quantized``): the QAT (train)
+forward and the packed-plane (serve) forward.
 
-Weights live as packed k-bit digit planes (uint8), activations are
+Train mode: LSQ fake-quant of both operands -- activations unsigned 8 bit
+in their own dtype (bf16), weights signed w_Q bit in f32 with trained step
+sizes -- then a bf16 product, as ``jnp.einsum`` computes it
+(``qlinear_apply``); a conv is im2col + that (``qconv_apply``).  Plain
+torch under autograd: the reference's train path reaches no Pallas kernel.
+
+Serve mode: weights live as packed k-bit digit planes (uint8), activations are
 quantized on the fly to biased int8 codes, and the product runs through
 ``kernels.mpmm.ops`` -- the hand-written kernels on CUDA tensors.  BN,
 the shortcut add and ReLU run in the kernel epilogue.
@@ -11,8 +18,7 @@ layer-wise ``PrecisionPlan`` resolves each layer's format at pack and
 serve time.  Under ``quantize=False`` (the fp baseline the paper compares
 against) ``pack_qlinear`` keeps the weight in bf16 under ``"w"`` and the
 serve forward is a plain bf16 matrix product followed by the same f32
-epilogue; convs then always go through im2col.  The QAT (training)
-forward is not ported yet.
+epilogue; convs then always go through im2col.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ __all__ = [
     "qlinear_spec",
     "qlinear_serve_spec",
     "qconv_spec",
+    "qlinear_apply",
+    "qconv_apply",
     "qlinear_serve_apply",
     "qconv_serve_apply",
     "conv_serve_dataflow",
@@ -113,6 +121,42 @@ def _layer_class_of(sub: Dict) -> str:
 
 def _layer_name_of(sub: Dict) -> str:
     return sub[QMARK].axes[1] or ""
+
+
+def qlinear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  policy: PolicyOrPlan, *, layer_class: str = "inner",
+                  quantize_act: bool = True,
+                  name: str = "") -> torch.Tensor:
+    """QAT forward: fake-quant(x) @ fake-quant(w) (+ b), the product in
+    bf16.  The weight quantizes in f32 (channel-wise where the
+    layer's ``gw`` is a vector and the policy asks for it), the activation
+    in its own dtype; ``quantize_act=False`` (the CNN stem's raw pixels)
+    leaves x as it is."""
+    policy = plan_lib.resolve_policy(policy, name)
+    w, gw, ga = p["w"], p["gw"], p["ga"]
+    if policy.quantize:
+        wspec = quant.weight_spec(
+            policy.bits_for(layer_class),
+            channel_axis=-1 if gw.ndim > 0 and policy.channel_wise else None)
+        w = quant.fake_quant(w.to(torch.float32), gw, wspec)
+        if quantize_act:
+            x = quant.fake_quant(x, ga, quant.act_spec(policy.a_bits))
+    y = torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
+    if "b" in p:
+        y = y + p["b"].to(torch.bfloat16)
+    return y
+
+
+def qconv_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
+                stride: int = 1, padding: str = "SAME",
+                layer_class: str = "inner", quantize_act: bool = True,
+                name: str = "") -> torch.Tensor:
+    """QAT conv forward: im2col (NHWC, (kh, kw, C) patches) + the
+    fake-quant linear."""
+    cols = im2col(x, k, k, stride, padding)
+    return qlinear_apply({kk: v for kk, v in p.items() if kk != QMARK},
+                         cols, policy, layer_class=layer_class,
+                         quantize_act=quantize_act, name=name)
 
 
 def _fold_bias(p, epilogue, scale, shift):

@@ -642,3 +642,89 @@ def test_router_batch_invariant_on_card(cuda_device, rows):
     alone = torch.cat([nnmoe.router_logits(x[i:i + 1], router)[0]
                        for i in range(rows)])
     assert torch.equal(batched, alone)
+
+
+# --- QAT training on the card (slice 10) -------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("signed,bits", [(False, 8), (True, 4)])
+def test_fake_quant_on_the_card_matches_the_cpu(cuda_device, dtype, signed,
+                                                bits):
+    """The forward and the gradient in v bitwise the CPU's (elementwise
+    operations, each rounded once); gamma's gradient, a sum of nearly
+    cancelling terms taken in another order, within a share of the terms'
+    absolute sum (their mass): f32 terms 2^-19 of it (each side sums its
+    6144 terms in a tree, within about log2(6144) * 2^-24 ~ 2^-20 of the
+    mass), a bf16 gradient 2^-8 of it (one bf16 ulp of a sum no larger
+    than its mass)."""
+    from repro_torch.core import quant
+    gen = torch.Generator().manual_seed(bits)
+    v = torch.randn((64, 96), generator=gen).to(dtype)
+    ct = torch.randn((64, 96), generator=gen)
+    spec = quant.QuantSpec(bits, signed)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        vt = v.detach().to(dev).clone().requires_grad_(True)
+        g = torch.tensor(0.0625, device=dev, requires_grad=True)
+        out = quant.fake_quant(vt, g, spec)
+        (out.float() * ct.to(dev)).sum().backward()
+        grads.append((out.detach().cpu(), vt.grad.cpu(), g.grad.cpu()))
+    (o0, v0, g0), (o1, v1, g1) = grads
+    assert torch.equal(o0, o1) and torch.equal(v0, v1)
+    qn, qp = quant.qrange(spec)
+    vs = (v / torch.tensor(0.0625, dtype=dtype)).double()
+    inside = ((vs > qn) & (vs < qp)).double()
+    terms = ct.double() * (torch.round(vs.clamp(qn, qp)) - inside * vs)
+    mass = float(terms.abs().sum()) / (v.numel() * qp) ** 0.5
+    share = 2 ** -19 if dtype == torch.float32 else 2 ** -8
+    assert abs(float(g0) - float(g1)) <= share * mass
+
+
+@pytest.mark.cuda
+def test_train_step_is_deterministic_on_the_card(cuda_device, monkeypatch):
+    """Two runs of three steps from one state: bitwise the same state
+    (the restart contract needs it), and the first loss near the CPU's."""
+    # what launch.train sets: cuBLAS's deterministic workspace
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from repro_torch import configs
+    from repro_torch.device import tree_to
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+    api = configs.get("granite-8b", reduced=True)
+    api.microbatches = 2
+    state0 = steps.init_train_state(api, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    state0["step"] = state0["step"] + 50
+    toks = torch.randint(0, api.cfg.vocab, (4, 17),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = steps.make_train_step(api)
+    runs = []
+    for _ in range(2):
+        s = tree_to(state0, cuda_device)
+        b = tree_to(batch, cuda_device)
+        losses = []
+        for _ in range(3):
+            s, m = step(s, b)
+            losses.append(float(m["loss"]))
+        runs.append((s, losses))
+    assert runs[0][1] == runs[1][1]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(runs[0][0]),
+                                                  leaves(runs[1][0])))
+    _, m_cpu = step(state0, batch)
+    assert runs[0][1][0] == pytest.approx(float(m_cpu["loss"]), rel=1e-2)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    from repro_torch.checkpoint import CheckpointStore
+    tree = {"w": torch.randn(5, 7, device=cuda_device).to(torch.bfloat16),
+            "n": [torch.tensor(3, dtype=torch.int32, device=cuda_device)]}
+    store = CheckpointStore(str(tmp_path))
+    store.save(1, tree, blocking=False)
+    store.wait()
+    _, back = store.restore(tree, device=cuda_device)
+    assert back["w"].is_cuda and torch.equal(back["w"], tree["w"])
+    assert back["n"][0].shape == () and int(back["n"][0]) == 3

@@ -123,7 +123,7 @@ def test_refused_combinations(argv, match):
         serve.main(argv + CPU)
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--devices", "--ckpt-dir",
+@pytest.mark.parametrize("flag", ["--mesh", "--devices",
                                   "--xla-serving-flags"])
 def test_flags_waiting_for_modules_are_absent(flag, capsys):
     with pytest.raises(SystemExit) as err:
