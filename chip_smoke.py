@@ -222,6 +222,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step's split (forward and backward, their bf16 products, a fake-quant
    pass over the weights, AdamW, each timed alone).
 
+15. QAT training of the MoE and MLA archs (slice 11): olmoe-1b-7b (64
+   experts top-8, channel-wise expert steps) and deepseek-v2-lite-16b
+   (MLA, 64 experts top-6 + 2 shared, layer 0 dense) at full width (d
+   2048, each arch's full vocab), first 2 layers (about 1.05 and 1.09 B
+   parameters), random weights from a CUDA generator seeded 0, each
+   arch's default policy.  The ``Trainer`` for 3 steps (batch 4 x 1024, 2
+   microbatches, each MoE row routed with a capacity of 256 (olmoe) or 192
+   (deepseek) tokens an expert); a fresh ``Trainer`` restored from step 2
+   and run to step 3, its parameters, moments and losses bitwise the
+   uninterrupted run's; one microbatch against two (loss within 2%, each
+   gradient leaf within 0.02 of its L2 norm); every gradient leaf finite
+   and every router's gradient nonzero; ``pack_for_serving`` and
+   ``Generator`` (2 x 256 + 8 tokens) through K1's expert banks (and K3
+   for olmoe's flash prefill), counted as phase 12 counts, the served
+   logits correlated above 0.95 with the QAT forward; ``launch.train
+   --reduced`` then ``launch.serve --ckpt-dir`` for olmoe as
+   subprocesses.  ``[p15-time]`` lines: ms a step, tokens/s trained,
+   ``max_memory_allocated``, checkpoint save and restore, and the step's
+   split (forward and backward, their bf16 products at the banks' real
+   shapes, the MoE routing, a fake-quant pass over the weights, AdamW,
+   each timed alone).  Checkpoints under ``build/p15``, removed at the end.
+
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
 against the JAX package (numeric contract in
@@ -3674,13 +3696,15 @@ def corr(a, b):
                              np.asarray(b, np.float64).ravel())[0, 1])
 
 
-def p14_split(sm, api, state, batch, rows):
+def p14_split(sm, api, state, batch, rows, gemms=None):
     """Where a step's time goes, CUDA events around each part alone: one
     microbatch's forward and backward (``value_and_grad``), the bf16
     products inside it (every projection's forward product and its two
-    backward products at ``rows`` rows, from ``gemm_workload``), the
-    weights' fake-quant (one forward pass over every quantized weight, in
-    f32) and the AdamW update -> {part: ms}."""
+    backward products at ``rows`` rows, from ``gemm_workload``, or the
+    given ``gemms`` [(M, K, N, groups, count)], a group a batched
+    product), the weights' fake-quant (one forward pass over every
+    quantized weight, in f32, an expert bank's experts each with its own
+    step) and the AdamW update -> {part: ms}."""
     from repro_torch.core import plan as plan_lib
     from repro_torch.core import quant
     from repro_torch.launch import steps as S
@@ -3695,13 +3719,17 @@ def p14_split(sm, api, state, batch, rows):
             loss_fn, state["params"], batch["tokens"], batch["labels"],
             None), reps=2, warmup=1)
     total = 0.0
-    for g in api.gemm_workload(rows):
-        m, k, n = g.m, g.k, g.n
-        a = t.randn((m, k), device=sm.device).to(t.bfloat16)
-        w = t.randn((k, n), device=sm.device).to(t.bfloat16)
-        dy = t.randn((m, n), device=sm.device).to(t.bfloat16)
-        total += g.count * sm.time_ms(
-            lambda: (a @ w, dy @ w.T, a.T @ dy), reps=3, warmup=1)
+    if gemms is None:
+        gemms = [(g.m, g.k, g.n, 1, g.count)
+                 for g in api.gemm_workload(rows)]
+    for m, k, n, groups, count in gemms:
+        a = t.randn((groups, m, k), device=sm.device).to(t.bfloat16)
+        w = t.randn((groups, k, n), device=sm.device).to(t.bfloat16)
+        dy = t.randn((groups, m, n), device=sm.device).to(t.bfloat16)
+        if groups == 1:
+            a, w, dy = a[0], w[0], dy[0]
+        total += count * sm.time_ms(
+            lambda: (a @ w, dy @ w.mT, a.mT @ dy), reps=3, warmup=1)
         del a, w, dy
     out["products"] = total
     specs = api.specs("train")
@@ -3709,9 +3737,10 @@ def p14_split(sm, api, state, batch, rows):
     def weights(p, sp):
         if Q.is_qlinear(sp):
             pol = plan_lib.resolve_policy(api.policy, Q._layer_name_of(sp))
-            yield p["w"], p["gw"], quant.weight_spec(
+            lead = p["w"].ndim - 2
+            yield p["w"], p["gw"], lead, quant.weight_spec(
                 pol.bits_for(Q._layer_class_of(sp)),
-                channel_axis=-1 if p["gw"].ndim and pol.channel_wise
+                channel_axis=-1 if p["gw"].ndim > lead and pol.channel_wise
                 else None)
         elif isinstance(sp, dict):
             for k in sp:
@@ -3724,8 +3753,8 @@ def p14_split(sm, api, state, batch, rows):
 
     def fake_quant_all():
         with t.no_grad():
-            for w, gw, spec in wq:
-                quant.fake_quant(w, gw, spec)
+            for w, gw, lead, spec in wq:
+                quant.fake_quant(w, gw, spec, lead=lead)
     out["weight_fake_quant"] = sm.time_ms(fake_quant_all, reps=3, warmup=1)
     grads = {"g": state["params"]}  # any tree of the parameters' shapes
     out["adamw"] = sm.time_ms(lambda: adamw_update(
@@ -4069,6 +4098,270 @@ def print_p14(p14, card):
             f"{sp['adamw']:.2f} ms; the step {r['step_ms']:.2f} ms  ({card})")
 
 
+# --- phase 15: QAT training of the MoE and MLA archs -----------------------
+
+
+P15_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
+P15_DEPTH = 2             # olmoe: two MoE layers; deepseek: dense 0, MoE 1
+P15_BATCH, P15_SEQ, P15_MB = 4, 1024, 2
+P15_STEPS, P15_CKPT_EVERY = 3, 2
+P15_SERVE = (2, 256, 8)   # prompts, prompt length, new tokens
+P15_CLI_ARCH = "olmoe-1b-7b"
+# as phase 14 holds granite: one microbatch against two, each gradient
+# leaf within 0.02 of its L2 norm; the served logits against the QAT
+# forward above 0.95 (the reference's test_packed_serve_tracks_qat_logits)
+P15_MB_LEAF_RELL2_MAX = 0.02
+P15_QAT_CORR = 0.95
+
+
+def p15_gemms(api, b, s):
+    """The bf16 products of one train forward of ``b`` x ``s`` tokens as
+    [(M, K, N, groups, count)]: each projection at b * s rows, an expert
+    bank as one batched product over its E experts at b x capacity rows
+    an expert (``k1_calls``' serve shapes, the head at every token)."""
+    from collections import Counter
+    from repro_torch.nn.layers import pad_vocab
+    calls = Counter((m, kdim, n, groups) for name, m, kdim, n, groups, *_
+                    in k1_calls(api, b, s, s, "prefill") if name != "head")
+    out = [(m, k, n, g, c) for (m, k, n, g), c in calls.items()]
+    return out + [(b * s, api.cfg.d_model, pad_vocab(api.cfg.vocab), 1, 1)]
+
+
+def p15_routing_ms(sm, api, b, s):
+    """One MoE block's routing alone, forward and backward, CUDA events:
+    ``nn.moe.route``, ``dispatch`` and ``gate_and_combine`` as
+    ``moe_apply(serve=False)`` runs them, with the bank left out (its
+    output is the dispatched input) -> ms."""
+    from repro_torch.launch import steps as S
+    from repro_torch.nn import moe as M
+    t = sm.torch
+    mc = api.cfg.moe
+    g = t.Generator(device=sm.device).manual_seed(SEED)
+    x = t.randn((b, s, mc.d_model), generator=g, device=sm.device).to(
+        t.bfloat16).requires_grad_(True)
+    router = (t.randn((mc.d_model, mc.n_experts), generator=g,
+                      device=sm.device) / mc.d_model ** 0.5
+              ).requires_grad_(True)
+    ct = t.randn((b, s, mc.d_model), generator=g, device=sm.device).to(
+        t.bfloat16)
+
+    def block():
+        idx, vals, tok_idx = M.route(x, router, mc)
+        h = M.dispatch(x, tok_idx, idx, serve=False)
+        y = M.gate_and_combine(h, vals, tok_idx, idx, s,
+                               serve=False).to(x.dtype)
+        t.autograd.grad(y, (x, router), grad_outputs=ct)
+    with S.deterministic(sm.device):
+        return sm.time_ms(block, reps=3, warmup=1)
+
+
+def p15_arch(sm, arch):
+    """One arch at full width, first P15_DEPTH layers: the ``Trainer`` for
+    P15_STEPS steps, a restart from step P15_CKPT_EVERY bitwise the
+    uninterrupted run, one microbatch against two, then ``pack_for_serving``
+    and ``Generator`` through K1 (and K3 for olmoe) against the QAT
+    forward."""
+    import math
+    import shutil
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.nn.moe import capacity
+    from repro_torch.runtime.serve import Generator, pack_for_serving
+    from repro_torch.runtime.train import TrainLoopConfig, Trainer
+    from repro_torch.tree import flatten_with_paths, leaves
+    t = sm.torch
+    api = dataclasses.replace(family_api(arch, depth=P15_DEPTH),
+                              microbatches=P15_MB)
+    cfg = api.cfg
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=P15_SEQ,
+                       global_batch=P15_BATCH, seed=SEED)
+    root = ROOT / "build" / "p15" / arch
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(d, total, every, async_ckpt):
+        return Trainer(api, pipe, TrainLoopConfig(
+            total_steps=total, ckpt_every=every, ckpt_dir=str(root / d),
+            log_every=1, async_ckpt=async_ckpt, peak_lr=P14_LR),
+            device=sm.device)
+
+    def gen():
+        return t.Generator(device=sm.device).manual_seed(SEED)
+    release(sm)
+    t.cuda.reset_peak_memory_stats()
+    # the uninterrupted run saves once, at its end
+    full = trainer("full", P15_STEPS, P15_STEPS, async_ckpt=False)
+    s_full, h_full = full.run(gen())
+    peak_train = t.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in leaves(s_full["params"]))
+    log(f"[p15] {arch} x{P15_DEPTH} ({n_params / 1e9:.3f} B parameters, "
+        f"capacity {capacity(cfg.moe, P15_SEQ)} a row) uninterrupted: "
+        f"losses {[round(v, 4) for v in h_full]}, steps (s) "
+        f"{[round(v, 3) for v in full.step_seconds]}, blocking saves (s) "
+        f"{[round(v, 2) for v in full.save_seconds]}")
+    if not all(math.isfinite(v) for v in h_full):
+        sm.failures.append(f"{arch} losses {h_full}")
+    ab = trainer("ab", P15_CKPT_EVERY, P15_CKPT_EVERY, async_ckpt=True)
+    ab.run(gen())
+    del ab
+    release(sm)
+    ab2 = trainer("ab", P15_STEPS, P15_CKPT_EVERY, async_ckpt=True)
+    s_ab, h_ab = ab2.run(gen())
+    same = (h_ab == h_full[P15_CKPT_EVERY:] and all(
+        t.equal(a, b) for a, b in zip(leaves(s_full), leaves(s_ab))))
+    restore_s = ab2.restore_seconds
+    log(f"[p15] {arch} restart from step {P15_CKPT_EVERY} (restore "
+        f"{restore_s:.2f} s): losses {[round(v, 4) for v in h_ab]}; "
+        f"parameters, moments and losses bitwise the uninterrupted run's: "
+        f"{same}")
+    if not same:
+        sm.failures.append(f"{arch} restart is not bitwise the "
+                           f"uninterrupted run")
+    del s_ab, ab2
+    release(sm)
+    shutil.rmtree(root, ignore_errors=True)
+    sm.check_phase(f"15 {arch} Trainer: restart bitwise")
+
+    host = pipe.batch_at(P15_STEPS)
+    b = {k: t.as_tensor(v, device=sm.device).long() for k, v in host.items()}
+    mb_rows = P15_BATCH // P15_MB
+    half = {k: v[:mb_rows] for k, v in b.items()}
+    split = p14_split(sm, api, s_full, half, mb_rows * P15_SEQ,
+                      gemms=p15_gemms(api, mb_rows, P15_SEQ))
+    split["routing"] = p15_routing_ms(sm, api, mb_rows, P15_SEQ)
+    release(sm)
+    m2, g2 = p14_step_grads(api, s_full, b)
+    release(sm)
+    m1, g1 = p14_step_grads(dataclasses.replace(api, microbatches=1),
+                            s_full, b)
+    bad, worst = leaf_gate(leaf_errors(sm, g1, g2), P15_MB_LEAF_RELL2_MAX)
+    flat = flatten_with_paths(g2)
+    routers = {p: float(v.abs().max()) for p, v in flat.items()
+               if p.endswith("['router']")}
+    finite = all(bool(t.isfinite(v).all()) for v in flat.values())
+    dl = abs(m1["loss"] - m2["loss"]) / abs(m2["loss"])
+    log(f"[p15] {arch} one microbatch vs {P15_MB}: loss {m1['loss']:.6f} vs "
+        f"{m2['loss']:.6f} (rel {dl:.2e}); gradients' relative L2, worst "
+        f"leaf {worst[1]} {worst[0]:.4f} (limit {P15_MB_LEAF_RELL2_MAX}); "
+        f"leaves failing {bad or 'none'}; {len(flat)} gradient leaves all "
+        f"finite: {finite}; router gradients' largest |value| {routers}")
+    if dl > P14_LOSS_RTOL or bad or not finite or not routers \
+            or not all(v > 0 for v in routers.values()):
+        sm.failures.append(f"{arch} microbatches/gradients: loss rel {dl}, "
+                           f"leaves failing {bad}, finite {finite}, "
+                           f"routers {routers}")
+    del g1, g2, flat
+    release(sm)
+    sm.check_phase(f"15 {arch} microbatches and gradients")
+
+    # pack the trained weights under the arch's default policy and serve
+    nb, ns, n_new = P15_SERVE
+    packed = pack_for_serving(api, s_full["params"])
+    gen_s = Generator(api, packed, device=sm.device)
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (nb, ns))
+    gen_s.run(prompts[:, :16], 2)  # warm
+    reset_counts()
+    t.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = gen_s.run(prompts, n_new)
+    t.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = read_p11()
+    want_routes, k3, k4 = expected_counts(api, nb, ns, n_new)
+    want = {"mpmm_cuda": sum(want_routes.values()), "flash_fwd_cuda": k3,
+            "flash_fwd_packed_cuda": k4}
+    got = {k: counts[k] for k in want}
+    with t.no_grad():
+        seq = t.as_tensor(np.concatenate([prompts, toks[:, :-1]], 1),
+                          device=sm.device).long()
+        qat = api.forward(s_full["params"], seq, mode="train")
+    served = np.stack([lg.float().cpu().numpy() for lg in logits], 1)
+    c = corr(qat[:, ns - 1:].float().cpu(), served)
+    log(f"[p15] {arch} served {nb} x {ns} + {n_new} tokens from the trained "
+        f"weights in {serve_s:.2f} s: launches {got} (want {want}); served "
+        f"vs QAT forward correlation {c:.4f} (min {P15_QAT_CORR})")
+    if got != want or not c > P15_QAT_CORR:
+        sm.failures.append(f"{arch} serve: launches {got} vs {want}, "
+                           f"correlation {c}")
+    sm.check_phase(f"15 {arch} trained weights through the kernels")
+    peak = t.cuda.max_memory_allocated()
+    del gen_s, packed, s_full, qat
+    release(sm)
+    steps = full.step_seconds[1:]
+    return {"step_ms": 1e3 * sum(steps) / len(steps),
+            "first_ms": 1e3 * full.step_seconds[0],
+            "save_s": full.save_seconds, "restore_s": restore_s,
+            "peak_train": peak_train, "peak": peak, "losses": h_full,
+            "counts": counts, "restart": same, "split": split,
+            "params": n_params, "corr": c,
+            "moe_layers": cfg.n_layers - cfg.dense_first_n}
+
+
+def p15_cli(sm):
+    """``launch.train`` then ``launch.serve --ckpt-dir`` as subprocesses,
+    reduced P15_CLI_ARCH on the card."""
+    import shutil
+    d = ROOT / "build" / "p15" / "cli"
+    shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for argv in (["-m", "repro_torch.launch.train", "--arch", P15_CLI_ARCH,
+                  "--reduced", "--steps", "2", "--ckpt-dir", str(d)],
+                 ["-m", "repro_torch.launch.serve", "--arch", P15_CLI_ARCH,
+                  "--reduced", "--ckpt-dir", str(d)]):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], capture_output=True,
+                           text=True, timeout=600, env=env, cwd=ROOT)
+        runs.append(r)
+        log(f"[p15] python {' '.join(argv[:4])}: rc {r.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; last line "
+            f"{(r.stdout.strip().splitlines() or [''])[-1][:120]!r}")
+        if r.returncode != 0:
+            sm.failures.append(f"{argv[1]}: rc {r.returncode}\n"
+                               f"{r.stderr[-2000:]}")
+    if "restored params from" not in runs[1].stdout:
+        sm.failures.append("launch.serve did not say it restored")
+    shutil.rmtree(d.parent, ignore_errors=True)
+    sm.check_phase("15 launch.train then launch.serve --ckpt-dir")
+
+
+def phase_p15(sm):
+    """Phase 15 -> (summed launches of its serve runs, results)."""
+    t0 = time.perf_counter()
+    out, counts = {}, {}
+    for arch in P15_ARCHS:
+        out[arch] = p15_arch(sm, arch)
+        counts = add_counts(counts, out[arch]["counts"])
+    p15_cli(sm)
+    log(f"[p15] phase 15 took {time.perf_counter() - t0:.1f} s")
+    return counts, out
+
+
+def print_p15(p15, card):
+    """Phase 15's ``[p15-time]`` lines."""
+    gib = 2 ** 30
+    toks = P15_BATCH * P15_SEQ
+    for arch, r in p15.items():
+        sp = r["split"]
+        saves = ", ".join(f"{v * 1e3:.0f}" for v in r["save_s"])
+        log(f"[p15-time] {arch} x{P15_DEPTH} QAT step (full width, "
+            f"{r['params'] / 1e9:.3f} B parameters, batch {P15_BATCH} x "
+            f"{P15_SEQ}, {P15_MB} microbatches): {r['step_ms']:.2f} ms (mean "
+            f"of steps 2-{P15_STEPS}; first {r['first_ms']:.1f} ms) = "
+            f"{toks / r['step_ms'] * 1e3:.1f} tokens/s trained; checkpoint "
+            f"save (blocking) {saves} ms, restore {r['restore_s'] * 1e3:.0f} "
+            f"ms; "
+            f"max_memory_allocated {r['peak_train'] / gib:.2f} GiB training, "
+            f"{r['peak'] / gib:.2f} GiB with the checks and serving  ({card})")
+        log(f"[p15-time] {arch} step split (each part alone, CUDA events): "
+            f"{P15_MB} x forward+backward {P15_MB * sp['fwd_bwd']:.2f} ms, of "
+            f"which the bf16 products {P15_MB * sp['products']:.2f} ms and "
+            f"the MoE routing (router, top-k, dispatch, gating, combine) "
+            f"{P15_MB * sp['routing'] * r['moe_layers']:.2f} "
+            f"ms; one fake-quant pass over the weights "
+            f"{sp['weight_fake_quant']:.2f} ms; AdamW {sp['adamw']:.2f} ms; "
+            f"the step {r['step_ms']:.2f} ms  ({card})")
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -4235,6 +4528,11 @@ def main() -> int:
     k1_routes = {k: k1_routes[k] + p14_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p14] phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    p15_launches, p15 = phase_p15(sm)
+    launches = {k: launches[k] + p15_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p15_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p15] phase 15 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
@@ -4329,6 +4627,7 @@ def main() -> int:
     print_p12(p12, p12_rows, card)
     print_p13(p13, card)
     print_p14(p14, card)
+    print_p15(p15, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

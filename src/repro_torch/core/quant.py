@@ -23,6 +23,7 @@ f32 first, so the integer codes match the JAX package's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -122,21 +123,27 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
     return _RoundSTE.apply(x)
 
 
-def fake_quant(v: torch.Tensor, gamma: torch.Tensor,
-               spec: QuantSpec) -> torch.Tensor:
+def fake_quant(v: torch.Tensor, gamma: torch.Tensor, spec: QuantSpec, *,
+               lead: int = 0) -> torch.Tensor:
     """Eq. 5 quant-dequant with LSQ gradients (the QAT forward), in v's
     dtype: an activation in bf16 divides, clips, rounds and multiplies in
     bf16 (8-bit codes are exact there), a weight in f32.
 
     Gamma's gradient is scaled by 1/sqrt(N * Q_p), N the values sharing
-    one step; the scale is an f32 square root, as the reference takes it."""
+    one step; the scale is an f32 square root, as the reference takes it.
+
+    ``lead`` leading axes of ``v`` index independent tensors, each with its
+    own step: an expert bank, whose weight (E, K, N) and activations (E,
+    M, K) take gamma (E,) -- or (E, N) channel-wise -- as the reference's
+    ``jax.vmap`` over the experts gives, N counted per expert."""
     qn, qp = qrange(spec)
-    n = (v.numel() if spec.channel_axis is None
-         else v.numel() // v.shape[spec.channel_axis % v.ndim])
+    n = v.numel() // max(math.prod(v.shape[:lead]), 1)
+    if spec.channel_axis is not None:
+        n //= v.shape[spec.channel_axis % v.ndim]
     gs = 1.0 / torch.sqrt(torch.tensor(float(max(n, 1)) * float(max(qp, 1)),
                                        dtype=torch.float32, device=v.device))
     gamma = grad_scale(gamma, gs)
-    g = _broadcast_gamma(gamma, v, spec).to(v.dtype)
+    g = _broadcast_gamma(gamma, v, spec, lead).to(v.dtype)
     vs = v / g
     bound = lambda b: torch.tensor(b, dtype=vs.dtype,  # noqa: E731
                                    device=vs.device)
@@ -144,12 +151,14 @@ def fake_quant(v: torch.Tensor, gamma: torch.Tensor,
     return round_ste(vc) * g
 
 
-def _broadcast_gamma(gamma: torch.Tensor, v: torch.Tensor,
-                     spec: QuantSpec) -> torch.Tensor:
-    if spec.channel_axis is None:
+def _broadcast_gamma(gamma: torch.Tensor, v: torch.Tensor, spec: QuantSpec,
+                     lead: int = 0) -> torch.Tensor:
+    if spec.channel_axis is None and not lead:
         return gamma
-    shape = [1] * v.ndim
-    shape[spec.channel_axis % v.ndim] = v.shape[spec.channel_axis % v.ndim]
+    shape = list(v.shape[:lead]) + [1] * (v.ndim - lead)
+    if spec.channel_axis is not None:
+        ax = spec.channel_axis % v.ndim
+        shape[ax] = v.shape[ax]
     return gamma.reshape(shape)
 
 

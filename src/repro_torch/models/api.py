@@ -38,19 +38,23 @@ class ModelAPI:
         without a card unless ``device="cpu"``."""
         return nnp.init_params(self.specs(mode), generator, device=device)
 
+    def _no_forward(self):
+        return NotImplementedError(
+            f"{self.name}: the {self.family} family has no full-sequence "
+            f"forward and no train path in the port yet (ROADMAP Queue 1 "
+            f"item 15b (b): mamba2, recurrentgemma, whisper)")
+
     def forward(self, params, inputs, *, mode: str = "train",
                 impl: str = "auto", **kw):
         """Full-sequence logits (a CNN: class logits of a batch of images).
         ``mode="train"`` is the QAT forward over an ``init_params("train")``
-        tree, ported for the dense LMs and the ResNets; the MoE, MLA,
-        mamba2, recurrentgemma and whisper train forwards wait for ROADMAP
-        Queue 1 item 15b and raise ``NotImplementedError``."""
+        tree: the ResNets and every decoder arch (dense, MoE, MLA).
+        mamba2, recurrentgemma and whisper have no full-sequence forward
+        yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item 15b
+        (b))."""
         fn = getattr(self.mod, "forward", None)
         if fn is None:
-            raise NotImplementedError(
-                f"{self.name}: the {self.family} family has no full-sequence "
-                f"forward in the port yet (its train forward is ROADMAP "
-                f"Queue 1 item 15b)")
+            raise self._no_forward()
         return fn(self.cfg, params, inputs, self.policy, mode=mode,
                   impl=impl, **kw)
 
@@ -94,17 +98,30 @@ class ModelAPI:
 
     # --- LM families ----------------------------------------------------------
 
-    def prefill(self, params, tokens, *, impl: str = "auto", **kw):
+    def _mode(self, mode: str) -> Dict[str, str]:
+        """The cache path's ``mode`` argument: "serve" (packed) needs none;
+        "train" (over an ``init_params("train")`` tree) goes to the decoder
+        archs, and raises for the families whose train path waits."""
+        if mode == "serve":
+            return {}
+        if getattr(self.mod, "forward", None) is None:
+            raise self._no_forward()
+        return {"mode": mode}
+
+    def prefill(self, params, tokens, *, mode: str = "serve",
+                impl: str = "auto", **kw):
         return self.mod.prefill(self.cfg, params, tokens, self.policy,
-                                impl=impl, **kw)
+                                impl=impl, **self._mode(mode), **kw)
 
     def decode_step(self, params, cache, tokens, length: int, *,
-                    impl: str = "auto"):
+                    mode: str = "serve", impl: str = "auto"):
         return self.mod.decode_step(self.cfg, params, cache, tokens, length,
-                                    self.policy, impl=impl)
+                                    self.policy, impl=impl,
+                                    **self._mode(mode))
 
     def decode_steps(self, params, cache, tokens, length: int, *,
-                     impl: str = "auto", attn_impl: str = "xla"):
+                     mode: str = "serve", impl: str = "auto",
+                     attn_impl: str = "xla"):
         """T-token cache extension (the speculative verify): logits (B, T,
         V) equal to T ``decode_step`` calls."""
         fn = getattr(self.mod, "decode_steps", None)
@@ -112,7 +129,7 @@ class ModelAPI:
             raise NotImplementedError(
                 f"{self.family} has no multi-token decode_steps")
         return fn(self.cfg, params, cache, tokens, length, self.policy,
-                  impl=impl, attn_impl=attn_impl)
+                  impl=impl, attn_impl=attn_impl, **self._mode(mode))
 
     def cache_specs(self, batch: int, max_len: int):
         return self.mod.cache_specs(self.cfg, batch, max_len,

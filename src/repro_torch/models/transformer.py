@@ -25,13 +25,16 @@ Entry points: ``prefill`` (full prompt -> last-token logits and the cache),
 ``decode_steps`` (T tokens against the cache in one forward, the
 speculative verify); all take ``impl`` ('auto', 'cuda', 'torch'), which
 routes every kernel of the call.  ``forward(mode="train")`` is the QAT
-training forward of the dense family (granite-8b/34b, yi-34b,
-chameleon-34b, nemotron-4-340b): fake-quant projections and the chunked
-attention under autograd, every layer under ``torch.utils.checkpoint``
-when ``cfg.remat`` (the reference's ``jax.checkpoint``; ``remat_policy=
-"dots"`` keeps the projections' 2-D products, ``aten.mm``, and recomputes
-the rest, as ``dots_with_no_batch_dims_saveable`` does).  The MoE, MLA and
-dense-prefix train forwards wait for ROADMAP Queue 1 item 15b.
+training forward of every arch here: fake-quant projections (GQA or MLA),
+fake-quant expert banks behind the router (MoE, ``nn.moe``), the dense
+prefix, and the chunked attention, under autograd, every layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+``jax.checkpoint``; ``remat_policy="dots"`` keeps the projections' 2-D
+products, ``aten.mm``, and recomputes the rest, the batched bank and
+attention products included, as ``dots_with_no_batch_dims_saveable``
+does).  ``prefill``, ``decode_step`` and ``decode_steps`` take
+``mode="train"`` too, over the same train tree: the reference's train-mode
+cache path.
 """
 from __future__ import annotations
 
@@ -292,8 +295,8 @@ def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
     if "moe" in p:
         b, s, d = x.shape
         xg = x.reshape(b * s, 1, d) if per_token else x
-        return nnmoe.moe_apply(p["moe"], xg, policy, cfg.moe, impl=impl,
-                               lname=lname).reshape(b, s, d)
+        return nnmoe.moe_apply(p["moe"], xg, policy, cfg.moe, serve=serve,
+                               impl=impl, lname=lname).reshape(b, s, d)
     nm = lname + "mlp"
     if serve:
         fn = lambda w, h: Q.qlinear_serve_apply(  # noqa: E731
@@ -317,14 +320,14 @@ def _mla_kw(cfg):
 
 def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
                kv_store="packed", serve=True):
-    """Pre-norm block -> (x, this layer's cache); ``serve=False`` is the
-    QAT forward of a dense block."""
+    """Pre-norm block -> (x, this layer's cache); ``serve=False`` is its
+    QAT forward (GQA or MLA, a dense MLP or MoE)."""
     _, napply = cfg.norm_fns
     h = napply(p["ln1"], x)
     if cfg.mla is not None:
         o, cache = attn.mla_prefill(p["attn"], h, policy, sin=sin, cos=cos,
                                     impl=impl, chunk=cfg.attn_chunk,
-                                    lname=lname, **_mla_kw(cfg))
+                                    lname=lname, serve=serve, **_mla_kw(cfg))
     else:
         o, cache = attn.gqa_prefill(
             p["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
@@ -337,8 +340,16 @@ def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
     return x, cache
 
 
-def _embed(params, tokens):
-    return nnl.embed_serve_apply(params["embed"], tokens)
+def _serve_mode(mode: str) -> bool:
+    if mode not in ("train", "serve"):
+        raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
+    return mode == "serve"
+
+
+def _embed(params, tokens, serve=True):
+    if serve:
+        return nnl.embed_serve_apply(params["embed"], tokens)
+    return nnl.embed_apply(params["embed"], tokens)
 
 
 def _head_input(cfg, params, x):
@@ -347,10 +358,15 @@ def _head_input(cfg, params, x):
     return napply(params["final_norm"], x)
 
 
-def _head(cfg, params, x, policy, impl):
-    logits = Q.qlinear_serve_apply(params["head"], _head_input(cfg, params, x),
-                                   policy, layer_class="boundary", impl=impl,
-                                   name="head")
+def _head(cfg, params, x, policy, impl, serve=True):
+    h = _head_input(cfg, params, x)
+    if serve:
+        logits = Q.qlinear_serve_apply(params["head"], h, policy,
+                                       layer_class="boundary", impl=impl,
+                                       name="head")
+    else:
+        logits = Q.qlinear_apply(params["head"], h, policy,
+                                 layer_class="boundary", name="head")
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
@@ -358,7 +374,7 @@ def _rotary(cfg, positions):
     return nnl.rotary_cache(positions, cfg.rope_dim, cfg.rope_base)
 
 
-def _run_layers(cfg, params, x, policy, sin, cos, *, impl):
+def _run_layers(cfg, params, x, policy, sin, cos, *, impl, serve=True):
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
     caches = []
@@ -366,7 +382,7 @@ def _run_layers(cfg, params, x, policy, sin, cos, *, impl):
         x, cache = _layer_fwd(
             cfg, lp, x, policy, sin, cos, impl=impl, lname=f"l{i}.",
             kv_fmts=kv_info[1][i] if kv_info is not None else None,
-            kv_store=store)
+            kv_store=store, serve=serve)
         caches.append(cache)
     return x, caches
 
@@ -377,7 +393,12 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 
 def _mm_saveable(ctx, op, *args, **kwargs):
     """The 'dots' remat policy: keep the output of every 2-D matrix product
-    (the projections, which have no batch axis), recompute the rest."""
+    (the projections, which have no batch axis), recompute the rest.  An
+    expert bank's product is a batched one (``aten.bmm``, batched over the
+    experts), and so are attention's: the reference computes the bank
+    under ``jax.vmap``, a ``dot_general`` with a batch dimension, which
+    ``dots_with_no_batch_dims_saveable`` does not save, so neither does
+    this policy -- both recompute it."""
     from torch.utils.checkpoint import CheckpointPolicy
     return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
             else CheckpointPolicy.PREFER_RECOMPUTE)
@@ -401,15 +422,11 @@ def _remat(cfg, fn, x):
 
 
 def _train_forward(cfg, params, tokens, policy):
-    if cfg.moe is not None or cfg.mla is not None or cfg.dense_first_n:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE, MLA and dense-prefix train forwards are "
-            f"not ported yet (ROADMAP Queue 1 item 15b)")
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
-    x = nnl.embed_apply(params["embed"], tokens)
+    x = _embed(params, tokens, serve=False)
     for i, lp in enumerate(params["layers"]):
         def layer(h, lp=lp, i=i):
             return _layer_fwd(
@@ -417,9 +434,7 @@ def _train_forward(cfg, params, tokens, policy):
                 kv_fmts=kv_info[1][i] if kv_info is not None else None,
                 kv_store=store, serve=False)[0]
         x = _remat(cfg, layer, x)
-    logits = Q.qlinear_apply(params["head"], _head_input(cfg, params, x),
-                             policy, layer_class="boundary", name="head")
-    return logits[..., :cfg.vocab]  # drop the vocab padding
+    return _head(cfg, params, x, policy, "torch", serve=False)
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
@@ -427,11 +442,11 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
     """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
     (``mode="serve"``, over a ``pack_for_serving`` tree) or the QAT
     training forward (``mode="train"``, over an ``init_params("train")``
-    tree; ``impl`` unused, no kernel runs)."""
-    if mode == "train":
+    tree; ``impl`` unused, no kernel runs).  ``mode`` defaults to "serve"
+    here, where the reference's ``forward`` defaults to "train";
+    ``ModelAPI.forward`` defaults to "train" in both packages."""
+    if not _serve_mode(mode):
         return _train_forward(cfg, params, tokens, policy)
-    if mode != "serve":
-        raise ValueError(f"mode must be 'train' or 'serve', got {mode!r}")
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
     x, _ = _run_layers(cfg, params, _embed(params, tokens), policy, sin, cos,
@@ -440,13 +455,17 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
 
 
 def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto"):
-    """tokens (B, S) -> (last-token logits (B, V), per-layer cache)."""
+            impl: str = "auto", mode: str = "serve"):
+    """tokens (B, S) -> (last-token logits (B, V), per-layer cache).
+    ``mode="train"`` runs the QAT forward over an ``init_params("train")``
+    tree (no kernel), as the reference's ``prefill(mode="train")``."""
+    serve = _serve_mode(mode)
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
-    x, caches = _run_layers(cfg, params, _embed(params, tokens), policy, sin,
-                            cos, impl=impl)
-    return _head(cfg, params, x[:, -1:, :], policy, impl)[:, 0, :], caches
+    x, caches = _run_layers(cfg, params, _embed(params, tokens, serve),
+                            policy, sin, cos, impl=impl, serve=serve)
+    return _head(cfg, params, x[:, -1:, :], policy, impl,
+                 serve)[:, 0, :], caches
 
 
 def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
@@ -482,22 +501,25 @@ def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
             for fk, fv in kv_info[1]]
 
 
-def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl):
+def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl,
+            mode):
     """T tokens per row at positions ``length ..`` against the per-layer
-    cache (updated in place) -> (logits (B, T, V), cache)."""
+    cache (updated in place) -> (logits (B, T, V), cache); ``mode="train"``
+    over an ``init_params("train")`` tree, fake-quant."""
+    serve = _serve_mode(mode)
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
     b, t_new = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, t_new, length, tokens.device))
     _, napply = cfg.norm_fns
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, serve)
     for i, lp in enumerate(params["layers"]):
         lname = f"l{i}."
         h = napply(lp["ln1"], x)
         if cfg.mla is not None:
             o, cache[i] = attn.mla_verify(
                 lp["attn"], h, cache[i], length, policy, sin=sin, cos=cos,
-                impl=impl, lname=lname, **_mla_kw(cfg))
+                impl=impl, lname=lname, serve=serve, **_mla_kw(cfg))
         else:
             o, cache[i] = attn.gqa_verify(
                 lp["attn"], h, cache[i], length, policy,
@@ -505,27 +527,29 @@ def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl):
                 sin=sin, cos=cos, impl=impl, attn_impl=attn_impl,
                 lname=lname,
                 kv_fmts=kv_info[1][i] if kv_info is not None else None,
-                kv_store=store)
+                kv_store=store, serve=serve)
         x = x + o
         x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname,
-                           per_token=True)
-    return _head(cfg, params, x, policy, impl), cache
+                           per_token=True, serve=serve)
+    return _head(cfg, params, x, policy, impl, serve), cache
 
 
 def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
-                length: int, policy, *, impl: str = "auto"):
+                length: int, policy, *, impl: str = "auto",
+                mode: str = "serve"):
     """One new token per row: tokens (B, 1) at position ``length`` against
     the per-layer cache from ``cache_specs`` (updated in place) ->
     (logits (B, V), cache).  It is ``decode_steps`` at T = 1: the verify's
-    per-query attention at one query is the decode attention itself."""
+    per-query attention at one query is the decode attention itself.
+    ``mode="train"`` runs over an ``init_params("train")`` tree."""
     logits, cache = _extend(cfg, params, cache, tokens, length, policy,
-                            impl=impl, attn_impl="xla")
+                            impl=impl, attn_impl="xla", mode=mode)
     return logits[:, 0, :], cache
 
 
 def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
                  length: int, policy, *, impl: str = "auto",
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", mode: str = "serve"):
     """T new tokens per row in ONE forward, the speculative verify: tokens
     (B, T) go to positions ``length .. length + T - 1`` of the per-layer
     cache (updated in place) -> (logits (B, T, V), cache), where logits[:,
@@ -541,9 +565,10 @@ def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
     tokens at olmoe's and deepseek's widths) drops tokens that a decode
     step would run, so its own verify is not its decode steps for MoE.
     ``attn_impl='flash'`` takes K4 for a packed cache instead, within K4's
-    contract."""
+    contract.  ``mode="train"`` runs over an ``init_params("train")`` tree,
+    fake-quant and without K4, each MoE token still routed alone."""
     return _extend(cfg, params, cache, tokens, length, policy, impl=impl,
-                   attn_impl=attn_impl)
+                   attn_impl=attn_impl, mode=mode)
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------

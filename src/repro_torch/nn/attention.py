@@ -390,7 +390,7 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                cos: torch.Tensor, window: Optional[int] = None,
                rope: bool = True, impl: str = "auto", attn_impl: str = "xla",
                lname: str = "", names: Optional[Dict[str, str]] = None,
-               kv_fmts=None, kv_store: str = "packed"):
+               kv_fmts=None, kv_store: str = "packed", serve: bool = True):
     """T-token cache extension, the verify step of speculative decoding.
 
     x (B, T, D): the T candidate tokens land at cache positions ``length ..
@@ -405,12 +405,16 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     ``attn_impl='flash'`` sends a cache whose K and V are both packed
     through K4 (``flash_attention_packed``) with ``q_offset=length``: the
     same function within K4's contract (one bf16 ulp), not bitwise.
-    Returns (out (B, T, D), cache)."""
+    ``serve=False`` runs the projections fake-quant (the QAT forward's
+    train-mode cache path) and never K4, as the reference.  Returns (out
+    (B, T, D), cache)."""
     b, t_new = x.shape[0], x.shape[1]
     nm = _gqa_names(lname, names)
     q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
                    head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
-                   rope=rope)
+                   rope=rope, serve=serve)
+    if not serve:
+        attn_impl = "xla"  # the reference's flash kernels serve only
     fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
     packed = kv_fmts is not None and kv_store == "packed"
     if packed:
@@ -447,7 +451,7 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                                         length + 1 + t, window=window)
                        for t in range(t_new)], dim=1)
     o = o.reshape(b, t_new, n_heads * head_dim)
-    out = Q.qlinear_serve_apply(p["o"], o, policy, impl=impl, name=nm["o"])
+    out = _proj(p["o"], o, policy, serve=serve, impl=impl, name=nm["o"])
     return out, ({"k": ck, "v": cv} if packed else (ck, cv))
 
 
@@ -475,36 +479,61 @@ def mla_spec(d_model: int, n_heads: int, *, kv_lora: int, qk_nope: int,
     }
 
 
-def _mla_proj(p, x, policy, impl, name):
-    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+def _mla_proj(p, key, x, policy, *, serve, impl, lname):
+    return _proj(p[key], x, policy, serve=serve, impl=impl, name=lname + key)
 
 
 def _mla_qkv(p, x, policy, *, n_heads, qk_nope, qk_rope, kv_lora, sin, cos,
-             impl, lname):
+             impl, lname, serve=True):
     """-> q_nope, q_rope (rotary), the normed latent c_kv and the rotary
     key k_rope of the tokens x (B, S, D)."""
     b, s, _ = x.shape
-    q = _mla_proj(p["q"], x, policy, impl, lname + "q").reshape(
-        b, s, n_heads, qk_nope + qk_rope)
+    kw = dict(serve=serve, impl=impl, lname=lname)
+    q = _mla_proj(p, "q", x, policy, **kw).reshape(b, s, n_heads,
+                                                   qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     q_rope = layers.apply_rotary(q_rope, sin, cos)
-    ckv = _mla_proj(p["dkv"], x, policy, impl, lname + "dkv")
+    ckv = _mla_proj(p, "dkv", x, policy, **kw)
     c_kv = layers.rmsnorm_apply(p["kv_norm"], ckv[..., :kv_lora])
     k_rope = layers.apply_rotary(ckv[..., kv_lora:][:, :, None, :], sin,
                                  cos)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
 
 
+class _HeadBroadcast(torch.autograd.Function):
+    """The rotary key k_rope (B, S, R), shared by every head, broadcast to
+    (B, S, H, R).  Its backward adds the H heads' cotangents one at a time
+    in their dtype, in head order, as XLA runs the reference's transpose of
+    ``jnp.broadcast_to`` (a bf16 sum over a non-minor axis); ``expand``'s
+    backward would add them in f32 and round once."""
+
+    @staticmethod
+    def forward(ctx, k, h):
+        b, s, r = k.shape
+        return k[:, :, None, :].expand(b, s, h, r).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = g[:, :, 0]
+        for i in range(1, g.shape[2]):
+            acc = acc + g[:, :, i]
+        return acc, None
+
+
 def _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy, *, n_heads,
-                qk_nope, qk_rope, v_head, impl, lname):
+                qk_nope, qk_rope, v_head, impl, lname, serve=True):
     """The latent (B, Sk, r) and rotary key up to per-head K (B, Sk, H,
     qk_nope + qk_rope) and V (B, Sk, H, v_head); q joined the same way."""
     b, sk = c_kv.shape[:2]
-    k_nope = _mla_proj(p["uk"], c_kv, policy, impl, lname + "uk").reshape(
-        b, sk, n_heads, qk_nope)
-    v = _mla_proj(p["uv"], c_kv, policy, impl, lname + "uv").reshape(
-        b, sk, n_heads, v_head)
-    k_rope_b = k_rope[:, :, None, :].expand(b, sk, n_heads, qk_rope)
+    kw = dict(serve=serve, impl=impl, lname=lname)
+    k_nope = _mla_proj(p, "uk", c_kv, policy, **kw).reshape(b, sk, n_heads,
+                                                            qk_nope)
+    v = _mla_proj(p, "uv", c_kv, policy, **kw).reshape(b, sk, n_heads,
+                                                       v_head)
+    if serve:
+        k_rope_b = k_rope[:, :, None, :].expand(b, sk, n_heads, qk_rope)
+    else:
+        k_rope_b = _HeadBroadcast.apply(k_rope, n_heads)
     k = torch.cat([k_nope, k_rope_b.to(k_nope.dtype)], dim=-1)
     q = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
     return q, k, v
@@ -513,11 +542,14 @@ def _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy, *, n_heads,
 def mla_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
                 kv_lora: int, qk_nope: int, qk_rope: int, v_head: int,
                 sin: torch.Tensor, cos: torch.Tensor, impl: str = "auto",
-                chunk: int = 1024, lname: str = ""):
-    """Causal serve prefill of one MLA block -> (out (B, S, D), cache
-    (c_kv (B, S, r), k_rope (B, S, qk_rope)))."""
+                chunk: int = 1024, lname: str = "", serve: bool = True):
+    """Causal prefill of one MLA block -> (out (B, S, D), cache (c_kv (B,
+    S, r), k_rope (B, S, qk_rope))).  ``serve=False`` is the QAT training
+    forward: the five projections fake-quant, ``kv_norm``, rotary on q_rope
+    and k_rope and ``chunked_attention`` at ``chunk``, under autograd."""
     b, s, _ = x.shape
-    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope)
+    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope,
+              serve=serve)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(
         p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
         lname=lname, **kw)
@@ -532,23 +564,25 @@ def mla_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     else:
         o = attend(q, k, v)
     o = o.reshape(b, s, n_heads * v_head)
-    return _mla_proj(p["o"], o, policy, impl, lname + "o"), (c_kv, k_rope)
+    return (_mla_proj(p, "o", o, policy, serve=serve, impl=impl,
+                      lname=lname), (c_kv, k_rope))
 
 
 def mla_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                n_heads: int, kv_lora: int, qk_nope: int, qk_rope: int,
                v_head: int, sin: torch.Tensor, cos: torch.Tensor,
-               impl: str = "auto", lname: str = ""):
+               impl: str = "auto", lname: str = "", serve: bool = True):
     """T-token latent-cache extension (the MLA counterpart of
     ``gqa_verify``): x (B, T, D) lands at ``length .. length + T - 1`` of
     the cache ``(c_kv (B, Smax, r), k_rope (B, Smax, qk_rope))``, updated
     IN PLACE; the whole cache is expanded to K/V once (per position, so
     rows past a query's length may hold anything) and each query t runs
     ``decode_attention`` at valid length ``length + 1 + t`` -- the T rows
-    are T sequential ``mla_decode`` steps, bitwise.  -> (out (B, T, D),
-    cache)."""
+    are T sequential ``mla_decode`` steps, bitwise.  ``serve=False`` runs
+    the projections fake-quant.  -> (out (B, T, D), cache)."""
     b, t_new = x.shape[0], x.shape[1]
-    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope)
+    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope,
+              serve=serve)
     q_nope, q_rope, c_new, kr_new = _mla_qkv(
         p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
         lname=lname, **kw)
@@ -562,8 +596,8 @@ def mla_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                                     softmax_scale=scale)
                    for t in range(t_new)], dim=1)
     o = o.reshape(b, t_new, n_heads * v_head)
-    return (_mla_proj(p["o"], o, policy, impl, lname + "o"),
-            (c_cache, kr_cache))
+    return (_mla_proj(p, "o", o, policy, serve=serve, impl=impl,
+                      lname=lname), (c_cache, kr_cache))
 
 
 def mla_decode(p: Dict, x: torch.Tensor, cache, length: int, policy, **kw):

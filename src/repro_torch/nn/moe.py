@@ -1,4 +1,5 @@
-"""Mixture-of-Experts, serve half (port of ``repro.nn.moe``).
+"""Mixture-of-Experts (port of ``repro.nn.moe``): the packed serve forward
+and the QAT train forward (``moe_apply(serve=False)``).
 
 Token-choice top-k routing, then capacity-bounded dispatch per batch row:
 each expert takes its top-C tokens by gate (C = capacity; an
@@ -30,6 +31,20 @@ Numerics, against the reference and across batches:
   ``h * 0``, which is a signed zero -- an identity of every partial sum,
   which is never -0 -- or NaN where ``h`` is not finite, and is added after
   in any order (atomics on a card) with the same result.
+
+The train forward runs the same routing under autograd, with the experts
+as fake-quant banks (``nn.quantized.qlinear_apply`` over ``lead=(E,)``:
+each expert's own ``gw`` -- one per output column under olmoe's
+``channel_wise`` -- and ``ga``, its step-size gradients scaled by its own
+count).  Its backward follows ``jax.vjp`` of the reference where a sum in
+bf16 leaves XLA: the dispatch's transpose adds a token's cotangents from
+the experts that took it one by one in bf16 (``_Dispatch``), and the
+gates' gradient, a bf16 sum over the model axis, is added in windows of
+32 as XLA's CPU compiler adds it (``_Gate``).  The f32 router and softmax
+products are left to torch (another order of f32 sums).  On a card
+every index operation of the backward is deterministic under
+``torch.use_deterministic_algorithms``: gathers, a sort's scatter, the
+combine's scatter-add.
 """
 from __future__ import annotations
 
@@ -44,7 +59,7 @@ from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["MoEConfig", "moe_spec", "moe_apply", "capacity",
-           "router_logits", "top_k"]
+           "router_logits", "top_k", "route", "dispatch", "gate_and_combine"]
 
 # Tokens of one fixed-order router product on a card: its (rows, E, D)
 # buffer stays near 2^25 values at olmoe's and deepseek's widths.
@@ -109,23 +124,50 @@ def top_k(v: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _fixed_order_rows(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """a (N, K) times bt (M, K) transposed -> (N, M) f32, each row as an
+    elementwise product into a (rows, M, K) buffer and one sum over K,
+    ROUTER_ROWS rows at a time: a row's bits do not depend on the others."""
+    out = [torch.mul(a[i:i + ROUTER_ROWS, None, :], bt[None]).sum(-1)
+           for i in range(0, a.shape[0], ROUTER_ROWS)]
+    return torch.cat(out)
+
+
+class _FixedOrderRouter(torch.autograd.Function):
+    """The card's router product ``rows @ router`` in the fixed-order form,
+    and its backward: the gradient to a token's row (a sum over the E
+    experts) in the same form, so that it too keeps its bits whatever rows
+    share the call, and the router's gradient (a sum over the tokens,
+    which depends on them by nature) as one f32 product, deterministic
+    for a given shape."""
+
+    @staticmethod
+    def forward(ctx, rows, rf):
+        ctx.save_for_backward(rows, rf)
+        return _fixed_order_rows(rows, rf.t().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, rf = ctx.saved_tensors
+        dx = (_fixed_order_rows(g, rf.contiguous())
+              if ctx.needs_input_grad[0] else None)
+        dr = torch.mm(rows.t(), g) if ctx.needs_input_grad[1] else None
+        return dx, dr
+
+
 def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
-    """f32 router scores ``einsum('bsd,de->bse')``.  On a card, the
-    fixed-order form: each token's E dot products as an elementwise
-    product into a (rows, E, D) buffer and one sum over D, ROUTER_ROWS
-    tokens at a time -- a token's scores are then the same bits whatever
-    rows share the call (the schedulers' and the speculative verify's
-    contracts)."""
+    """f32 router scores ``einsum('bsd,de->bse')``, under autograd.  On a
+    card, the fixed-order form: each token's E dot products as an
+    elementwise product into a (rows, E, D) buffer and one sum over D,
+    ROUTER_ROWS tokens at a time -- a token's scores, and its gradient
+    through the router, are then the same bits whatever rows share the
+    call (the schedulers' and the speculative verify's contracts)."""
     xf = x.to(torch.float32)
     rf = router.to(torch.float32)
     if not xf.is_cuda:
         return torch.einsum("bsd,de->bse", xf, rf)
     b, s, d = xf.shape
-    rows = xf.reshape(b * s, d)
-    rt = rf.t().contiguous()[None]                        # (1, E, D)
-    out = [torch.mul(rows[i:i + ROUTER_ROWS, None, :], rt).sum(-1)
-           for i in range(0, b * s, ROUTER_ROWS)]
-    return torch.cat(out).reshape(b, s, -1)
+    return _FixedOrderRouter.apply(xf.reshape(b * s, d), rf).reshape(b, s, -1)
 
 
 def _act(cfg: MoEConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -133,31 +175,61 @@ def _act(cfg: MoEConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         else layers.gelu(g)
 
 
-def _ffn(p, x, policy, cfg: MoEConfig, impl: str, name: str, prefix=""):
-    fn = lambda key, h: Q.qlinear_serve_apply(  # noqa: E731
-        p[prefix + key], h, policy, impl=impl, name=name)
+def _ffn(p, x, policy, cfg: MoEConfig, impl: str, name: str, prefix="",
+         serve=True):
+    """The expert bank (x (E, M, D), ``prefix`` '') or the shared experts
+    (x (B, S, D), ``prefix`` 'shared_'): packed (``serve``, one K1 call a
+    projection over the bank) or fake-quant (the QAT forward, one batched
+    bf16 product a projection)."""
+    if serve:
+        fn = lambda key, h: Q.qlinear_serve_apply(  # noqa: E731
+            p[prefix + key], h, policy, impl=impl, name=name)
+    else:
+        fn = lambda key, h: Q.qlinear_apply(  # noqa: E731
+            p[prefix + key], h, policy, name=name)
     u = fn("up", x) if cfg.act == "swiglu" else None
     return fn("down", _act(cfg, fn("gate", x), u))
+
+
+def _token_slots(tok_idx: torch.Tensor, idx: torch.Tensor,
+                 s: int) -> torch.Tensor:
+    """tok_idx (B, E, C) the token in each expert slot, idx (B, S, K) the
+    router's choices -> (B, K, S): for each token and each of its K
+    choices in ascending expert order, the flat slot e * C + c where that
+    expert took it, or E * C (a zero row) where its capacity dropped it."""
+    b, e, c = tok_idx.shape
+    dev = tok_idx.device
+    pos = torch.full((b, e, s), -1, dtype=torch.long, device=dev)
+    pos.scatter_(2, tok_idx, torch.arange(c, device=dev).expand(b, e, c))
+    chosen = torch.sort(idx, dim=-1).values.transpose(1, 2)   # (B, K, S)
+    slot = torch.gather(pos, 1, chosen)                        # (B, K, S)
+    return torch.where(slot >= 0, chosen * c + slot, e * c)
+
+
+def _sum_slots(rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """rows (B, E * C, D), flat (B, K, S) from ``_token_slots`` -> (B, S, D)
+    in rows' dtype: each token's slots added one at a time, in ascending
+    expert order, from zero."""
+    b, _, d = rows.shape
+    s = flat.shape[2]
+    rz = torch.cat([rows, rows.new_zeros(b, 1, d)], dim=1)
+    y = torch.zeros((b, s, d), dtype=rows.dtype, device=rows.device)
+    for j in range(flat.shape[1]):
+        y = y + torch.gather(rz, 1, flat[:, j, :, None].expand(b, s, d))
+    return y
 
 
 def _combine(gated: torch.Tensor, tok_idx: torch.Tensor, idx: torch.Tensor,
              s: int) -> torch.Tensor:
     """gated (B, E, C, D) expert outputs times their gates, tok_idx (B, E,
     C) the token of each, idx (B, S, K) the router's choices -> (B, S, D)
-    f32, each token's contributions summed in ascending expert order."""
+    f32, each token's contributions summed in ascending expert order.
+    Under autograd its backward is a gather: each slot takes its token's
+    cotangent, as the reference's scatter-add transposes."""
     b, e, c, d = gated.shape
     dev = gated.device
     hf = gated.to(torch.float32).reshape(b, e * c, d)
-    # where expert e took token t: its slot c, or -1
-    pos = torch.full((b, e, s), -1, dtype=torch.long, device=dev)
-    pos.scatter_(2, tok_idx, torch.arange(c, device=dev).expand(b, e, c))
-    chosen = torch.sort(idx, dim=-1).values.transpose(1, 2)   # (B, K, S)
-    slot = torch.gather(pos, 1, chosen)                        # (B, K, S)
-    flat = torch.where(slot >= 0, chosen * c + slot, e * c)    # e*c: a zero
-    hz = torch.cat([hf, hf.new_zeros(b, 1, d)], dim=1)
-    y = torch.zeros((b, s, d), dtype=torch.float32, device=dev)
-    for j in range(flat.shape[1]):
-        y = y + torch.gather(hz, 1, flat[:, j, :, None].expand(b, s, d))
+    y = _sum_slots(hf, _token_slots(tok_idx, idx, s))
     # the gate-0 padding: signed zeros, or NaN where h is not finite
     routed = torch.zeros((b, s, e), dtype=torch.bool, device=dev)
     routed.scatter_(2, idx, True)
@@ -168,28 +240,136 @@ def _combine(gated: torch.Tensor, tok_idx: torch.Tensor, idx: torch.Tensor,
     return y + z
 
 
-def moe_apply(p: Dict, x: torch.Tensor, policy, cfg: MoEConfig, *,
-              impl: str = "auto", lname: str = "") -> torch.Tensor:
-    """Serve forward of one MoE block: x (B, S, D) -> (B, S, D), routing
-    and capacity per batch row as the reference's grouped dispatch."""
-    b, s, d = x.shape
-    e = cfg.n_experts
-    scores = torch.softmax(router_logits(x, p["router"]), dim=-1)
+class _Dispatch(torch.autograd.Function):
+    """The train path's dispatch: x (B, S, D) gathered into the expert
+    slots (B, E, C, D).  Its backward adds each token's cotangents from the
+    experts that took it one at a time in x's dtype, in ascending expert
+    order, as XLA runs the reference's transpose (a scatter-add in bf16,
+    in index order); a plain gather's backward would add them in f32 and
+    round once.  The gate-0 padding slots are left out: their cotangents
+    are zeros (h times a zero gate), which change no sum."""
+
+    @staticmethod
+    def forward(ctx, x, tok_idx, idx):
+        b, e, c = tok_idx.shape
+        d = x.shape[-1]
+        ctx.save_for_backward(_token_slots(tok_idx, idx, x.shape[1]))
+        return torch.gather(x, 1, tok_idx.reshape(b, e * c, 1).expand(
+            b, e * c, d)).reshape(b, e, c, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat,) = ctx.saved_tensors
+        b, e, c, d = g.shape
+        return _sum_slots(g.reshape(b, e * c, d), flat), None, None
+
+
+# XLA's CPU compiler sums a long bf16 row in windows of this many values
+XLA_REDUCE_WINDOW = 32
+
+
+def _xla_row_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in t's dtype, in the order XLA's CPU
+    compiler adds a bf16 row: windows of XLA_REDUCE_WINDOW values, each
+    added one at a time, the row of window sums again the same way until
+    one window is left, then that (equal to ``jax.lax.reduce`` of bf16
+    rows whose length is 32 * 2^j; a ragged row is padded with zeros)."""
+    while t.shape[-1] > XLA_REDUCE_WINDOW:
+        pad = (-t.shape[-1]) % XLA_REDUCE_WINDOW
+        if pad:
+            t = torch.cat([t, t.new_zeros(t.shape[:-1] + (pad,))], dim=-1)
+        t = _sequential_sum(t.reshape(t.shape[:-1] + (
+            -1, XLA_REDUCE_WINDOW)))
+    return _sequential_sum(t)
+
+
+def _sequential_sum(t: torch.Tensor) -> torch.Tensor:
+    acc = t[..., 0]
+    for i in range(1, t.shape[-1]):
+        acc = acc + t[..., i]
+    return acc
+
+
+class _Gate(torch.autograd.Function):
+    """h (B, E, C, D) times its gates vals (B, E, C, f32, rounded to h's
+    dtype).  The gates' gradient is a bf16 sum over D, added as XLA adds
+    the reference's (``_xla_row_sum``); torch would add it in f32 and
+    round once, and a gate's gradient reaches the router and every
+    token's input through it."""
+
+    @staticmethod
+    def forward(ctx, h, vals):
+        vb = vals[..., None].to(h.dtype)
+        ctx.save_for_backward(h, vb)
+        return h * vb
+
+    @staticmethod
+    def backward(ctx, g):
+        h, vb = ctx.saved_tensors
+        dv = _xla_row_sum(g * h).to(torch.float32) \
+            if ctx.needs_input_grad[1] else None
+        return g * vb, dv
+
+
+def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
+    """The routing's decisions for x (B, S, D), under autograd: the f32
+    router's softmax, the top-k experts of each token with their
+    renormalized gates scattered into ``sel`` (B, S, E), and each expert's
+    top-C tokens of a row by gate -> (idx (B, S, K) the experts each token
+    chose, vals (B, E, C) f32 the gate of each expert slot, tok_idx (B, E,
+    C) its token).  Both top-k passes send a gradient to the entries they
+    picked only, so ties among unrouted zeros move none."""
+    b, s, _ = x.shape
+    scores = torch.softmax(router_logits(x, router), dim=-1)
     gates, idx = top_k(scores, cfg.topk)                     # (B, S, K)
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)   # renormalize
-    sel = torch.zeros((b, s, e), dtype=torch.float32, device=x.device)
-    sel.scatter_(2, idx, gates)
-    cap = capacity(cfg, s)
-    vals, tok_idx = top_k(sel.transpose(1, 2), cap)          # (B, E, C)
-    xg = torch.gather(x, 1, tok_idx.reshape(b, e * cap, 1).expand(
-        b, e * cap, d))
-    # the bank: (E, B*C, D), one K1 call per projection
-    xe = xg.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    h = _ffn(p, xe, policy, cfg, impl, lname + "expert")
+    sel = torch.zeros((b, s, cfg.n_experts), dtype=torch.float32,
+                      device=x.device).scatter(2, idx, gates)
+    vals, tok_idx = top_k(sel.transpose(1, 2), capacity(cfg, s))
+    return idx, vals, tok_idx
+
+
+def dispatch(x: torch.Tensor, tok_idx: torch.Tensor, idx: torch.Tensor, *,
+             serve: bool) -> torch.Tensor:
+    """x (B, S, D) gathered into the expert slots (B, E, C, D); the train
+    path's backward is ``_Dispatch``'s."""
+    if not serve:
+        return _Dispatch.apply(x, tok_idx, idx)
+    b, e, c = tok_idx.shape
+    d = x.shape[-1]
+    return torch.gather(x, 1, tok_idx.reshape(b, e * c, 1).expand(
+        b, e * c, d)).reshape(b, e, c, d)
+
+
+def gate_and_combine(h: torch.Tensor, vals: torch.Tensor,
+                     tok_idx: torch.Tensor, idx: torch.Tensor, s: int, *,
+                     serve: bool) -> torch.Tensor:
+    """The experts' outputs h (B, E, C, D) times their gates (``_Gate`` on
+    the train path), summed back per token in f32 -> (B, S, D) f32."""
+    h = h * vals[..., None].to(h.dtype) if serve else _Gate.apply(h, vals)
+    return _combine(h, tok_idx, idx, s)
+
+
+def moe_apply(p: Dict, x: torch.Tensor, policy, cfg: MoEConfig, *,
+              serve: bool = True, impl: str = "auto",
+              lname: str = "") -> torch.Tensor:
+    """One MoE block: x (B, S, D) -> (B, S, D), routing and capacity per
+    batch row as the reference's grouped dispatch.  ``serve`` (the port's
+    default; the reference defaults to the train path) runs the packed
+    experts through K1; ``serve=False`` is the QAT forward under autograd:
+    ``route``, ``dispatch``, the fake-quant banks and ``gate_and_combine``,
+    each with the reference's gradient."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    idx, vals, tok_idx = route(x, p["router"], cfg)
+    cap = tok_idx.shape[-1]
+    xg = dispatch(x, tok_idx, idx, serve=serve)
+    # the bank: (E, B*C, D), one product per projection
+    xe = xg.transpose(0, 1).reshape(e, b * cap, d)
+    h = _ffn(p, xe, policy, cfg, impl, lname + "expert", serve=serve)
     h = h.reshape(e, b, cap, d).transpose(0, 1)              # (B, E, C, D)
-    h = h * vals[..., None].to(h.dtype)
-    y = _combine(h, tok_idx, idx, s).to(x.dtype)
+    y = gate_and_combine(h, vals, tok_idx, idx, s, serve=serve).to(x.dtype)
     if cfg.n_shared:
         y = y + _ffn(p, x, policy, cfg, impl, lname + "shared",
-                     prefix="shared_").to(y.dtype)
+                     prefix="shared_", serve=serve).to(y.dtype)
     return y

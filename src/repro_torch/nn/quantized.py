@@ -49,6 +49,7 @@ __all__ = [
     "qconv_serve_apply",
     "conv_serve_dataflow",
     "im2col",
+    "im2col_train",
     "pack_qlinear",
     "pack_tree",
     "is_qlinear",
@@ -131,16 +132,24 @@ def qlinear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     bf16.  The weight quantizes in f32 (channel-wise where the
     layer's ``gw`` is a vector and the policy asks for it), the activation
     in its own dtype; ``quantize_act=False`` (the CNN stem's raw pixels)
-    leaves x as it is."""
+    leaves x as it is.
+
+    An expert bank (``p`` with ``lead=(E,)``) takes x (E, M, K): each
+    expert's weight and rows are fake-quantized with its own steps, and
+    the product is one batched bf16 product -> (E, M, N), as the
+    reference's ``jax.vmap`` over the experts computes it."""
     policy = plan_lib.resolve_policy(policy, name)
     w, gw, ga = p["w"], p["gw"], p["ga"]
+    lead = w.ndim - 2
     if policy.quantize:
         wspec = quant.weight_spec(
             policy.bits_for(layer_class),
-            channel_axis=-1 if gw.ndim > 0 and policy.channel_wise else None)
-        w = quant.fake_quant(w.to(torch.float32), gw, wspec)
+            channel_axis=-1 if gw.ndim > lead and policy.channel_wise
+            else None)
+        w = quant.fake_quant(w.to(torch.float32), gw, wspec, lead=lead)
         if quantize_act:
-            x = quant.fake_quant(x, ga, quant.act_spec(policy.a_bits))
+            x = quant.fake_quant(x, ga, quant.act_spec(policy.a_bits),
+                                 lead=lead)
     y = torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
     if "b" in p:
         y = y + p["b"].to(torch.bfloat16)
@@ -151,9 +160,9 @@ def qconv_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
                 stride: int = 1, padding: str = "SAME",
                 layer_class: str = "inner", quantize_act: bool = True,
                 name: str = "") -> torch.Tensor:
-    """QAT conv forward: im2col (NHWC, (kh, kw, C) patches) + the
-    fake-quant linear."""
-    cols = im2col(x, k, k, stride, padding)
+    """QAT conv forward: im2col (NHWC, (kh, kw, C) patches,
+    ``im2col_train``) + the fake-quant linear."""
+    cols = im2col_train(x, k, k, stride, padding)
     return qlinear_apply({kk: v for kk, v in p.items() if kk != QMARK},
                          cols, policy, layer_class=layer_class,
                          quantize_act=quantize_act, name=name)
@@ -237,6 +246,45 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int,
     matching the HWIO weight flattening; zero padding with XLA's SAME pads."""
     xp = mpmm_ref.pad_spatial(x, kh, kw, stride, padding, fill=0)
     return mpmm_ref.gather_patches(xp, kh, kw, stride)
+
+
+class _Im2colTrain(torch.autograd.Function):
+    """``im2col`` in x's dtype, whose backward adds a pixel's kh*kw tap
+    gradients in f32, tap by tap in (kh, kw) order from zero, and rounds
+    once to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, kh, kw, stride, padding):
+        ctx.geom = (x.shape, x.dtype, kh, kw, stride, padding)
+        return im2col(x, kh, kw, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        (b, h, w, c), dtype, kh, kw, stride, padding = ctx.geom
+        ph = mpmm_ref.same_pads(h, kh, stride, padding)
+        pw = mpmm_ref.same_pads(w, kw, stride, padding)
+        ho, wo = g.shape[1], g.shape[2]
+        acc = torch.zeros((b, h + sum(ph), w + sum(pw), c),
+                          dtype=torch.promote_types(dtype, torch.float32),
+                          device=g.device)
+        taps = g.reshape(b, ho, wo, kh * kw, c)
+        for i in range(kh):
+            for j in range(kw):
+                acc[:, i:i + (ho - 1) * stride + 1:stride,
+                    j:j + (wo - 1) * stride + 1:stride, :] += taps[
+                        :, :, :, i * kw + j, :]
+        dx = acc[:, ph[0]:ph[0] + h, pw[0]:pw[0] + w, :].to(dtype)
+        return dx, None, None, None, None
+
+
+def im2col_train(x: torch.Tensor, kh: int, kw: int, stride: int,
+                 padding: str) -> torch.Tensor:
+    """The QAT forward's im2col: the same gather as ``im2col``, whose
+    backward adds a pixel's kh*kw tap gradients in f32 and rounds once, as
+    XLA's transpose of the reference's ``conv_general_dilated_patches``
+    does; the plain gather's backward would add them one by one in x's
+    dtype."""
+    return _Im2colTrain.apply(x, kh, kw, stride, padding)
 
 
 @functools.lru_cache(maxsize=4096)

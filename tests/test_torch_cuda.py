@@ -644,6 +644,28 @@ def test_router_batch_invariant_on_card(cuda_device, rows):
     assert torch.equal(batched, alone)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 16, 1000])
+def test_router_gradient_batch_invariant_on_card(cuda_device, rows):
+    """Under autograd, a token's gradient through the router (a sum over
+    the 64 experts, in the fixed-order form) is the same bits alone and
+    among ``rows`` tokens, as its scores are (olmoe's widths)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    x = torch.randn((rows, 1, 2048), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    router = torch.randn((2048, 64), generator=gen, device=cuda_device) \
+        / 45.0
+    g = torch.randn((rows, 1, 64), generator=gen, device=cuda_device)
+
+    def dx(xs, gs):
+        xs = xs.detach().requires_grad_(True)
+        return torch.autograd.grad(nnmoe.router_logits(xs, router), xs,
+                                   grad_outputs=gs)[0]
+    batched = dx(x.reshape(1, rows, 2048), g.reshape(1, rows, 64))[0]
+    alone = torch.cat([dx(x[i:i + 1], g[i:i + 1])[0] for i in range(rows)])
+    assert torch.equal(batched, alone)
+
+
 # --- QAT training on the card (slice 10) -------------------------------------
 
 
@@ -728,3 +750,92 @@ def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
     _, back = store.restore(tree, device=cuda_device)
     assert back["w"].is_cuda and torch.equal(back["w"], tree["w"])
     assert back["n"][0].shape == () and int(back["n"][0]) == 3
+
+
+# --- QAT training of the MoE and MLA archs (slice 11) ------------------------
+
+MOE_TRAIN_ARCHS = ["olmoe-1b-7b", "deepseek-v2-lite-16b"]
+MOE_CARD_RELL2 = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_TRAIN_ARCHS)
+def test_moe_train_step_is_deterministic_on_the_card(cuda_device, monkeypatch,
+                                                     arch):
+    """The reduced olmoe and deepseek steps (the router's sort, the
+    dispatch and its ordered backward, the combine's scatter-add; MLA and
+    deepseek's dense layer 0) under ``torch.use_deterministic_algorithms``:
+    nothing raises, two runs of three steps give bitwise the same state
+    and losses, and the first loss is near the CPU's."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from repro_torch import configs
+    from repro_torch.device import tree_to
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+    api = configs.get(arch, reduced=True)
+    api.microbatches = 2
+    state0 = steps.init_train_state(api, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    state0["step"] = state0["step"] + 50
+    toks = torch.randint(0, api.cfg.vocab, (4, 33),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = steps.make_train_step(api)
+    runs = []
+    for _ in range(2):
+        s = tree_to(state0, cuda_device)
+        b = tree_to(batch, cuda_device)
+        losses = []
+        for _ in range(3):
+            s, m = step(s, b)
+            losses.append(float(m["loss"]))
+        runs.append((s, losses))
+    assert runs[0][1] == runs[1][1]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(runs[0][0]),
+                                                  leaves(runs[1][0])))
+    _, m_cpu = step(state0, batch)
+    assert runs[0][1][0] == pytest.approx(float(m_cpu["loss"]), rel=1e-2)
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_TRAIN_ARCHS)
+def test_moe_train_on_the_card_matches_the_cpu(cuda_device, arch):
+    """``moe_apply(serve=False)`` at the reduced configs (4 x 64 tokens) on
+    the card against the CPU on the same inputs: the output, x's gradient
+    and every weight, router and weight-step (``gw``) gradient within
+    MOE_CARD_RELL2 of its L2 norm, the activation steps' (``ga``, bf16
+    sums of nearly cancelling terms) finite.  Readings on an H100: the
+    output bitwise, x 3.8e-5, the weights 2.5e-5, the router 1.9e-7, ``gw``
+    4.0e-5 (the bank's bf16 products add in another order on cuBLAS)."""
+    from repro_torch import configs
+    from repro_torch.tree import flatten_with_paths, unflatten
+    api = configs.get(arch, reduced=True)
+    mc = api.cfg.moe
+    params = api.init_params(torch.Generator().manual_seed(2), device="cpu")
+    moe = params["layers"][api.cfg.dense_first_n]["moe"]
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 64, mc.d_model), generator=gen).to(torch.bfloat16)
+    ct = torch.randn((4, 64, mc.d_model), generator=gen).to(torch.bfloat16)
+    out = []
+    for dev in ("cpu", cuda_device):
+        flat = flatten_with_paths(moe)
+        live = {k: v.detach().to(dev).clone().requires_grad_(True)
+                for k, v in flat.items()}
+        xt = x.to(dev).requires_grad_(True)
+        y = nnmoe.moe_apply(unflatten(moe, list(live.values())), xt,
+                            api.policy, mc, serve=False)
+        grads = torch.autograd.grad(y, [xt] + list(live.values()),
+                                    grad_outputs=ct.to(dev))
+        out.append((y, grads[0], dict(zip(live, grads[1:]))))
+    (y0, gx0, g0), (y1, gx1, g1) = out
+    assert _rel_l2(y1, y0) <= MOE_CARD_RELL2
+    assert _rel_l2(gx1, gx0) <= MOE_CARD_RELL2
+    for path, g in g1.items():
+        assert bool(torch.isfinite(g).all()), path
+        if not path.endswith("['ga']"):
+            assert _rel_l2(g, g0[path]) <= MOE_CARD_RELL2, path

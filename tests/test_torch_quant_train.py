@@ -232,13 +232,21 @@ def _leaves(tree, path=""):
 
 
 def test_non_dense_train_forward_raises():
+    """The MoE and MLA archs train; the families whose train path waits
+    (mamba2, recurrentgemma, whisper) raise, in ``forward`` and in the
+    train-mode cache path, naming ROADMAP item 15b (b)."""
     api = configs.get("olmoe-1b-7b", reduced=True)
     params = api.init_params(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="15b"):
-        api.forward(params, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="15b"):
-        configs.get("mamba2-1.3b", reduced=True).forward(
-            {}, torch.zeros((1, 4), dtype=torch.long))
+    with torch.no_grad():
+        logits = api.forward(params, torch.zeros((1, 4), dtype=torch.long))
+    assert logits.shape == (1, 4, api.cfg.vocab)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-base"):
+        other = configs.get(arch, reduced=True)
+        with pytest.raises(NotImplementedError, match=r"15b \(b\)"):
+            other.forward({}, toks)
+        with pytest.raises(NotImplementedError, match=r"15b \(b\)"):
+            other.prefill({}, toks, mode="train")
 
 
 @pytest.mark.parametrize("bits", [2, 4])

@@ -12,13 +12,16 @@ half.  Tolerances, with this seed's readings:
   rate equal, ``grad_norm`` within 1e-3 (1.3e-4; the step sizes'
   gradients are in it);
 * every weight, BN and fc gradient within 3e-2 of the leaf's largest
-  |value| (worst 1.8e-2, the stem's BN bias; the fc layer's bitwise).
-  The port's im2col transpose adds a pixel's nine tap gradients in bf16
-  one by one, XLA's conv transpose in f32 once, and the backward carries
-  the difference toward the input;
+  |value| (worst 2.0e-2, the stem's BN bias, then 1.5e-2 its scale and
+  1.4e-2 ``s0b0.conv1``; the fc layer's bitwise).  Since the im2col
+  transpose adds a pixel's tap gradients in f32 and rounds once, as XLA
+  does (``nn.quantized.im2col_train``, F4), the conv weights sit closer
+  (``s0b0.conv1`` was 1.8e-2 with the taps added in bf16) and the stem's
+  BN bias moved from 1.8e-2 to 2.0e-2: the rest is bf16 products and
+  BN's f32 sums in another order, carried toward the input;
 * each step size against its gradient's terms' mass (``step_mass``):
-  ``ga`` within a quarter of it (worst 0.12), ``gw`` within 1e-2 (worst
-  9.2e-4); the stem's ``ga`` zero on both sides (its pixels are not
+  ``ga`` within a quarter of it (worst 0.13), ``gw`` within 1e-2 (worst
+  3.0e-4); the stem's ``ga`` zero on both sides (its pixels are not
   quantized);
 * the parameters after AdamW as ``check_params_after_adamw`` says.
 

@@ -8,9 +8,10 @@
   reference's ``_basic_fwd`` run op by op (``jax.disable_jit``): the
   output bitwise, the weights' and BN parameters' gradients within 2% of
   each leaf's largest |value|, the step sizes' within a quarter of their
-  gradient's mass (``test_torch_train_step.py``).  The port's im2col
-  transpose adds a pixel's nine tap gradients in bf16 one by one, XLA's
-  conv transpose in f32 once; BN sums in another order;
+  gradient's mass (``test_torch_train_step.py``): BN sums in another
+  order;
+* the train path's im2col (F4): its patches and its gradient bitwise
+  ``jax.vjp`` of the reference's at three shapes;
 * ``make_train_step`` for resnet18 at ``reduced=True`` (state step 50,
   batch 4 of ``SyntheticImages``) against the reference's jitted step, a
   second witness: ``test_torch_resnet_step.py`` holds every leaf against
@@ -101,6 +102,35 @@ def test_bn_batch_statistics_and_running_update():
     np.testing.assert_array_equal(_f32(yte), _f32(ye))
     # a bf16 output moves by at most one ulp where the statistics do
     np.testing.assert_allclose(_f32(yt), _f32(yj), rtol=2 ** -8, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16, 3, 1), (2, 9, 9, 8, 3, 2),
+                                   (2, 16, 16, 3, 7, 2)])
+def test_im2col_train_gradient_is_the_xla_transpose(shape):
+    """F4: the train path's im2col on bf16 x (SAME padding) against
+    ``jax.vjp`` of the reference's ``im2col``: the patches and the gradient
+    bitwise (the taps of a pixel added in f32, rounded once).  The plain
+    gather's gradient, which adds them in bf16, is not: it was off in
+    1013 / 100 / 834 of the elements at these shapes."""
+    from repro.nn import quantized as JQ
+    from repro_torch.nn import quantized as Q
+    b, h, w, c, k, s = shape
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    out, vjp = jax.vjp(lambda v: JQ.im2col(v, k, k, s, "SAME"),
+                       jnp.asarray(x, jnp.bfloat16))
+    ct = rng.standard_normal(out.shape).astype(np.float32)
+    (want,) = vjp(jnp.asarray(ct, jnp.bfloat16))
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    ctt = torch.from_numpy(ct).to(torch.bfloat16)
+    cols = Q.im2col_train(xt, k, k, s, "SAME")
+    assert cols.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_f32(cols.detach()), _f32(out))
+    (got,) = torch.autograd.grad(cols, xt, grad_outputs=ctt)
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    (plain,) = torch.autograd.grad(Q.im2col(xt, k, k, s, "SAME"), xt,
+                                   grad_outputs=ctt)
+    assert not torch.equal(plain, got)
 
 
 def test_max_pool_gradient_at_ties():

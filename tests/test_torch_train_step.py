@@ -156,24 +156,31 @@ def _run_jax(japi, state, batch, eager, monkeypatch):
 
 def step_mass(loss_fn, params, monkeypatch):
     """{path of a step size ``gw``/``ga``: the absolute sum of its
-    gradient's per-element terms (per channel for a channel-wise step)},
-    on the port's ``loss_fn(params)`` and its backward."""
+    gradient's per-element terms (per channel for a channel-wise step, per
+    expert for an expert bank's)}, on the port's ``loss_fn(params)`` and
+    its backward."""
     paths = flatten_with_paths(params)
     live = {p: t.detach().requires_grad_(True) for p, t in paths.items()}
     by_id = {id(t): p for p, t in live.items()}
     mass = {}
     orig = TQ.fake_quant
 
-    def traced(v, gamma, spec):
+    def traced(v, gamma, spec, lead=0):
         if id(gamma) not in by_id:
-            return orig(v, gamma, spec)
+            return orig(v, gamma, spec, lead=lead)
         qn, qp = TQ.qrange(spec)
         cw = spec.channel_axis is not None
-        n = v.numel() // v.shape[-1] if cw else v.numel()
+        n = v.numel() // int(np.prod(v.shape[:lead])) // (
+            v.shape[-1] if cw else 1)
         gs = 1.0 / torch.sqrt(torch.tensor(float(n) * float(qp)))
-        g = TQ.grad_scale(gamma, gs).to(v.dtype).expand(v.shape)
+        shape = list(v.shape[:lead]) + [1] * (v.ndim - lead)
+        if cw:
+            shape[-1] = v.shape[-1]
+        g = TQ.grad_scale(gamma, gs).reshape(shape).to(v.dtype).expand(
+            v.shape)
         key = by_id[id(gamma)]
-        dims = tuple(range(v.ndim - 1)) if cw else tuple(range(v.ndim))
+        # per step: an expert bank's ``lead`` axes keep one each
+        dims = tuple(range(lead, v.ndim - 1 if cw else v.ndim))
         g.register_hook(lambda t: mass.__setitem__(
             key, mass.get(key, 0.0) + t.double().abs().sum(dims).numpy()
             * float(gs)))
