@@ -244,6 +244,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes, the MoE routing, a fake-quant pass over the weights, AdamW,
    each timed alone).  Checkpoints under ``build/p15``, removed at the end.
 
+16. QAT training of the last three families (slice 12) at full width,
+   random weights from a CUDA generator seeded 0, each arch's default
+   policy: mamba2-1.3b whole (48 layers, batch 4 x 1000 tokens, not a
+   multiple of its 256-token chunk, so the pad path trains),
+   recurrentgemma-9b's first superblock (R, R, A: 2.8 B parameters, 2.1 B
+   of them embedding and head; 2 x 2560 tokens, past its 2048 window) and
+   whisper-base whole (4 x (1536 stub frames, 64 tokens)).  Per arch: the
+   ``Trainer`` for 3 steps in 2 microbatches (its step donated, as the
+   reference donates its state); a fresh ``Trainer`` restored from step
+   2 and run to step 3, parameters, moments and losses bitwise the
+   uninterrupted run's; one microbatch against two (each gradient leaf
+   within 0.02 of its L2 norm, the conv taps' bf16 sums within 0.05);
+   every gradient finite and the recurrences' own (``A_log``, ``D``,
+   ``dt_bias``, ``lam``, the conv's) nonzero; the SSD / RG-LRU block's
+   vjp with layer 0's trained weights on the card against the CPU's
+   (each leaf within 1e-3 of its L2 norm, the conv's 5e-3);
+   ``pack_for_serving`` and the serve-mode ``forward`` over the batch
+   through K1 (and K3 for recurrentgemma), counted against the arch's
+   GEMMs, its logits correlated above 0.95 with the QAT forward's; a
+   prefill and 8 decode steps from the trained weights.  ``[p16-time]``
+   lines: ms a step, tokens/s trained, ``max_memory_allocated``,
+   checkpoint save and restore, and the step's split (forward and
+   backward, their bf16 products, the SSD / scan / attention rest, a
+   fake-quant pass over the weights, AdamW, each timed alone).
+   Checkpoints under ``build/p16``, removed at the end.
+
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
 against the JAX package (numeric contract in
@@ -3696,7 +3722,7 @@ def corr(a, b):
                              np.asarray(b, np.float64).ravel())[0, 1])
 
 
-def p14_split(sm, api, state, batch, rows, gemms=None):
+def p14_split(sm, api, state, batch, rows, gemms=None, adamw=True):
     """Where a step's time goes, CUDA events around each part alone: one
     microbatch's forward and backward (``value_and_grad``), the bf16
     products inside it (every projection's forward product and its two
@@ -3713,11 +3739,12 @@ def p14_split(sm, api, state, batch, rows, gemms=None):
     t = sm.torch
     out = {}
     loss_fn = lambda p, x, y, f: S.cross_entropy(  # noqa: E731
-        api.forward(p, x, mode="train"), y)
+        api.forward(p, x, mode="train",
+                    **({"frames": f} if api.needs_frames else {})), y)
     with S.deterministic(sm.device):  # as the step runs it
         out["fwd_bwd"] = sm.time_ms(lambda: S.value_and_grad(
             loss_fn, state["params"], batch["tokens"], batch["labels"],
-            None), reps=2, warmup=1)
+            batch.get("frames")), reps=2, warmup=1)
     total = 0.0
     if gemms is None:
         gemms = [(g.m, g.k, g.n, 1, g.count)
@@ -3756,6 +3783,8 @@ def p14_split(sm, api, state, batch, rows, gemms=None):
             for w, gw, lead, spec in wq:
                 quant.fake_quant(w, gw, spec, lead=lead)
     out["weight_fake_quant"] = sm.time_ms(fake_quant_all, reps=3, warmup=1)
+    if not adamw:  # the caller times it
+        return out
     grads = {"g": state["params"]}  # any tree of the parameters' shapes
     out["adamw"] = sm.time_ms(lambda: adamw_update(
         grads["g"], state["opt"], state["params"], lr=1e-4), reps=2,
@@ -4362,6 +4391,540 @@ def print_p15(p15, card):
             f"the step {r['step_ms']:.2f} ms  ({card})")
 
 
+# --- phase 16: QAT training of mamba2, recurrentgemma and whisper ----------
+
+
+# arch -> (depth (None: all layers), batch, tokens); mamba2's 1000 tokens
+# are not a multiple of its 256-token chunk (the pad path trains), rg's
+# 2560 pass its 2048 window
+P16_RUNS = (("mamba2-1.3b", None, 4, 1000),
+            ("recurrentgemma-9b", 3, 2, 2560),
+            ("whisper-base", None, 4, 64))
+P16_MB = 2
+P16_STEPS, P16_CKPT_EVERY = 3, 2
+P16_DECODE = 8            # decode steps after the trained weights' prefill
+# as phases 14-15: one microbatch against two, each gradient leaf within
+# 0.02 of its L2 norm; the served forward against the QAT forward above
+# 0.95.  The SSD and RG-LRU blocks' vjp on the card against the CPU's,
+# each leaf but a step size within 1e-3 of its L2 norm (the same bf16
+# products summed in another order).
+P16_MB_LEAF_RELL2_MAX = 0.02
+P16_QAT_CORR = 0.95
+P16_VJP_RELL2_MAX = 1e-3
+# The conv taps' and bias's gradients are bf16 sums over B x S, added one
+# value at a time in the reference's windows of up to 2 x 32 or 4 x 32
+# values (``nn.layers.xla_sum``): each add rounds to 8 bits, so a window's
+# sum carries about 2% of its size in rounding, and a bias gradient is a
+# sum of terms of both signs.  Another split of the rows (one microbatch
+# against two) or an input one ulp off (the card's products against the
+# CPU's) moves them by that much: mamba2 read 0.0241 and 1.66e-3 on an H100.
+# They are held to these bounds, every other leaf to the two above.
+P16_CONV = ("['conv']['w']", "['conv']['b']")
+P16_CONV_MB_RELL2_MAX = 0.05
+P16_CONV_VJP_RELL2_MAX = 5e-3
+P16_VJP_ROWS = {"mamba2-1.3b": 512, "recurrentgemma-9b": 256}
+# the served forward against the QAT forward end to end only up to this
+# depth: a random stack drifts layer by layer (mamba2's 48 layers read
+# 0.65 on the CPU while each layer alone reads 0.9993)
+P16_E2E_MAX_DEPTH = 12
+# gradients that must be nonzero: the recurrences' own parameters
+P16_NONZERO = ("['A_log']", "['D']", "['dt_bias']", "['lam']",
+               "['conv']['w']", "['conv']['b']")
+
+
+def p16_grads(api, state, batch):
+    """The gradient one ``make_train_step`` of ``state`` on ``batch`` hands
+    to AdamW (its microbatches summed in f32 and averaged), and the loss;
+    AdamW itself is skipped, so no second state is made."""
+    from repro_torch.launch import steps as S
+    seen = {}
+
+    def spy(grads, opt, params, **kw):
+        seen["g"] = grads
+        return params, opt
+    real = S.adamw_update
+    S.adamw_update = spy
+    try:
+        _, m = S.make_train_step(api, peak_lr=P14_LR)(state, batch)
+    finally:
+        S.adamw_update = real
+    return float(m["loss"]), seen["g"]
+
+
+def p16_frames_kw(api, batch):
+    return {"frames": batch["frames"]} if api.needs_frames else {}
+
+
+def p16_block_vjp(sm, arch, params):
+    """The arch's recurrent block (mamba2: an SSD block; recurrentgemma:
+    an RG-LRU block) with layer 0's trained weights, its vjp on the card
+    and on the CPU on the same input and cotangent -> (worst relative L2
+    of a leaf but a step size, its path, the leaves failing)."""
+    import math
+    from repro_torch.nn import rglru as R
+    from repro_torch.nn import ssm as SS
+    from repro_torch.tree import flatten_with_paths, unflatten
+    t = sm.torch
+    api = family_api(arch)
+    if arch == "mamba2-1.3b":
+        lp = params["layers"][0]["ssm"]
+        fn = lambda p, x: SS.ssd_forward(  # noqa: E731
+            p, x, api.policy, api.cfg.ssm, serve=False)
+    else:
+        lp = params["layers"][0]["rnn"]
+        fn = lambda p, x: R.rglru_block_forward(  # noqa: E731
+            p, x, api.policy, api.cfg.rnn, serve=False)
+    g = t.Generator(device="cpu").manual_seed(SEED)
+    shape = (1, P16_VJP_ROWS[arch], api.cfg.d_model)
+    x = t.randn(shape, generator=g).to(t.bfloat16)
+    ct = t.randn(shape, generator=g).to(t.bfloat16)
+    grads = []
+    for dev in (sm.device, t.device("cpu")):  # the card's, then the CPU's
+        flat = {k: v.detach().to(dev).requires_grad_(True)
+                for k, v in flatten_with_paths(lp).items()}
+        xd = x.to(dev).requires_grad_(True)
+        y, _ = fn(unflatten(lp, list(flat.values())), xd)
+        gs = t.autograd.grad(y, [xd] + list(flat.values()),
+                             grad_outputs=ct.to(dev))
+        grads.append(dict(zip(["x"] + list(flat), gs)))
+    worst, bad = (0.0, ""), []
+    for path, gc in grads[1].items():
+        a = grads[0][path].detach().double().cpu()
+        b = gc.detach().double()
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-300))
+        if path.endswith(STEP_SIZES):
+            if not math.isfinite(float(a.norm())):
+                bad.append(path)
+            continue
+        worst = max(worst, (rel, path))
+        if not rel <= (P16_CONV_VJP_RELL2_MAX if path.endswith(P16_CONV)
+                       else P16_VJP_RELL2_MAX):
+            bad.append(path)
+    return worst, bad
+
+
+def p16_gemms(api, b, s):
+    """The bf16 products of one train forward of ``b`` x ``s`` tokens as
+    [(M, K, N, groups, count)]: phase 13's serve shapes (mamba2's rows
+    padded to its chunk, whisper's encoder and cross K/V over its frames),
+    the head at every token."""
+    from collections import Counter
+    calls = Counter((m, kdim, n) for name, m, kdim, n, *_
+                    in p13_k1_calls(api, b, s, "prefill") if name != "head")
+    head = [(m, kdim, n) for name, m, kdim, n, *_
+            in p13_k1_calls(api, b, s, "prefill") if name == "head"][0]
+    return [(m, k, n, 1, c) for (m, k, n), c in calls.items()] + [
+        (b * s, head[1], head[2], 1, 1)]
+
+
+def p16_mixer_ms(sm, api, b, s):
+    """The rest outside the products, forward and backward, CUDA events:
+    mamba2's chunked SSD (one batch row at a time, as ``ssd_forward`` runs
+    it on a card) over its layers; recurrentgemma's RG-LRU scan over its R
+    layers and its windowed attention over its A layers; whisper's three
+    attentions (encoder, causal decoder, cross) over its layers -> ms."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.recurrentgemma import layer_kind
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import rglru as R
+    from repro_torch.nn import ssm as SS
+    t = sm.torch
+    cfg = api.cfg
+    g = t.Generator(device=sm.device).manual_seed(SEED)
+
+    def rnd(*shape, dtype=t.float32):
+        return t.randn(shape, generator=g, device=sm.device).to(
+            dtype).requires_grad_(True)
+
+    def attn(sq, sk, h, d, **kw):
+        q, k, v = rnd(b, sq, h, d, dtype=t.bfloat16), rnd(
+            b, sk, h, d, dtype=t.bfloat16), rnd(b, sk, h, d,
+                                                dtype=t.bfloat16)
+        ct = t.randn((b, sq, h, d), device=sm.device).to(t.bfloat16)
+        return lambda: t.autograd.grad(A.chunked_attention(q, k, v, **kw),
+                                       (q, k, v), grad_outputs=ct)
+    parts = []
+    if hasattr(cfg, "ssm"):
+        c = cfg.ssm
+        rows = s + (-s) % c.chunk
+        xs = [rnd(1, rows, c.n_heads, c.head_dim), rnd(1, rows, c.n_heads,
+                                                         c.d_state),
+              rnd(1, rows, c.n_heads, c.d_state)]
+        dtp = t.rand((1, rows, c.n_heads), generator=g,
+                     device=sm.device).requires_grad_(True)
+        a = -t.rand((c.n_heads,), generator=g, device=sm.device)
+
+        def ssd():
+            for _ in range(b):
+                y, st = SS._ssd_chunks(*xs, dtp, a, c.chunk)
+                t.autograd.grad((y.sum() + st.sum()), xs + [dtp])
+        parts.append((ssd, cfg.n_layers))
+    elif hasattr(cfg, "rnn"):
+        a_ = t.rand((b, s, cfg.rnn.d_rnn), generator=g,
+                    device=sm.device).requires_grad_(True)
+        b_ = rnd(b, s, cfg.rnn.d_rnn)
+
+        def scan():
+            ha, hb = R.associative_scan(R.linear_combine, [a_, b_], axis=1)
+            t.autograd.grad(hb.sum(), (a_, b_))
+        n_a = sum(layer_kind(cfg, i) == "A" for i in range(cfg.n_layers))
+        parts += [(scan, cfg.n_layers - n_a),
+                  (attn(s, s, cfg.n_heads, cfg.hd, window=cfg.window,
+                        chunk=cfg.attn_chunk), n_a)]
+    else:
+        hd = cfg.hd
+        parts += [(attn(cfg.n_audio, cfg.n_audio, cfg.n_heads, hd,
+                        causal=False, chunk=cfg.attn_chunk), cfg.n_layers),
+                  (attn(s, s, cfg.n_heads, hd, chunk=cfg.attn_chunk),
+                   cfg.n_layers),
+                  (attn(s, cfg.n_audio, cfg.n_heads, hd, causal=False,
+                        chunk=cfg.attn_chunk), cfg.n_layers)]
+    with S.deterministic(sm.device):
+        return sum(n * sm.time_ms(fn, reps=2, warmup=1) for fn, n in parts)
+
+
+def p16_corr(sm, a, b):
+    """Pearson correlation of two equal-shape tensors on the card, in
+    float64 sums over row blocks (rg's logits hold 1.3e9 values)."""
+    t = sm.torch
+    a2, b2 = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    n, sums = a2.numel(), t.zeros(5, dtype=t.float64, device=sm.device)
+    for i in range(0, a2.shape[0], 256):
+        x = a2[i:i + 256].double()
+        y = b2[i:i + 256].double()
+        sums += t.stack([x.sum(), y.sum(), (x * x).sum(), (y * y).sum(),
+                         (x * y).sum()])
+    sx, sy, sxx, syy, sxy = (float(v) for v in sums)
+    cov = sxy / n - sx * sy / n ** 2
+    return cov / ((sxx / n - (sx / n) ** 2) * (syy / n - (sy / n) ** 2)
+                  ) ** 0.5
+
+
+def p16_layer_corr(sm, api, params, packed, batch):
+    """Each served layer fed the QAT forward's input to that layer (whisper:
+    the encoder layers, then the decoder layers on the QAT encoder's
+    output), against the QAT layer, by the correlation of what the layer
+    adds to its input; and the served head on the QAT forward's last
+    hidden state against the QAT head -> (smallest layer correlation, its
+    layer, head correlation).  Free-running, a random deep stack drifts
+    (mamba2's 48 layers: 0.65 on the CPU at 256 tokens, each layer alone
+    0.9993), so the layers are held one at a time."""
+    from repro_torch.nn import layers as nnl
+    t = sm.torch
+    mod, cfg, pol = api.mod, api.cfg, api.policy
+    toks = batch["tokens"]
+    worst = (2.0, None)
+
+    def check(label, x, yq, ys):
+        nonlocal worst
+        worst = min(worst, (p16_corr(sm, (yq - x).float(), (ys - x).float()),
+                            label))
+    with t.no_grad():
+        if api.needs_frames:
+            x = mod._enc_inputs(cfg, batch["frames"])
+            for i, (lq, ls) in enumerate(zip(params["enc_layers"],
+                                             packed["enc_layers"])):
+                yq = mod._enc_layer_fwd(cfg, lq, x, pol, impl="auto",
+                                        serve=False)
+                check(f"enc {i}", x, yq, mod._enc_layer_fwd(
+                    cfg, ls, x, pol, impl="auto", serve=True))
+                x = yq
+            aux = {"enc_out": nnl.layernorm_apply(params["enc_norm"], x)}
+            b, s = toks.shape
+            x = nnl.embed_apply(params["embed"], toks) + mod._sinusoid(
+                mod._positions(b, s, toks.device), cfg.d_model).to(
+                    t.bfloat16)
+            stack = zip(params["dec_layers"], packed["dec_layers"])
+        else:
+            x, aux = mod._prefill_inputs(cfg, params, toks, serve=False)
+            aux.pop("valid", None)  # every row, as the forward runs them
+            stack = zip(params["layers"], packed["layers"])
+        for i, (lq, ls) in enumerate(stack):
+            yq = mod._layer_fwd(cfg, i, lq, x, pol, aux, impl="auto",
+                                serve=False)[0]
+            check(f"layer {i}", x, yq, mod._layer_fwd(
+                cfg, i, ls, x, pol, aux, impl="auto", serve=True)[0])
+            x = yq
+        x = x[:, :toks.shape[1]]
+        head = p16_corr(sm, mod._head(cfg, params, x, pol, "auto",
+                                      serve=False).float(),
+                        mod._head(cfg, packed, x, pol, "auto",
+                                  serve=True).float())
+    return worst[0], worst[1], head
+
+
+def p16_arch(sm, arch, depth, b, s):
+    """One arch at full width: the ``Trainer`` for P16_STEPS steps, a
+    restart from step P16_CKPT_EVERY bitwise the uninterrupted run, one
+    microbatch against two, every gradient finite and the recurrences'
+    own nonzero, the SSD / RG-LRU block's vjp on the card against the
+    CPU's, then ``pack_for_serving`` and the serve-mode ``forward`` over
+    the batch through K1 (and K3 for recurrentgemma) against the QAT
+    forward, and a prefill with P16_DECODE decode steps."""
+    import math
+    import shutil
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw_update
+    from repro_torch.runtime.serve import Generator, pack_for_serving
+    from repro_torch.runtime.train import TrainLoopConfig, Trainer
+    from repro_torch.tree import flatten_with_paths, leaves, tree_map
+    t = sm.torch
+    api = dataclasses.replace(family_api(arch, depth=depth),
+                              microbatches=P16_MB)
+    cfg = api.cfg
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=SEED,
+                       with_frames=api.needs_frames,
+                       n_audio=getattr(cfg, "n_audio", 0),
+                       d_model=cfg.d_model)
+    root = ROOT / "build" / "p16" / arch
+    shutil.rmtree(root, ignore_errors=True)
+    t_arch = time.perf_counter()
+
+    def at():  # the log prefix: phase 16, seconds into this arch
+        return f"[p16] (+{time.perf_counter() - t_arch:.1f} s) "
+
+    def trainer(total):
+        """A Trainer of ``total`` steps that checkpoints at step
+        P16_CKPT_EVERY and at no other: the final state is compared in
+        memory, and its checkpoint (34 GB for recurrentgemma) would be read
+        by nothing."""
+        tr = Trainer(api, pipe, TrainLoopConfig(
+            total_steps=total, ckpt_every=P16_CKPT_EVERY, ckpt_dir=str(root),
+            log_every=1, async_ckpt=False, peak_lr=P14_LR),
+            device=sm.device)
+        save = tr._save
+        tr._save = lambda step, state, blocking: (
+            save(step, state, blocking) if step == P16_CKPT_EVERY else None)
+        return tr
+
+    def gen():
+        return t.Generator(device=sm.device).manual_seed(SEED)
+    release(sm)
+    t.cuda.reset_peak_memory_stats()
+    # the uninterrupted run, which leaves the checkpoint of its step 2
+    full = trainer(P16_STEPS)
+    s_full, h_full = full.run(gen())
+    peak_train = t.cuda.max_memory_allocated()
+    save_s = full.save_seconds
+    n_params = sum(p.numel() for p in leaves(s_full["params"]))
+    log(at() + f"{arch} x{cfg.n_layers} ({n_params / 1e9:.3f} B parameters, "
+        f"{b} x {s} tokens, {P16_MB} microbatches) uninterrupted: losses "
+        f"{[round(v, 4) for v in h_full]}, steps (s) "
+        f"{[round(v, 3) for v in full.step_seconds]}; max_memory_allocated "
+        f"{peak_train / 2**30:.2f} GiB")
+    if not all(math.isfinite(v) for v in h_full):
+        sm.failures.append(f"{arch} losses {h_full}")
+    # the host keeps the uninterrupted state while the restart runs
+    host_full = tree_map(lambda x: x.cpu(), s_full)
+    del s_full
+    release(sm)
+    ab2 = trainer(P16_STEPS)  # restores step 2, runs step 3
+    s_ab, h_ab = ab2.run(gen())
+    same = (h_ab == h_full[P16_CKPT_EVERY:] and all(
+        t.equal(x.cpu(), y) for x, y in zip(leaves(s_ab),
+                                            leaves(host_full))))
+    restore_s = ab2.restore_seconds
+    log(at() + f"{arch} restart from step {P16_CKPT_EVERY} (save "
+        f"{[round(v, 2) for v in save_s]} s, restore {restore_s:.2f} s): "
+        f"losses {[round(v, 4) for v in h_ab]}; parameters, moments and "
+        f"losses bitwise the uninterrupted run's: {same}")
+    if not same:
+        sm.failures.append(f"{arch} restart is not bitwise the "
+                           f"uninterrupted run")
+    state = s_ab  # bitwise the uninterrupted run's final state
+    del host_full, ab2
+    release(sm)
+    shutil.rmtree(root, ignore_errors=True)
+    sm.check_phase(f"16 {arch} Trainer: restart bitwise")
+
+    host = pipe.batch_at(P16_STEPS)
+    batch = {k: t.as_tensor(v, device=sm.device) for k, v in host.items()}
+    for k in ("tokens", "labels"):
+        batch[k] = batch[k].long()
+    mb_rows = b // P16_MB
+    half = {k: v[:mb_rows] for k, v in batch.items()}
+    split = p14_split(sm, api, state, half, mb_rows * s,
+                      gemms=p16_gemms(api, mb_rows, s), adamw=False)
+    split["mixer"] = p16_mixer_ms(sm, api, mb_rows, s)
+    release(sm)
+    l2, g2 = p16_grads(api, state, batch)
+    g2 = tree_map(lambda x: x.cpu(), g2)
+    release(sm)
+    l1, g1 = p16_grads(dataclasses.replace(api, microbatches=1), state,
+                       batch)
+    errs = leaf_errors(sm, g1, g2)
+    conv = {p: e for p, e in errs.items() if p.endswith(P16_CONV)}
+    bad, worst = leaf_gate({p: e for p, e in errs.items() if p not in conv},
+                           P16_MB_LEAF_RELL2_MAX)
+    if conv:
+        bad_c, worst_c = leaf_gate(conv, P16_CONV_MB_RELL2_MAX)
+        bad += bad_c
+    flat = flatten_with_paths(g1)
+    finite = all(bool(t.isfinite(v).all()) for v in flat.values())
+    own = {p: float(v.abs().max()) for p, v in flat.items()
+           if p.endswith(P16_NONZERO)}
+    dl = abs(l1 - l2) / abs(l2)
+    log(at() + f"{arch} one microbatch vs {P16_MB}: loss {l1:.6f} vs "
+        f"{l2:.6f} (rel {dl:.2e}); gradients' relative L2, worst leaf "
+        f"{worst[1]} {worst[0]:.4f} (limit {P16_MB_LEAF_RELL2_MAX})"
+        + (f", worst conv leaf {worst_c[1]} {worst_c[0]:.4f} (limit "
+           f"{P16_CONV_MB_RELL2_MAX})" if conv else "")
+        + f"; leaves failing {bad or 'none'}; {len(flat)} gradient leaves "
+        f"all finite: "
+        f"{finite}; the recurrences' own gradients nonzero: "
+        f"{all(v > 0 for v in own.values())} ({len(own)} leaves, smallest "
+        f"largest |value| {min(own.values(), default=0.0):.3e})")
+    if dl > P14_LOSS_RTOL or bad or not finite \
+            or not all(v > 0 for v in own.values()) \
+            or (arch != "whisper-base" and not own):
+        sm.failures.append(f"{arch} microbatches/gradients: loss rel {dl}, "
+                           f"leaves failing {bad}, finite {finite}, "
+                           f"zero: {[p for p, v in own.items() if v <= 0]}")
+    del g1, g2, flat
+    release(sm)
+    vjp = None
+    if arch in P16_VJP_ROWS:
+        vjp, vbad = p16_block_vjp(sm, arch, state["params"])
+        log(at() + f"{arch} {'SSD' if 'mamba' in arch else 'RG-LRU'} block "
+            f"vjp ({P16_VJP_ROWS[arch]} rows, layer 0's trained weights), "
+            f"card vs CPU: worst leaf {vjp[1]} relative L2 {vjp[0]:.3e} "
+            f"(limit {P16_VJP_RELL2_MAX}, the conv's {P16_CONV_VJP_RELL2_MAX}"
+            f"); failing {vbad or 'none'}")
+        if vbad:
+            sm.failures.append(f"{arch} block vjp card vs CPU: {vbad}")
+    sm.check_phase(f"16 {arch} microbatches and gradients")
+
+    # pack the trained weights under the arch's default policy and serve
+    packed = pack_for_serving(api, state["params"])
+    fkw = p16_frames_kw(api, batch)
+    with t.no_grad():
+        qat = api.forward(state["params"], batch["tokens"], mode="train",
+                          **fkw)
+        api.forward(packed, batch["tokens"][:, :16], mode="serve",
+                    **({"frames": fkw["frames"]} if fkw else {}))  # warm
+        reset_counts()
+        t.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = api.forward(packed, batch["tokens"], mode="serve", **fkw)
+        t.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_p11()
+    from collections import Counter
+    from repro_torch.kernels.mpmm import kernel
+    want_routes = Counter(kernel.mpmm_route(m, kdim, n) for m, kdim, n, *_
+                          in ((m, k, n) for m, k, n, _, c
+                              in p16_gemms(api, b, s) for _ in range(c)))
+    k3 = p13_expected(api, b, s, 1)[1]
+    want = {"mpmm_cuda": sum(want_routes.values()), "flash_fwd_cuda": k3}
+    got = {k: counts[k] for k in want}
+    c = p16_corr(sm, qat.float(), served.float())
+    del qat, served
+    release(sm)
+    lc, lname, hc = p16_layer_corr(sm, api, state["params"], packed, batch)
+    # free-running, a deep random stack drifts: the end-to-end correlation
+    # is held where the stack is short, every layer and the head always
+    deep = cfg.n_layers > P16_E2E_MAX_DEPTH
+    log(at() + f"{arch} serve-mode forward of the trained weights over {b} x "
+        f"{s} tokens in {serve_s * 1e3:.1f} ms: launches {got} (want "
+        f"{want}), K1 routes {dict(want_routes)}; served vs QAT forward "
+        f"correlation {c:.4f} end to end (min {P16_QAT_CORR}"
+        + (f" at depth <= {P16_E2E_MAX_DEPTH}; {cfg.n_layers} layers: not "
+           f"held" if deep else "") + f"), each served layer on the QAT "
+        f"layer's input {lc:.4f} at worst ({lname}), the head {hc:.4f} "
+        f"(min {P16_QAT_CORR})")
+    if got != want or not min(lc, hc) > P16_QAT_CORR or (
+            not deep and not c > P16_QAT_CORR):
+        sm.failures.append(f"{arch} serve: launches {got} vs {want}, "
+                           f"correlation {c} end to end, {lc} ({lname}), "
+                           f"head {hc}")
+    gen_s = Generator(api, packed, device=sm.device)
+    host_frames = host.get("frames")
+    prompts = host["tokens"]
+    reset_counts()
+    toks, logits = gen_s.run(prompts, P16_DECODE + 1, frames=host_frames)
+    gen_counts = read_p11()
+    ok = all(tuple(lg.shape) == (b, cfg.vocab) and bool(
+        t.isfinite(lg.float()).all()) for lg in logits)
+    log(at() + f"{arch} prefill of {b} x {s} and {P16_DECODE} decode steps "
+        f"from the trained weights: launches {gen_counts['mpmm_cuda']} K1, "
+        f"{gen_counts['flash_fwd_cuda']} K3; logits finite: {ok}; tokens[0] "
+        f"{toks[0].tolist()}")
+    if not ok:
+        sm.failures.append(f"{arch} generate from the trained weights")
+    sm.check_phase(f"16 {arch} trained weights through the kernels")
+    peak = t.cuda.max_memory_allocated()
+    del gen_s, packed
+    release(sm)
+    # AdamW as the Trainer's step runs it, donated (the state is spent:
+    # any tree of its shapes serves as the gradients)
+    split["adamw"] = sm.time_ms(lambda: adamw_update(
+        state["params"], state["opt"], state["params"], lr=1e-4,
+        donate=True), reps=2, warmup=1)
+    del state
+    release(sm)
+    steps = full.step_seconds[1:]
+    return {"arch": arch, "b": b, "s": s, "depth": cfg.n_layers,
+            "step_ms": 1e3 * sum(steps) / len(steps),
+            "first_ms": 1e3 * full.step_seconds[0], "save_s": save_s,
+            "restore_s": restore_s, "peak_train": peak_train, "peak": peak,
+            "losses": h_full, "counts": add_counts(counts, gen_counts),
+            "restart": same, "split": split, "params": n_params, "corr": c,
+            "layer_corr": (lc, lname), "head_corr": hc,
+            "mb_worst": worst, "vjp": vjp}
+
+
+def p16_allocator(sm):
+    """Let the caching allocator grow its segments in place from here on:
+    recurrentgemma's step peaks at 67 GiB of 79 in 4 GB pieces (the
+    embedding's and the head's f32 leaves), and with fixed segments a
+    second run of it found 14 GB cached but no 4 GB block free."""
+    t = sm.torch
+    setter = getattr(t._C, "_accelerator_setAllocatorSettings", None) \
+        or t.cuda.memory._set_allocator_settings
+    setter("expandable_segments:True")
+
+
+def phase_p16(sm):
+    """Phase 16 -> (summed launches of its serve runs, results)."""
+    t0 = time.perf_counter()
+    p16_allocator(sm)
+    out, counts = {}, {}
+    for arch, depth, b, s in P16_RUNS:
+        t1 = time.perf_counter()
+        out[arch] = p16_arch(sm, arch, depth, b, s)
+        counts = add_counts(counts, out[arch]["counts"])
+        log(f"[p16] {arch} took {time.perf_counter() - t1:.1f} s")
+    log(f"[p16] phase 16 took {time.perf_counter() - t0:.1f} s")
+    return counts, out
+
+
+def print_p16(p16, card):
+    """Phase 16's ``[p16-time]`` lines."""
+    gib = 2 ** 30
+    rest = {"mamba2-1.3b": "SSD", "recurrentgemma-9b": "scan and attention",
+            "whisper-base": "attention"}
+    for arch, r in p16.items():
+        sp = r["split"]
+        toks = r["b"] * r["s"]
+        log(f"[p16-time] {arch} x{r['depth']} QAT step (full width, "
+            f"{r['params'] / 1e9:.3f} B parameters, batch {r['b']} x "
+            f"{r['s']}, {P16_MB} microbatches): {r['step_ms']:.2f} ms (mean "
+            f"of steps 2-{P16_STEPS}; first {r['first_ms']:.1f} ms) = "
+            f"{toks / r['step_ms'] * 1e3:.1f} tokens/s trained; checkpoint "
+            f"save {', '.join(f'{v * 1e3:.0f}' for v in r['save_s'])} ms, "
+            f"restore {r['restore_s'] * 1e3:.0f} ms; max_memory_allocated "
+            f"{r['peak_train'] / gib:.2f} GiB training, {r['peak'] / gib:.2f} "
+            f"GiB with the checks and serving  ({card})")
+        log(f"[p16-time] {arch} step split (each part alone, CUDA events): "
+            f"{P16_MB} x forward+backward {P16_MB * sp['fwd_bwd']:.2f} ms, of "
+            f"which the bf16 products {P16_MB * sp['products']:.2f} ms and "
+            f"the {rest[arch]} rest {P16_MB * sp['mixer']:.2f} ms; one "
+            f"fake-quant pass over "
+            f"the weights {sp['weight_fake_quant']:.2f} ms; AdamW "
+            f"{sp['adamw']:.2f} ms; the step {r['step_ms']:.2f} ms  ({card})")
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -4533,6 +5096,11 @@ def main() -> int:
     k1_routes = {k: k1_routes[k] + p15_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p15] phase 15 done at {time.perf_counter() - t_start:.1f} s")
+    p16_launches, p16 = phase_p16(sm)
+    launches = {k: launches[k] + p16_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p16_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p16] phase 16 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 
@@ -4628,6 +5196,7 @@ def main() -> int:
     print_p13(p13, card)
     print_p14(p14, card)
     print_p15(p15, card)
+    print_p16(p16, card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -137,14 +137,20 @@ def from_jax_lm_train_params(params, device="cuda"):
     return _convert_lm(params, device)
 
 
+# the top-level keys of an LM's layer stack: the decoders' and mamba2's,
+# recurrentgemma's superblocks, whisper's encoder
+_LM_STACKS = ("layers", "supers", "enc_layers")
+
+
 def from_jax_train_state(state, device="cuda"):
     """A train state ``{"params", "opt": {"m", "v", "count"}, "step"}``
     (numpy leaves, as ``repro.launch.steps.init_train_state`` makes it and
     its train step returns it) -> the port's on ``device``: an LM's layer
-    stack (in the parameters and in both moments) as a per-layer list, a
-    CNN's tree as it is."""
+    stack (any of ``_LM_STACKS``, in the parameters and in both moments)
+    as a per-layer list, a CNN's tree as it is."""
     dev = resolve_device(device)
-    conv = ((lambda t: _convert_lm(t, dev)) if "layers" in state["params"]
+    lm = any(k in state["params"] for k in _LM_STACKS)
+    conv = ((lambda t: _convert_lm(t, dev)) if lm
             else (lambda t: _convert(t, dev)))
     opt = state["opt"]
     return {"params": conv(state["params"]),

@@ -71,14 +71,19 @@ def value_and_grad(loss_fn, params, *args):
 
 
 def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
-                    grad_compression: bool = False) -> Callable:
+                    grad_compression: bool = False,
+                    donate: bool = False) -> Callable:
     """train_step(state, batch) -> (new state, metrics {loss, lr,
     grad_norm}), with ``api.microbatches``-way gradient accumulation.
 
     ``batch`` holds tensors on the state's device: ``tokens`` (B, S) and
     ``labels`` (B, S) for an LM, or images (B, H, W, 3) as ``tokens`` and
     labels (B,) for a CNN.  ``grad_compression``: int8 quantize-dequantize
-    of the gradients with error feedback carried in ``state["gc"]``."""
+    of the gradients with error feedback carried in ``state["gc"]``.
+    ``donate``: AdamW writes the new parameters and moments into
+    ``state``'s own tensors (``optim.adamw_update``), as the reference's
+    Trainer donates the state to its jitted step; the caller's ``state``
+    then holds the new values."""
     mb = max(api.microbatches, 1)
 
     def loss_fn(params, tokens, labels, frames):
@@ -113,7 +118,8 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
                         acc.add_(gi.to(torch.float32))
                     losses.append(loss)
                     del g
-                grads = tree_map(lambda g: g / mb, grads)
+                for g in leaves(grads):  # in place: the sums are ours
+                    g.div_(mb)
             new_state = {}
             if grad_compression:
                 grads, new_state["gc"] = compress_decompress(grads,
@@ -121,7 +127,7 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
             lr = warmup_cosine(state["step"], peak_lr=peak_lr,
                                total=total_steps)
             new_params, new_opt = adamw_update(grads, state["opt"], params,
-                                               lr=lr)
+                                               lr=lr, donate=donate)
             metrics = {"loss": torch.mean(torch.stack(losses)), "lr": lr,
                        "grad_norm": global_norm(grads)}
         new_state.update({"params": new_params, "opt": new_opt,

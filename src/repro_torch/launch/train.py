@@ -8,11 +8,11 @@ an LM arch on synthetic tokens, on one device, with checkpoints.
 ``--device`` defaults to ``cuda`` and raises without a card.  A run
 restores the latest checkpoint in ``--ckpt-dir`` and continues from it;
 ``python -m repro_torch.launch.serve --ckpt-dir DIR`` serves what it
-trained.  Every decoder arch trains: the dense LMs (granite-8b/34b,
-yi-34b, chameleon-34b, nemotron-4-340b), olmoe-1b-7b (MoE) and
-deepseek-v2-lite-16b (MLA, MoE, a dense first layer).  mamba2-1.3b,
-recurrentgemma-9b and whisper-base wait for their train path (ROADMAP
-Queue 1 item 15b (b)) and raise.  ``--production-mesh``/``--multipod``
+trained.  Every LM arch trains: the dense LMs (granite-8b/34b, yi-34b,
+chameleon-34b, nemotron-4-340b), olmoe-1b-7b (MoE),
+deepseek-v2-lite-16b (MLA, MoE, a dense first layer), mamba2-1.3b (SSD),
+recurrentgemma-9b (RG-LRU and local attention) and whisper-base (on
+synthetic frames as well as tokens).  ``--production-mesh``/``--multipod``
 wait for multi-device work (label 16).  The ResNets are not trained here: the
 reference lists them but its launcher reads ``cfg.vocab``, which a ResNet
 config lacks (ROADMAP Queue 3, R7); train them with

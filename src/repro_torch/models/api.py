@@ -38,25 +38,16 @@ class ModelAPI:
         without a card unless ``device="cpu"``."""
         return nnp.init_params(self.specs(mode), generator, device=device)
 
-    def _no_forward(self):
-        return NotImplementedError(
-            f"{self.name}: the {self.family} family has no full-sequence "
-            f"forward and no train path in the port yet (ROADMAP Queue 1 "
-            f"item 15b (b): mamba2, recurrentgemma, whisper)")
-
     def forward(self, params, inputs, *, mode: str = "train",
                 impl: str = "auto", **kw):
-        """Full-sequence logits (a CNN: class logits of a batch of images).
+        """Full-sequence logits of every family (a CNN: class logits of a
+        batch of images; an LM: logits at every position, whisper's
+        teacher-forced given ``frames=``, zeros when absent).
         ``mode="train"`` is the QAT forward over an ``init_params("train")``
-        tree: the ResNets and every decoder arch (dense, MoE, MLA).
-        mamba2, recurrentgemma and whisper have no full-sequence forward
-        yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item 15b
-        (b))."""
-        fn = getattr(self.mod, "forward", None)
-        if fn is None:
-            raise self._no_forward()
-        return fn(self.cfg, params, inputs, self.policy, mode=mode,
-                  impl=impl, **kw)
+        tree, under autograd; ``mode="serve"`` the packed forward over a
+        ``pack_for_serving`` tree, through the kernels."""
+        return self.mod.forward(self.cfg, params, inputs, self.policy,
+                                mode=mode, impl=impl, **kw)
 
     def plan_layer_names(self):
         """Every layer name a ``PrecisionPlan`` may bind for this arch: the
@@ -100,13 +91,8 @@ class ModelAPI:
 
     def _mode(self, mode: str) -> Dict[str, str]:
         """The cache path's ``mode`` argument: "serve" (packed) needs none;
-        "train" (over an ``init_params("train")`` tree) goes to the decoder
-        archs, and raises for the families whose train path waits."""
-        if mode == "serve":
-            return {}
-        if getattr(self.mod, "forward", None) is None:
-            raise self._no_forward()
-        return {"mode": mode}
+        "train" runs over an ``init_params("train")`` tree."""
+        return {} if mode == "serve" else {"mode": mode}
 
     def prefill(self, params, tokens, *, mode: str = "serve",
                 impl: str = "auto", **kw):

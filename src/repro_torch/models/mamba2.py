@@ -1,16 +1,24 @@
-"""Mamba-2 LM (SSD), serve half (port of ``repro.models.mamba2``):
-attention-free, constant-state decode.
+"""Mamba-2 LM (SSD) (port of ``repro.models.mamba2``): attention-free,
+constant-state decode.
 
 The JAX package scans a stacked layer tree; the port keeps one per-layer
 list, ``params["layers"][i] = {"ln", "ssm"}``, and a per-layer decode
 state ``[{"ssm": (B, H, N, P), "conv": (B, W-1, C)}]`` in f32, which the
 prefill already returns at its decode size.
 
-``prefill`` pads the prompt up to a multiple of ``chunk`` as the reference
-does, but returns the state after the real tokens (``nn.ssm`` says how;
-the reference returns it after the pads, ROADMAP Queue 3 R6).  The
-forwards over every position (training, teacher forcing) are not ported
-yet.
+``forward`` gives the logits at every position: the packed serve forward
+(``mode="serve"``, K1 on every projection) or the QAT training forward
+(``mode="train"``, fake-quant projections under autograd, each layer under
+``torch.utils.checkpoint`` when ``cfg.remat``, as the reference's
+``jax.checkpoint`` of its scan body).  Both pad the sequence up to a
+multiple of ``chunk`` as the reference does and drop the pads before the
+head.
+
+``prefill`` pads the prompt the same way, but returns the state after the
+real tokens (``nn.ssm`` says how; the reference returns it after the pads,
+ROADMAP Queue 3 R6), in either mode.  ``prefill`` and ``decode_step`` take
+``mode="train"`` over an ``init_params("train")`` tree: the reference's
+train-mode cache path.
 """
 from __future__ import annotations
 
@@ -21,12 +29,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dse import Gemm
+from repro_torch.models.remat import remat
+from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import quantized as Q
 from repro_torch.nn import ssm as nnssm
 from repro_torch.nn.ssm import SSMConfig
 
-__all__ = ["Mamba2Config", "specs", "prefill", "decode_step",
+__all__ = ["Mamba2Config", "specs", "forward", "prefill", "decode_step",
            "cache_specs", "gemm_workload", "active_params", "total_params",
            "model_flops"]
 
@@ -66,42 +76,70 @@ def specs(cfg: Mamba2Config, mode: str = "train", policy=None) -> Dict:
     }
 
 
-def _head(cfg, params, x, policy, impl):
+def _head(cfg, params, x, policy, impl, serve=True):
     x = nnl.rmsnorm_apply(params["final_norm"], x)
-    logits = Q.qlinear_serve_apply(params["head"], x, policy,
-                                   layer_class="boundary", impl=impl,
-                                   name="head")
+    logits = Q.qlinear_any(params["head"], x, policy, serve=serve,
+                           impl=impl, name="head", layer_class="boundary")
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
-def _prefill_inputs(cfg, params, tokens):
+def _embed(params, tokens, serve=True):
+    return (nnl.embed_serve_apply if serve else nnl.embed_apply)(
+        params["embed"], tokens)
+
+
+def _prefill_inputs(cfg, params, tokens, serve=True):
     """Embedded tokens with zero rows appended up to a multiple of chunk,
     and the per-layer side input: how many rows are real."""
-    x = nnl.embed_serve_apply(params["embed"], tokens)
+    x = _embed(params, tokens, serve)
     pad = (-x.shape[1]) % cfg.ssm.chunk
     return (F.pad(x, (0, 0, 0, pad)) if pad else x), {
         "valid": tokens.shape[1]}
 
 
-def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
-    """Prefill of layer i -> (x, its state after the real rows)."""
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
+    """Prefill of layer i -> (x, its state after the ``aux["valid"]`` real
+    rows; after all of them where ``aux`` has none)."""
     del i
     o, st = nnssm.ssd_forward(lp["ssm"], nnl.rmsnorm_apply(lp["ln"], x),
-                              policy, cfg.ssm, impl=impl, valid=aux["valid"])
+                              policy, cfg.ssm, impl=impl,
+                              valid=aux.get("valid"), serve=serve)
     return x + o, st
 
 
-def prefill(cfg: Mamba2Config, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto"):
-    """tokens (B, S) -> (last-token logits (B, V), per-layer state after
-    the S tokens)."""
+def forward(cfg: Mamba2Config, params, tokens: torch.Tensor, policy, *,
+            mode: str = "serve", impl: str = "auto") -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
+    (``mode="serve"``) or the QAT training forward (``mode="train"``, over
+    an ``init_params("train")`` tree, no kernel).  Like the reference's,
+    the pads run through every layer (they follow the real tokens, so no
+    real position sees them)."""
+    serve = _serve_mode(mode)
     s = tokens.shape[1]
-    x, aux = _prefill_inputs(cfg, params, tokens)
+    x, _ = _prefill_inputs(cfg, params, tokens, serve)
+    for i, lp in enumerate(params["layers"]):
+        def layer(h, lp=lp, i=i):
+            return _layer_fwd(cfg, i, lp, h, policy, {}, impl=impl,
+                              serve=serve)[0]
+        x = remat(cfg, layer, x)
+    return _head(cfg, params, x[:, :s], policy, impl, serve)
+
+
+def prefill(cfg: Mamba2Config, params, tokens: torch.Tensor, policy, *,
+            impl: str = "auto", mode: str = "serve"):
+    """tokens (B, S) -> (last-token logits (B, V), per-layer state after
+    the S tokens); ``mode="train"`` over an ``init_params("train")``
+    tree."""
+    serve = _serve_mode(mode)
+    s = tokens.shape[1]
+    x, aux = _prefill_inputs(cfg, params, tokens, serve)
     states = []
     for i, lp in enumerate(params["layers"]):
-        x, st = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl)
+        x, st = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl,
+                           serve=serve)
         states.append(st)
-    return _head(cfg, params, x[:, s - 1:s], policy, impl)[:, 0, :], states
+    return _head(cfg, params, x[:, s - 1:s], policy, impl,
+                 serve)[:, 0, :], states
 
 
 def cache_specs(cfg: Mamba2Config, batch: int, max_len: int,
@@ -113,18 +151,22 @@ def cache_specs(cfg: Mamba2Config, batch: int, max_len: int,
 
 
 def decode_step(cfg: Mamba2Config, params, cache, tokens: torch.Tensor,
-                length: int, policy, *, impl: str = "auto"):
-    """One token per row: tokens (B, 1) -> (logits (B, V), new state)."""
+                length: int, policy, *, impl: str = "auto",
+                mode: str = "serve"):
+    """One token per row: tokens (B, 1) -> (logits (B, V), new state);
+    ``mode="train"`` over an ``init_params("train")`` tree."""
     del length  # the state carries the position
-    x = nnl.embed_serve_apply(params["embed"], tokens)
+    serve = _serve_mode(mode)
+    x = _embed(params, tokens, serve)
     new = []
     for lp, st in zip(params["layers"], cache):
         o, st = nnssm.ssd_decode_step(lp["ssm"],
                                       nnl.rmsnorm_apply(lp["ln"], x), st,
-                                      policy, cfg.ssm, impl=impl)
+                                      policy, cfg.ssm, impl=impl,
+                                      serve=serve)
         x = x + o
         new.append(st)
-    return _head(cfg, params, x, policy, impl)[:, 0, :], new
+    return _head(cfg, params, x, policy, impl, serve)[:, 0, :], new
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------

@@ -1,7 +1,6 @@
-"""RecurrentGemma (Griffin), serve half (port of
-``repro.models.recurrentgemma``): RG-LRU blocks and local attention, one
-attention layer in three -- superblocks (R, R, A) and the remainder R
-layers.
+"""RecurrentGemma (Griffin) (port of ``repro.models.recurrentgemma``):
+RG-LRU blocks and local attention, one attention layer in three --
+superblocks (R, R, A) and the remainder R layers.
 
 The JAX package scans the superblocks as one stacked tree ``supers.{r1,
 r2, att}`` beside the remainder ``rem_{i}``; the port keeps one per-layer
@@ -14,10 +13,16 @@ p % window (``runtime.serve.Generator._grow_cache`` re-packs the prompt's
 last keys into it), so the decode state is O(window + d_rnn) whatever
 the context.
 
-On a card the attention prefill runs K3 (``attn_impl='flash'``, the FULL
-config: head dim 256, one KV head, window 2048), as the reference runs its
-Pallas kernel; decode attention is plain torch in both.  The forwards
-over every position (training, teacher forcing) are not ported yet.
+On a card the attention prefill and the serve-mode ``forward`` run K3
+(``attn_impl='flash'``, the FULL config: head dim 256, one KV head, window
+2048), as the reference runs its Pallas kernel; decode attention is plain
+torch in both.  ``forward(mode="train")`` is the QAT training forward:
+fake-quant projections, the RG-LRU scan and the windowed attention
+(``gqa_prefill(serve=False)``, never K3) under autograd, each whole (R, R,
+A) superblock under ``torch.utils.checkpoint`` when ``cfg.remat`` and the
+remainder layers without, as the reference checkpoints its scanned
+superblock body only.  ``prefill`` and ``decode_step`` take
+``mode="train"`` too, over an ``init_params("train")`` tree.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.core.dse import Gemm
+from repro_torch.models.remat import remat
+from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import quantized as Q
@@ -34,7 +41,8 @@ from repro_torch.nn import rglru as nnr
 from repro_torch.nn.param import ParamSpec
 from repro_torch.nn.rglru import RGLRUConfig
 
-__all__ = ["RGConfig", "layer_kind", "specs", "prefill", "decode_step",
+__all__ = ["RGConfig", "layer_kind", "specs", "forward", "prefill",
+           "decode_step",
            "cache_specs", "ring_cache", "gemm_workload", "active_params",
            "total_params", "model_flops"]
 
@@ -126,14 +134,17 @@ def specs(cfg: RGConfig, mode: str = "train", policy=None) -> Dict:
     }
 
 
-def _mlp(p, h, policy, impl):
-    fn = lambda w, x: Q.qlinear_serve_apply(  # noqa: E731
-        w, x, policy, impl=impl, name="mlp")
+def _proj(p, x, policy, impl, name, serve=True):
+    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
+
+
+def _mlp(p, h, policy, impl, serve=True):
+    fn = lambda w, x: _proj(w, x, policy, impl, "mlp", serve)  # noqa: E731
     return fn(p["down"], nnl.swiglu_combine(fn(p["gate"], h),
                                             fn(p["up"], h)))
 
 
-def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
     """Prefill of layer i -> (x, its cache); ``aux`` holds the rotary
     tables."""
     h = nnl.rmsnorm_apply(lp["ln1"], x)
@@ -142,45 +153,71 @@ def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
             lp["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, sin=aux["sin"], cos=aux["cos"],
             window=cfg.window, impl=impl, chunk=cfg.attn_chunk,
-            attn_impl=cfg.attn_impl, names=ATTN_NAMES)
+            attn_impl=cfg.attn_impl, names=ATTN_NAMES, serve=serve)
     else:
         o, cache = nnr.rglru_block_forward(lp["rnn"], h, policy, cfg.rnn,
-                                           impl=impl)
+                                           impl=impl, serve=serve)
     x = x + o
-    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl)
+    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl,
+                 serve)
     return x, cache
 
 
-def _embed(params, tokens):
-    return nnl.embed_serve_apply(params["embed"], tokens)
+def _embed(params, tokens, serve=True):
+    return (nnl.embed_serve_apply if serve else nnl.embed_apply)(
+        params["embed"], tokens)
 
 
-def _prefill_inputs(cfg, params, tokens):
+def _prefill_inputs(cfg, params, tokens, serve=True):
     """Embedded tokens and the per-layer side inputs of a prefill."""
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     sin, cos = nnl.rotary_cache(pos, cfg.hd)
-    return _embed(params, tokens), {"sin": sin, "cos": cos}
+    return _embed(params, tokens, serve), {"sin": sin, "cos": cos}
 
 
-def _head(cfg, params, x, policy, impl):
+def _head(cfg, params, x, policy, impl, serve=True):
     x = nnl.rmsnorm_apply(params["final_norm"], x)
-    logits = Q.qlinear_serve_apply(params["head"], x, policy,
-                                   layer_class="boundary", impl=impl,
-                                   name="head")
+    logits = Q.qlinear_any(params["head"], x, policy, serve=serve,
+                           impl=impl, name="head", layer_class="boundary")
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
+def forward(cfg: RGConfig, params, tokens: torch.Tensor, policy, *,
+            mode: str = "serve", impl: str = "auto") -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
+    (``mode="serve"``; K1, and K3 where ``attn_impl='flash'``) or the QAT
+    training forward (``mode="train"``, over an ``init_params("train")``
+    tree, no kernel)."""
+    serve = _serve_mode(mode)
+    x, aux = _prefill_inputs(cfg, params, tokens, serve)
+    layers = params["layers"]
+
+    def run(h, lo, hi):
+        for i in range(lo, hi):
+            h = _layer_fwd(cfg, i, layers[i], h, policy, aux, impl=impl,
+                           serve=serve)[0]
+        return h
+    for j in range(cfg.n_super):  # a superblock (R, R, A) under remat
+        x = remat(cfg, lambda h, j=j: run(h, 3 * j, 3 * j + 3), x)
+    x = run(x, 3 * cfg.n_super, cfg.n_layers)
+    return _head(cfg, params, x, policy, impl, serve)
+
+
 def prefill(cfg: RGConfig, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto"):
+            impl: str = "auto", mode: str = "serve"):
     """tokens (B, S) -> (last-token logits (B, V), per-layer prefill
-    cache: R ``{"h", "conv"}``, A ``(k, v)`` over the whole prompt)."""
-    x, aux = _prefill_inputs(cfg, params, tokens)
+    cache: R ``{"h", "conv"}``, A ``(k, v)`` over the whole prompt);
+    ``mode="train"`` over an ``init_params("train")`` tree."""
+    serve = _serve_mode(mode)
+    x, aux = _prefill_inputs(cfg, params, tokens, serve)
     caches = []
     for i, lp in enumerate(params["layers"]):
-        x, cache = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl)
+        x, cache = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl,
+                              serve=serve)
         caches.append(cache)
-    return _head(cfg, params, x[:, -1:, :], policy, impl)[:, 0, :], caches
+    return _head(cfg, params, x[:, -1:, :], policy, impl,
+                 serve)[:, 0, :], caches
 
 
 def cache_specs(cfg: RGConfig, batch: int, max_len: int,
@@ -197,15 +234,16 @@ def cache_specs(cfg: RGConfig, batch: int, max_len: int,
             for i in range(cfg.n_layers)]
 
 
-def _attn_ring_step(cfg, lp, x, ring, length, policy, sin, cos, impl):
+def _attn_ring_step(cfg, lp, x, ring, length, policy, sin, cos, impl,
+                    serve=True):
     """One-token local attention against the ring buffer (updated in
     place at slot ``length % slots``)."""
     b = x.shape[0]
     k_cache, v_cache = ring
     w = k_cache.shape[1]
-    fn = lambda key, h, n: Q.qlinear_serve_apply(  # noqa: E731
-        lp["attn"][key], h, policy, impl=impl,
-        name=ATTN_NAMES[key]).reshape(b, 1, n, cfg.hd)
+    fn = lambda key, h, n: _proj(  # noqa: E731
+        lp["attn"][key], h, policy, impl, ATTN_NAMES[key],
+        serve).reshape(b, 1, n, cfg.hd)
     h = nnl.rmsnorm_apply(lp["ln1"], x)
     q = nnl.apply_rotary(fn("q", h, cfg.n_heads), sin, cos)
     k = nnl.apply_rotary(fn("k", h, cfg.n_kv), sin, cos)
@@ -215,38 +253,42 @@ def _attn_ring_step(cfg, lp, x, ring, length, policy, sin, cos, impl):
     v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
     mask_len = w if length >= w - 1 else length + 1
     o = attn.decode_attention(q, k_cache, v_cache, mask_len)
-    x = x + Q.qlinear_serve_apply(lp["attn"]["o"],
-                                  o.reshape(b, 1, cfg.n_heads * cfg.hd),
-                                  policy, impl=impl, name=ATTN_NAMES["o"])
-    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl)
+    x = x + _proj(lp["attn"]["o"], o.reshape(b, 1, cfg.n_heads * cfg.hd),
+                  policy, impl, ATTN_NAMES["o"], serve)
+    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl,
+                 serve)
     return x, (k_cache, v_cache)
 
 
-def _r_step(cfg, lp, x, st, policy, impl):
+def _r_step(cfg, lp, x, st, policy, impl, serve=True):
     o, st = nnr.rglru_block_step(lp["rnn"], nnl.rmsnorm_apply(lp["ln1"], x),
-                                 st, policy, cfg.rnn, impl=impl)
+                                 st, policy, cfg.rnn, impl=impl, serve=serve)
     x = x + o
-    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl)
+    x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl,
+                 serve)
     return x, st
 
 
 def decode_step(cfg: RGConfig, params, cache, tokens: torch.Tensor,
-                length: int, policy, *, impl: str = "auto"):
+                length: int, policy, *, impl: str = "auto",
+                mode: str = "serve"):
     """One token per row at position ``length`` -> (logits (B, V), the
-    per-layer cache: R states replaced, A rings updated in place)."""
+    per-layer cache: R states replaced, A rings updated in place);
+    ``mode="train"`` over an ``init_params("train")`` tree."""
+    serve = _serve_mode(mode)
     b = tokens.shape[0]
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, serve)
     pos = torch.full((b, 1), length, device=tokens.device)
     sin, cos = nnl.rotary_cache(pos, cfg.hd)
     new = []
     for i, (lp, st) in enumerate(zip(params["layers"], cache)):
         if layer_kind(cfg, i) == "A":
             x, st = _attn_ring_step(cfg, lp, x, st, length, policy, sin, cos,
-                                    impl)
+                                    impl, serve)
         else:
-            x, st = _r_step(cfg, lp, x, st, policy, impl)
+            x, st = _r_step(cfg, lp, x, st, policy, impl, serve)
         new.append(st)
-    return _head(cfg, params, x, policy, impl)[:, 0, :], new
+    return _head(cfg, params, x, policy, impl, serve)[:, 0, :], new
 
 
 def ring_cache(cfg: RGConfig, pre_cache, s: int, specs_: List, device):

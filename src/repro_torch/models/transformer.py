@@ -39,15 +39,14 @@ cache path.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.dse import Gemm
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.models.remat import remat
 from repro_torch.nn import attention as attn
 from repro_torch.nn import kvcache
 from repro_torch.nn import layers as nnl
@@ -298,11 +297,8 @@ def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
         return nnmoe.moe_apply(p["moe"], xg, policy, cfg.moe, serve=serve,
                                impl=impl, lname=lname).reshape(b, s, d)
     nm = lname + "mlp"
-    if serve:
-        fn = lambda w, h: Q.qlinear_serve_apply(  # noqa: E731
-            w, h, policy, impl=impl, name=nm)
-    else:
-        fn = lambda w, h: Q.qlinear_apply(w, h, policy, name=nm)  # noqa
+    fn = lambda w, h: Q.qlinear_any(  # noqa: E731
+        w, h, policy, serve=serve, impl=impl, name=nm)
     mp = p["mlp"]
     if cfg.act == "swiglu":
         h = nnl.swiglu_combine(fn(mp["gate"], x), fn(mp["up"], x))
@@ -360,13 +356,8 @@ def _head_input(cfg, params, x):
 
 def _head(cfg, params, x, policy, impl, serve=True):
     h = _head_input(cfg, params, x)
-    if serve:
-        logits = Q.qlinear_serve_apply(params["head"], h, policy,
-                                       layer_class="boundary", impl=impl,
-                                       name="head")
-    else:
-        logits = Q.qlinear_apply(params["head"], h, policy,
-                                 layer_class="boundary", name="head")
+    logits = Q.qlinear_any(params["head"], h, policy, serve=serve, impl=impl,
+                           name="head", layer_class="boundary")
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
@@ -391,36 +382,6 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
     return (start + torch.arange(s, device=device)).expand(b, s)
 
 
-def _mm_saveable(ctx, op, *args, **kwargs):
-    """The 'dots' remat policy: keep the output of every 2-D matrix product
-    (the projections, which have no batch axis), recompute the rest.  An
-    expert bank's product is a batched one (``aten.bmm``, batched over the
-    experts), and so are attention's: the reference computes the bank
-    under ``jax.vmap``, a ``dot_general`` with a batch dimension, which
-    ``dots_with_no_batch_dims_saveable`` does not save, so neither does
-    this policy -- both recompute it."""
-    from torch.utils.checkpoint import CheckpointPolicy
-    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def _remat(cfg, fn, x):
-    """``fn(x)``, under ``torch.utils.checkpoint`` when ``cfg.remat`` and a
-    gradient is being recorded.  Recomputing runs the same operations on
-    the same values, so it changes no value."""
-    if not cfg.remat or not torch.is_grad_enabled():
-        return fn(x)
-    kw = {}
-    if cfg.remat_policy == "dots":
-        from torch.utils.checkpoint import create_selective_checkpoint_contexts
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _mm_saveable)
-    elif cfg.remat_policy != "full":
-        raise ValueError(f"remat_policy must be 'full' or 'dots', got "
-                         f"{cfg.remat_policy!r}")
-    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False, **kw)
-
-
 def _train_forward(cfg, params, tokens, policy):
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
@@ -433,7 +394,7 @@ def _train_forward(cfg, params, tokens, policy):
                 cfg, lp, h, policy, sin, cos, impl="torch", lname=f"l{i}.",
                 kv_fmts=kv_info[1][i] if kv_info is not None else None,
                 kv_store=store, serve=False)[0]
-        x = _remat(cfg, layer, x)
+        x = remat(cfg, layer, x)
     return _head(cfg, params, x, policy, "torch", serve=False)
 
 

@@ -1,5 +1,5 @@
-"""Whisper-style encoder-decoder, serve half (port of
-``repro.models.whisper``; the audio backbone only).
+"""Whisper-style encoder-decoder (port of ``repro.models.whisper``; the
+audio backbone only).
 
 The conv/mel frontend is a stub, as in the reference: the caller supplies
 frame embeddings (B, n_audio, d_model).  The encoder is bidirectional, the
@@ -11,9 +11,17 @@ The JAX package scans ``enc_layers`` and ``dec_layers`` as stacked trees;
 the port keeps two per-layer lists, and the cache ``{"self": [(k, v)],
 "cross": [(k, v)]}`` per decoder layer, bf16 (B, S, H, Dh).  Attention is
 plain torch on every device (``attn_impl`` stays the reference's 'xla':
-whisper never reaches a flash kernel); the projections run on K1.  The
-forwards over every position (training, teacher forcing) are not ported
-yet.
+whisper never reaches a flash kernel); the projections run on K1.
+
+``forward`` gives the teacher-forced decoder logits at every position:
+the packed serve forward (``mode="serve"``) or the QAT training forward
+(``mode="train"``, fake-quant projections under autograd, each encoder
+and each decoder layer under ``torch.utils.checkpoint`` when
+``cfg.remat``, as the reference's ``jax.checkpoint`` of both scan
+bodies).  The encoder output feeds every decoder layer's cross K and V;
+its gradient is their cotangents' bf16 sum, added as the reference's scan
+transpose adds it (``_CrossFanout``).  ``prefill`` and ``decode_step``
+take ``mode="train"`` too, over an ``init_params("train")`` tree.
 """
 from __future__ import annotations
 
@@ -23,12 +31,15 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.core.dse import Gemm
+from repro_torch.models.remat import remat
+from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
-__all__ = ["WhisperConfig", "specs", "encode", "prefill", "decode_step",
+__all__ = ["WhisperConfig", "specs", "encode", "forward", "prefill",
+           "decode_step",
            "cache_specs", "gemm_workload", "active_params", "total_params",
            "model_flops"]
 
@@ -123,28 +134,31 @@ def _sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([sin, cos], dim=-1)
 
 
-def _proj(p, x, policy, impl, name, **kw):
-    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name, **kw)
+def _proj(p, x, policy, impl, name, serve=True, **kw):
+    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name,
+                         **kw)
 
 
-def _mlp(p, h, policy, impl, name):
-    return _proj(p["down"], nnl.gelu(_proj(p["up"], h, policy, impl, name)),
-                 policy, impl, name)
+def _mlp(p, h, policy, impl, name, serve=True):
+    return _proj(p["down"], nnl.gelu(_proj(p["up"], h, policy, impl, name,
+                                           serve)),
+                 policy, impl, name, serve)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _enc_layer_fwd(cfg, lp, x, policy, *, impl):
+def _enc_layer_fwd(cfg, lp, x, policy, *, impl, serve=True):
     h = nnl.layernorm_apply(lp["ln1"], x)
     o, _ = attn.gqa_prefill(lp["attn"], h, policy, n_heads=cfg.n_heads,
                             n_kv=cfg.n_heads, head_dim=cfg.hd, sin=None,
                             cos=None, causal=False, rope=False, impl=impl,
-                            chunk=cfg.attn_chunk, names=ENC_ATTN)
+                            chunk=cfg.attn_chunk, names=ENC_ATTN,
+                            serve=serve)
     x = x + o
     return x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
-                    impl, "enc_mlp")
+                    impl, "enc_mlp", serve)
 
 
 def _enc_inputs(cfg, frames: torch.Tensor) -> torch.Tensor:
@@ -155,22 +169,24 @@ def _enc_inputs(cfg, frames: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg: WhisperConfig, params, frames: torch.Tensor, policy, *,
-           impl: str = "auto") -> torch.Tensor:
-    """frames (B, T, D) stub embeddings -> encoder output (B, T, D)."""
+           impl: str = "auto", serve: bool = True) -> torch.Tensor:
+    """frames (B, T, D) stub embeddings -> encoder output (B, T, D);
+    ``serve=False`` is the QAT forward, each layer under remat."""
     x = _enc_inputs(cfg, frames)
     for lp in params["enc_layers"]:
-        x = _enc_layer_fwd(cfg, lp, x, policy, impl=impl)
+        x = remat(cfg, lambda h, lp=lp: _enc_layer_fwd(
+            cfg, lp, h, policy, impl=impl, serve=serve), x)
     return nnl.layernorm_apply(params["enc_norm"], x)
 
 
-def _cross_kv(cfg, lp, enc_out, policy, impl):
+def _cross_kv(cfg, lp, enc_out, policy, impl, serve=True):
     b, t, _ = enc_out.shape
     return tuple(_proj(lp["xattn"][key], enc_out, policy, impl,
-                       X_ATTN[key]).reshape(b, t, cfg.n_heads, cfg.hd)
+                       X_ATTN[key], serve).reshape(b, t, cfg.n_heads, cfg.hd)
                  for key in ("k", "v"))
 
 
-def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
     """Prefill of decoder layer i -> (x, (self (k, v), cross (k, v)));
     ``aux`` holds the encoder output."""
     del i
@@ -178,17 +194,18 @@ def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl):
     o, kv = attn.gqa_prefill(lp["attn"], h, policy, n_heads=cfg.n_heads,
                              n_kv=cfg.n_heads, head_dim=cfg.hd, sin=None,
                              cos=None, causal=True, rope=False, impl=impl,
-                             chunk=cfg.attn_chunk, names=DEC_ATTN)
+                             chunk=cfg.attn_chunk, names=DEC_ATTN,
+                             serve=serve)
     x = x + o
     h = nnl.layernorm_apply(lp["ln_x"], x)
-    q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"]).reshape(
-        *h.shape[:2], cfg.n_heads, cfg.hd)
-    k, v = _cross_kv(cfg, lp, aux["enc_out"], policy, impl)
+    q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"],
+              serve).reshape(*h.shape[:2], cfg.n_heads, cfg.hd)
+    k, v = _cross_kv(cfg, lp, aux["enc_out"], policy, impl, serve)
     o = attn.chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
     x = x + _proj(lp["xattn"]["o"], o.reshape(*h.shape[:2], -1), policy,
-                  impl, X_ATTN["o"])
+                  impl, X_ATTN["o"], serve)
     x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy, impl,
-                 "dec_mlp")
+                 "dec_mlp", serve)
     return x, (kv, (k, v))
 
 
@@ -197,36 +214,82 @@ def _zero_frames(cfg, b, device):
                        device=device)
 
 
-def _prefill_inputs(cfg, params, tokens, frames, policy, impl):
+def _prefill_inputs(cfg, params, tokens, frames, policy, impl, serve=True):
     """Embedded tokens plus positions, and the encoder output."""
     b, s = tokens.shape
     if frames is None:
         frames = _zero_frames(cfg, b, tokens.device)
-    enc_out = encode(cfg, params, frames, policy, impl=impl)
-    x = nnl.embed_serve_apply(params["embed"], tokens)
+    enc_out = encode(cfg, params, frames, policy, impl=impl, serve=serve)
+    x = (nnl.embed_serve_apply if serve else nnl.embed_apply)(
+        params["embed"], tokens)
     x = x + _sinusoid(_positions(b, s, tokens.device),
                       cfg.d_model).to(x.dtype)
     return x, {"enc_out": enc_out}
 
 
-def _head(cfg, params, x, policy, impl):
+def _head(cfg, params, x, policy, impl, serve=True):
     x = nnl.layernorm_apply(params["dec_norm"], x)
-    logits = _proj(params["head"], x, policy, impl, "head",
+    logits = _proj(params["head"], x, policy, impl, "head", serve,
                    layer_class="boundary")
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
+class _CrossFanout(torch.autograd.Function):
+    """The encoder output handed to each of ``n`` decoder layers as a view
+    of its own.  Its gradient is the bf16 sum of the layers' cotangents
+    as the reference's scan transpose adds them: a carry that starts at
+    zero and takes each layer's cotangent in turn, the last layer first."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        acc = None
+        for g in reversed(gs):
+            if g is not None:
+                acc = g if acc is None else acc + g
+        return acc, None
+
+
+def forward(cfg: WhisperConfig, params, tokens: torch.Tensor, policy, *,
+            frames: Optional[torch.Tensor] = None, mode: str = "serve",
+            impl: str = "auto") -> torch.Tensor:
+    """Teacher-forced decoder logits (B, S, V) in bf16 of tokens (B, S)
+    given frames (B, n_audio, D) (zeros when None): the packed serve
+    forward (``mode="serve"``) or the QAT training forward
+    (``mode="train"``, over an ``init_params("train")`` tree, no
+    kernel)."""
+    serve = _serve_mode(mode)
+    x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl,
+                             serve)
+    layers = params["dec_layers"]
+    enc = _CrossFanout.apply(aux["enc_out"], len(layers))
+    for i, lp in enumerate(layers):
+        x = remat(cfg, lambda h, e, i=i, lp=lp: _layer_fwd(
+            cfg, i, lp, h, policy, {"enc_out": e}, impl=impl,
+            serve=serve)[0], x, enc[i])
+    return _head(cfg, params, x, policy, impl, serve)
+
+
 def prefill(cfg: WhisperConfig, params, tokens: torch.Tensor, policy, *,
-            frames: Optional[torch.Tensor] = None, impl: str = "auto"):
+            frames: Optional[torch.Tensor] = None, impl: str = "auto",
+            mode: str = "serve"):
     """tokens (B, S), frames (B, n_audio, D) (zeros when None) ->
-    (last-token logits (B, V), ``{"self": [(k, v)], "cross": [(k, v)]}``)."""
-    x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl)
+    (last-token logits (B, V), ``{"self": [(k, v)], "cross": [(k, v)]}``);
+    ``mode="train"`` over an ``init_params("train")`` tree."""
+    serve = _serve_mode(mode)
+    x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl,
+                             serve)
     cache = {"self": [], "cross": []}
     for i, lp in enumerate(params["dec_layers"]):
-        x, (kv, xkv) = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl)
+        x, (kv, xkv) = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl,
+                                  serve=serve)
         cache["self"].append(kv)
         cache["cross"].append(xkv)
-    return _head(cfg, params, x[:, -1:, :], policy, impl)[:, 0, :], cache
+    return _head(cfg, params, x[:, -1:, :], policy, impl,
+                 serve)[:, 0, :], cache
 
 
 def cache_specs(cfg: WhisperConfig, batch: int, max_len: int,
@@ -241,11 +304,15 @@ def cache_specs(cfg: WhisperConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: WhisperConfig, params, cache, tokens: torch.Tensor,
-                length: int, policy, *, impl: str = "auto"):
+                length: int, policy, *, impl: str = "auto",
+                mode: str = "serve"):
     """One token per row at ``length`` -> (logits (B, V), cache); the self
-    cache is written in place, the cross K/V only read."""
+    cache is written in place, the cross K/V only read; ``mode="train"``
+    over an ``init_params("train")`` tree."""
+    serve = _serve_mode(mode)
     b = tokens.shape[0]
-    x = nnl.embed_serve_apply(params["embed"], tokens)
+    x = (nnl.embed_serve_apply if serve else nnl.embed_apply)(
+        params["embed"], tokens)
     pos = torch.full((b, 1), length, device=tokens.device)
     x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
     for lp, sc, (ck, cv) in zip(params["dec_layers"], cache["self"],
@@ -254,17 +321,18 @@ def decode_step(cfg: WhisperConfig, params, cache, tokens: torch.Tensor,
         o, _ = attn.gqa_decode(lp["attn"], h, sc, length, policy,
                                n_heads=cfg.n_heads, n_kv=cfg.n_heads,
                                head_dim=cfg.hd, sin=None, cos=None,
-                               rope=False, impl=impl, names=DEC_ATTN)
+                               rope=False, impl=impl, names=DEC_ATTN,
+                               serve=serve)
         x = x + o
         h = nnl.layernorm_apply(lp["ln_x"], x)
-        q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"]).reshape(
-            b, 1, cfg.n_heads, cfg.hd)
+        q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"],
+                  serve).reshape(b, 1, cfg.n_heads, cfg.hd)
         o = attn.decode_attention(q, ck, cv, cfg.n_audio)
         x = x + _proj(lp["xattn"]["o"], o.reshape(b, 1, -1), policy, impl,
-                      X_ATTN["o"])
+                      X_ATTN["o"], serve)
         x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
-                     impl, "dec_mlp")
-    return _head(cfg, params, x, policy, impl)[:, 0, :], cache
+                     impl, "dec_mlp", serve)
+    return _head(cfg, params, x, policy, impl, serve)[:, 0, :], cache
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------

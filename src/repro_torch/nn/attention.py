@@ -125,12 +125,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention over KV chunks; q (B, Sq, H, D), k/v
     (B, Sk, H, D) already GQA-expanded (v's head dim may differ, MLA) ->
-    (B, Sq, H, Dv) in q's dtype."""
+    (B, Sq, H, Dv) in q's dtype.  Each chunk widens the scaled bf16 q to
+    f32 on its own, so that under autograd each chunk's gradient of q is
+    rounded to bf16 and the chunks' gradients are added in bf16, the last
+    chunk's first, as the reference's bf16 product operand and its scan's
+    transpose add them (one widening for all chunks would add them in f32
+    and round once)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dv = v.shape[-1]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    qt = _bf16_f32(_scaled(q, scale)).permute(0, 2, 1, 3)  # (B, H, Sq, D)
+    qb = _scaled(q, scale).to(torch.bfloat16).permute(0, 2, 1, 3)
     q_pos = q_offset + torch.arange(sq, device=q.device)
     acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
     m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -138,7 +143,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for c0 in range(0, sk, chunk):
         kb = _bf16_f32(k[:, c0:c0 + chunk]).permute(0, 2, 1, 3)
         vb = _bf16_f32(v[:, c0:c0 + chunk]).permute(0, 2, 1, 3)
-        s = torch.matmul(qt, kb.transpose(-1, -2))         # (B, H, Sq, c)
+        s = torch.matmul(qb.to(torch.float32),
+                         kb.transpose(-1, -2))               # (B, H, Sq, c)
         kv_pos = c0 + torch.arange(kb.shape[2], device=q.device)
         mask = (kv_pos[None, :] <= q_pos[:, None] if causal
                 else torch.ones((sq, kb.shape[2]), dtype=torch.bool,
@@ -276,9 +282,7 @@ def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
 
 def _proj(p, x, policy, *, serve, impl, name):
     """One projection: packed (serve) or fake-quant (train)."""
-    if serve:
-        return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
-    return Q.qlinear_apply(p, x, policy, name=name)
+    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
 
 
 def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm,

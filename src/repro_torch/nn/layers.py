@@ -7,6 +7,14 @@ between the two frameworks, so the LM is held to the JAX package by
 tolerance.  The causal depthwise conv of the SSM and RG-LRU blocks keeps
 the reference's two forms: the prefill's four bf16 multiply-adds in order,
 and the decode step's one bf16 product-sum over the window.
+
+Under autograd three pieces take the JAX package's gradient rather than
+torch's: ``gelu`` (its primitives' transposes in bf16, ``_Gelu``),
+``softplus`` (``jax.nn.softplus``'s derivative, exp(x - softplus(x)))
+and the conv's taps and bias, whose gradients are bf16 sums over (B, S)
+added in the order XLA's CPU compiler adds them (``xla_sum``); torch
+adds a bf16 sum in f32 and rounds once, and 75-85% of those gradients'
+elements come out different.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ __all__ = [
     "pack_embed",
     "rotary_cache", "apply_rotary",
     "squared_relu", "swiglu_combine", "gelu", "softplus",
-    "conv1d_spec", "causal_conv1d", "causal_conv1d_step",
+    "conv1d_spec", "causal_conv1d", "causal_conv1d_step", "xla_sum",
 ]
 
 
@@ -157,20 +165,70 @@ def squared_relu(x: torch.Tensor) -> torch.Tensor:
     return r * r
 
 
+class _Gelu(torch.autograd.Function):
+    """jax.nn.gelu(approximate=True), forward and backward, each operation
+    in x's dtype and rounded there as JAX's primitives and their
+    transposes round them: x * cdf, cdf = 0.5 (1 + tanh(u)), u = c (x +
+    k x^3).  Its gradient is (ct cdf + ct_v) + ct_v k (3 x^2), ct_v = c
+    ((a + a t)), a = (x ct 0.5)(1 - t), the three terms of x added in that
+    order; torch's backward of the same forward differs in about 59% of
+    bf16 gradients."""
+
+    @staticmethod
+    def _parts(x):
+        c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa
+        t = torch.tanh(c(0.7978845608028654)
+                       * (x + c(0.044715) * (x * x * x)))
+        return c, t, c(0.5) * (c(1.0) + t)
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _Gelu._parts(x)[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c, t, cdf = _Gelu._parts(x)
+        a = ((x * g) * c(0.5)) * (c(1.0) - t)
+        ct_v = (a + a * t) * c(0.7978845608028654)
+        return ((g * cdf + ct_v)
+                + (ct_v * c(0.044715)) * (c(3.0) * (x * x)))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.gelu(approximate=True) as the JAX package computes it: each
     operation in x's dtype and rounded there, the constants rounded to it
     first (``F.gelu`` rounds once from f32 and differs in about half of
-    bf16 outputs)."""
-    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa
-    inner = x + c(0.044715) * (x * x * x)
-    cdf = c(0.5) * (c(1.0) + torch.tanh(c(0.7978845608028654) * inner))
-    return x * cdf
+    bf16 outputs); its gradient too (``_Gelu``)."""
+    return _Gelu.apply(x)
+
+
+class _Softplus(torch.autograd.Function):
+    """jax.nn.softplus, ``logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)),
+    and its derivative as ``logaddexp``'s jvp gives it, exp(x - out) (an
+    infinite x or out taken as 0).  Torch's own backward of the forward
+    would differ at x = 0 (``clamp_min`` passes 1 there) and in the last
+    bit elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        fin = lambda t: torch.where(t == float("inf"),  # noqa: E731
+                                    torch.zeros_like(t), t)
+        return g * torch.exp(fin(x) - fin(out))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.softplus: max(x, 0) + log1p(exp(-|x|))."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    """jax.nn.softplus: max(x, 0) + log1p(exp(-|x|)), with JAX's
+    derivative (``_Softplus``)."""
+    return _Softplus.apply(x)
 
 
 def swiglu_combine(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -189,17 +247,80 @@ def conv1d_spec(channels: int, width: int = 4) -> Dict[str, ParamSpec]:
     }
 
 
+# XLA's CPU compiler reduces a dimension longer than this in windows of it
+XLA_REDUCE_WINDOW = 32
+
+
+def _sequential(t: torch.Tensor) -> torch.Tensor:
+    """t[0] + t[1] + ... over axis 0, one add at a time in t's dtype."""
+    acc = t[0]
+    for i in range(1, t.shape[0]):
+        acc = acc + t[i]
+    return acc
+
+
+def xla_sum(t: torch.Tensor, dims) -> torch.Tensor:
+    """Sum over ``dims`` in t's dtype, added as XLA's CPU compiler adds a
+    bf16 reduction (equal to ``jax.lax.reduce`` of bf16 operands):
+    where a reduced dimension is longer than XLA_REDUCE_WINDOW, each
+    reduced dimension n is cut into windows of min(n, 32) (zero-padded
+    'SAME': half the pad low, the rest high), each window's values added
+    one at a time in row-major order, and the window sums reduced again
+    the same way; else the reduced values are added one at a time in
+    row-major order."""
+    dims = tuple(sorted(d % t.ndim for d in dims))
+    if not any(t.shape[d] > XLA_REDUCE_WINDOW for d in dims):
+        rest = [a for a in range(t.ndim) if a not in dims]
+        t = t.permute(list(dims) + rest)
+        return _sequential(t.reshape((-1,) + t.shape[len(dims):]))
+    for d in dims:
+        n = t.shape[d]
+        pad = (-n) % min(n, XLA_REDUCE_WINDOW)
+        if pad:
+            lo, hi = list(t.shape), list(t.shape)
+            lo[d], hi[d] = pad // 2, pad - pad // 2
+            t = torch.cat([t.new_zeros(lo), t, t.new_zeros(hi)], dim=d)
+    shape, windows = [], []
+    for d, n in enumerate(t.shape):
+        if d in dims:
+            w = min(n, XLA_REDUCE_WINDOW)
+            windows.append(len(shape) + 1)
+            shape += [n // w, w]
+        else:
+            shape.append(n)
+    t = t.reshape(shape)
+    t = t.permute(windows + [a for a in range(len(shape))
+                             if a not in windows])
+    return xla_sum(_sequential(t.reshape((-1,) + t.shape[len(windows):])),
+                   dims)
+
+
+class _Broadcast(torch.autograd.Function):
+    """A (C,) vector broadcast over the leading axes of ``shape``; its
+    gradient is the bf16 sum over them that XLA adds (``xla_sum``)."""
+
+    @staticmethod
+    def forward(ctx, v, shape):
+        return v.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return xla_sum(g, tuple(range(g.ndim - 1))), None
+
+
 def causal_conv1d(p, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, C) -> the depthwise causal conv of width W, left-padded:
     W multiply-adds in x's dtype, in tap order, each rounded as the
-    reference's unrolled loop rounds them."""
+    reference's unrolled loop rounds them.  Each tap's and the bias's
+    gradient is summed over (B, S) as XLA sums the reference's
+    (``_Broadcast``)."""
     w = p["w"].to(x.dtype)  # (W, C)
     width, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):
-        out = out + xp[:, i:i + s, :] * w[i]
-    return out + p["b"].to(x.dtype)
+        out = out + xp[:, i:i + s, :] * _Broadcast.apply(w[i], x.shape)
+    return out + _Broadcast.apply(p["b"].to(x.dtype), x.shape)
 
 
 def causal_conv1d_step(p, cache: torch.Tensor, x_t: torch.Tensor

@@ -181,12 +181,8 @@ def _ffn(p, x, policy, cfg: MoEConfig, impl: str, name: str, prefix="",
     (x (B, S, D), ``prefix`` 'shared_'): packed (``serve``, one K1 call a
     projection over the bank) or fake-quant (the QAT forward, one batched
     bf16 product a projection)."""
-    if serve:
-        fn = lambda key, h: Q.qlinear_serve_apply(  # noqa: E731
-            p[prefix + key], h, policy, impl=impl, name=name)
-    else:
-        fn = lambda key, h: Q.qlinear_apply(  # noqa: E731
-            p[prefix + key], h, policy, name=name)
+    fn = lambda key, h: Q.qlinear_any(  # noqa: E731
+        p[prefix + key], h, policy, serve=serve, impl=impl, name=name)
     u = fn("up", x) if cfg.act == "swiglu" else None
     return fn("down", _act(cfg, fn("gate", x), u))
 
@@ -264,30 +260,10 @@ class _Dispatch(torch.autograd.Function):
         return _sum_slots(g.reshape(b, e * c, d), flat), None, None
 
 
-# XLA's CPU compiler sums a long bf16 row in windows of this many values
-XLA_REDUCE_WINDOW = 32
-
-
 def _xla_row_sum(t: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis in t's dtype, in the order XLA's CPU
-    compiler adds a bf16 row: windows of XLA_REDUCE_WINDOW values, each
-    added one at a time, the row of window sums again the same way until
-    one window is left, then that (equal to ``jax.lax.reduce`` of bf16
-    rows whose length is 32 * 2^j; a ragged row is padded with zeros)."""
-    while t.shape[-1] > XLA_REDUCE_WINDOW:
-        pad = (-t.shape[-1]) % XLA_REDUCE_WINDOW
-        if pad:
-            t = torch.cat([t, t.new_zeros(t.shape[:-1] + (pad,))], dim=-1)
-        t = _sequential_sum(t.reshape(t.shape[:-1] + (
-            -1, XLA_REDUCE_WINDOW)))
-    return _sequential_sum(t)
-
-
-def _sequential_sum(t: torch.Tensor) -> torch.Tensor:
-    acc = t[..., 0]
-    for i in range(1, t.shape[-1]):
-        acc = acc + t[..., i]
-    return acc
+    compiler adds a bf16 row (``layers.xla_sum``)."""
+    return layers.xla_sum(t, (t.ndim - 1,))
 
 
 class _Gate(torch.autograd.Function):

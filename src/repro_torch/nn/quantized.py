@@ -156,6 +156,16 @@ def qlinear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return y
 
 
+def qlinear_any(p, x: torch.Tensor, policy: PolicyOrPlan, *, serve: bool,
+                impl: str = "auto", name: str = "", **kw) -> torch.Tensor:
+    """One projection in either mode: packed through K1 (``serve``, a
+    ``pack_for_serving`` leaf) or fake-quant under autograd (a train
+    leaf); ``kw`` (``layer_class``) goes to both."""
+    if serve:
+        return qlinear_serve_apply(p, x, policy, impl=impl, name=name, **kw)
+    return qlinear_apply(p, x, policy, name=name, **kw)
+
+
 def qconv_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
                 stride: int = 1, padding: str = "SAME",
                 layer_class: str = "inner", quantize_act: bool = True,

@@ -1,4 +1,4 @@
-"""RG-LRU recurrent block, serve half (port of ``repro.nn.rglru``; Griffin /
+"""RG-LRU recurrent block (port of ``repro.nn.rglru``; Griffin /
 RecurrentGemma):
 
     r_t = sigmoid(W_a x_t)          recurrence gate
@@ -10,9 +10,12 @@ The prefill runs the linear recurrence as ``jax.lax.associative_scan``
 does (``associative_scan`` below: its odd/even recursion over the same
 slices, so each element is combined in the same order and rounded the
 same way); decode is the one-step recurrence.  The five projections run
-on K1 through ``nn.quantized``'s serve path; ``lam`` and the state stay
-f32.  Everything past the projections is elementwise, so a row's bits do
-not depend on the batch.
+on K1 through ``nn.quantized``'s serve path (``serve=True``), or
+fake-quant under autograd (``serve=False``, the QAT forward); ``lam`` and
+the state stay f32.  Everything past the projections is elementwise, so a
+row's bits do not depend on the batch.  The scan's output is built by
+copies into strided views of an empty tensor, which autograd takes back
+as slices, as JAX transposes the reference's interleave (pads and adds).
 """
 from __future__ import annotations
 
@@ -67,16 +70,16 @@ def rglru_state_spec(cfg: RGLRUConfig, batch: int) -> Dict[str, ParamSpec]:
                               init="zeros")}
 
 
-def _proj(p, x, policy, impl, name):
-    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+def _proj(p, x, policy, impl, name, serve=True):
+    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
 
 
-def _gates(p, xb, policy, impl):
+def _gates(p, xb, policy, impl, serve=True):
     """xb (..., d_rnn) -> (a, gated input) in f32."""
-    r = torch.sigmoid(_proj(p["w_a"], xb, policy, impl,
-                            "rnn_gates").to(torch.float32))
-    i = torch.sigmoid(_proj(p["w_x"], xb, policy, impl,
-                            "rnn_gates").to(torch.float32))
+    r = torch.sigmoid(_proj(p["w_a"], xb, policy, impl, "rnn_gates",
+                            serve).to(torch.float32))
+    i = torch.sigmoid(_proj(p["w_x"], xb, policy, impl, "rnn_gates",
+                            serve).to(torch.float32))
     log_a = -_C * layers.softplus(p["lam"].to(torch.float32)) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -135,21 +138,24 @@ def associative_scan(fn: Callable, elems: List[torch.Tensor],
 
 def rglru_block_forward(p: Dict, x: torch.Tensor, policy, cfg: RGLRUConfig,
                         *, impl: str = "auto",
-                        h0: Optional[torch.Tensor] = None
+                        h0: Optional[torch.Tensor] = None,
+                        serve: bool = True
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) -> (out (B, S, D), {"h": (B, d_rnn), "conv": (B, W-1,
-    d_rnn)}); ``h0`` folds a carried state in as a step-0 contribution."""
-    xb = _proj(p["in_x"], x, policy, impl, "rnn_in")
-    gate = layers.gelu(_proj(p["in_gate"], x, policy, impl, "rnn_in"))
+    d_rnn)}); ``h0`` folds a carried state in as a step-0 contribution;
+    ``serve=False`` runs the projections fake-quant."""
+    xb = _proj(p["in_x"], x, policy, impl, "rnn_in", serve)
+    gate = layers.gelu(_proj(p["in_gate"], x, policy, impl, "rnn_in",
+                             serve))
     pre_conv = xb
     xb = layers.causal_conv1d(p["conv"], xb)
-    a, b = _gates(p, xb, policy, impl)
+    a, b = _gates(p, xb, policy, impl, serve)
     if h0 is not None:
         b = b.clone()
         b[:, 0, :] = b[:, 0, :] + a[:, 0, :] * h0.to(torch.float32)
     _, h_seq = associative_scan(linear_combine, [a, b], axis=1)
     y = h_seq.to(x.dtype) * gate
-    out = _proj(p["out"], y, policy, impl, "rnn_out")
+    out = _proj(p["out"], y, policy, impl, "rnn_out", serve)
     w1 = cfg.conv_width - 1
     tail = pre_conv[:, -w1:, :].to(torch.float32)
     if tail.shape[1] < w1:  # the reference's slice is as short as S
@@ -159,16 +165,18 @@ def rglru_block_forward(p: Dict, x: torch.Tensor, policy, cfg: RGLRUConfig,
 
 def rglru_block_step(p: Dict, x_t: torch.Tensor,
                      state: Dict[str, torch.Tensor], policy,
-                     cfg: RGLRUConfig, *, impl: str = "auto"
+                     cfg: RGLRUConfig, *, impl: str = "auto",
+                     serve: bool = True
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token step: x_t (B, 1, D) -> (out (B, 1, D), new state)."""
-    xb = _proj(p["in_x"], x_t, policy, impl, "rnn_in")[:, 0]
-    gate = layers.gelu(_proj(p["in_gate"], x_t, policy, impl,
-                             "rnn_in"))[:, 0]
+    """One-token step: x_t (B, 1, D) -> (out (B, 1, D), new state);
+    ``serve=False`` runs the projections fake-quant."""
+    xb = _proj(p["in_x"], x_t, policy, impl, "rnn_in", serve)[:, 0]
+    gate = layers.gelu(_proj(p["in_gate"], x_t, policy, impl, "rnn_in",
+                             serve))[:, 0]
     conv_cache, xbc = layers.causal_conv1d_step(
         p["conv"], state["conv"].to(xb.dtype), xb)
-    a, b = _gates(p, xbc, policy, impl)
+    a, b = _gates(p, xbc, policy, impl, serve)
     h = a * state["h"] + b
     y = (h.to(x_t.dtype) * gate)[:, None, :]
-    out = _proj(p["out"], y, policy, impl, "rnn_out")
+    out = _proj(p["out"], y, policy, impl, "rnn_out", serve)
     return out, {"h": h, "conv": conv_cache.to(torch.float32)}

@@ -1,12 +1,16 @@
-"""Mamba-2 SSD block, serve half (port of ``repro.nn.ssm``): the chunked
-prefill and the constant-state decode step.
+"""Mamba-2 SSD block (port of ``repro.nn.ssm``): the chunked prefill and
+training forward, and the constant-state decode step.
 
 The chunked SSD algorithm (Dao & Gu 2024) splits the sequence into chunks
 of Q tokens: inside a chunk the recurrence is a masked quadratic form,
 across chunks a (B, H, N, P) state is carried by a scan.  The four
 projections (``in_xbc``, ``in_z``, ``in_dt``, ``out``) run on K1 through
-``nn.quantized``'s serve path; the state, the scan and every einsum stay
-in f32, as in the reference.
+``nn.quantized``'s serve path (``serve=True``), or fake-quant under
+autograd (``serve=False``, the QAT forward); the state, the scan and
+every einsum stay in f32, as in the reference.  B and C are repeated over
+each group's heads by a broadcast and a reshape, whose gradient is a sum
+over the group (``repeat_interleave``'s is an index-add, whose atomics add
+in no fixed order on a card).
 
 The prompt is padded up to a multiple of ``chunk`` upstream, and the pad
 tokens must not touch the state.  The reference lets them (ROADMAP Queue 3
@@ -97,8 +101,18 @@ def ssm_state_spec(cfg: SSMConfig, batch: int) -> Dict[str, ParamSpec]:
     }
 
 
-def _proj(p, x, policy, impl, name):
-    return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name)
+def _proj(p, x, policy, impl, name, serve=True):
+    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
+
+
+def _repeat_heads(t: torch.Tensor, reps: int) -> torch.Tensor:
+    """(..., G, N) -> (..., G * reps, N), each group repeated over its
+    ``reps`` heads (``jnp.repeat`` along the group axis)."""
+    if reps == 1:
+        return t
+    *lead, g, n = t.shape
+    return t[..., :, None, :].expand(*lead, g, reps, n).reshape(
+        *lead, g * reps, n)
 
 
 def _split_xbc(xbc, cfg: SSMConfig):
@@ -126,7 +140,12 @@ def _ssd_chunks(xh, bm, cm, dtp, a, q: int):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Qi, Qj, H)
     ii = torch.arange(q, device=xh.device)
     lmask = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    ldecay = torch.where(lmask, torch.exp(seg), torch.zeros_like(seg))
+    # exp only below the diagonal: above it seg is a sum of positive
+    # decays that overflows f32 at a full chunk, and where's backward
+    # multiplies that inf by its zero gradient (the reference's NaN, R8)
+    zero = torch.zeros_like(seg)
+    ldecay = torch.where(lmask, torch.exp(torch.where(lmask, seg, zero)),
+                         zero)
     cb = torch.einsum("bcihn,bcjhn->bcijh", cc, bc)
     y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", cb * ldecay, dtc, xc)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
@@ -146,28 +165,28 @@ def _ssd_chunks(xh, bm, cm, dtp, a, q: int):
 
 
 def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
-                impl: str = "auto", valid: Optional[int] = None
+                impl: str = "auto", valid: Optional[int] = None,
+                serve: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x_in (B, S, D), S a multiple of ``cfg.chunk`` -> (out (B, S, D), the
     recurrent state after the first ``valid`` positions (all of S by
     default): ``{"ssm": (B, H, N, P), "conv": (B, W-1, C)}``, f32).
-    Positions at or past ``valid`` are padding and leave the state alone."""
+    Positions at or past ``valid`` are padding and leave the state alone.
+    ``serve=False`` runs the projections fake-quant (the QAT forward)."""
     b, s, _ = x_in.shape
     h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
     if s % cfg.chunk:
         raise ValueError(f"S={s} is not a multiple of chunk {cfg.chunk}")
     valid = s if valid is None else valid
-    xbc = _proj(p["in_xbc"], x_in, policy, impl, "in_xbc")
-    z = _proj(p["in_z"], x_in, policy, impl, "in_z")
-    dt = _proj(p["in_dt"], x_in, policy, impl, "in_dt")
+    xbc = _proj(p["in_xbc"], x_in, policy, impl, "in_xbc", serve)
+    z = _proj(p["in_z"], x_in, policy, impl, "in_z", serve)
+    dt = _proj(p["in_dt"], x_in, policy, impl, "in_dt", serve)
     pre_conv = F.silu(xbc.to(torch.float32)).to(xbc.dtype)
     xbc = layers.causal_conv1d(p["conv"], pre_conv)
     xr, bmat, cmat = _split_xbc(xbc, cfg)
     xh = xr.reshape(b, s, h, pdim).to(torch.float32)
-    bm = torch.repeat_interleave(
-        bmat.reshape(b, s, g, n).to(torch.float32), h // g, dim=2)
-    cm = torch.repeat_interleave(
-        cmat.reshape(b, s, g, n).to(torch.float32), h // g, dim=2)
+    bm = _repeat_heads(bmat.reshape(b, s, g, n).to(torch.float32), h // g)
+    cm = _repeat_heads(cmat.reshape(b, s, g, n).to(torch.float32), h // g)
     a = -torch.exp(p["A_log"].to(torch.float32))
     dtp = layers.softplus(dt.to(torch.float32)
                           + p["dt_bias"].to(torch.float32))
@@ -184,7 +203,7 @@ def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
     y = y + p["D"].to(torch.float32)[None, None, :, None] * xh
     y = y.reshape(b, s, cfg.d_inner).to(x_in.dtype)
     y = _gated_norm(p["norm"], y, z)
-    out = _proj(p["out"], y, policy, impl, "out")
+    out = _proj(p["out"], y, policy, impl, "out", serve)
     w1 = cfg.conv_width - 1
     tail = pre_conv[:, max(0, valid - w1):valid, :].to(torch.float32)
     if tail.shape[1] < w1:
@@ -205,24 +224,24 @@ def _contract_n(cv: torch.Tensor, s_new: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_decode_step(p: Dict, x_t: torch.Tensor, state: Dict[str, torch.Tensor],
-                    policy, cfg: SSMConfig, *, impl: str = "auto"
+                    policy, cfg: SSMConfig, *, impl: str = "auto",
+                    serve: bool = True
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence: x_t (B, 1, D), ``state`` from
-    ``ssm_state_spec`` -> (out (B, 1, D), the new state)."""
+    ``ssm_state_spec`` -> (out (B, 1, D), the new state); ``serve=False``
+    runs the projections fake-quant."""
     b = x_t.shape[0]
     h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
-    xbc = _proj(p["in_xbc"], x_t, policy, impl, "in_xbc")[:, 0]
-    z = _proj(p["in_z"], x_t, policy, impl, "in_z")[:, 0]
-    dt = _proj(p["in_dt"], x_t, policy, impl, "in_dt")[:, 0]
+    xbc = _proj(p["in_xbc"], x_t, policy, impl, "in_xbc", serve)[:, 0]
+    z = _proj(p["in_z"], x_t, policy, impl, "in_z", serve)[:, 0]
+    dt = _proj(p["in_dt"], x_t, policy, impl, "in_dt", serve)[:, 0]
     conv_cache, xbc = layers.causal_conv1d_step(
         p["conv"], state["conv"].to(xbc.dtype),
         F.silu(xbc.to(torch.float32)).to(xbc.dtype))
     xr, bvec, cvec = _split_xbc(xbc, cfg)
     xh = xr.reshape(b, h, pdim).to(torch.float32)
-    bv = torch.repeat_interleave(bvec.reshape(b, g, n).to(torch.float32),
-                                 h // g, dim=1)
-    cv = torch.repeat_interleave(cvec.reshape(b, g, n).to(torch.float32),
-                                 h // g, dim=1)
+    bv = _repeat_heads(bvec.reshape(b, g, n).to(torch.float32), h // g)
+    cv = _repeat_heads(cvec.reshape(b, g, n).to(torch.float32), h // g)
     a = -torch.exp(p["A_log"].to(torch.float32))
     dtp = layers.softplus(dt.to(torch.float32)
                           + p["dt_bias"].to(torch.float32))
@@ -234,5 +253,5 @@ def ssd_decode_step(p: Dict, x_t: torch.Tensor, state: Dict[str, torch.Tensor],
     y = y + p["D"].to(torch.float32)[None, :, None] * xh
     y = y.reshape(b, 1, cfg.d_inner).to(x_t.dtype)
     y = _gated_norm(p["norm"], y, z[:, None, :])
-    out = _proj(p["out"], y, policy, impl, "out")
+    out = _proj(p["out"], y, policy, impl, "out", serve)
     return out, {"ssm": s_new, "conv": conv_cache.to(torch.float32)}

@@ -19,6 +19,7 @@ __all__ = ["adamw_init", "adamw_update", "global_norm"]
 
 # the reference's defaults, which every caller of it uses
 B1, B2, EPS, WEIGHT_DECAY, MAX_NORM = 0.9, 0.95, 1e-8, 0.1, 1.0
+_CHUNK = 1 << 24  # values of a leaf updated at a time
 
 
 def adamw_init(params, state_dtype=torch.float32) -> Dict[str, Any]:
@@ -42,12 +43,16 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, *, lr
+def adamw_update(grads, state, params, *, lr, donate: bool = False
                  ) -> Tuple[Any, Dict[str, Any]]:
     """-> (new params, new state): gradients clipped to global norm
     ``MAX_NORM``, bias-corrected moments (``B1``, ``B2``, ``EPS``),
-    decoupled weight decay ``WEIGHT_DECAY``.  New tensors are returned;
-    the inputs are not written."""
+    decoupled weight decay ``WEIGHT_DECAY``.  New tensors are returned
+    and the inputs are not written, unless ``donate``: then each leaf's new
+    parameter and moments are written into ``params``' and ``state``'s own
+    tensors as soon as they are computed, and those tensors are returned
+    (the same bits; a step then holds one train state, not two, as the
+    reference's Trainer gets by donating its state to the jitted step)."""
     scale = torch.clamp(MAX_NORM / (global_norm(grads) + 1e-12), max=1.0)
     count = state["count"] + 1
     c1 = 1.0 - B1 ** count.to(torch.float32)
@@ -62,9 +67,20 @@ def adamw_update(grads, state, params, *, lr
         new_p = pf - lr * (step + WEIGHT_DECAY * pf)
         return new_p.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
 
-    out = [upd(g, m, v, p) for g, m, v, p in zip(
-        leaves(grads), leaves(state["m"]), leaves(state["v"]),
-        leaves(params))]
+    out = []
+    for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
+                          leaves(state["v"]), leaves(params)):
+        new = (p, m, v) if donate else tuple(
+            torch.empty_like(t) for t in (p, m, v))
+        flat = [t.view(-1) for t in (g, m, v, p)]
+        dst = [t.view(-1) for t in new]
+        # elementwise, so a slice at a time gives the same bits; it bounds
+        # the f32 temporaries by _CHUNK (an embedding or head leaf of 1e9
+        # values would hold several 4 GB ones at once)
+        for i in range(0, flat[0].numel(), _CHUNK):
+            for d, value in zip(dst, upd(*(t[i:i + _CHUNK] for t in flat))):
+                d[i:i + _CHUNK] = value
+        out.append(new)
     return (unflatten(params, [o[0] for o in out]),
             {"m": unflatten(params, [o[1] for o in out]),
              "v": unflatten(params, [o[2] for o in out]), "count": count})

@@ -11,7 +11,10 @@ device:
   ``straggler_hook(step, seconds)`` when a step exceeds
   ``straggler_factor`` times it;
 * checkpoints every ``ckpt_every`` steps, written in the background when
-  ``async_ckpt``.
+  ``async_ckpt``;
+* the step updates the train state in place (``make_train_step(...,
+  donate=True)``), as the reference donates it to its jitted step, so a
+  step holds one state and its gradients, not two states.
 
 The reference's device mesh, its sharded state and the elastic re-shard on
 restore wait for multi-device work (ROADMAP label 16).
@@ -62,8 +65,11 @@ class Trainer:
         self.straggler_hook = straggler_hook or (
             lambda step, dt: print(f"[watchdog] step {step} straggling: "
                                    f"{dt:.3f}s"))
+        # the reference jits the step with its state donated
+        # (``donate_argnums``): the new state takes the old one's memory
         self.train_step = steps_lib.make_train_step(
-            api, peak_lr=cfg.peak_lr, total_steps=cfg.total_steps)
+            api, peak_lr=cfg.peak_lr, total_steps=cfg.total_steps,
+            donate=True)
         self.step_seconds = []
         self.save_seconds = []
         self.restore_seconds: Optional[float] = None

@@ -839,3 +839,98 @@ def test_moe_train_on_the_card_matches_the_cpu(cuda_device, arch):
         assert bool(torch.isfinite(g).all()), path
         if not path.endswith("['ga']"):
             assert _rel_l2(g, g0[path]) <= MOE_CARD_RELL2, path
+
+
+# --- QAT training of mamba2, recurrentgemma and whisper (slice 12) -----------
+
+RECURRENT_TRAIN_ARCHS = ["mamba2-1.3b", "recurrentgemma-9b", "whisper-base"]
+BLOCK_CARD_RELL2 = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT_TRAIN_ARCHS)
+def test_recurrent_train_step_is_deterministic_on_the_card(
+        cuda_device, monkeypatch, arch):
+    """The reduced mamba2, recurrentgemma and whisper steps (the SSD's and
+    the scan's backward, the conv taps' ordered bf16 sums, the encoder
+    output's ordered fan-out; whisper on synthetic frames) donated as the
+    Trainer runs them, under ``torch.use_deterministic_algorithms``:
+    nothing raises, two runs of three steps give bitwise the same state and
+    losses, and the first loss is near the CPU's."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    from repro_torch import configs
+    from repro_torch.device import tree_to
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+    api = configs.get(arch, reduced=True)
+    api.microbatches = 2
+    state0 = steps.init_train_state(api, torch.Generator().manual_seed(0),
+                                    device="cpu")
+    state0["step"] = state0["step"] + 50
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, api.cfg.vocab, (4, 20), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if api.needs_frames:
+        batch["frames"] = torch.randn((4, api.cfg.n_audio, api.cfg.d_model),
+                                      generator=gen)
+    step = steps.make_train_step(api, donate=True)
+    runs = []
+    for _ in range(2):
+        s = tree_to(state0, cuda_device)
+        b = tree_to(batch, cuda_device)
+        losses = []
+        for _ in range(3):
+            s, m = step(s, b)
+            losses.append(float(m["loss"]))
+        runs.append((s, losses))
+    assert runs[0][1] == runs[1][1]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(runs[0][0]),
+                                                  leaves(runs[1][0])))
+    _, m_cpu = steps.make_train_step(api)(state0, batch)
+    assert runs[0][1][0] == pytest.approx(float(m_cpu["loss"]), rel=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["ssd", "rglru"])
+def test_recurrent_block_vjp_on_the_card_matches_the_cpu(cuda_device, block):
+    """An SSD block (mamba2, 2 x 32 tokens: two chunks, so the one-row
+    card path and the chunk loop run) and an RG-LRU block (recurrentgemma,
+    2 x 19) at the reduced widths, ``serve=False``, on the card against the
+    CPU on the same inputs: the output, x's gradient and every weight,
+    conv, ``A_log``/``D``/``dt_bias``/``lam`` and ``gw`` gradient within
+    BLOCK_CARD_RELL2 of its L2 norm, the activation steps (``ga``) finite.
+    Phase 16 of ``chip_smoke.py`` holds the same at full width."""
+    from repro_torch import configs
+    from repro_torch.nn import rglru, ssm
+    from repro_torch.tree import flatten_with_paths, unflatten
+    if block == "ssd":
+        api = configs.get("mamba2-1.3b", reduced=True)
+        fn = lambda p, x: ssm.ssd_forward(  # noqa: E731
+            p, x, api.policy, api.cfg.ssm, serve=False)
+        key, shape = "ssm", (2, 32, api.cfg.d_model)
+    else:
+        api = configs.get("recurrentgemma-9b", reduced=True)
+        fn = lambda p, x: rglru.rglru_block_forward(  # noqa: E731
+            p, x, api.policy, api.cfg.rnn, serve=False)
+        key, shape = "rnn", (2, 19, api.cfg.d_model)
+    params = api.init_params(torch.Generator().manual_seed(2),
+                             device="cpu")["layers"][0][key]
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    ct = torch.randn(shape, generator=gen).to(torch.bfloat16)
+    out = []
+    for dev in ("cpu", cuda_device):
+        live = {k: v.detach().to(dev).clone().requires_grad_(True)
+                for k, v in flatten_with_paths(params).items()}
+        xt = x.to(dev).requires_grad_(True)
+        y, _ = fn(unflatten(params, list(live.values())), xt)
+        grads = torch.autograd.grad(y, [xt] + list(live.values()),
+                                    grad_outputs=ct.to(dev))
+        out.append((y, grads[0], dict(zip(live, grads[1:]))))
+    (y0, gx0, g0), (y1, gx1, g1) = out
+    assert _rel_l2(y1, y0) <= BLOCK_CARD_RELL2
+    assert _rel_l2(gx1, gx0) <= BLOCK_CARD_RELL2
+    for path, g in g1.items():
+        assert bool(torch.isfinite(g).all()), path
+        if not path.endswith("['ga']"):
+            assert _rel_l2(g, g0[path]) <= BLOCK_CARD_RELL2, path

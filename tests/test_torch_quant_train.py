@@ -232,21 +232,33 @@ def _leaves(tree, path=""):
 
 
 def test_non_dense_train_forward_raises():
-    """The MoE and MLA archs train; the families whose train path waits
-    (mamba2, recurrentgemma, whisper) raise, in ``forward`` and in the
-    train-mode cache path, naming ROADMAP item 15b (b)."""
-    api = configs.get("olmoe-1b-7b", reduced=True)
-    params = api.init_params(torch.Generator().manual_seed(0), device="cpu")
-    with torch.no_grad():
-        logits = api.forward(params, torch.zeros((1, 4), dtype=torch.long))
-    assert logits.shape == (1, 4, api.cfg.vocab)
+    """Every LM family has a full-sequence forward in both modes (the name
+    is kept from when mamba2, recurrentgemma and whisper raised there,
+    waiting for ROADMAP item 15b (b)): olmoe and the three families'
+    ``forward`` run over a train tree (``mode="train"``) and over its
+    packed tree (``mode="serve"``), giving (B, S, V) logits, and the three
+    families' ``prefill(mode="train")`` returns the last position's
+    logits and a per-layer cache; nothing raises."""
+    from repro_torch.runtime.serve import pack_for_serving
     toks = torch.zeros((1, 4), dtype=torch.long)
-    for arch in ("mamba2-1.3b", "recurrentgemma-9b", "whisper-base"):
-        other = configs.get(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match=r"15b \(b\)"):
-            other.forward({}, toks)
-        with pytest.raises(NotImplementedError, match=r"15b \(b\)"):
-            other.prefill({}, toks, mode="train")
+    for arch in ("olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-9b",
+                 "whisper-base"):
+        api = configs.get(arch, reduced=True)
+        params = api.init_params(torch.Generator().manual_seed(0),
+                                 device="cpu")
+        with torch.no_grad():
+            train = api.forward(params, toks, mode="train")
+            serve = api.forward(pack_for_serving(api, params), toks,
+                                mode="serve")
+            for logits in (train, serve):
+                assert logits.shape == (1, 4, api.cfg.vocab), arch
+                assert bool(torch.isfinite(logits.float()).all()), arch
+            if arch != "olmoe-1b-7b":
+                last, cache = api.prefill(params, toks, mode="train")
+                assert last.shape == (1, api.cfg.vocab), arch
+                assert torch.equal(last, train[:, -1]), arch
+                assert len(cache["self"] if arch == "whisper-base"
+                           else cache) == api.cfg.n_layers, arch
 
 
 @pytest.mark.parametrize("bits", [2, 4])

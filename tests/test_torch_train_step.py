@@ -195,14 +195,15 @@ def step_mass(loss_fn, params, monkeypatch):
     return mass
 
 
-def _step_case(arch, eager):
-    """Both packages' step from one JAX-drawn state (computed once)."""
+def _step_case(arch, eager, batch=None):
+    """Both packages' step from one JAX-drawn state (computed once), on
+    ``batch`` (numpy ``tokens`` and ``labels``, else ``_batch``'s)."""
     japi = jconfigs.get(arch, reduced=True)
     japi.microbatches = 1
     tapi = configs.get(arch, reduced=True)
     tapi.microbatches = 1
     state = _np_state(japi)
-    batch = _batch(japi)
+    batch = _batch(japi) if batch is None else batch
     mp = pytest.MonkeyPatch()
     jnew, jm, jg = _run_jax(japi, state, batch, eager, mp)
     tstate = convert.from_jax_train_state(jax.tree.map(np.asarray, state),
@@ -211,6 +212,9 @@ def _step_case(arch, eager):
           "labels": torch.as_tensor(batch["labels"]).long()}
     if japi.family != "cnn":
         tb["tokens"] = tb["tokens"].long()
+    fkw = {}
+    if "frames" in batch:  # whisper
+        tb["frames"] = fkw["frames"] = torch.as_tensor(batch["frames"])
     seen = {}
 
     def spy(grads, *a, **kw):
@@ -225,7 +229,7 @@ def _step_case(arch, eager):
                                          tstate["opt"], tstate["params"],
                                          lr=tm["lr"])
     mass = step_mass(lambda p: TS.cross_entropy(
-        tapi.forward(p, tb["tokens"], mode="train"), tb["labels"]),
+        tapi.forward(p, tb["tokens"], mode="train", **fkw), tb["labels"]),
         tstate["params"], mp)
     fam = japi.family
     return {"japi": japi, "tapi": tapi, "state": state, "batch": batch,

@@ -380,6 +380,41 @@ def test_adamw_update_alone(dtype):
     assert flatten_with_paths(ts["m"])["['a']"].dtype == td
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_donated_update_same_bits_in_place(dtype):
+    """``donate=True`` (what the Trainer's step uses, as the reference
+    donates its state to the jitted step): the new parameters and moments
+    are the non-donating update's bit for bit, written into the given
+    tensors, which are returned."""
+    rng = np.random.default_rng(12)
+    params = {"a": torch.tensor(rng.normal(0, 1, (5, 7)), dtype=torch.float32),
+              "b": {"gw": torch.tensor(0.05),
+                    "w": torch.tensor(rng.normal(0, 1, (3,)),
+                                      dtype=torch.float32)}}
+    state = optim.adamw_init(params, state_dtype=dtype)
+    for i in range(3):
+        grads = {"a": torch.tensor(rng.normal(0, 1e-2, (5, 7)),
+                                   dtype=torch.float32),
+                 "b": {"gw": torch.tensor(1e-3),
+                       "w": torch.tensor(rng.normal(0, 1e-2, (3,)),
+                                         dtype=torch.float32)}}
+        want_p, want_s = optim.adamw_update(grads, state, params, lr=1e-3)
+        copies = [t.clone() for t in leaves(params)]
+        got_p, got_s = optim.adamw_update(grads, state, params, lr=1e-3,
+                                          donate=True)
+        assert all(a is b for a, b in zip(leaves(got_p), leaves(params)))
+        assert all(a is b for a, b in zip(leaves(got_s["m"]),
+                                          leaves(state["m"])))
+        for got, want in ((got_p, want_p), (got_s["m"], want_s["m"]),
+                          (got_s["v"], want_s["v"])):
+            for a, b in zip(leaves(got), leaves(want)):
+                assert torch.equal(a, b)
+        assert not all(torch.equal(a, b)
+                       for a, b in zip(copies, leaves(params)))
+        assert int(got_s["count"]) == i + 1
+        params, state = got_p, got_s
+
+
 def test_compress_decompress_and_error_feedback():
     """Dequantized gradients and residuals within 1 f32 ulp of the
     reference's (XLA may multiply by the reciprocal scale), carried over
