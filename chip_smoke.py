@@ -206,8 +206,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the served logits correlated above 0.85 with the QAT eval forward (the
    reference's ``test_serve_tracks_qat``).  (b) granite-8b at full width,
    first 2 layers, default w4k4, remat 'dots': the ``Trainer`` for 6
-   steps (batch 4 x 1024, 2 microbatches, a checkpoint every 3 steps);
-   a fresh ``Trainer`` restored from step 3 and run to step 6, its
+   steps (batch 4 x 1024, 2 microbatches), which writes the checkpoint of
+   its step 3 in the background (``async_ckpt``, the ``Trainer``'s
+   default) while its donated steps 4-6 update the state in place; a
+   fresh ``Trainer`` restored from that checkpoint and run to step 6, its
    parameters, moments and losses bitwise the uninterrupted run's (the
    reference's ``test_restart_equivalence_exact``); one microbatch
    against two (loss within 2%, each gradient leaf, read back from the
@@ -229,7 +231,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    parameters), random weights from a CUDA generator seeded 0, each
    arch's default policy.  The ``Trainer`` for 3 steps (batch 4 x 1024, 2
    microbatches, each MoE row routed with a capacity of 256 (olmoe) or 192
-   (deepseek) tokens an expert); a fresh ``Trainer`` restored from step 2
+   (deepseek) tokens an expert), which writes its step-2 checkpoint in the
+   background as phase 14's does; a fresh ``Trainer`` restored from it
    and run to step 3, its parameters, moments and losses bitwise the
    uninterrupted run's; one microbatch against two (loss within 2%, each
    gradient leaf within 0.02 of its L2 norm); every gradient leaf finite
@@ -242,7 +245,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``max_memory_allocated``, checkpoint save and restore, and the step's
    split (forward and backward, their bf16 products at the banks' real
    shapes, the MoE routing, a fake-quant pass over the weights, AdamW,
-   each timed alone).  Checkpoints under ``build/p15``, removed at the end.
+   each timed alone).  Checkpoints as phase 16 places them.
 
 16. QAT training of the last three families (slice 12) at full width,
    random weights from a CUDA generator seeded 0, each arch's default
@@ -254,8 +257,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``Trainer`` for 3 steps in 2 microbatches (its step donated, as the
    reference donates its state); a fresh ``Trainer`` restored from step
    2 and run to step 3, parameters, moments and losses bitwise the
-   uninterrupted run's; one microbatch against two (each gradient leaf
-   within 0.02 of its L2 norm, the conv taps' bf16 sums within 0.05);
+   uninterrupted run's (mamba2's restart leg on its first 4 layers at
+   full width, against an uninterrupted run of the same 4 layers); one
+   microbatch against two (each gradient leaf within 0.02 of its L2
+   norm, the conv taps' bf16 sums within 0.05);
    every gradient finite and the recurrences' own (``A_log``, ``D``,
    ``dt_bias``, ``lam``, the conv's) nonzero; the SSD / RG-LRU block's
    vjp with layer 0's trained weights on the card against the CPU's
@@ -268,7 +273,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checkpoint save and restore, and the step's split (forward and
    backward, their bf16 products, the SSD / scan / attention rest, a
    fake-quant pass over the weights, AdamW, each timed alone).
-   Checkpoints under ``build/p16``, removed at the end.
+   Checkpoints under a folder of this run's own in ``/dev/shm`` where it
+   has room for the state (else ``build/p16``), removed at the end;
+   phases 14-16 write only the checkpoint their restart reads
+   (``ckpt_root``, ``save_only_at``), 16's blocking, 14's and 15's in the
+   background.
+17. The paper's PE models (``core/ppg``): every variant (BP-ST-1D,
+   BP-SA-1D, BP-ST-2D with 8-bit activations, BS-ST-1D) at every (w, k)
+   of ``benchmarks/fig6_pe_dse.py``'s grid (M 64, K 256, N 256; w 8, 4,
+   2, 1; k 1, 2, 4 with k <= w), drawn as it draws them, and at one
+   full-width ResNet-18 layer as a GEMM (the s3 3x3 conv at batch 8: M
+   392, K 4608, N 512): bitwise ``matmul_exact`` on the card and the
+   host's product, the statistics equal to the CPU run's; BP-ST-1D at
+   w8k4 bitwise K1 with gamma 1 and no epilogue (a_biased = a - 128,
+   act_zero 128).  ``[p17-time]`` lines: us a call (CUDA events around
+   calls that each wait once for an operand's range: host-bound) and the
+   Fig. 6 score, weight bits/s per accumulator byte
+   (``tools/ppg_device_time.py`` times the device alone).
+18. Data-parallel serving, a contract check: the cells on one device in
+   this process, then in a world of two ranks sharing cuda:0 over gloo
+   (``launch.mesh.spawn``; the ranks load the libraries built above and
+   would refuse to run ``nvcc``): full-width ResNet-18 under
+   ``resnet18_mixed.json`` at batch 16 through ``ImageServer``; granite-8b
+   at full width, first 2 layers, under ``granite_8b_mixed.json``, 4 x
+   256 prompts + 8 tokens through ``Generator`` and five requests through
+   a ``GenerateScheduler`` over it.  Every rank's logits, tokens and
+   tickets bitwise the one-device run's; every rank's launches those the
+   layers give at its rows (a kernel launches once a layer, so a rank
+   launches as many as one device, each over half the rows).
+   ``[p18-time]``: host-clock frames/s and tokens/s, which measure nothing
+   of scaling with two ranks on one card.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -3923,9 +3957,65 @@ def p14_resnet(sm):
             "cpu_s": cpu_s, "split": split}
 
 
+_SHM_RUN = []  # this run's own folder under /dev/shm, once one is made
+
+
+def ckpt_root(name, need_bytes):
+    """Where a phase writes its checkpoints: under this run's own folder in
+    ``/dev/shm`` (``tempfile.mkdtemp``, so two runs on one host never
+    share one) when that file system has room for one with a margin and
+    the host memory stays above what the phase keeps there, else under
+    ``build/`` in the checkout.  The choice is logged; the caller removes
+    the directory, and ``main`` removes the run's folder when it ends."""
+    import shutil
+    import tempfile
+    shm = Path("/dev/shm")
+    free = avail = 0
+    if shm.is_dir():
+        st = os.statvfs(shm)
+        free = st.f_bavail * st.f_frsize
+        try:
+            with open("/proc/meminfo") as f:
+                avail = next(int(line.split()[1]) * 1024 for line in f
+                             if line.startswith("MemAvailable:"))
+        except (OSError, StopIteration):
+            avail = 0
+    # the file itself, the host copy of the uninterrupted state phase 16
+    # keeps while it restores, and room to spare
+    if free > 1.2 * need_bytes and avail > 2.5 * need_bytes:
+        if not _SHM_RUN:
+            _SHM_RUN.append(Path(tempfile.mkdtemp(prefix="repro_chip_smoke.",
+                                                  dir=shm)))
+        root = _SHM_RUN[0] / name
+    else:
+        root = ROOT / "build" / name
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[ckpt] {name}: a {need_bytes / 1e9:.1f} GB state; /dev/shm free "
+        f"{free / 1e9:.1f} GB, host memory available {avail / 1e9:.1f} GB "
+        f"-> checkpoints under {root}")
+    return root
+
+
+def remove_shm_run():
+    """Remove this run's folder under ``/dev/shm``, if it made one."""
+    import shutil
+    while _SHM_RUN:
+        shutil.rmtree(_SHM_RUN.pop(), ignore_errors=True)
+
+
+def save_only_at(tr, steps):
+    """Make a ``Trainer`` checkpoint at ``steps`` and nowhere else: the
+    restart checks compare final states in memory, so every other
+    checkpoint would be written and read by nothing."""
+    save = tr._save
+    tr._save = lambda step, state, blocking: (
+        save(step, state, blocking) if step in steps else None)
+    return tr
+
+
 def p14_granite(sm):
     """(b) granite-8b at full width, first 2 layers: the Trainer for six
-    steps with checkpoints, a restart from step 3 bitwise equal to the
+    steps, a restart from a step-3 checkpoint bitwise equal to the
     uninterrupted run, one microbatch against two, a step under a packed
     kv4 cache, then pack and serve the trained weights through K1 and
     K4."""
@@ -3941,36 +4031,37 @@ def p14_granite(sm):
     cfg = api.cfg
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=P14_LM_SEQ,
                        global_batch=P14_LM_BATCH, seed=SEED)
-    root = ROOT / "build" / "p14"
-    shutil.rmtree(root, ignore_errors=True)
+    root = ckpt_root("p14", api.total_params() * 12)
 
-    def trainer(d, total, async_ckpt):
-        return Trainer(api, pipe, TrainLoopConfig(
-            total_steps=total, ckpt_every=P14_CKPT_EVERY,
-            ckpt_dir=str(root / d), log_every=1, async_ckpt=async_ckpt,
-            peak_lr=P14_LR), device=sm.device)
+    def trainer():
+        """A Trainer of P14_LM_STEPS steps that checkpoints at step
+        P14_CKPT_EVERY and at no other, in the background (the Trainer's
+        default): the donated steps that follow update the state in
+        place while the checkpoint is written."""
+        return save_only_at(Trainer(api, pipe, TrainLoopConfig(
+            total_steps=P14_LM_STEPS, ckpt_every=P14_CKPT_EVERY,
+            ckpt_dir=str(root), log_every=1, async_ckpt=True,
+            peak_lr=P14_LR), device=sm.device), (P14_CKPT_EVERY,))
 
     def gen():
         return t.Generator(device=sm.device).manual_seed(SEED)
     release(sm)
     t.cuda.reset_peak_memory_stats()
-    full = trainer("full", P14_LM_STEPS, async_ckpt=False)
+    # the uninterrupted run, which leaves the checkpoint of its step 3
+    full = trainer()
     s_full, h_full = full.run(gen())
     peak_train = t.cuda.max_memory_allocated()
+    save_s = full.save_seconds
     log(f"[p14] granite-8b x{P14_LM_DEPTH} uninterrupted: losses "
         f"{[round(v, 4) for v in h_full]}, steps (s) "
-        f"{[round(v, 3) for v in full.step_seconds]}, blocking saves (s) "
-        f"{[round(v, 2) for v in full.save_seconds]}")
-    ab = trainer("ab", P14_CKPT_EVERY, async_ckpt=True)
-    ab.run(gen())
-    del ab
-    release(sm)
-    ab2 = trainer("ab", P14_LM_STEPS, async_ckpt=True)
+        f"{[round(v, 3) for v in full.step_seconds]}")
+    ab2 = trainer()  # restores step 3, runs steps 3-5
     s_ab, h_ab = ab2.run(gen())
     same = (h_ab == h_full[P14_CKPT_EVERY:] and all(
         t.equal(a, b) for a, b in zip(leaves(s_full), leaves(s_ab))))
     restore_s = ab2.restore_seconds
-    log(f"[p14] restart from step {P14_CKPT_EVERY} (restore "
+    log(f"[p14] restart from step {P14_CKPT_EVERY} (save (asynchronous: "
+        f"the host copy) {[round(v, 2) for v in save_s]} s, restore "
         f"{restore_s:.2f} s): losses {[round(v, 4) for v in h_ab]};"
         f" parameters, moments and losses bitwise the uninterrupted run's: "
         f"{same}")
@@ -4047,12 +4138,11 @@ def p14_granite(sm):
     peak = t.cuda.max_memory_allocated()
     del gen_s, packed, s_full, qat
     release(sm)
-    shutil.rmtree(root / "full", ignore_errors=True)
-    shutil.rmtree(root / "ab", ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
     steps = full.step_seconds[1:]
     return {"step_ms": 1e3 * sum(steps) / len(steps),
             "first_ms": 1e3 * full.step_seconds[0],
-            "save_s": full.save_seconds, "restore_s": restore_s,
+            "save_s": save_s, "restore_s": restore_s,
             "peak_train": peak_train, "peak": peak, "losses": h_full,
             "counts": counts, "restart": same, "split": split}
 
@@ -4111,7 +4201,8 @@ def print_p14(p14, card):
         f"{P14_LM_BATCH} x {P14_LM_SEQ}, {P14_LM_MB} microbatches, remat "
         f"dots): {g['step_ms']:.2f} ms (mean of steps 2-{P14_LM_STEPS}; "
         f"first {g['first_ms']:.1f} ms) = {toks / g['step_ms'] * 1e3:.1f} "
-        f"tokens/s trained; checkpoint save (blocking) "
+        f"tokens/s trained; checkpoint save (the host copy; written in the "
+        f"background) "
         f"{', '.join(f'{v * 1e3:.0f}' for v in g['save_s'])} ms, restore "
         f"{g['restore_s'] * 1e3:.0f} ms (10.1 GB); peak memory "
         f"{g['peak_train'] / gib:.2f} GiB training, {g['peak'] / gib:.2f} "
@@ -4204,41 +4295,42 @@ def p15_arch(sm, arch):
     cfg = api.cfg
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=P15_SEQ,
                        global_batch=P15_BATCH, seed=SEED)
-    root = ROOT / "build" / "p15" / arch
-    shutil.rmtree(root, ignore_errors=True)
+    root = ckpt_root(f"p15/{arch}", api.total_params() * 12)
 
-    def trainer(d, total, every, async_ckpt):
-        return Trainer(api, pipe, TrainLoopConfig(
-            total_steps=total, ckpt_every=every, ckpt_dir=str(root / d),
-            log_every=1, async_ckpt=async_ckpt, peak_lr=P14_LR),
-            device=sm.device)
+    def trainer():
+        """A Trainer of P15_STEPS steps that checkpoints at step
+        P15_CKPT_EVERY and at no other, in the background, as phase 14's
+        does."""
+        return save_only_at(Trainer(api, pipe, TrainLoopConfig(
+            total_steps=P15_STEPS, ckpt_every=P15_CKPT_EVERY,
+            ckpt_dir=str(root), log_every=1, async_ckpt=True,
+            peak_lr=P14_LR), device=sm.device), (P15_CKPT_EVERY,))
 
     def gen():
         return t.Generator(device=sm.device).manual_seed(SEED)
     release(sm)
     t.cuda.reset_peak_memory_stats()
-    # the uninterrupted run saves once, at its end
-    full = trainer("full", P15_STEPS, P15_STEPS, async_ckpt=False)
+    # the uninterrupted run, which leaves the checkpoint of its step
+    # P15_CKPT_EVERY
+    full = trainer()
     s_full, h_full = full.run(gen())
     peak_train = t.cuda.max_memory_allocated()
+    save_s = full.save_seconds
     n_params = sum(p.numel() for p in leaves(s_full["params"]))
     log(f"[p15] {arch} x{P15_DEPTH} ({n_params / 1e9:.3f} B parameters, "
         f"capacity {capacity(cfg.moe, P15_SEQ)} a row) uninterrupted: "
         f"losses {[round(v, 4) for v in h_full]}, steps (s) "
-        f"{[round(v, 3) for v in full.step_seconds]}, blocking saves (s) "
-        f"{[round(v, 2) for v in full.save_seconds]}")
+        f"{[round(v, 3) for v in full.step_seconds]}")
     if not all(math.isfinite(v) for v in h_full):
         sm.failures.append(f"{arch} losses {h_full}")
-    ab = trainer("ab", P15_CKPT_EVERY, P15_CKPT_EVERY, async_ckpt=True)
-    ab.run(gen())
-    del ab
-    release(sm)
-    ab2 = trainer("ab", P15_STEPS, P15_CKPT_EVERY, async_ckpt=True)
+    ab2 = trainer()  # restores step P15_CKPT_EVERY, runs the rest
     s_ab, h_ab = ab2.run(gen())
     same = (h_ab == h_full[P15_CKPT_EVERY:] and all(
         t.equal(a, b) for a, b in zip(leaves(s_full), leaves(s_ab))))
     restore_s = ab2.restore_seconds
-    log(f"[p15] {arch} restart from step {P15_CKPT_EVERY} (restore "
+    log(f"[p15] {arch} restart from step {P15_CKPT_EVERY} (save "
+        f"(asynchronous: the host copy) {[round(v, 2) for v in save_s]} s, "
+        f"restore "
         f"{restore_s:.2f} s): losses {[round(v, 4) for v in h_ab]}; "
         f"parameters, moments and losses bitwise the uninterrupted run's: "
         f"{same}")
@@ -4318,7 +4410,7 @@ def p15_arch(sm, arch):
     steps = full.step_seconds[1:]
     return {"step_ms": 1e3 * sum(steps) / len(steps),
             "first_ms": 1e3 * full.step_seconds[0],
-            "save_s": full.save_seconds, "restore_s": restore_s,
+            "save_s": save_s, "restore_s": restore_s,
             "peak_train": peak_train, "peak": peak, "losses": h_full,
             "counts": counts, "restart": same, "split": split,
             "params": n_params, "corr": c,
@@ -4377,7 +4469,8 @@ def print_p15(p15, card):
             f"{P15_SEQ}, {P15_MB} microbatches): {r['step_ms']:.2f} ms (mean "
             f"of steps 2-{P15_STEPS}; first {r['first_ms']:.1f} ms) = "
             f"{toks / r['step_ms'] * 1e3:.1f} tokens/s trained; checkpoint "
-            f"save (blocking) {saves} ms, restore {r['restore_s'] * 1e3:.0f} "
+            f"save (the host copy; written in the background) {saves} ms, "
+            f"restore {r['restore_s'] * 1e3:.0f} "
             f"ms; "
             f"max_memory_allocated {r['peak_train'] / gib:.2f} GiB training, "
             f"{r['peak'] / gib:.2f} GiB with the checks and serving  ({card})")
@@ -4402,6 +4495,12 @@ P16_RUNS = (("mamba2-1.3b", None, 4, 1000),
             ("whisper-base", None, 4, 64))
 P16_MB = 2
 P16_STEPS, P16_CKPT_EVERY = 3, 2
+# mamba2's restart leg runs its first 4 layers at full width: its 48
+# layers' 17.3 GB checkpoint took about 36 s to write and read, and the
+# uninterrupted state held on the host for the comparison about 35 s
+# more (H100 80GB HBM3).  The other two restart at their phase's depth
+# (recurrentgemma's state is mostly its embedding and head).
+P16_RESTART_DEPTH = {"mamba2-1.3b": 4}
 P16_DECODE = 8            # decode steps after the trained weights' prefill
 # as phases 14-15: one microbatch against two, each gradient leaf within
 # 0.02 of its L2 norm; the served forward against the QAT forward above
@@ -4655,7 +4754,8 @@ def p16_layer_corr(sm, api, params, packed, batch):
 
 def p16_arch(sm, arch, depth, b, s):
     """One arch at full width: the ``Trainer`` for P16_STEPS steps, a
-    restart from step P16_CKPT_EVERY bitwise the uninterrupted run, one
+    restart from step P16_CKPT_EVERY bitwise the uninterrupted run (at
+    P16_RESTART_DEPTH where it names the arch), one
     microbatch against two, every gradient finite and the recurrences'
     own nonzero, the SSD / RG-LRU block's vjp on the card against the
     CPU's, then ``pack_for_serving`` and the serve-mode ``forward`` over
@@ -4677,36 +4777,34 @@ def p16_arch(sm, arch, depth, b, s):
                        with_frames=api.needs_frames,
                        n_audio=getattr(cfg, "n_audio", 0),
                        d_model=cfg.d_model)
-    root = ROOT / "build" / "p16" / arch
-    shutil.rmtree(root, ignore_errors=True)
+    r_depth = P16_RESTART_DEPTH.get(arch)
+    r_api = api if r_depth is None else dataclasses.replace(
+        family_api(arch, depth=r_depth), microbatches=P16_MB)
+    root = ckpt_root(f"p16/{arch}", r_api.total_params() * 12)
     t_arch = time.perf_counter()
 
     def at():  # the log prefix: phase 16, seconds into this arch
         return f"[p16] (+{time.perf_counter() - t_arch:.1f} s) "
 
-    def trainer(total):
-        """A Trainer of ``total`` steps that checkpoints at step
-        P16_CKPT_EVERY and at no other: the final state is compared in
-        memory, and its checkpoint (34 GB for recurrentgemma) would be read
-        by nothing."""
-        tr = Trainer(api, pipe, TrainLoopConfig(
-            total_steps=total, ckpt_every=P16_CKPT_EVERY, ckpt_dir=str(root),
-            log_every=1, async_ckpt=False, peak_lr=P14_LR),
-            device=sm.device)
-        save = tr._save
-        tr._save = lambda step, state, blocking: (
-            save(step, state, blocking) if step == P16_CKPT_EVERY else None)
-        return tr
+    def trainer(a, saves=(P16_CKPT_EVERY,)):
+        """A Trainer of ``a`` for P16_STEPS steps that checkpoints at
+        ``saves`` and at no other step: the final state is compared in
+        memory, and its checkpoint (34 GB for recurrentgemma) would be
+        read by nothing."""
+        return save_only_at(Trainer(a, pipe, TrainLoopConfig(
+            total_steps=P16_STEPS, ckpt_every=P16_CKPT_EVERY,
+            ckpt_dir=str(root), log_every=1, async_ckpt=False,
+            peak_lr=P14_LR), device=sm.device), saves)
 
     def gen():
         return t.Generator(device=sm.device).manual_seed(SEED)
     release(sm)
     t.cuda.reset_peak_memory_stats()
     # the uninterrupted run, which leaves the checkpoint of its step 2
-    full = trainer(P16_STEPS)
+    # where it is the restart's
+    full = trainer(api, () if r_depth else (P16_CKPT_EVERY,))
     s_full, h_full = full.run(gen())
     peak_train = t.cuda.max_memory_allocated()
-    save_s = full.save_seconds
     n_params = sum(p.numel() for p in leaves(s_full["params"]))
     log(at() + f"{arch} x{cfg.n_layers} ({n_params / 1e9:.3f} B parameters, "
         f"{b} x {s} tokens, {P16_MB} microbatches) uninterrupted: losses "
@@ -4715,25 +4813,37 @@ def p16_arch(sm, arch, depth, b, s):
         f"{peak_train / 2**30:.2f} GiB")
     if not all(math.isfinite(v) for v in h_full):
         sm.failures.append(f"{arch} losses {h_full}")
-    # the host keeps the uninterrupted state while the restart runs
-    host_full = tree_map(lambda x: x.cpu(), s_full)
-    del s_full
+    if r_depth:
+        # the restart leg's own uninterrupted run, kept on the card
+        state = s_full
+        r_full = trainer(r_api)
+        s_ref, h_ref = r_full.run(gen())
+        save_s = r_full.save_seconds
+        del r_full
+    else:
+        # the host keeps the uninterrupted state while the restart runs
+        s_ref, h_ref = tree_map(lambda x: x.cpu(), s_full), h_full
+        save_s = full.save_seconds
+        del s_full
     release(sm)
-    ab2 = trainer(P16_STEPS)  # restores step 2, runs step 3
+    ab2 = trainer(r_api)  # restores step 2, runs step 3
     s_ab, h_ab = ab2.run(gen())
-    same = (h_ab == h_full[P16_CKPT_EVERY:] and all(
-        t.equal(x.cpu(), y) for x, y in zip(leaves(s_ab),
-                                            leaves(host_full))))
+    same = (h_ab == h_ref[P16_CKPT_EVERY:] and all(
+        t.equal(x.to(y.device), y) for x, y in zip(leaves(s_ab),
+                                                   leaves(s_ref))))
     restore_s = ab2.restore_seconds
-    log(at() + f"{arch} restart from step {P16_CKPT_EVERY} (save "
-        f"{[round(v, 2) for v in save_s]} s, restore {restore_s:.2f} s): "
-        f"losses {[round(v, 4) for v in h_ab]}; parameters, moments and "
-        f"losses bitwise the uninterrupted run's: {same}")
+    log(at() + f"{arch} restart from step {P16_CKPT_EVERY}"
+        + (f" at depth {r_depth} (full width)" if r_depth else "")
+        + f" (save {[round(v, 2) for v in save_s]} s, restore "
+        f"{restore_s:.2f} s): losses {[round(v, 4) for v in h_ab]}; "
+        f"parameters, moments and losses bitwise the uninterrupted run's: "
+        f"{same}")
     if not same:
         sm.failures.append(f"{arch} restart is not bitwise the "
                            f"uninterrupted run")
-    state = s_ab  # bitwise the uninterrupted run's final state
-    del host_full, ab2
+    if not r_depth:
+        state = s_ab  # bitwise the uninterrupted run's final state
+    del s_ref, s_ab, ab2
     release(sm)
     shutil.rmtree(root, ignore_errors=True)
     sm.check_phase(f"16 {arch} Trainer: restart bitwise")
@@ -4867,7 +4977,8 @@ def p16_arch(sm, arch, depth, b, s):
     return {"arch": arch, "b": b, "s": s, "depth": cfg.n_layers,
             "step_ms": 1e3 * sum(steps) / len(steps),
             "first_ms": 1e3 * full.step_seconds[0], "save_s": save_s,
-            "restore_s": restore_s, "peak_train": peak_train, "peak": peak,
+            "restore_s": restore_s, "restart_depth": r_depth,
+            "peak_train": peak_train, "peak": peak,
             "losses": h_full, "counts": add_counts(counts, gen_counts),
             "restart": same, "split": split, "params": n_params, "corr": c,
             "layer_corr": (lc, lname), "head_corr": hc,
@@ -4912,7 +5023,9 @@ def print_p16(p16, card):
             f"{r['s']}, {P16_MB} microbatches): {r['step_ms']:.2f} ms (mean "
             f"of steps 2-{P16_STEPS}; first {r['first_ms']:.1f} ms) = "
             f"{toks / r['step_ms'] * 1e3:.1f} tokens/s trained; checkpoint "
-            f"save {', '.join(f'{v * 1e3:.0f}' for v in r['save_s'])} ms, "
+            + (f"(the restart leg's, x{r['restart_depth']}) "
+               if r["restart_depth"] else "")
+            + f"save {', '.join(f'{v * 1e3:.0f}' for v in r['save_s'])} ms, "
             f"restore {r['restore_s'] * 1e3:.0f} ms; max_memory_allocated "
             f"{r['peak_train'] / gib:.2f} GiB training, {r['peak'] / gib:.2f} "
             f"GiB with the checks and serving  ({card})")
@@ -4923,6 +5036,329 @@ def print_p16(p16, card):
             f"fake-quant pass over "
             f"the weights {sp['weight_fake_quant']:.2f} ms; AdamW "
             f"{sp['adamw']:.2f} ms; the step {r['step_ms']:.2f} ms  ({card})")
+
+
+# --- phase 17: the paper's PE models on the card ----------------------------
+
+P17_GRID = (64, 256, 256)      # benchmarks/fig6_pe_dse.py's M, K, N
+P17_LAYER = (392, 4608, 512)   # ResNet-18 s3 3x3 conv at batch 8 as a GEMM
+P17_FORMATS = [(w, k) for w in (8, 4, 2, 1) for k in (1, 2, 4) if k <= w]
+P17_A_BITS = 8                 # the 2-D variant's activation bits
+
+
+def p17_inputs(m, kdim, n):
+    """Fig. 6's operands, drawn as ``benchmarks/fig6_pe_dse.py`` draws
+    them: unsigned 8-bit activations, then one signed code matrix per w."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    a = rng.integers(0, 256, (m, kdim)).astype(np.int32)
+    ws = {}
+    for w_bits in (8, 4, 2, 1):
+        lo, hi = -(2 ** (w_bits - 1)), 2 ** (w_bits - 1) - 1
+        ws[w_bits] = rng.integers(lo, hi + 1, (kdim, n)).astype(np.int32)
+    return a, ws
+
+
+def p17_call(fn, name, a, w, w_bits, k):
+    if name == "BP-ST-2D":
+        return fn(a, w, w_bits, P17_A_BITS, k)
+    return fn(a, w, w_bits, k)
+
+
+def p17_score(shape, w_bits, stats, ms):
+    """Fig. 6's score of a call of ``ms``: weight bits a second per byte of
+    live accumulators."""
+    m, kdim, n = shape
+    return m * kdim * n * w_bits / (ms * 1e-3) / (stats.accumulators * m
+                                                   * n * 4)
+
+
+def p17_shape(sm, shape, label):
+    """Every PE variant x (w, k) at one GEMM shape on the card: bitwise
+    ``matmul_exact`` on the card and the int32 product on the host, the
+    statistics equal to the CPU run's; time and the Fig. 6 score."""
+    from repro_torch.core import ppg
+    t = sm.torch
+    m, kdim, n = shape
+    a_np, ws = p17_inputs(m, kdim, n)
+    a_cpu = t.from_numpy(a_np)
+    a = a_cpu.to(sm.device)
+    rows = []
+    for w_bits, k in P17_FORMATS:
+        w_cpu = t.from_numpy(ws[w_bits])
+        w = w_cpu.to(sm.device)
+        # the host's exact product (float64 is exact below 2^53)
+        want = (a_cpu.double() @ w_cpu.double()).to(t.int32)
+        exact = ppg.matmul_exact(a, w)
+        if not t.equal(exact.cpu(), want):
+            sm.failures.append(f"p17 {label} matmul_exact w{w_bits}k{k}")
+        for name, fn in ppg.PE_VARIANTS.items():
+            got, stats = p17_call(fn, name, a, w, w_bits, k)
+            if shape == P17_GRID:  # the CPU run of the same variant
+                cpu, cpu_stats = p17_call(fn, name, a_cpu, w_cpu, w_bits, k)
+                if not t.equal(cpu, want):
+                    sm.failures.append(f"p17 CPU {name} w{w_bits}k{k}")
+            else:
+                cpu_stats = p17_call(fn, name, a_cpu[:1], w_cpu, w_bits,
+                                     k)[1]
+            if not t.equal(got, exact) or stats != cpu_stats:
+                sm.failures.append(f"p17 {label} {name} w{w_bits}k{k}: "
+                                   f"bitwise {t.equal(got, exact)}, stats "
+                                   f"{stats} vs {cpu_stats}")
+            ms = sm.time_ms(lambda: p17_call(fn, name, a, w, w_bits, k),
+                            reps=10, warmup=2)
+            rows.append({"shape": label, "variant": name, "w": w_bits,
+                         "k": k, "us": ms * 1e3,
+                         "score": p17_score(shape, w_bits, stats, ms),
+                         "passes": stats.mxu_passes,
+                         "cycles": stats.serial_cycles,
+                         "accs": stats.accumulators})
+        del w, got, exact
+    return rows
+
+
+def p17_k1(sm):
+    """BP-ST-1D at the grid shape, w8k4, against K1 with gamma 1 and no
+    epilogue (a_biased = a - 128, act_zero 128): bitwise, since every
+    accumulator is below 2^24 in magnitude."""
+    from repro_torch.core import packing, ppg
+    from repro_torch.kernels.mpmm import kernel
+    t = sm.torch
+    m, kdim, n = P17_GRID
+    a_np, ws = p17_inputs(m, kdim, n)
+    a = t.from_numpy(a_np).to(sm.device)
+    w = t.from_numpy(ws[8])
+    fmt = packing.PlaneFormat(w_bits=8, k=4, k_dim=kdim)
+    planes = packing.pack_planes(w, fmt).to(sm.device)
+    colsum = w.sum(0, dtype=t.int32).reshape(1, n).to(sm.device)
+    gamma = t.ones((1, n), device=sm.device)
+    a_biased = (a - 128).to(t.int8)
+    y = kernel.mpmm_cuda(a_biased, planes, gamma, colsum, fmt=fmt,
+                         act_zero=128, variant="st", out_dtype=t.float32)
+    acc, _ = ppg.matmul_bp_st_1d(a, w.to(sm.device), 8, 4)
+    same = t.equal(y, acc.to(t.float32))
+    bound = int(acc.abs().max())
+    k1_us = sm.time_ms(lambda: kernel.mpmm_cuda(
+        a_biased, planes, gamma, colsum, fmt=fmt, act_zero=128,
+        variant="st", out_dtype=t.float32)) * 1e3
+    log(f"[p17] K1 (gamma 1, no epilogue) vs BP-ST-1D w8k4 at M {m} K "
+        f"{kdim} N {n}: bitwise {same} (max |acc| {bound} < 2^24); K1 "
+        f"{k1_us:.2f} us a call")
+    if not same or bound >= 2 ** 24:
+        sm.failures.append("p17 K1 vs BP-ST-1D w8k4")
+    return k1_us
+
+
+def phase_p17(sm, card):
+    """Phase 17: ``core.ppg`` on the card -> the rows of its table."""
+    t0 = time.perf_counter()
+    rows = (p17_shape(sm, P17_GRID, "fig6") +
+            p17_shape(sm, P17_LAYER, "resnet18-s3"))
+    k1_us = p17_k1(sm)
+    sm.check_phase("17 PE models on the card: every variant bitwise "
+                   "matmul_exact, BP-ST-1D bitwise K1")
+    for r in rows:
+        log(f"[p17-time] {r['shape']} {r['variant']} w{r['w']}k{r['k']}: "
+            f"{r['us']:.2f} us a call, {r['score']:.3e} weight bits/s per "
+            f"accumulator byte (passes {r['passes']}, cycles "
+            f"{r['cycles']}, accumulators {r['accs']})  ({card})")
+    for label in ("fig6", "resnet18-s3"):
+        best = max((r for r in rows if r["shape"] == label),
+                   key=lambda r: r["score"])
+        log(f"[p17-time] {label}: highest score {best['variant']} "
+            f"w{best['w']}k{best['k']} {best['score']:.3e} -- host-bound "
+            f"calls: the score ranks the host's work a pass, not the PE "
+            f"(tools/ppg_device_time.py times the device alone)  ({card})")
+    log(f"[p17] phase 17 took {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "k1_us": k1_us}
+
+
+# --- phase 18: data-parallel serving, two ranks on one card --------------------
+
+P18_RANKS = 2
+P18_CNN_BATCH = 16
+P18_LM_DEPTH = 2
+P18_LM = (4, 256, 8)   # prompts, prompt length, new tokens
+# (prompt length, n_new) of the GenerateScheduler's requests
+P18_SCHED = ((256, 8), (256, 4), (128, 6), (256, 8), (128, 3))
+
+
+def p18_cells(mesh, device):
+    """Phase 18's cells on ``mesh`` (None: one device) -> results with the
+    launch counts of each cell's timed run."""
+    import numpy as np
+    import torch as t
+    from repro_torch import configs
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.models import resnet as R
+    from repro_torch.runtime.scheduler import GenerateScheduler
+    from repro_torch.runtime.serve import Generator, ImageServer, init_packed_lm
+    out = {}
+    api = configs.get(ARCH)
+    plan = PrecisionPlan.load(PLAN)
+    params = api.init_params(t.Generator(device=device).manual_seed(SEED),
+                             device=device)
+    state = R.init_bn_state(api.specs(), device=device)
+    packed = R.pack_for_serve(api.cfg, params, state, plan)
+    del params, state
+    srv = ImageServer(api=api, params=packed, plan=plan, device=device,
+                      batch_buckets=(P18_CNN_BATCH,), mesh=mesh)
+    x = np.random.default_rng(SEED).normal(0, 1, (
+        P18_CNN_BATCH, api.cfg.img_size, api.cfg.img_size, 3)).astype(
+        np.float32)
+    srv.predict(x)  # warm-up
+    t.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    y = srv.predict(x)
+    out["cnn"] = {"logits": y, "s": time.perf_counter() - t0,
+                  "counts": read_p11()}
+    del srv, packed
+    lapi = lm_api(P18_LM_DEPTH, PrecisionPlan.load(LM_PLAN))
+    b, s_, n_new = P18_LM
+    packed = init_packed_lm(lapi, t.Generator(device=device).manual_seed(SEED),
+                            device=device)
+    gen = Generator(api=lapi, params=packed, device=device, mesh=mesh)
+    prompts = np.random.default_rng(SEED).integers(
+        0, lapi.cfg.vocab, (b, s_)).astype(np.int32)
+    gen.generate(prompts, 2)  # warm-up
+    t.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, logits = gen.run(prompts, n_new)
+    out["lm"] = {"tokens": toks, "s": time.perf_counter() - t0,
+                 "logits": [lg.float().cpu().numpy() for lg in logits],
+                 "counts": read_p11()}
+    clock = StepClock()
+    sched = GenerateScheduler(gen, slots=4, max_len=s_ + n_new, clock=clock)
+    rng = np.random.default_rng(SEED + 1)
+    reset_counts()
+    t0 = time.perf_counter()
+    tickets = [sched.submit(rng.integers(0, lapi.cfg.vocab, (plen,)).astype(
+        np.int32), nn) for plen, nn in P18_SCHED]
+    while sched.pending or sched.active:
+        clock.advance(1.0)
+        sched.step(flush=True)
+    out["sched"] = {"results": [tk.result for tk in tickets],
+                    "s": time.perf_counter() - t0, "counts": read_p11(),
+                    "buckets": sched.prefill_buckets}
+    return out
+
+
+def p18_rank(rank, _args):
+    """One rank of phase 18's world: two ranks on cuda:0 over gloo, the
+    kernels loaded from the libraries the parent built."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    stale = [n for n in _build.KERNEL_SOURCES if _build._stale(n)]
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_serve_mesh(
+        P18_RANKS, 1, devices=["cuda:0"] * P18_RANKS)
+    out = p18_cells(mesh, mesh_lib.local_device(mesh))
+    out["stale"] = stale
+    out["backend"] = mesh_lib.mesh_info(mesh).backend
+    return out
+
+
+def p18_equal(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(p18_equal(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(p18_equal(x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(a, b))
+
+
+def phase_p18(sm, card):
+    """Phase 18: each cell on one device in this process, then on a world
+    of two ranks sharing cuda:0 -> (the ranks' summed launches, results).
+    A contract check: every rank's results bitwise the one-device run's,
+    every rank's launches those the layers' choices give at its rows."""
+    from repro_torch import configs
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    release(sm)
+    one = p18_cells(None, sm.device)
+    release(sm)
+    t1 = time.perf_counter()
+    ranks = mesh_lib.spawn(p18_rank, P18_RANKS, (None,),
+                           store_dir=str(ROOT / "build" / "p18"),
+                           backend="gloo", timeout_s=400)
+    spawn_s = time.perf_counter() - t1
+    cfg = configs.get(ARCH).cfg
+    plan = PrecisionPlan.load(PLAN)
+    lapi = lm_api(P18_LM_DEPTH, PrecisionPlan.load(LM_PLAN))
+    b, s_, n_new = P18_LM
+    launches = {}
+    for r, res in enumerate(ranks):
+        if res["stale"] or res["backend"] != "gloo":
+            sm.failures.append(f"p18 rank {r}: stale libraries "
+                               f"{res['stale']}, backend {res['backend']}")
+        for cell in ("cnn", "lm", "sched"):
+            a = {k: v for k, v in res[cell].items()
+                 if k not in ("s", "counts")}
+            w = {k: v for k, v in one[cell].items()
+                 if k not in ("s", "counts")}
+            if cell == "sched":
+                a.pop("buckets")
+                w.pop("buckets")
+            if not p18_equal(a, w):
+                sm.failures.append(f"p18 rank {r} {cell}: not bitwise the "
+                                   f"one-device run")
+        # launches: what the layers give at this rank's rows
+        for cell, counts, rows in (("cnn", res["cnn"]["counts"],
+                                    P18_CNN_BATCH // P18_RANKS),
+                                   ("cnn-one", one["cnn"]["counts"],
+                                    P18_CNN_BATCH)):
+            want, want_routes, _ = resnet_launches(cfg, plan, rows)
+            got = {k: counts[k] for k in want}
+            got_routes = {k[6:]: v for k, v in counts.items()
+                          if k.startswith("route:")}
+            if got != want or got_routes != want_routes or (
+                    counts["flash_fwd_cuda"] or counts["flash_fwd_packed_cuda"]):
+                sm.failures.append(f"p18 rank {r} {cell} launches {counts} "
+                                   f"!= {want} {want_routes}")
+        for cell, counts, rows in (("lm", res["lm"]["counts"],
+                                    b // P18_RANKS),
+                                   ("lm-one", one["lm"]["counts"], b)):
+            want_routes, k3, k4 = expected_counts(lapi, rows, s_, n_new)
+            got_routes = {k[6:]: v for k, v in counts.items()
+                          if k.startswith("route:") and v}
+            if (got_routes != want_routes or counts["flash_fwd_cuda"] != k3
+                    or counts["flash_fwd_packed_cuda"] != k4
+                    or counts["conv_mpmm_cuda"]):
+                sm.failures.append(f"p18 rank {r} {cell} launches {counts} "
+                                   f"!= {want_routes} K3 {k3} K4 {k4}")
+        for cell in ("cnn", "lm", "sched"):
+            launches = add_counts(launches, res[cell]["counts"])
+        log(f"[p18] rank {r}: ResNet-18 {res['cnn']['counts']}; granite-8b "
+            f"x{P18_LM_DEPTH} {res['lm']['counts']}; scheduler "
+            f"{res['sched']['counts']} (buckets "
+            f"{res['sched']['buckets']})")
+    log(f"[p18] one device: ResNet-18 {one['cnn']['counts']}; granite-8b "
+        f"{one['lm']['counts']}; scheduler {one['sched']['counts']}")
+    sm.check_phase("18 data-parallel serving, world 2 on cuda:0: every "
+                   "rank bitwise one device, launches at its rows")
+    fps = {k: P18_CNN_BATCH / v["cnn"]["s"] for k, v in
+           (("one device", one), ("rank 0", ranks[0]), ("rank 1", ranks[1]))}
+    tps = {k: b * n_new / v["lm"]["s"] for k, v in
+           (("one device", one), ("rank 0", ranks[0]), ("rank 1", ranks[1]))}
+    log("[p18-time] host clock, ResNet-18 batch " + str(P18_CNN_BATCH) + ": "
+        + ", ".join(f"{k} {v:.1f} frames/s" for k, v in fps.items())
+        + f"; granite-8b x{P18_LM_DEPTH} {b} x {s_} + {n_new}: "
+        + ", ".join(f"{k} {v:.1f} tokens/s" for k, v in tps.items())
+        + f"; world started and served in {spawn_s:.1f} s -- two ranks "
+        f"sharing one card measure nothing of scaling  ({card})")
+    log(f"[p18] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return launches, {"fps": fps, "tps": tps, "spawn_s": spawn_s}
 
 
 def summarize(rows, launches, max_err, k1_routes):
@@ -5006,6 +5442,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    try:
+        return run_phases(torch)
+    finally:
+        remove_shm_run()
+
+
+def run_phases(torch) -> int:
+    """Every phase in order, then the ``kernels``, card and ``ok`` lines;
+    a phase that fails raises ``SystemExit``."""
     from repro_torch.core.plan import PrecisionPlan
     from repro_torch.kernels import _build
     from repro_torch import configs
@@ -5101,6 +5546,14 @@ def main() -> int:
     k1_routes = {k: k1_routes[k] + p16_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p16] phase 16 done at {time.perf_counter() - t_start:.1f} s")
+    remove_shm_run()
+    phase_p17(sm, card)
+    log(f"[p17] phase 17 done at {time.perf_counter() - t_start:.1f} s")
+    p18_launches, _ = phase_p18(sm, card)
+    launches = {k: launches[k] + p18_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p18_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p18] phase 18 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
 

@@ -5,7 +5,9 @@ in the same on-disk format, so either package reads the other's.
   ``os.replace``d to ``<dir>/step_<step:010d>``; a crash mid-save never
   corrupts the latest good checkpoint;
 * asynchronous: the device-to-host copy runs on the caller's thread, the
-  files are written on a background thread while training goes on;
+  files are written on a background thread while training goes on; a
+  blocking save copies and writes one leaf at a time, so the host never
+  holds more than one leaf of it;
 * self-describing: ``metadata.json`` records the step and, per leaf, its
   tree path (as ``jax.tree_util.keystr`` writes it), file, shape and dtype;
   each leaf is one ``leaf_%05d.npy``, numbered in sorted path order;
@@ -14,7 +16,7 @@ in the same on-disk format, so either package reads the other's.
 numpy has no bfloat16: a bf16 leaf is stored as its uint16 bit pattern
 with ``"bfloat16"`` as its dtype, as the reference stores it, and read back
 through torch's own bf16 view (no ``ml_dtypes``).  The reference's
-restore onto new shardings waits for multi-device work (ROADMAP label 16):
+restore onto new shardings waits for multi-device training (ROADMAP 16b (iii)):
 ``restore`` puts every leaf on one device.
 """
 from __future__ import annotations
@@ -48,7 +50,7 @@ def _from_host(arr: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     if dtype_name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     elif arr.dtype.kind in "biuf":
-        t = torch.from_numpy(np.array(arr, order="C"))  # a 0-d stays 0-d
+        t = torch.from_numpy(np.asarray(arr, order="C"))  # a 0-d stays 0-d
     else:
         raise TypeError(f"cannot restore a leaf of dtype {dtype_name!r}")
     return t.to(device)
@@ -67,16 +69,21 @@ class CheckpointStore:
         """Write ``tree`` as checkpoint ``step``; ``blocking=False`` returns
         once the leaves are on the host and writes them in the background
         (after any write still in flight)."""
-        host = {path: (_to_host(leaf),
-                       "bfloat16" if getattr(leaf, "dtype", None)
-                       == torch.bfloat16 else None)
-                for path, leaf in flatten_with_paths(tree).items()}
+        flat = flatten_with_paths(tree)
+        paths = sorted(flat)
+
+        def host(path):
+            leaf = flat[path]
+            return _to_host(leaf), ("bfloat16" if getattr(
+                leaf, "dtype", None) == torch.bfloat16 else None)
         if blocking:
-            self._write(step, host)
+            self.wait()
+            self._write(step, ((p, host(p)) for p in paths))
         else:
+            copies = [(p, host(p)) for p in paths]
             self.wait()
             self._thread = threading.Thread(
-                target=self._write, args=(step, host), daemon=True)
+                target=self._write, args=(step, copies), daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
@@ -85,14 +92,15 @@ class CheckpointStore:
             self._thread.join()
             self._thread = None
 
-    def _write(self, step: int, host) -> None:
+    def _write(self, step: int, items) -> None:
+        """``items``: (path, (array, dtype name)) in sorted path order."""
         tmp = os.path.join(self.dir, f"tmp.{step}")
         final = os.path.join(self.dir, f"step_{step:010d}")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         meta = {"step": step, "leaves": {}}
-        for i, (path, (arr, name)) in enumerate(sorted(host.items())):
+        for i, (path, (arr, name)) in enumerate(items):
             fname = f"leaf_{i:05d}.npy"
             np.save(os.path.join(tmp, fname), arr)
             meta["leaves"][path] = {"file": fname, "shape": list(arr.shape),

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -22,6 +24,8 @@ __all__ = [
     "pack_planes",
     "unpack_planes",
     "plane_shift_weights",
+    "packed_weight_bytes",
+    "random_codes",
 ]
 
 
@@ -167,3 +171,16 @@ def plane_shift_weights(fmt: PlaneFormat,
                         dtype=torch.int32) -> torch.Tensor:
     """2^{k p} combination weights for the Sum-Together adder tree."""
     return (2 ** (fmt.k * torch.arange(fmt.planes))).to(dtype)
+
+
+def packed_weight_bytes(k_dim: int, n_dim: int, w_bits: int, k: int) -> int:
+    """HBM bytes of one packed weight tensor (excluding the gamma scale)."""
+    fmt = PlaneFormat(w_bits=w_bits, k=k, k_dim=k_dim)
+    return fmt.planes * fmt.packed_k * n_dim
+
+
+def random_codes(rng: np.random.Generator, shape: Tuple[int, ...],
+                 w_bits: int) -> np.ndarray:
+    """Uniform signed codes for tests/benchmarks."""
+    lo, hi = -(2 ** (w_bits - 1)), 2 ** (w_bits - 1) - 1
+    return rng.integers(lo, hi + 1, size=shape, dtype=np.int32)

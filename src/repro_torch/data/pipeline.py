@@ -3,7 +3,7 @@
 
 A batch is a pure function of (seed, step), so resuming from checkpoint
 step S needs no replay.  ``sharded_batch_at`` (a batch put onto a device
-mesh) waits for multi-device work (ROADMAP label 16): the caller moves a
+mesh) waits for multi-device training (ROADMAP 16b (iii)): the caller moves a
 batch to its one device.
 """
 from __future__ import annotations

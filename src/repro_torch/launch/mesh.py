@@ -1,0 +1,381 @@
+"""Production and serving meshes (port of ``repro.launch.mesh``), one
+process a rank.
+
+A mesh is a ``torch.distributed`` ``DeviceMesh`` with dim names ``("data",
+"model")`` (or ``("pod", "data", "model")``) over the world of processes,
+one rank a device: what a user of an 8-card node runs under ``torchrun``,
+or ``spawn`` starts on one machine.  The world is NCCL on cards, gloo on
+the CPU and wherever several ranks share one card (an explicit ``devices=``
+list may map them so; NCCL refuses two ranks on one card).  Every
+``init_process_group`` takes a timeout.
+
+Each mesh carries what its rank needs beside the ``DeviceMesh``
+(``mesh_info``): the rank's device, the world's backend and a gloo group
+for host values.  ``gather_rows`` all-gathers rank-equal row blocks (through
+the host where the backend is gloo and the rows lie on a card), and
+``shared_clock`` makes every rank read rank 0's clock, so schedulers take
+the same decisions on every rank.
+
+Nothing here touches ``torch.distributed`` until a mesh is made.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue as queue_lib
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.nn import partitioning as part
+
+__all__ = ["make_production_mesh", "make_local_mesh", "make_serve_mesh",
+           "parse_mesh_spec", "mesh_axes", "chips", "MeshInfo", "mesh_info",
+           "local_device", "data_coords", "gather_rows", "broadcast_value",
+           "DataRows",
+           "shared_clock", "spawn", "INIT_TIMEOUT_S"]
+
+INIT_TIMEOUT_S = 300.0  # every process-group init and collective
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshInfo:
+    """What a rank of a mesh needs beside the ``DeviceMesh``."""
+
+    device: torch.device      # this rank's device
+    backend: str              # the world's backend ('nccl' | 'gloo')
+    host_group: Any = None    # gloo group for host values (None: the world)
+
+
+def _dist():
+    import torch.distributed as dist
+    if not dist.is_available():
+        raise RuntimeError("torch.distributed is not available in this "
+                           "torch build; meshes need it")
+    return dist
+
+
+def _timeout(seconds: Optional[float] = None) -> datetime.timedelta:
+    return datetime.timedelta(seconds=seconds or INIT_TIMEOUT_S)
+
+
+def _ensure_world(backend: str) -> None:
+    """The default process group: as it is when initialized; from the
+    environment under ``torchrun`` (``WORLD_SIZE``, ``RANK``,
+    ``MASTER_ADDR``/``PORT``); else a world of one."""
+    dist = _dist()
+    if dist.is_initialized():
+        return
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=_timeout())
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=_timeout())
+
+
+def _world_size() -> int:
+    dist = _dist()
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _placement(world: int, device, devices: Optional[Sequence]
+               ) -> Tuple[torch.device, str]:
+    """(this rank's device, the world's backend).  Rank r serves on
+    ``devices[r]`` when given, else on its card within its host
+    (``LOCAL_RANK``, as ``torchrun`` and ``spawn`` set it) or the CPU.
+    Gloo on the CPU and where several ranks share a card, else NCCL."""
+    dist = _dist()
+    rank = (dist.get_rank() if dist.is_initialized()
+            else int(os.environ.get("RANK", "0")))
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if len(devs) != world:
+            raise ValueError(f"devices= lists {len(devs)} devices for a "
+                             f"world of {world} ranks")
+        cards = [d for d in devs if d.type == "cuda"]
+        shared = not cards or len(set(cards)) < len(cards)
+        return devs[rank], "gloo" if shared else "nccl"
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev, "gloo"
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA mesh was asked for but torch sees no "
+                           "CUDA device; pass device='cpu'")
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    n_cards = torch.cuda.device_count()
+    if local_world > n_cards:
+        raise ValueError(
+            f"{local_world} ranks on this host but {n_cards} card(s); pass "
+            f"devices= to put several ranks on one card")
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local_rank), "nccl"
+
+
+def _make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device,
+               devices, world_expected: Optional[int] = None):
+    dist = _dist()
+    need = 1
+    for n in shape:
+        need *= n
+    world = _world_size()
+    if world_expected is not None and world != world_expected:
+        raise ValueError(f"mesh {'x'.join(map(str, shape))} {names} needs a "
+                         f"world of {world_expected} ranks, this one has "
+                         f"{world}")
+    if need != world:
+        raise ValueError(
+            f"mesh {'x'.join(map(str, shape))} {names} covers {need} ranks "
+            f"but the world has {world}: start one process a rank "
+            f"(launch.mesh.spawn, or torchrun --nproc-per-node {need})")
+    dev, backend = _placement(world, device, devices)
+    if dev.type == "cuda":  # before NCCL meets the card
+        torch.cuda.set_device(dev)
+        torch.cuda.init()
+    _ensure_world(backend)
+    backend = dist.get_backend()
+    from torch.distributed.device_mesh import DeviceMesh
+    mesh = DeviceMesh(dev.type, torch.arange(need).reshape(shape),
+                      mesh_dim_names=names)
+    host = (dist.new_group(backend="gloo", timeout=_timeout())
+            if backend != "gloo" and world > 1 else None)
+    mesh.repro_info = MeshInfo(device=dev, backend=backend, host_group=host)
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         devices=None):
+    """16x16 = 256 ranks a pod; ``multi_pod`` adds the 2-pod axis (512).
+    Raises unless the world really has that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make_mesh(shape, names, device, devices,
+                      world_expected=512 if multi_pod else 256)
+
+
+def make_local_mesh(*, device="cuda", devices=None):
+    """A (world, 1) data-parallel mesh over every rank of the world."""
+    return _make_mesh((_world_size(), 1), ("data", "model"), device, devices)
+
+
+def parse_mesh_spec(spec: str) -> Tuple[int, int]:
+    """'8x1' -> (data=8, model=1) (the serve-CLI ``--mesh`` format)."""
+    try:
+        d, m = (int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"mesh spec must be DATAxMODEL (e.g. '8x1'), "
+                         f"got {spec!r}") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {spec!r}")
+    return d, m
+
+
+def make_serve_mesh(data: Optional[int] = None, model: int = 1, *,
+                    device="cuda", devices=None):
+    """(data, model) serving mesh over the world's ranks (default: all of
+    them data-parallel).  Rank r serves on ``devices[r]`` when given, else
+    on its card (``device="cuda"``) or the CPU.  A 'model' axis above 1
+    raises ``NotImplementedError`` (ROADMAP 16b (ii))."""
+    world = _world_size()
+    if data is None:
+        data = world // model
+    if data < 1:
+        raise ValueError(
+            f"model axis {model} exceeds the world's {world} ranks (a "
+            f"0x{model} mesh has no data shards)")
+    part.require_data_parallel({"data": data, "model": model})
+    if data * model > world:
+        raise ValueError(
+            f"serve mesh {data}x{model} needs {data * model} ranks, the "
+            f"world has {world} (spawn more: launch.serve --devices N, or "
+            f"torchrun --nproc-per-node N)")
+    return _make_mesh((data, model), ("data", "model"), device, devices)
+
+
+def mesh_axes(mesh) -> tuple:
+    return tuple(part.axis_sizes(mesh).items())
+
+
+def chips(mesh) -> int:
+    n = 1
+    for size in part.axis_sizes(mesh).values():
+        n *= size
+    return n
+
+
+def mesh_info(mesh) -> MeshInfo:
+    info = getattr(mesh, "repro_info", None)
+    if info is None:
+        raise ValueError("mesh was not made by launch.mesh (no rank device "
+                         "or backend recorded)")
+    return info
+
+
+def local_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``."""
+    return mesh_info(mesh).device
+
+
+def data_coords(mesh) -> Tuple[int, int]:
+    """(this rank's coordinate on 'data', the axis' size)."""
+    sizes = part.axis_sizes(mesh)
+    n = sizes.get("data", 1)
+    if n == 1:
+        return 0, 1
+    return mesh.get_local_rank("data"), n
+
+
+def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """All-gather each rank's equal block of rows (dim 0) over 'data', in
+    rank order.  Any dtype (moved as bytes); through the host where the
+    backend is gloo and ``x`` lies on a card."""
+    _, n = data_coords(mesh)
+    if n == 1:
+        return x
+    t = x.contiguous()
+    if t.numel() == 0:
+        return x.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    dist = _dist()
+    info = mesh_info(mesh)
+    flat = t.reshape(-1).view(torch.uint8)
+    via_host = info.backend == "gloo" and flat.is_cuda
+    src = flat.cpu() if via_host else flat
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=mesh.get_group("data"))
+    out = torch.cat(parts).to(x.device).view(x.dtype)
+    return out.reshape((n * t.shape[0],) + tuple(t.shape[1:]))
+
+
+class DataRows:
+    """This rank's share of a batch on a data-parallel mesh: a global batch
+    padded to a multiple of the 'data' size ``n``, rank r holding rows
+    ``[r * B/n, (r + 1) * B/n)``.  Without a mesh (``n == 1``) every method
+    is the identity."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.rank, self.n = data_coords(mesh) if mesh is not None else (0, 1)
+
+    def pad_to(self, b: int) -> int:
+        """The smallest multiple of ``n`` at or above ``b``."""
+        return -(-b // self.n) * self.n
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (dim 0) of a global (padded) batch."""
+        if self.n == 1:
+            return x
+        if x.shape[0] % self.n:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not "
+                             f"split over {self.n} data ranks; pad it to "
+                             f"a multiple (DataRows.pad_to)")
+        per = x.shape[0] // self.n
+        return x[self.rank * per:(self.rank + 1) * per]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows, in rank order (``gather_rows``)."""
+        return x if self.n == 1 else gather_rows(self.mesh, x)
+
+
+def broadcast_value(mesh, value: float) -> float:
+    """Rank 0's ``value`` on every rank (a float64 through the host)."""
+    _, n = data_coords(mesh)
+    if n == 1:
+        return value
+    dist = _dist()
+    buf = torch.tensor([value], dtype=torch.float64)
+    dist.broadcast(buf, src=0, group=mesh_info(mesh).host_group)
+    return float(buf.item())
+
+
+def shared_clock(clock: Callable[[], float], mesh) -> Callable[[], float]:
+    """``clock`` as rank 0 reads it, on every rank: each call is one
+    broadcast, so every rank must read it in the same order (SPMD)."""
+    if mesh is None or data_coords(mesh)[1] == 1:
+        return clock
+
+    def read() -> float:
+        return broadcast_value(mesh, clock())
+    read.__wrapped__ = clock
+    return read
+
+
+# --- local ranks -------------------------------------------------------------
+
+
+def _child(rank: int, world: int, store: str, backend: str, timeout_s: float,
+           fn: Callable, args: tuple, results) -> None:
+    dist = _dist()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    try:
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=_timeout(timeout_s))
+        out = fn(rank, *args)
+        results.put((rank, "ok", out))
+    except BaseException:  # noqa: BLE001 -- reported to the parent
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn: Callable, nprocs: int, args: tuple = (), *, store_dir: str,
+          backend: str = "gloo", timeout_s: float = 600.0) -> List[Any]:
+    """Run ``fn(rank, *args)`` in ``nprocs`` fresh processes joined in one
+    world (a ``FileStore`` under ``store_dir``, so concurrent worlds never
+    share a port) -> the ranks' return values in rank order.  ``fn`` must be
+    importable by name and its values picklable.  A rank that raises, or a
+    world that outlives ``timeout_s``, kills every rank and raises."""
+    import torch.multiprocessing as mp
+    os.makedirs(store_dir, exist_ok=True)
+    store = os.path.join(store_dir, f"store.{os.getpid()}.{time.time_ns()}")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_child,
+                         args=(r, nprocs, store, backend, timeout_s, fn,
+                               tuple(args), results), daemon=False)
+             for r in range(nprocs)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(got) + len(errors) < nprocs:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{nprocs} ranks did not finish within "
+                                   f"{timeout_s} s")
+            try:
+                rank, status, out = results.get(timeout=min(left, 1.0))
+            except queue_lib.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead and results.empty():
+                    raise RuntimeError(
+                        f"rank processes exited with codes "
+                        f"{[p.exitcode for p in procs]} before reporting")
+                continue
+            if status == "ok":
+                got[rank] = out
+            else:
+                errors.append(f"rank {rank}:\n{out}")
+                break
+        if errors:
+            raise RuntimeError("a rank failed:\n" + "\n".join(errors))
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        return [got[r] for r in range(nprocs)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+        try:
+            os.remove(store)
+        except OSError:
+            pass

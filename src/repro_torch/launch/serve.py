@@ -55,9 +55,23 @@ without a card; ``--device cpu`` runs the kernels' plain versions.
 OUT.prom`` the metrics registry in Prometheus text, ``--profile DIR`` a
 ``torch.profiler`` trace of the measured section (``DIR/trace.json``).
 
-Flags of the JAX launcher that wait for modules the port lacks, by their
-ROADMAP Queue 1 label: ``--mesh``/``--devices``/``--xla-serving-flags``
-(multi-device, label 16).
+Data-parallel serving over a device mesh, one process a rank:
+``--devices N`` starts N local ranks (gloo on the CPU, NCCL on cards;
+``--share-cards`` puts ranks on fewer cards round-robin, over gloo, as on a
+one-card machine), and ``--mesh DxM`` names the mesh (``D`` = N; ``M`` > 1,
+tensor-parallel serving, exits naming ROADMAP 16b (ii)).  Under
+``torchrun --nproc-per-node N`` the environment's world is used and
+``--devices``, if given, must equal it.  Every rank serves the same
+requests on its rows of each batch and all-gathers the results; rank 0
+prints:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --reduced --devices 4 --mesh 4x1 --batch 8 --device cpu
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
+        --arch granite-8b --mesh 8x1 --batch 32
+
+``--xla-serving-flags`` of the JAX launcher has no counterpart (XLA only,
+ROADMAP 16c).
 """
 from __future__ import annotations
 
@@ -76,6 +90,7 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core.plan import FrontierManifest, PrecisionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import train_state_specs
 from repro_torch.runtime.serve import (Generator, ImageServer,
                                        init_packed_views, pack_for_serving)
@@ -206,7 +221,7 @@ def _restore_params(args, device):
     return state["params"]
 
 
-def _serve_cnn(api, args, device) -> int:
+def _serve_cnn(api, args, device, mesh=None) -> int:
     """Batched image serving of a packed CNN."""
     mod, cfg = api.mod, api.cfg
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -223,7 +238,7 @@ def _serve_cnn(api, args, device) -> int:
     tracer, metrics = _mk_telemetry(args)
     server = ImageServer(api=api, params=packed, plan=plan,
                          batch_buckets=(args.batch,), device=device,
-                         tracer=tracer, metrics=metrics)
+                         tracer=tracer, metrics=metrics, mesh=mesh)
     imgs = np.asarray(np.random.default_rng(args.seed).normal(
         0.4, 0.5, (args.batch, cfg.img_size, cfg.img_size, 3)), np.float32)
     server.predict(imgs)  # builds the kernels on a card
@@ -238,7 +253,7 @@ def _serve_cnn(api, args, device) -> int:
     return 0
 
 
-def _serve_lm(api, args, device) -> int:
+def _serve_lm(api, args, device, mesh=None) -> int:
     """Batched greedy generation, plain or speculative."""
     tracer, metrics = _mk_telemetry(args)
     gen_w = torch.Generator(device=device).manual_seed(args.seed)
@@ -262,7 +277,7 @@ def _serve_lm(api, args, device) -> int:
         gen = SpeculativeGenerator(
             api=api, packed_views=tuple(views), draft_plan=dplan,
             k=args.spec_decode, device=device, tracer=tracer,
-            metrics=metrics)
+            metrics=metrics, mesh=mesh)
         _sync(device)
         print(f"[serve] packed {args.arch} at {_tag(api, args)} + draft "
               f"point [{dplan.name or args.draft_plan}] from one weight "
@@ -275,7 +290,7 @@ def _serve_lm(api, args, device) -> int:
               f"{_tree_bytes(packed) / 2**20:.1f} MiB in "
               f"{time.perf_counter() - t0:.2f}s on {device}")
         gen = Generator(api=api, params=packed, device=device,
-                        tracer=tracer, metrics=metrics)
+                        tracer=tracer, metrics=metrics, mesh=mesh)
     prompts = np.asarray(np.random.default_rng(args.seed).integers(
         0, api.cfg.vocab, (args.batch, args.prompt_len)), np.int32)
     # whisper: zero stub frames, as the reference's launcher feeds
@@ -306,7 +321,7 @@ def _serve_lm(api, args, device) -> int:
     return 0
 
 
-def _serve_frontier(api, args, device) -> int:
+def _serve_frontier(api, args, device, mesh=None) -> int:
     """Pack every manifest plan point from one weight draw and push a
     burst, then a trickle, of requests through the SLO scheduler."""
     from repro_torch.runtime.frontier import frontier_from_manifest
@@ -326,7 +341,7 @@ def _serve_frontier(api, args, device) -> int:
     frontier = frontier_from_manifest(
         api, params, manifest, state=state, batch_buckets=(args.batch,),
         max_len=args.prompt_len + args.new_tokens, device=device,
-        generator=gen_w)
+        generator=gen_w, mesh=mesh)
     del params, state
     _sync(device)
     print(f"[serve] packed {frontier.n_levels} plan points of {args.arch} "
@@ -385,7 +400,7 @@ def _serve_frontier(api, args, device) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", required=True,
@@ -440,9 +455,96 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the measured "
                          "section into DIR/trace.json")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    type=_mesh_spec,
+                    help="serve mesh DATAxMODEL (e.g. 4x1): each batch "
+                         "split over D ranks; M > 1 (tensor-parallel) is "
+                         "ROADMAP 16b (ii)")
+    ap.add_argument("--devices", type=_ranks, default=None, metavar="N",
+                    help="start N local ranks (one process each) for "
+                         "--mesh; under torchrun it must equal the world")
+    ap.add_argument("--share-cards", action="store_true",
+                    help="with --devices N above the card count: ranks "
+                         "share the cards round-robin (over gloo)")
+    return ap
 
-    device = resolve_device(args.device)
+
+def _mesh_spec(text: str):
+    """``--mesh``'s argparse type: 'DxM' -> (D, M)."""
+    return mesh_lib.parse_mesh_spec(text)
+
+
+def _ranks(text: str) -> int:
+    """``--devices``' argparse type: a rank count of at least 1."""
+    n = int(text)
+    if n < 1:
+        raise ValueError(f"--devices must be >= 1, got {n}")
+    return n
+
+
+def _world(args):
+    """(ranks, spawn here?) for the mesh flags: the environment's world
+    under torchrun, else ``--devices`` (default the mesh's D)."""
+    d = m = None
+    if args.mesh is not None:
+        d, m = args.mesh
+        if m > 1:
+            raise SystemExit(
+                f"--mesh {d}x{m}: a model axis above 1 is tensor-parallel "
+                f"serving, ROADMAP 16b (ii); the port serves data-parallel "
+                f"meshes (Dx1)")
+    env = os.environ.get("WORLD_SIZE")
+    n = int(env) if env is not None else (args.devices or d or 1)
+    if args.devices is not None and args.devices != n:
+        raise SystemExit(f"--devices {args.devices} but torchrun's world "
+                         f"has {n} ranks")
+    if d is not None and d != n:
+        raise SystemExit(f"--mesh {d}x{m} needs {d} ranks; the world has "
+                         f"{n} (--devices / torchrun --nproc-per-node)")
+    return n, env is None and n > 1
+
+
+def _rank_devices(args, n):
+    """Each rank's device, where ranks share the cards."""
+    if args.share_cards and torch.device(args.device).type == "cuda":
+        cards = torch.cuda.device_count()
+        return [f"cuda:{r % cards}" for r in range(n)]
+    return None
+
+
+def _rank_main(rank: int, argv) -> int:
+    """One spawned rank: rank 0 prints, the others run silently."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    return main(argv)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    mesh = None
+    if args.mesh is not None or args.devices is not None:
+        n, spawn_here = _world(args)
+        devices = _rank_devices(args, n)
+        if spawn_here:
+            import tempfile
+            cpu = torch.device(args.device).type == "cpu"
+            backend = "gloo" if cpu or devices else "nccl"
+            with tempfile.TemporaryDirectory() as store:
+                rcs = mesh_lib.spawn(_rank_main, n, (argv,), store_dir=store,
+                                     backend=backend)
+            return max(rcs)
+        mesh = mesh_lib.make_serve_mesh(n, 1, device=args.device,
+                                        devices=devices)
+        print(f"[serve] mesh {dict(mesh_lib.mesh_axes(mesh))} over "
+              f"{mesh_lib.chips(mesh)} ranks, this rank on "
+              f"{mesh_lib.local_device(mesh)}")
+    return _serve(args, mesh)
+
+
+def _serve(args, mesh) -> int:
+    device = (mesh_lib.local_device(mesh) if mesh is not None
+              else resolve_device(args.device))
     if args.fp_baseline:
         policy = PrecisionPolicy(quantize=False)
     elif args.w_bits or args.k:
@@ -460,7 +562,7 @@ def main(argv=None) -> int:
         if args.spec_decode is not None:
             raise SystemExit("--frontier does not take --spec-decode")
         return _serve_frontier(configs.get(args.arch, reduced=args.reduced),
-                               args, device)
+                               args, device, mesh)
     plan = None
     if args.plan is not None:
         if (args.fp_baseline or args.w_bits or args.k
@@ -487,8 +589,8 @@ def main(argv=None) -> int:
                              "(LM archs); a CNN serves its packed weights "
                              "with their BN state, which no trainer "
                              "checkpoint holds")
-        return _serve_cnn(api, args, device)
-    return _serve_lm(api, args, device)
+        return _serve_cnn(api, args, device, mesh)
+    return _serve_lm(api, args, device, mesh)
 
 
 if __name__ == "__main__":

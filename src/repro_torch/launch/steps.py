@@ -10,9 +10,10 @@ so that a restarted run repeats the uninterrupted one bit for bit (the
 reference's restart contract).  That needs ``CUBLAS_WORKSPACE_CONFIG``
 (``:4096:8``) in the environment before the process first calls cuBLAS:
 ``launch.train`` sets it, and without it torch raises at the step's first
-product, naming the variable.  The sharding helpers (``train_state_axes``,
-``input_specs``, ``input_axes``, ``batch_rules_for``) wait for
-multi-device work (ROADMAP label 16).
+product, naming the variable.  ``input_specs``, ``input_axes`` and
+``batch_rules_for`` describe a cell's inputs and their logical axes for
+``nn.partitioning``; ``train_state_axes`` waits for multi-device training
+(ROADMAP 16b (iii)).
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import contextlib
 from typing import Any, Callable, Dict
 
 import torch
+
+from repro_torch.configs.shapes import ShapeSpec
 
 from repro_torch.nn import param as nnp
 from repro_torch.optim import (adamw_init, adamw_update, compress_decompress,
@@ -29,7 +32,8 @@ from repro_torch.tree import leaves, tree_map, unflatten
 
 __all__ = ["cross_entropy", "deterministic", "value_and_grad",
            "make_train_step", "train_state_specs", "init_train_state",
-           "make_prefill_fn", "make_decode_fn", "make_verify_fn"]
+           "make_prefill_fn", "make_decode_fn", "make_verify_fn",
+           "batch_rules_for", "input_specs", "input_axes"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -187,3 +191,57 @@ def make_verify_fn(api, *, impl: str = "auto",
         return api.decode_steps(params, cache, tokens, length, impl=impl,
                                 attn_impl=attn_impl)
     return verify_fn
+
+
+# --- inputs -------------------------------------------------------------------
+
+
+def batch_rules_for(rules: Dict, global_batch: int, mesh) -> Dict:
+    """Shrink the 'batch' rule until it divides the global batch (the
+    long_500k batch=1 cell replicates instead of sharding)."""
+    from repro_torch.nn.partitioning import axis_sizes
+    entry = rules.get("batch")
+    cand = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    sizes = axis_sizes(mesh)
+    picked = []
+    div = 1
+    for ax in cand:
+        s = sizes.get(ax)
+        if s and global_batch % (div * s) == 0:
+            picked.append(ax)
+            div *= s
+    new = dict(rules)
+    new["batch"] = tuple(picked) if picked else None
+    return new
+
+
+def input_specs(api, shape: ShapeSpec) -> Dict[str, Any]:
+    """``ParamSpec`` stand-ins (shape and dtype) for every model input of
+    this cell; a decode cell's cache is ``api.cache_specs``' tree."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    spec = nnp.ParamSpec
+    frames = ({"frames": spec(shape=(b, api.cfg.n_audio, api.cfg.d_model))}
+              if api.needs_frames else {})
+    if shape.kind == "train":
+        return {"tokens": spec(shape=(b, s), dtype=i32),
+                "labels": spec(shape=(b, s), dtype=i32), **frames}
+    if shape.kind == "prefill":
+        return {"tokens": spec(shape=(b, s), dtype=i32), **frames}
+    # decode: one new token against a cache of seq_len
+    return {"tokens": spec(shape=(b, 1), dtype=i32),
+            "cache": api.cache_specs(b, s),
+            "length": spec(shape=(), dtype=i32)}
+
+
+def input_axes(api, shape: ShapeSpec) -> Dict[str, Any]:
+    """Logical axes matching ``input_specs``."""
+    frames = ({"frames": ("batch", "frames", "act_embed")}
+              if api.needs_frames else {})
+    if shape.kind == "train":
+        return {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+                **frames}
+    if shape.kind == "prefill":
+        return {"tokens": ("batch", "seq"), **frames}
+    return {"tokens": ("batch", None), "cache": api.cache_axes(),
+            "length": ()}

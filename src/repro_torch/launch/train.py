@@ -13,7 +13,7 @@ chameleon-34b, nemotron-4-340b), olmoe-1b-7b (MoE),
 deepseek-v2-lite-16b (MLA, MoE, a dense first layer), mamba2-1.3b (SSD),
 recurrentgemma-9b (RG-LRU and local attention) and whisper-base (on
 synthetic frames as well as tokens).  ``--production-mesh``/``--multipod``
-wait for multi-device work (label 16).  The ResNets are not trained here: the
+wait for multi-device training (ROADMAP 16b (iii)).  The ResNets are not trained here: the
 reference lists them but its launcher reads ``cfg.vocab``, which a ResNet
 config lacks (ROADMAP Queue 3, R7); train them with
 ``launch.steps.make_train_step`` on ``data.pipeline.SyntheticImages``.
@@ -49,15 +49,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not ported: multi-device (ROADMAP label 16)")
+                    help="not ported: multi-device training (ROADMAP 16b (iii))")
     ap.add_argument("--multipod", action="store_true",
-                    help="not ported: multi-device (ROADMAP label 16)")
+                    help="not ported: multi-device training (ROADMAP 16b (iii))")
     args = ap.parse_args(argv)
 
     if args.production_mesh or args.multipod:
         raise SystemExit("--production-mesh/--multipod need multi-device "
                          "training, not ported yet (ROADMAP Queue 1, label "
-                         "16); the port trains on one device")
+                         "16b (iii)); the port trains on one device")
     if args.arch in configs.RESNET_NAMES:
         raise SystemExit(
             f"{args.arch}: launch.train trains LM archs on synthetic tokens; "

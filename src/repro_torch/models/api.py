@@ -32,6 +32,15 @@ class ModelAPI:
     def specs(self, mode: str = "train"):
         return self.mod.specs(self.cfg, mode, self.policy)
 
+    def abstract_params(self, mode: str = "train"):
+        """Meta-device tensors of the parameter tree (no storage)."""
+        return nnp.abstract_params(self.specs(mode))
+
+    def param_axes(self, mode: str = "train"):
+        """Logical axes of every parameter (``nn.partitioning`` maps them
+        onto a mesh)."""
+        return nnp.axes_tree(self.specs(mode))
+
     def init_params(self, generator: torch.Generator, mode: str = "train",
                     device="cuda"):
         """Random parameters on ``device``: CUDA by default, and raises
@@ -120,6 +129,11 @@ class ModelAPI:
     def cache_specs(self, batch: int, max_len: int):
         return self.mod.cache_specs(self.cfg, batch, max_len,
                                     policy=self.policy)
+
+    def cache_axes(self):
+        """Logical axes of the decode cache, leaf for leaf the tree
+        ``cache_specs`` describes."""
+        return self.mod.cache_axes(self.cfg, policy=self.policy)
 
     def kv_layer_names(self):
         """Cached-tensor names a plan may bind ``kv_bits`` to; empty for

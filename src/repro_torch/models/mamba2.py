@@ -32,6 +32,7 @@ from repro_torch.core.dse import Gemm
 from repro_torch.models.remat import remat
 from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import layers as nnl
+from repro_torch.nn import param as nnp
 from repro_torch.nn import quantized as Q
 from repro_torch.nn import ssm as nnssm
 from repro_torch.nn.ssm import SSMConfig
@@ -67,10 +68,11 @@ def specs(cfg: Mamba2Config, mode: str = "train", policy=None) -> Dict:
         "embed": (nnl.embed_serve_spec(vp, cfg.d_model, policy) if serve
                   else nnl.embed_spec(vp, cfg.d_model)),
         "final_norm": nnl.rmsnorm_spec(cfg.d_model),
-        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, layer_class="boundary",
-                                      policy=policy, name="head") if serve
-                 else Q.qlinear_spec(cfg.d_model, vp, layer_class="boundary",
-                                     name="head")),
+        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                      layer_class="boundary", policy=policy,
+                                      name="head") if serve
+                 else Q.qlinear_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                     layer_class="boundary", name="head")),
         "layers": [layer_spec(cfg, mode, policy)
                    for _ in range(cfg.n_layers)],
     }
@@ -148,6 +150,11 @@ def cache_specs(cfg: Mamba2Config, batch: int, max_len: int,
     del max_len, policy
     return [nnssm.ssm_state_spec(cfg.ssm, batch)
             for _ in range(cfg.n_layers)]
+
+
+def cache_axes(cfg: Mamba2Config, policy=None):
+    """Logical axes of ``cache_specs``' tree, leaf for leaf."""
+    return nnp.axes_tree(cache_specs(cfg, 1, 1, policy))
 
 
 def decode_step(cfg: Mamba2Config, params, cache, tokens: torch.Tensor,

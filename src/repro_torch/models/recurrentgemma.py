@@ -36,6 +36,7 @@ from repro_torch.models.remat import remat
 from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
+from repro_torch.nn import param as nnp
 from repro_torch.nn import quantized as Q
 from repro_torch.nn import rglru as nnr
 from repro_torch.nn.param import ParamSpec
@@ -94,12 +95,15 @@ def layer_kind(cfg: RGConfig, i: int) -> str:
 
 def _mlp_spec(cfg, serve, policy):
     if serve:
-        mk = lambda i, o: Q.qlinear_serve_spec(  # noqa: E731
-            i, o, policy=policy, name="mlp")
+        mk = lambda i, o, ax: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, axes=ax, policy=policy, name="mlp")
     else:
-        mk = lambda i, o: Q.qlinear_spec(i, o, name="mlp")  # noqa: E731
+        mk = lambda i, o, ax: Q.qlinear_spec(  # noqa: E731
+            i, o, axes=ax, name="mlp")
     d, ff = cfg.d_model, cfg.d_ff
-    return {"gate": mk(d, ff), "up": mk(d, ff), "down": mk(ff, d)}
+    up, down = ("embed", "mlp"), ("mlp", "act_embed")
+    return {"gate": mk(d, ff, up), "up": mk(d, ff, up),
+            "down": mk(ff, d, down)}
 
 
 def layer_spec(cfg: RGConfig, i: int, mode: str = "train",
@@ -125,10 +129,11 @@ def specs(cfg: RGConfig, mode: str = "train", policy=None) -> Dict:
         "embed": (nnl.embed_serve_spec(vp, cfg.d_model, policy) if serve
                   else nnl.embed_spec(vp, cfg.d_model)),
         "final_norm": nnl.rmsnorm_spec(cfg.d_model),
-        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, layer_class="boundary",
-                                      policy=policy, name="head") if serve
-                 else Q.qlinear_spec(cfg.d_model, vp, layer_class="boundary",
-                                     name="head")),
+        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                      layer_class="boundary", policy=policy,
+                                      name="head") if serve
+                 else Q.qlinear_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                     layer_class="boundary", name="head")),
         "layers": [layer_spec(cfg, i, mode, policy)
                    for i in range(cfg.n_layers)],
     }
@@ -228,10 +233,17 @@ def cache_specs(cfg: RGConfig, batch: int, max_len: int,
     del policy
     w = min(cfg.window, max_len)
     ring = ParamSpec(shape=(batch, w, cfg.n_kv, cfg.hd),
-                     dtype=torch.bfloat16, init="zeros")
+                     dtype=torch.bfloat16,
+                     axes=("batch", "kv_seq", "kv_heads", "head_dim"),
+                     init="zeros")
     return [(ring, ring) if layer_kind(cfg, i) == "A"
             else nnr.rglru_state_spec(cfg.rnn, batch)
             for i in range(cfg.n_layers)]
+
+
+def cache_axes(cfg: RGConfig, policy=None):
+    """Logical axes of ``cache_specs``' tree, leaf for leaf."""
+    return nnp.axes_tree(cache_specs(cfg, 1, 1, policy))
 
 
 def _attn_ring_step(cfg, lp, x, ring, length, policy, sin, cos, impl,

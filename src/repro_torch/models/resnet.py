@@ -78,8 +78,9 @@ class ResNetConfig:
 
 
 def bn_spec(c: int) -> Dict:
-    return {"scale": ParamSpec(shape=(c,), init="ones"),
-            "bias": ParamSpec(shape=(c,), init="zeros")}
+    return {"scale": ParamSpec(shape=(c,), axes=("act_embed",), init="ones"),
+            "bias": ParamSpec(shape=(c,), axes=("act_embed",),
+                              init="zeros")}
 
 
 def init_bn_state(specs_tree, device="cuda"):
@@ -151,7 +152,8 @@ def specs(cfg: ResNetConfig, mode: str = "train",
         "stem": _qc(3, cfg.width, 7, policy, "stem", layer_class="boundary"),
         "bn_stem": bn_spec(cfg.width),
         "fc": Q.qlinear_spec(
-            cfg.fc_in, cfg.n_classes, layer_class="boundary", name="fc",
+            cfg.fc_in, cfg.n_classes, axes=("embed", "vocab"),
+            layer_class="boundary", name="fc",
             channel_wise=plan_lib.resolve_policy(policy, "fc").channel_wise),
     }
     mk = _bottleneck_spec if cfg.block == "bottleneck" else _basic_spec

@@ -53,6 +53,7 @@ from repro_torch.nn import layers as nnl
 from repro_torch.nn import moe as nnmoe
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.moe import MoEConfig
+from repro_torch.nn import param as nnp
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["MLAConfig", "TransformerConfig", "plan_layer_names",
@@ -218,14 +219,17 @@ def scan_format_groups(cfg: TransformerConfig,
 def _mlp_spec(cfg, d_ff, *, serve, policy, lname):
     nm = lname + "mlp"
     if serve:
-        mk = lambda i, o: Q.qlinear_serve_spec(  # noqa: E731
-            i, o, policy=policy, name=nm)
+        mk = lambda i, o, ax: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, axes=ax, policy=policy, name=nm)
     else:
-        mk = lambda i, o: Q.qlinear_spec(i, o, name=nm)  # noqa: E731
+        mk = lambda i, o, ax: Q.qlinear_spec(  # noqa: E731
+            i, o, axes=ax, name=nm)
     d = cfg.d_model
+    up, down = ("embed", "mlp"), ("mlp", "act_embed")
     if cfg.act == "swiglu":
-        return {"gate": mk(d, d_ff), "up": mk(d, d_ff), "down": mk(d_ff, d)}
-    return {"up": mk(d, d_ff), "down": mk(d_ff, d)}
+        return {"gate": mk(d, d_ff, up), "up": mk(d, d_ff, up),
+                "down": mk(d_ff, d, down)}
+    return {"up": mk(d, d_ff, up), "down": mk(d_ff, d, down)}
 
 
 def _attn_spec(cfg, *, serve, policy, lname):
@@ -268,10 +272,11 @@ def specs(cfg: TransformerConfig, mode: str = "train",
     serve = mode == "serve"
     nspec, _ = cfg.norm_fns
     vp = nnl.pad_vocab(cfg.vocab)
-    head = (Q.qlinear_serve_spec(cfg.d_model, vp, layer_class="boundary",
-                                 policy=policy, name="head") if serve else
-            Q.qlinear_spec(cfg.d_model, vp, layer_class="boundary",
-                           name="head"))
+    head = (Q.qlinear_serve_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                 layer_class="boundary", policy=policy,
+                                 name="head") if serve else
+            Q.qlinear_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                           layer_class="boundary", name="head"))
     return {
         "embed": (nnl.embed_serve_spec(vp, cfg.d_model, policy) if serve
                   else nnl.embed_spec(vp, cfg.d_model)),
@@ -440,11 +445,15 @@ def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
     kv_info = kv_formats(cfg, policy)  # raises on MLA under a kv plan
     if cfg.mla is not None:
         lat = lambda d: ParamSpec(shape=(batch, max_len, d),  # noqa: E731
-                                  dtype=torch.bfloat16, init="zeros")
+                                  dtype=torch.bfloat16,
+                                  axes=("batch", "kv_seq", None),
+                                  init="zeros")
         return [(lat(cfg.mla.kv_lora), lat(cfg.mla.qk_rope))
                 for _ in range(cfg.n_layers)]
     bf16 = ParamSpec(shape=(batch, max_len, cfg.n_kv, cfg.hd),
-                     dtype=torch.bfloat16, init="zeros")
+                     dtype=torch.bfloat16,
+                     axes=("batch", "kv_seq", "kv_heads", "head_dim"),
+                     init="zeros")
     if kv_info is None or kv_info[0] != "packed":
         return [(bf16, bf16) for _ in range(cfg.n_layers)]
 
@@ -452,14 +461,22 @@ def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
         if fmt is None:
             return bf16
         sz = ParamSpec(shape=(batch, max_len, cfg.n_kv), dtype=torch.bfloat16,
-                       init="zeros")
+                       axes=("batch", "kv_seq", "kv_heads"), init="zeros")
         return {"p": ParamSpec(shape=(fmt.planes, batch, max_len, cfg.n_kv,
                                       fmt.packed_d), dtype=torch.uint8,
+                               axes=(None, "batch", "kv_seq", "kv_heads",
+                                     None),
                                init="zeros"),
                 "s": sz, "z": sz}
 
     return [{"k": tensor_spec(fk), "v": tensor_spec(fv)}
             for fk, fv in kv_info[1]]
+
+
+def cache_axes(cfg: TransformerConfig, policy=None):
+    """Logical axes of ``cache_specs``' tree, leaf for leaf (a leaf's
+    layer is its list index: no 'layers' axis)."""
+    return nnp.axes_tree(cache_specs(cfg, 1, 1, policy))
 
 
 def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl,

@@ -35,6 +35,7 @@ from repro_torch.models.remat import remat
 from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
+from repro_torch.nn import param as nnp
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
@@ -83,11 +84,13 @@ def _attn_spec(cfg, serve, policy, names):
 
 def _mlp_spec(cfg, serve, policy, name):
     if serve:
-        mk = lambda i, o: Q.qlinear_serve_spec(  # noqa: E731
-            i, o, policy=policy, name=name)
+        mk = lambda i, o, ax: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, axes=ax, policy=policy, name=name)
     else:
-        mk = lambda i, o: Q.qlinear_spec(i, o, name=name)  # noqa: E731
-    return {"up": mk(cfg.d_model, cfg.d_ff), "down": mk(cfg.d_ff, cfg.d_model)}
+        mk = lambda i, o, ax: Q.qlinear_spec(  # noqa: E731
+            i, o, axes=ax, name=name)
+    return {"up": mk(cfg.d_model, cfg.d_ff, ("embed", "mlp")),
+            "down": mk(cfg.d_ff, cfg.d_model, ("mlp", "act_embed"))}
 
 
 def enc_layer_spec(cfg: WhisperConfig, mode: str = "train",
@@ -122,10 +125,11 @@ def specs(cfg: WhisperConfig, mode: str = "train", policy=None) -> Dict:
         "dec_layers": [dec_layer_spec(cfg, mode, policy)
                        for _ in range(cfg.n_layers)],
         "dec_norm": nnl.layernorm_spec(cfg.d_model),
-        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, layer_class="boundary",
-                                      policy=policy, name="head") if serve
-                 else Q.qlinear_spec(cfg.d_model, vp, layer_class="boundary",
-                                     name="head")),
+        "head": (Q.qlinear_serve_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                      layer_class="boundary", policy=policy,
+                                      name="head") if serve
+                 else Q.qlinear_spec(cfg.d_model, vp, axes=("embed", "vocab"),
+                                     layer_class="boundary", name="head")),
     }
 
 
@@ -296,11 +300,18 @@ def cache_specs(cfg: WhisperConfig, batch: int, max_len: int,
                 policy=None) -> Dict[str, List]:
     del policy
     kv = lambda s: ParamSpec(shape=(batch, s, cfg.n_heads, cfg.hd),  # noqa
-                             dtype=torch.bfloat16, init="zeros")
+                             dtype=torch.bfloat16,
+                             axes=("batch", "kv_seq", "heads", "head_dim"),
+                             init="zeros")
     return {"self": [(kv(max_len), kv(max_len))
                      for _ in range(cfg.n_layers)],
             "cross": [(kv(cfg.n_audio), kv(cfg.n_audio))
                       for _ in range(cfg.n_layers)]}
+
+
+def cache_axes(cfg: WhisperConfig, policy=None):
+    """Logical axes of ``cache_specs``' tree, leaf for leaf."""
+    return nnp.axes_tree(cache_specs(cfg, 1, 1, policy))
 
 
 def decode_step(cfg: WhisperConfig, params, cache, tokens: torch.Tensor,

@@ -34,8 +34,13 @@ The GQA block takes the reference's other options: ``causal=False`` and
 ``rope=False`` (whisper's encoder and decoder), ``window=`` (recurrentgemma's
 local attention, on K3 in serve mode with ``attn_impl='flash'`` as the
 reference reaches its Pallas kernel there) and ``names=``, the family's map
-from projection to plan-layer name (``GQA_NAMES`` by default).  The
-sharded (mesh) branches are not ported yet.
+from projection to plan-layer name (``GQA_NAMES`` by default).
+
+On a data-parallel mesh every rank runs these single-device branches over
+its own rows (``runtime.serve``), which is what the reference's
+``shard_map``'d flash path computes with batch over 'data'.  Its head- and
+``kv_seq``-sharded branches (heads over 'model', the decode cache's
+sequence over 'model') wait for tensor-parallel serving, ROADMAP 16b (ii).
 """
 from __future__ import annotations
 
@@ -259,10 +264,14 @@ def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     """Train-mode (float QAT) spec of the four projections."""
     nm = _gqa_names(lname, names)
     return {
-        "q": Q.qlinear_spec(d_model, n_heads * head_dim, name=nm["q"]),
-        "k": Q.qlinear_spec(d_model, n_kv * head_dim, name=nm["k"]),
-        "v": Q.qlinear_spec(d_model, n_kv * head_dim, name=nm["v"]),
-        "o": Q.qlinear_spec(n_heads * head_dim, d_model, name=nm["o"]),
+        "q": Q.qlinear_spec(d_model, n_heads * head_dim,
+                            axes=("embed", "heads"), name=nm["q"]),
+        "k": Q.qlinear_spec(d_model, n_kv * head_dim,
+                            axes=("embed", "kv_heads"), name=nm["k"]),
+        "v": Q.qlinear_spec(d_model, n_kv * head_dim,
+                            axes=("embed", "kv_heads"), name=nm["v"]),
+        "o": Q.qlinear_spec(n_heads * head_dim, d_model,
+                            axes=("heads", "act_embed"), name=nm["o"]),
     }
 
 
@@ -273,10 +282,14 @@ def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     nm = _gqa_names(lname, names)
     mk = Q.qlinear_serve_spec
     return {
-        "q": mk(d_model, n_heads * head_dim, policy=policy, name=nm["q"]),
-        "k": mk(d_model, n_kv * head_dim, policy=policy, name=nm["k"]),
-        "v": mk(d_model, n_kv * head_dim, policy=policy, name=nm["v"]),
-        "o": mk(n_heads * head_dim, d_model, policy=policy, name=nm["o"]),
+        "q": mk(d_model, n_heads * head_dim, axes=("embed", "heads"),
+                policy=policy, name=nm["q"]),
+        "k": mk(d_model, n_kv * head_dim, axes=("embed", "kv_heads"),
+                policy=policy, name=nm["k"]),
+        "v": mk(d_model, n_kv * head_dim, axes=("embed", "kv_heads"),
+                policy=policy, name=nm["v"]),
+        "o": mk(n_heads * head_dim, d_model, axes=("heads", "act_embed"),
+                policy=policy, name=nm["o"]),
     }
 
 
@@ -468,17 +481,18 @@ def mla_spec(d_model: int, n_heads: int, *, kv_lora: int, qk_nope: int,
     """The five projections (q, dkv = down to the latent plus the rotary
     key, uk / uv = the latent up to per-head K and V, o) and the latent's
     rmsnorm ``kv_norm``."""
-    def mk(i, o, name):
+    def mk(i, o, name, axes):
         if serve:
-            return Q.qlinear_serve_spec(i, o, policy=policy,
+            return Q.qlinear_serve_spec(i, o, axes=axes, policy=policy,
                                         name=lname + name)
-        return Q.qlinear_spec(i, o, name=lname + name)
+        return Q.qlinear_spec(i, o, axes=axes, name=lname + name)
     return {
-        "q": mk(d_model, n_heads * (qk_nope + qk_rope), "q"),
-        "dkv": mk(d_model, kv_lora + qk_rope, "dkv"),
-        "uk": mk(kv_lora, n_heads * qk_nope, "uk"),
-        "uv": mk(kv_lora, n_heads * v_head, "uv"),
-        "o": mk(n_heads * v_head, d_model, "o"),
+        "q": mk(d_model, n_heads * (qk_nope + qk_rope), "q",
+                ("embed", "heads")),
+        "dkv": mk(d_model, kv_lora + qk_rope, "dkv", ("embed", "qk_dim")),
+        "uk": mk(kv_lora, n_heads * qk_nope, "uk", ("qk_dim", "heads")),
+        "uv": mk(kv_lora, n_heads * v_head, "uv", ("qk_dim", "heads")),
+        "o": mk(n_heads * v_head, d_model, "o", ("heads", "act_embed")),
         "kv_norm": layers.rmsnorm_spec(kv_lora),
     }
 

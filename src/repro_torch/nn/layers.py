@@ -40,7 +40,8 @@ __all__ = [
 
 
 def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
-    return {"scale": ParamSpec(shape=(dim,), init="ones")}
+    return {"scale": ParamSpec(shape=(dim,), axes=("act_embed",),
+                               init="ones")}
 
 
 def _mean_square(xf: torch.Tensor) -> torch.Tensor:
@@ -68,8 +69,10 @@ def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def layernorm_spec(dim: int) -> Dict[str, ParamSpec]:
-    return {"scale": ParamSpec(shape=(dim,), init="ones"),
-            "bias": ParamSpec(shape=(dim,), init="zeros")}
+    return {"scale": ParamSpec(shape=(dim,), axes=("act_embed",),
+                               init="ones"),
+            "bias": ParamSpec(shape=(dim,), axes=("act_embed",),
+                              init="zeros")}
 
 
 def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -91,7 +94,8 @@ def pad_vocab(v: int, mult: int = 256) -> int:
 
 
 def embed_spec(vocab: int, dim: int) -> Dict[str, ParamSpec]:
-    return {"table": ParamSpec(shape=(vocab, dim), init="embed")}
+    return {"table": ParamSpec(shape=(vocab, dim), axes=("vocab", "embed"),
+                               init="embed")}
 
 
 def embed_apply(p, ids: torch.Tensor) -> torch.Tensor:
@@ -105,10 +109,11 @@ def embed_serve_spec(vocab: int, dim: int,
     """Boundary class: int8 codes and a per-tensor step."""
     if not policy.quantize:
         return {"table": ParamSpec(shape=(vocab, dim), dtype=torch.bfloat16,
-                                   init="embed")}
+                                   axes=("vocab", "embed"), init="embed")}
     return {"codes": ParamSpec(shape=(vocab, dim), dtype=torch.int8,
-                               init="zeros"),
-            "gamma": ParamSpec(shape=(), init="constant", const=0.02)}
+                               axes=("vocab", "embed"), init="zeros"),
+            "gamma": ParamSpec(shape=(), axes=(), init="constant",
+                               const=0.02)}
 
 
 def embed_serve_apply(p, ids: torch.Tensor,
@@ -241,9 +246,9 @@ def swiglu_combine(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def conv1d_spec(channels: int, width: int = 4) -> Dict[str, ParamSpec]:
     return {
-        "w": ParamSpec(shape=(width, channels), init="normal",
-                       fan_in_axes=(0,)),
-        "b": ParamSpec(shape=(channels,), init="zeros"),
+        "w": ParamSpec(shape=(width, channels), axes=("conv", "act_embed"),
+                       init="normal", fan_in_axes=(0,)),
+        "b": ParamSpec(shape=(channels,), axes=("act_embed",), init="zeros"),
     }
 
 

@@ -87,26 +87,30 @@ def moe_spec(cfg: MoEConfig, *, serve: bool = False,
              lname: str = "") -> Dict:
     """The router (f32), the expert banks gate/up/down (lead ``(E,)``, named
     ``{lname}expert``) and the shared experts (``{lname}shared``)."""
-    def mk(i, o, lead, name):
+    def mk(i, o, lead, name, axes):
+        lead_axes = ("experts",) if lead else ()
         if serve:
-            return Q.qlinear_serve_spec(i, o, policy=policy, lead=lead,
+            return Q.qlinear_serve_spec(i, o, axes=axes, policy=policy,
+                                        lead=lead, lead_axes=lead_axes,
                                         name=lname + name)
-        return Q.qlinear_spec(i, o, lead=lead, name=lname + name)
+        return Q.qlinear_spec(i, o, axes=axes, lead=lead,
+                              lead_axes=lead_axes, name=lname + name)
 
     e, d = (cfg.n_experts,), cfg.d_model
     spec = {
         # the router stays f32: parameter-light and accuracy-critical
-        "router": ParamSpec(shape=(d, cfg.n_experts), init="normal",
+        "router": ParamSpec(shape=(d, cfg.n_experts),
+                            axes=("embed", "experts"), init="normal",
                             fan_in_axes=(-2,)),
-        "gate": mk(d, cfg.d_ff, e, "expert"),
-        "up": mk(d, cfg.d_ff, e, "expert"),
-        "down": mk(cfg.d_ff, d, e, "expert"),
+        "gate": mk(d, cfg.d_ff, e, "expert", ("embed", "expert_mlp")),
+        "up": mk(d, cfg.d_ff, e, "expert", ("embed", "expert_mlp")),
+        "down": mk(cfg.d_ff, d, e, "expert", ("expert_mlp", "act_embed")),
     }
     if cfg.n_shared:
         sh = cfg.shared_hidden
-        spec["shared_gate"] = mk(d, sh, (), "shared")
-        spec["shared_up"] = mk(d, sh, (), "shared")
-        spec["shared_down"] = mk(sh, d, (), "shared")
+        spec["shared_gate"] = mk(d, sh, (), "shared", ("embed", "mlp"))
+        spec["shared_up"] = mk(d, sh, (), "shared", ("embed", "mlp"))
+        spec["shared_down"] = mk(sh, d, (), "shared", ("mlp", "act_embed"))
     return spec
 
 

@@ -18,7 +18,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamSpec", "init_params", "is_spec", "QMARK", "strip_markers",
-           "count_params"]
+           "count_params", "abstract_params", "axes_tree"]
 
 # Marker key identifying a quantized-linear subtree in spec trees; it
 # carries the layer class and name and never materializes into params.
@@ -56,6 +56,29 @@ def strip_markers(tree):
     if isinstance(tree, list):
         return [strip_markers(v) for v in tree]
     return tree
+
+
+def _map_specs(fn, specs):
+    if is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return type(specs)(_map_specs(fn, v) for v in specs)
+
+
+def abstract_params(specs):
+    """Spec tree -> tree of tensors on the ``meta`` device (shapes and
+    dtypes, no storage): the dry-run input."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                            device="meta"),
+                      strip_markers(specs))
+
+
+def axes_tree(specs):
+    """Spec tree -> logical-axes tree (an axes tuple a leaf; a spec without
+    axes gets ``None`` for each dimension)."""
+    return _map_specs(lambda s: s.axes if s.axes else (None,) * len(s.shape),
+                      strip_markers(specs))
 
 
 def count_params(specs, classify: Optional[Callable[[str], str]] = None

@@ -1,0 +1,253 @@
+"""Logical-axis -> mesh-axis rules (MaxText-style), train and serve sets
+(port of ``repro.nn.partitioning``).
+
+The production mesh is (pod, data, model) multi-pod or (data, model)
+single-pod (``launch.mesh``).  Rules map each *logical* parameter /
+activation axis onto zero or more mesh axes:
+
+  train: FSDP over ('pod','data') on the 'embed' axis of weights +
+         tensor-parallel over 'model' on heads/mlp/vocab/experts;
+         batch over ('pod','data'); optional sequence-sharding of the
+         residual stream over 'model' (activation memory relief).
+  serve: pure TP over 'model' (weights fit device memory once quantized --
+         the paper's packed planes), batch over ('pod','data').
+
+A rule value may name axes that the current mesh lacks (e.g. 'pod' on the
+single-pod mesh) -- those are dropped, so one rule set serves both meshes.
+Duplicate mesh axes within one spec are dropped (first logical axis wins),
+and trailing ``None`` entries are trimmed.
+
+A spec is a tuple with the entries of ``repro``'s ``PartitionSpec``: per
+tensor dimension ``None``, one mesh axis name, or a tuple of them.  A
+``NamedSharding`` maps a spec onto a ``torch.distributed`` ``DeviceMesh``
+as one placement per mesh dimension: ``Shard(dim)`` where a tensor
+dimension names that mesh axis, else ``Replicate()``.
+
+What runs today: data-parallel serving, where every rank holds the whole
+packed tree and its own rows of the batch (``runtime.serve``).  A mesh
+whose 'model' or 'pod' axis is larger than 1 (tensor-parallel serving,
+ROADMAP 16b (ii)) is described by these rules but not yet served.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+__all__ = [
+    "TRAIN_RULES",
+    "SERVE_RULES",
+    "TRAIN_RULES_SEQ",
+    "NamedSharding",
+    "axis_names",
+    "axis_sizes",
+    "axis_rules",
+    "current_rules",
+    "current_mesh",
+    "logical_to_spec",
+    "sharding_for",
+    "replicated",
+    "tree_shardings",
+    "constrain",
+    "require_data_parallel",
+]
+
+Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
+Spec = Tuple[Union[None, str, Tuple[str, ...]], ...]
+
+TRAIN_RULES: Rules = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "act_embed": None,
+    "embed": ("pod", "data"),   # FSDP shard axis of 2-D weights
+    "embed_packed": None,
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": None,           # kv heads can be < TP degree (MQA)
+    "head_dim": None,
+    "qk_dim": None,
+    "vocab": "model",
+    "experts": "model",         # expert parallelism
+    "expert_mlp": None,
+    "layers": None,
+    "kv_seq": None,            # decode-cache seq axis (train: unused)
+    "plane": None,
+    "state": None,
+    "conv": None,
+    "cap": None,
+    "frames": None,
+}
+
+SERVE_RULES: Rules = {
+    **TRAIN_RULES,
+    "embed": None,              # no FSDP at serve: packed weights fit
+    "batch": ("pod", "data"),
+    # decode KV/state caches shard their sequence axis over the TP axis
+    # (flash-decoding style).
+    "kv_seq": "model",
+    # Row-parallel packed planes (Megatron pattern): projections writing
+    # into the residual stream (down, o) shard their contraction axis so
+    # no serve weight is replicated.
+    "mlp_packed": "model",
+    "heads_packed": "model",
+    "expert_mlp_packed": "model",   # dropped when 'experts' already owns it
+}
+
+# Sequence-sharded variant: residual stream S over model.
+TRAIN_RULES_SEQ = {**TRAIN_RULES, "seq": "model"}
+
+_local = threading.local()
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names: a ``DeviceMesh``'s ``mesh_dim_names``, or the
+    ``axis_names`` of any mesh-like object."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = getattr(mesh, "axis_names")
+    return tuple(names)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a mesh (``DeviceMesh.shape``, or a mesh-like
+    object's ``devices.shape``)."""
+    devices = getattr(mesh, "devices", None)
+    shape = (tuple(devices.shape) if devices is not None
+             else tuple(mesh.shape))
+    return dict(zip(axis_names(mesh), shape))
+
+
+def current_rules() -> Rules:
+    return getattr(_local, "rules", TRAIN_RULES)
+
+
+def current_mesh():
+    return getattr(_local, "mesh", None)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Rules, mesh=None):
+    """Install a logical->mesh rule set (and optionally the mesh) locally."""
+    old_r = getattr(_local, "rules", None)
+    old_m = getattr(_local, "mesh", None)
+    _local.rules = rules
+    _local.mesh = mesh
+    try:
+        yield
+    finally:
+        if old_r is None:
+            del _local.rules
+        else:
+            _local.rules = old_r
+        _local.mesh = old_m
+
+
+def logical_to_spec(axes: Sequence[Optional[str]],
+                    rules: Optional[Rules] = None, mesh=None) -> Spec:
+    """Logical axis names -> spec under the rules and mesh."""
+    rules = rules if rules is not None else current_rules()
+    mesh_axes = set(axis_names(mesh)) if mesh is not None else None
+    used = set()
+    out = []
+    for name in axes:
+        entry = rules.get(name) if name is not None else None
+        if entry is None:
+            out.append(None)
+            continue
+        cand = (entry,) if isinstance(entry, str) else tuple(entry)
+        picked = []
+        for ax in cand:
+            if mesh_axes is not None and ax not in mesh_axes:
+                continue  # rule names an axis this mesh lacks (e.g. 'pod')
+            if ax in used:
+                continue  # first logical axis wins a mesh axis
+            used.add(ax)
+            picked.append(ax)
+        if not picked:
+            out.append(None)
+        elif len(picked) == 1:
+            out.append(picked[0])
+        else:
+            out.append(tuple(picked))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec placed on a mesh."""
+
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> tuple:
+        """One ``torch.distributed.tensor`` placement per mesh dimension:
+        ``Shard(d)`` where tensor dimension d names the mesh axis, else
+        ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for ax in axis_names(self.mesh):
+            dims = [d for d, entry in enumerate(self.spec)
+                    if entry == ax or (isinstance(entry, tuple)
+                                       and ax in entry)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        sizes = axis_sizes(self.mesh)
+        return all(sizes[ax] == 1 for entry in self.spec if entry is not None
+                   for ax in ((entry,) if isinstance(entry, str) else entry))
+
+
+def sharding_for(axes: Sequence[Optional[str]], mesh,
+                 rules: Optional[Rules] = None) -> NamedSharding:
+    return NamedSharding(mesh, logical_to_spec(axes, rules, mesh))
+
+
+def replicated(mesh) -> NamedSharding:
+    """Fully replicated placement -- boundary/embedding layers and packed
+    CNN trees at serve time."""
+    return NamedSharding(mesh, ())
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def tree_shardings(axes_tree, mesh, rules: Optional[Rules] = None):
+    """Logical-axes tree (dicts, lists and tuples; an axes tuple is a
+    leaf) -> ``NamedSharding`` tree."""
+    if _is_axes(axes_tree):
+        return sharding_for(axes_tree, mesh, rules)
+    if isinstance(axes_tree, dict):
+        return {k: tree_shardings(v, mesh, rules)
+                for k, v in axes_tree.items()}
+    return type(axes_tree)(tree_shardings(v, mesh, rules) for v in axes_tree)
+
+
+def require_data_parallel(sizes: Dict[str, int]) -> None:
+    """Raise unless every mesh axis but 'data' (``sizes``: {axis: size},
+    ``axis_sizes(mesh)``) has size 1: tensor- and pod-parallel serving wait
+    for ROADMAP 16b (ii)."""
+    wide = {ax: n for ax, n in sizes.items() if ax != "data" and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide} > 1: the port serves data-parallel meshes "
+            f"only; tensor-parallel serving (int32 partial sums across "
+            f"'model' before the epilogue, kv_seq over 'model') is ROADMAP "
+            f"16b (ii)")
+
+
+def constrain(x, axes: Sequence[Optional[str]]):
+    """The sharding constraint by logical names: a no-op without a mesh,
+    and on a data-parallel mesh, where each rank already holds its own
+    rows of every activation."""
+    mesh = getattr(_local, "mesh", None)
+    if mesh is not None:
+        require_data_parallel(axis_sizes(mesh))
+    return x

@@ -65,51 +65,70 @@ def _marker(layer_class: str, name: str = "") -> ParamSpec:
                      init="zeros")
 
 
-def qlinear_spec(in_dim: int, out_dim: int, *, layer_class: str = "inner",
+def qlinear_spec(in_dim: int, out_dim: int, *,
+                 axes: Tuple[Optional[str], str] = ("embed", "mlp"),
+                 layer_class: str = "inner",
                  channel_wise: bool = False, lead: Tuple[int, ...] = (),
+                 lead_axes: Tuple[Optional[str], ...] = (),
                  name: str = "") -> Dict[str, ParamSpec]:
     """Spec of one QAT linear: master weight + LSQ step sizes.  ``lead``
     adds leading axes -- ``(E,)`` for an MoE expert bank, one weight and
-    one pair of step sizes per expert."""
+    one pair of step sizes per expert -- named by ``lead_axes``; ``axes``
+    names the (in, out) axes for the partitioning rules."""
     return {
         QMARK: _marker(layer_class, name),
-        "w": ParamSpec(shape=lead + (in_dim, out_dim), init="normal",
+        "w": ParamSpec(shape=lead + (in_dim, out_dim),
+                       axes=lead_axes + tuple(axes), init="normal",
                        fan_in_axes=(-2,)),
         "gw": ParamSpec(shape=lead + ((out_dim,) if channel_wise else ()),
+                        axes=lead_axes + ((axes[1],) if channel_wise else ()),
                         init="constant", const=0.05),
-        "ga": ParamSpec(shape=lead, init="constant", const=0.05),
+        "ga": ParamSpec(shape=lead, axes=lead_axes, init="constant",
+                        const=0.05),
     }
 
 
 def qlinear_serve_spec(in_dim: int, out_dim: int, *,
+                       axes: Tuple[Optional[str], str] = ("embed", "mlp"),
                        layer_class: str = "inner",
                        policy: PolicyOrPlan = PrecisionPolicy(),
                        lead: Tuple[int, ...] = (),
+                       lead_axes: Tuple[Optional[str], ...] = (),
                        name: str = "") -> Dict[str, ParamSpec]:
     """Spec of the deployed (packed) form at the layer's own resolved
     format: what ``pack_qlinear`` returns for a ``lead + (in_dim,
     out_dim)`` weight (``lead=(E,)``: an expert bank, one format for the
-    whole bank)."""
+    whole bank).  The packed contraction axis is named after the input
+    axis (``mlp_packed``, ``heads_packed``, ...), so the serve rules can
+    shard the rows of projections that write the residual stream."""
     pol = plan_lib.resolve_policy(policy, name)
     fmt = PlaneFormat(w_bits=pol.bits_for(layer_class), k=pol.k,
                       k_dim=in_dim)
+    k_axis = f"{axes[0]}_packed" if axes[0] else None
     return {
         QMARK: _marker(layer_class, name),
         "planes": ParamSpec(shape=lead + (fmt.planes, fmt.packed_k, out_dim),
-                            dtype=torch.uint8, init="zeros"),
-        "colsum": ParamSpec(shape=lead + (1, out_dim), dtype=torch.int32,
+                            dtype=torch.uint8,
+                            axes=lead_axes + ("plane", k_axis, axes[1]),
                             init="zeros"),
-        "gamma": ParamSpec(shape=lead + (1, out_dim), init="constant",
-                           const=1e-3),
-        "ga": ParamSpec(shape=lead, init="constant", const=0.05),
+        "colsum": ParamSpec(shape=lead + (1, out_dim), dtype=torch.int32,
+                            axes=lead_axes + (None, axes[1]), init="zeros"),
+        "gamma": ParamSpec(shape=lead + (1, out_dim),
+                           axes=lead_axes + (None, axes[1]),
+                           init="constant", const=1e-3),
+        "ga": ParamSpec(shape=lead, axes=lead_axes, init="constant",
+                        const=0.05),
     }
 
 
 def qconv_spec(cin: int, cout: int, k: int, *, layer_class: str = "inner",
-               channel_wise: bool = False, name: str = "") -> Dict[str, ParamSpec]:
+               channel_wise: bool = False, name: str = "",
+               name_axes: Tuple[Optional[str], str] = ("embed", "mlp")
+               ) -> Dict[str, ParamSpec]:
     """A k x k conv is a (k*k*cin, cout) linear over (kh, kw, C) patches."""
-    return qlinear_spec(k * k * cin, cout, layer_class=layer_class,
-                        channel_wise=channel_wise, name=name)
+    return qlinear_spec(k * k * cin, cout, axes=name_axes,
+                        layer_class=layer_class, channel_wise=channel_wise,
+                        name=name)
 
 
 def is_qlinear(sub) -> bool:

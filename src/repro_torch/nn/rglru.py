@@ -48,26 +48,29 @@ def rglru_block_spec(cfg: RGLRUConfig, *, serve: bool = False,
     ``rnn_in`` covers both input projections, ``rnn_gates`` the recurrence
     gates."""
     if serve:
-        mk = lambda i, o, nm: Q.qlinear_serve_spec(  # noqa: E731
-            i, o, policy=policy, name=nm)
+        mk = lambda i, o, nm, ax: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, axes=ax, policy=policy, name=nm)
     else:
-        mk = lambda i, o, nm: Q.qlinear_spec(i, o, name=nm)  # noqa: E731
+        mk = lambda i, o, nm, ax: Q.qlinear_spec(  # noqa: E731
+            i, o, axes=ax, name=nm)
     d, dr = cfg.d_model, cfg.d_rnn
     return {
-        "in_x": mk(d, dr, "rnn_in"),
-        "in_gate": mk(d, dr, "rnn_in"),
-        "w_a": mk(dr, dr, "rnn_gates"),
-        "w_x": mk(dr, dr, "rnn_gates"),
-        "out": mk(dr, d, "rnn_out"),
+        "in_x": mk(d, dr, "rnn_in", ("embed", "mlp")),
+        "in_gate": mk(d, dr, "rnn_in", ("embed", "mlp")),
+        "w_a": mk(dr, dr, "rnn_gates", ("mlp", "mlp")),
+        "w_x": mk(dr, dr, "rnn_gates", ("mlp", "mlp")),
+        "out": mk(dr, d, "rnn_out", ("mlp", "act_embed")),
         "conv": layers.conv1d_spec(dr, cfg.conv_width),
-        "lam": ParamSpec(shape=(dr,), init="constant", const=0.7),
+        "lam": ParamSpec(shape=(dr,), axes=("mlp",), init="constant",
+                         const=0.7),
     }
 
 
 def rglru_state_spec(cfg: RGLRUConfig, batch: int) -> Dict[str, ParamSpec]:
-    return {"h": ParamSpec(shape=(batch, cfg.d_rnn), init="zeros"),
+    return {"h": ParamSpec(shape=(batch, cfg.d_rnn), axes=("batch", "mlp"),
+                           init="zeros"),
             "conv": ParamSpec(shape=(batch, cfg.conv_width - 1, cfg.d_rnn),
-                              init="zeros")}
+                              axes=("batch", None, "mlp"), init="zeros")}
 
 
 def _proj(p, x, policy, impl, name, serve=True):

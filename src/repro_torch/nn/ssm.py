@@ -72,22 +72,24 @@ def ssm_spec(cfg: SSMConfig, *, serve: bool = False, policy=None) -> Dict:
     """The block's parameters; the projections' spec names double as the
     plan-layer names (mamba2's ``gemm_workload`` names)."""
     if serve:
-        mk = lambda i, o, nm: Q.qlinear_serve_spec(  # noqa: E731
-            i, o, policy=policy, name=nm)
+        mk = lambda i, o, nm, ax: Q.qlinear_serve_spec(  # noqa: E731
+            i, o, axes=ax, policy=policy, name=nm)
     else:
-        mk = lambda i, o, nm: Q.qlinear_spec(i, o, name=nm)  # noqa: E731
+        mk = lambda i, o, nm, ax: Q.qlinear_spec(  # noqa: E731
+            i, o, axes=ax, name=nm)
     d, di = cfg.d_model, cfg.d_inner
     gn = cfg.n_groups * cfg.d_state
     h = cfg.n_heads
     return {
-        "in_xbc": mk(d, di + 2 * gn, "in_xbc"),
-        "in_z": mk(d, di, "in_z"),
-        "in_dt": mk(d, h, "in_dt"),
-        "out": mk(di, d, "out"),
+        "in_xbc": mk(d, di + 2 * gn, "in_xbc", ("embed", "mlp")),
+        "in_z": mk(d, di, "in_z", ("embed", "mlp")),
+        "in_dt": mk(d, h, "in_dt", ("embed", "heads")),
+        "out": mk(di, d, "out", ("mlp", "act_embed")),
         "conv": layers.conv1d_spec(cfg.conv_channels, cfg.conv_width),
-        "A_log": ParamSpec(shape=(h,), init="constant", const=0.0),
-        "D": ParamSpec(shape=(h,), init="ones"),
-        "dt_bias": ParamSpec(shape=(h,), init="zeros"),
+        "A_log": ParamSpec(shape=(h,), axes=("heads",), init="constant",
+                           const=0.0),
+        "D": ParamSpec(shape=(h,), axes=("heads",), init="ones"),
+        "dt_bias": ParamSpec(shape=(h,), axes=("heads",), init="zeros"),
         "norm": layers.rmsnorm_spec(di),
     }
 
@@ -95,9 +97,12 @@ def ssm_spec(cfg: SSMConfig, *, serve: bool = False, policy=None) -> Dict:
 def ssm_state_spec(cfg: SSMConfig, batch: int) -> Dict[str, ParamSpec]:
     return {
         "ssm": ParamSpec(shape=(batch, cfg.n_heads, cfg.d_state,
-                                cfg.head_dim), init="zeros"),
+                                cfg.head_dim),
+                         axes=("batch", "heads", "state", None),
+                         init="zeros"),
         "conv": ParamSpec(shape=(batch, cfg.conv_width - 1,
-                                 cfg.conv_channels), init="zeros"),
+                                 cfg.conv_channels),
+                          axes=("batch", None, "mlp"), init="zeros"),
     }
 
 

@@ -4,7 +4,7 @@
 Each leaf of g + residual is quantized to int8 codes with one scale (max
 |v| / 127) and dequantized; the quantization error is carried to the next
 step.  On one device this is the arithmetic of a compressed all-reduce,
-the all-reduce itself waits for multi-device work (ROADMAP label 16).
+the all-reduce itself waits for multi-device training (ROADMAP 16b (iii)).
 """
 from __future__ import annotations
 

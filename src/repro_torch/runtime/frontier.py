@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.plan import FrontierManifest, PrecisionPlan, as_plan
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.runtime.serve import (Generator, ImageServer,
                                        init_packed_views, pack_for_serving)
 from repro_torch.runtime.telemetry import (NULL_METRICS, NULL_TRACER,
@@ -109,6 +110,10 @@ class ImageBackend(Server):
         return [logits[i] for i in range(len(payloads))]
 
     @property
+    def mesh(self):
+        return getattr(self.server, "mesh", None)
+
+    @property
     def batch_limit(self) -> int:
         return max(self.server.batch_buckets)
 
@@ -128,6 +133,10 @@ class GenerateBackend(Server):
     def __init__(self, gen, max_len: int = 64):
         self.gen = gen
         self.max_len = int(max_len)
+
+    @property
+    def mesh(self):
+        return getattr(self.gen, "mesh", None)
 
     def validate(self, payload: Any) -> Tuple[np.ndarray, int]:
         try:
@@ -228,6 +237,11 @@ class FrontierServer:
         return self
 
     @property
+    def mesh(self):
+        """The points' data-parallel mesh (None: one device)."""
+        return getattr(self._points[0][1], "mesh", None)
+
+    @property
     def names(self) -> Tuple[str, ...]:
         return tuple(n for n, _ in self._points)
 
@@ -287,7 +301,8 @@ def build_frontier(api, train_params, plans: Sequence[Tuple[str, Any]], *,
                    batch_buckets: Tuple[int, ...] = (1, 2, 4, 8),
                    max_len: int = 64,
                    manifest: Optional[FrontierManifest] = None,
-                   device="cuda", generator=None) -> FrontierServer:
+                   device="cuda", generator=None,
+                   mesh=None) -> FrontierServer:
     """Pack every plan point from ONE weight tree and stand the servers up
     behind a ``FrontierServer``, on ``device`` (CUDA by default).
 
@@ -297,8 +312,12 @@ def build_frontier(api, train_params, plans: Sequence[Tuple[str, Any]], *,
     running statistics).  LM families pack ``train_params`` through
     ``pack_for_serving`` with the api pinned to each plan; with
     ``train_params=None`` the weights are drawn from ``generator`` once
-    and packed under every plan (``serve.init_packed_views``).
+    and packed under every plan (``serve.init_packed_views``).  With
+    ``mesh=`` (data-parallel) every point serves on it, on this rank's
+    device.
     """
+    if mesh is not None:
+        device = mesh_lib.local_device(mesh)
     points: List[Tuple[str, Server]] = []
     if api.family == "cnn":
         mod, cfg = api.mod, api.cfg
@@ -310,7 +329,7 @@ def build_frontier(api, train_params, plans: Sequence[Tuple[str, Any]], *,
                 api=dataclasses.replace(api, policy=as_plan(plan)),
                 params=packed,
                 plan=plan if isinstance(plan, PrecisionPlan) else None,
-                batch_buckets=batch_buckets, device=device)
+                batch_buckets=batch_buckets, device=device, mesh=mesh)
             points.append((name, ImageBackend(srv)))
         return FrontierServer(points, manifest=manifest)
     pols = [plan for _, plan in plans]
@@ -318,10 +337,10 @@ def build_frontier(api, train_params, plans: Sequence[Tuple[str, Any]], *,
         views = init_packed_views(api, pols, generator, device=device)
     else:
         views = [pack_for_serving(dataclasses.replace(api, policy=pol),
-                                  train_params) for pol in pols]
+                                  train_params, mesh=mesh) for pol in pols]
     for (name, plan), packed in zip(plans, views):
         gen = Generator(api=dataclasses.replace(api, policy=plan),
-                        params=packed, device=device)
+                        params=packed, device=device, mesh=mesh)
         points.append((name, GenerateBackend(gen, max_len=max_len)))
     return FrontierServer(points, manifest=manifest)
 
@@ -329,7 +348,7 @@ def build_frontier(api, train_params, plans: Sequence[Tuple[str, Any]], *,
 def frontier_from_manifest(api, train_params, manifest, *, state=None,
                            batch_buckets: Tuple[int, ...] = (1, 2, 4, 8),
                            max_len: int = 64, device="cuda",
-                           generator=None) -> FrontierServer:
+                           generator=None, mesh=None) -> FrontierServer:
     """``FrontierManifest`` (or a path to one) -> packed ``FrontierServer``.
     Every point's layer names are checked against the api before anything
     is packed."""
@@ -342,4 +361,4 @@ def frontier_from_manifest(api, train_params, manifest, *, state=None,
     return build_frontier(api, train_params, manifest.plans(), state=state,
                           batch_buckets=batch_buckets, max_len=max_len,
                           manifest=manifest, device=device,
-                          generator=generator)
+                          generator=generator, mesh=mesh)

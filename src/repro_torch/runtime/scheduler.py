@@ -34,6 +34,14 @@ was served alone, coalesced or interleaved mid-decode.
 The port's decode updates its cache in place: a slot keeps a one-row view
 of the batched cache of its last group, and the next tick's merge copies
 the rows into a new batched cache.
+
+Over a meshed (data-parallel) backend every rank runs the same scheduler on
+the same requests.  Buckets round up to multiples of the 'data' size; every
+clock read is rank 0's, broadcast, so each decision taken from it is the
+same on every rank.  A ``GenerateScheduler`` pins slot i to rank i mod n:
+its cache lives on that rank only, each prefill and decode batch holds
+every rank's own slots (padded per rank), and only logits and tokens
+cross ranks.
 """
 from __future__ import annotations
 
@@ -48,8 +56,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.plan import strip_kv
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import param as nnp
-from repro_torch.runtime.serve import _pad_batch
+from repro_torch.runtime.serve import round_buckets
 from repro_torch.runtime.telemetry import as_metrics, as_tracer, declare_golden
 
 __all__ = ["QueueFull", "Ticket", "ImageScheduler", "GenerateScheduler"]
@@ -151,10 +160,13 @@ class _SchedulerBase:
 
     def __init__(self, *, max_queue: int, max_wait_s: float,
                  clock: Callable[[], float], history: int = 1024,
-                 tracer=None, metrics=None):
+                 tracer=None, metrics=None, mesh=None):
         self.max_queue = int(max_queue)
         self.max_wait_s = float(max_wait_s)
-        self.clock = clock
+        # Over a meshed backend every rank runs this scheduler on the same
+        # requests: each clock read is rank 0's, broadcast, so deadlines,
+        # batching windows and bucket choices agree on every rank.
+        self.clock = mesh_lib.shared_clock(clock, mesh)
         self._queue: Deque[Ticket] = collections.deque()
         self._ids = itertools.count()
         self.rejected = 0
@@ -443,7 +455,7 @@ class ImageScheduler(_SchedulerBase):
                  history: int = 1024, tracer=None, metrics=None):
         super().__init__(max_queue=max_queue, max_wait_s=max_wait_s,
                          clock=clock, history=history, tracer=tracer,
-                         metrics=metrics)
+                         metrics=metrics, mesh=getattr(server, "mesh", None))
         self.server = server
         self.buckets = tuple(sorted(server.batch_buckets))
         self.dispatched_batches: Deque[int] = collections.deque(
@@ -518,7 +530,8 @@ class ImageScheduler(_SchedulerBase):
 @dataclasses.dataclass
 class _Slot:
     ticket: Ticket
-    cache: Any             # per-request cache tree (batch dim kept at 1)
+    cache: Any             # per-request cache tree (batch dim kept at 1);
+                           # None on a rank that does not hold the slot
     last_tok: np.ndarray   # (1, 1) int32
     pos: int               # tokens currently in the cache
     remaining: int         # decode steps still owed
@@ -600,7 +613,7 @@ class GenerateScheduler(_SchedulerBase):
                  history: int = 1024, tracer=None, metrics=None):
         super().__init__(max_queue=max_queue, max_wait_s=max_wait_s,
                          clock=clock, history=history, tracer=tracer,
-                         metrics=metrics)
+                         metrics=metrics, mesh=getattr(gen, "mesh", None))
         self.gen = gen
         # A SpeculativeGenerator carries two packed views of one
         # checkpoint; slots then hold a {"verify","draft"} cache pair and
@@ -614,9 +627,17 @@ class GenerateScheduler(_SchedulerBase):
         self.device = gen.device
         self.n_slots = int(slots)
         self.max_len = int(max_len)
-        self.prefill_buckets = tuple(sorted(set(prefill_buckets)))
-        self.decode_buckets = tuple(sorted(set(decode_buckets)))
+        # A meshed Generator splits every batch evenly over 'data': the
+        # buckets round up to its size.  Slot i lives on rank i mod n, and
+        # every batch puts each rank's own slots in that rank's rows
+        # (``_layout``), so a slot's cache never leaves its rank.
+        self.rows = mesh_lib.DataRows(getattr(gen, "mesh", None))
+        self.prefill_buckets = round_buckets(prefill_buckets, self.rows.n)
+        self.decode_buckets = round_buckets(decode_buckets, self.rows.n)
         self._slots: List[Optional[_Slot]] = [None] * self.n_slots
+        # one cache row a rank runs in a decode group holding none of its
+        # slots (its outputs are discarded, as a padded row's are)
+        self._spare = None
         # The axis probe runs per plan point: a speculative slot's cache
         # is the dict pair, and the tree map carries the mirrored structure.
         if self._speculative:
@@ -658,6 +679,40 @@ class GenerateScheduler(_SchedulerBase):
         return _tree_map(lambda ax, x: x.narrow(ax, i, 1), self._batch_axes,
                          cache)
 
+    def _layout(self, owners: Sequence[int], buckets: Tuple[int, ...]):
+        """A batch whose item i runs on rank ``owners[i]`` -> (the item
+        each row of the batch holds (np), each item's row (np), the
+        bucket).  Rank r's rows ``[r * per, (r + 1) * per)`` hold its
+        items in order, padded by repeating its last (a rank with none
+        repeats the batch's last item); with one rank that is
+        ``_pad_batch``'s padding."""
+        n = self.rows.n
+        mine = [[i for i, o in enumerate(owners) if o == r]
+                for r in range(n)]
+        need = n * max(len(m) for m in mine)
+        bucket = next(b for b in buckets if b >= need)
+        per = bucket // n
+        src = np.concatenate([
+            m + [m[-1] if m else len(owners) - 1] * (per - len(m))
+            for m in mine]).astype(np.int64)
+        row = np.empty(len(owners), np.int64)
+        for r, m in enumerate(mine):
+            row[m] = r * per + np.arange(len(m))
+        return src, row, bucket
+
+    def _local_rows(self, row: np.ndarray, owners: Sequence[int],
+                    bucket: int) -> List[Optional[int]]:
+        """Each item's row in this rank's share of the batch, or None
+        where another rank holds it."""
+        per = bucket // self.rows.n
+        return [int(r) - self.rows.rank * per if o == self.rows.rank
+                else None for r, o in zip(row, owners)]
+
+    def _keep_spare(self, cache) -> None:
+        if self.rows.n > 1 and self._spare is None:
+            self._spare = _tree_map(lambda ax, x: x.narrow(ax, 0, 1).clone(),
+                                    self._batch_axes, cache)
+
     def _tokens(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr, dtype=torch.long, device=self.device)
 
@@ -683,6 +738,18 @@ class GenerateScheduler(_SchedulerBase):
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s is None]
 
+    def _admission_ranks(self, free: List[int]) -> List[int]:
+        """The ranks the next prompts of one prefill go to, in order: the
+        ranks' free slots taken in turn, at most a rank's share of the
+        largest prefill bucket each (one rank: ``min(len(free),
+        prefill_buckets[-1])`` prompts)."""
+        n = self.rows.n
+        cap = self.prefill_buckets[-1] // n
+        room = [min(sum(1 for i in free if i % n == r), cap)
+                for r in range(n)]
+        return [r for tier in range(max(room)) for r in range(n)
+                if room[r] > tier]
+
     def _admit(self, flush: bool = False) -> int:
         """Prefill the FIFO head-run of same-length prompts into free
         slots (one batched prefill per head-run), holding below-capacity
@@ -691,7 +758,8 @@ class GenerateScheduler(_SchedulerBase):
         if not free or not self._queue:
             return 0
         plen = self._queue[0].payload.shape[1]
-        limit = min(len(free), self.prefill_buckets[-1])
+        ranks = self._admission_ranks(free)
+        limit = len(ranks)
         run = 0
         while (run < len(self._queue) and run < limit
                and self._queue[run].payload.shape[1] == plen):
@@ -703,10 +771,9 @@ class GenerateScheduler(_SchedulerBase):
         while (self._queue and len(group) < limit
                and self._queue[0].payload.shape[1] == plen):
             group.append(self._queue.popleft())
-        g = len(group)
-        bucket = next(b for b in self.prefill_buckets if b >= g)
-        toks = self._tokens(_pad_batch(
-            np.concatenate([t.payload for t in group]), bucket))
+        owners = ranks[:len(group)]
+        src, row, bucket = self._layout(owners, self.prefill_buckets)
+        toks = self._tokens(np.concatenate([t.payload for t in group])[src])
         now = self.clock()
         for t in group:
             t.t_admit = now
@@ -726,17 +793,23 @@ class GenerateScheduler(_SchedulerBase):
             cache = self.gen._grow_cache(pre_cache, bucket, plen,
                                          self.max_len)
             first = torch.argmax(logits, -1).cpu().numpy()
-        first = np.asarray(first, np.int32)
+        self._keep_spare(cache)
+        first = np.asarray(first, np.int32)[row]
+        local = self._local_rows(row, owners, bucket)
         finished = 0
         for i, t in enumerate(group):
-            slot = _Slot(ticket=t, cache=self._extract(cache, i),
+            slot = _Slot(ticket=t, cache=(None if local[i] is None else
+                                          self._extract(cache, local[i])),
                          last_tok=first[i].reshape(1, 1), pos=plen,
                          remaining=t.n_new - 1, out=[int(first[i])])
             if slot.remaining == 0:  # n_new == 1: done at prefill
                 self._finish(slot)
                 finished += 1
-            else:
-                self._slots[free.pop(0)] = slot
+            else:  # the first free slot of the rank that holds its cache
+                slot_i = next(j for j in free
+                              if j % self.rows.n == owners[i])
+                free.remove(slot_i)
+                self._slots[slot_i] = slot
         return finished
 
     # --- decode ------------------------------------------------------------
@@ -747,30 +820,50 @@ class GenerateScheduler(_SchedulerBase):
         self._complete(t)
 
     def _groups(self):
-        """In-flight slots by position, each group cut to the largest
-        decode bucket (the rest go next step) -> [(pos, slot indices,
-        slots, bucket)]."""
+        """In-flight slots by position, each rank's slots of a group cut to
+        its share of the largest decode bucket (the rest go next step) ->
+        [(pos, slot indices, slots, owners, layout)], ``layout`` as
+        ``_layout`` gives it."""
         groups: Dict[int, List[int]] = collections.defaultdict(list)
         for i, s in enumerate(self._slots):
             if s is not None:
                 groups[s.pos].append(i)
+        n = self.rows.n
+        cap = self.decode_buckets[-1] // n
         out = []
         for pos in sorted(groups):
-            idxs = groups[pos]
-            bucket = next((b for b in self.decode_buckets if b >= len(idxs)),
-                          self.decode_buckets[-1])
-            idxs = idxs[:bucket]
-            out.append((pos, idxs, [self._slots[i] for i in idxs], bucket))
+            taken = collections.Counter()
+            idxs = []
+            for i in groups[pos]:
+                if taken[i % n] < cap:
+                    taken[i % n] += 1
+                    idxs.append(i)
+            owners = [i % n for i in idxs]
+            out.append((pos, idxs, [self._slots[i] for i in idxs], owners,
+                        self._layout(owners, self.decode_buckets)))
         return out
 
+    def _group_inputs(self, slots, owners, layout):
+        """A decode group's batch -> (this rank's merged cache, the whole
+        batch's last tokens)."""
+        src, _, bucket = layout
+        mine = [s.cache for s, o in zip(slots, owners)
+                if o == self.rows.rank]
+        cache = self._merge(mine or [self._spare], bucket // self.rows.n)
+        toks = self._tokens(np.concatenate([s.last_tok for s in slots])[src])
+        return cache, toks
+
     def _advance(self, idxs, slots, cache, rows: np.ndarray,
-                 takes: Sequence[int]) -> int:
+                 takes: Sequence[int],
+                 local: Sequence[Optional[int]]) -> int:
         """Hand each slot of a group its new tokens (row i of ``rows``, the
-        first ``takes[i]`` of them) and its cache row; finish the done."""
+        first ``takes[i]`` of them) and, on the rank that holds it, its
+        cache row ``local[i]``; finish the done."""
         finished = 0
         for i, (slot_i, s) in enumerate(zip(idxs, slots)):
             take = takes[i]
-            s.cache = self._extract(cache, i)
+            s.cache = None if local[i] is None else self._extract(cache,
+                                                                  local[i])
             s.out.extend(int(x) for x in rows[i, :take])
             s.last_tok = np.asarray(rows[i, take - 1],
                                     np.int32).reshape(1, 1)
@@ -792,18 +885,17 @@ class GenerateScheduler(_SchedulerBase):
         ``k_eff`` is clamped to the smallest remaining budget, so no
         slot's cache is written past its submit-time bound."""
         finished = 0
-        for pos, idxs, slots, bucket in self._groups():
-            g = len(slots)
-            cache = self._merge([s.cache for s in slots], bucket)
-            toks = self._tokens(_pad_batch(
-                np.concatenate([s.last_tok for s in slots]), bucket))
+        for pos, idxs, slots, owners, layout in self._groups():
+            _, row, bucket = layout
+            cache, toks = self._group_inputs(slots, owners, layout)
             k_eff = min(self.spec_k, min(s.remaining for s in slots) - 1)
             self._log("decode", [s.ticket for s in slots])
             v_toks, acc, cache = self.gen.spec_cycle(cache, toks, pos, k_eff,
-                                                     rows=g)
-            takes = [min(int(acc[i]) + 1, s.remaining)
-                     for i, s in enumerate(slots)]
-            finished += self._advance(idxs, slots, cache, v_toks, takes)
+                                                     rows=row)
+            takes = [min(int(acc[r]) + 1, s.remaining)
+                     for r, s in zip(row, slots)]
+            finished += self._advance(idxs, slots, cache, v_toks[row], takes,
+                                      self._local_rows(row, owners, bucket))
         return finished
 
     def _decode_tick(self) -> int:
@@ -812,16 +904,16 @@ class GenerateScheduler(_SchedulerBase):
         if self._speculative:
             return self._spec_tick()
         finished = 0
-        for pos, idxs, slots, bucket in self._groups():
-            cache = self._merge([s.cache for s in slots], bucket)
-            toks = self._tokens(_pad_batch(
-                np.concatenate([s.last_tok for s in slots]), bucket))
+        for pos, idxs, slots, owners, layout in self._groups():
+            _, row, bucket = layout
+            cache, toks = self._group_inputs(slots, owners, layout)
             self._log("decode", [s.ticket for s in slots])
             logits, cache = self.gen._decode(self.gen.params, cache, toks,
                                              pos)
-            nxt = torch.argmax(logits, -1).cpu().numpy()[:, None]
+            nxt = torch.argmax(logits, -1).cpu().numpy()[row][:, None]
             finished += self._advance(idxs, slots, cache, nxt,
-                                      [1] * len(slots))
+                                      [1] * len(slots),
+                                      self._local_rows(row, owners, bucket))
         return finished
 
     # --- the drive loop ----------------------------------------------------

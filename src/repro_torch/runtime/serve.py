@@ -15,7 +15,18 @@ record the JAX module's device spans (``prefill``, ``decode``,
 ``predict``) and ``repro_device_time_seconds``.  The schedulers
 (``runtime.scheduler``) drive a ``Generator`` through its step hooks
 ``_prefill``, ``_decode``, ``_grow_cache`` and ``params``, as they drive
-the JAX one.  Meshes are not ported: the port serves on one device.
+the JAX one.
+
+Multi-device serving is data-parallel, one process a rank (``mesh=``, a
+``launch.mesh.make_serve_mesh`` mesh whose 'model' axis is 1): every rank
+calls the same API with the same full inputs, holds a full replica of the
+packed tree on its device (``pack_for_serving(mesh=)``), pads the batch to
+a multiple of the 'data' size as the reference pads it, runs its own rows
+through the kernels and all-gathers the outputs, so every rank returns
+the whole result, as the reference's single controller does.  Batch
+entries never mix, so a meshed run is bitwise the single-device run.  A
+``Generator``'s decode cache stays rank-local (each rank its rows).  A
+'model' axis above 1 (tensor-parallel serving) raises: ROADMAP 16b (ii).
 """
 from __future__ import annotations
 
@@ -26,15 +37,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, tree_to
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.nn import param as nnp
+from repro_torch.nn import partitioning as part
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.layers import pack_embed
 from repro_torch.runtime.telemetry import (as_metrics, as_tracer,
                                            device_span, device_timed)
 
-__all__ = ["pack_for_serving", "init_packed_lm", "init_packed_views",
-           "Generator", "ImageServer"]
+__all__ = ["pack_for_serving", "serve_shardings", "init_packed_lm",
+           "init_packed_views", "Generator", "ImageServer"]
 
 
 def _pack_embed(policy, embed):
@@ -43,13 +56,29 @@ def _pack_embed(policy, embed):
     return embed
 
 
-def pack_for_serving(api, train_params):
+def serve_shardings(api, mesh):
+    """``NamedSharding`` tree of this api's packed serve tree under
+    ``SERVE_RULES``: LM families by each serve-spec leaf's logical axes
+    (replicated on a (N, 1) data-parallel mesh; 'mlp_packed' /
+    'heads_packed' would shard rows over 'model'), a CNN's packed tree
+    replicated whole."""
+    if api.family == "cnn":
+        return part.replicated(mesh)
+    return part.tree_shardings(api.param_axes("serve"), mesh,
+                               part.SERVE_RULES)
+
+
+def pack_for_serving(api, train_params, mesh=None):
     """Trained QAT tree -> packed serve tree, for any ``api.policy``
     (uniform or a layer-wise plan): every linear at its own resolved
-    format, the embedding table as int8 codes and a step."""
+    format, the embedding table as int8 codes and a step.  With ``mesh=``
+    (data-parallel) the tree is this rank's full replica, on its device."""
     packed = Q.pack_tree(train_params, api.specs("train"), api.policy)
     if "embed" in packed:
         packed["embed"] = _pack_embed(api.policy, packed["embed"])
+    if mesh is not None:
+        part.require_data_parallel(part.axis_sizes(mesh))
+        packed = tree_to(packed, mesh_lib.local_device(mesh))
     return packed
 
 
@@ -98,6 +127,23 @@ def _pad_batch(arr: np.ndarray, to: int) -> np.ndarray:
     return np.concatenate([arr, reps])
 
 
+def _pad_rows(x: torch.Tensor, to: int) -> torch.Tensor:
+    """``_pad_batch`` for a tensor."""
+    if x.shape[0] == to:
+        return x
+    return torch.cat([x, x[-1:].expand((to - x.shape[0],) + x.shape[1:])])
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """A serving object's device: this rank's on a mesh (which must be
+    data-parallel), else ``device`` (CUDA unless the caller asks for the
+    CPU)."""
+    if mesh is None:
+        return resolve_device(device)
+    part.require_data_parallel(part.axis_sizes(mesh))
+    return mesh_lib.local_device(mesh)
+
+
 @dataclasses.dataclass
 class Generator:
     """Greedy batched generator over the model API (LM families).
@@ -125,6 +171,14 @@ class Generator:
     replaced); ``_grow_cache(pre, b, s, max_len)``.  With a live
     ``tracer`` each step records a ``prefill`` / ``decode`` device span
     and ``metrics`` observes ``repro_device_time_seconds``.
+
+    ``mesh`` (data-parallel, ``launch.mesh.make_serve_mesh``) runs every
+    step on this rank's rows: the hooks take the whole batch (B a multiple
+    of the 'data' size; ``run`` pads to one by repeating the last row) and
+    return the whole batch's logits, while the cache holds this rank's rows
+    only (``_grow_cache``'s ``b`` stays the whole batch).  A ``sample_fn``
+    draws for the real rows of the whole batch on every rank from the same
+    generator, so each row's draw is the single-device draw.
     """
 
     api: Any
@@ -135,29 +189,51 @@ class Generator:
     sample_fn: Optional[Callable] = None
     tracer: Any = None   # telemetry.Tracer; None = the no-op fast path
     metrics: Any = None  # telemetry.MetricsRegistry; None = no-op
+    mesh: Any = None     # data-parallel serve mesh; None = one device
 
     def __post_init__(self):
         if self.plan is not None:
             self.api = dataclasses.replace(self.api, policy=self.plan)
-        self.device = resolve_device(self.device)
+        self.device = _mesh_device(self.mesh, self.device)
+        self.rows = mesh_lib.DataRows(self.mesh)
         self.params = tree_to(self.params, self.device)
         self.tracer = as_tracer(self.tracer)
         self.metrics = as_metrics(self.metrics)
         hist = self.metrics.histogram("repro_device_time_seconds")
         step = torch.inference_mode()
-        self._prefill = device_timed(
+        prefill = device_timed(
             self.tracer, "prefill",
             step(steps_lib.make_prefill_fn(self.api, impl=self.impl)), hist,
             self.device)
-        self._decode = device_timed(
+        decode = device_timed(
             self.tracer, "decode",
             step(steps_lib.make_decode_fn(self.api, impl=self.impl)), hist,
             self.device)
+        if self.rows.n == 1:
+            self._prefill, self._decode = prefill, decode
+            return
+        rows = self.rows
 
-    def _sample(self, logits: torch.Tensor, generator) -> torch.Tensor:
+        def meshed_prefill(params, batch):
+            logits, pre = prefill(params, {k: rows.local(v)
+                                           for k, v in batch.items()})
+            return rows.gather(logits), pre
+
+        def meshed_decode(params, cache, tokens, length):
+            logits, cache = decode(params, cache, rows.local(tokens), length)
+            return rows.gather(logits), cache
+
+        self._prefill, self._decode = meshed_prefill, meshed_decode
+
+    def _sample(self, logits: torch.Tensor, generator,
+                b: Optional[int] = None) -> torch.Tensor:
+        """Tokens of the whole (padded) batch: argmax, or ``sample_fn``
+        over its first ``b`` (real) rows, padded by repeating the last."""
         if self.sample_fn is None:
             return torch.argmax(logits, dim=-1)
-        return self.sample_fn(logits, generator)
+        b = logits.shape[0] if b is None else b
+        return _pad_rows(self.sample_fn(logits[:b], generator),
+                         logits.shape[0])
 
     def prefill(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None):
@@ -195,21 +271,25 @@ class Generator:
         steps are fed ``forced[:, i]`` instead of the sampled tokens
         (teacher forcing); the sampled tokens are still returned."""
         b, s = tokens.shape
+        gb = self.rows.pad_to(b)  # an even split over the data axis
         with torch.inference_mode():
-            toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                                   device=self.device)
-            logits, pre = self.prefill(toks, self._frames(frames, b))
-            cache = self._grow_cache(pre, b, s, s + n_new)
-            out, all_logits = [], [logits]
-            tok = self._sample(logits, generator)
-            out.append(tok)
+            toks = torch.as_tensor(_pad_batch(np.asarray(tokens), gb),
+                                   dtype=torch.long, device=self.device)
+            fr = self._frames(frames, b)
+            logits, pre = self.prefill(toks, None if fr is None
+                                       else _pad_rows(fr, gb))
+            cache = self._grow_cache(pre, gb, s, s + n_new)
+            out, all_logits = [], [logits[:b]]
+            tok = self._sample(logits, generator, b)
+            out.append(tok[:b])
             for i in range(n_new - 1):
                 feed = (tok if forced is None else torch.as_tensor(
-                    forced[:, i], dtype=torch.long, device=self.device))
+                    _pad_batch(np.asarray(forced[:, i]), gb),
+                    dtype=torch.long, device=self.device))
                 logits, cache = self.decode(cache, feed[:, None], s + i)
-                all_logits.append(logits)
-                tok = self._sample(logits, generator)
-                out.append(tok)
+                all_logits.append(logits[:b])
+                tok = self._sample(logits, generator, b)
+                out.append(tok[:b])
             return torch.stack(out, dim=1).cpu().numpy(), all_logits
 
     def generate(self, tokens: np.ndarray, n_new: int,
@@ -226,7 +306,9 @@ class Generator:
         already; the hybrid's attention layers re-pack the prompt's last
         keys into ring buffers (``models.recurrentgemma.ring_cache``); the
         rest copy into zero buffers, sequence axis left-aligned.  Decode
-        then writes into them in place."""
+        then writes into them in place.  On a mesh ``b`` is the whole
+        batch and the cache this rank's ``b / n`` rows."""
+        b //= self.rows.n
         family = self.api.family
         if family == "ssm":
             return pre_cache
@@ -250,6 +332,12 @@ class Generator:
         return walk(specs, pre_cache)
 
 
+def round_buckets(buckets, n_data: int) -> tuple:
+    """Batch buckets rounded up to multiples of the 'data' size (every
+    rank an equal share), sorted and deduplicated."""
+    return tuple(sorted({-(-int(b) // n_data) * n_data for b in buckets}))
+
+
 @dataclasses.dataclass
 class ImageServer:
     """Batched CNN serving over a packed ``serve_forward`` tree.
@@ -264,6 +352,11 @@ class ImageServer:
     ``device``, which defaults to CUDA and raises when there is no card.
     ``plan`` overrides the api's uniform policy with a layer-wise one;
     ``params`` must then be packed under the same plan.
+
+    ``mesh`` (data-parallel) makes every bucket a multiple of the 'data'
+    size; each rank holds the whole packed tree on its device, runs its
+    rows of a bucket and all-gathers the logits, which are bitwise the
+    single-device ones.
     """
 
     api: Any
@@ -275,21 +368,24 @@ class ImageServer:
     device: Any = "cuda"
     tracer: Any = None   # telemetry.Tracer; None = the no-op fast path
     metrics: Any = None  # telemetry.MetricsRegistry; None = no-op
+    mesh: Any = None     # data-parallel serve mesh; None = one device
 
     def __post_init__(self):
         if self.api.family != "cnn":
             raise ValueError(f"ImageServer serves CNNs, got family "
                              f"{self.api.family!r}")
-        self.device = resolve_device(self.device)
+        self.device = _mesh_device(self.mesh, self.device)
+        self.rows = mesh_lib.DataRows(self.mesh)
         self.params = tree_to(self.params, self.device)
-        self.batch_buckets = tuple(sorted(set(self.batch_buckets)))
+        self.batch_buckets = round_buckets(self.batch_buckets, self.rows.n)
         self._served = set()
         self.tracer = as_tracer(self.tracer)
         self.metrics = as_metrics(self.metrics)
         self._m_device = self.metrics.histogram("repro_device_time_seconds")
 
     def _forward(self, bucket: int, chunk: torch.Tensor) -> torch.Tensor:
-        """One network forward at a bucket's batch size."""
+        """One network forward at a bucket's batch size (this rank's rows
+        of it on a mesh, which ``predict`` gathers)."""
         self._served.add(bucket)
         pol = self.plan if self.plan is not None else self.api.policy
         return self.api.mod.serve_forward(
@@ -319,7 +415,7 @@ class ImageServer:
                     pad = np.zeros((bucket - take,) + chunk.shape[1:],
                                    chunk.dtype)
                     chunk = np.concatenate([chunk, pad])
-                x = torch.from_numpy(chunk).to(self.device)
+                x = self.rows.local(torch.from_numpy(chunk)).to(self.device)
                 if self.tracer.enabled:
                     # host dispatch vs device remainder of the forward;
                     # waiting changes when the host waits, never values
@@ -328,6 +424,7 @@ class ImageServer:
                         y = self._forward(bucket, x)
                 else:
                     y = self._forward(bucket, x)
+                y = self.rows.gather(y)
                 outs.append(y[:take].to(torch.float32).cpu().numpy())
                 i += take
         return np.concatenate(outs)

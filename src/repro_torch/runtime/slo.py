@@ -244,7 +244,8 @@ class SLOScheduler(_SchedulerBase):
                  history: int = 1024, tracer=None, metrics=None):
         super().__init__(max_queue=max_queue, max_wait_s=max_wait_s,
                          clock=clock, history=history, tracer=tracer,
-                         metrics=metrics)
+                         metrics=metrics,
+                         mesh=getattr(frontier, "mesh", None))
         self.frontier = frontier
         # Frontier-level telemetry handles (base init cached the rest).
         # The frontier inherits this scheduler's tracer/metrics so its

@@ -23,20 +23,24 @@ length and every attention mask is ``pos < length``, so rejected positions
 are never attended and the next cycle overwrites them in place (the
 port's decode updates its cache in place).
 
-The port serves on one device (no ``mesh``), and the draft's k + 1 steps
-run as a Python loop of single-token decode steps where ``repro`` fuses
-them in one ``lax.scan``.
+With ``mesh=`` (data-parallel) both views are replicated on every rank,
+the batch is padded to a multiple of the 'data' size, each rank drafts and
+verifies its own rows, and the verify argmaxes and drafts are all-gathered
+so every rank takes the same acceptance decisions; tensor-parallel serving
+waits for ROADMAP 16b (ii).  The draft's k + 1 steps run as a Python loop
+of single-token decode steps where ``repro`` fuses them in one
+``lax.scan``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.launch import steps as steps_lib
-from repro_torch.runtime.serve import Generator
+from repro_torch.runtime.serve import Generator, _pad_batch
 from repro_torch.runtime.telemetry import as_metrics, as_tracer, device_timed
 
 __all__ = ["SpeculativeGenerator"]
@@ -64,7 +68,7 @@ class SpeculativeGenerator:
 
     ``generate`` keeps ``Generator.generate``'s contract (greedy, batched)
     and emits exactly what a verify-plan-only ``Generator`` emits.
-    ``impl`` and ``device`` are the ``Generator``'s.
+    ``impl``, ``device`` and ``mesh`` are the ``Generator``'s.
 
     Telemetry: one ``specdec.accept`` span per cycle (drafted / accepted /
     rejected counts), a ``specdec.rollback`` instant when positions are
@@ -81,6 +85,7 @@ class SpeculativeGenerator:
     device: Any = "cuda"
     tracer: Any = None
     metrics: Any = None
+    mesh: Any = None
 
     is_speculative = True  # GenerateScheduler's dispatch gate
 
@@ -95,10 +100,11 @@ class SpeculativeGenerator:
         packed_v, packed_d = self.packed_views
         self.packed_views = None  # the generators own them now
         kw = dict(impl=self.impl, device=self.device, tracer=self.tracer,
-                  metrics=self.metrics)
+                  metrics=self.metrics, mesh=self.mesh)
         self.gen_verify = Generator(api_v, packed_v, **kw)
         self.gen_draft = Generator(api_d, packed_d, **kw)
         self.device = self.gen_verify.device
+        self.rows = self.gen_verify.rows
         hist = self.metrics.histogram("repro_device_time_seconds")
         step = torch.inference_mode()
         self._verify = device_timed(
@@ -161,11 +167,14 @@ class SpeculativeGenerator:
     # -- one cycle -----------------------------------------------------------
 
     def _cycle(self, cache_v, cache_d, tok: torch.Tensor, pos: int,
-               k_eff: int, rows: int):
+               k_eff: int, rows: np.ndarray):
         """Draft ``k_eff`` tokens after ``tok`` (B, 1) at ``pos`` and verify
         ``k_eff + 1`` positions -> (verify argmax rows (B, k_eff + 1) np,
-        per-row accept counts (B,) np, caches)."""
+        per-row accept counts (B,) np, caches); ``rows`` indexes the real
+        rows, which the acceptance statistics count.  On a mesh ``tok`` and
+        the returned rows are the whole batch's, the caches this rank's."""
         gv, gd = self.gen_verify, self.gen_draft
+        tok = self.rows.local(tok)
         t0 = self.tracer.clock() if self.tracer.enabled else 0.0
         if k_eff > 0:
             # k_eff + 1 steps: k_eff proposals plus the last proposal's
@@ -178,11 +187,13 @@ class SpeculativeGenerator:
             props = tok[:, :0]
             vin = tok
         logits, cache_v = self._verify(gv.params, cache_v, vin, pos)
-        v_toks = torch.argmax(logits, -1).cpu().numpy()  # (B, k_eff + 1)
-        a = _leading_matches(props.cpu().numpy(), v_toks[:, :k_eff])
+        v_toks = self.rows.gather(torch.argmax(logits, -1)).cpu().numpy()
+        a = _leading_matches(self.rows.gather(props).cpu().numpy(),
+                             v_toks[:, :k_eff])  # (B, k_eff + 1), (B,)
         t1 = self.tracer.clock() if self.tracer.enabled else 0.0
-        self._account(drafted=k_eff * rows, accepted=int(a[:rows].sum()),
-                      rejected=int((k_eff - a[:rows]).sum()), t0=t0, t1=t1)
+        real = a[rows]
+        self._account(drafted=k_eff * len(real), accepted=int(real.sum()),
+                      rejected=int((k_eff - real).sum()), t0=t0, t1=t1)
         return v_toks, a, cache_v, cache_d
 
     # -- generate ------------------------------------------------------------
@@ -192,12 +203,13 @@ class SpeculativeGenerator:
         to a verify-plan-only ``Generator.generate``."""
         gv, gd = self.gen_verify, self.gen_draft
         b, s = tokens.shape
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                               device=self.device)
+        gb = self.rows.pad_to(b)  # an even split over the data axis
+        toks = torch.as_tensor(_pad_batch(np.asarray(tokens), gb),
+                               dtype=torch.long, device=self.device)
         logits_v, pre_v = gv._prefill(gv.params, {"tokens": toks})
         _, pre_d = gd._prefill(gd.params, {"tokens": toks})
-        cache_v = gv._grow_cache(pre_v, b, s, s + n_new)
-        cache_d = gd._grow_cache(pre_d, b, s, s + n_new)
+        cache_v = gv._grow_cache(pre_v, gb, s, s + n_new)
+        cache_d = gd._grow_cache(pre_d, gb, s, s + n_new)
         del pre_v, pre_d
         tok = torch.argmax(logits_v, -1).cpu().numpy()  # verify owns it
         out = [tok]
@@ -208,14 +220,15 @@ class SpeculativeGenerator:
             feed = torch.as_tensor(tok[:, None], dtype=torch.long,
                                    device=self.device)
             v_toks, a, cache_v, cache_d = self._cycle(cache_v, cache_d, feed,
-                                                      pos, k_eff, b)
-            e = min(int(a.min()) + 1, remaining)
+                                                      pos, k_eff,
+                                                      np.arange(b))
+            e = min(int(a[:b].min()) + 1, remaining)
             # accepted drafts == verify argmaxes: every emission is a
             # verify row
             out.extend(v_toks[:, j] for j in range(e))
             tok = v_toks[:, e - 1]
             pos += e
-        return np.stack(out, axis=1)
+        return np.stack(out, axis=1)[:b]
 
     # -- scheduler seams (GenerateScheduler drives these per slot group) ----
 
@@ -230,17 +243,18 @@ class SpeculativeGenerator:
                 {"verify": pre_v, "draft": pre_d})
 
     def spec_cycle(self, caches, tok: torch.Tensor, pos: int, k_eff: int,
-                   rows: Optional[int] = None):
+                   rows: Optional[Sequence[int]] = None):
         """One draft + verify cycle over a same-position slot group.
 
         caches: ``{"verify": ..., "draft": ...}`` batched over the group's
         slots (updated in place); tok (B, 1); pos = tokens resident in both
-        caches; rows = real (not padded) rows to count in the acceptance
-        statistics.  -> (verify argmax rows (B, k_eff + 1) np, per-row
-        accept counts (B,) np, caches).  Rollback is the caller keeping
+        caches; rows = the indices of the real (not padded) rows, which
+        the acceptance statistics count (default: every row).  -> (verify
+        argmax rows (B, k_eff + 1) np, per-row accept counts (B,) np,
+        caches).  Rollback is the caller keeping
         its per-slot logical position at ``pos + accepted_i + 1``.
         """
-        rows = tok.shape[0] if rows is None else int(rows)
+        rows = np.arange(tok.shape[0]) if rows is None else np.asarray(rows)
         v_toks, a, cache_v, cache_d = self._cycle(
             caches["verify"], caches["draft"], tok, pos, k_eff, rows)
         return v_toks, a, {"verify": cache_v, "draft": cache_d}

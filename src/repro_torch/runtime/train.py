@@ -17,7 +17,7 @@ device:
   step holds one state and its gradients, not two states.
 
 The reference's device mesh, its sharded state and the elastic re-shard on
-restore wait for multi-device work (ROADMAP label 16).
+restore wait for multi-device training (ROADMAP 16b (iii)).
 """
 from __future__ import annotations
 

@@ -934,3 +934,31 @@ def test_recurrent_block_vjp_on_the_card_matches_the_cpu(cuda_device, block):
         assert bool(torch.isfinite(g).all()), path
         if not path.endswith("['ga']"):
             assert _rel_l2(g, g0[path]) <= BLOCK_CARD_RELL2, path
+
+
+# --- the PE models (core/ppg) on the card ------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kdim,n", [(64, 256, 256), (5, 37, 9),
+                                      (392, 4608, 512)])
+def test_ppg_on_card_equals_cpu(cuda_device, m, kdim, n):
+    """Every PE variant at every (w, k) of the Fig. 6 grid on the card:
+    the int32 GEMM bitwise the CPU's (through ``torch._int_mm`` with
+    unsigned bytes shifted by 128 and the shapes zero-padded), the
+    statistics equal."""
+    import numpy as np
+    from repro_torch.core import ppg
+    rng = np.random.default_rng(m + kdim + n)
+    a = torch.from_numpy(rng.integers(0, 256, (m, kdim)).astype(np.int32))
+    for w_bits, k in [(w, k) for w in (8, 4, 2, 1) for k in (1, 2, 4)
+                      if k <= w]:
+        w = torch.from_numpy(packing.random_codes(rng, (kdim, n), w_bits))
+        want = (a.double() @ w.double()).to(torch.int32)
+        for name, fn in ppg.PE_VARIANTS.items():
+            extra = (8,) if name == "BP-ST-2D" else ()
+            got, stats = fn(a.to(cuda_device), w.to(cuda_device), w_bits,
+                            *extra, k)
+            _, cpu_stats = fn(a[:1], w, w_bits, *extra, k)
+            assert torch.equal(got.cpu(), want), (name, w_bits, k)
+            assert stats == cpu_stats

@@ -126,10 +126,48 @@ def test_refused_combinations(argv, match):
 @pytest.mark.parametrize("flag", ["--mesh", "--devices",
                                   "--xla-serving-flags"])
 def test_flags_waiting_for_modules_are_absent(flag, capsys):
+    """``--xla-serving-flags`` (XLA only) is absent; ``--mesh`` and
+    ``--devices`` are served since the mesh was ported, and refuse a
+    malformed value ('1' is no DxM spec, 0 ranks no world) as argparse
+    refuses any."""
+    value = {"--mesh": "1", "--devices": "0"}.get(flag, "1")
     with pytest.raises(SystemExit) as err:
-        serve.main(["--arch", "resnet18", *CPU, flag, "1"])
+        serve.main(["--arch", "resnet18", *CPU, flag, value])
     assert err.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    want = ("unrecognized arguments" if flag == "--xla-serving-flags"
+            else f"argument {flag}")
+    assert want in capsys.readouterr().err
+
+
+def test_mesh_model_axis_refused():
+    with pytest.raises(SystemExit, match="16b \\(ii\\)"):
+        serve.main(["--arch", "granite-8b", *CPU, "--mesh", "2x2"])
+
+
+def test_mesh_needs_its_ranks():
+    with pytest.raises(SystemExit, match="needs 4 ranks"):
+        serve.main(["--arch", "granite-8b", *CPU, "--mesh", "4x1",
+                    "--devices", "2"])
+
+
+def test_two_local_ranks_serve_as_one_device(tmp_path):
+    """``--devices 2 --mesh 2x1`` starts two ranks; rank 0 prints the same
+    sample as the single-device run (greedy, bitwise)."""
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "granite-8b", *CPU, "--batch", "3", "--prompt-len", "6",
+            "--new-tokens", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = [subprocess.run(args + extra, capture_output=True, text=True,
+                           env=env, timeout=240, cwd=tmp_path)
+            for extra in ([], ["--devices", "2", "--mesh", "2x1"])]
+    for r in outs:
+        assert r.returncode == 0, r.stderr[-2000:]
+
+    def sample(text):
+        return [ln for ln in text.splitlines() if "sample:" in ln]
+    assert len(sample(outs[0].stdout)) == 1
+    assert sample(outs[0].stdout) == sample(outs[1].stdout)
+    assert "mesh {'data': 2, 'model': 1} over 2 ranks" in outs[1].stdout
 
 
 def test_defaults_to_the_card():
