@@ -303,6 +303,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launches as many as one device, each over half the rows).
    ``[p18-time]``: host-clock frames/s and tokens/s, which measure nothing
    of scaling with two ranks on one card.
+19. Tensor-parallel serving (slice 14).  (a) K1's accumulator-only mode
+   (int32 out, no epilogue): every format, both variants, both routes,
+   bitwise its plain twin ``mpmm_torch_acc``, and ``epilogue.finish``
+   after it bitwise the fused K1 (f32 and bf16 out); granite-8b's o and
+   down projections (w8k4, K 4096 and 14336, N 4096) split in two over K
+   at M 4000 (route A) and 4 (route B): each shard bitwise its twin, the
+   shards' int32 sum finished bitwise the fused whole product;
+   ``[p19-time]`` ms of a shard's call beside the fused call on the same
+   shard and its bound.  (b) granite-8b at full width, first 4 layers,
+   under ``granite_8b_mixed.json``, 4 x 1000 prompts + 16 tokens through
+   ``Generator`` on one device here, then on a (1, 2) mesh of two ranks
+   sharing cuda:0 over gloo (each rank its ``SERVE_RULES`` slice, o and
+   down accumulator-only with an int32 sum across 'model', the head's
+   columns all-gathered, split-sequence decode): prefill and decode
+   logits bitwise one device, tokens equal, both ranks' logits equal,
+   each rank's launches those
+   of one device (K1 by route, K4, 2 accumulator-only calls a layer and
+   step); the int32 all-reduce's bytes and host ms per prefill and per
+   decode step, decode ms per step against one device.  (c) a
+   ``GenerateScheduler`` over (b)'s ``Generator`` (tickets bitwise) and
+   ResNet-18 batch 16, replicated over 'model' (logits bitwise, launches
+   as one device).
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -1040,6 +1062,7 @@ def reset_counts():
     for name, mod in COUNTED:
         getattr(importlib.import_module(mod), name).launches = 0
     kernel.mpmm_cuda.routes = dict.fromkeys(kernel.ROUTES, 0)
+    kernel.mpmm_cuda.acc_launches = 0
 
 
 def read_counts():
@@ -5361,6 +5384,374 @@ def phase_p18(sm, card):
     return launches, {"fps": fps, "tps": tps, "spawn_s": spawn_s}
 
 
+# --- phase 19: tensor-parallel serving, two ranks on one card ----------------
+
+P19_RANKS = 2
+P19_LM_DEPTH = 4
+P19_LM = (4, 1000, 16)   # prompts, prompt length, new tokens
+P19_CNN_BATCH = 16
+# granite-8b's row-parallel projections, split in two on K: (name, whole K)
+P19_SPLITS = (("o", 4096), ("down", 14336))
+P19_ROWS = (4000, 4)     # prefill (route A) and decode (route B) rows
+
+
+def p19_acc_only(sm):
+    """(a) K1's accumulator-only mode: at every format on both routes,
+    bitwise its plain twin, and ``epilogue.finish`` after it bitwise the
+    fused K1; at granite-8b's o and down projections split in two over K,
+    each shard's accumulator bitwise its twin, their int32 sum ``finish``ed
+    bitwise the fused whole product; times of a shard's call beside the
+    fused call on the same shard and its bound -> timing rows."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.mpmm import epilogue, kernel, ops
+    t = sm.torch
+    for m in K1_ROWS:
+        route = kernel.mpmm_route(m, 45, 70)
+        for w_bits, k in FORMATS:
+            for variant in ("st", "sa"):
+                fmt, planes, gamma, colsum = sm.weights(45, 70, w_bits, k)
+                a = sm.codes((m, 45))
+                d = sm.on_device(dict(a=a, planes=planes, gamma=gamma,
+                                      colsum=colsum))
+                acc = kernel.mpmm_cuda(d["a"], d["planes"], None, None,
+                                       fmt=fmt, act_zero=0, variant=variant,
+                                       out_dtype=t.int32)
+                label = f"K1 {route} acc-only M={m} w{w_bits}k{k} {variant}"
+                sm.compare("mpmm_cuda", label, acc,
+                           kernel.mpmm_torch_acc(a, planes, fmt=fmt))
+                for out_dtype in (t.float32, t.bfloat16):
+                    fused = kernel.mpmm_cuda(
+                        d["a"], d["planes"], d["gamma"], d["colsum"],
+                        fmt=fmt, act_zero=128, variant=variant,
+                        out_dtype=out_dtype)
+                    sm.compare("mpmm_cuda", f"{label} finish {out_dtype}",
+                               epilogue.finish(acc, d["gamma"], d["colsum"],
+                                               act_zero=128, spec=None,
+                                               out_dtype=out_dtype),
+                               fused.cpu())
+    rows = []
+    n = 4096
+    for name, kdim in P19_SPLITS:
+        g = t.Generator(device=sm.device).manual_seed(kdim)
+        whole = packing.PlaneFormat(w_bits=8, k=4, k_dim=kdim)
+        half = packing.PlaneFormat(w_bits=8, k=4, k_dim=kdim // 2)
+        w_int = t.randint(-128, 128, (kdim, n), generator=g,
+                          device=sm.device, dtype=t.int32)
+        planes = packing.pack_planes(w_int, whole)
+        gamma = t.rand((1, n), generator=g, device=sm.device) * 1e-3
+        colsum = w_int.sum(0, dtype=t.int32).reshape(1, n)
+        del w_int
+        kp = half.packed_k
+        p_half = [planes[:, i * kp:(i + 1) * kp].contiguous()
+                  for i in range(2)]
+        for m in P19_ROWS:
+            a = t.randint(-128, 128, (m, kdim), generator=g,
+                          device=sm.device, dtype=t.int32).to(t.int8)
+            a_half = [a[:, i * half.k_dim:(i + 1) * half.k_dim].contiguous()
+                      for i in range(2)]
+            route = kernel.mpmm_route(m, half.k_dim, n)
+            label = f"K1 {route} acc-only granite {name} M={m} K={kdim}/2"
+            accs = []
+            for i in range(2):
+                acc = ops.mpmm_acc(a_half[i], p_half[i], fmt=half,
+                                   impl="cuda")
+                sm.compare("mpmm_cuda", f"{label} shard {i}", acc,
+                           kernel.mpmm_torch_acc(a_half[i], p_half[i],
+                                                 fmt=half).cpu())
+                accs.append(acc)
+            fused = kernel.mpmm_cuda(a, planes, gamma, colsum, fmt=whole,
+                                     act_zero=128, out_dtype=t.bfloat16)
+            sm.compare("mpmm_cuda", f"{label} finish(sum) vs fused whole",
+                       epilogue.finish(accs[0] + accs[1], gamma, colsum,
+                                       act_zero=128, spec=None,
+                                       out_dtype=t.bfloat16), fused.cpu())
+            del fused, accs
+            ms = sm.time_ms(lambda: kernel.mpmm_cuda(
+                a_half[0], p_half[0], None, None, fmt=half, act_zero=0,
+                out_dtype=t.int32))
+            g_h, c_h = gamma.contiguous(), colsum.contiguous()
+            fused_ms = sm.time_ms(lambda: kernel.mpmm_cuda(
+                a_half[0], p_half[0], g_h, c_h, fmt=half, act_zero=128,
+                out_dtype=t.bfloat16))
+            plain_ms = sm.time_ms(lambda: kernel.mpmm_torch_acc(
+                a_half[0], p_half[0], fmt=half), reps=3, warmup=1)
+            lib, lib_name = k1_library(sm, {"a_biased": a_half[0],
+                                            "planes": p_half[0]}, half)
+            bound, by = bound_ms(nbytes(a_half[0], p_half[0]) + m * n * 4,
+                                 2 * m * half.k_dim * n)
+            rows.append({"name": name, "m": m, "k": half.k_dim, "n": n,
+                         "route": route, "ms": ms, "fused_ms": fused_ms,
+                         "plain_ms": plain_ms, "library_ms": sm.time_ms(lib),
+                         "library": lib_name, "bound_ms": bound,
+                         "bound_by": by})
+            del a, a_half
+        del planes, p_half
+    sm.check_phase("19a K1 accumulator-only vs its plain twin; finish after "
+                   "it vs the fused K1")
+    return rows
+
+
+class P19Reduce:
+    """Wraps ``launch.mesh.all_reduce_model`` in a rank: bytes and host
+    milliseconds of each call (the card synchronized around it)."""
+
+    def __init__(self, torch):
+        from repro_torch.launch import mesh as mesh_lib
+        self.torch, self.mesh_lib = torch, mesh_lib
+        self.orig = mesh_lib.all_reduce_model
+        self.calls = []
+
+    def __enter__(self):
+        def counted(mesh, x):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(mesh, x)
+            self.torch.cuda.synchronize()
+            self.calls.append((x.numel() * x.element_size(),
+                               (time.perf_counter() - t0) * 1e3))
+            return out
+        self.mesh_lib.all_reduce_model = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh_lib.all_reduce_model = self.orig
+
+
+def p19_cells(mesh, device):
+    """Phase 19's cells on ``mesh`` (None: one device) -> results with each
+    run's launch counts."""
+    import numpy as np
+    import torch as t
+    from repro_torch import configs
+    from repro_torch.core.plan import PrecisionPlan
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.models import resnet as R
+    from repro_torch.runtime.scheduler import GenerateScheduler
+    from repro_torch.runtime.serve import Generator, ImageServer, init_packed_lm
+
+    def counts():
+        c = read_p11()
+        c["acc_only"] = kernel.mpmm_cuda.acc_launches
+        return c
+    out = {}
+    lapi = lm_api(P19_LM_DEPTH, PrecisionPlan.load(LM_PLAN))
+    b, s_, n_new = P19_LM
+    packed = init_packed_lm(lapi, t.Generator(device=device).manual_seed(SEED),
+                            device=device)
+    gen = Generator(api=lapi, params=packed, device=device, mesh=mesh)
+    del packed
+    prompts = np.random.default_rng(SEED).integers(
+        0, lapi.cfg.vocab, (b, s_)).astype(np.int32)
+    gen.generate(prompts, 2)  # warm-up
+    t.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, logits = gen.run(prompts, n_new)
+    t.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    lm = {"tokens": toks, "logits": [lg.float().cpu().numpy()
+                                     for lg in logits],
+          "counts": counts(), "s": run_s}
+    t0 = time.perf_counter()
+    gen.run(prompts, 1)
+    t.cuda.synchronize()
+    lm["prefill_s"] = time.perf_counter() - t0
+    if mesh is not None:
+        with P19Reduce(t) as red:
+            gen.run(prompts, 1)
+        pre = list(red.calls)
+        with P19Reduce(t) as red:
+            gen.run(prompts, 2)
+        lm["reduce"] = {"prefill": pre, "decode": red.calls[len(pre):]}
+    out["lm"] = lm
+    clock = StepClock()
+    sched = GenerateScheduler(gen, slots=4, max_len=s_ + n_new, clock=clock)
+    rng = np.random.default_rng(SEED + 1)
+    reset_counts()
+    tickets = [sched.submit(rng.integers(0, lapi.cfg.vocab, (plen,)).astype(
+        np.int32), nn) for plen, nn in P18_SCHED]
+    while sched.pending or sched.active:
+        clock.advance(1.0)
+        sched.step(flush=True)
+    out["sched"] = {"results": [tk.result for tk in tickets],
+                    "counts": counts()}
+    del gen, sched
+    api = configs.get(ARCH)
+    plan = PrecisionPlan.load(PLAN)
+    params = api.init_params(t.Generator(device=device).manual_seed(SEED),
+                             device=device)
+    state = R.init_bn_state(api.specs(), device=device)
+    packed = R.pack_for_serve(api.cfg, params, state, plan)
+    del params, state
+    srv = ImageServer(api=api, params=packed, plan=plan, device=device,
+                      batch_buckets=(P19_CNN_BATCH,), mesh=mesh)
+    x = np.random.default_rng(SEED).normal(0, 1, (
+        P19_CNN_BATCH, api.cfg.img_size, api.cfg.img_size, 3)).astype(
+        np.float32)
+    srv.predict(x)  # warm-up
+    t.cuda.synchronize()
+    reset_counts()
+    out["cnn"] = {"logits": srv.predict(x), "counts": counts()}
+    return out
+
+
+def p19_rank(rank, _args):
+    """One rank of phase 19's world: two ranks on cuda:0 over gloo, a
+    (1, 2) mesh, the kernels loaded from the libraries the parent built."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    stale = [n for n in _build.KERNEL_SOURCES if _build._stale(n)]
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_serve_mesh(
+        1, P19_RANKS, devices=["cuda:0"] * P19_RANKS)
+    out = p19_cells(mesh, mesh_lib.local_device(mesh))
+    out["stale"] = stale
+    out["backend"] = mesh_lib.mesh_info(mesh).backend
+    out["coords"] = mesh_lib.model_coords(mesh)
+    return out
+
+
+def p19_check(sm, ranks, one):
+    """The contract of (b) and (c): prefill and decode logits bitwise one
+    device (the cache's 1016 positions split evenly, so the split decode
+    runs the one-device routine on the same row), tokens equal, every
+    rank's logits the same, each rank's launches those of one device
+    (every layer's K1 calls run on the rank's slice, o and down
+    accumulator-only), the scheduler's tickets and the ResNet bitwise ->
+    decode logits' largest difference over the largest |logit|."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.plan import PrecisionPlan
+    lapi = lm_api(P19_LM_DEPTH, PrecisionPlan.load(LM_PLAN))
+    b, s_, n_new = P19_LM
+    want_routes, k3, k4 = expected_counts(lapi, b, s_, n_new)
+    want_acc = 2 * P19_LM_DEPTH * n_new
+    cnn_want, cnn_routes, _ = resnet_launches(configs.get(ARCH).cfg,
+                                              PrecisionPlan.load(PLAN),
+                                              P19_CNN_BATCH)
+    rel = 0.0
+    for r, res in enumerate(ranks):
+        lm = res["lm"]
+        if res["stale"] or res["backend"] != "gloo" \
+                or res["coords"] != (r, P19_RANKS):
+            sm.failures.append(f"p19 rank {r}: stale {res['stale']}, "
+                               f"backend {res['backend']}, coords "
+                               f"{res['coords']}")
+        if not np.array_equal(lm["logits"][0], one["lm"]["logits"][0]):
+            sm.failures.append(f"p19 rank {r}: prefill logits not bitwise "
+                               f"one device")
+        bad = [i for i, (a, w) in enumerate(zip(lm["logits"][1:],
+                                                 one["lm"]["logits"][1:]))
+               if not np.array_equal(a, w)]
+        if bad:
+            sm.failures.append(f"p19 rank {r}: decode logits not bitwise "
+                               f"one device at steps {bad}")
+        if not np.array_equal(lm["tokens"], one["lm"]["tokens"]):
+            sm.failures.append(f"p19 rank {r}: tokens differ from one device")
+        for a, w in zip(lm["logits"][1:], one["lm"]["logits"][1:]):
+            rel = max(rel, float(np.abs(a - w).max() / np.abs(w).max()))
+        if r and not p18_equal(lm["logits"], ranks[0]["lm"]["logits"]):
+            sm.failures.append(f"p19 rank {r}: logits differ from rank 0")
+        c = lm["counts"]
+        got_routes = {k[6:]: v for k, v in c.items()
+                      if k.startswith("route:") and v}
+        if (got_routes != want_routes or c["flash_fwd_cuda"] != k3
+                or c["flash_fwd_packed_cuda"] != k4
+                or c["conv_mpmm_cuda"] or c["acc_only"] != want_acc):
+            sm.failures.append(f"p19 rank {r} lm launches {c} != "
+                               f"{want_routes} K3 {k3} K4 {k4} acc-only "
+                               f"{want_acc}")
+        if not p18_equal(res["sched"]["results"], one["sched"]["results"]):
+            sm.failures.append(f"p19 rank {r}: scheduler tickets differ")
+        if not np.array_equal(res["cnn"]["logits"], one["cnn"]["logits"]):
+            sm.failures.append(f"p19 rank {r}: ResNet-18 not bitwise")
+        c = res["cnn"]["counts"]
+        if {k: c[k] for k in cnn_want} != cnn_want or {
+                k[6:]: v for k, v in c.items()
+                if k.startswith("route:")} != cnn_routes or c["acc_only"]:
+            sm.failures.append(f"p19 rank {r} cnn launches {c} != "
+                               f"{cnn_want} {cnn_routes}")
+    return rel
+
+
+def phase_p19(sm, card):
+    """Phase 19: (a) K1 accumulator-only; then (b, c) granite-8b x4 at full
+    width, its scheduler and ResNet-18 on one device here, then on a (1, 2)
+    mesh of two ranks sharing cuda:0 -> (the ranks' summed launches, what
+    was measured)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    release(sm)
+    k1_rows = p19_acc_only(sm)
+    release(sm)
+    one = p19_cells(None, sm.device)
+    release(sm)
+    t1 = time.perf_counter()
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.spawn(p19_rank, P19_RANKS, (None,),
+                           store_dir=str(ROOT / "build" / "p19"),
+                           backend="gloo", timeout_s=500)
+    spawn_s = time.perf_counter() - t1
+    rel = p19_check(sm, ranks, one)
+    sm.check_phase("19 tensor-parallel serving, (1, 2) mesh on cuda:0: "
+                   "prefill and decode logits bitwise, tokens equal, ranks "
+                   "equal, launches, scheduler and ResNet-18 bitwise")
+    launches = {}
+    for res in ranks:
+        for cell in ("lm", "sched", "cnn"):
+            launches = add_counts(launches, res[cell]["counts"])
+    for r in k1_rows:
+        log(f"[p19-time] K1 {r['name']} shard M={r['m']} K={r['k']} "
+            f"N={r['n']} route {r['route']}: accumulator-only "
+            f"{r['ms']:.4f} ms, fused epilogue {r['fused_ms']:.4f} ms, "
+            f"plain twin {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms ({r['library']}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it)  ({card})")
+    b, s_, n_new = P19_LM
+    red = ranks[0]["lm"]["reduce"]
+    for step, calls in (("prefill", red["prefill"]),
+                        ("decode step", red["decode"])):
+        nb = sum(c[0] for c in calls)
+        ms = sum(c[1] for c in calls)
+        log(f"[p19-time] rank 0 int32 all-reduce per {step}: {len(calls)} "
+            f"calls, {nb} bytes, {ms:.2f} ms host clock (card synchronized "
+            f"around each; through the host, gloo)  ({card})")
+    dec = {k: (v["lm"]["s"] - v["lm"]["prefill_s"]) / (n_new - 1) * 1e3
+           for k, v in (("one device", one), ("rank 0", ranks[0]),
+                        ("rank 1", ranks[1]))}
+    pre = {k: v["lm"]["prefill_s"] * 1e3 for k, v in
+           (("one device", one), ("rank 0", ranks[0]), ("rank 1", ranks[1]))}
+    log(f"[p19-time] granite-8b x{P19_LM_DEPTH} {b} x {s_} + {n_new} host "
+        f"clock: prefill " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                       pre.items())
+        + "; decode per step " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                           dec.items())
+        + f"; world started and served in {spawn_s:.1f} s -- two ranks "
+        f"sharing one card over the host measure nothing of scaling  "
+        f"({card})")
+    log(f"[p19] prefill and decode logits bitwise one device (largest "
+        f"difference {rel} of the largest |logit|); tokens equal; rank 0 "
+        f"launches {ranks[0]['lm']['counts']}")
+    log(f"[p19] phase 19 took {time.perf_counter() - t0:.1f} s")
+    acc = {"launches": sum(res[c]["counts"]["acc_only"] for res in ranks
+                           for c in ("lm", "sched", "cnn")),
+           "ms": float(np.sum([r["ms"] for r in k1_rows])),
+           "fused_ms": float(np.sum([r["fused_ms"] for r in k1_rows])),
+           "plain_ms": float(np.sum([r["plain_ms"] for r in k1_rows])),
+           "library_ms": float(np.sum([r["library_ms"] for r in k1_rows])),
+           "bound_ms": float(np.sum([r["bound_ms"] for r in k1_rows])),
+           "shapes": [f"{r['name']} M={r['m']} K={r['k']} N={r['n']}"
+                      for r in k1_rows]}
+    return launches, acc
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -5554,8 +5945,14 @@ def run_phases(torch) -> int:
     k1_routes = {k: k1_routes[k] + p18_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p18] phase 18 done at {time.perf_counter() - t_start:.1f} s")
+    p19_launches, acc_only = phase_p19(sm, card)
+    launches = {k: launches[k] + p19_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p19_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p19] phase 19 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
+    kernels[0]["acc_only"] = acc_only
 
     for r in rows:
         log(f"[time] {r['kernel']} {r['layer']:7s} {r['shape']}"

@@ -353,7 +353,8 @@ __device__ __forceinline__ void mma_step(int (&acc)[MI][BN / 2],
 // shared memory the products no longer use), then each thread loads the
 // residual of G column pairs of all its rows at once (addresses clamped
 // into the output, values past M or N unused) before it finishes those
-// elements through epilogue_value and stores each pair together.
+// elements through epilogue_value and stores each pair together.  Under
+// mpmm::ACC_ONLY each pair is stored as its two int32 accumulators.
 template <int MI, int BN>
 __device__ __forceinline__ void store_tile(const mpmm::Epilogue& e,
                                            const int (&acc)[MI][BN / 2],
@@ -367,11 +368,12 @@ __device__ __forceinline__ void store_tile(const mpmm::Epilogue& e,
   const bool bn = e.flags & mpmm::EPI_BN;
   const bool res = e.flags & mpmm::EPI_RESIDUAL;
   const bool res_bf16 = e.flags & mpmm::RES_BF16;
+  const bool acc_only = e.flags & mpmm::ACC_ONLY;
   __syncthreads();  // every thread is past its last product
   for (int i = threadIdx.x; i < BN; i += THREADS) {
     const int n = min(n0 + i, N - 1);
-    s_gamma[i] = __ldg(e.gamma + n);
-    s_colsum[i] = __ldg(e.colsum + n);
+    s_gamma[i] = acc_only ? 0.f : __ldg(e.gamma + n);
+    s_colsum[i] = acc_only ? 0 : __ldg(e.colsum + n);
     s_scale[i] = bn ? __ldg(e.scale + n) : 0.f;
     s_shift[i] = bn ? __ldg(e.shift + n) : 0.f;
   }
@@ -424,6 +426,20 @@ __device__ __forceinline__ void store_tile(const mpmm::Epilogue& e,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int m = rbase + (wgi * MI + mi) * 64 + 8 * i;
+          if (acc_only) {  // the raw int32 pair, no epilogue
+            if (m >= M || n >= N) continue;
+            const int v0 = acc[mi][4 * (j0 + jj) + 2 * i];
+            const int v1 = acc[mi][4 * (j0 + jj) + 2 * i + 1];
+            int* out = static_cast<int*>(e.out) +
+                       static_cast<size_t>(m) * N + n;
+            if (pair_ok) {
+              *reinterpret_cast<int2*>(out) = make_int2(v0, v1);
+            } else {
+              out[0] = v0;
+              if (n + 1 < N) out[1] = v1;
+            }
+            continue;
+          }
           float y[2];
 #pragma unroll
           for (int c = 0; c < 2; ++c) {

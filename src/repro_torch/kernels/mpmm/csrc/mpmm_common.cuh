@@ -1,7 +1,11 @@
 // The fused f32 epilogue of the mixed-precision kernels: its flag bits,
 // its operands, and epilogue_store, the op order every kernel follows (K1's
 // route B, mpmm_splitk.cu, stores through it; K1's route A and K2 apply the
-// same ops through mpmm_bits.cuh's epilogue_value).
+// same ops through mpmm_bits.cuh's epilogue_value).  ACC_ONLY stores the raw
+// int32 accumulator instead, with no zero point, dequant or post-op: a
+// tensor-parallel row shard's partial product, which the caller sums across
+// ranks before the epilogue (gamma and colsum are then not read and may be
+// null).
 //
 // Storage format (repro_torch/core/packing.py): a w-bit signed weight code
 // is split into P = ceil(w/k) k-bit digit planes, lower planes unsigned, the
@@ -24,6 +28,7 @@ enum : int {
   EPI_RELU = 4,
   RES_BF16 = 8,
   OUT_BF16 = 16,
+  ACC_ONLY = 32,  // out is int32 (M, N): the accumulator, nothing else
 };
 
 struct Epilogue {
@@ -46,8 +51,8 @@ __device__ __forceinline__ Epilogue group_epilogue(const Epilogue& e, int g,
   Epilogue r = e;
   const size_t col = static_cast<size_t>(g) * N;
   const size_t mat = col * M;
-  r.gamma += col;
-  r.colsum += col;
+  if (r.gamma != nullptr) r.gamma += col;
+  if (r.colsum != nullptr) r.colsum += col;
   if (r.scale != nullptr) r.scale += col;
   if (r.shift != nullptr) r.shift += col;
   if (r.residual != nullptr) {
@@ -61,9 +66,13 @@ __device__ __forceinline__ Epilogue group_epilogue(const Epilogue& e, int g,
 // zero-point correction -> dequant -> BN -> residual -> ReLU -> cast, in the
 // op order of kernels/mpmm/epilogue.py.  Each step rounds once: __fmul_rn
 // and __fadd_rn are never contracted, and BN is one fused multiply-add,
-// as XLA contracts y * scale + shift.
+// as XLA contracts y * scale + shift.  Under ACC_ONLY the int32 itself.
 __device__ __forceinline__ void epilogue_store(const Epilogue& e, int acc,
                                                int n, size_t idx) {
+  if (e.flags & ACC_ONLY) {
+    static_cast<int*>(e.out)[idx] = acc;
+    return;
+  }
   const int corrected = acc + e.act_zero * e.colsum[n];
   float y = __fmul_rn(__int2float_rn(corrected), e.gamma[n]);
   if (e.flags & EPI_BN) y = __fmaf_rn(y, e.scale[n], e.shift[n]);

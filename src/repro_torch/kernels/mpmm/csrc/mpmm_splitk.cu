@@ -250,7 +250,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // y = epilogue(sum over splits of the partials, in split order), for every
-// (group, row, column).
+// (group, row, column); under ACC_ONLY the int32 sum itself.
 __global__ void __launch_bounds__(THREADS)
     mpmm_splitk_epilogue(const int* __restrict__ ws, int M, int N, int splits,
                          int groups, Epilogue e) {

@@ -51,6 +51,8 @@
 //   kernels/mpmm/epilogue.py), with the tile's column operands staged in
 //   shared memory, the residual loaded in batches that wait on no branch
 //   or store, and two columns stored together (mpmm_bits.cuh store_tile).
+//   With the ACC_ONLY flag the pairs are the raw int32 accumulators (a
+//   tensor-parallel row shard, summed across ranks before the epilogue).
 #include "mpmm_bits.cuh"
 
 namespace {

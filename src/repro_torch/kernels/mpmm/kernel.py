@@ -35,10 +35,19 @@ version.  Neither route falls back to the other or to the plain version.
 weights, then ``epilogue.finish``.  The CPU tests hold it against the JAX
 package, and ``chip_smoke.py`` holds the kernel against it on the card.
 
+``out_dtype=torch.int32`` is the accumulator-only mode (flag
+``ACC_ONLY``): both routes store the int32 ``a_biased @ W_int`` itself,
+with no zero point, dequant or post-op, and take no gamma or colsum.  A
+tensor-parallel row shard (a projection whose contraction axis is split
+over the 'model' ranks) runs it, the ranks sum the int32 partials, and the
+shared ``epilogue.finish`` completes the whole sum; ``mpmm_torch_acc`` is
+its plain version.
+
 The wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take.  ``mpmm_cuda.launches`` counts calls of
-K1 (a split-K call is one, though it launches two CUDA kernels), and
-``mpmm_cuda.routes`` counts them by route.
+K1 (a split-K call is one, though it launches two CUDA kernels),
+``mpmm_cuda.routes`` counts them by route and ``mpmm_cuda.acc_launches``
+those of the accumulator-only mode among them.
 """
 from __future__ import annotations
 
@@ -58,7 +67,7 @@ from repro_torch.kernels.mpmm.epilogue import EpilogueSpec
 
 __all__ = ["TILE", "ROUTES", "SPLITK_MAX_M", "SplitPlan", "mpmm_route",
            "split_plan", "workspace_bytes", "mpmm_cuda", "mpmm_torch",
-           "epilogue_flags", "PLAIN_SLICE_VALUES"]
+           "mpmm_torch_acc", "epilogue_flags", "PLAIN_SLICE_VALUES"]
 
 # Route A's fixed (bm, bk, bn) tile under Sum-Together (csrc/mpmm_wgmma.cu
 # Smem<2>::BM, BK, BN; Sum-Apart runs bm = 128).
@@ -75,13 +84,22 @@ SPLITK_MAX_CHUNK_DIGITS = 2048  # csrc/mpmm_splitk.cu MAX_CHUNK_DIGITS
 
 # Epilogue flag bits, as csrc/mpmm_common.cuh defines them.
 EPI_BN, EPI_RESIDUAL, EPI_RELU, RES_BF16, OUT_BF16 = 1, 2, 4, 8, 16
+ACC_ONLY = 32
 OUT_DTYPES = (torch.float32, torch.bfloat16)
+ACC_DTYPE = torch.int32  # out_dtype of the accumulator-only mode
 VARIANTS = ("st", "sa")
 
 
 def epilogue_flags(spec: Optional[EpilogueSpec],
                    residual: Optional[torch.Tensor], out_dtype) -> int:
-    """The kernel's epilogue flag word for ``spec`` and the operand dtypes."""
+    """The kernel's epilogue flag word for ``spec`` and the operand dtypes:
+    ``ACC_ONLY`` alone for an int32 output, which takes no epilogue."""
+    if out_dtype == ACC_DTYPE:
+        if spec is not None:
+            raise ValueError("an int32 (accumulator-only) output takes no "
+                             "epilogue; finish the summed accumulator "
+                             "with epilogue.finish")
+        return ACC_ONLY
     flags = 0
     if spec is not None:
         flags |= (EPI_BN if spec.bn else 0) | (EPI_RELU if spec.relu else 0)
@@ -116,10 +134,13 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
 def check_common(device: torch.device, planes: torch.Tensor, fmt: PlaneFormat,
                  gamma: torch.Tensor, colsum: torch.Tensor,
                  scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
-                 variant: str, out_dtype, groups: int = 1) -> None:
+                 variant: str, out_dtype, groups: int = 1,
+                 acc_only_ok: bool = False) -> None:
     """Checks shared by both kernel wrappers (everything but the input).
     ``groups`` products share one launch: planes then carry a leading
-    group axis and each column operand holds ``groups`` x N values."""
+    group axis and each column operand holds ``groups`` x N values.  An
+    int32 ``out_dtype`` (K1's accumulator-only mode, ``acc_only_ok``)
+    reads no gamma, colsum, scale or shift, which must then be None."""
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}; "
                          f"use impl='torch' (or 'auto') for CPU tensors")
@@ -127,6 +148,16 @@ def check_common(device: torch.device, planes: torch.Tensor, fmt: PlaneFormat,
     lead = (groups,) if planes.ndim == 4 else ()
     check_operand("planes", planes, device, (torch.uint8,),
                   lead + (fmt.planes, fmt.packed_k, n))
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if out_dtype == ACC_DTYPE and acc_only_ok:
+        given = [name for name, t in (("gamma", gamma), ("colsum", colsum),
+                                      ("scale", scale), ("shift", shift))
+                 if t is not None]
+        if given:
+            raise ValueError(f"the int32 accumulator-only mode reads no "
+                             f"{given}; pass None")
+        return
     check_operand("gamma", gamma, device, (torch.float32,))
     check_operand("colsum", colsum, device, (torch.int32,))
     for name, t in (("gamma", gamma), ("colsum", colsum), ("scale", scale),
@@ -137,10 +168,10 @@ def check_common(device: torch.device, planes: torch.Tensor, fmt: PlaneFormat,
     for name, t in (("scale", scale), ("shift", shift)):
         if t is not None:
             check_operand(name, t, device, (torch.float32,))
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if out_dtype not in OUT_DTYPES:
-        raise TypeError(f"out_dtype must be one of {OUT_DTYPES}, got {out_dtype}")
+        raise TypeError(f"out_dtype must be one of {OUT_DTYPES}"
+                        + (f" or {ACC_DTYPE} (accumulator-only)"
+                           if acc_only_ok else "") + f", got {out_dtype}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -251,7 +282,9 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
               scale: Optional[torch.Tensor] = None,
               shift: Optional[torch.Tensor] = None,
               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 on CUDA tensors -> (M, N) of ``out_dtype`` (f32 or bf16).
+    """Launch K1 on CUDA tensors -> (M, N) of ``out_dtype``: f32 or bf16,
+    or int32 for the accumulator-only mode (gamma and colsum None, no
+    epilogue, ``act_zero`` unused: the raw ``a_biased @ W_int``).
 
     a_biased int8 (M, K) with K == fmt.k_dim; planes uint8 (P, Kp, N);
     gamma f32 and colsum int32 with N values; scale/shift f32 with N values
@@ -271,7 +304,7 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
                          f"{tuple(a_biased.shape)} and {tuple(planes.shape)}")
     groups = a_biased.shape[0] if a_biased.ndim == 3 else 1
     check_common(device, planes, fmt, gamma, colsum, scale, shift, variant,
-                 out_dtype, groups)
+                 out_dtype, groups, acc_only_ok=True)
     m, kdim = a_biased.shape[-2:]
     n = planes.shape[-1]
     if kdim != fmt.k_dim:
@@ -305,17 +338,38 @@ def mpmm_cuda(a_biased: torch.Tensor, planes: torch.Tensor,
     raise_on_error(f"mpmm_cuda ({route})", err)
     mpmm_cuda.launches += 1
     mpmm_cuda.routes[route] += 1
+    mpmm_cuda.acc_launches += out_dtype == ACC_DTYPE
     return out
 
 
 mpmm_cuda.launches = 0
 mpmm_cuda.routes = dict.fromkeys(ROUTES, 0)
+mpmm_cuda.acc_launches = 0
 
 
 # Columns of one slice of the plain version: its float64 product and its
 # recombined weights stay near 2^28 values, so a weight as wide as a
 # 256000-word head does not hold several copies of itself in memory.
 PLAIN_SLICE_VALUES = 1 << 28
+
+
+def _column_slices(fmt: PlaneFormat, lead, n: int):
+    """Column slices of the plain version: about ``PLAIN_SLICE_VALUES``
+    weight values each."""
+    step = max(1, PLAIN_SLICE_VALUES // max(1, fmt.k_dim * math.prod(lead)))
+    return [slice(c0, min(c0 + step, n)) for c0 in range(0, max(n, 1), step)]
+
+
+def mpmm_torch_acc(a_biased: torch.Tensor, planes: torch.Tensor, *,
+                   fmt: PlaneFormat) -> torch.Tensor:
+    """Plain version of K1's accumulator-only mode: the exact int32
+    ``a_biased @ W_int`` (a group as in ``mpmm_torch``), no epilogue."""
+    outs = []
+    for sl in _column_slices(fmt, a_biased.shape[:-2], planes.shape[-1]):
+        w8 = _ref.combined_int8_weights(planes[..., sl], fmt)
+        outs.append(_ref.int_matmul(a_biased, w8))
+        del w8
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 def mpmm_torch(a_biased: torch.Tensor, planes: torch.Tensor,
@@ -342,10 +396,8 @@ def mpmm_torch(a_biased: torch.Tensor, planes: torch.Tensor,
     cols = lambda t: (None if t is None  # noqa: E731
                       else t.reshape(*lead, 1, n))
     gamma, colsum, scale, shift = map(cols, (gamma, colsum, scale, shift))
-    step = max(1, PLAIN_SLICE_VALUES // max(1, fmt.k_dim * math.prod(lead)))
     outs = []
-    for c0 in range(0, max(n, 1), step):
-        sl = slice(c0, min(c0 + step, n))
+    for sl in _column_slices(fmt, lead, n):
         w8 = _ref.combined_int8_weights(planes[..., sl], fmt)
         acc = _ref.int_matmul(a_biased, w8)
         del w8

@@ -41,6 +41,7 @@ __all__ = [
     "prepare_weights",
     "combined_int8_weights",
     "mpmm",
+    "mpmm_acc",
     "mpmm_packed",
     "conv_mpmm",
     "conv_implicit_feasible",
@@ -160,6 +161,31 @@ def mpmm(a_biased: torch.Tensor, planes: torch.Tensor, gamma: torch.Tensor,
     out = fn(a2, planes, gamma, colsum, fmt=fmt, act_zero=act_zero,
              variant=variant, out_dtype=out_dtype, epilogue=epilogue,
              scale=scale, shift=shift, residual=res2)
+    return out.reshape(*lead, n)
+
+
+def mpmm_acc(a_biased: torch.Tensor, planes: torch.Tensor, *,
+             fmt: PlaneFormat, variant: str = "st",
+             impl: str = "auto") -> torch.Tensor:
+    """The int32 accumulator ``a_biased @ W_int`` (..., N) alone: K1's
+    accumulator-only mode on CUDA (``kernel.mpmm_cuda`` with an int32
+    output), ``kernel.mpmm_torch_acc`` on the CPU.  A tensor-parallel row
+    shard's partial product: the ranks' partials summed, then
+    ``epilogue.finish`` with the whole gamma and colsum, is bitwise
+    ``mpmm`` of the whole contraction.  An expert bank as in ``mpmm``."""
+    kdim = a_biased.shape[-1]
+    n = planes.shape[-1]
+    group = (planes.shape[0],) if planes.ndim == 4 else ()
+    if group and a_biased.shape[0] != group[0]:
+        raise ValueError(f"a bank of {group[0]} experts needs a_biased "
+                         f"(E, ..., K), got {tuple(a_biased.shape)}")
+    lead = a_biased.shape[:-1]
+    a2 = a_biased.reshape(*group, -1, kdim).contiguous()
+    if _resolve_impl(impl, a_biased) == "cuda":
+        out = _kernel.mpmm_cuda(a2, planes, None, None, fmt=fmt, act_zero=0,
+                                variant=variant, out_dtype=_kernel.ACC_DTYPE)
+    else:
+        out = _kernel.mpmm_torch_acc(a2, planes, fmt=fmt)
     return out.reshape(*lead, n)
 
 

@@ -11,10 +11,15 @@ list may map them so; NCCL refuses two ranks on one card).  Every
 
 Each mesh carries what its rank needs beside the ``DeviceMesh``
 (``mesh_info``): the rank's device, the world's backend and a gloo group
-for host values.  ``gather_rows`` all-gathers rank-equal row blocks (through
-the host where the backend is gloo and the rows lie on a card), and
+for host values.  ``gather_rows`` all-gathers rank-equal row blocks over
+'data' (ranks that share a data coordinate hold the same rows), and
 ``shared_clock`` makes every rank read rank 0's clock, so schedulers take
-the same decisions on every rank.
+the same decisions on every rank.  Tensor-parallel serving (a 'model' axis
+above 1) has two collectives over 'model', both in rank order:
+``all_reduce_model`` sums int32 partial accumulators exactly, and
+``all_gather_model`` concatenates shards.  All three take the host route
+where the backend is gloo and the tensor lies on a card (NCCL refuses
+two ranks on one card, so such a world is gloo).
 
 Nothing here touches ``torch.distributed`` until a mesh is made.
 """
@@ -34,7 +39,8 @@ from repro_torch.nn import partitioning as part
 
 __all__ = ["make_production_mesh", "make_local_mesh", "make_serve_mesh",
            "parse_mesh_spec", "mesh_axes", "chips", "MeshInfo", "mesh_info",
-           "local_device", "data_coords", "gather_rows", "broadcast_value",
+           "local_device", "data_coords", "model_coords", "gather_rows",
+           "all_reduce_model", "all_gather_model", "broadcast_value",
            "DataRows",
            "shared_clock", "spawn", "INIT_TIMEOUT_S"]
 
@@ -179,8 +185,9 @@ def make_serve_mesh(data: Optional[int] = None, model: int = 1, *,
                     device="cuda", devices=None):
     """(data, model) serving mesh over the world's ranks (default: all of
     them data-parallel).  Rank r serves on ``devices[r]`` when given, else
-    on its card (``device="cuda"``) or the CPU.  A 'model' axis above 1
-    raises ``NotImplementedError`` (ROADMAP 16b (ii))."""
+    on its card (``device="cuda"``) or the CPU; rank r sits at (r // model,
+    r % model), so the ranks of one data coordinate are consecutive.  The
+    serving objects decide which archs a 'model' axis above 1 serves."""
     world = _world_size()
     if data is None:
         data = world // model
@@ -188,7 +195,7 @@ def make_serve_mesh(data: Optional[int] = None, model: int = 1, *,
         raise ValueError(
             f"model axis {model} exceeds the world's {world} ranks (a "
             f"0x{model} mesh has no data shards)")
-    part.require_data_parallel({"data": data, "model": model})
+    part.require_serve_mesh({"data": data, "model": model})
     if data * model > world:
         raise ValueError(
             f"serve mesh {data}x{model} needs {data * model} ranks, the "
@@ -230,25 +237,66 @@ def data_coords(mesh) -> Tuple[int, int]:
     return mesh.get_local_rank("data"), n
 
 
+def model_coords(mesh) -> Tuple[int, int]:
+    """(this rank's coordinate on 'model', the axis' size); (0, 1) without
+    a mesh."""
+    sizes = part.axis_sizes(mesh) if mesh is not None else {}
+    n = sizes.get("model", 1)
+    if n == 1:
+        return 0, 1
+    return mesh.get_local_rank("model"), n
+
+
+def _gather(mesh, axis: str, n: int, x: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's ``x`` along mesh axis ``axis`` (size ``n``), in rank
+    order, as tensors on ``x``'s device.  Moved as bytes, so any dtype;
+    through the host where the backend is gloo and ``x`` lies on a card."""
+    t = x.contiguous()
+    if t.numel() == 0:
+        return [t] * n
+    dist = _dist()
+    flat = t.reshape(-1).view(torch.uint8)
+    via_host = mesh_info(mesh).backend == "gloo" and flat.is_cuda
+    src = flat.cpu() if via_host else flat
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=mesh.get_group(axis))
+    return [p.to(x.device).view(x.dtype).reshape(t.shape) for p in parts]
+
+
 def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     """All-gather each rank's equal block of rows (dim 0) over 'data', in
-    rank order.  Any dtype (moved as bytes); through the host where the
-    backend is gloo and ``x`` lies on a card."""
+    rank order."""
     _, n = data_coords(mesh)
     if n == 1:
         return x
-    t = x.contiguous()
-    if t.numel() == 0:
-        return x.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
-    dist = _dist()
-    info = mesh_info(mesh)
-    flat = t.reshape(-1).view(torch.uint8)
-    via_host = info.backend == "gloo" and flat.is_cuda
-    src = flat.cpu() if via_host else flat
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=mesh.get_group("data"))
-    out = torch.cat(parts).to(x.device).view(x.dtype)
-    return out.reshape((n * t.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat(_gather(mesh, "data", n, x))
+
+
+def all_gather_model(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Each 'model' rank's shard of a tensor, concatenated along ``dim`` in
+    rank order: every model rank gets the same tensor, bit for bit."""
+    _, n = model_coords(mesh)
+    if n == 1:
+        return x
+    return torch.cat(_gather(mesh, "model", n, x), dim=dim)
+
+
+def all_reduce_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum over the 'model' ranks of an int32 tensor: every rank's
+    partial gathered, then added in rank order on each rank.  Exact:
+    int32 addition wraps and is associative, so the sum is the one-device
+    accumulator whatever the order."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"all_reduce_model sums int32 accumulators, got "
+                        f"{x.dtype}")
+    _, n = model_coords(mesh)
+    if n == 1:
+        return x
+    parts = _gather(mesh, "model", n, x)
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out += p
+    return out
 
 
 class DataRows:
@@ -282,9 +330,9 @@ class DataRows:
 
 
 def broadcast_value(mesh, value: float) -> float:
-    """Rank 0's ``value`` on every rank (a float64 through the host)."""
-    _, n = data_coords(mesh)
-    if n == 1:
+    """Rank 0's ``value`` on every rank of the mesh (a float64 through the
+    host)."""
+    if chips(mesh) == 1:
         return value
     dist = _dist()
     buf = torch.tensor([value], dtype=torch.float64)
@@ -293,9 +341,11 @@ def broadcast_value(mesh, value: float) -> float:
 
 
 def shared_clock(clock: Callable[[], float], mesh) -> Callable[[], float]:
-    """``clock`` as rank 0 reads it, on every rank: each call is one
-    broadcast, so every rank must read it in the same order (SPMD)."""
-    if mesh is None or data_coords(mesh)[1] == 1:
+    """``clock`` as rank 0 reads it, on every rank (of a 'data' or a 'model'
+    axis alike: their decisions must agree for their collectives to
+    match): each call is one broadcast, so every rank must read it in the
+    same order (SPMD)."""
+    if mesh is None or chips(mesh) == 1:
         return clock
 
     def read() -> float:

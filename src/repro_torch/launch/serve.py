@@ -55,20 +55,21 @@ without a card; ``--device cpu`` runs the kernels' plain versions.
 OUT.prom`` the metrics registry in Prometheus text, ``--profile DIR`` a
 ``torch.profiler`` trace of the measured section (``DIR/trace.json``).
 
-Data-parallel serving over a device mesh, one process a rank:
-``--devices N`` starts N local ranks (gloo on the CPU, NCCL on cards;
-``--share-cards`` puts ranks on fewer cards round-robin, over gloo, as on a
-one-card machine), and ``--mesh DxM`` names the mesh (``D`` = N; ``M`` > 1,
-tensor-parallel serving, exits naming ROADMAP 16b (ii)).  Under
-``torchrun --nproc-per-node N`` the environment's world is used and
-``--devices``, if given, must equal it.  Every rank serves the same
-requests on its rows of each batch and all-gathers the results; rank 0
-prints:
+Serving over a device mesh, one process a rank: ``--devices N`` starts N
+local ranks (gloo on the CPU, NCCL on cards; ``--share-cards`` puts ranks
+on fewer cards round-robin, over gloo, as on a one-card machine), and
+``--mesh DxM`` names the mesh (``D x M`` = N).  ``M`` > 1 is
+tensor-parallel serving, for the dense decoders and the ResNets; the MoE
+and MLA archs, mamba2, recurrentgemma and whisper exit naming ROADMAP 16b
+(ii-b).  Under ``torchrun --nproc-per-node N`` the environment's world is
+used and ``--devices``, if given, must equal it.  Every rank serves the
+same requests on its data coordinate's rows of each batch and all-gathers
+the results; rank 0 prints:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
-        --reduced --devices 4 --mesh 4x1 --batch 8 --device cpu
+        --reduced --devices 4 --mesh 2x2 --batch 8 --device cpu
     torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
-        --arch granite-8b --mesh 8x1 --batch 32
+        --arch granite-8b --mesh 4x2 --batch 32
 
 ``--xla-serving-flags`` of the JAX launcher has no counterpart (XLA only,
 ROADMAP 16c).
@@ -93,7 +94,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import train_state_specs
 from repro_torch.runtime.serve import (Generator, ImageServer,
-                                       init_packed_views, pack_for_serving)
+                                       init_packed_views, pack_for_serving,
+                                       require_tensor_parallel)
 from repro_torch.runtime.telemetry import (NULL_METRICS, NULL_TRACER,
                                            MetricsRegistry, Tracer,
                                            device_time_split,
@@ -457,9 +459,10 @@ def _parser() -> argparse.ArgumentParser:
                          "section into DIR/trace.json")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     type=_mesh_spec,
-                    help="serve mesh DATAxMODEL (e.g. 4x1): each batch "
-                         "split over D ranks; M > 1 (tensor-parallel) is "
-                         "ROADMAP 16b (ii)")
+                    help="serve mesh DATAxMODEL (e.g. 4x1, 2x2): each "
+                         "batch split over D data coordinates, the model "
+                         "tensor-parallel over M ranks (dense decoders and "
+                         "ResNets)")
     ap.add_argument("--devices", type=_ranks, default=None, metavar="N",
                     help="start N local ranks (one process each) for "
                          "--mesh; under torchrun it must equal the world")
@@ -483,25 +486,30 @@ def _ranks(text: str) -> int:
 
 
 def _world(args):
-    """(ranks, spawn here?) for the mesh flags: the environment's world
-    under torchrun, else ``--devices`` (default the mesh's D)."""
+    """(ranks, model axis, spawn here?) for the mesh flags: the
+    environment's world under torchrun, else ``--devices`` (default the
+    mesh's D x M).  An arch a model axis above 1 does not serve exits
+    here, before any rank starts."""
     d = m = None
     if args.mesh is not None:
         d, m = args.mesh
         if m > 1:
-            raise SystemExit(
-                f"--mesh {d}x{m}: a model axis above 1 is tensor-parallel "
-                f"serving, ROADMAP 16b (ii); the port serves data-parallel "
-                f"meshes (Dx1)")
+            try:
+                require_tensor_parallel(
+                    configs.get(args.arch, reduced=args.reduced),
+                    {"data": d, "model": m})
+            except NotImplementedError as e:
+                raise SystemExit(f"--mesh {d}x{m}: {e}") from None
     env = os.environ.get("WORLD_SIZE")
-    n = int(env) if env is not None else (args.devices or d or 1)
+    n = int(env) if env is not None else (args.devices or
+                                          (d * m if d else 1))
     if args.devices is not None and args.devices != n:
         raise SystemExit(f"--devices {args.devices} but torchrun's world "
                          f"has {n} ranks")
-    if d is not None and d != n:
-        raise SystemExit(f"--mesh {d}x{m} needs {d} ranks; the world has "
-                         f"{n} (--devices / torchrun --nproc-per-node)")
-    return n, env is None and n > 1
+    if d is not None and d * m != n:
+        raise SystemExit(f"--mesh {d}x{m} needs {d * m} ranks; the world "
+                         f"has {n} (--devices / torchrun --nproc-per-node)")
+    return n, m or 1, env is None and n > 1
 
 
 def _rank_devices(args, n):
@@ -524,7 +532,7 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     mesh = None
     if args.mesh is not None or args.devices is not None:
-        n, spawn_here = _world(args)
+        n, m, spawn_here = _world(args)
         devices = _rank_devices(args, n)
         if spawn_here:
             import tempfile
@@ -534,7 +542,7 @@ def main(argv=None) -> int:
                 rcs = mesh_lib.spawn(_rank_main, n, (argv,), store_dir=store,
                                      backend=backend)
             return max(rcs)
-        mesh = mesh_lib.make_serve_mesh(n, 1, device=args.device,
+        mesh = mesh_lib.make_serve_mesh(n // m, m, device=args.device,
                                         devices=devices)
         print(f"[serve] mesh {dict(mesh_lib.mesh_axes(mesh))} over "
               f"{mesh_lib.chips(mesh)} ranks, this rank on "

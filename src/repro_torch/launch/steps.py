@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.shapes import ShapeSpec
 
 from repro_torch.nn import param as nnp
+from repro_torch.nn.partitioning import axis_sizes
 from repro_torch.optim import (adamw_init, adamw_update, compress_decompress,
                                warmup_cosine)
 from repro_torch.optim.adamw import global_norm
@@ -164,32 +165,49 @@ def init_train_state(api, generator: torch.Generator, device="cuda"):
                                 device=leaves(params)[0].device)}
 
 
-def make_prefill_fn(api, *, impl: str = "auto") -> Callable:
+def _tp(mesh) -> Dict[str, Any]:
+    """The model call's ``mesh`` argument: the mesh where its 'model' axis
+    is above 1 (tensor-parallel serving), else none (a data-parallel rank
+    runs the one-device model over its rows)."""
+    if mesh is None or axis_sizes(mesh).get("model", 1) == 1:
+        return {}
+    return {"mesh": mesh}
+
+
+def make_prefill_fn(api, *, impl: str = "auto", mesh=None) -> Callable:
     """prefill_fn(params, batch {"tokens": (B, S)[, "frames": (B, T, D)]})
     -> (logits (B, V), prefill cache); the frames go to archs that take
-    them (``api.needs_frames``, whisper; zeros when absent)."""
+    them (``api.needs_frames``, whisper; zeros when absent).  ``mesh``:
+    tensor-parallel over its 'model' axis where that is above 1."""
+    tp = _tp(mesh)
+
     def prefill_fn(params, batch):
         kw = {"frames": batch.get("frames")} if api.needs_frames else {}
-        return api.prefill(params, batch["tokens"], impl=impl, **kw)
+        return api.prefill(params, batch["tokens"], impl=impl, **kw, **tp)
     return prefill_fn
 
 
-def make_decode_fn(api, *, impl: str = "auto") -> Callable:
+def make_decode_fn(api, *, impl: str = "auto", mesh=None) -> Callable:
     """decode_fn(params, cache, tokens (B, 1), length) -> (logits (B, V),
     cache); the cache is updated in place."""
+    tp = _tp(mesh)
+
     def decode_fn(params, cache, tokens, length):
-        return api.decode_step(params, cache, tokens, length, impl=impl)
+        return api.decode_step(params, cache, tokens, length, impl=impl,
+                               **tp)
     return decode_fn
 
 
-def make_verify_fn(api, *, impl: str = "auto",
-                   attn_impl: str = "xla") -> Callable:
+def make_verify_fn(api, *, impl: str = "auto", attn_impl: str = "xla",
+                   mesh=None) -> Callable:
     """verify_fn(params, cache, tokens (B, T), length) -> (logits (B, T,
     V), cache): the batched multi-token step speculative decoding verifies
     drafted tokens with (``runtime/specdec.py``)."""
+    tp = _tp(mesh)
+
     def verify_fn(params, cache, tokens, length):
         return api.decode_steps(params, cache, tokens, length, impl=impl,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, **tp)
     return verify_fn
 
 
@@ -199,7 +217,6 @@ def make_verify_fn(api, *, impl: str = "auto",
 def batch_rules_for(rules: Dict, global_batch: int, mesh) -> Dict:
     """Shrink the 'batch' rule until it divides the global batch (the
     long_500k batch=1 cell replicates instead of sharding)."""
-    from repro_torch.nn.partitioning import axis_sizes
     entry = rules.get("batch")
     cand = (entry,) if isinstance(entry, str) else tuple(entry or ())
     sizes = axis_sizes(mesh)

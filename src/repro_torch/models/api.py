@@ -98,10 +98,15 @@ class ModelAPI:
 
     # --- LM families ----------------------------------------------------------
 
-    def _mode(self, mode: str) -> Dict[str, str]:
+    def _mode(self, mode: str, mesh=None) -> Dict[str, Any]:
         """The cache path's ``mode`` argument: "serve" (packed) needs none;
-        "train" runs over an ``init_params("train")`` tree."""
-        return {} if mode == "serve" else {"mode": mode}
+        "train" runs over an ``init_params("train")`` tree.  A ``mesh``
+        goes along where one is given (tensor-parallel serving, the dense
+        decoders' module)."""
+        kw = {} if mode == "serve" else {"mode": mode}
+        if mesh is not None:
+            kw["mesh"] = mesh
+        return kw
 
     def prefill(self, params, tokens, *, mode: str = "serve",
                 impl: str = "auto", **kw):
@@ -109,14 +114,14 @@ class ModelAPI:
                                 impl=impl, **self._mode(mode), **kw)
 
     def decode_step(self, params, cache, tokens, length: int, *,
-                    mode: str = "serve", impl: str = "auto"):
+                    mode: str = "serve", impl: str = "auto", mesh=None):
         return self.mod.decode_step(self.cfg, params, cache, tokens, length,
                                     self.policy, impl=impl,
-                                    **self._mode(mode))
+                                    **self._mode(mode, mesh))
 
     def decode_steps(self, params, cache, tokens, length: int, *,
                      mode: str = "serve", impl: str = "auto",
-                     attn_impl: str = "xla"):
+                     attn_impl: str = "xla", mesh=None):
         """T-token cache extension (the speculative verify): logits (B, T,
         V) equal to T ``decode_step`` calls."""
         fn = getattr(self.mod, "decode_steps", None)
@@ -124,11 +129,14 @@ class ModelAPI:
             raise NotImplementedError(
                 f"{self.family} has no multi-token decode_steps")
         return fn(self.cfg, params, cache, tokens, length, self.policy,
-                  impl=impl, attn_impl=attn_impl, **self._mode(mode))
+                  impl=impl, attn_impl=attn_impl, **self._mode(mode, mesh))
 
-    def cache_specs(self, batch: int, max_len: int):
+    def cache_specs(self, batch: int, max_len: int, model: int = 1):
+        """Decode-cache specs; ``model`` > 1 gives one tensor-parallel
+        rank's ``kv_seq`` block of ``max_len / model`` positions."""
+        kw = {"model": model} if model > 1 else {}
         return self.mod.cache_specs(self.cfg, batch, max_len,
-                                    policy=self.policy)
+                                    policy=self.policy, **kw)
 
     def cache_axes(self):
         """Logical axes of the decode cache, leaf for leaf the tree

@@ -35,6 +35,18 @@ attention products included, as ``dots_with_no_batch_dims_saveable``
 does).  ``prefill``, ``decode_step`` and ``decode_steps`` take
 ``mode="train"`` too, over the same train tree: the reference's train-mode
 cache path.
+
+Tensor-parallel serving (``mesh=`` with a 'model' axis above 1, the dense
+GQA archs): ``params`` is this rank's ``nn.partitioning.shard_tree`` slice
+under ``SERVE_RULES`` -- q/gate/up and the head by columns, o/down by
+rows, the embedding by vocabulary rows, k/v and the norms whole -- and
+the decode cache this rank's block of ``kv_seq`` (``cache_specs(...,
+model=M)``).  The embedding's int32 codes and the row shards' int32
+accumulators are summed over 'model', the head's columns all-gathered, so
+every rank holds the same residual stream and the same logits, and prefill
+logits are the one-device logits bitwise (``nn.attention`` for decode).
+MoE and MLA blocks raise: expert parallelism and MLA's latent cache are
+ROADMAP 16b (ii-b).
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ import torch
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.dse import Gemm
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.remat import remat
 from repro_torch.nn import attention as attn
 from repro_torch.nn import kvcache
@@ -291,11 +304,13 @@ def specs(cfg: TransformerConfig, mode: str = "train",
 
 
 def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
-               serve=True):
+               serve=True, mesh=None):
     """The layer's MLP, packed (``serve``) or fake-quant (the QAT
     forward).  ``per_token``: an MoE block routes each token as a group of
     its own (capacity 1, every expert runs it), as a decode step routes its
-    one token -- so a verify's T tokens are T decode steps."""
+    one token -- so a verify's T tokens are T decode steps.  On a
+    tensor-parallel ``mesh`` gate/up hold this rank's columns and down its
+    rows (a row shard, summed over 'model')."""
     if "moe" in p:
         b, s, d = x.shape
         xg = x.reshape(b * s, 1, d) if per_token else x
@@ -310,6 +325,9 @@ def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
     else:
         h = fn(mp["up"], x)
         h = nnl.squared_relu(h) if cfg.act == "sq_relu" else nnl.gelu(h)
+    if mesh is not None:
+        return Q.qlinear_serve_apply(mp["down"], h, policy, impl=impl,
+                                     name=nm, row_mesh=mesh)
     return fn(mp["down"], h)
 
 
@@ -320,7 +338,7 @@ def _mla_kw(cfg):
 
 
 def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
-               kv_store="packed", serve=True):
+               kv_store="packed", serve=True, mesh=None):
     """Pre-norm block -> (x, this layer's cache); ``serve=False`` is its
     QAT forward (GQA or MLA, a dense MLP or MoE)."""
     _, napply = cfg.norm_fns
@@ -334,10 +352,10 @@ def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
             p["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, sin=sin, cos=cos, impl=impl,
             chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl, lname=lname,
-            kv_fmts=kv_fmts, kv_store=kv_store, serve=serve)
+            kv_fmts=kv_fmts, kv_store=kv_store, serve=serve, mesh=mesh)
     x = x + o
     x = x + _apply_mlp(cfg, p, napply(p["ln2"], x), policy, impl, lname,
-                       serve=serve)
+                       serve=serve, mesh=mesh)
     return x, cache
 
 
@@ -347,9 +365,25 @@ def _serve_mode(mode: str) -> bool:
     return mode == "serve"
 
 
-def _embed(params, tokens, serve=True):
+def _tp_mesh(cfg, mesh, serve: bool = True):
+    """``mesh`` where its 'model' axis is above 1, else None; raises for
+    what tensor-parallel serving does not cover."""
+    if mesh_lib.model_coords(mesh)[1] == 1:
+        return None
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving of MoE and MLA blocks "
+            f"(expert parallelism, MLA's sharded latent cache) is ROADMAP "
+            f"16b (ii-b)")
+    if not serve:
+        raise ValueError("a 'model' axis above 1 serves packed trees only "
+                         "(mode='serve')")
+    return mesh
+
+
+def _embed(params, tokens, serve=True, mesh=None):
     if serve:
-        return nnl.embed_serve_apply(params["embed"], tokens)
+        return nnl.embed_serve_apply(params["embed"], tokens, mesh=mesh)
     return nnl.embed_apply(params["embed"], tokens)
 
 
@@ -359,10 +393,15 @@ def _head_input(cfg, params, x):
     return napply(params["final_norm"], x)
 
 
-def _head(cfg, params, x, policy, impl, serve=True):
+def _head(cfg, params, x, policy, impl, serve=True, mesh=None):
+    """Final norm and head -> logits over the vocabulary; on a
+    tensor-parallel ``mesh`` the rank's vocabulary columns, all-gathered
+    over 'model' in rank order (every rank the same logits)."""
     h = _head_input(cfg, params, x)
     logits = Q.qlinear_any(params["head"], h, policy, serve=serve, impl=impl,
                            name="head", layer_class="boundary")
+    if mesh is not None:
+        logits = mesh_lib.all_gather_model(mesh, logits, dim=-1)
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
@@ -370,7 +409,8 @@ def _rotary(cfg, positions):
     return nnl.rotary_cache(positions, cfg.rope_dim, cfg.rope_base)
 
 
-def _run_layers(cfg, params, x, policy, sin, cos, *, impl, serve=True):
+def _run_layers(cfg, params, x, policy, sin, cos, *, impl, serve=True,
+                mesh=None):
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
     caches = []
@@ -378,7 +418,7 @@ def _run_layers(cfg, params, x, policy, sin, cos, *, impl, serve=True):
         x, cache = _layer_fwd(
             cfg, lp, x, policy, sin, cos, impl=impl, lname=f"l{i}.",
             kv_fmts=kv_info[1][i] if kv_info is not None else None,
-            kv_store=store, serve=serve)
+            kv_store=store, serve=serve, mesh=mesh)
         caches.append(cache)
     return x, caches
 
@@ -404,45 +444,58 @@ def _train_forward(cfg, params, tokens, policy):
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
-            mode: str = "serve", impl: str = "auto") -> torch.Tensor:
+            mode: str = "serve", impl: str = "auto",
+            mesh=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
     (``mode="serve"``, over a ``pack_for_serving`` tree) or the QAT
     training forward (``mode="train"``, over an ``init_params("train")``
     tree; ``impl`` unused, no kernel runs).  ``mode`` defaults to "serve"
     here, where the reference's ``forward`` defaults to "train";
-    ``ModelAPI.forward`` defaults to "train" in both packages."""
+    ``ModelAPI.forward`` defaults to "train" in both packages.  ``mesh``:
+    tensor-parallel serving (module doc)."""
+    mesh = _tp_mesh(cfg, mesh, _serve_mode(mode))
     if not _serve_mode(mode):
         return _train_forward(cfg, params, tokens, policy)
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
-    x, _ = _run_layers(cfg, params, _embed(params, tokens), policy, sin, cos,
-                       impl=impl)
-    return _head(cfg, params, x, policy, impl)
+    x, _ = _run_layers(cfg, params, _embed(params, tokens, mesh=mesh),
+                       policy, sin, cos, impl=impl, mesh=mesh)
+    return _head(cfg, params, x, policy, impl, mesh=mesh)
 
 
 def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto", mode: str = "serve"):
+            impl: str = "auto", mode: str = "serve", mesh=None):
     """tokens (B, S) -> (last-token logits (B, V), per-layer cache).
     ``mode="train"`` runs the QAT forward over an ``init_params("train")``
-    tree (no kernel), as the reference's ``prefill(mode="train")``."""
+    tree (no kernel), as the reference's ``prefill(mode="train")``.  On a
+    tensor-parallel ``mesh`` the cache is the whole prompt's; the caller
+    keeps this rank's ``kv_seq`` block of it (``runtime.serve``)."""
     serve = _serve_mode(mode)
+    mesh = _tp_mesh(cfg, mesh, serve)
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
-    x, caches = _run_layers(cfg, params, _embed(params, tokens, serve),
-                            policy, sin, cos, impl=impl, serve=serve)
-    return _head(cfg, params, x[:, -1:, :], policy, impl,
-                 serve)[:, 0, :], caches
+    x, caches = _run_layers(cfg, params, _embed(params, tokens, serve, mesh),
+                            policy, sin, cos, impl=impl, serve=serve,
+                            mesh=mesh)
+    return _head(cfg, params, x[:, -1:, :], policy, impl, serve,
+                 mesh)[:, 0, :], caches
 
 
 def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
-                policy=None) -> List[Any]:
+                policy=None, model: int = 1) -> List[Any]:
     """Per-layer decode-cache specs (``ParamSpec``, init zeros): MLA's bf16
     latent pair (c_kv (B, Smax, r), k_rope (B, Smax, qk_rope)); else the
     bf16 pair for fp and 'qdq' caches, or under a 'packed' plan ``{"k",
     "v"}`` of packed leaves ``{"p": (P, B, Smax, KV, pd) uint8, "s"/"z":
     (B, Smax, KV) bf16}``, or a bf16 tensor where that tensor stays
-    unquantized."""
+    unquantized.  ``model`` > 1: one rank's block of a tensor-parallel
+    cache, ``kv_seq`` = ``max_len / model`` (which must divide)."""
     kv_info = kv_formats(cfg, policy)  # raises on MLA under a kv plan
+    if model > 1:
+        if max_len % model:
+            raise ValueError(f"a cache of {max_len} positions does not "
+                             f"split over {model} 'model' ranks")
+        max_len //= model
     if cfg.mla is not None:
         lat = lambda d: ParamSpec(shape=(batch, max_len, d),  # noqa: E731
                                   dtype=torch.bfloat16,
@@ -475,22 +528,25 @@ def cache_specs(cfg: TransformerConfig, batch: int, max_len: int,
 
 def cache_axes(cfg: TransformerConfig, policy=None):
     """Logical axes of ``cache_specs``' tree, leaf for leaf (a leaf's
-    layer is its list index: no 'layers' axis)."""
+    layer is its list index: no 'layers' axis); a tensor-parallel rank's
+    block has the same axes, ``kv_seq`` its local ``max_len / M``."""
     return nnp.axes_tree(cache_specs(cfg, 1, 1, policy))
 
 
 def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl,
-            mode):
+            mode, mesh=None):
     """T tokens per row at positions ``length ..`` against the per-layer
     cache (updated in place) -> (logits (B, T, V), cache); ``mode="train"``
-    over an ``init_params("train")`` tree, fake-quant."""
+    over an ``init_params("train")`` tree, fake-quant; ``mesh``
+    tensor-parallel, the cache this rank's ``kv_seq`` block."""
     serve = _serve_mode(mode)
+    mesh = _tp_mesh(cfg, mesh, serve)
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
     b, t_new = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, t_new, length, tokens.device))
     _, napply = cfg.norm_fns
-    x = _embed(params, tokens, serve)
+    x = _embed(params, tokens, serve, mesh)
     for i, lp in enumerate(params["layers"]):
         lname = f"l{i}."
         h = napply(lp["ln1"], x)
@@ -505,29 +561,30 @@ def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl,
                 sin=sin, cos=cos, impl=impl, attn_impl=attn_impl,
                 lname=lname,
                 kv_fmts=kv_info[1][i] if kv_info is not None else None,
-                kv_store=store, serve=serve)
+                kv_store=store, serve=serve, mesh=mesh)
         x = x + o
         x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname,
-                           per_token=True, serve=serve)
-    return _head(cfg, params, x, policy, impl, serve), cache
+                           per_token=True, serve=serve, mesh=mesh)
+    return _head(cfg, params, x, policy, impl, serve, mesh), cache
 
 
 def decode_step(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
                 length: int, policy, *, impl: str = "auto",
-                mode: str = "serve"):
+                mode: str = "serve", mesh=None):
     """One new token per row: tokens (B, 1) at position ``length`` against
     the per-layer cache from ``cache_specs`` (updated in place) ->
     (logits (B, V), cache).  It is ``decode_steps`` at T = 1: the verify's
     per-query attention at one query is the decode attention itself.
-    ``mode="train"`` runs over an ``init_params("train")`` tree."""
+    ``mode="train"`` runs over an ``init_params("train")`` tree; ``mesh``
+    as ``prefill``'s, the cache this rank's ``kv_seq`` block."""
     logits, cache = _extend(cfg, params, cache, tokens, length, policy,
-                            impl=impl, attn_impl="xla", mode=mode)
+                            impl=impl, attn_impl="xla", mode=mode, mesh=mesh)
     return logits[:, 0, :], cache
 
 
 def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
                  length: int, policy, *, impl: str = "auto",
-                 attn_impl: str = "xla", mode: str = "serve"):
+                 attn_impl: str = "xla", mode: str = "serve", mesh=None):
     """T new tokens per row in ONE forward, the speculative verify: tokens
     (B, T) go to positions ``length .. length + T - 1`` of the per-layer
     cache (updated in place) -> (logits (B, T, V), cache), where logits[:,
@@ -544,9 +601,10 @@ def decode_steps(cfg: TransformerConfig, params, cache, tokens: torch.Tensor,
     step would run, so its own verify is not its decode steps for MoE.
     ``attn_impl='flash'`` takes K4 for a packed cache instead, within K4's
     contract.  ``mode="train"`` runs over an ``init_params("train")`` tree,
-    fake-quant and without K4, each MoE token still routed alone."""
+    fake-quant and without K4, each MoE token still routed alone.
+    ``mesh``: tensor-parallel, as ``decode_step``'s."""
     return _extend(cfg, params, cache, tokens, length, policy, impl=impl,
-                   attn_impl=attn_impl, mode=mode)
+                   attn_impl=attn_impl, mode=mode, mesh=mesh)
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------

@@ -38,9 +38,23 @@ from projection to plan-layer name (``GQA_NAMES`` by default).
 
 On a data-parallel mesh every rank runs these single-device branches over
 its own rows (``runtime.serve``), which is what the reference's
-``shard_map``'d flash path computes with batch over 'data'.  Its head- and
-``kv_seq``-sharded branches (heads over 'model', the decode cache's
-sequence over 'model') wait for tensor-parallel serving, ROADMAP 16b (ii).
+``shard_map``'d flash path computes with batch over 'data'.  With a 'model'
+axis above 1 (``mesh=``, tensor-parallel serving of the GQA block) the rank
+holds the q columns of its heads ``[r H/M, (r + 1) H/M)``, k and v whole,
+and the o rows of its heads.  Prefill runs K3 or K4 over its local heads
+with only the KV heads they map to -- the reference's ``(off +
+arange(h_l)) // group`` -- so each head's output is the one-device head's,
+bitwise.  The decode cache holds the rank's block of the sequence
+(``kv_seq`` over 'model'): a new position is written on the rank that
+owns it, and decode is split-sequence: q of every head is all-gathered,
+each rank scores its own positions (its K block never moves), the scores
+and the V blocks are all-gathered, and every rank runs the one-device
+decode routine from the scores on over the whole row, then keeps its
+heads for o.  Decode outputs are the one-device outputs bitwise wherever
+the cache length (rounded up to a multiple of the model axis) is the
+one-device length.  An online fold of per-rank softmax partials would
+move no V but adds the value sums in another order: its ulp-level
+differences flipped a token of the full-width granite-8b on the card.
 """
 from __future__ import annotations
 
@@ -49,6 +63,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.flashattn import ops as flash_ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import kvcache
 from repro_torch.nn import layers
 from repro_torch.nn import quantized as Q
@@ -179,7 +194,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     qg = _bf16_f32(_scaled(q[:, 0], scale)).reshape(b, kvh, h // kvh, d)
     s = _batch_invariant_einsum("bkgd,bskd->bkgs", qg, _bf16_f32(k_cache))
-    pos = torch.arange(smax, device=q.device)
+    return _decode_values(s, v_cache, length, window, q.dtype)
+
+
+def _decode_values(s: torch.Tensor, v_cache: torch.Tensor, length: int,
+                   window: Optional[int], dtype) -> torch.Tensor:
+    """``decode_attention`` from the scores on: s (B, KV, G, Smax) f32,
+    unmasked -> (B, 1, H, Dv)."""
+    b, kvh, g, smax = s.shape
+    pos = torch.arange(smax, device=s.device)
     mask = pos < length
     if window is not None:
         mask = mask & (pos > length - 1 - window)
@@ -187,7 +210,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = _batch_invariant_einsum("bkgs,bskd->bkgd", _bf16_f32(p),
                                 _bf16_f32(v_cache))
-    return o.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+    return o.reshape(b, 1, kvh * g, v_cache.shape[-1]).to(dtype)
 
 
 def _kv_chunk(cache, fmt, start: int, c: int) -> torch.Tensor:
@@ -209,25 +232,44 @@ def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
     online softmax.  ``ck``/``cv`` are bf16 (B, Smax, KV, D) tensors or
     packed leaves; a packed chunk dequantizes to exactly the qdq store's
     values, and both stores run this routine with the same chunking."""
-    smax = ck["p"].shape[2] if fmt_k is not None else ck.shape[1]
+    smax = _seq_len(ck, fmt_k)
     kvh = ck["s"].shape[2] if fmt_k is not None else ck.shape[2]
     b, _, h, d = q.shape
-    groups = h // kvh
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    qg = _bf16_f32(_scaled(q[:, 0], scale)).reshape(b, kvh, h // kvh, d)
+
+    def scores(start, c):
+        return _batch_invariant_einsum(
+            "bkgd,bskd->bkgs", qg, _bf16_f32(_kv_chunk(ck, fmt_k, start, c)))
+    return _streamed_values(scores, cv, fmt_v, length, smax,
+                            (b, kvh, h // kvh, d), window, chunk, q.dtype)
+
+
+def _seq_len(cache, fmt) -> int:
+    """Sequence length of a bf16 cache tensor or a packed leaf."""
+    return cache["p"].shape[2] if fmt is not None else cache.shape[1]
+
+
+def _streamed_values(scores, cv, fmt_v, length: int, smax: int, shape,
+                     window: Optional[int], chunk: int, dtype
+                     ) -> torch.Tensor:
+    """``decode_attention_streamed`` from the scores on: ``scores(start,
+    c)`` gives a chunk's unmasked scores (B, KV, G, c), f32; ``shape`` is
+    (B, KV, G, D) -> (B, 1, H, D)."""
+    b, kvh, groups, d = shape
+    device = cv["p"].device if fmt_v is not None else cv.device
     c = min(chunk, smax)
     if smax % c:
         c = smax  # a ragged max_len runs as one whole-cache chunk
-    qg = _bf16_f32(_scaled(q[:, 0], scale)).reshape(b, kvh, groups, d)
     acc = torch.zeros((b, kvh, groups, d), dtype=torch.float32,
-                      device=q.device)
+                      device=device)
     m = torch.full((b, kvh, groups), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, kvh, groups), dtype=torch.float32, device=q.device)
+                   device=device)
+    l = torch.zeros((b, kvh, groups), dtype=torch.float32, device=device)
     for start in range(0, smax, c):
-        kc = _bf16_f32(_kv_chunk(ck, fmt_k, start, c))
         vc = _bf16_f32(_kv_chunk(cv, fmt_v, start, c))
-        s = _batch_invariant_einsum("bkgd,bskd->bkgs", qg, kc)
-        pos = start + torch.arange(c, device=q.device)
+        s = scores(start, c)
+        pos = start + torch.arange(c, device=device)
         mask = pos < length
         if window is not None:
             mask = mask & (pos > length - 1 - window)
@@ -240,7 +282,7 @@ def decode_attention_streamed(q: torch.Tensor, ck, cv, fmt_k, fmt_v,
             "bkgs,bskd->bkgd", _bf16_f32(pexp), vc)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    return out.reshape(b, 1, kvh * groups, d).to(dtype)
 
 
 # --- the GQA block ---------------------------------------------------------------
@@ -293,14 +335,61 @@ def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     }
 
 
-def _proj(p, x, policy, *, serve, impl, name):
-    """One projection: packed (serve) or fake-quant (train)."""
-    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
+def _proj(p, x, policy, *, serve, impl, name, row_mesh=None):
+    """One projection: packed (serve) or fake-quant (train); ``row_mesh``
+    (serve only) makes it a row shard over that mesh's 'model' axis."""
+    kw = {} if row_mesh is None else {"row_mesh": row_mesh}
+    return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name,
+                         **kw)
+
+
+def _model(mesh, n_heads: int, serve: bool):
+    """(this rank's 'model' coordinate, the axis' size) of a GQA block,
+    checked: tensor parallelism serves only, over whole heads."""
+    r, m = mesh_lib.model_coords(mesh)
+    if m > 1 and (not serve or n_heads % m):
+        raise ValueError(f"a tensor-parallel GQA block serves (serve=True) "
+                         f"{n_heads} heads split evenly over {m} ranks")
+    return r, m
+
+
+def _local_kv_heads(r: int, h_l: int, group: int):
+    """The KV heads the q heads ``[r h_l, (r + 1) h_l)`` attend to, as a
+    slice where they are contiguous blocks of ``group`` heads (h_l a
+    multiple of the group) or one head (the group a multiple of h_l, MQA
+    among them), else the reference's per-head index ``(off +
+    arange(h_l)) // group`` (each local q head its own KV head)."""
+    off = r * h_l
+    if h_l % group == 0:
+        return slice(off // group, (off + h_l) // group)
+    if group % h_l == 0:
+        return slice(off // group, off // group + 1)
+    return torch.div(off + torch.arange(h_l), group, rounding_mode="floor")
+
+
+def _kv_select(x, heads):
+    """The KV heads ``heads`` (a slice or an index) of a bf16 (B, S, KV,
+    D) tensor or a packed leaf (planes (P, B, S, KV, pd), scale and zero
+    (B, S, KV)); the whole of ``x`` where the slice covers it."""
+    if isinstance(x, dict):
+        return {key: _kv_select_axis(v, heads, 3 if key == "p" else 2)
+                for key, v in x.items()}
+    return _kv_select_axis(x, heads, 2)
+
+
+def _kv_select_axis(t: torch.Tensor, heads, axis: int) -> torch.Tensor:
+    if isinstance(heads, slice):
+        if heads.start == 0 and heads.stop == t.shape[axis]:
+            return t
+        return t.narrow(axis, heads.start,
+                        heads.stop - heads.start).contiguous()
+    return torch.index_select(t, axis, heads.to(t.device))
 
 
 def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm,
          rope=True, serve=True):
-    """The q/k/v projections, rotary applied to q and k (``rope``)."""
+    """The q/k/v projections, rotary applied to q and k (``rope``);
+    ``n_heads`` counts the q heads this rank holds."""
     b, s, _ = x.shape
     proj = lambda key, n: _proj(  # noqa: E731
         p[key], x, policy, serve=serve, impl=impl,
@@ -319,7 +408,7 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
                 chunk: int = 1024, impl: str = "auto",
                 attn_impl: str = "xla", lname: str = "",
                 names: Optional[Dict[str, str]] = None, kv_fmts=None,
-                kv_store: str = "packed", serve: bool = True):
+                kv_store: str = "packed", serve: bool = True, mesh=None):
     """Prefill of one GQA block -> (out (B, S, D), cache): causal (else
     bidirectional), over the last ``window`` keys when given, with rotary
     q/k unless ``rope=False``.
@@ -337,10 +426,16 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     keeping that tensor bf16): attention then reads the quantization-grid
     values, so prefill agrees with decode against the quantized cache, and
     the cache is ``{"k": leaf, "v": leaf}`` of packed leaves (store
-    'packed') or the bf16 pair of grid values (store 'qdq')."""
+    'packed') or the bf16 pair of grid values (store 'qdq').
+
+    ``mesh`` with a 'model' axis above 1: this rank's heads (see the
+    module doc); the returned cache is the whole prompt's, of which the
+    caller keeps the rank's sequence block (``runtime.serve``)."""
     b, s, _ = x.shape
     nm = _gqa_names(lname, names)
-    q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
+    r, m = _model(mesh, n_heads, serve)
+    h_l = n_heads // m
+    q, k, v = _qkv(p, x, policy, n_heads=h_l, n_kv=n_kv,
                    head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
                    rope=rope, serve=serve)
     fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
@@ -349,11 +444,12 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     vq = kvcache.pack_kv(v, fmt_v) if packed and fmt_v is not None else None
     if not serve:
         attn_impl = "xla"  # the reference's flash kernels serve only
+    heads = _local_kv_heads(r, h_l, n_heads // n_kv)
     if attn_impl == "flash" and kq is not None and vq is not None:
         # K4: the codes travel to the kernel, never bf16 K/V
-        o = flash_ops.flash_attention_packed(q, kq, vq, fmt_k, fmt_v,
-                                             causal=causal, window=window,
-                                             block_k=chunk, impl=impl)
+        o = flash_ops.flash_attention_packed(
+            q, _kv_select(kq, heads), _kv_select(vq, heads), fmt_k, fmt_v,
+            causal=causal, window=window, block_k=chunk, impl=impl)
     else:
         # grid values in bf16; unpack_kv(pack_kv(x)) == qdq_kv(x) bitwise
         if fmt_k is not None:
@@ -362,33 +458,25 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
         if fmt_v is not None:
             v = (kvcache.unpack_kv(vq, fmt_v) if vq is not None
                  else kvcache.qdq_kv(v, fmt_v))
+        k_l, v_l = _kv_select(k, heads), _kv_select(v, heads)
         if attn_impl == "flash":
-            o = flash_ops.flash_attention(q, k, v, causal=causal,
+            o = flash_ops.flash_attention(q, k_l, v_l, causal=causal,
                                           window=window, block_k=chunk,
                                           impl=impl)
         elif attn_impl == "xla":
-            o = chunked_attention(q, _repeat_kv(k, n_heads // n_kv),
-                                  _repeat_kv(v, n_heads // n_kv),
+            g = h_l // k_l.shape[2]
+            o = chunked_attention(q, _repeat_kv(k_l, g), _repeat_kv(v_l, g),
                                   causal=causal, window=window, chunk=chunk)
         else:
             raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                              f"{attn_impl!r}")
-    o = o.reshape(b, s, n_heads * head_dim)
-    out = _proj(p["o"], o, policy, serve=serve, impl=impl, name=nm["o"])
+    o = o.reshape(b, s, h_l * head_dim)
+    out = _proj(p["o"], o, policy, serve=serve, impl=impl, name=nm["o"],
+                row_mesh=mesh if m > 1 else None)
     if packed:
         return out, {"k": kq if fmt_k is not None else k,
                      "v": vq if fmt_v is not None else v}
     return out, (k, v)
-
-
-def _append_packed(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
-                   length: int) -> None:
-    """Write packed tokens at ``length`` in place: planes at sequence axis 2
-    (after the plane axis and batch), scale/zero at axis 1."""
-    t = new["s"].shape[1]
-    cache["p"][:, :, length:length + t] = new["p"]
-    cache["s"][:, length:length + t] = new["s"]
-    cache["z"][:, length:length + t] = new["z"]
 
 
 def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy,
@@ -402,12 +490,87 @@ def gqa_decode(p: Dict, x: torch.Tensor, cache, length: int, policy,
     return gqa_verify(p, x, cache, length, policy, **kw)
 
 
+def _append_block(cache, new, length: int, start: int, seq_axis: int):
+    """Write the tokens of ``new`` (positions ``length ..``) that fall in
+    the block ``[start, start + L)`` a cache tensor holds (the whole cache
+    at ``start`` 0; a rank's block of a tensor-parallel one), sequence
+    axis ``seq_axis``, in place."""
+    t = new.shape[seq_axis]
+    lo, hi = max(length, start), min(length + t, start + cache.shape[seq_axis])
+    if lo < hi:
+        cache.narrow(seq_axis, lo - start, hi - lo).copy_(
+            new.narrow(seq_axis, lo - length, hi - lo).to(cache.dtype))
+
+
+def _append_owned(c, new, fmt, length: int, start: int) -> None:
+    """``_append_block`` of a bf16 tensor, or of a packed leaf: planes at
+    sequence axis 2 (after the plane axis and batch), scale/zero at 1."""
+    if fmt is None:
+        _append_block(c, new, length, start, 1)
+        return
+    _append_block(c["p"], new["p"], length, start, 2)
+    _append_block(c["s"], new["s"], length, start, 1)
+    _append_block(c["z"], new["z"], length, start, 1)
+
+
+def _gather_seq(mesh, cache, fmt):
+    """Every 'model' rank's block of a cache tensor or packed leaf,
+    concatenated along its sequence axis in rank order: the whole
+    cache."""
+    if fmt is None:
+        return mesh_lib.all_gather_model(mesh, cache, dim=1)
+    return {"p": mesh_lib.all_gather_model(mesh, cache["p"], dim=2),
+            "s": mesh_lib.all_gather_model(mesh, cache["s"], dim=1),
+            "z": mesh_lib.all_gather_model(mesh, cache["z"], dim=1)}
+
+
+def _split_decode(q_local: torch.Tensor, ck, cv, fmt_k, fmt_v, length: int,
+                  window: Optional[int], mesh, streamed: bool
+                  ) -> torch.Tensor:
+    """Split-sequence decode of T queries (B, T, h_l, D) of this rank's
+    heads against its block of the cache -> (B, T, h_l, D) in q's dtype.
+
+    q of every head is all-gathered over 'model'; each rank scores its own
+    positions against its K block (a score is one dot product over D, the
+    same bits in any block), and the scores (B T H L f32 a rank) and the V
+    blocks are all-gathered in rank order.  Every rank then runs the
+    one-device routine from the scores on -- ``decode_attention``'s softmax
+    and value sum, or ``decode_attention_streamed``'s chunks with
+    ``streamed`` -- over the whole row, so each query's output is the
+    one-device output, bitwise, on every rank, wherever the rounded cache
+    length equals the one-device length.  K never moves."""
+    r, _ = mesh_lib.model_coords(mesh)
+    b, t_new, h_l, d = q_local.shape
+    q = mesh_lib.all_gather_model(mesh, q_local, dim=2)
+    kvh = ck["s"].shape[2] if fmt_k is not None else ck.shape[2]
+    kc = _bf16_f32(_kv_chunk(ck, fmt_k, 0, _seq_len(ck, fmt_k)))
+    qg = _bf16_f32(_scaled(q, d ** -0.5)).reshape(b, t_new, kvh, -1, d)
+    mine = torch.stack([_batch_invariant_einsum("bkgd,bskd->bkgs",
+                                                qg[:, t], kc)
+                        for t in range(t_new)])      # (T, B, KV, G, L)
+    s = mesh_lib.all_gather_model(mesh, mine, dim=-1)
+    v = _gather_seq(mesh, cv, fmt_v)
+    smax = s.shape[-1]
+    outs = []
+    for t in range(t_new):
+        if streamed:
+            outs.append(_streamed_values(
+                lambda start, c, t=t: s[t][..., start:start + c], v, fmt_v,
+                length + 1 + t, smax, (b, kvh, qg.shape[3], d), window,
+                1024, q.dtype))
+        else:
+            outs.append(_decode_values(s[t], v, length + 1 + t, window,
+                                       q.dtype))
+    return torch.cat(outs, dim=1)[:, :, r * h_l:(r + 1) * h_l]
+
+
 def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                n_heads: int, n_kv: int, head_dim: int, sin: torch.Tensor,
                cos: torch.Tensor, window: Optional[int] = None,
                rope: bool = True, impl: str = "auto", attn_impl: str = "xla",
                lname: str = "", names: Optional[Dict[str, str]] = None,
-               kv_fmts=None, kv_store: str = "packed", serve: bool = True):
+               kv_fmts=None, kv_store: str = "packed", serve: bool = True,
+               mesh=None):
     """T-token cache extension, the verify step of speculative decoding.
 
     x (B, T, D): the T candidate tokens land at cache positions ``length ..
@@ -424,10 +587,16 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     same function within K4's contract (one bf16 ulp), not bitwise.
     ``serve=False`` runs the projections fake-quant (the QAT forward's
     train-mode cache path) and never K4, as the reference.  Returns (out
-    (B, T, D), cache)."""
+    (B, T, D), cache).
+
+    ``mesh`` with a 'model' axis above 1: ``cache`` is this rank's block
+    of the sequence, each position written on its owner, and attention is
+    split-sequence (``_split_decode``; ``attn_impl`` 'xla' only)."""
     b, t_new = x.shape[0], x.shape[1]
     nm = _gqa_names(lname, names)
-    q, k, v = _qkv(p, x, policy, n_heads=n_heads, n_kv=n_kv,
+    r, m = _model(mesh, n_heads, serve)
+    h_l = n_heads // m
+    q, k, v = _qkv(p, x, policy, n_heads=h_l, n_kv=n_kv,
                    head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
                    rope=rope, serve=serve)
     if not serve:
@@ -436,20 +605,28 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     packed = kv_fmts is not None and kv_store == "packed"
     if packed:
         ck, cv = cache["k"], cache["v"]
-        for c, new, fmt in ((ck, k, fmt_k), (cv, v, fmt_v)):
-            if fmt is not None:
-                _append_packed(c, kvcache.pack_kv(new, fmt), length)
-            else:
-                c[:, length:length + t_new] = new.to(c.dtype)
-    else:
-        if fmt_k is not None:
-            k = kvcache.qdq_kv(k, fmt_k)  # qdq store: grid values, bf16
-        if fmt_v is not None:
-            v = kvcache.qdq_kv(v, fmt_v)
+        fk, fv = fmt_k, fmt_v
+        k = kvcache.pack_kv(k, fk) if fk is not None else k
+        v = kvcache.pack_kv(v, fv) if fv is not None else v
+    else:  # bf16; the qdq store holds grid values
         ck, cv = cache
-        ck[:, length:length + t_new] = k.to(ck.dtype)
-        cv[:, length:length + t_new] = v.to(cv.dtype)
-    if attn_impl == "flash" and packed and fmt_k is not None \
+        fk = fv = None
+        k = kvcache.qdq_kv(k, fmt_k) if fmt_k is not None else k
+        v = kvcache.qdq_kv(v, fmt_v) if fmt_v is not None else v
+    block = _seq_len(ck, fk)
+    if length + t_new > m * block:
+        raise ValueError(f"positions {length} .. {length + t_new - 1} do "
+                         f"not fit a cache of {m * block}")
+    _append_owned(ck, k, fk, length, r * block)
+    _append_owned(cv, v, fv, length, r * block)
+    if m > 1:
+        if attn_impl != "xla":
+            raise NotImplementedError(
+                "a tensor-parallel verify runs split-sequence decode "
+                "attention (attn_impl='xla'); K4 takes a whole cache")
+        o = _split_decode(q, ck, cv, fk, fv, length, window, mesh,
+                          streamed=kv_fmts is not None)
+    elif attn_impl == "flash" and packed and fmt_k is not None \
             and fmt_v is not None:
         o = flash_ops.flash_attention_packed(q, ck, cv, fmt_k, fmt_v,
                                              window=window, q_offset=length,
@@ -458,7 +635,6 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
         raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                          f"{attn_impl!r}")
     elif kv_fmts is not None:
-        fk, fv = (fmt_k, fmt_v) if packed else (None, None)
         o = torch.cat([decode_attention_streamed(q[:, t:t + 1], ck, cv, fk,
                                                  fv, length + 1 + t,
                                                  window=window)
@@ -467,8 +643,9 @@ def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
         o = torch.cat([decode_attention(q[:, t:t + 1], ck, cv,
                                         length + 1 + t, window=window)
                        for t in range(t_new)], dim=1)
-    o = o.reshape(b, t_new, n_heads * head_dim)
-    out = _proj(p["o"], o, policy, serve=serve, impl=impl, name=nm["o"])
+    o = o.reshape(b, t_new, h_l * head_dim)
+    out = _proj(p["o"], o, policy, serve=serve, impl=impl, name=nm["o"],
+                row_mesh=mesh if m > 1 else None)
     return out, ({"k": ck, "v": cv} if packed else (ck, cv))
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn.param import ParamSpec
 
 __all__ = [
@@ -116,11 +117,30 @@ def embed_serve_spec(vocab: int, dim: int,
                                const=0.02)}
 
 
-def embed_serve_apply(p, ids: torch.Tensor,
-                      compute_dtype=torch.bfloat16) -> torch.Tensor:
+def embed_serve_apply(p, ids: torch.Tensor, compute_dtype=torch.bfloat16,
+                      mesh=None) -> torch.Tensor:
+    """The int8 codes of ``ids`` times the step, in ``compute_dtype``.  On
+    a mesh whose 'model' axis is above 1 the rank holds a block of the
+    (padded) vocabulary's rows: it looks up the ids in its block, zeros
+    elsewhere, and the codes are summed over 'model' as int32 -- one
+    addend is nonzero, so every rank gets the one-device codes exactly."""
+    r, m = mesh_lib.model_coords(mesh)
     if "table" in p:
+        if m > 1:
+            raise NotImplementedError(
+                "the fp baseline's bf16 embedding is not served "
+                "tensor-parallel")
         return p["table"][ids].to(compute_dtype)
-    codes = p["codes"][ids]
+    if m > 1:
+        rows = p["codes"].shape[0]
+        local = ids - r * rows
+        hit = (local >= 0) & (local < rows)
+        codes = torch.where(hit[..., None],
+                            p["codes"][local.clamp(0, rows - 1)].to(
+                                torch.int32), 0)
+        codes = mesh_lib.all_reduce_model(mesh, codes)
+    else:
+        codes = p["codes"][ids]
     return (codes.to(torch.float32) * p["gamma"]).to(compute_dtype)
 
 

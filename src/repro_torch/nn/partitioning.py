@@ -23,10 +23,14 @@ tensor dimension ``None``, one mesh axis name, or a tuple of them.  A
 as one placement per mesh dimension: ``Shard(dim)`` where a tensor
 dimension names that mesh axis, else ``Replicate()``.
 
-What runs today: data-parallel serving, where every rank holds the whole
-packed tree and its own rows of the batch (``runtime.serve``).  A mesh
-whose 'model' or 'pod' axis is larger than 1 (tensor-parallel serving,
-ROADMAP 16b (ii)) is described by these rules but not yet served.
+What runs: serving on a (data, model) mesh (``runtime.serve``).  Each rank
+holds its own rows of the batch and, under ``SERVE_RULES``, its slice of
+the packed tree (``shard_tree``): column-parallel q/gate/up and head over
+'model', row-parallel o/down ('heads_packed', 'mlp_packed'), the embedding
+on 'vocab', k/v and the norms whole.  Activations are replicated over
+'model' by explicit collectives (``launch.mesh.all_reduce_model``,
+``all_gather_model``), so ``constrain`` stays a no-op.  A 'pod' axis above
+1 is described by these rules but not served.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ __all__ = [
     "replicated",
     "tree_shardings",
     "constrain",
-    "require_data_parallel",
+    "require_serve_mesh",
+    "shard_tree",
 ]
 
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
@@ -230,24 +235,78 @@ def tree_shardings(axes_tree, mesh, rules: Optional[Rules] = None):
     return type(axes_tree)(tree_shardings(v, mesh, rules) for v in axes_tree)
 
 
-def require_data_parallel(sizes: Dict[str, int]) -> None:
-    """Raise unless every mesh axis but 'data' (``sizes``: {axis: size},
-    ``axis_sizes(mesh)``) has size 1: tensor- and pod-parallel serving wait
-    for ROADMAP 16b (ii)."""
-    wide = {ax: n for ax, n in sizes.items() if ax != "data" and n > 1}
+def require_serve_mesh(sizes: Dict[str, int]) -> None:
+    """Raise unless the mesh (``sizes``: {axis: size}, ``axis_sizes(mesh)``)
+    is one the port serves: 'data' and 'model' of any size, every other
+    axis (the multi-pod 'pod') of size 1."""
+    wide = {ax: n for ax, n in sizes.items()
+            if ax not in ("data", "model") and n > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide} > 1: the port serves data-parallel meshes "
-            f"only; tensor-parallel serving (int32 partial sums across "
-            f"'model' before the epilogue, kv_seq over 'model') is ROADMAP "
-            f"16b (ii)")
+            f"mesh axes {wide} > 1: the port serves (data, model) meshes; "
+            f"a multi-pod serve mesh is not ported")
 
 
 def constrain(x, axes: Sequence[Optional[str]]):
-    """The sharding constraint by logical names: a no-op without a mesh,
-    and on a data-parallel mesh, where each rank already holds its own
-    rows of every activation."""
+    """The sharding constraint by logical names: a no-op.  Each rank holds
+    its own rows of every activation, replicated over 'model' by the
+    explicit collectives of the tensor-parallel layers."""
     mesh = getattr(_local, "mesh", None)
     if mesh is not None:
-        require_data_parallel(axis_sizes(mesh))
+        require_serve_mesh(axis_sizes(mesh))
     return x
+
+
+def _coords(mesh) -> Dict[str, Tuple[int, int]]:
+    """{mesh axis: (this rank's coordinate, size)}."""
+    return {ax: ((mesh.get_local_rank(ax) if n > 1 else 0), n)
+            for ax, n in axis_sizes(mesh).items()}
+
+
+def shard_tree(tree, axes_tree, mesh, rules: Optional[Rules] = None):
+    """This rank's slice of every leaf of ``tree`` (dicts and lists of
+    tensors, leaf for leaf the logical ``axes_tree``) by its spec under
+    ``rules`` (default ``SERVE_RULES``) at this rank's mesh coordinates:
+    a dimension that names mesh axes is cut into equal blocks, rank
+    order, the first named axis the major one, each slice a copy of its
+    own (the whole leaf is not kept alive by it).  An uneven split raises
+    naming the leaf and the axis.  Leaves whose spec names no axis of size
+    above 1 are returned as they are."""
+    rules = SERVE_RULES if rules is None else rules
+    coords = _coords(mesh)
+
+    def leaf(x, axes, path):
+        spec = logical_to_spec(axes, rules, mesh)
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            names = (entry,) if isinstance(entry, str) else tuple(entry)
+            idx, n = 0, 1
+            for ax in names:
+                r, size = coords[ax]
+                idx, n = idx * size + r, n * size
+            if n == 1:
+                continue
+            if x.shape[dim] % n:
+                raise ValueError(
+                    f"{path or '<root>'}: dimension {dim} ({axes[dim]!r}, "
+                    f"{x.shape[dim]}) does not split evenly over mesh axes "
+                    f"{names} of {n} ranks")
+            per = x.shape[dim] // n
+            x = x.narrow(dim, idx * per, per).clone()  # frees the whole
+        return x
+
+    def walk(t, a, path):
+        if _is_axes(a):
+            return leaf(t, a, path)
+        if isinstance(a, dict):
+            extra = sorted(set(t) - set(a))
+            if extra:
+                raise ValueError(f"{path or '<root>'}: leaves {extra} have "
+                                 f"no logical axes to shard them by")
+            return {k: walk(v, a[k], f"{path}.{k}" if path else str(k))
+                    for k, v in t.items()}
+        return type(t)(walk(x, ax, f"{path}[{i}]")
+                       for i, (x, ax) in enumerate(zip(t, a)))
+
+    return walk(tree, axes_tree, "")

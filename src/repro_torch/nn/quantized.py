@@ -10,7 +10,12 @@ torch under autograd: the reference's train path reaches no Pallas kernel.
 Serve mode: weights live as packed k-bit digit planes (uint8), activations are
 quantized on the fly to biased int8 codes, and the product runs through
 ``kernels.mpmm.ops`` -- the hand-written kernels on CUDA tensors.  BN,
-the shortcut add and ReLU run in the kernel epilogue.
+the shortcut add and ReLU run in the kernel epilogue.  On a tensor-parallel
+mesh a column-parallel layer (q, gate, up, the head) runs as it is over its
+local columns; a row-parallel one (o, down: ``row_mesh=``) holds the rows of
+its contraction axis, runs K1's accumulator-only mode over them, sums the
+int32 partials over 'model' and finishes the whole sum with the shared
+epilogue, so its output is bitwise the one-device layer's.
 
 A quantized-linear param subtree is marked by the key ``QMARK``; in spec
 trees the marker carries the layer class and its workload layer name, so a
@@ -37,6 +42,7 @@ from repro_torch.kernels.mpmm import epilogue as mpmm_epilogue
 from repro_torch.kernels.mpmm import ops as mpmm_ops
 from repro_torch.kernels.mpmm import ref as mpmm_ref
 from repro_torch.kernels.mpmm.epilogue import EpilogueSpec
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn.param import QMARK, ParamSpec
 
 __all__ = [
@@ -231,8 +237,8 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                         scale: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None,
                         residual: Optional[torch.Tensor] = None,
-                        act_signed: bool = False,
-                        name: str = "") -> torch.Tensor:
+                        act_signed: bool = False, name: str = "",
+                        row_mesh=None) -> torch.Tensor:
     """Deployed forward: quantize activations -> mpmm over packed planes.
 
     ``act_signed=True`` uses symmetric signed codes (act_zero = 0), for
@@ -244,16 +250,36 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     reference maps ``qlinear_serve_apply`` over the experts with
     ``jax.vmap``, so each carries its own step), and the product is ONE
     kernel call over the bank -> (E, ..., N).
+
+    ``row_mesh``: the layer is a row shard on that mesh's 'model' axis
+    (``x`` and ``planes`` hold this rank's block of the contraction axis,
+    gamma and colsum are whole): the local codes -- the one-device codes'
+    block, since the whole ``ga`` quantizes elementwise -- run K1's
+    accumulator-only mode, the int32 partials are summed over 'model'
+    (``launch.mesh.all_reduce_model``) and ``epilogue.finish`` completes
+    the sum: bitwise the one-device output on every rank.
     """
     policy = plan_lib.resolve_policy(policy, name)
     mpmm_epilogue.validate_operands(epilogue, scale, shift, residual)
+    tp_rows = row_mesh is not None and mesh_lib.model_coords(row_mesh)[1] > 1
     if "w" in p:  # the fp baseline
+        if tp_rows:
+            raise NotImplementedError(
+                "the fp baseline (quantize=False) is not served tensor-"
+                "parallel: its row shards would add bf16 partial sums")
         return _fp_serve_apply(p, x, compute_dtype=compute_dtype,
                                epilogue=epilogue, scale=scale, shift=shift,
                                residual=residual)
     epilogue, scale, shift = _fold_bias(p, epilogue, scale, shift)
     fmt = PlaneFormat(w_bits=policy.bits_for(layer_class), k=policy.k,
                       k_dim=x.shape[-1])
+    act_zero = 0 if act_signed else 2 ** (policy.a_bits - 1)
+    if tp_rows:
+        return _row_parallel_apply(p, x, fmt, policy, row_mesh, impl=impl,
+                                   act_signed=act_signed, act_zero=act_zero,
+                                   compute_dtype=compute_dtype,
+                                   epilogue=epilogue, scale=scale,
+                                   shift=shift, residual=residual)
     ga = p["ga"]
     if ga.ndim:  # an expert bank: one step per expert, over its rows
         ga = ga.reshape(ga.shape + (1,) * (x.ndim - ga.ndim))
@@ -261,9 +287,37 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                                       signed=act_signed)
     y = mpmm_ops.mpmm(
         a, p["planes"], p["gamma"], p["colsum"], scale, shift, residual,
-        fmt=fmt, act_zero=0 if act_signed else 2 ** (policy.a_bits - 1),
-        tile=tile, variant=policy.variant, impl=impl,
-        out_dtype=compute_dtype, epilogue=epilogue)
+        fmt=fmt, act_zero=act_zero, tile=tile, variant=policy.variant,
+        impl=impl, out_dtype=compute_dtype, epilogue=epilogue)
+    if "b" in p and epilogue is None:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def _row_parallel_apply(p, x, fmt, policy, mesh, *, impl, act_signed,
+                        act_zero, compute_dtype, epilogue, scale, shift,
+                        residual) -> torch.Tensor:
+    """A row shard of a linear (see ``qlinear_serve_apply``'s
+    ``row_mesh``): local codes -> int32 partial (K1 accumulator-only) ->
+    sum over 'model' -> the epilogue on the whole sum."""
+    if p["ga"].ndim:
+        raise NotImplementedError("an expert bank is not row-sharded over "
+                                  "'model' (expert parallelism, ROADMAP "
+                                  "16b (ii-b))")
+    if p["planes"].shape[-2] != fmt.packed_k \
+            or fmt.k_dim % fmt.digits_per_byte:
+        raise ValueError(
+            f"a row shard of {fmt.k_dim} inputs must fill whole packed "
+            f"bytes ({fmt.digits_per_byte} digits a byte) and match its "
+            f"planes' {p['planes'].shape[-2]} packed rows")
+    a = mpmm_ops.quantize_activations(x, p["ga"], policy.a_bits,
+                                      signed=act_signed)
+    acc = mpmm_ops.mpmm_acc(a, p["planes"], fmt=fmt, variant=policy.variant,
+                            impl=impl)
+    acc = mesh_lib.all_reduce_model(mesh, acc)
+    y = mpmm_epilogue.finish(acc, p["gamma"], p["colsum"], act_zero=act_zero,
+                             spec=epilogue, scale=scale, shift=shift,
+                             residual=residual, out_dtype=compute_dtype)
     if "b" in p and epilogue is None:
         y = y + p["b"].to(compute_dtype)
     return y

@@ -238,7 +238,7 @@ class FrontierServer:
 
     @property
     def mesh(self):
-        """The points' data-parallel mesh (None: one device)."""
+        """The points' serve mesh (None: one device)."""
         return getattr(self._points[0][1], "mesh", None)
 
     @property
@@ -313,8 +313,8 @@ def build_frontier(api, train_params, plans: Sequence[Tuple[str, Any]], *,
     ``pack_for_serving`` with the api pinned to each plan; with
     ``train_params=None`` the weights are drawn from ``generator`` once
     and packed under every plan (``serve.init_packed_views``).  With
-    ``mesh=`` (data-parallel) every point serves on it, on this rank's
-    device.
+    ``mesh=`` every point serves on it, on this rank's device (on a
+    'model' axis above 1 an LM point holds its rank's slice).
     """
     if mesh is not None:
         device = mesh_lib.local_device(mesh)

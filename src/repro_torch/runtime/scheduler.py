@@ -35,13 +35,14 @@ The port's decode updates its cache in place: a slot keeps a one-row view
 of the batched cache of its last group, and the next tick's merge copies
 the rows into a new batched cache.
 
-Over a meshed (data-parallel) backend every rank runs the same scheduler on
-the same requests.  Buckets round up to multiples of the 'data' size; every
-clock read is rank 0's, broadcast, so each decision taken from it is the
-same on every rank.  A ``GenerateScheduler`` pins slot i to rank i mod n:
-its cache lives on that rank only, each prefill and decode batch holds
-every rank's own slots (padded per rank), and only logits and tokens
-cross ranks.
+Over a meshed backend every rank runs the same scheduler on the same
+requests.  Buckets round up to multiples of the 'data' size; every clock
+read is rank 0's, broadcast, so each decision taken from it is the same on
+every rank.  A ``GenerateScheduler`` pins slot i to data coordinate i mod
+n: its cache lives on that coordinate's ranks only (on a 'model' axis
+above 1 each of them holds its block of the slot's sequence), each
+prefill and decode batch holds every coordinate's own slots (padded per
+coordinate), and only logits and tokens cross data coordinates.
 """
 from __future__ import annotations
 
@@ -628,9 +629,9 @@ class GenerateScheduler(_SchedulerBase):
         self.n_slots = int(slots)
         self.max_len = int(max_len)
         # A meshed Generator splits every batch evenly over 'data': the
-        # buckets round up to its size.  Slot i lives on rank i mod n, and
-        # every batch puts each rank's own slots in that rank's rows
-        # (``_layout``), so a slot's cache never leaves its rank.
+        # buckets round up to its size.  Slot i lives on data coordinate i
+        # mod n, and every batch puts each coordinate's own slots in its
+        # rows (``_layout``), so a slot's cache never leaves its ranks.
         self.rows = mesh_lib.DataRows(getattr(gen, "mesh", None))
         self.prefill_buckets = round_buckets(prefill_buckets, self.rows.n)
         self.decode_buckets = round_buckets(decode_buckets, self.rows.n)

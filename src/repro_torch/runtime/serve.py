@@ -17,16 +17,26 @@ record the JAX module's device spans (``prefill``, ``decode``,
 ``_prefill``, ``_decode``, ``_grow_cache`` and ``params``, as they drive
 the JAX one.
 
-Multi-device serving is data-parallel, one process a rank (``mesh=``, a
-``launch.mesh.make_serve_mesh`` mesh whose 'model' axis is 1): every rank
-calls the same API with the same full inputs, holds a full replica of the
-packed tree on its device (``pack_for_serving(mesh=)``), pads the batch to
-a multiple of the 'data' size as the reference pads it, runs its own rows
-through the kernels and all-gathers the outputs, so every rank returns
-the whole result, as the reference's single controller does.  Batch
-entries never mix, so a meshed run is bitwise the single-device run.  A
-``Generator``'s decode cache stays rank-local (each rank its rows).  A
-'model' axis above 1 (tensor-parallel serving) raises: ROADMAP 16b (ii).
+Multi-device serving runs one process a rank over a (data, model) mesh
+(``mesh=``, ``launch.mesh.make_serve_mesh``): every rank calls the same API
+with the same full inputs, pads the batch to a multiple of the 'data' size
+as the reference pads it, runs its data coordinate's rows and all-gathers
+the outputs over 'data', so every rank returns the whole result, as the
+reference's single controller does.  Batch entries never mix.  On a
+(D, 1) mesh every rank holds a full replica of the packed tree
+(``pack_for_serving(mesh=)``) and a meshed run is bitwise the
+single-device run.  With a 'model' axis above 1 (tensor-parallel serving,
+the dense decoders -- granite-8b/34b, yi-34b, chameleon-34b,
+nemotron-4-340b -- and the ResNets) an LM rank holds its ``SERVE_RULES``
+slice of the packed tree (``nn.partitioning.shard_tree``) and its block of
+the decode cache's sequence (``max_len`` rounded up to a multiple of the
+model axis, as the reference rounds it); the ranks of one data coordinate
+compute the same rows together (``models.transformer``), and prefill logits
+and generated tokens are the single-device port's, decode logits within
+the LM tolerance (split-sequence attention).  A CNN's packed tree stays
+whole on every rank (``part.replicated``).  The other LM archs raise
+``NotImplementedError`` on a 'model' axis above 1: ROADMAP 16b (ii-b).
+A ``Generator``'s decode cache stays rank-local.
 """
 from __future__ import annotations
 
@@ -42,12 +52,13 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.nn import param as nnp
 from repro_torch.nn import partitioning as part
 from repro_torch.nn import quantized as Q
-from repro_torch.nn.layers import pack_embed
+from repro_torch.nn.layers import pack_embed, pad_vocab
 from repro_torch.runtime.telemetry import (as_metrics, as_tracer,
                                            device_span, device_timed)
 
-__all__ = ["pack_for_serving", "serve_shardings", "init_packed_lm",
-           "init_packed_views", "Generator", "ImageServer"]
+__all__ = ["pack_for_serving", "serve_shardings", "local_params",
+           "require_tensor_parallel", "init_packed_lm", "init_packed_views",
+           "Generator", "ImageServer"]
 
 
 def _pack_embed(policy, embed):
@@ -59,26 +70,80 @@ def _pack_embed(policy, embed):
 def serve_shardings(api, mesh):
     """``NamedSharding`` tree of this api's packed serve tree under
     ``SERVE_RULES``: LM families by each serve-spec leaf's logical axes
-    (replicated on a (N, 1) data-parallel mesh; 'mlp_packed' /
-    'heads_packed' would shard rows over 'model'), a CNN's packed tree
-    replicated whole."""
+    (replicated on a (N, 1) data-parallel mesh; on a 'model' axis above 1
+    q/gate/up and the head shard their columns, o/down their packed rows,
+    the embedding its vocabulary rows), a CNN's packed tree replicated
+    whole."""
     if api.family == "cnn":
         return part.replicated(mesh)
     return part.tree_shardings(api.param_axes("serve"), mesh,
                                part.SERVE_RULES)
 
 
+def require_tensor_parallel(api, mesh) -> None:
+    """Raise ``NotImplementedError`` unless ``api`` serves on ``mesh``'s
+    'model' axis (``mesh`` a mesh or its {axis: size}): any arch at size
+    1; above 1 the ResNets and the dense
+    GQA decoders (``models.transformer`` without MoE or MLA), packed --
+    the MoE and MLA archs, mamba2, recurrentgemma and whisper wait for
+    ROADMAP 16b (ii-b), the fp baseline's bf16 partial sums are not
+    served."""
+    if mesh is None:
+        return
+    sizes = mesh if isinstance(mesh, dict) else part.axis_sizes(mesh)
+    part.require_serve_mesh(sizes)
+    if sizes.get("model", 1) == 1 or api.family == "cnn":
+        return
+    cfg = api.cfg
+    dense = (api.mod.__name__ == "repro_torch.models.transformer"
+             and cfg.moe is None and cfg.mla is None)
+    if not dense:
+        raise NotImplementedError(
+            f"{api.name} on a 'model' axis above 1: tensor-parallel serving "
+            f"covers the dense decoders and the ResNets; expert parallelism "
+            f"(olmoe, deepseek), MLA, mamba2, recurrentgemma and whisper "
+            f"are ROADMAP 16b (ii-b)")
+    if not getattr(api.policy, "quantize", True):
+        raise NotImplementedError(
+            "the fp baseline (quantize=False) is not served on a 'model' "
+            "axis above 1")
+
+
+def local_params(api, params, mesh):
+    """This rank's part of a packed tree on ``mesh``: an LM's whole tree
+    is cut to its ``SERVE_RULES`` slice (``nn.partitioning.shard_tree``)
+    where the 'model' axis is above 1, and a tree already cut (its head
+    holds ``pad_vocab(vocab) / M`` columns) is kept; everything else, a
+    CNN's tree among it, is whole on every rank."""
+    if mesh is None or api.family == "cnn" \
+            or mesh_lib.model_coords(mesh)[1] == 1:
+        return params
+    m = mesh_lib.model_coords(mesh)[1]
+    cols = params["head"]["planes"].shape[-1]
+    vp = pad_vocab(api.cfg.vocab)
+    if cols == vp // m:
+        return params
+    if cols != vp:
+        raise ValueError(f"a head of {cols} columns is neither the whole "
+                         f"{vp} nor a 'model' shard of {vp // m}")
+    return part.shard_tree(params, api.param_axes("serve"), mesh,
+                           part.SERVE_RULES)
+
+
 def pack_for_serving(api, train_params, mesh=None):
     """Trained QAT tree -> packed serve tree, for any ``api.policy``
     (uniform or a layer-wise plan): every linear at its own resolved
     format, the embedding table as int8 codes and a step.  With ``mesh=``
-    (data-parallel) the tree is this rank's full replica, on its device."""
+    the tree is this rank's part (``local_params``: a full replica on a
+    (D, 1) mesh, the rank's ``SERVE_RULES`` slice on a 'model' axis above
+    1), on its device."""
+    require_tensor_parallel(api, mesh)
     packed = Q.pack_tree(train_params, api.specs("train"), api.policy)
     if "embed" in packed:
         packed["embed"] = _pack_embed(api.policy, packed["embed"])
     if mesh is not None:
-        part.require_data_parallel(part.axis_sizes(mesh))
-        packed = tree_to(packed, mesh_lib.local_device(mesh))
+        packed = tree_to(local_params(api, packed, mesh),
+                         mesh_lib.local_device(mesh))
     return packed
 
 
@@ -134,13 +199,13 @@ def _pad_rows(x: torch.Tensor, to: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand((to - x.shape[0],) + x.shape[1:])])
 
 
-def _mesh_device(mesh, device) -> torch.device:
-    """A serving object's device: this rank's on a mesh (which must be
-    data-parallel), else ``device`` (CUDA unless the caller asks for the
-    CPU)."""
+def _mesh_device(api, mesh, device) -> torch.device:
+    """A serving object's device: this rank's on a mesh (whose arch check
+    ``require_tensor_parallel`` passes), else ``device`` (CUDA unless the
+    caller asks for the CPU)."""
     if mesh is None:
         return resolve_device(device)
-    part.require_data_parallel(part.axis_sizes(mesh))
+    require_tensor_parallel(api, mesh)
     return mesh_lib.local_device(mesh)
 
 
@@ -172,13 +237,17 @@ class Generator:
     ``tracer`` each step records a ``prefill`` / ``decode`` device span
     and ``metrics`` observes ``repro_device_time_seconds``.
 
-    ``mesh`` (data-parallel, ``launch.mesh.make_serve_mesh``) runs every
-    step on this rank's rows: the hooks take the whole batch (B a multiple
-    of the 'data' size; ``run`` pads to one by repeating the last row) and
-    return the whole batch's logits, while the cache holds this rank's rows
-    only (``_grow_cache``'s ``b`` stays the whole batch).  A ``sample_fn``
-    draws for the real rows of the whole batch on every rank from the same
-    generator, so each row's draw is the single-device draw.
+    ``mesh`` (``launch.mesh.make_serve_mesh``) runs every step on this
+    rank's data coordinate's rows: the hooks take the whole batch (B a
+    multiple of the 'data' size; ``run`` pads to one by repeating the last
+    row) and return the whole batch's logits, while the cache holds this
+    rank's rows only (``_grow_cache``'s ``b`` stays the whole batch).  A
+    ``sample_fn`` draws for the real rows of the whole batch on every rank
+    from the same generator, so each row's draw is the single-device draw.
+    With a 'model' axis above 1 ``params`` is cut to this rank's slice
+    (``local_params``), the model runs tensor-parallel, and the cache is
+    this rank's block of the sequence (``_grow_cache`` rounds ``max_len``
+    up to a multiple of the model axis; the tail is never attended).
     """
 
     api: Any
@@ -194,20 +263,24 @@ class Generator:
     def __post_init__(self):
         if self.plan is not None:
             self.api = dataclasses.replace(self.api, policy=self.plan)
-        self.device = _mesh_device(self.mesh, self.device)
+        self.device = _mesh_device(self.api, self.mesh, self.device)
         self.rows = mesh_lib.DataRows(self.mesh)
-        self.params = tree_to(self.params, self.device)
+        self.model_rank, self.n_model = mesh_lib.model_coords(self.mesh)
+        self.params = tree_to(local_params(self.api, self.params, self.mesh),
+                              self.device)
         self.tracer = as_tracer(self.tracer)
         self.metrics = as_metrics(self.metrics)
         hist = self.metrics.histogram("repro_device_time_seconds")
         step = torch.inference_mode()
         prefill = device_timed(
             self.tracer, "prefill",
-            step(steps_lib.make_prefill_fn(self.api, impl=self.impl)), hist,
+            step(steps_lib.make_prefill_fn(self.api, impl=self.impl,
+                                           mesh=self.mesh)), hist,
             self.device)
         decode = device_timed(
             self.tracer, "decode",
-            step(steps_lib.make_decode_fn(self.api, impl=self.impl)), hist,
+            step(steps_lib.make_decode_fn(self.api, impl=self.impl,
+                                          mesh=self.mesh)), hist,
             self.device)
         if self.rows.n == 1:
             self._prefill, self._decode = prefill, decode
@@ -307,18 +380,28 @@ class Generator:
         keys into ring buffers (``models.recurrentgemma.ring_cache``); the
         rest copy into zero buffers, sequence axis left-aligned.  Decode
         then writes into them in place.  On a mesh ``b`` is the whole
-        batch and the cache this rank's ``b / n`` rows."""
+        batch and the cache this rank's ``b / n`` rows; on a 'model' axis
+        of M above 1 ``max_len`` rounds up to a multiple of M and the
+        cache is this rank's block of ``max_len / M`` positions, holding
+        the prompt's positions that fall in it."""
         b //= self.rows.n
         family = self.api.family
         if family == "ssm":
             return pre_cache
-        specs = self.api.cache_specs(b, max_len)
+        m = self.n_model
+        max_len = -(-max_len // m) * m
+        specs = self.api.cache_specs(b, max_len, model=m)
         if family == "hybrid":
             return self.api.mod.ring_cache(self.api.cfg, pre_cache, s, specs,
                                            self.device)
+        start = self.model_rank * (max_len // m)
 
         def grow(spec, pre):
             buf = torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
+            if m > 1:  # this rank's block of the sequence axis
+                ax = spec.axes.index("kv_seq")
+                n = min(max(s - start, 0), spec.shape[ax])
+                pre = pre.narrow(ax, min(start, pre.shape[ax]), n)
             buf[tuple(slice(0, n) for n in pre.shape)] = pre
             return buf
 
@@ -353,10 +436,11 @@ class ImageServer:
     ``plan`` overrides the api's uniform policy with a layer-wise one;
     ``params`` must then be packed under the same plan.
 
-    ``mesh`` (data-parallel) makes every bucket a multiple of the 'data'
-    size; each rank holds the whole packed tree on its device, runs its
-    rows of a bucket and all-gathers the logits, which are bitwise the
-    single-device ones.
+    ``mesh`` makes every bucket a multiple of the 'data' size; each rank
+    holds the whole packed tree on its device, runs its data coordinate's
+    rows of a bucket (on a 'model' axis above 1 the ranks of one data
+    coordinate run the same rows) and all-gathers the logits over 'data',
+    which are bitwise the single-device ones.
     """
 
     api: Any
@@ -374,7 +458,7 @@ class ImageServer:
         if self.api.family != "cnn":
             raise ValueError(f"ImageServer serves CNNs, got family "
                              f"{self.api.family!r}")
-        self.device = _mesh_device(self.mesh, self.device)
+        self.device = _mesh_device(self.api, self.mesh, self.device)
         self.rows = mesh_lib.DataRows(self.mesh)
         self.params = tree_to(self.params, self.device)
         self.batch_buckets = round_buckets(self.batch_buckets, self.rows.n)

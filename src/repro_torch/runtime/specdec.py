@@ -23,11 +23,12 @@ length and every attention mask is ``pos < length``, so rejected positions
 are never attended and the next cycle overwrites them in place (the
 port's decode updates its cache in place).
 
-With ``mesh=`` (data-parallel) both views are replicated on every rank,
-the batch is padded to a multiple of the 'data' size, each rank drafts and
-verifies its own rows, and the verify argmaxes and drafts are all-gathered
-so every rank takes the same acceptance decisions; tensor-parallel serving
-waits for ROADMAP 16b (ii).  The draft's k + 1 steps run as a Python loop
+With ``mesh=`` the batch is padded to a multiple of the 'data' size, each
+data coordinate drafts and verifies its own rows, and the verify argmaxes
+and drafts are all-gathered so every rank takes the same acceptance
+decisions.  Both views are replicated on a (D, 1) mesh; on a 'model' axis
+above 1 each view is cut to the rank's slice and both generators run
+tensor-parallel (``runtime.serve.Generator``).  The draft's k + 1 steps run as a Python loop
 of single-token decode steps where ``repro`` fuses them in one
 ``lax.scan``.
 """
@@ -109,10 +110,12 @@ class SpeculativeGenerator:
         step = torch.inference_mode()
         self._verify = device_timed(
             self.tracer, "specdec.verify",
-            step(steps_lib.make_verify_fn(api_v, impl=self.impl)),
+            step(steps_lib.make_verify_fn(api_v, impl=self.impl,
+                                          mesh=self.mesh)),
             hist, self.device)
         # the draft's steps untimed inside the one specdec.draft span
-        self._draft_decode = steps_lib.make_decode_fn(api_d, impl=self.impl)
+        self._draft_decode = steps_lib.make_decode_fn(api_d, impl=self.impl,
+                                                      mesh=self.mesh)
         self._draft = device_timed(self.tracer, "specdec.draft",
                                    step(self._draft_steps), hist,
                                    self.device)

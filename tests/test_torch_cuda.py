@@ -551,6 +551,94 @@ def test_mpmm_cuda_olmoe_bank(cuda_device, m):
     assert torch.equal(got, kernel.mpmm_torch(**dev, **kw))
 
 
+# --- K1's accumulator-only mode (tensor-parallel row shards) -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["st", "sa"])
+@pytest.mark.parametrize("w_bits,k", K1_FORMATS)
+@pytest.mark.parametrize("m,kdim,n", [
+    (3, 147, 70),     # route B, ragged K and N
+    (13, 147, 70),    # route B, 16 rows a thread
+    (77, 147, 70),    # route A, ragged everything
+    (4, 256, 192),    # route B, vector loads
+    (130, 384, 192),  # route A, cp.async, ragged M and N tiles
+])
+def test_mpmm_cuda_acc_only_matches_plain(cuda_device, m, kdim, n, w_bits, k,
+                                          variant):
+    """The int32 accumulator alone, bitwise its plain twin on both routes,
+    and ``epilogue.finish`` after it bitwise the fused K1."""
+    from repro_torch.kernels.mpmm import epilogue
+    gen = torch.Generator().manual_seed(m * 1000 + w_bits * 8 + k + 7)
+    cpu, kw = _k1_case(gen, m, kdim, n, w_bits, k, variant)
+    route = kernel.mpmm_route(m, kdim, n)
+    dev = _to(cpu, cuda_device)
+    before = dict(kernel.mpmm_cuda.routes)
+    acc = kernel.mpmm_cuda(dev["a_biased"], dev["planes"], None, None,
+                           fmt=kw["fmt"], act_zero=0, variant=variant,
+                           out_dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert kernel.mpmm_cuda.routes[route] == before[route] + 1
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc.cpu(), kernel.mpmm_torch_acc(
+        cpu["a_biased"], cpu["planes"], fmt=kw["fmt"]))
+    fused = kernel.mpmm_cuda(**dev, **kw)
+    got = epilogue.finish(acc, dev["gamma"], dev["colsum"], act_zero=128,
+                          spec=kw["epilogue"], scale=dev["scale"],
+                          shift=dev["shift"], residual=dev["residual"],
+                          out_dtype=kw["out_dtype"])
+    plain = kernel.mpmm_torch(**cpu, **kw)
+    assert torch.equal(fused.cpu(), plain)
+    # BN's fused multiply-add: torch's addcmul on the card must round once
+    assert torch.equal(got.cpu(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 4000])
+@pytest.mark.parametrize("kdim,n", [(2048, 4096), (7168, 4096)])
+def test_mpmm_cuda_acc_only_row_shards_sum(cuda_device, m, kdim, n):
+    """granite-8b's o and down projections split in two on the contraction
+    axis: the two shards' int32 accumulators add to the whole one, and the
+    epilogue on the sum is bitwise the fused whole product."""
+    from repro_torch.kernels.mpmm import epilogue
+    gen = torch.Generator(device=cuda_device).manual_seed(m + kdim)
+    whole = 2 * kdim
+    fmt = packing.PlaneFormat(w_bits=8, k=4, k_dim=whole)
+    w_int = torch.randint(-128, 128, (whole, n), generator=gen,
+                          device=cuda_device, dtype=torch.int32)
+    planes = packing.pack_planes(w_int, fmt)
+    a = torch.randint(-128, 128, (m, whole), generator=gen,
+                      device=cuda_device, dtype=torch.int32).to(torch.int8)
+    gamma = torch.rand((1, n), generator=gen, device=cuda_device) * 1e-3
+    colsum = w_int.sum(0, dtype=torch.int32).reshape(1, n)
+    del w_int
+    half = packing.PlaneFormat(w_bits=8, k=4, k_dim=kdim)
+    kp = half.packed_k
+    parts = [ops.mpmm_acc(a[:, i * kdim:(i + 1) * kdim].contiguous(),
+                          planes[:, i * kp:(i + 1) * kp].contiguous(),
+                          fmt=half, impl="cuda") for i in range(2)]
+    total = parts[0] + parts[1]
+    assert torch.equal(total, ops.mpmm_acc(a, planes, fmt=fmt, impl="cuda"))
+    got = epilogue.finish(total, gamma, colsum, act_zero=128, spec=None,
+                          out_dtype=torch.bfloat16)
+    want = kernel.mpmm_cuda(a, planes, gamma, colsum, fmt=fmt, act_zero=128,
+                            out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_mpmm_cuda_acc_only_bank(cuda_device):
+    """An expert bank keeps working under the accumulator-only flag."""
+    gen = torch.Generator().manual_seed(11)
+    fmt, cpu = _bank(gen, 3, 70, 147, 70, 4, 4)
+    dev = _to(cpu, cuda_device)
+    got = kernel.mpmm_cuda(dev["a_biased"], dev["planes"], None, None,
+                           fmt=fmt, act_zero=0, out_dtype=torch.int32)
+    assert torch.equal(got.cpu(), kernel.mpmm_torch_acc(
+        cpu["a_biased"], cpu["planes"], fmt=fmt))
+
+
 # --- K3 / K4 at head dim 192 (nemotron-4-340b) ------------------------------
 
 

@@ -140,8 +140,10 @@ def test_flags_waiting_for_modules_are_absent(flag, capsys):
 
 
 def test_mesh_model_axis_refused():
-    with pytest.raises(SystemExit, match="16b \\(ii\\)"):
-        serve.main(["--arch", "granite-8b", *CPU, "--mesh", "2x2"])
+    """A 'model' axis above 1 serves the dense decoders and the ResNets;
+    an MoE arch exits before any rank starts (ROADMAP 16b (ii-b))."""
+    with pytest.raises(SystemExit, match="16b \\(ii-b\\)"):
+        serve.main(["--arch", "olmoe-1b-7b", *CPU, "--mesh", "2x2"])
 
 
 def test_mesh_needs_its_ranks():
@@ -168,6 +170,26 @@ def test_two_local_ranks_serve_as_one_device(tmp_path):
     assert len(sample(outs[0].stdout)) == 1
     assert sample(outs[0].stdout) == sample(outs[1].stdout)
     assert "mesh {'data': 2, 'model': 1} over 2 ranks" in outs[1].stdout
+
+
+def test_tensor_parallel_ranks_serve_as_one_device(tmp_path):
+    """``--devices 2 --mesh 1x2`` serves granite-8b tensor-parallel over
+    two ranks; rank 0 prints the single-device run's greedy sample."""
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "granite-8b", *CPU, "--batch", "3", "--prompt-len", "6",
+            "--new-tokens", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = [subprocess.run(args + extra, capture_output=True, text=True,
+                           env=env, timeout=240, cwd=tmp_path)
+            for extra in ([], ["--devices", "2", "--mesh", "1x2"])]
+    for r in outs:
+        assert r.returncode == 0, r.stderr[-2000:]
+
+    def sample(text):
+        return [ln for ln in text.splitlines() if "sample:" in ln]
+    assert len(sample(outs[0].stdout)) == 1
+    assert sample(outs[0].stdout) == sample(outs[1].stdout)
+    assert "mesh {'data': 1, 'model': 2} over 2 ranks" in outs[1].stdout
 
 
 def test_defaults_to_the_card():

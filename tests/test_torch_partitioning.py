@@ -231,8 +231,11 @@ class TestMesh:
             mesh_lib.make_serve_mesh(2, 1, device="cpu")
         with pytest.raises(ValueError):  # model axis > world: data = 0
             mesh_lib.make_serve_mesh(model=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="16b \\(ii\\)"):
+        # a 'model' axis above 1 is served (tensor-parallel), on its ranks
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             mesh_lib.make_serve_mesh(1, 2, device="cpu")
+        with pytest.raises(NotImplementedError, match="multi-pod"):
+            part.require_serve_mesh({"pod": 2, "data": 1, "model": 1})
 
     def test_production_mesh_needs_its_world(self):
         with pytest.raises(ValueError, match="256"):
@@ -299,11 +302,19 @@ class TestConstrain:
             assert part.constrain(x, ("batch", "act_embed")) is x
 
     def test_constrain_raises_on_model_axis(self):
+        """A 'model' axis above 1 is served (its activations replicated by
+        the tensor-parallel layers' collectives): a no-op; a multi-pod
+        mesh, which no serve path covers, raises."""
+        x = torch.ones(2)
         fake = SimpleNamespace(axis_names=("data", "model"),
                                devices=np.zeros((2, 2)))
         with part.axis_rules(part.SERVE_RULES, fake):
-            with pytest.raises(NotImplementedError, match="16b"):
-                part.constrain(torch.ones(2), ("batch",))
+            assert part.constrain(x, ("batch",)) is x
+        pod = SimpleNamespace(axis_names=("pod", "data", "model"),
+                              devices=np.zeros((2, 1, 2)))
+        with part.axis_rules(part.SERVE_RULES, pod):
+            with pytest.raises(NotImplementedError, match="multi-pod"):
+                part.constrain(x, ("batch",))
 
 
 class TestInputSpecs:

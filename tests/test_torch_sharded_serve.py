@@ -8,7 +8,9 @@ every rank returns the whole result -- must equal the port's single-device
 run of the same case bitwise.  Mixed layer-wise plans (w8/w4/w2) on the CNN
 and LM serving shapes, ragged and odd batches, the packed KV cache, the
 schedulers, speculative decoding, a frontier behind ``SLOScheduler`` and a
-seeded sampler.  A 'model' axis above 1 raises (ROADMAP 16b (ii)).
+seeded sampler.  A mesh larger than the world raises, and an arch that
+tensor-parallel serving does not cover raises on a 'model' axis above 1
+(ROADMAP 16b (ii-b); ``test_torch_tensor_parallel.py`` serves the rest).
 
 The module imports no JAX: the spawned ranks import it to find the case
 functions.  Every process computes on one thread.
@@ -317,12 +319,20 @@ def _rank(rank, names):
     mesh = mesh_lib.make_serve_mesh(WORLD, 1, device="cpu")
     out = {name: CASES[name](mesh) for name in names}
     errors = {}
-    for shape, exc in (((4, 2), NotImplementedError), ((8, 1), ValueError),
+    for shape, exc in (((4, 2), ValueError), ((8, 1), ValueError),
                        ((2, 1), ValueError)):
         try:
             mesh_lib.make_serve_mesh(*shape, device="cpu")
         except exc as e:
             errors[shape] = str(e)
+    tp = mesh_lib.make_serve_mesh(2, 2, device="cpu")
+    moe = configs.get("olmoe-1b-7b", reduced=True)
+    train = moe.init_params(torch.Generator().manual_seed(0), "train",
+                            device="cpu")
+    try:
+        pack_for_serving(moe, train, mesh=tp)
+    except NotImplementedError as e:
+        errors[(2, 2, "olmoe-1b-7b")] = str(e)
     out["_errors"] = errors
     out["_coords"] = mesh_lib.data_coords(mesh)
     return out
@@ -480,7 +490,10 @@ def test_sampled_rows_draw_as_single_device(meshed, single):
 
 
 def test_model_axis_raises_16b_ii(meshed):
+    """A (4, 2) mesh on a world of 4 is too large for it; an MoE arch on a
+    (2, 2) mesh waits for expert parallelism, ROADMAP 16b (ii-b)."""
     errs = _meshed(meshed, "_errors")
-    assert "16b (ii)" in errs[(4, 2)]
+    assert "16b (ii-b)" in errs[(2, 2, "olmoe-1b-7b")]
+    assert "needs 8 ranks" in errs[(4, 2)]
     assert "needs 8 ranks" in errs[(8, 1)]
     assert "covers 2 ranks" in errs[(2, 1)]
