@@ -325,6 +325,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``GenerateScheduler`` over (b)'s ``Generator`` (tickets bitwise) and
    ResNet-18 batch 16, replicated over 'model' (logits bitwise, launches
    as one device).
+20. Tensor-parallel serving of the MoE, MLA and encoder-decoder archs
+   (slice 15), on one device here, then on a (1, 2) mesh of two ranks
+   sharing cuda:0 over gloo: olmoe-1b-7b at full width, first 2 layers
+   (32 experts a rank, one K1 launch a projection over them), under
+   phase 12's plan (banks in w2k2 and w8k4, a packed kv4 cache: K4 over
+   the rank's heads), 4 x 256 prompts + 8 tokens and a
+   ``GenerateScheduler`` over it; deepseek-v2-lite-16b at full width,
+   first 3 layers (the dense first layer, two MoE layers with shared
+   experts, MLA's latent cache on 'kv_seq'), 4 x 256 + 8; whisper-base
+   whole (6 + 6), 4 x 64 tokens + 1536 frames (the cross cache's frames
+   on 'kv_seq'), 8 tokens.  Prefill and decode logits bitwise one
+   device, tokens equal, both ranks equal, each rank's launches those of
+   one device with the row shards accumulator-only, its slice (E/2
+   experts a bank, half the heads' columns and the head's) and its
+   ``kv_seq`` block of every cache; the scheduler's tickets bitwise.
+   ``[p20-time]``: a rank's prefill and decode ms a step against one
+   device (host clock), the bytes and host ms of each kind of collective
+   (router gather, expert exchange, MLA's latent gather, the self and
+   cross split decodes, the int32 sums, the head), and K1 over a rank's
+   32-expert bank at its prefill shape against its bound and a
+   ``torch._int_mm`` loop over the experts.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -343,6 +364,7 @@ unless every phase passed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2925,14 +2947,18 @@ def flash_split(sm, api, b, s):
 
 
 def k1_bank_row(sm, label, m, kdim, n, e, w_bits, k):
-    """An expert bank's K1 call timed against its bound and against a
-    PyTorch loop over the experts (``torch._int_mm`` where it takes the
-    shape, else ``torch.mm`` in f32), both on the same combined weights."""
+    """An expert bank's K1 call held bitwise against its plain version on
+    the same inputs, then timed against its bound and against a PyTorch
+    loop over the experts (``torch._int_mm`` where it takes the shape,
+    else ``torch.mm`` in f32), both on the same combined weights."""
     from repro_torch.kernels.mpmm import kernel, ref
     t = sm.torch
     d, kw = k1_operands(sm, m, kdim, n, e, w_bits, k)
     fmt = kw["fmt"]
     out = kernel.mpmm_cuda(**d, **kw)
+    shape = f"E={e} M={m} K={kdim} N={n} w{w_bits}k{k}"
+    sm.compare("mpmm_cuda", f"K1 {label} {shape}", out,
+               kernel.mpmm_torch(**d, **kw).cpu())
     a, w8 = d["a_biased"], ref.combined_int8_weights(d["planes"], fmt)
     if m > 16 and kdim % 8 == 0 and n % 8 == 0:
         lib = lambda: [t._int_mm(a[i], w8[i]) for i in range(e)]  # noqa
@@ -2945,7 +2971,7 @@ def k1_bank_row(sm, label, m, kdim, n, e, w_bits, k):
     b_ms, b_by = bound_ms(by, 2 * e * m * n * kdim)
     row = {"kernel": "mpmm_cuda", "layer": label,
            "route": kernel.mpmm_route(m, kdim, n),
-           "shape": f"E={e} M={m} K={kdim} N={n} w{w_bits}k{k}",
+           "shape": shape,
            "ms": sm.time_ms(lambda: kernel.mpmm_cuda(**d, **kw), reps=10),
            "plain_ms": sm.time_ms(lambda: kernel.mpmm_torch(**d, **kw),
                                   reps=2, warmup=1),
@@ -3183,6 +3209,8 @@ def phase_p12(sm, card):
     launches = {}
     for res in results:
         launches = add_counts(launches, res["counts"])
+    sm.check_phase("12 K1 expert banks at the path's shapes vs "
+                   "mpmm_torch")
     rows = [r for res in results for r in res["rows"]] + measure_d192(sm)
     log(f"[p12] phase 12 took {time.perf_counter() - t0:.1f} s")
     return launches, results, rows
@@ -5491,32 +5519,6 @@ def p19_acc_only(sm):
     return rows
 
 
-class P19Reduce:
-    """Wraps ``launch.mesh.all_reduce_model`` in a rank: bytes and host
-    milliseconds of each call (the card synchronized around it)."""
-
-    def __init__(self, torch):
-        from repro_torch.launch import mesh as mesh_lib
-        self.torch, self.mesh_lib = torch, mesh_lib
-        self.orig = mesh_lib.all_reduce_model
-        self.calls = []
-
-    def __enter__(self):
-        def counted(mesh, x):
-            self.torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = self.orig(mesh, x)
-            self.torch.cuda.synchronize()
-            self.calls.append((x.numel() * x.element_size(),
-                               (time.perf_counter() - t0) * 1e3))
-            return out
-        self.mesh_lib.all_reduce_model = counted
-        return self
-
-    def __exit__(self, *exc):
-        self.mesh_lib.all_reduce_model = self.orig
-
-
 def p19_cells(mesh, device):
     """Phase 19's cells on ``mesh`` (None: one device) -> results with each
     run's launch counts."""
@@ -5556,13 +5558,14 @@ def p19_cells(mesh, device):
     gen.run(prompts, 1)
     t.cuda.synchronize()
     lm["prefill_s"] = time.perf_counter() - t0
-    if mesh is not None:
-        with P19Reduce(t) as red:
+    if mesh is not None:  # the int32 all-reduces of a prefill, a step
+        with Collectives(t) as col:
             gen.run(prompts, 1)
-        pre = list(red.calls)
-        with P19Reduce(t) as red:
+        pre = [c[2:] for c in col.calls if c[0] == "all_reduce_model"]
+        with Collectives(t) as col:
             gen.run(prompts, 2)
-        lm["reduce"] = {"prefill": pre, "decode": red.calls[len(pre):]}
+        red = [c[2:] for c in col.calls if c[0] == "all_reduce_model"]
+        lm["reduce"] = {"prefill": pre, "decode": red[len(pre):]}
     out["lm"] = lm
     clock = StepClock()
     sched = GenerateScheduler(gen, slots=4, max_len=s_ + n_new, clock=clock)
@@ -5750,6 +5753,398 @@ def phase_p19(sm, card):
            "shapes": [f"{r['name']} M={r['m']} K={r['k']} N={r['n']}"
                       for r in k1_rows]}
     return launches, acc
+
+
+# --- phase 20: tensor-parallel serving of olmoe, deepseek and whisper -------
+
+
+P20_RANKS = 2
+# arch -> (depth (None: all), (batch, prompt tokens, new tokens))
+P20_RUNS = (("olmoe-1b-7b", 2, (4, 256, 8)),
+            ("deepseek-v2-lite-16b", 3, (4, 256, 8)),
+            ("whisper-base", None, (4, 64, 8)))
+P20_SCHED_ARCH = "olmoe-1b-7b"
+# olmoe's expert banks of a rank's prefill (4 x 256 tokens, capacity 64 a
+# row): M = 256 rows an expert, 32 experts; (K, N) of gate/up and down, at
+# each layer's expert format
+P20_BANKS = ((2048, 1024), (1024, 2048))
+P20_BANK_FORMATS = ((2, 2), (8, 4))
+# the frames a caller of each all-gather / all-reduce is sorted by (the
+# first one found walking out from the collective)
+P20_KINDS = (("router_logits", "router gather"),
+             ("expert_parallel_combine", "expert exchange"),
+             ("mla_verify", "MLA latent gather"),
+             ("cross_decode", "cross split decode"),
+             ("gqa_verify", "self split decode"),
+             ("_row_parallel_apply", "row-shard int32 sum"),
+             ("embed_serve_apply", "embedding int32 sum"),
+             ("_head", "head gather"))
+
+
+def p20_api(arch, depth):
+    """Phase 20's arch: olmoe under phase 12's plan (its two layers'
+    banks in w2k2 and w8k4, a packed kv4 cache: K4), the others under
+    their default policy."""
+    from repro_torch import configs
+    plan = None
+    if arch == "olmoe-1b-7b":
+        plan = with_kv4(configs.get(arch).policy, l0_expert=(2, 2),
+                        l1_expert=(8, 4))
+    return family_api(arch, plan, depth)
+
+
+class Collectives:
+    """Wraps ``launch.mesh.all_gather_model`` and ``all_reduce_model`` in a
+    rank (phases 19, 20): (function, kind, bytes of the rank's shard, host
+    ms) of each call (the card synchronized around it), the kind read off
+    the calling frames (``P20_KINDS``)."""
+
+    def __init__(self, torch):
+        from repro_torch.launch import mesh as mesh_lib
+        self.torch, self.mesh_lib = torch, mesh_lib
+        self.orig = {n: getattr(mesh_lib, n)
+                     for n in ("all_gather_model", "all_reduce_model")}
+        self.calls = []
+
+    def _kind(self):
+        frame = sys._getframe(2)
+        names = dict(P20_KINDS)
+        while frame is not None:
+            if frame.f_code.co_name in names:
+                return names[frame.f_code.co_name]
+            frame = frame.f_back
+        return "other"
+
+    def __enter__(self):
+        def wrap(fn):
+            def counted(mesh, x, *args, **kw):
+                kind = self._kind()
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(mesh, x, *args, **kw)
+                self.torch.cuda.synchronize()
+                self.calls.append((fn.__name__, kind,
+                                   x.numel() * x.element_size(),
+                                   (time.perf_counter() - t0) * 1e3))
+                return out
+            return counted
+        for name, fn in self.orig.items():
+            setattr(self.mesh_lib, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mesh_lib, name, fn)
+
+
+def p20_slices(api, params):
+    """What a rank holds of the packed tree: every bank's experts and the
+    router's columns, the heads' q (and uk) columns, the head's columns."""
+    if api.family == "audio":
+        dec = params["dec_layers"][0]
+        return {"xq_cols": dec["xattn"]["q"]["planes"].shape[-1],
+                "head_cols": params["head"]["planes"].shape[-1]}
+    layers = params["layers"]
+    out = {"banks": [lp["moe"][k]["planes"].shape[0] for lp in layers
+                     if "moe" in lp for k in ("gate", "up", "down")],
+           "router_cols": [lp["moe"]["router"].shape[1] for lp in layers
+                           if "moe" in lp],
+           "q_cols": layers[-1]["attn"]["q"]["planes"].shape[-1],
+           "head_cols": params["head"]["planes"].shape[-1]}
+    if "uk" in layers[0]["attn"]:
+        out["uk_cols"] = layers[0]["attn"]["uk"]["planes"].shape[-1]
+    return out
+
+
+def p20_cells(mesh, device):
+    """Phase 20's runs on ``mesh`` (None: one device) -> {arch: results}
+    with each run's launch counts, and the olmoe scheduler's tickets."""
+    import gc
+    import numpy as np
+    import torch as t
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.runtime.scheduler import GenerateScheduler
+    from repro_torch.runtime.serve import Generator, init_packed_lm
+
+    def counts():
+        c = read_p11()
+        c["acc_only"] = kernel.mpmm_cuda.acc_launches
+        return c
+    out = {}
+    for arch, depth, (b, s_, n_new) in P20_RUNS:
+        api = p20_api(arch, depth)
+        packed = init_packed_lm(api, t.Generator(device=device).manual_seed(
+            SEED), device=device)
+        gen = Generator(api=api, params=packed, device=device, mesh=mesh)
+        del packed
+        prompts = np.random.default_rng(SEED).integers(
+            0, api.cfg.vocab, (b, s_)).astype(np.int32)
+        kw = {}
+        if api.needs_frames:
+            kw["frames"] = np.random.default_rng(SEED + 2).normal(0, 1, (
+                b, api.cfg.n_audio, api.cfg.d_model)).astype(np.float32)
+        gen.generate(prompts, 2, **kw)  # warm-up
+        t.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, logits = gen.run(prompts, n_new, **kw)
+        t.cuda.synchronize()
+        res = {"tokens": toks, "logits": [lg.float().cpu().numpy()
+                                          for lg in logits],
+               "counts": counts(), "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        gen.run(prompts, 1, **kw)
+        t.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        col = Collectives(t) if mesh is not None else None
+        with col or contextlib.nullcontext():
+            pre = gen.prefill(t.as_tensor(prompts, dtype=t.long,
+                                          device=device),
+                              gen._frames(kw.get("frames"), b))[1]
+            cache = gen._grow_cache(pre, b, s_, s_ + n_new)
+        del pre
+        first = ([cache["self"][0], cache["cross"][0]]
+                 if api.family == "audio" else cache[0])
+        res["cache_shapes"] = [tuple(x.shape) for x in tree_leaves(first)]
+        del cache, first
+        if mesh is not None:
+            res["slices"] = p20_slices(api, gen.params)
+            res["collectives"] = {"prefill": col.calls}
+            with Collectives(t) as col:
+                gen.run(prompts, 2, **kw)
+            res["collectives"]["decode"] = col.calls[len(
+                res["collectives"]["prefill"]):]
+        out[arch] = res
+        if arch == P20_SCHED_ARCH:
+            clock = StepClock()
+            sched = GenerateScheduler(gen, slots=4, max_len=s_ + n_new,
+                                      clock=clock)
+            rng = np.random.default_rng(SEED + 1)
+            reset_counts()
+            tickets = [sched.submit(rng.integers(
+                0, api.cfg.vocab, (plen,)).astype(np.int32), nn)
+                for plen, nn in P18_SCHED]
+            while sched.pending or sched.active:
+                clock.advance(1.0)
+                sched.step(flush=True)
+            out["sched"] = {"results": [tk.result for tk in tickets],
+                            "counts": counts()}
+            del sched
+        del gen
+        gc.collect()
+        t.cuda.empty_cache()
+    return out
+
+
+def p20_rank(rank, _args):
+    """One rank of phase 20's world: two ranks on cuda:0 over gloo, a
+    (1, 2) mesh, the kernels loaded from the libraries the parent built."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    stale = [n for n in _build.KERNEL_SOURCES if _build._stale(n)]
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_serve_mesh(
+        1, P20_RANKS, devices=["cuda:0"] * P20_RANKS)
+    out = p20_cells(mesh, mesh_lib.local_device(mesh))
+    out["stale"] = stale
+    out["backend"] = mesh_lib.mesh_info(mesh).backend
+    out["coords"] = mesh_lib.model_coords(mesh)
+    return out
+
+
+def p20_expected(api, b, s, n_new):
+    """(K1 launches by route, K3, K4, accumulator-only launches) of one
+    ``Generator.run`` on a rank of a 'model' axis above 1: the one-device
+    launches (a projection launches once, over the rank's columns, rows,
+    heads or experts; K1's route depends on M alone), of which each row
+    shard -- o, a dense MLP's down, ``shared_down``, whisper's o and down
+    in both stacks -- runs accumulator-only."""
+    cfg = api.cfg
+    if api.family == "audio":
+        routes, k3 = p13_expected(api, b, s, n_new)
+        acc = 2 * cfg.n_layers + 3 * cfg.n_layers * n_new
+        return routes, k3, 0, acc
+    routes, k3, k4 = expected_counts(api, b, s, n_new)
+    per_step = sum(1 + (i < cfg.dense_first_n or cfg.moe is None
+                        or bool(cfg.moe.n_shared))
+                   for i in range(cfg.n_layers))
+    return routes, k3, k4, per_step * n_new
+
+
+def p20_check(sm, ranks, one):
+    """Every arch: prefill and decode logits bitwise one device, tokens
+    equal, both ranks' logits equal, each rank's launches (``p20_expected``;
+    one device: the same without accumulator-only calls), its slice (E/2
+    experts a bank and router columns, half the heads' columns, half the
+    head) and its ``kv_seq`` block of each cache (half the one-device
+    length); olmoe's scheduler tickets bitwise."""
+    import numpy as np
+    from repro_torch.nn.layers import pad_vocab
+    for arch, depth, (b, s_, n_new) in P20_RUNS:
+        api = p20_api(arch, depth)
+        cfg = api.cfg
+        routes, k3, k4, acc = p20_expected(api, b, s_, n_new)
+        want1 = one[arch]
+        for who, res, want_acc in ([("one device", want1, 0)]
+                                   + [(f"rank {r}", x[arch], acc)
+                                      for r, x in enumerate(ranks)]):
+            c = res["counts"]
+            got = {k[6:]: v for k, v in c.items()
+                   if k.startswith("route:") and v}
+            if (got != routes or c["flash_fwd_cuda"] != k3
+                    or c["flash_fwd_packed_cuda"] != k4
+                    or c["conv_mpmm_cuda"] or c["acc_only"] != want_acc):
+                sm.failures.append(
+                    f"p20 {arch} {who} launches {c} != {routes} K3 {k3} "
+                    f"K4 {k4} acc-only {want_acc}")
+        for r, res in enumerate(ranks):
+            lm = res[arch]
+            if res["stale"] or res["backend"] != "gloo" \
+                    or res["coords"] != (r, P20_RANKS):
+                sm.failures.append(f"p20 rank {r}: stale {res['stale']}, "
+                                   f"backend {res['backend']}, coords "
+                                   f"{res['coords']}")
+            if not np.array_equal(lm["logits"][0], want1["logits"][0]):
+                sm.failures.append(f"p20 {arch} rank {r}: prefill logits "
+                                   f"not bitwise one device")
+            bad = [i for i, (a, w) in enumerate(zip(lm["logits"][1:],
+                                                     want1["logits"][1:]))
+                   if not np.array_equal(a, w)]
+            if bad:
+                sm.failures.append(f"p20 {arch} rank {r}: decode logits "
+                                   f"not bitwise one device at steps {bad}")
+            if not np.array_equal(lm["tokens"], want1["tokens"]):
+                sm.failures.append(f"p20 {arch} rank {r}: tokens differ "
+                                   f"from one device")
+            if r and not p18_equal(lm["logits"], ranks[0][arch]["logits"]):
+                sm.failures.append(f"p20 {arch} rank {r}: logits differ "
+                                   f"from rank 0")
+            for step, lg in enumerate(lm["logits"]):
+                if lg.shape != (b, cfg.vocab) or not np.isfinite(lg).all() \
+                        or float(lg.std()) == 0.0:
+                    sm.failures.append(f"p20 {arch} rank {r} step {step}: "
+                                       f"logits {lg.shape} not finite or "
+                                       f"constant")
+            sl = lm["slices"]
+            m = P20_RANKS
+            want = {"head_cols": pad_vocab(cfg.vocab) // m}
+            if api.family == "audio":
+                want["xq_cols"] = cfg.d_model // m
+            else:
+                e = cfg.moe.n_experts // m
+                n_moe = cfg.n_layers - cfg.dense_first_n
+                qk = (cfg.mla.qk_nope + cfg.mla.qk_rope if cfg.mla
+                      else cfg.hd)
+                want.update(banks=[e] * 3 * n_moe, router_cols=[e] * n_moe,
+                            q_cols=cfg.n_heads * qk // m)
+                if cfg.mla is not None:
+                    want["uk_cols"] = cfg.n_heads * cfg.mla.qk_nope // m
+            # each cache leaf differs from one device's in one axis, kv_seq,
+            # which holds half the positions
+            diffs = [[(a, w) for a, w in zip(g, o) if a != w]
+                     for g, o in zip(lm["cache_shapes"],
+                                     want1["cache_shapes"])]
+            if sl != want or not diffs or any(
+                    len(d) != 1 or 2 * d[0][0] != d[0][1] for d in diffs):
+                sm.failures.append(
+                    f"p20 {arch} rank {r}: slices {sl} (want {want}), cache "
+                    f"blocks {lm['cache_shapes']} of "
+                    f"{want1['cache_shapes']}")
+    for r, res in enumerate(ranks):
+        if not p18_equal(res["sched"]["results"], one["sched"]["results"]):
+            sm.failures.append(f"p20 rank {r}: {P20_SCHED_ARCH} scheduler "
+                               f"tickets differ from one device")
+
+
+def p20_banks(sm):
+    """K1 over a 32-expert bank at the rank's prefill shape (M 256 an
+    expert) for olmoe's gate/up and down at both layers' formats, held
+    bitwise against its plain version, then timed against its bound and a
+    ``torch._int_mm`` loop over the 32 experts."""
+    from repro_torch import configs
+    from repro_torch.nn.moe import capacity
+    cfg = configs.get("olmoe-1b-7b").cfg
+    b, s_, _ = P20_RUNS[0][2]
+    m = b * capacity(cfg.moe, s_)
+    e = cfg.moe.n_experts // P20_RANKS
+    return [k1_bank_row(sm, f"olmoe rank bank w{w}k{k}", m, kdim, n, e, w,
+                        k)
+            for kdim, n in P20_BANKS for w, k in P20_BANK_FORMATS]
+
+
+def phase_p20(sm, card):
+    """Phase 20: olmoe-1b-7b x2 (expert parallelism, K4 under a kv4
+    plan, a GenerateScheduler), deepseek-v2-lite-16b x3 (MLA's latent
+    cache, shared experts, the dense first layer) and whisper-base (the
+    cross cache) on one device here, then on a (1, 2) mesh of two ranks
+    sharing cuda:0 -> (the ranks' summed launches, the bank rows)."""
+    t0 = time.perf_counter()
+    release(sm)
+    one = p20_cells(None, sm.device)
+    release(sm)
+    t1 = time.perf_counter()
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.spawn(p20_rank, P20_RANKS, (None,),
+                           store_dir=str(ROOT / "build" / "p20"),
+                           backend="gloo", timeout_s=500)
+    spawn_s = time.perf_counter() - t1
+    p20_check(sm, ranks, one)
+    sm.check_phase("20 tensor-parallel olmoe (expert parallel), deepseek "
+                   "(MLA latent) and whisper (cross cache), (1, 2) mesh on "
+                   "cuda:0: prefill and decode logits bitwise, tokens "
+                   "equal, ranks equal, launches, slices, scheduler")
+    release(sm)
+    banks = p20_banks(sm)
+    sm.check_phase("20 K1 over a rank's 32-expert bank vs mpmm_torch")
+    launches = {}
+    for res in ranks:
+        for cell in [a for a, _, _ in P20_RUNS] + ["sched"]:
+            launches = add_counts(launches, res[cell]["counts"])
+    for arch, depth, (b, s_, n_new) in P20_RUNS:
+        runs_ = (("one device", one[arch]), ("rank 0", ranks[0][arch]),
+                 ("rank 1", ranks[1][arch]))
+        pre = ", ".join(f"{k} {v['prefill_s'] * 1e3:.1f} ms"
+                        for k, v in runs_)
+        dec = ", ".join(f"{k} {(v['s'] - v['prefill_s']) / (n_new - 1) * 1e3:.1f}"
+                        f" ms" for k, v in runs_)
+        frames = (f" + {p20_api(arch, depth).cfg.n_audio} frames"
+                  if arch == "whisper-base" else "")
+        log(f"[p20-time] {arch} {f'x{depth}' if depth else 'whole'} {b} x "
+            f"{s_}{frames} + "
+            f"{n_new} host clock: prefill {pre}; decode per step {dec}  "
+            f"({card})")
+        for step, calls in ranks[0][arch]["collectives"].items():
+            kinds = {}
+            for _, kind, nb, ms in calls:
+                k = kinds.setdefault(kind, [0, 0, 0.0])
+                k[0] += 1
+                k[1] += nb
+                k[2] += ms
+            log(f"[p20-time] {arch} rank 0 collectives per {step} (bytes of "
+                f"the rank's shard, sent once and received once at M = 2; "
+                f"host ms, card synchronized around each, through the "
+                f"host, gloo): " + "; ".join(
+                    f"{k} {v[0]} calls {v[1]} B {v[2]:.2f} ms"
+                    for k, v in sorted(kinds.items())) + f"  ({card})")
+    for r in banks:
+        log(f"[p20-time] K1 a rank's olmoe bank {r['shape']} route "
+            f"{r['route']}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, {r['library']} "
+            f"{r['library_ms']:.4f} ms (kernel/library "
+            f"{r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)  "
+            f"({card})")
+    log(f"[p20] world started and served in {spawn_s:.1f} s; rank 0 "
+        f"launches " + "; ".join(f"{a} {ranks[0][a]['counts']}"
+                                 for a, _, _ in P20_RUNS))
+    log(f"[p20] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return launches, banks
 
 
 def summarize(rows, launches, max_err, k1_routes):
@@ -5950,9 +6345,19 @@ def run_phases(torch) -> int:
     k1_routes = {k: k1_routes[k] + p19_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p19] phase 19 done at {time.perf_counter() - t_start:.1f} s")
+    p20_launches, bank_rows = phase_p20(sm, card)
+    launches = {k: launches[k] + p20_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p20_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p20] phase 20 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
+    acc_only["launches"] += p20_launches.get("acc_only", 0)
     kernels[0]["acc_only"] = acc_only
+    kernels[0]["rank_bank32"] = [
+        {key: r[key] for key in ("shape", "route", "ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by")}
+        for r in bank_rows]
 
     for r in rows:
         log(f"[time] {r['kernel']} {r['layer']:7s} {r['shape']}"

@@ -59,12 +59,15 @@ Serving over a device mesh, one process a rank: ``--devices N`` starts N
 local ranks (gloo on the CPU, NCCL on cards; ``--share-cards`` puts ranks
 on fewer cards round-robin, over gloo, as on a one-card machine), and
 ``--mesh DxM`` names the mesh (``D x M`` = N).  ``M`` > 1 is
-tensor-parallel serving, for the dense decoders and the ResNets; the MoE
-and MLA archs, mamba2, recurrentgemma and whisper exit naming ROADMAP 16b
-(ii-b).  Under ``torchrun --nproc-per-node N`` the environment's world is
-used and ``--devices``, if given, must equal it.  Every rank serves the
-same requests on its data coordinate's rows of each batch and all-gathers
-the results; rank 0 prints:
+tensor-parallel serving, for the dense decoders, olmoe-1b-7b and
+deepseek-v2-lite-16b (expert parallelism, MLA's sharded latent cache),
+whisper-base (its stub frames' cross cache sharded by frames) and the
+ResNets; mamba2, recurrentgemma and the fp baseline exit naming ROADMAP
+16b (ii-b), and heads, experts or frames that do not split over M exit
+naming both numbers.  Under ``torchrun --nproc-per-node N`` the
+environment's world is used and ``--devices``, if given, must equal it.
+Every rank serves the same requests on its data coordinate's rows of each
+batch and all-gathers the results; rank 0 prints:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --reduced --devices 4 --mesh 2x2 --batch 8 --device cpu
@@ -461,8 +464,8 @@ def _parser() -> argparse.ArgumentParser:
                     type=_mesh_spec,
                     help="serve mesh DATAxMODEL (e.g. 4x1, 2x2): each "
                          "batch split over D data coordinates, the model "
-                         "tensor-parallel over M ranks (dense decoders and "
-                         "ResNets)")
+                         "tensor-parallel over M ranks (every transformer "
+                         "decoder, whisper and the ResNets)")
     ap.add_argument("--devices", type=_ranks, default=None, metavar="N",
                     help="start N local ranks (one process each) for "
                          "--mesh; under torchrun it must equal the world")
@@ -498,7 +501,7 @@ def _world(args):
                 require_tensor_parallel(
                     configs.get(args.arch, reduced=args.reduced),
                     {"data": d, "model": m})
-            except NotImplementedError as e:
+            except (NotImplementedError, ValueError) as e:
                 raise SystemExit(f"--mesh {d}x{m}: {e}") from None
     env = os.environ.get("WORLD_SIZE")
     n = int(env) if env is not None else (args.devices or

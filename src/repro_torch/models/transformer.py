@@ -36,17 +36,19 @@ does).  ``prefill``, ``decode_step`` and ``decode_steps`` take
 ``mode="train"`` too, over the same train tree: the reference's train-mode
 cache path.
 
-Tensor-parallel serving (``mesh=`` with a 'model' axis above 1, the dense
-GQA archs): ``params`` is this rank's ``nn.partitioning.shard_tree`` slice
+Tensor-parallel serving (``mesh=`` with a 'model' axis above 1, every
+arch here): ``params`` is this rank's ``nn.partitioning.shard_tree`` slice
 under ``SERVE_RULES`` -- q/gate/up and the head by columns, o/down by
-rows, the embedding by vocabulary rows, k/v and the norms whole -- and
-the decode cache this rank's block of ``kv_seq`` (``cache_specs(...,
-model=M)``).  The embedding's int32 codes and the row shards' int32
-accumulators are summed over 'model', the head's columns all-gathered, so
-every rank holds the same residual stream and the same logits, and prefill
-logits are the one-device logits bitwise (``nn.attention`` for decode).
-MoE and MLA blocks raise: expert parallelism and MLA's latent cache are
-ROADMAP 16b (ii-b).
+rows, the embedding by vocabulary rows, k/v and the norms whole; MLA's q,
+uk and uv by heads, dkv and ``kv_norm`` whole; an MoE block's router by
+expert columns and its banks by whole experts (expert parallelism,
+``nn.moe``), the shared experts and the dense prefix's MLP as a dense MLP
+-- and the decode cache this rank's block of ``kv_seq`` (``cache_specs(...,
+model=M)``; MLA's latent pair too).  The embedding's int32 codes and the
+row shards' int32 accumulators are summed over 'model', the head's columns
+all-gathered, so every rank holds the same residual stream and the same
+logits, and prefill and decode logits are the one-device logits bitwise
+(``nn.attention`` for the split decode, ``nn.moe`` for the combine).
 """
 from __future__ import annotations
 
@@ -310,12 +312,14 @@ def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
     its own (capacity 1, every expert runs it), as a decode step routes its
     one token -- so a verify's T tokens are T decode steps.  On a
     tensor-parallel ``mesh`` gate/up hold this rank's columns and down its
-    rows (a row shard, summed over 'model')."""
+    rows (a row shard, summed over 'model'), an MoE block runs expert
+    parallel."""
     if "moe" in p:
         b, s, d = x.shape
         xg = x.reshape(b * s, 1, d) if per_token else x
         return nnmoe.moe_apply(p["moe"], xg, policy, cfg.moe, serve=serve,
-                               impl=impl, lname=lname).reshape(b, s, d)
+                               impl=impl, lname=lname,
+                               mesh=mesh).reshape(b, s, d)
     nm = lname + "mlp"
     fn = lambda w, h: Q.qlinear_any(  # noqa: E731
         w, h, policy, serve=serve, impl=impl, name=nm)
@@ -346,7 +350,8 @@ def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
     if cfg.mla is not None:
         o, cache = attn.mla_prefill(p["attn"], h, policy, sin=sin, cos=cos,
                                     impl=impl, chunk=cfg.attn_chunk,
-                                    lname=lname, serve=serve, **_mla_kw(cfg))
+                                    lname=lname, serve=serve, mesh=mesh,
+                                    **_mla_kw(cfg))
     else:
         o, cache = attn.gqa_prefill(
             p["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
@@ -367,14 +372,9 @@ def _serve_mode(mode: str) -> bool:
 
 def _tp_mesh(cfg, mesh, serve: bool = True):
     """``mesh`` where its 'model' axis is above 1, else None; raises for
-    what tensor-parallel serving does not cover."""
+    the train path, which tensor parallelism does not serve."""
     if mesh_lib.model_coords(mesh)[1] == 1:
         return None
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of MoE and MLA blocks "
-            f"(expert parallelism, MLA's sharded latent cache) is ROADMAP "
-            f"16b (ii-b)")
     if not serve:
         raise ValueError("a 'model' axis above 1 serves packed trees only "
                          "(mode='serve')")
@@ -553,7 +553,8 @@ def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl,
         if cfg.mla is not None:
             o, cache[i] = attn.mla_verify(
                 lp["attn"], h, cache[i], length, policy, sin=sin, cos=cos,
-                impl=impl, lname=lname, serve=serve, **_mla_kw(cfg))
+                impl=impl, lname=lname, serve=serve, mesh=mesh,
+                **_mla_kw(cfg))
         else:
             o, cache[i] = attn.gqa_verify(
                 lp["attn"], h, cache[i], length, policy,

@@ -22,6 +22,21 @@ bodies).  The encoder output feeds every decoder layer's cross K and V;
 its gradient is their cotangents' bf16 sum, added as the reference's scan
 transpose adds it (``_CrossFanout``).  ``prefill`` and ``decode_step``
 take ``mode="train"`` too, over an ``init_params("train")`` tree.
+
+Tensor-parallel serving (``mesh=`` with a 'model' axis of M above 1):
+``params`` is this rank's ``SERVE_RULES`` slice -- in both stacks q by its
+H/M heads' columns, k/v whole, o by rows; the MLPs' up by columns and
+down by rows; the embedding and the head by vocabulary -- exactly as the
+dense decoders' (``models.transformer``).  The encoder and the cross
+attention attend over the rank's heads at the one-device shape
+(``nn.attention.sharded_heads_attention``).  Every rank computes the
+whole cross K/V once a prefill (k/v are whole) and keeps its block of the
+``n_audio`` frames; both caches shard their sequence axis over 'model'
+(``cache_specs(..., model=M)``), and a decode step's self and cross
+attention are split-sequence (``nn.attention._split_decode``: the scores
+and the V blocks all-gathered, the one-device routine on the whole row),
+so prefill and decode logits are the one-device logits bitwise on every
+rank.
 """
 from __future__ import annotations
 
@@ -32,7 +47,8 @@ import torch
 
 from repro_torch.core.dse import Gemm
 from repro_torch.models.remat import remat
-from repro_torch.models.transformer import _serve_mode
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models.transformer import _embed, _serve_mode, _tp_mesh
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import param as nnp
@@ -40,7 +56,7 @@ from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["WhisperConfig", "specs", "encode", "forward", "prefill",
-           "decode_step",
+           "decode_step", "cross_decode",
            "cache_specs", "gemm_workload", "active_params", "total_params",
            "model_flops"]
 
@@ -138,31 +154,44 @@ def _sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([sin, cos], dim=-1)
 
 
-def _proj(p, x, policy, impl, name, serve=True, **kw):
+def _proj(p, x, policy, impl, name, serve=True, row_mesh=None, **kw):
+    """One projection; ``row_mesh`` (serve only): a row shard summed over
+    that tensor-parallel mesh's 'model' axis."""
+    if row_mesh is not None:
+        kw["row_mesh"] = row_mesh
     return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name,
                          **kw)
 
 
-def _mlp(p, h, policy, impl, name, serve=True):
+def _mlp(p, h, policy, impl, name, serve=True, mesh=None):
+    """up, gelu, down; on a tensor-parallel ``mesh`` up holds this rank's
+    columns and down its rows."""
     return _proj(p["down"], nnl.gelu(_proj(p["up"], h, policy, impl, name,
                                            serve)),
-                 policy, impl, name, serve)
+                 policy, impl, name, serve, row_mesh=mesh)
+
+
+def _local_heads(cfg, mesh) -> slice:
+    """The heads this rank holds on a tensor-parallel ``mesh``."""
+    r, m = mesh_lib.model_coords(mesh)
+    h_l = cfg.n_heads // m
+    return slice(r * h_l, (r + 1) * h_l)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _enc_layer_fwd(cfg, lp, x, policy, *, impl, serve=True):
+def _enc_layer_fwd(cfg, lp, x, policy, *, impl, serve=True, mesh=None):
     h = nnl.layernorm_apply(lp["ln1"], x)
     o, _ = attn.gqa_prefill(lp["attn"], h, policy, n_heads=cfg.n_heads,
                             n_kv=cfg.n_heads, head_dim=cfg.hd, sin=None,
                             cos=None, causal=False, rope=False, impl=impl,
                             chunk=cfg.attn_chunk, names=ENC_ATTN,
-                            serve=serve)
+                            serve=serve, mesh=mesh)
     x = x + o
     return x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
-                    impl, "enc_mlp", serve)
+                    impl, "enc_mlp", serve, mesh)
 
 
 def _enc_inputs(cfg, frames: torch.Tensor) -> torch.Tensor:
@@ -173,13 +202,16 @@ def _enc_inputs(cfg, frames: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg: WhisperConfig, params, frames: torch.Tensor, policy, *,
-           impl: str = "auto", serve: bool = True) -> torch.Tensor:
+           impl: str = "auto", serve: bool = True,
+           mesh=None) -> torch.Tensor:
     """frames (B, T, D) stub embeddings -> encoder output (B, T, D);
-    ``serve=False`` is the QAT forward, each layer under remat."""
+    ``serve=False`` is the QAT forward, each layer under remat; ``mesh``
+    tensor-parallel (module doc), the output whole on every rank."""
+    mesh = _tp_mesh(cfg, mesh, serve)
     x = _enc_inputs(cfg, frames)
     for lp in params["enc_layers"]:
         x = remat(cfg, lambda h, lp=lp: _enc_layer_fwd(
-            cfg, lp, h, policy, impl=impl, serve=serve), x)
+            cfg, lp, h, policy, impl=impl, serve=serve, mesh=mesh), x)
     return nnl.layernorm_apply(params["enc_norm"], x)
 
 
@@ -190,26 +222,31 @@ def _cross_kv(cfg, lp, enc_out, policy, impl, serve=True):
                  for key in ("k", "v"))
 
 
-def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True, mesh=None):
     """Prefill of decoder layer i -> (x, (self (k, v), cross (k, v)));
-    ``aux`` holds the encoder output."""
+    ``aux`` holds the encoder output.  On a tensor-parallel ``mesh`` both
+    caches are whole (every head, every position), of which the caller
+    keeps the rank's ``kv_seq`` block."""
     del i
     h = nnl.layernorm_apply(lp["ln1"], x)
     o, kv = attn.gqa_prefill(lp["attn"], h, policy, n_heads=cfg.n_heads,
                              n_kv=cfg.n_heads, head_dim=cfg.hd, sin=None,
                              cos=None, causal=True, rope=False, impl=impl,
                              chunk=cfg.attn_chunk, names=DEC_ATTN,
-                             serve=serve)
+                             serve=serve, mesh=mesh)
     x = x + o
     h = nnl.layernorm_apply(lp["ln_x"], x)
+    heads = _local_heads(cfg, mesh)
     q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"],
-              serve).reshape(*h.shape[:2], cfg.n_heads, cfg.hd)
+              serve).reshape(*h.shape[:2], heads.stop - heads.start, cfg.hd)
     k, v = _cross_kv(cfg, lp, aux["enc_out"], policy, impl, serve)
-    o = attn.chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    o = attn.sharded_heads_attention(
+        q, k[:, :, heads], v[:, :, heads], *mesh_lib.model_coords(mesh),
+        causal=False, chunk=cfg.attn_chunk)
     x = x + _proj(lp["xattn"]["o"], o.reshape(*h.shape[:2], -1), policy,
-                  impl, X_ATTN["o"], serve)
+                  impl, X_ATTN["o"], serve, row_mesh=mesh)
     x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy, impl,
-                 "dec_mlp", serve)
+                 "dec_mlp", serve, mesh)
     return x, (kv, (k, v))
 
 
@@ -218,23 +255,28 @@ def _zero_frames(cfg, b, device):
                        device=device)
 
 
-def _prefill_inputs(cfg, params, tokens, frames, policy, impl, serve=True):
+def _prefill_inputs(cfg, params, tokens, frames, policy, impl, serve=True,
+                    mesh=None):
     """Embedded tokens plus positions, and the encoder output."""
     b, s = tokens.shape
     if frames is None:
         frames = _zero_frames(cfg, b, tokens.device)
-    enc_out = encode(cfg, params, frames, policy, impl=impl, serve=serve)
-    x = (nnl.embed_serve_apply if serve else nnl.embed_apply)(
-        params["embed"], tokens)
+    enc_out = encode(cfg, params, frames, policy, impl=impl, serve=serve,
+                     mesh=mesh)
+    x = _embed(params, tokens, serve, mesh)
     x = x + _sinusoid(_positions(b, s, tokens.device),
                       cfg.d_model).to(x.dtype)
     return x, {"enc_out": enc_out}
 
 
-def _head(cfg, params, x, policy, impl, serve=True):
+def _head(cfg, params, x, policy, impl, serve=True, mesh=None):
+    """Final norm and head -> logits; on a tensor-parallel ``mesh`` the
+    rank's vocabulary columns, all-gathered over 'model' in rank order."""
     x = nnl.layernorm_apply(params["dec_norm"], x)
     logits = _proj(params["head"], x, policy, impl, "head", serve,
                    layer_class="boundary")
+    if mesh is not None:
+        logits = mesh_lib.all_gather_model(mesh, logits, dim=-1)
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
@@ -259,53 +301,65 @@ class _CrossFanout(torch.autograd.Function):
 
 def forward(cfg: WhisperConfig, params, tokens: torch.Tensor, policy, *,
             frames: Optional[torch.Tensor] = None, mode: str = "serve",
-            impl: str = "auto") -> torch.Tensor:
+            impl: str = "auto", mesh=None) -> torch.Tensor:
     """Teacher-forced decoder logits (B, S, V) in bf16 of tokens (B, S)
     given frames (B, n_audio, D) (zeros when None): the packed serve
     forward (``mode="serve"``) or the QAT training forward
     (``mode="train"``, over an ``init_params("train")`` tree, no
-    kernel)."""
+    kernel).  ``mesh``: tensor-parallel serving (module doc)."""
     serve = _serve_mode(mode)
+    mesh = _tp_mesh(cfg, mesh, serve)
     x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl,
-                             serve)
+                             serve, mesh)
     layers = params["dec_layers"]
     enc = _CrossFanout.apply(aux["enc_out"], len(layers))
     for i, lp in enumerate(layers):
         x = remat(cfg, lambda h, e, i=i, lp=lp: _layer_fwd(
             cfg, i, lp, h, policy, {"enc_out": e}, impl=impl,
-            serve=serve)[0], x, enc[i])
-    return _head(cfg, params, x, policy, impl, serve)
+            serve=serve, mesh=mesh)[0], x, enc[i])
+    return _head(cfg, params, x, policy, impl, serve, mesh)
 
 
 def prefill(cfg: WhisperConfig, params, tokens: torch.Tensor, policy, *,
             frames: Optional[torch.Tensor] = None, impl: str = "auto",
-            mode: str = "serve"):
+            mode: str = "serve", mesh=None):
     """tokens (B, S), frames (B, n_audio, D) (zeros when None) ->
     (last-token logits (B, V), ``{"self": [(k, v)], "cross": [(k, v)]}``);
-    ``mode="train"`` over an ``init_params("train")`` tree."""
+    ``mode="train"`` over an ``init_params("train")`` tree.  On a
+    tensor-parallel ``mesh`` the caches are whole; the caller keeps the
+    rank's ``kv_seq`` block of each (``runtime.serve``)."""
     serve = _serve_mode(mode)
+    mesh = _tp_mesh(cfg, mesh, serve)
     x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl,
-                             serve)
+                             serve, mesh)
     cache = {"self": [], "cross": []}
     for i, lp in enumerate(params["dec_layers"]):
         x, (kv, xkv) = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl,
-                                  serve=serve)
+                                  serve=serve, mesh=mesh)
         cache["self"].append(kv)
         cache["cross"].append(xkv)
     return _head(cfg, params, x[:, -1:, :], policy, impl,
-                 serve)[:, 0, :], cache
+                 serve, mesh)[:, 0, :], cache
 
 
 def cache_specs(cfg: WhisperConfig, batch: int, max_len: int,
-                policy=None) -> Dict[str, List]:
+                policy=None, model: int = 1) -> Dict[str, List]:
+    """The decode cache: per decoder layer the self pair (B, max_len, H,
+    Dh) and the cross pair (B, n_audio, H, Dh), bf16.  ``model`` > 1: one
+    tensor-parallel rank's block of each sequence axis (``max_len`` and
+    ``n_audio`` must divide)."""
     del policy
+    for name, n in (("a cache of", max_len), ("n_audio", cfg.n_audio)):
+        if n % model:
+            raise ValueError(f"{name} {n} positions does not split over "
+                             f"{model} 'model' ranks")
     kv = lambda s: ParamSpec(shape=(batch, s, cfg.n_heads, cfg.hd),  # noqa
                              dtype=torch.bfloat16,
                              axes=("batch", "kv_seq", "heads", "head_dim"),
                              init="zeros")
-    return {"self": [(kv(max_len), kv(max_len))
+    return {"self": [(kv(max_len // model), kv(max_len // model))
                      for _ in range(cfg.n_layers)],
-            "cross": [(kv(cfg.n_audio), kv(cfg.n_audio))
+            "cross": [(kv(cfg.n_audio // model), kv(cfg.n_audio // model))
                       for _ in range(cfg.n_layers)]}
 
 
@@ -314,18 +368,33 @@ def cache_axes(cfg: WhisperConfig, policy=None):
     return nnp.axes_tree(cache_specs(cfg, 1, 1, policy))
 
 
+def cross_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 n_audio: int, mesh=None) -> torch.Tensor:
+    """A decode step's cross attention: q (B, 1, H_local, Dh) against the
+    cross K/V over all ``n_audio`` frames -> (B, 1, H_local, Dh).  On a
+    tensor-parallel ``mesh`` the cache is this rank's block of the frames
+    and the attention split-sequence (``nn.attention._split_decode``),
+    bitwise ``decode_attention`` over the whole cache."""
+    if mesh is None:
+        return attn.decode_attention(q, ck, cv, n_audio)
+    return attn._split_decode(q, ck, cv, None, None, n_audio - 1, None,
+                              mesh, streamed=False)
+
+
 def decode_step(cfg: WhisperConfig, params, cache, tokens: torch.Tensor,
                 length: int, policy, *, impl: str = "auto",
-                mode: str = "serve"):
+                mode: str = "serve", mesh=None):
     """One token per row at ``length`` -> (logits (B, V), cache); the self
     cache is written in place, the cross K/V only read; ``mode="train"``
-    over an ``init_params("train")`` tree."""
+    over an ``init_params("train")`` tree; ``mesh`` tensor-parallel, both
+    caches this rank's ``kv_seq`` blocks."""
     serve = _serve_mode(mode)
+    mesh = _tp_mesh(cfg, mesh, serve)
     b = tokens.shape[0]
-    x = (nnl.embed_serve_apply if serve else nnl.embed_apply)(
-        params["embed"], tokens)
+    x = _embed(params, tokens, serve, mesh)
     pos = torch.full((b, 1), length, device=tokens.device)
     x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    heads = _local_heads(cfg, mesh)
     for lp, sc, (ck, cv) in zip(params["dec_layers"], cache["self"],
                                 cache["cross"]):
         h = nnl.layernorm_apply(lp["ln1"], x)
@@ -333,17 +402,17 @@ def decode_step(cfg: WhisperConfig, params, cache, tokens: torch.Tensor,
                                n_heads=cfg.n_heads, n_kv=cfg.n_heads,
                                head_dim=cfg.hd, sin=None, cos=None,
                                rope=False, impl=impl, names=DEC_ATTN,
-                               serve=serve)
+                               serve=serve, mesh=mesh)
         x = x + o
         h = nnl.layernorm_apply(lp["ln_x"], x)
         q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"],
-                  serve).reshape(b, 1, cfg.n_heads, cfg.hd)
-        o = attn.decode_attention(q, ck, cv, cfg.n_audio)
+                  serve).reshape(b, 1, heads.stop - heads.start, cfg.hd)
+        o = cross_decode(q, ck, cv, cfg.n_audio, mesh)
         x = x + _proj(lp["xattn"]["o"], o.reshape(b, 1, -1), policy, impl,
-                      X_ATTN["o"], serve)
+                      X_ATTN["o"], serve, row_mesh=mesh)
         x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
-                     impl, "dec_mlp", serve)
-    return _head(cfg, params, x, policy, impl, serve)[:, 0, :], cache
+                     impl, "dec_mlp", serve, mesh)
+    return _head(cfg, params, x, policy, impl, serve, mesh)[:, 0, :], cache
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------

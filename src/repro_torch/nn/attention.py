@@ -28,7 +28,10 @@ as the reference does.  Its attention has no kernel in the reference (qk
 ``decode_attention``, in torch.  On a card the prefill runs one batch row
 at a time, so that a row's bits do not depend on the batch (cuBLAS picks
 its kernel by the batch count too); decode's products are the fixed-order
-form already.
+form already.  On a tensor-parallel mesh an MLA rank holds its heads'
+columns of q, uk and uv and its heads' rows of o, dkv and ``kv_norm``
+whole; its latent cache is its ``kv_seq`` block, all-gathered at each
+decode step (``mla_verify``).
 
 The GQA block takes the reference's other options: ``causal=False`` and
 ``rope=False`` (whisper's encoder and decoder), ``window=`` (recurrentgemma's
@@ -44,17 +47,21 @@ holds the q columns of its heads ``[r H/M, (r + 1) H/M)``, k and v whole,
 and the o rows of its heads.  Prefill runs K3 or K4 over its local heads
 with only the KV heads they map to -- the reference's ``(off +
 arange(h_l)) // group`` -- so each head's output is the one-device head's,
-bitwise.  The decode cache holds the rank's block of the sequence
-(``kv_seq`` over 'model'): a new position is written on the rank that
-owns it, and decode is split-sequence: q of every head is all-gathered,
-each rank scores its own positions (its K block never moves), the scores
-and the V blocks are all-gathered, and every rank runs the one-device
-decode routine from the scores on over the whole row, then keeps its
-heads for o.  Decode outputs are the one-device outputs bitwise wherever
-the cache length (rounded up to a multiple of the model axis) is the
-one-device length.  An online fold of per-rank softmax partials would
-move no V but adds the value sums in another order: its ulp-level
-differences flipped a token of the full-width granite-8b on the card.
+bitwise (each block of K3/K4 computes one head).  Torch attention
+(``attn_impl='xla'``, MLA's prefill, whisper's cross attention) runs at
+the one-device shape, the rank's heads zero-padded to all H
+(``sharded_heads_attention``).  The decode cache holds the rank's block
+of the sequence (``kv_seq`` over 'model'): a new position is written on
+the rank that owns it, and decode is split-sequence: q of every head is
+all-gathered, each rank scores its own positions (its K block never
+moves), the scores and the V blocks are all-gathered, and every rank runs
+the one-device decode routine from the scores on over the whole row,
+then keeps its heads for o.  Decode outputs are the one-device outputs
+bitwise wherever the cache length (rounded up to a multiple of the model
+axis) is the one-device length.  An online fold of per-rank softmax
+partials would move no V but adds the value sums in another order: its
+ulp-level differences flipped a token of the full-width granite-8b on the
+card.
 """
 from __future__ import annotations
 
@@ -70,10 +77,10 @@ from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = [
-    "NEG_INF", "GQA_NAMES", "chunked_attention", "decode_attention",
-    "decode_attention_streamed", "gqa_spec", "gqa_serve_spec", "gqa_prefill",
-    "gqa_decode", "gqa_verify", "mla_spec", "mla_prefill", "mla_decode",
-    "mla_verify",
+    "NEG_INF", "GQA_NAMES", "chunked_attention", "sharded_heads_attention",
+    "decode_attention", "decode_attention_streamed", "gqa_spec",
+    "gqa_serve_spec", "gqa_prefill", "gqa_decode", "gqa_verify",
+    "mla_spec", "mla_prefill", "mla_decode", "mla_verify",
 ]
 
 NEG_INF = -1e30
@@ -180,6 +187,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def sharded_heads_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, r: int, m: int,
+                            **kw) -> torch.Tensor:
+    """``chunked_attention`` (same keywords) over a tensor-parallel rank's
+    heads, rank ``r`` of ``m`` on 'model': q, k, v (B, S, H/M, D), k/v
+    already GQA-expanded -> (B, Sq, H/M, Dv), each head bitwise the
+    one-device head.  The call runs at the one-device shape: q, k and v
+    are zero-padded to all H heads, the rank's at their own index, and the
+    rank's heads are cut from the output.  cuBLAS picks a batched
+    product's kernel, and torch its reductions' layout, by the shape, the
+    head count included (on an H100 one head alone and 8 heads batched
+    differ by up to two bf16 ulps), so only the one-device shape is sure
+    to give the one-device bits; the rank pays one device's attention.
+    One device (``m`` 1) calls ``chunked_attention`` itself."""
+    if m == 1:
+        return chunked_attention(q, k, v, **kw)
+    h = q.shape[2]
+
+    def whole(t):
+        return torch.nn.functional.pad(t, (0, 0, r * h, (m - 1 - r) * h))
+    return chunked_attention(whole(q), whole(k), whole(v),
+                             **kw)[:, :, r * h:(r + 1) * h]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -344,12 +375,13 @@ def _proj(p, x, policy, *, serve, impl, name, row_mesh=None):
 
 
 def _model(mesh, n_heads: int, serve: bool):
-    """(this rank's 'model' coordinate, the axis' size) of a GQA block,
-    checked: tensor parallelism serves only, over whole heads."""
+    """(this rank's 'model' coordinate, the axis' size) of an attention
+    block, checked: tensor parallelism serves only, over whole heads."""
     r, m = mesh_lib.model_coords(mesh)
     if m > 1 and (not serve or n_heads % m):
-        raise ValueError(f"a tensor-parallel GQA block serves (serve=True) "
-                         f"{n_heads} heads split evenly over {m} ranks")
+        raise ValueError(f"a tensor-parallel attention block serves "
+                         f"(serve=True) {n_heads} heads split evenly over "
+                         f"{m} ranks")
     return r, m
 
 
@@ -465,8 +497,9 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
                                           impl=impl)
         elif attn_impl == "xla":
             g = h_l // k_l.shape[2]
-            o = chunked_attention(q, _repeat_kv(k_l, g), _repeat_kv(v_l, g),
-                                  causal=causal, window=window, chunk=chunk)
+            o = sharded_heads_attention(
+                q, _repeat_kv(k_l, g), _repeat_kv(v_l, g), r, m,
+                causal=causal, window=window, chunk=chunk)
         else:
             raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                              f"{attn_impl!r}")
@@ -737,36 +770,47 @@ def _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy, *, n_heads,
 def mla_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
                 kv_lora: int, qk_nope: int, qk_rope: int, v_head: int,
                 sin: torch.Tensor, cos: torch.Tensor, impl: str = "auto",
-                chunk: int = 1024, lname: str = "", serve: bool = True):
+                chunk: int = 1024, lname: str = "", serve: bool = True,
+                mesh=None):
     """Causal prefill of one MLA block -> (out (B, S, D), cache (c_kv (B,
     S, r), k_rope (B, S, qk_rope))).  ``serve=False`` is the QAT training
     forward: the five projections fake-quant, ``kv_norm``, rotary on q_rope
-    and k_rope and ``chunked_attention`` at ``chunk``, under autograd."""
+    and k_rope and ``chunked_attention`` at ``chunk``, under autograd.
+
+    ``mesh`` with a 'model' axis of M above 1: q, uk and uv hold this
+    rank's H/M heads' columns, dkv and ``kv_norm`` are whole, o holds its
+    heads' rows (a row shard summed over 'model'); the rank attends over
+    its heads at the one-device shape (``sharded_heads_attention``), and
+    the returned latent cache is the whole prompt's (dkv is whole), of
+    which the caller keeps the rank's ``kv_seq`` block."""
     b, s, _ = x.shape
-    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope,
-              serve=serve)
+    r, m = _model(mesh, n_heads, serve)
+    h_l = n_heads // m
+    kw = dict(n_heads=h_l, qk_nope=qk_nope, qk_rope=qk_rope, serve=serve)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(
         p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
         lname=lname, **kw)
     q, k, v = _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy,
                           v_head=v_head, impl=impl, lname=lname, **kw)
-    attend = lambda q, k, v: chunked_attention(  # noqa: E731
-        q, k, v, causal=True, chunk=chunk,
+    attend = lambda q, k, v: sharded_heads_attention(  # noqa: E731
+        q, k, v, r, m, causal=True, chunk=chunk,
         softmax_scale=(qk_nope + qk_rope) ** -0.5)
     if x.is_cuda:  # one batch row at a time: the same bits in any batch
         o = torch.cat([attend(q[i:i + 1], k[i:i + 1], v[i:i + 1])
                        for i in range(b)])
     else:
         o = attend(q, k, v)
-    o = o.reshape(b, s, n_heads * v_head)
-    return (_mla_proj(p, "o", o, policy, serve=serve, impl=impl,
-                      lname=lname), (c_kv, k_rope))
+    o = o.reshape(b, s, h_l * v_head)
+    return (_proj(p["o"], o, policy, serve=serve, impl=impl,
+                  name=lname + "o", row_mesh=mesh if m > 1 else None),
+            (c_kv, k_rope))
 
 
 def mla_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
                n_heads: int, kv_lora: int, qk_nope: int, qk_rope: int,
                v_head: int, sin: torch.Tensor, cos: torch.Tensor,
-               impl: str = "auto", lname: str = "", serve: bool = True):
+               impl: str = "auto", lname: str = "", serve: bool = True,
+               mesh=None):
     """T-token latent-cache extension (the MLA counterpart of
     ``gqa_verify``): x (B, T, D) lands at ``length .. length + T - 1`` of
     the cache ``(c_kv (B, Smax, r), k_rope (B, Smax, qk_rope))``, updated
@@ -774,30 +818,49 @@ def mla_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,
     rows past a query's length may hold anything) and each query t runs
     ``decode_attention`` at valid length ``length + 1 + t`` -- the T rows
     are T sequential ``mla_decode`` steps, bitwise.  ``serve=False`` runs
-    the projections fake-quant.  -> (out (B, T, D), cache)."""
+    the projections fake-quant.  -> (out (B, T, D), cache).
+
+    ``mesh`` with a 'model' axis of M above 1: the cache is this rank's
+    ``kv_seq`` block, each new position written on the rank that owns it.
+    A rank holds neither the whole sequence nor every head's uk/uv, so
+    the latent blocks (kv_lora + qk_rope bf16 values a position) are
+    all-gathered over 'model' in rank order, and the rank expands its H/M
+    heads over the whole sequence and runs the one-device
+    ``decode_attention`` on them: each head bitwise the one-device head.
+    No absorbed-weight form: it would change the numerics."""
     b, t_new = x.shape[0], x.shape[1]
-    kw = dict(n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope,
-              serve=serve)
+    r, m = _model(mesh, n_heads, serve)
+    h_l = n_heads // m
+    kw = dict(n_heads=h_l, qk_nope=qk_nope, qk_rope=qk_rope, serve=serve)
     q_nope, q_rope, c_new, kr_new = _mla_qkv(
         p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
         lname=lname, **kw)
     c_cache, kr_cache = cache
-    c_cache[:, length:length + t_new] = c_new.to(c_cache.dtype)
-    kr_cache[:, length:length + t_new] = kr_new.to(kr_cache.dtype)
-    q, k, v = _mla_expand(p, q_nope, q_rope, c_cache, kr_cache, policy,
+    block = c_cache.shape[1]
+    if length + t_new > m * block:
+        raise ValueError(f"positions {length} .. {length + t_new - 1} do "
+                         f"not fit a cache of {m * block}")
+    _append_block(c_cache, c_new, length, r * block, 1)
+    _append_block(kr_cache, kr_new, length, r * block, 1)
+    c_all, kr_all = c_cache, kr_cache
+    if m > 1:
+        c_all = mesh_lib.all_gather_model(mesh, c_cache, dim=1)
+        kr_all = mesh_lib.all_gather_model(mesh, kr_cache, dim=1)
+    q, k, v = _mla_expand(p, q_nope, q_rope, c_all, kr_all, policy,
                           v_head=v_head, impl=impl, lname=lname, **kw)
     scale = (qk_nope + qk_rope) ** -0.5
     o = torch.cat([decode_attention(q[:, t:t + 1], k, v, length + 1 + t,
                                     softmax_scale=scale)
                    for t in range(t_new)], dim=1)
-    o = o.reshape(b, t_new, n_heads * v_head)
-    return (_mla_proj(p, "o", o, policy, serve=serve, impl=impl,
-                      lname=lname), (c_cache, kr_cache))
+    o = o.reshape(b, t_new, h_l * v_head)
+    return (_proj(p["o"], o, policy, serve=serve, impl=impl,
+                  name=lname + "o", row_mesh=mesh if m > 1 else None),
+            (c_cache, kr_cache))
 
 
 def mla_decode(p: Dict, x: torch.Tensor, cache, length: int, policy, **kw):
     """One-token step: x (B, 1, D) against the latent cache, which is
     updated IN PLACE at ``length``; uk and uv expand the whole ``Smax``
     cache and scores past ``length`` are masked, as in the reference.
-    -> (out (B, 1, D), cache)."""
+    ``mesh=`` as ``mla_verify``'s.  -> (out (B, 1, D), cache)."""
     return mla_verify(p, x, cache, length, policy, **kw)

@@ -32,6 +32,22 @@ Numerics, against the reference and across batches:
   which is never -0 -- or NaN where ``h`` is not finite, and is added after
   in any order (atomics on a card) with the same result.
 
+Expert parallelism (``moe_apply(mesh=)``, serve only, a 'model' axis of M
+above 1): the rank holds E/M columns of the router and E/M whole experts
+of each bank (``nn.partitioning.shard_tree`` on the 'experts' axis), the
+shared experts' gate/up columns and ``shared_down``'s rows.  The router's
+column shards are all-gathered over 'model', so every rank routes every
+token the same way; the rank dispatches only its experts' slots and runs
+each projection as one K1 launch over its bank of E/M experts.  The
+combine is the trap: the one-device sum adds a token's rows one at a time
+in ascending expert order, and a sum of per-rank partials would add them
+in another order.  So the gated rows (B, E/M, C, D) bf16 are all-gathered
+over 'model' in rank order -- experts in ascending order -- and every rank
+runs the one-device ``_combine`` on them: bitwise the one-device block.
+That moves B E C D bf16 values a layer, of which a rank receives (M - 1) /
+M; the alternative, passing each token's f32 running sum rank to rank,
+moves B S D f32 values a hop but serializes the ranks.
+
 The train forward runs the same routing under autograd, with the experts
 as fake-quant banks (``nn.quantized.qlinear_apply`` over ``lead=(E,)``:
 each expert's own ``gw`` -- one per output column under olmoe's
@@ -54,12 +70,14 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import layers
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["MoEConfig", "moe_spec", "moe_apply", "capacity",
-           "router_logits", "top_k", "route", "dispatch", "gate_and_combine"]
+           "router_logits", "top_k", "route", "dispatch", "gate_and_combine",
+           "expert_coords", "expert_parallel_combine"]
 
 # Tokens of one fixed-order router product on a card: its (rows, E, D)
 # buffer stays near 2^25 values at olmoe's and deepseek's widths.
@@ -159,19 +177,37 @@ class _FixedOrderRouter(torch.autograd.Function):
         return dx, dr
 
 
-def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+def router_logits(x: torch.Tensor, router: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
     """f32 router scores ``einsum('bsd,de->bse')``, under autograd.  On a
     card, the fixed-order form: each token's E dot products as an
     elementwise product into a (rows, E, D) buffer and one sum over D,
     ROUTER_ROWS tokens at a time -- a token's scores, and its gradient
     through the router, are then the same bits whatever rows share the
-    call (the schedulers' and the speculative verify's contracts)."""
+    call (the schedulers' and the speculative verify's contracts).
+
+    ``mesh`` with a 'model' axis of M above 1: ``router`` holds this
+    rank's E/M columns, and the rank's scores are all-gathered over
+    'model' into every expert's, in rank order -- the one-device scores
+    bitwise.  On a card each score is one sum over D, the same bits at any
+    column count; the CPU's blocked product picks its blocking by the
+    shape (a 16-column shard of olmoe's router differs from the whole
+    product's columns), so there the shard multiplies a (D, E) router
+    holding its columns in place and zeros elsewhere, the whole product's
+    shape (on one device, the router itself)."""
     xf = x.to(torch.float32)
     rf = router.to(torch.float32)
+    r, m = mesh_lib.model_coords(mesh)
     if not xf.is_cuda:
-        return torch.einsum("bsd,de->bse", xf, rf)
-    b, s, d = xf.shape
-    return _FixedOrderRouter.apply(xf.reshape(b * s, d), rf).reshape(b, s, -1)
+        el = rf.shape[1]
+        padded = torch.nn.functional.pad(rf, (r * el, (m - 1 - r) * el))
+        mine = torch.einsum("bsd,de->bse", xf, padded)[..., r * el:
+                                                        (r + 1) * el]
+    else:
+        b, s, d = xf.shape
+        mine = _FixedOrderRouter.apply(xf.reshape(b * s, d),
+                                       rf).reshape(b, s, -1)
+    return mesh_lib.all_gather_model(mesh, mine.contiguous(), dim=-1)
 
 
 def _act(cfg: MoEConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -180,15 +216,21 @@ def _act(cfg: MoEConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(p, x, policy, cfg: MoEConfig, impl: str, name: str, prefix="",
-         serve=True):
+         serve=True, row_mesh=None):
     """The expert bank (x (E, M, D), ``prefix`` '') or the shared experts
     (x (B, S, D), ``prefix`` 'shared_'): packed (``serve``, one K1 call a
     projection over the bank) or fake-quant (the QAT forward, one batched
-    bf16 product a projection)."""
+    bf16 product a projection).  ``row_mesh``: the shared experts
+    tensor-parallel, gate/up by columns and down a row shard summed over
+    'model'."""
     fn = lambda key, h: Q.qlinear_any(  # noqa: E731
         p[prefix + key], h, policy, serve=serve, impl=impl, name=name)
     u = fn("up", x) if cfg.act == "swiglu" else None
-    return fn("down", _act(cfg, fn("gate", x), u))
+    h = _act(cfg, fn("gate", x), u)
+    if row_mesh is not None:
+        return Q.qlinear_serve_apply(p[prefix + "down"], h, policy,
+                                     impl=impl, name=name, row_mesh=row_mesh)
+    return fn("down", h)
 
 
 def _token_slots(tok_idx: torch.Tensor, idx: torch.Tensor,
@@ -291,16 +333,19 @@ class _Gate(torch.autograd.Function):
         return g * vb, dv
 
 
-def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
+def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+          mesh=None):
     """The routing's decisions for x (B, S, D), under autograd: the f32
     router's softmax, the top-k experts of each token with their
     renormalized gates scattered into ``sel`` (B, S, E), and each expert's
     top-C tokens of a row by gate -> (idx (B, S, K) the experts each token
     chose, vals (B, E, C) f32 the gate of each expert slot, tok_idx (B, E,
     C) its token).  Both top-k passes send a gradient to the entries they
-    picked only, so ties among unrouted zeros move none."""
+    picked only, so ties among unrouted zeros move none.  ``mesh``: the
+    router holds this rank's columns (``router_logits``); every rank
+    takes the same decisions over all E experts."""
     b, s, _ = x.shape
-    scores = torch.softmax(router_logits(x, router), dim=-1)
+    scores = torch.softmax(router_logits(x, router, mesh), dim=-1)
     gates, idx = top_k(scores, cfg.topk)                     # (B, S, K)
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)   # renormalize
     sel = torch.zeros((b, s, cfg.n_experts), dtype=torch.float32,
@@ -330,26 +375,66 @@ def gate_and_combine(h: torch.Tensor, vals: torch.Tensor,
     return _combine(h, tok_idx, idx, s)
 
 
+def expert_coords(mesh, n_experts: int):
+    """(this rank's first expert, its expert count) on ``mesh``'s 'model'
+    axis; (0, E) without one.  E must split evenly over the axis."""
+    r, m = mesh_lib.model_coords(mesh)
+    if n_experts % m:
+        raise ValueError(f"{n_experts} experts do not split evenly over "
+                         f"{m} 'model' ranks")
+    el = n_experts // m
+    return r * el, el
+
+
+def expert_parallel_combine(h: torch.Tensor, vals: torch.Tensor,
+                            tok_idx: torch.Tensor, idx: torch.Tensor, s: int,
+                            mesh) -> torch.Tensor:
+    """The serve path's ``gate_and_combine``: h (B, E/M, C, D) the outputs
+    of this rank's experts (all E without a 'model' axis above 1), vals /
+    tok_idx / idx every expert's routing -> (B, S, D) f32, bitwise the
+    one-device combine on every rank.  The rank's rows are gated,
+    all-gathered over 'model' in rank order (the experts in ascending
+    order; the identity on one device) and combined as on one device
+    (``_combine``)."""
+    first, e = expert_coords(mesh, vals.shape[1])
+    gated = h * vals[:, first:first + e, :, None].to(h.dtype)
+    return _combine(mesh_lib.all_gather_model(mesh, gated, dim=1), tok_idx,
+                    idx, s)
+
+
 def moe_apply(p: Dict, x: torch.Tensor, policy, cfg: MoEConfig, *,
               serve: bool = True, impl: str = "auto",
-              lname: str = "") -> torch.Tensor:
+              lname: str = "", mesh=None) -> torch.Tensor:
     """One MoE block: x (B, S, D) -> (B, S, D), routing and capacity per
     batch row as the reference's grouped dispatch.  ``serve`` (the port's
     default; the reference defaults to the train path) runs the packed
     experts through K1; ``serve=False`` is the QAT forward under autograd:
     ``route``, ``dispatch``, the fake-quant banks and ``gate_and_combine``,
-    each with the reference's gradient."""
+    each with the reference's gradient.  ``mesh`` with a 'model' axis
+    above 1: expert parallelism over this rank's slice of ``p`` (module
+    doc), bitwise the one-device block on every rank."""
     b, s, d = x.shape
-    e = cfg.n_experts
-    idx, vals, tok_idx = route(x, p["router"], cfg)
+    first, e = expert_coords(mesh, cfg.n_experts)
+    tp = e < cfg.n_experts
+    if tp and not serve:
+        raise ValueError("expert parallelism serves packed trees only "
+                         "(serve=True)")
+    idx, vals, tok_idx = route(x, p["router"], cfg, mesh)
     cap = tok_idx.shape[-1]
-    xg = dispatch(x, tok_idx, idx, serve=serve)
+    mine = slice(first, first + e)
+    xg = dispatch(x, tok_idx[:, mine], idx, serve=serve)
     # the bank: (E, B*C, D), one product per projection
     xe = xg.transpose(0, 1).reshape(e, b * cap, d)
     h = _ffn(p, xe, policy, cfg, impl, lname + "expert", serve=serve)
     h = h.reshape(e, b, cap, d).transpose(0, 1)              # (B, E, C, D)
-    y = gate_and_combine(h, vals, tok_idx, idx, s, serve=serve).to(x.dtype)
+    if serve:
+        y = expert_parallel_combine(h, vals, tok_idx, idx, s,
+                                    mesh).to(x.dtype)
+    else:
+        y = gate_and_combine(h, vals, tok_idx, idx, s,
+                             serve=False).to(x.dtype)
     if cfg.n_shared:
         y = y + _ffn(p, x, policy, cfg, impl, lname + "shared",
-                     prefix="shared_", serve=serve).to(y.dtype)
+                     prefix="shared_", serve=serve,
+                     row_mesh=mesh if tp else None).to(y.dtype)
     return y

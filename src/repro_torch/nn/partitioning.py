@@ -27,7 +27,11 @@ What runs: serving on a (data, model) mesh (``runtime.serve``).  Each rank
 holds its own rows of the batch and, under ``SERVE_RULES``, its slice of
 the packed tree (``shard_tree``): column-parallel q/gate/up and head over
 'model', row-parallel o/down ('heads_packed', 'mlp_packed'), the embedding
-on 'vocab', k/v and the norms whole.  Activations are replicated over
+on 'vocab', k/v and the norms whole; MLA's uk/uv by 'heads', its dkv and
+``kv_norm`` whole; an MoE block's router columns and its expert banks on
+'experts' (expert parallelism: whole experts a rank, so the banks'
+'expert_mlp_packed' rows stay whole); and every decode cache on
+'kv_seq'.  Activations are replicated over
 'model' by explicit collectives (``launch.mesh.all_reduce_model``,
 ``all_gather_model``), so ``constrain`` stays a no-op.  A 'pod' axis above
 1 is described by these rules but not served.

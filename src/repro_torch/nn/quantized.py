@@ -302,8 +302,8 @@ def _row_parallel_apply(p, x, fmt, policy, mesh, *, impl, act_signed,
     sum over 'model' -> the epilogue on the whole sum."""
     if p["ga"].ndim:
         raise NotImplementedError("an expert bank is not row-sharded over "
-                                  "'model' (expert parallelism, ROADMAP "
-                                  "16b (ii-b))")
+                                  "'model': expert parallelism holds whole "
+                                  "experts a rank (nn.moe)")
     if p["planes"].shape[-2] != fmt.packed_k \
             or fmt.k_dim % fmt.digits_per_byte:
         raise ValueError(

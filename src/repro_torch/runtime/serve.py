@@ -25,18 +25,22 @@ the outputs over 'data', so every rank returns the whole result, as the
 reference's single controller does.  Batch entries never mix.  On a
 (D, 1) mesh every rank holds a full replica of the packed tree
 (``pack_for_serving(mesh=)``) and a meshed run is bitwise the
-single-device run.  With a 'model' axis above 1 (tensor-parallel serving,
+single-device run.  With a 'model' axis above 1 (tensor-parallel serving:
 the dense decoders -- granite-8b/34b, yi-34b, chameleon-34b,
-nemotron-4-340b -- and the ResNets) an LM rank holds its ``SERVE_RULES``
-slice of the packed tree (``nn.partitioning.shard_tree``) and its block of
-the decode cache's sequence (``max_len`` rounded up to a multiple of the
-model axis, as the reference rounds it); the ranks of one data coordinate
-compute the same rows together (``models.transformer``), and prefill logits
-and generated tokens are the single-device port's, decode logits within
-the LM tolerance (split-sequence attention).  A CNN's packed tree stays
-whole on every rank (``part.replicated``).  The other LM archs raise
-``NotImplementedError`` on a 'model' axis above 1: ROADMAP 16b (ii-b).
-A ``Generator``'s decode cache stays rank-local.
+nemotron-4-340b --, olmoe-1b-7b and deepseek-v2-lite-16b with expert
+parallelism and MLA's sharded latent cache, whisper-base, and the ResNets)
+an LM rank holds its ``SERVE_RULES`` slice of the packed tree
+(``nn.partitioning.shard_tree``: an MoE bank by whole experts) and its
+block of every decode cache's sequence (``max_len`` rounded up to a
+multiple of the model axis, as the reference rounds it; whisper's cross
+cache its block of the ``n_audio`` frames); the ranks of one data
+coordinate compute the same rows together (``models.transformer``,
+``models.whisper``), and prefill and decode logits and generated tokens are
+the single-device port's, bitwise.  A CNN's packed tree stays whole on
+every rank (``part.replicated``).  mamba2, recurrentgemma and the fp
+baseline raise ``NotImplementedError`` on a 'model' axis above 1: what is
+left of ROADMAP 16b (ii-b).  A ``Generator``'s decode cache stays
+rank-local.
 """
 from __future__ import annotations
 
@@ -81,32 +85,42 @@ def serve_shardings(api, mesh):
 
 
 def require_tensor_parallel(api, mesh) -> None:
-    """Raise ``NotImplementedError`` unless ``api`` serves on ``mesh``'s
-    'model' axis (``mesh`` a mesh or its {axis: size}): any arch at size
-    1; above 1 the ResNets and the dense
-    GQA decoders (``models.transformer`` without MoE or MLA), packed --
-    the MoE and MLA archs, mamba2, recurrentgemma and whisper wait for
-    ROADMAP 16b (ii-b), the fp baseline's bf16 partial sums are not
-    served."""
+    """Raise unless ``api`` serves on ``mesh``'s 'model' axis (``mesh`` a
+    mesh or its {axis: size}): any arch at size 1; above 1 the ResNets,
+    packed, and every arch of ``models.transformer`` (the dense decoders,
+    olmoe's and deepseek's MoE and MLA blocks) and whisper --
+    ``NotImplementedError`` for mamba2, recurrentgemma and the fp baseline
+    (ROADMAP 16b (ii-b)), ``ValueError`` where the heads, an MoE block's
+    experts or whisper's ``n_audio`` frames do not split evenly."""
     if mesh is None:
         return
     sizes = mesh if isinstance(mesh, dict) else part.axis_sizes(mesh)
     part.require_serve_mesh(sizes)
-    if sizes.get("model", 1) == 1 or api.family == "cnn":
+    m = sizes.get("model", 1)
+    if m == 1 or api.family == "cnn":
         return
     cfg = api.cfg
-    dense = (api.mod.__name__ == "repro_torch.models.transformer"
-             and cfg.moe is None and cfg.mla is None)
-    if not dense:
+    if api.mod.__name__ not in ("repro_torch.models.transformer",
+                                "repro_torch.models.whisper"):
         raise NotImplementedError(
             f"{api.name} on a 'model' axis above 1: tensor-parallel serving "
-            f"covers the dense decoders and the ResNets; expert parallelism "
-            f"(olmoe, deepseek), MLA, mamba2, recurrentgemma and whisper "
-            f"are ROADMAP 16b (ii-b)")
+            f"covers the decoders of models.transformer (dense, MoE, MLA), "
+            f"whisper and the ResNets; mamba2, recurrentgemma and the fp "
+            f"baseline are ROADMAP 16b (ii-b)")
     if not getattr(api.policy, "quantize", True):
         raise NotImplementedError(
             "the fp baseline (quantize=False) is not served on a 'model' "
-            "axis above 1")
+            "axis above 1: its row shards would add bf16 partial sums "
+            "(ROADMAP 16b (ii-b))")
+    counts = [("heads", cfg.n_heads)]
+    if getattr(cfg, "moe", None) is not None:
+        counts.append(("experts", cfg.moe.n_experts))
+    if api.needs_frames:
+        counts.append(("n_audio frames", cfg.n_audio))
+    for what, n in counts:
+        if n % m:
+            raise ValueError(f"{api.name}: {n} {what} do not split evenly "
+                             f"over a 'model' axis of {m}")
 
 
 def local_params(api, params, mesh):
@@ -394,13 +408,12 @@ class Generator:
         if family == "hybrid":
             return self.api.mod.ring_cache(self.api.cfg, pre_cache, s, specs,
                                            self.device)
-        start = self.model_rank * (max_len // m)
-
         def grow(spec, pre):
             buf = torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
             if m > 1:  # this rank's block of the sequence axis
                 ax = spec.axes.index("kv_seq")
-                n = min(max(s - start, 0), spec.shape[ax])
+                start = self.model_rank * spec.shape[ax]
+                n = min(max(pre.shape[ax] - start, 0), spec.shape[ax])
                 pre = pre.narrow(ax, min(start, pre.shape[ax]), n)
             buf[tuple(slice(0, n) for n in pre.shape)] = pre
             return buf

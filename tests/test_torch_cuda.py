@@ -754,6 +754,39 @@ def test_router_gradient_batch_invariant_on_card(cuda_device, rows):
     assert torch.equal(batched, alone)
 
 
+from repro_torch.nn import attention as nnattn  # noqa: E402
+
+# (batch, queries, heads, q/k and v head dims, keys, causal, chunk): MLA's
+# prefill at phase 12's 4 x 1000 and phase 20's 4 x 256, whisper-base's
+# encoder over 1536 frames, a decoder prompt and its cross attention
+HEAD_ATTENTION = [(4, 1000, 16, 192, 128, 1000, True, 1024),
+                  (4, 256, 16, 192, 128, 256, True, 1024),
+                  (4, 1536, 8, 64, 64, 1536, False, 512),
+                  (4, 100, 8, 64, 64, 100, True, 512),
+                  (4, 64, 8, 64, 64, 1536, False, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,dv,sk,causal,chunk", HEAD_ATTENTION)
+def test_sharded_heads_attention_bitwise_on_card(
+        cuda_device, b, s, h, d, dv, sk, causal, chunk):
+    """A tensor-parallel rank's torch attention over its H/2 or H/4 heads
+    (``sharded_heads_attention``, run at the one-device shape) is the
+    one-device call's heads, bitwise; one head alone is not held to it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(s + h)
+    q, k, v = (torch.randn((b, n, h, w), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for n, w in ((s, d), (sk, d), (sk, dv)))
+    kw = dict(causal=causal, chunk=chunk)
+    whole = nnattn.chunked_attention(q, k, v, **kw)
+    for m in (2, 4):
+        hl = h // m
+        for r in range(m):
+            mine = slice(r * hl, (r + 1) * hl)
+            got = nnattn.sharded_heads_attention(
+                q[:, :, mine], k[:, :, mine], v[:, :, mine], r, m, **kw)
+            assert torch.equal(got, whole[:, :, mine]), (m, r)
+
+
 # --- QAT training on the card (slice 10) -------------------------------------
 
 

@@ -140,10 +140,11 @@ def test_flags_waiting_for_modules_are_absent(flag, capsys):
 
 
 def test_mesh_model_axis_refused():
-    """A 'model' axis above 1 serves the dense decoders and the ResNets;
-    an MoE arch exits before any rank starts (ROADMAP 16b (ii-b))."""
+    """A 'model' axis above 1 serves every transformer decoder, whisper
+    and the ResNets; mamba2 exits before any rank starts (what is left of
+    ROADMAP 16b (ii-b))."""
     with pytest.raises(SystemExit, match="16b \\(ii-b\\)"):
-        serve.main(["--arch", "olmoe-1b-7b", *CPU, "--mesh", "2x2"])
+        serve.main(["--arch", "mamba2-1.3b", *CPU, "--mesh", "2x2"])
 
 
 def test_mesh_needs_its_ranks():

@@ -10,7 +10,8 @@ and LM serving shapes, ragged and odd batches, the packed KV cache, the
 schedulers, speculative decoding, a frontier behind ``SLOScheduler`` and a
 seeded sampler.  A mesh larger than the world raises, and an arch that
 tensor-parallel serving does not cover raises on a 'model' axis above 1
-(ROADMAP 16b (ii-b); ``test_torch_tensor_parallel.py`` serves the rest).
+(mamba2: what is left of ROADMAP 16b (ii-b); ``test_torch_tensor_parallel``
+and ``test_torch_tensor_parallel_moe`` serve the rest).
 
 The module imports no JAX: the spawned ranks import it to find the case
 functions.  Every process computes on one thread.
@@ -326,13 +327,13 @@ def _rank(rank, names):
         except exc as e:
             errors[shape] = str(e)
     tp = mesh_lib.make_serve_mesh(2, 2, device="cpu")
-    moe = configs.get("olmoe-1b-7b", reduced=True)
-    train = moe.init_params(torch.Generator().manual_seed(0), "train",
+    ssm = configs.get("mamba2-1.3b", reduced=True)
+    train = ssm.init_params(torch.Generator().manual_seed(0), "train",
                             device="cpu")
     try:
-        pack_for_serving(moe, train, mesh=tp)
+        pack_for_serving(ssm, train, mesh=tp)
     except NotImplementedError as e:
-        errors[(2, 2, "olmoe-1b-7b")] = str(e)
+        errors[(2, 2, "mamba2-1.3b")] = str(e)
     out["_errors"] = errors
     out["_coords"] = mesh_lib.data_coords(mesh)
     return out
@@ -490,10 +491,10 @@ def test_sampled_rows_draw_as_single_device(meshed, single):
 
 
 def test_model_axis_raises_16b_ii(meshed):
-    """A (4, 2) mesh on a world of 4 is too large for it; an MoE arch on a
-    (2, 2) mesh waits for expert parallelism, ROADMAP 16b (ii-b)."""
+    """A (4, 2) mesh on a world of 4 is too large for it; mamba2 on a
+    (2, 2) mesh waits for what is left of ROADMAP 16b (ii-b)."""
     errs = _meshed(meshed, "_errors")
-    assert "16b (ii-b)" in errs[(2, 2, "olmoe-1b-7b")]
+    assert "16b (ii-b)" in errs[(2, 2, "mamba2-1.3b")]
     assert "needs 8 ranks" in errs[(4, 2)]
     assert "needs 8 ranks" in errs[(8, 1)]
     assert "covers 2 ranks" in errs[(2, 1)]
