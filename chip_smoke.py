@@ -346,6 +346,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cross split decodes, the int32 sums, the head), and K1 over a rank's
    32-expert bank at its prefill shape against its bound and a
    ``torch._int_mm`` loop over the experts.
+21. Tensor-parallel serving of mamba2, recurrentgemma and the fp baseline
+   (slice 16), on one device here, then on a (1, 2) mesh of two ranks
+   sharing cuda:0 over gloo: mamba2-1.3b at full width, first 4 layers, 4
+   x 250 prompts (no multiple of its chunk) + 8 tokens (each rank its 32
+   SSD heads: their x columns of ``in_xbc`` and the conv with B and C
+   whole, the chunk math at the one-device head count, the gated norm's
+   rows all-gathered, ``out`` accumulator-only); recurrentgemma-9b at
+   full width, first 3 layers (R, R, A), 2 x 2040 + 16 (each rank its
+   2048 RG-LRU channels, the gates and ``out`` accumulator-only with the
+   rank keeping its gate columns, K3 over its 8 heads, its 1024 of the
+   ring's 2048 slots, which wrap during decode, the split decode over
+   them); granite-8b x2 as the fp baseline, 4 x 256 + 8 (column shards
+   at the one-device shape, row shards on the all-gathered input against
+   whole weights).  Prefill and decode logits bitwise one device, tokens
+   equal, both ranks equal, each rank's launches those of one device with
+   the row shards accumulator-only, its slices and its decode cache's
+   shapes.  Then K1 accumulator-only at the ranks' row shards (mamba2's
+   ``out``, recurrentgemma's ``w_a``; prefill and decode rows) bitwise
+   ``mpmm_torch_acc``, and K3 over a rank's 8 heads bitwise the 16-head
+   call's.  ``[p21-time]``: a rank's prefill and decode ms a step against
+   one device (host clock), the bytes and host ms of each kind of
+   collective, those K1 and K3 calls against their bounds, plain versions
+   and ``torch._int_mm`` / SDPA.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -5795,20 +5818,22 @@ def p20_api(arch, depth):
 
 class Collectives:
     """Wraps ``launch.mesh.all_gather_model`` and ``all_reduce_model`` in a
-    rank (phases 19, 20): (function, kind, bytes of the rank's shard, host
+    rank (phases 19-21): (function, kind, bytes of the rank's shard, host
     ms) of each call (the card synchronized around it), the kind read off
-    the calling frames (``P20_KINDS``)."""
+    the calling frames (``kinds``, by default ``P20_KINDS``): the first
+    frame out from the collective that names one."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, kinds=None):
         from repro_torch.launch import mesh as mesh_lib
         self.torch, self.mesh_lib = torch, mesh_lib
         self.orig = {n: getattr(mesh_lib, n)
                      for n in ("all_gather_model", "all_reduce_model")}
+        self.kinds = dict(P20_KINDS if kinds is None else kinds)
         self.calls = []
 
     def _kind(self):
         frame = sys._getframe(2)
-        names = dict(P20_KINDS)
+        names = self.kinds
         while frame is not None:
             if frame.f_code.co_name in names:
                 return names[frame.f_code.co_name]
@@ -6147,6 +6172,418 @@ def phase_p20(sm, card):
     return launches, banks
 
 
+# --- phase 21: tensor-parallel mamba2, recurrentgemma and the fp baseline --
+
+
+P21_RANKS = 2
+# (arch, depth, fp baseline?, (batch, prompt tokens, new tokens)): mamba2's
+# 250 tokens are no multiple of its chunk (256); recurrentgemma's 2040 + 16
+# pass its 2048-slot window, so the ring wraps during decode
+P21_RUNS = (("mamba2-1.3b", 4, False, (4, 250, 8)),
+            ("recurrentgemma-9b", 3, False, (2, 2040, 16)),
+            ("granite-8b", 2, True, (4, 256, 8)))
+P21_KINDS = P20_KINDS + (("ring_decode_attention", "ring split decode"),
+                         ("_gated_out", "SSD gated-norm gather"),
+                         ("qlinear_serve_apply",
+                          "fp row-shard input gather"))
+# K1 accumulator-only at a rank's row shards (w4k4, the default policy):
+# (label, M, K, N) -- mamba2's out (prefill 4 x 256 padded rows, decode
+# 4), recurrentgemma's w_a / w_x (prefill 2 x 2040, decode 2), K halved
+P21_ACC = (("mamba2 out", 1024, 2048, 2048), ("mamba2 out", 4, 2048, 2048),
+           ("rg w_a", 4080, 2048, 4096), ("rg w_a", 2, 2048, 4096))
+
+
+def p21_label(arch, depth, fp):
+    return f"{arch} x{depth}" + (" fp" if fp else "")
+
+
+def p21_api(arch, depth, fp):
+    """Phase 21's arch at full width, cut to ``depth`` layers, under its
+    default policy or the fp baseline."""
+    from repro_torch.core.precision import PrecisionPolicy
+    return family_api(arch, PrecisionPolicy(quantize=False) if fp else None,
+                      depth)
+
+
+def p21_cols(p):
+    """(columns, rows) of a serve layer: packed rows, or an fp weight's."""
+    w = p["w"] if "w" in p else p["planes"]
+    return int(w.shape[-1]), int(w.shape[-2])
+
+
+def p21_slices(api, params):
+    """What a rank holds of the tree: (columns, rows) of the projections,
+    the conv's channels, the head's columns."""
+    lp = params["layers"][0]
+    out = {"head": p21_cols(params["head"])}
+    if api.family == "ssm":
+        blk = lp["ssm"]
+        out.update({k: p21_cols(blk[k]) for k in ("in_xbc", "in_z", "out")},
+                   conv=int(blk["conv"]["w"].shape[-1]),
+                   heads=int(blk["A_log"].shape[0]))
+    elif api.family == "hybrid":
+        rnn, att = lp["rnn"], params["layers"][2]["attn"]
+        out.update({k: p21_cols(rnn[k]) for k in ("in_x", "w_a", "out")},
+                   w_a_gamma=int(rnn["w_a"]["gamma"].shape[-1]),
+                   conv=int(rnn["conv"]["w"].shape[-1]),
+                   q=p21_cols(att["q"]), o=p21_cols(att["o"]),
+                   gate=p21_cols(lp["mlp"]["gate"]))
+    else:
+        out.update(q=p21_cols(lp["attn"]["q"]), o=p21_cols(lp["attn"]["o"]),
+                   gate=p21_cols(lp["mlp"]["gate"]),
+                   down=p21_cols(lp["mlp"]["down"]))
+    return out
+
+
+def p21_want_slices(api, m):
+    """``p21_slices`` of a rank of ``m``, from the whole serve specs: its
+    heads' (channels') columns and packed rows, mamba2's x columns with B
+    and C whole, the fp baseline's rows whole."""
+    from repro_torch.nn import param as nnp
+    spec = nnp.strip_markers(api.specs("serve"))
+    lp = spec["layers"][0]
+
+    def col(p):
+        c, r = p21_cols(p)
+        return (c // m, r)
+
+    def row(p):
+        c, r = p21_cols(p)
+        return (c, r if "w" in p else r // m)
+    out = {"head": col(spec["head"])}
+    if api.family == "ssm":
+        s = api.cfg.ssm
+        gn2 = 2 * s.n_groups * s.d_state
+        out.update(in_xbc=(s.d_inner // m + gn2,
+                           p21_cols(lp["ssm"]["in_xbc"])[1]),
+                   in_z=col(lp["ssm"]["in_z"]), out=row(lp["ssm"]["out"]),
+                   conv=s.d_inner // m + gn2, heads=s.n_heads // m)
+    elif api.family == "hybrid":
+        rnn = lp["rnn"]
+        dr = api.cfg.rnn.d_rnn
+        out.update(in_x=col(rnn["in_x"]), w_a=row(rnn["w_a"]),
+                   out=row(rnn["out"]), w_a_gamma=dr // m, conv=dr // m,
+                   q=col(spec["layers"][2]["attn"]["q"]),
+                   o=row(spec["layers"][2]["attn"]["o"]),
+                   gate=col(lp["mlp"]["gate"]))
+    else:
+        out.update(q=col(lp["attn"]["q"]), o=row(lp["attn"]["o"]),
+                   gate=col(lp["mlp"]["gate"]), down=row(lp["mlp"]["down"]))
+    return out
+
+
+def p21_cells(mesh, device):
+    """Phase 21's runs on ``mesh`` (None: one device) -> {label: results}
+    with each run's launch counts, its decode cache's leaf shapes and, on
+    a mesh, the rank's slices and collectives."""
+    import gc
+    import numpy as np
+    import torch as t
+    from repro_torch.kernels.mpmm import kernel
+    from repro_torch.runtime.serve import Generator, init_packed_lm
+
+    def counts():
+        c = read_p11()
+        c["acc_only"] = kernel.mpmm_cuda.acc_launches
+        return c
+    out = {}
+    for arch, depth, fp, (b, s_, n_new) in P21_RUNS:
+        api = p21_api(arch, depth, fp)
+        packed = init_packed_lm(api, t.Generator(device=device).manual_seed(
+            SEED), device=device)
+        gen = Generator(api=api, params=packed, device=device, mesh=mesh)
+        del packed
+        prompts = np.random.default_rng(SEED).integers(
+            0, api.cfg.vocab, (b, s_)).astype(np.int32)
+        gen.generate(prompts[:, :min(s_, 256)], 2)  # warm-up
+        t.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, logits = gen.run(prompts, n_new)
+        t.cuda.synchronize()
+        res = {"tokens": toks, "logits": [lg.float().cpu().numpy()
+                                          for lg in logits],
+               "counts": counts(), "s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        gen.run(prompts, 1)
+        t.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        col = Collectives(t, P21_KINDS) if mesh is not None else None
+        with col or contextlib.nullcontext():
+            pre = gen.prefill(t.as_tensor(prompts, dtype=t.long,
+                                          device=device))[1]
+            cache = gen._grow_cache(pre, b, s_, s_ + n_new)
+        del pre
+        res["cache_shapes"] = [tuple(x.shape) for x in tree_leaves(cache)]
+        if mesh is not None:
+            res["slices"] = p21_slices(api, gen.params)
+            res["collectives"] = {"prefill": col.calls}
+            with Collectives(t, P21_KINDS) as col:  # one decode step
+                gen.decode(cache, t.as_tensor(toks[:, :1], dtype=t.long,
+                                              device=device), s_)
+            res["collectives"]["decode"] = col.calls
+        del cache
+        out[p21_label(arch, depth, fp)] = res
+        del gen
+        gc.collect()
+        t.cuda.empty_cache()
+    return out
+
+
+def p21_rank(rank, _args):
+    """One rank of phase 21's world: two ranks on cuda:0 over gloo, a
+    (1, 2) mesh, the kernels loaded from the libraries the parent built."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    stale = [n for n in _build.KERNEL_SOURCES if _build._stale(n)]
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_serve_mesh(
+        1, P21_RANKS, devices=["cuda:0"] * P21_RANKS)
+    out = p21_cells(mesh, mesh_lib.local_device(mesh))
+    out["stale"] = stale
+    out["backend"] = mesh_lib.mesh_info(mesh).backend
+    out["coords"] = mesh_lib.model_coords(mesh)
+    return out
+
+
+def p21_expected(api, b, s, n_new):
+    """(K1 launches by route, K3 launches, accumulator-only launches) of
+    one ``Generator.run`` on a rank of a 'model' axis above 1: the
+    one-device launches (each projection once, over the rank's share),
+    of which the row shards run accumulator-only -- mamba2's ``out``; an
+    R layer's ``w_a``, ``w_x``, ``out`` and the MLP's down, an A layer's
+    o and down.  The fp baseline launches no K1."""
+    cfg = api.cfg
+    if api.family not in ("ssm", "hybrid"):
+        _, k3, _ = expected_counts(api, b, s, n_new)
+        return {}, k3, 0
+    routes, k3 = p13_expected(api, b, s, n_new)
+    if api.family == "ssm":
+        return routes, k3, cfg.n_layers * n_new
+    from repro_torch.models.recurrentgemma import layer_kind
+    per_step = sum(4 if layer_kind(cfg, i) == "R" else 2
+                   for i in range(cfg.n_layers))
+    return routes, k3, per_step * n_new
+
+
+def p21_cache_shapes(api, b, max_len, m):
+    """The decode cache's leaf shapes, from ``cache_specs`` (a rank of
+    ``m``: ``max_len`` rounded up to a multiple of it, its block)."""
+    max_len = -(-max_len // m) * m
+    return [tuple(x.shape) for x in tree_leaves(api.cache_specs(
+        b, max_len, model=m))]
+
+
+def p21_check(sm, ranks, one):
+    """Every run: prefill and decode logits bitwise one device, tokens
+    equal, both ranks' logits equal, each rank's launches
+    (``p21_expected``; one device: the same without accumulator-only
+    calls), its slices (``p21_want_slices``) and its decode cache's
+    shapes (``cache_specs(model=2)``: the SSM heads, the RG-LRU channels,
+    half the ring's slots, half the KV positions)."""
+    import numpy as np
+    for arch, depth, fp, (b, s_, n_new) in P21_RUNS:
+        api = p21_api(arch, depth, fp)
+        cfg = api.cfg
+        label = p21_label(arch, depth, fp)
+        routes, k3, acc = p21_expected(api, b, s_, n_new)
+        want1 = one[label]
+        for who, res, want_acc in ([("one device", want1, 0)]
+                                   + [(f"rank {r}", x[label], acc)
+                                      for r, x in enumerate(ranks)]):
+            c = res["counts"]
+            got = {k[6:]: v for k, v in c.items()
+                   if k.startswith("route:") and v}
+            if (got != routes or c["flash_fwd_cuda"] != k3
+                    or c["flash_fwd_packed_cuda"] or c["conv_mpmm_cuda"]
+                    or c["acc_only"] != want_acc):
+                sm.failures.append(
+                    f"p21 {label} {who} launches {c} != {routes} K3 {k3} "
+                    f"acc-only {want_acc}")
+        if want1["cache_shapes"] != p21_cache_shapes(api, b, s_ + n_new, 1):
+            sm.failures.append(f"p21 {label} one device: cache "
+                               f"{want1['cache_shapes']}")
+        for r, res in enumerate(ranks):
+            lm = res[label]
+            if res["stale"] or res["backend"] != "gloo" \
+                    or res["coords"] != (r, P21_RANKS):
+                sm.failures.append(f"p21 rank {r}: stale {res['stale']}, "
+                                   f"backend {res['backend']}, coords "
+                                   f"{res['coords']}")
+            if not np.array_equal(lm["logits"][0], want1["logits"][0]):
+                sm.failures.append(f"p21 {label} rank {r}: prefill logits "
+                                   f"not bitwise one device")
+            bad = [i for i, (a, w) in enumerate(zip(lm["logits"][1:],
+                                                     want1["logits"][1:]))
+                   if not np.array_equal(a, w)]
+            if bad:
+                sm.failures.append(f"p21 {label} rank {r}: decode logits "
+                                   f"not bitwise one device at steps {bad}")
+            if not np.array_equal(lm["tokens"], want1["tokens"]):
+                sm.failures.append(f"p21 {label} rank {r}: tokens differ "
+                                   f"from one device")
+            if r and not p18_equal(lm["logits"], ranks[0][label]["logits"]):
+                sm.failures.append(f"p21 {label} rank {r}: logits differ "
+                                   f"from rank 0")
+            for step, lg in enumerate(lm["logits"]):
+                if lg.shape != (b, cfg.vocab) or not np.isfinite(lg).all() \
+                        or float(lg.std()) == 0.0:
+                    sm.failures.append(f"p21 {label} rank {r} step {step}: "
+                                       f"logits {lg.shape} not finite or "
+                                       f"constant")
+            want = p21_want_slices(api, P21_RANKS)
+            shapes = p21_cache_shapes(api, b, s_ + n_new, P21_RANKS)
+            if lm["slices"] != want or lm["cache_shapes"] != shapes:
+                sm.failures.append(
+                    f"p21 {label} rank {r}: slices {lm['slices']} (want "
+                    f"{want}), cache {lm['cache_shapes']} (want {shapes})")
+
+
+def p21_kernels(sm):
+    """(a) K1 accumulator-only at a rank's row shards of mamba2's ``out``
+    and recurrentgemma's gates (``P21_ACC``), bitwise its plain twin, then
+    timed against its bound, its plain twin and ``torch._int_mm``
+    (``torch.mm`` in f32 where that refuses the shape); (b) K3 over a
+    rank's 8 of recurrentgemma's 16 heads (D 256, MQA, window 2048, 2 x
+    2040 tokens) bitwise the 16-head call's heads, then timed as
+    ``measure_d256`` times the whole (SDPA with the same window mask) ->
+    (K1 rows, the K3 row)."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.flashattn import ops as fops
+    from repro_torch.kernels.mpmm import kernel, ops
+    t = sm.torch
+    rows = []
+    for label, m, kdim, n in P21_ACC:
+        g = t.Generator(device=sm.device).manual_seed(m + kdim + n)
+        fmt = packing.PlaneFormat(w_bits=4, k=4, k_dim=kdim)
+        w_int = t.randint(-8, 8, (kdim, n), generator=g, device=sm.device,
+                          dtype=t.int32)
+        planes = packing.pack_planes(w_int, fmt)
+        del w_int
+        a = t.randint(-128, 128, (m, kdim), generator=g, device=sm.device,
+                      dtype=t.int32).to(t.int8)
+        route = kernel.mpmm_route(m, kdim, n)
+        acc = ops.mpmm_acc(a, planes, fmt=fmt, impl="cuda")
+        sm.compare("mpmm_cuda", f"p21 K1 {route} acc-only {label} M={m} "
+                   f"K={kdim} N={n}", acc,
+                   kernel.mpmm_torch_acc(a, planes, fmt=fmt).cpu())
+        lib, lib_name = k1_library(sm, {"a_biased": a, "planes": planes},
+                                   fmt)
+        b_ms, by = bound_ms(nbytes(a, planes) + m * n * 4, 2 * m * kdim * n)
+        rows.append({"name": label, "m": m, "k": kdim, "n": n,
+                     "route": route,
+                     "ms": sm.time_ms(lambda: kernel.mpmm_cuda(
+                         a, planes, None, None, fmt=fmt, act_zero=0,
+                         out_dtype=t.int32)),
+                     "plain_ms": sm.time_ms(lambda: kernel.mpmm_torch_acc(
+                         a, planes, fmt=fmt), reps=3, warmup=1),
+                     "library_ms": sm.time_ms(lib), "library": lib_name,
+                     "bound_ms": b_ms, "bound_by": by})
+        del a, planes, acc, lib
+    api = p21_api("recurrentgemma-9b", 3, False)
+    cfg = api.cfg
+    g = t.Generator(device=sm.device).manual_seed(521)
+    mk = lambda h: t.randn((2, 2040, h, cfg.hd), generator=g,  # noqa: E731
+                           device=sm.device).to(t.bfloat16)
+    q, k, v = mk(cfg.n_heads), mk(cfg.n_kv), mk(cfg.n_kv)
+    run = lambda qq: fops.flash_attention(  # noqa: E731
+        qq, k, v, window=cfg.window, block_k=cfg.attn_chunk, impl="cuda")
+    whole = run(q)
+    h = cfg.n_heads // P21_RANKS
+    for r in range(P21_RANKS):
+        part = run(q[:, :, r * h:(r + 1) * h].contiguous())
+        sm.compare("flash_fwd_cuda", f"p21 K3 D256 heads {r * h}-"
+                   f"{(r + 1) * h - 1} of {cfg.n_heads} vs the whole call",
+                   part, whole[:, :, r * h:(r + 1) * h].cpu())
+    del q, k, v, whole
+    k3 = measure_d256(sm, dataclasses.replace(
+        api, cfg=dataclasses.replace(cfg, n_heads=h, head_dim=cfg.hd)), 2,
+        2040)
+    return rows, k3
+
+
+def phase_p21(sm, card):
+    """Phase 21: mamba2-1.3b x4, recurrentgemma-9b x3 (its ring wrapping
+    in decode) and granite-8b x2 as the fp baseline on one device here,
+    then on a (1, 2) mesh of two ranks sharing cuda:0; then K1
+    accumulator-only at the ranks' row shards and K3 over a rank's heads
+    -> (the ranks' summed launches, the K1 rows, the K3 row)."""
+    t0 = time.perf_counter()
+    release(sm)
+    one = p21_cells(None, sm.device)
+    release(sm)
+    t1 = time.perf_counter()
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.spawn(p21_rank, P21_RANKS, (None,),
+                           store_dir=str(ROOT / "build" / "p21"),
+                           backend="gloo", timeout_s=500)
+    spawn_s = time.perf_counter() - t1
+    p21_check(sm, ranks, one)
+    sm.check_phase("21 tensor-parallel mamba2 (SSD heads), recurrentgemma "
+                   "(RG-LRU channels, the ring) and the fp baseline, (1, 2) "
+                   "mesh on cuda:0: prefill and decode logits bitwise, "
+                   "tokens equal, ranks equal, launches, slices, caches")
+    release(sm)
+    acc_rows, k3_row = p21_kernels(sm)
+    sm.check_phase("21 K1 accumulator-only at the ranks' row shards vs "
+                   "mpmm_torch_acc; K3 over a rank's heads vs the whole")
+    launches = {}
+    for res in ranks:
+        for arch, depth, fp, _ in P21_RUNS:
+            launches = add_counts(launches,
+                                  res[p21_label(arch, depth, fp)]["counts"])
+    for arch, depth, fp, (b, s_, n_new) in P21_RUNS:
+        label = p21_label(arch, depth, fp)
+        runs_ = (("one device", one[label]), ("rank 0", ranks[0][label]),
+                 ("rank 1", ranks[1][label]))
+        pre = ", ".join(f"{k} {v['prefill_s'] * 1e3:.1f} ms"
+                        for k, v in runs_)
+        dec = ", ".join(
+            f"{k} {(v['s'] - v['prefill_s']) / (n_new - 1) * 1e3:.1f} ms"
+            for k, v in runs_)
+        log(f"[p21-time] {label} {b} x {s_} + {n_new} host clock: prefill "
+            f"{pre}; decode per step {dec}  ({card})")
+        for step, calls in ranks[0][label]["collectives"].items():
+            kinds = {}
+            for _, kind, nb, ms in calls:
+                k = kinds.setdefault(kind, [0, 0, 0.0])
+                k[0] += 1
+                k[1] += nb
+                k[2] += ms
+            log(f"[p21-time] {label} rank 0 collectives per {step} (bytes "
+                f"of the rank's shard, sent once and received once at M = "
+                f"2; host ms, card synchronized around each, through the "
+                f"host, gloo): " + "; ".join(
+                    f"{k} {v[0]} calls {v[1]} B {v[2]:.2f} ms"
+                    for k, v in sorted(kinds.items())) + f"  ({card})")
+    for r in acc_rows:
+        log(f"[p21-time] K1 acc-only {r['name']} shard M={r['m']} "
+            f"K={r['k']} N={r['n']} w4k4 route {r['route']}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"{r['library']} {r['library_ms']:.4f} ms (kernel/library "
+            f"{r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)  "
+            f"({card})")
+    log(f"[p21-time] K3 a rank's {k3_row['shape']}: kernel "
+        f"{k3_row['ms']:.4f} ms, plain {k3_row['plain_ms']:.4f} ms, SDPA "
+        f"{k3_row['library_ms']:.4f} ms (kernel/library "
+        f"{k3_row['ms'] / k3_row['library_ms']:.2f}x), bound "
+        f"{k3_row['bound_ms']:.4f} ms ({k3_row['bound_by']}; "
+        f"{k3_row['bound_ms'] / k3_row['ms']:.1%} of it)  ({card})")
+    log(f"[p21] world started and served in {spawn_s:.1f} s; rank 0 "
+        f"launches " + "; ".join(
+            f"{p21_label(a, d, f)} {ranks[0][p21_label(a, d, f)]['counts']}"
+            for a, d, f, _ in P21_RUNS))
+    log(f"[p21] phase 21 took {time.perf_counter() - t0:.1f} s")
+    return launches, acc_rows, k3_row
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -6350,14 +6787,28 @@ def run_phases(torch) -> int:
     k1_routes = {k: k1_routes[k] + p20_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p20] phase 20 done at {time.perf_counter() - t_start:.1f} s")
+    p21_launches, p21_acc, p21_k3 = phase_p21(sm, card)
+    launches = {k: launches[k] + p21_launches.get(k, 0) for k in launches}
+    k1_routes = {k: k1_routes[k] + p21_launches.get(f"route:{k}", 0)
+                 for k in k1_routes}
+    log(f"[p21] phase 21 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
-    acc_only["launches"] += p20_launches.get("acc_only", 0)
+    acc_only["launches"] += (p20_launches.get("acc_only", 0)
+                             + p21_launches.get("acc_only", 0))
     kernels[0]["acc_only"] = acc_only
     kernels[0]["rank_bank32"] = [
         {key: r[key] for key in ("shape", "route", "ms", "plain_ms",
                                  "library_ms", "bound_ms", "bound_by")}
         for r in bank_rows]
+    kernels[0]["rank_row_shards"] = [
+        {key: r[key] for key in ("name", "m", "k", "n", "route", "ms",
+                                 "plain_ms", "library", "library_ms",
+                                 "bound_ms", "bound_by")}
+        for r in p21_acc]
+    kernels[2]["rank_heads_d256"] = {
+        key: p21_k3[key] for key in ("shape", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}
 
     for r in rows:
         log(f"[time] {r['kernel']} {r['layer']:7s} {r['shape']}"

@@ -59,18 +59,21 @@ Serving over a device mesh, one process a rank: ``--devices N`` starts N
 local ranks (gloo on the CPU, NCCL on cards; ``--share-cards`` puts ranks
 on fewer cards round-robin, over gloo, as on a one-card machine), and
 ``--mesh DxM`` names the mesh (``D x M`` = N).  ``M`` > 1 is
-tensor-parallel serving, for the dense decoders, olmoe-1b-7b and
-deepseek-v2-lite-16b (expert parallelism, MLA's sharded latent cache),
-whisper-base (its stub frames' cross cache sharded by frames) and the
-ResNets; mamba2, recurrentgemma and the fp baseline exit naming ROADMAP
-16b (ii-b), and heads, experts or frames that do not split over M exit
-naming both numbers.  Under ``torchrun --nproc-per-node N`` the
+tensor-parallel serving, for every arch: the dense decoders, olmoe-1b-7b
+and deepseek-v2-lite-16b (expert parallelism, MLA's sharded latent
+cache), whisper-base (its stub frames' cross cache sharded by frames),
+mamba2-1.3b (the SSD block's heads), recurrentgemma-9b (the RG-LRU's
+channels, the ring's slots), each under ``--fp-baseline`` too, and the
+ResNets; heads, experts, frames or a window that do not split over M
+exit naming both numbers.  Under ``torchrun --nproc-per-node N`` the
 environment's world is used and ``--devices``, if given, must equal it.
 Every rank serves the same requests on its data coordinate's rows of each
 batch and all-gathers the results; rank 0 prints:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --reduced --devices 4 --mesh 2x2 --batch 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --reduced --arch mamba2-1.3b --devices 4 --mesh 2x2
     torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
         --arch granite-8b --mesh 4x2 --batch 32
 
@@ -499,7 +502,9 @@ def _world(args):
         if m > 1:
             try:
                 require_tensor_parallel(
-                    configs.get(args.arch, reduced=args.reduced),
+                    configs.get(args.arch, reduced=args.reduced,
+                                policy=(PrecisionPolicy(quantize=False)
+                                        if args.fp_baseline else None)),
                     {"data": d, "model": m})
             except (NotImplementedError, ValueError) as e:
                 raise SystemExit(f"--mesh {d}x{m}: {e}") from None

@@ -19,6 +19,15 @@ real tokens (``nn.ssm`` says how; the reference returns it after the pads,
 ROADMAP Queue 3 R6), in either mode.  ``prefill`` and ``decode_step`` take
 ``mode="train"`` over an ``init_params("train")`` tree: the reference's
 train-mode cache path.
+
+Tensor-parallel serving (``mesh=`` with a 'model' axis of M above 1):
+``params`` is this rank's slice (``shard_serve_tree``): every SSD block's
+heads (``nn.ssm``), the embedding by vocabulary rows and the head by
+columns, as ``models.transformer`` cuts them; the decode state is the
+rank's heads' (``cache_specs(..., model=M)``).  The embedding's codes and
+the ``out`` rows' accumulators are summed over 'model' as int32 and the
+head's columns all-gathered, so every rank holds the same residual stream
+and logits, bitwise the one-device ones.
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dse import Gemm
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.remat import remat
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import param as nnp
@@ -38,8 +49,8 @@ from repro_torch.nn import ssm as nnssm
 from repro_torch.nn.ssm import SSMConfig
 
 __all__ = ["Mamba2Config", "specs", "forward", "prefill", "decode_step",
-           "cache_specs", "gemm_workload", "active_params", "total_params",
-           "model_flops"]
+           "cache_specs", "shard_serve_tree", "gemm_workload",
+           "active_params", "total_params", "model_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,78 +89,108 @@ def specs(cfg: Mamba2Config, mode: str = "train", policy=None) -> Dict:
     }
 
 
-def _head(cfg, params, x, policy, impl, serve=True):
+def _head(cfg, params, x, policy, impl, serve=True, mesh=None):
+    """Final norm and head -> logits; on a tensor-parallel ``mesh`` the
+    rank's vocabulary columns, all-gathered (``transformer._head``)."""
     x = nnl.rmsnorm_apply(params["final_norm"], x)
     logits = Q.qlinear_any(params["head"], x, policy, serve=serve,
                            impl=impl, name="head", layer_class="boundary")
+    if mesh is not None:
+        logits = mesh_lib.all_gather_model(mesh, logits, dim=-1)
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
-def _embed(params, tokens, serve=True):
-    return (nnl.embed_serve_apply if serve else nnl.embed_apply)(
-        params["embed"], tokens)
-
-
-def _prefill_inputs(cfg, params, tokens, serve=True):
+def _prefill_inputs(cfg, params, tokens, serve=True, mesh=None):
     """Embedded tokens with zero rows appended up to a multiple of chunk,
     and the per-layer side input: how many rows are real."""
-    x = _embed(params, tokens, serve)
+    x = T._embed(params, tokens, serve, mesh)
     pad = (-x.shape[1]) % cfg.ssm.chunk
     return (F.pad(x, (0, 0, 0, pad)) if pad else x), {
         "valid": tokens.shape[1]}
 
 
-def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True, mesh=None):
     """Prefill of layer i -> (x, its state after the ``aux["valid"]`` real
     rows; after all of them where ``aux`` has none)."""
     del i
     o, st = nnssm.ssd_forward(lp["ssm"], nnl.rmsnorm_apply(lp["ln"], x),
                               policy, cfg.ssm, impl=impl,
-                              valid=aux.get("valid"), serve=serve)
+                              valid=aux.get("valid"), serve=serve, mesh=mesh)
     return x + o, st
 
 
 def forward(cfg: Mamba2Config, params, tokens: torch.Tensor, policy, *,
-            mode: str = "serve", impl: str = "auto") -> torch.Tensor:
+            mode: str = "serve", impl: str = "auto",
+            mesh=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
     (``mode="serve"``) or the QAT training forward (``mode="train"``, over
     an ``init_params("train")`` tree, no kernel).  Like the reference's,
     the pads run through every layer (they follow the real tokens, so no
-    real position sees them)."""
+    real position sees them).  ``mesh``: tensor-parallel (module doc)."""
     serve = _serve_mode(mode)
+    mesh = T._tp_mesh(cfg, mesh, serve)
     s = tokens.shape[1]
-    x, _ = _prefill_inputs(cfg, params, tokens, serve)
+    x, _ = _prefill_inputs(cfg, params, tokens, serve, mesh)
     for i, lp in enumerate(params["layers"]):
         def layer(h, lp=lp, i=i):
             return _layer_fwd(cfg, i, lp, h, policy, {}, impl=impl,
-                              serve=serve)[0]
+                              serve=serve, mesh=mesh)[0]
         x = remat(cfg, layer, x)
-    return _head(cfg, params, x[:, :s], policy, impl, serve)
+    return _head(cfg, params, x[:, :s], policy, impl, serve, mesh)
 
 
 def prefill(cfg: Mamba2Config, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto", mode: str = "serve"):
+            impl: str = "auto", mode: str = "serve", mesh=None):
     """tokens (B, S) -> (last-token logits (B, V), per-layer state after
     the S tokens); ``mode="train"`` over an ``init_params("train")``
-    tree."""
+    tree; ``mesh``: tensor-parallel, the state this rank's heads'."""
     serve = _serve_mode(mode)
+    mesh = T._tp_mesh(cfg, mesh, serve)
     s = tokens.shape[1]
-    x, aux = _prefill_inputs(cfg, params, tokens, serve)
+    x, aux = _prefill_inputs(cfg, params, tokens, serve, mesh)
     states = []
     for i, lp in enumerate(params["layers"]):
         x, st = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl,
-                           serve=serve)
+                           serve=serve, mesh=mesh)
         states.append(st)
     return _head(cfg, params, x[:, s - 1:s], policy, impl,
-                 serve)[:, 0, :], states
+                 serve, mesh)[:, 0, :], states
 
 
 def cache_specs(cfg: Mamba2Config, batch: int, max_len: int,
-                policy=None) -> List[Dict]:
-    """Per-layer decode state (f32, zeros); independent of ``max_len``."""
+                policy=None, model: int = 1) -> List[Dict]:
+    """Per-layer decode state (f32, zeros); independent of ``max_len``;
+    ``model`` > 1: one tensor-parallel rank's (its heads)."""
     del max_len, policy
-    return [nnssm.ssm_state_spec(cfg.ssm, batch)
+    return [nnssm.ssm_state_spec(cfg.ssm, batch, model)
             for _ in range(cfg.n_layers)]
+
+
+def shard_serve_tree(cfg: Mamba2Config, params, axes, mesh, shard):
+    """This rank's slice of a whole packed tree (``runtime.serve.
+    local_params``): ``shard(tree, axes, mesh)``, the ``SERVE_RULES``
+    cut, for every leaf but each block's ``in_xbc`` and conv, which keep
+    the rank's x columns (channels) with B and C whole
+    (``nn.ssm.xbc_pieces``)."""
+    r, m = mesh_lib.model_coords(mesh)
+    pieces = nnssm.xbc_pieces(cfg.ssm, r, m)
+    axes = dict(axes, layers=[
+        dict(la, ssm=dict(la["ssm"], in_xbc=_whole(la["ssm"]["in_xbc"])))
+        for la in axes["layers"]])
+    out = shard(params, axes, mesh)
+    for lp in out["layers"]:
+        blk = lp["ssm"]
+        blk["in_xbc"] = Q.column_pieces(blk["in_xbc"], pieces)
+        blk["conv"] = {k: Q.take_pieces(v, pieces)
+                       for k, v in blk["conv"].items()}
+    return out
+
+
+def _whole(axes):
+    """An axes subtree with every dimension unnamed: no rule cuts it."""
+    if isinstance(axes, dict):
+        return {k: _whole(v) for k, v in axes.items()}
+    return (None,) * len(axes)
 
 
 def cache_axes(cfg: Mamba2Config, policy=None):
@@ -159,21 +200,23 @@ def cache_axes(cfg: Mamba2Config, policy=None):
 
 def decode_step(cfg: Mamba2Config, params, cache, tokens: torch.Tensor,
                 length: int, policy, *, impl: str = "auto",
-                mode: str = "serve"):
+                mode: str = "serve", mesh=None):
     """One token per row: tokens (B, 1) -> (logits (B, V), new state);
-    ``mode="train"`` over an ``init_params("train")`` tree."""
+    ``mode="train"`` over an ``init_params("train")`` tree; ``mesh`` as
+    ``prefill``'s."""
     del length  # the state carries the position
     serve = _serve_mode(mode)
-    x = _embed(params, tokens, serve)
+    mesh = T._tp_mesh(cfg, mesh, serve)
+    x = T._embed(params, tokens, serve, mesh)
     new = []
     for lp, st in zip(params["layers"], cache):
         o, st = nnssm.ssd_decode_step(lp["ssm"],
                                       nnl.rmsnorm_apply(lp["ln"], x), st,
                                       policy, cfg.ssm, impl=impl,
-                                      serve=serve)
+                                      serve=serve, mesh=mesh)
         x = x + o
         new.append(st)
-    return _head(cfg, params, x, policy, impl, serve)[:, 0, :], new
+    return _head(cfg, params, x, policy, impl, serve, mesh)[:, 0, :], new
 
 
 # --- workload descriptions (DSE, planner, roofline) --------------------------

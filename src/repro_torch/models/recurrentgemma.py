@@ -23,6 +23,20 @@ A) superblock under ``torch.utils.checkpoint`` when ``cfg.remat`` and the
 remainder layers without, as the reference checkpoints its scanned
 superblock body only.  ``prefill`` and ``decode_step`` take
 ``mode="train"`` too, over an ``init_params("train")`` tree.
+
+Tensor-parallel serving (``mesh=`` with a 'model' axis of M above 1):
+``params`` is this rank's slice (``shard_serve_tree``): the RG-LRU blocks
+by channels (``nn.rglru``), the attention's q by heads with k and v whole
+(one KV head) and o by rows, the MLP's gate/up by columns and down by
+rows, the embedding by vocabulary rows and the head by columns.  The
+prefill runs K3 (or torch attention) over the rank's heads; the decode
+cache is the rank's channels of each R state and its block of each A
+layer's ring slots (``cache_specs(..., model=M)``, ``ring_cache``), a new
+key written on the rank that owns its slot, and the decode attention is
+split by slots (``nn.attention.ring_decode_attention``).  Prefill and
+decode logits are the one-device logits, bitwise, wherever the ranks'
+slots add up to the one-device ring (the window fits ``max_len``, or M
+divides ``max_len``).
 """
 from __future__ import annotations
 
@@ -32,6 +46,8 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.core.dse import Gemm
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import transformer as T
 from repro_torch.models.remat import remat
 from repro_torch.models.transformer import _serve_mode
 from repro_torch.nn import attention as attn
@@ -43,9 +59,8 @@ from repro_torch.nn.param import ParamSpec
 from repro_torch.nn.rglru import RGLRUConfig
 
 __all__ = ["RGConfig", "layer_kind", "specs", "forward", "prefill",
-           "decode_step",
-           "cache_specs", "ring_cache", "gemm_workload", "active_params",
-           "total_params", "model_flops"]
+           "decode_step", "cache_specs", "ring_cache", "shard_serve_tree",
+           "gemm_workload", "active_params", "total_params", "model_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,17 +154,24 @@ def specs(cfg: RGConfig, mode: str = "train", policy=None) -> Dict:
     }
 
 
-def _proj(p, x, policy, impl, name, serve=True):
+def _proj(p, x, policy, impl, name, serve=True, row_mesh=None):
+    """One projection; ``row_mesh``: a row shard over its 'model' axis."""
+    if row_mesh is not None:
+        return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name,
+                                     row_mesh=row_mesh)
     return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
 
 
-def _mlp(p, h, policy, impl, serve=True):
+def _mlp(p, h, policy, impl, serve=True, mesh=None):
+    """The SwiGLU MLP; on a tensor-parallel ``mesh`` gate/up hold the
+    rank's columns and down its rows (a row shard)."""
     fn = lambda w, x: _proj(w, x, policy, impl, "mlp", serve)  # noqa: E731
-    return fn(p["down"], nnl.swiglu_combine(fn(p["gate"], h),
-                                            fn(p["up"], h)))
+    return _proj(p["down"], nnl.swiglu_combine(fn(p["gate"], h),
+                                               fn(p["up"], h)),
+                 policy, impl, "mlp", serve, mesh)
 
 
-def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
+def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True, mesh=None):
     """Prefill of layer i -> (x, its cache); ``aux`` holds the rotary
     tables."""
     h = nnl.rmsnorm_apply(lp["ln1"], x)
@@ -158,87 +180,111 @@ def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True):
             lp["attn"], h, policy, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, sin=aux["sin"], cos=aux["cos"],
             window=cfg.window, impl=impl, chunk=cfg.attn_chunk,
-            attn_impl=cfg.attn_impl, names=ATTN_NAMES, serve=serve)
+            attn_impl=cfg.attn_impl, names=ATTN_NAMES, serve=serve,
+            mesh=mesh)
     else:
         o, cache = nnr.rglru_block_forward(lp["rnn"], h, policy, cfg.rnn,
-                                           impl=impl, serve=serve)
+                                           impl=impl, serve=serve, mesh=mesh)
     x = x + o
     x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl,
-                 serve)
+                 serve, mesh)
     return x, cache
 
 
-def _embed(params, tokens, serve=True):
-    return (nnl.embed_serve_apply if serve else nnl.embed_apply)(
-        params["embed"], tokens)
-
-
-def _prefill_inputs(cfg, params, tokens, serve=True):
+def _prefill_inputs(cfg, params, tokens, serve=True, mesh=None):
     """Embedded tokens and the per-layer side inputs of a prefill."""
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     sin, cos = nnl.rotary_cache(pos, cfg.hd)
-    return _embed(params, tokens, serve), {"sin": sin, "cos": cos}
+    return T._embed(params, tokens, serve, mesh), {"sin": sin, "cos": cos}
 
 
-def _head(cfg, params, x, policy, impl, serve=True):
+def _head(cfg, params, x, policy, impl, serve=True, mesh=None):
+    """Final norm and head -> logits; on a tensor-parallel ``mesh`` the
+    rank's vocabulary columns, all-gathered."""
     x = nnl.rmsnorm_apply(params["final_norm"], x)
     logits = Q.qlinear_any(params["head"], x, policy, serve=serve,
                            impl=impl, name="head", layer_class="boundary")
+    if mesh is not None:
+        logits = mesh_lib.all_gather_model(mesh, logits, dim=-1)
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
 
 def forward(cfg: RGConfig, params, tokens: torch.Tensor, policy, *,
-            mode: str = "serve", impl: str = "auto") -> torch.Tensor:
+            mode: str = "serve", impl: str = "auto",
+            mesh=None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V) in bf16: the packed serve forward
     (``mode="serve"``; K1, and K3 where ``attn_impl='flash'``) or the QAT
     training forward (``mode="train"``, over an ``init_params("train")``
-    tree, no kernel)."""
+    tree, no kernel).  ``mesh``: tensor-parallel (module doc)."""
     serve = _serve_mode(mode)
-    x, aux = _prefill_inputs(cfg, params, tokens, serve)
+    mesh = T._tp_mesh(cfg, mesh, serve)
+    x, aux = _prefill_inputs(cfg, params, tokens, serve, mesh)
     layers = params["layers"]
 
     def run(h, lo, hi):
         for i in range(lo, hi):
             h = _layer_fwd(cfg, i, layers[i], h, policy, aux, impl=impl,
-                           serve=serve)[0]
+                           serve=serve, mesh=mesh)[0]
         return h
     for j in range(cfg.n_super):  # a superblock (R, R, A) under remat
         x = remat(cfg, lambda h, j=j: run(h, 3 * j, 3 * j + 3), x)
     x = run(x, 3 * cfg.n_super, cfg.n_layers)
-    return _head(cfg, params, x, policy, impl, serve)
+    return _head(cfg, params, x, policy, impl, serve, mesh)
 
 
 def prefill(cfg: RGConfig, params, tokens: torch.Tensor, policy, *,
-            impl: str = "auto", mode: str = "serve"):
+            impl: str = "auto", mode: str = "serve", mesh=None):
     """tokens (B, S) -> (last-token logits (B, V), per-layer prefill
     cache: R ``{"h", "conv"}``, A ``(k, v)`` over the whole prompt);
-    ``mode="train"`` over an ``init_params("train")`` tree."""
+    ``mode="train"`` over an ``init_params("train")`` tree; ``mesh``:
+    tensor-parallel, the R states this rank's channels."""
     serve = _serve_mode(mode)
-    x, aux = _prefill_inputs(cfg, params, tokens, serve)
+    mesh = T._tp_mesh(cfg, mesh, serve)
+    x, aux = _prefill_inputs(cfg, params, tokens, serve, mesh)
     caches = []
     for i, lp in enumerate(params["layers"]):
         x, cache = _layer_fwd(cfg, i, lp, x, policy, aux, impl=impl,
-                              serve=serve)
+                              serve=serve, mesh=mesh)
         caches.append(cache)
     return _head(cfg, params, x[:, -1:, :], policy, impl,
-                 serve)[:, 0, :], caches
+                 serve, mesh)[:, 0, :], caches
 
 
 def cache_specs(cfg: RGConfig, batch: int, max_len: int,
-                policy=None) -> List:
+                policy=None, model: int = 1) -> List:
     """Per-layer decode cache: R ``{"h": (B, d_rnn), "conv": (B, W-1,
     d_rnn)}`` f32; A the ring pair (B, min(window, max_len), KV, Dh)
-    bf16."""
+    bf16.  ``model`` > 1: one tensor-parallel rank's, its d_rnn / M
+    channels and its block of the ring's slots (which must split)."""
     del policy
     w = min(cfg.window, max_len)
-    ring = ParamSpec(shape=(batch, w, cfg.n_kv, cfg.hd),
+    if w % model:
+        raise ValueError(f"a ring of {w} slots does not split over "
+                         f"{model} 'model' ranks")
+    ring = ParamSpec(shape=(batch, w // model, cfg.n_kv, cfg.hd),
                      dtype=torch.bfloat16,
                      axes=("batch", "kv_seq", "kv_heads", "head_dim"),
                      init="zeros")
     return [(ring, ring) if layer_kind(cfg, i) == "A"
-            else nnr.rglru_state_spec(cfg.rnn, batch)
+            else nnr.rglru_state_spec(cfg.rnn, batch, model)
             for i in range(cfg.n_layers)]
+
+
+def shard_serve_tree(cfg: RGConfig, params, axes, mesh, shard):
+    """This rank's slice of a whole packed tree (``runtime.serve.
+    local_params``): ``shard(tree, axes, mesh)``, the ``SERVE_RULES``
+    cut, then each RG-LRU conv (whole under the rules) cut to the rank's
+    channels."""
+    r, m = mesh_lib.model_coords(mesh)
+    out = shard(params, axes, mesh)
+    n = cfg.rnn.d_rnn // m
+    for lp in out["layers"]:
+        if "rnn" in lp:
+            lp["rnn"]["conv"] = {
+                k: Q.take_pieces(v, ((r * n, (r + 1) * n),))
+                for k, v in lp["rnn"]["conv"].items()}
+    return out
 
 
 def cache_axes(cfg: RGConfig, policy=None):
@@ -247,79 +293,95 @@ def cache_axes(cfg: RGConfig, policy=None):
 
 
 def _attn_ring_step(cfg, lp, x, ring, length, policy, sin, cos, impl,
-                    serve=True):
+                    serve=True, mesh=None):
     """One-token local attention against the ring buffer (updated in
-    place at slot ``length % slots``)."""
+    place at slot ``length % slots``); on a tensor-parallel ``mesh`` the
+    rank's heads against its block of the slots, the slot written on its
+    owner."""
     b = x.shape[0]
     k_cache, v_cache = ring
-    w = k_cache.shape[1]
+    r, m = mesh_lib.model_coords(mesh)
+    block = k_cache.shape[1]
+    w = block * m
+    h_l = cfg.n_heads // m
     fn = lambda key, h, n: _proj(  # noqa: E731
         lp["attn"][key], h, policy, impl, ATTN_NAMES[key],
         serve).reshape(b, 1, n, cfg.hd)
     h = nnl.rmsnorm_apply(lp["ln1"], x)
-    q = nnl.apply_rotary(fn("q", h, cfg.n_heads), sin, cos)
+    q = nnl.apply_rotary(fn("q", h, h_l), sin, cos)
     k = nnl.apply_rotary(fn("k", h, cfg.n_kv), sin, cos)
     v = fn("v", h, cfg.n_kv)
-    slot = length % w
-    k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
-    v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
+    slot = length % w - r * block
+    if 0 <= slot < block:
+        k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
+        v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
     mask_len = w if length >= w - 1 else length + 1
-    o = attn.decode_attention(q, k_cache, v_cache, mask_len)
-    x = x + _proj(lp["attn"]["o"], o.reshape(b, 1, cfg.n_heads * cfg.hd),
-                  policy, impl, ATTN_NAMES["o"], serve)
+    o = attn.ring_decode_attention(q, k_cache, v_cache, mask_len, mesh)
+    x = x + _proj(lp["attn"]["o"], o.reshape(b, 1, h_l * cfg.hd),
+                  policy, impl, ATTN_NAMES["o"], serve, mesh)
     x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl,
-                 serve)
+                 serve, mesh)
     return x, (k_cache, v_cache)
 
 
-def _r_step(cfg, lp, x, st, policy, impl, serve=True):
+def _r_step(cfg, lp, x, st, policy, impl, serve=True, mesh=None):
     o, st = nnr.rglru_block_step(lp["rnn"], nnl.rmsnorm_apply(lp["ln1"], x),
-                                 st, policy, cfg.rnn, impl=impl, serve=serve)
+                                 st, policy, cfg.rnn, impl=impl, serve=serve,
+                                 mesh=mesh)
     x = x + o
     x = x + _mlp(lp["mlp"], nnl.rmsnorm_apply(lp["ln2"], x), policy, impl,
-                 serve)
+                 serve, mesh)
     return x, st
 
 
 def decode_step(cfg: RGConfig, params, cache, tokens: torch.Tensor,
                 length: int, policy, *, impl: str = "auto",
-                mode: str = "serve"):
+                mode: str = "serve", mesh=None):
     """One token per row at position ``length`` -> (logits (B, V), the
     per-layer cache: R states replaced, A rings updated in place);
-    ``mode="train"`` over an ``init_params("train")`` tree."""
+    ``mode="train"`` over an ``init_params("train")`` tree; ``mesh`` as
+    ``prefill``'s, the cache this rank's (``cache_specs(model=M)``)."""
     serve = _serve_mode(mode)
+    mesh = T._tp_mesh(cfg, mesh, serve)
     b = tokens.shape[0]
-    x = _embed(params, tokens, serve)
+    x = T._embed(params, tokens, serve, mesh)
     pos = torch.full((b, 1), length, device=tokens.device)
     sin, cos = nnl.rotary_cache(pos, cfg.hd)
     new = []
     for i, (lp, st) in enumerate(zip(params["layers"], cache)):
         if layer_kind(cfg, i) == "A":
             x, st = _attn_ring_step(cfg, lp, x, st, length, policy, sin, cos,
-                                    impl, serve)
+                                    impl, serve, mesh)
         else:
-            x, st = _r_step(cfg, lp, x, st, policy, impl, serve)
+            x, st = _r_step(cfg, lp, x, st, policy, impl, serve, mesh)
         new.append(st)
-    return _head(cfg, params, x, policy, impl, serve)[:, 0, :], new
+    return _head(cfg, params, x, policy, impl, serve, mesh)[:, 0, :], new
 
 
-def ring_cache(cfg: RGConfig, pre_cache, s: int, specs_: List, device):
+def ring_cache(cfg: RGConfig, pre_cache, s: int, specs_: List, device,
+               rank: int = 0, ranks: int = 1):
     """Prefill cache of an ``s``-token prompt -> the decode cache of
     ``specs_``: each A layer's last ``min(s, slots)`` keys and values in
     their ring slots (position p in slot p % slots), R states as they
-    are (the reference's ``Generator._rg_cache``)."""
+    are (the reference's ``Generator._rg_cache``).  ``rank`` of ``ranks``
+    on 'model': ``specs_`` is the rank's block of the slots (the ring
+    holds ``ranks`` blocks), and the rank keeps the keys whose slots fall
+    in it."""
     out = []
     for i, (pre, spec) in enumerate(zip(pre_cache, specs_)):
         if layer_kind(cfg, i) != "A":
             out.append(pre)
             continue
-        w = spec[0].shape[1]
+        block = spec[0].shape[1]
+        w = block * ranks
         take = min(s, w)
-        slots = torch.arange(s - take, s, device=device) % w
+        pos = torch.arange(s - take, s, device=device)
+        local = pos % w - rank * block
+        mine = (local >= 0) & (local < block)
         ring = []
         for full, sp in zip(pre, spec):
             buf = torch.zeros(sp.shape, dtype=sp.dtype, device=device)
-            buf[:, slots] = full[:, s - take:s].to(sp.dtype)
+            buf[:, local[mine]] = full[:, pos[mine]].to(sp.dtype)
             ring.append(buf)
         out.append(tuple(ring))
     return out

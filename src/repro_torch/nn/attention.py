@@ -58,10 +58,12 @@ moves), the scores and the V blocks are all-gathered, and every rank runs
 the one-device decode routine from the scores on over the whole row,
 then keeps its heads for o.  Decode outputs are the one-device outputs
 bitwise wherever the cache length (rounded up to a multiple of the model
-axis) is the one-device length.  An online fold of per-rank softmax
-partials would move no V but adds the value sums in another order: its
-ulp-level differences flipped a token of the full-width granite-8b on the
-card.
+axis) is the one-device length.  recurrentgemma's ring buffer splits the
+same way by slots (``ring_decode_attention``): the scores and V blocks,
+gathered in slot order, are the whole ring, masked by its slot count.
+An online fold of per-rank softmax partials would move no V but adds the
+value sums in another order: its ulp-level differences flipped a token
+of the full-width granite-8b on the card.
 """
 from __future__ import annotations
 
@@ -78,7 +80,8 @@ from repro_torch.nn.param import ParamSpec
 
 __all__ = [
     "NEG_INF", "GQA_NAMES", "chunked_attention", "sharded_heads_attention",
-    "decode_attention", "decode_attention_streamed", "gqa_spec",
+    "decode_attention", "decode_attention_streamed",
+    "ring_decode_attention", "gqa_spec",
     "gqa_serve_spec", "gqa_prefill", "gqa_decode", "gqa_verify",
     "mla_spec", "mla_prefill", "mla_decode", "mla_verify",
 ]
@@ -595,6 +598,23 @@ def _split_decode(q_local: torch.Tensor, ck, cv, fmt_k, fmt_v, length: int,
             outs.append(_decode_values(s[t], v, length + 1 + t, window,
                                        q.dtype))
     return torch.cat(outs, dim=1)[:, :, r * h_l:(r + 1) * h_l]
+
+
+def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, mask_len: int,
+                          mesh=None) -> torch.Tensor:
+    """One query against a ring buffer of slots, the first ``mask_len``
+    valid (all of them once it has wrapped): q (B, 1, h, D), rings (B,
+    slots, KV, D) -> (B, 1, h, D).  On a 'model' axis above 1 ``q`` holds
+    this rank's heads and each ring this rank's block of the slots: the
+    split decode (``_split_decode``) gathers the scores and the V blocks
+    in slot order and runs ``decode_attention``'s routine over the whole
+    ring, so each head's output is the one-device output, bitwise, where
+    the ranks' slots add up to the one-device ring's."""
+    if mesh is None or mesh_lib.model_coords(mesh)[1] == 1:
+        return decode_attention(q, k_ring, v_ring, mask_len)
+    return _split_decode(q, k_ring, v_ring, None, None, mask_len - 1, None,
+                         mesh, streamed=False)
 
 
 def gqa_verify(p: Dict, x: torch.Tensor, cache, length: int, policy, *,

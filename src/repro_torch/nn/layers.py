@@ -123,22 +123,25 @@ def embed_serve_apply(p, ids: torch.Tensor, compute_dtype=torch.bfloat16,
     a mesh whose 'model' axis is above 1 the rank holds a block of the
     (padded) vocabulary's rows: it looks up the ids in its block, zeros
     elsewhere, and the codes are summed over 'model' as int32 -- one
-    addend is nonzero, so every rank gets the one-device codes exactly."""
+    addend is nonzero, so every rank gets the one-device codes exactly.
+    The fp baseline's bf16 table is looked up the same way, its rows' bit
+    patterns (int16, widened) summed as int32: the owner's bits, exactly."""
     r, m = mesh_lib.model_coords(mesh)
-    if "table" in p:
-        if m > 1:
-            raise NotImplementedError(
-                "the fp baseline's bf16 embedding is not served "
-                "tensor-parallel")
-        return p["table"][ids].to(compute_dtype)
+    key = "table" if "table" in p else "codes"
     if m > 1:
-        rows = p["codes"].shape[0]
+        rows = p[key].shape[0]
         local = ids - r * rows
         hit = (local >= 0) & (local < rows)
-        codes = torch.where(hit[..., None],
-                            p["codes"][local.clamp(0, rows - 1)].to(
-                                torch.int32), 0)
-        codes = mesh_lib.all_reduce_model(mesh, codes)
+        got = p[key][local.clamp(0, rows - 1)]
+        if key == "table":
+            got = got.to(torch.bfloat16).view(torch.int16)
+        got = mesh_lib.all_reduce_model(
+            mesh, torch.where(hit[..., None], got.to(torch.int32), 0))
+        if key == "table":
+            return got.to(torch.int16).view(torch.bfloat16).to(compute_dtype)
+        codes = got
+    elif key == "table":
+        return p["table"][ids].to(compute_dtype)
     else:
         codes = p["codes"][ids]
     return (codes.to(torch.float32) * p["gamma"]).to(compute_dtype)

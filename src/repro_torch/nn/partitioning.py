@@ -30,8 +30,14 @@ the packed tree (``shard_tree``): column-parallel q/gate/up and head over
 on 'vocab', k/v and the norms whole; MLA's uk/uv by 'heads', its dkv and
 ``kv_norm`` whole; an MoE block's router columns and its expert banks on
 'experts' (expert parallelism: whole experts a rank, so the banks'
-'expert_mlp_packed' rows stay whole); and every decode cache on
-'kv_seq'.  Activations are replicated over
+'expert_mlp_packed' rows stay whole); the RG-LRU's ``('mlp', 'mlp')``
+gates by rows (their gamma and colsum by columns); and every decode
+cache on 'kv_seq'.  Two cuts are the arch's own
+(``runtime.serve.local_params``): mamba2's fused ``in_xbc`` and conv keep
+a rank's heads' x columns with B and C whole, and the RG-LRU's conv (on
+'act_embed', whole under the rules) its channels; the fp baseline keeps
+every weight's contraction axis whole (``nn.quantized.fp_serve_axes``).
+Activations are replicated over
 'model' by explicit collectives (``launch.mesh.all_reduce_model``,
 ``all_gather_model``), so ``constrain`` stays a no-op.  A 'pod' axis above
 1 is described by these rules but not served.

@@ -15,7 +15,9 @@ mesh a column-parallel layer (q, gate, up, the head) runs as it is over its
 local columns; a row-parallel one (o, down: ``row_mesh=``) holds the rows of
 its contraction axis, runs K1's accumulator-only mode over them, sums the
 int32 partials over 'model' and finishes the whole sum with the shared
-epilogue, so its output is bitwise the one-device layer's.
+epilogue, so its output is bitwise the one-device layer's.  A row shard
+whose output columns are split too (the RG-LRU's gates, ``('mlp',
+'mlp')``) keeps its own columns of the summed accumulator.
 
 A quantized-linear param subtree is marked by the key ``QMARK``; in spec
 trees the marker carries the layer class and its workload layer name, so a
@@ -23,7 +25,13 @@ layer-wise ``PrecisionPlan`` resolves each layer's format at pack and
 serve time.  Under ``quantize=False`` (the fp baseline the paper compares
 against) ``pack_qlinear`` keeps the weight in bf16 under ``"w"`` and the
 serve forward is a plain bf16 matrix product followed by the same f32
-epilogue; convs then always go through im2col.
+epilogue; convs then always go through im2col.  On a tensor-parallel mesh
+the fp baseline departs from ``SERVE_RULES``: a bf16 partial sum is not
+exact, so no fp weight splits its contraction axis (``fp_serve_axes``).
+A row-parallel layer keeps its whole weight and all-gathers its input
+over 'model'; a column shard (or an expert bank's experts) runs at the
+one-device shape, its weight zero-padded to the whole (``fp_shard``),
+because the product's kernel, and so its bits, is picked by the shape.
 """
 from __future__ import annotations
 
@@ -59,6 +67,10 @@ __all__ = [
     "pack_qlinear",
     "pack_tree",
     "is_qlinear",
+    "fp_serve_axes",
+    "fp_shard",
+    "take_pieces",
+    "column_pieces",
     "QMARK",
     "EpilogueSpec",
 ]
@@ -108,6 +120,12 @@ def qlinear_serve_spec(in_dim: int, out_dim: int, *,
     axis (``mlp_packed``, ``heads_packed``, ...), so the serve rules can
     shard the rows of projections that write the residual stream."""
     pol = plan_lib.resolve_policy(policy, name)
+    if not pol.quantize:  # the fp baseline: the bf16 weight
+        return {QMARK: _marker(layer_class, name),
+                "w": ParamSpec(shape=lead + (in_dim, out_dim),
+                               dtype=torch.bfloat16,
+                               axes=lead_axes + tuple(axes), init="normal",
+                               fan_in_axes=(-2,))}
     fmt = PlaneFormat(w_bits=pol.bits_for(layer_class), k=pol.k,
                       k_dim=in_dim)
     k_axis = f"{axes[0]}_packed" if axes[0] else None
@@ -217,11 +235,93 @@ def _fold_bias(p, epilogue, scale, shift):
     return epilogue, scale, shift
 
 
+def fp_serve_axes(specs):
+    """Logical axes of the fp baseline's serve tree (``specs``: its spec
+    tree, markers kept) for a tensor-parallel mesh: as ``axes_tree``
+    gives them, but every bf16 weight's contraction axis unnamed, so no
+    rank holds a block of it (a row-parallel weight is whole on every
+    rank; the RG-LRU's ``('mlp', 'mlp')`` gates split their columns)."""
+    if is_qlinear(specs):
+        out = {k: v.axes for k, v in specs.items() if k != QMARK}
+        w = out["w"]
+        out["w"] = w[:-2] + (None, w[-1])
+        return out
+    if isinstance(specs, dict):
+        return {k: fp_serve_axes(v) for k, v in specs.items() if k != QMARK}
+    if isinstance(specs, list):
+        return [fp_serve_axes(v) for v in specs]
+    return specs.axes if specs.axes else (None,) * len(specs.shape)
+
+
+def fp_shard(p, dim: int, pieces) -> Dict:
+    """An fp baseline layer's shard over 'model': ``p`` (``{"w"[, "b"]}``,
+    whole) cut to the ``pieces`` ``((start, stop), ...)`` of weight
+    dimension ``dim`` (-1: output columns, with the bias; -3: an expert
+    bank's experts), in order, with ``"shard": (dim, whole size,
+    pieces)``, which ``qlinear_serve_apply`` reads to run the product at
+    the one-device shape."""
+    w = p["w"]
+    out = {"w": take_pieces(w, pieces, dim),
+           "shard": (dim, w.shape[dim], tuple(pieces))}
+    if "b" in p:
+        out["b"] = take_pieces(p["b"], pieces) if dim == -1 else p["b"]
+    return out
+
+
+def take_pieces(t: torch.Tensor, pieces, dim: int = -1) -> torch.Tensor:
+    """The ``pieces`` ``((start, stop), ...)`` of ``t``'s dimension
+    ``dim``, in order, as a tensor of its own."""
+    idx = torch.cat([torch.arange(a, b, device=t.device) for a, b in pieces])
+    return torch.index_select(t, dim % t.ndim, idx).contiguous()
+
+
+def column_pieces(p, pieces) -> Dict:
+    """A whole serve layer cut to the ``pieces`` ``((start, stop), ...)``
+    of its output columns, in order: a packed layer's planes, colsum and
+    gamma (and bias; ``ga`` is per tensor), or the fp baseline's
+    ``fp_shard``.  A K1 output column is one exact int32 dot product, so
+    any set of columns is the one-device layer's, bit for bit."""
+    if "w" in p:
+        return fp_shard(p, -1, pieces)
+    return {k: v if k == "ga" else take_pieces(v, pieces)
+            for k, v in p.items()}
+
+
+def _fp_whole(t: torch.Tensor, dim: int, whole: int, pieces) -> torch.Tensor:
+    """``t``'s pieces along ``dim`` placed at their own index of a
+    zero tensor ``whole`` long there."""
+    shape = list(t.shape)
+    shape[dim] = whole
+    out = t.new_zeros(shape)
+    at = 0
+    for a, b in pieces:
+        out.narrow(dim, a, b - a).copy_(t.narrow(dim, at, b - a))
+        at += b - a
+    return out
+
+
+def _fp_pieces(y: torch.Tensor, dim: int, pieces) -> torch.Tensor:
+    parts = [y.narrow(dim, a, b - a) for a, b in pieces]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 def _fp_serve_apply(p, x, *, compute_dtype, epilogue, scale, shift,
                     residual) -> torch.Tensor:
     """The fp baseline: a bf16 matrix product, the bias, then the f32
-    epilogue (the reference's order: the bias is not folded)."""
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    epilogue (the reference's order: the bias is not folded).  A shard
+    (``fp_shard``) multiplies at the one-device shape: its weight
+    zero-padded to the whole, and for an expert bank its rows too, then
+    keeps its own pieces of the product."""
+    w = p["w"]
+    shard = p.get("shard")
+    if shard is not None:
+        dim, whole, pieces = shard
+        w = _fp_whole(w, dim, whole, pieces)
+        if dim != -1:  # the experts: x (E/M, R, K) -> (E, R, K)
+            x = _fp_whole(x, dim, whole, pieces)
+    y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+    if shard is not None:
+        y = _fp_pieces(y, shard[0], shard[2])
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     out_dtype = mpmm_epilogue.resolve_out_dtype(epilogue, compute_dtype)
@@ -253,20 +353,22 @@ def qlinear_serve_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     ``row_mesh``: the layer is a row shard on that mesh's 'model' axis
     (``x`` and ``planes`` hold this rank's block of the contraction axis,
-    gamma and colsum are whole): the local codes -- the one-device codes'
-    block, since the whole ``ga`` quantizes elementwise -- run K1's
-    accumulator-only mode, the int32 partials are summed over 'model'
-    (``launch.mesh.all_reduce_model``) and ``epilogue.finish`` completes
-    the sum: bitwise the one-device output on every rank.
+    gamma and colsum are whole, or this rank's block of the output
+    columns): the local codes -- the one-device codes' block, since the
+    whole ``ga`` quantizes elementwise -- run K1's accumulator-only mode,
+    the int32 partials are summed over 'model'
+    (``launch.mesh.all_reduce_model``), the rank keeps its columns where
+    gamma holds a block of them, and ``epilogue.finish`` completes the
+    sum: bitwise the one-device output on every rank.  The fp baseline
+    all-gathers ``x`` over 'model' instead and multiplies its weight,
+    whole over the contraction axis.
     """
     policy = plan_lib.resolve_policy(policy, name)
     mpmm_epilogue.validate_operands(epilogue, scale, shift, residual)
     tp_rows = row_mesh is not None and mesh_lib.model_coords(row_mesh)[1] > 1
     if "w" in p:  # the fp baseline
-        if tp_rows:
-            raise NotImplementedError(
-                "the fp baseline (quantize=False) is not served tensor-"
-                "parallel: its row shards would add bf16 partial sums")
+        if tp_rows:  # the whole input against the whole contraction axis
+            x = mesh_lib.all_gather_model(row_mesh, x, dim=-1)
         return _fp_serve_apply(p, x, compute_dtype=compute_dtype,
                                epilogue=epilogue, scale=scale, shift=shift,
                                residual=residual)
@@ -315,6 +417,14 @@ def _row_parallel_apply(p, x, fmt, policy, mesh, *, impl, act_signed,
     acc = mpmm_ops.mpmm_acc(a, p["planes"], fmt=fmt, variant=policy.variant,
                             impl=impl)
     acc = mesh_lib.all_reduce_model(mesh, acc)
+    n = p["gamma"].shape[-1]
+    if n != acc.shape[-1]:  # the rank holds a block of the columns too
+        r, m = mesh_lib.model_coords(mesh)
+        if n * m != acc.shape[-1]:
+            raise ValueError(f"a row shard's {n} output columns are neither "
+                             f"its {acc.shape[-1]} nor a 'model' block of "
+                             f"them")
+        acc = acc[..., r * n:(r + 1) * n]
     y = mpmm_epilogue.finish(acc, p["gamma"], p["colsum"], act_zero=act_zero,
                              spec=epilogue, scale=scale, shift=shift,
                              residual=residual, out_dtype=compute_dtype)

@@ -16,6 +16,17 @@ the state stay f32.  Everything past the projections is elementwise, so a
 row's bits do not depend on the batch.  The scan's output is built by
 copies into strided views of an empty tensor, which autograd takes back
 as slices, as JAX transposes the reference's interleave (pads and adds).
+
+Tensor-parallel serving (``mesh=`` with a 'model' axis of M above 1): a
+rank holds the channels ``[r d_rnn/M, (r + 1) d_rnn/M)``: its columns of
+``in_x`` and ``in_gate``, its channels of the conv and of ``lam``, its
+rows of ``w_a``, ``w_x`` and ``out`` and its channels of the state.  The
+gates are row shards whose output is the rank's channels again: K1
+accumulator-only over its rows, the int32 sums all-reduced, and the rank
+keeps its columns (``qlinear_serve_apply(row_mesh=)``; the fp baseline
+all-gathers the input and multiplies its columns of the whole rows).
+Everything else is elementwise on the rank's channels, and ``out`` is a
+row shard, so every rank's output is the one-device block's, bitwise.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import layers
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
@@ -66,23 +78,43 @@ def rglru_block_spec(cfg: RGLRUConfig, *, serve: bool = False,
     }
 
 
-def rglru_state_spec(cfg: RGLRUConfig, batch: int) -> Dict[str, ParamSpec]:
-    return {"h": ParamSpec(shape=(batch, cfg.d_rnn), axes=("batch", "mlp"),
+def rglru_state_spec(cfg: RGLRUConfig, batch: int,
+                     model: int = 1) -> Dict[str, ParamSpec]:
+    """The decode state; ``model`` > 1: one tensor-parallel rank's
+    channels."""
+    dr = cfg.d_rnn // model
+    return {"h": ParamSpec(shape=(batch, dr), axes=("batch", "mlp"),
                            init="zeros"),
-            "conv": ParamSpec(shape=(batch, cfg.conv_width - 1, cfg.d_rnn),
+            "conv": ParamSpec(shape=(batch, cfg.conv_width - 1, dr),
                               axes=("batch", None, "mlp"), init="zeros")}
 
 
-def _proj(p, x, policy, impl, name, serve=True):
+def _proj(p, x, policy, impl, name, serve=True, row_mesh=None):
+    """One projection; ``row_mesh`` (serve only): a row shard over that
+    mesh's 'model' axis."""
+    if row_mesh is not None:
+        return Q.qlinear_serve_apply(p, x, policy, impl=impl, name=name,
+                                     row_mesh=row_mesh)
     return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name)
 
 
-def _gates(p, xb, policy, impl, serve=True):
+def _tp(mesh, serve: bool):
+    """``mesh`` where its 'model' axis is above 1 (serve only), else
+    None."""
+    if mesh_lib.model_coords(mesh)[1] == 1:
+        return None
+    if not serve:
+        raise ValueError("a tensor-parallel RG-LRU block serves packed "
+                         "trees only (serve=True)")
+    return mesh
+
+
+def _gates(p, xb, policy, impl, serve=True, mesh=None):
     """xb (..., d_rnn) -> (a, gated input) in f32."""
     r = torch.sigmoid(_proj(p["w_a"], xb, policy, impl, "rnn_gates",
-                            serve).to(torch.float32))
+                            serve, mesh).to(torch.float32))
     i = torch.sigmoid(_proj(p["w_x"], xb, policy, impl, "rnn_gates",
-                            serve).to(torch.float32))
+                            serve, mesh).to(torch.float32))
     log_a = -_C * layers.softplus(p["lam"].to(torch.float32)) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -142,23 +174,26 @@ def associative_scan(fn: Callable, elems: List[torch.Tensor],
 def rglru_block_forward(p: Dict, x: torch.Tensor, policy, cfg: RGLRUConfig,
                         *, impl: str = "auto",
                         h0: Optional[torch.Tensor] = None,
-                        serve: bool = True
+                        serve: bool = True, mesh=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) -> (out (B, S, D), {"h": (B, d_rnn), "conv": (B, W-1,
     d_rnn)}); ``h0`` folds a carried state in as a step-0 contribution;
-    ``serve=False`` runs the projections fake-quant."""
+    ``serve=False`` runs the projections fake-quant; ``mesh``:
+    tensor-parallel over this rank's channels (module doc), the state
+    the rank's."""
+    mesh = _tp(mesh, serve)
     xb = _proj(p["in_x"], x, policy, impl, "rnn_in", serve)
     gate = layers.gelu(_proj(p["in_gate"], x, policy, impl, "rnn_in",
                              serve))
     pre_conv = xb
     xb = layers.causal_conv1d(p["conv"], xb)
-    a, b = _gates(p, xb, policy, impl, serve)
+    a, b = _gates(p, xb, policy, impl, serve, mesh)
     if h0 is not None:
         b = b.clone()
         b[:, 0, :] = b[:, 0, :] + a[:, 0, :] * h0.to(torch.float32)
     _, h_seq = associative_scan(linear_combine, [a, b], axis=1)
     y = h_seq.to(x.dtype) * gate
-    out = _proj(p["out"], y, policy, impl, "rnn_out", serve)
+    out = _proj(p["out"], y, policy, impl, "rnn_out", serve, mesh)
     w1 = cfg.conv_width - 1
     tail = pre_conv[:, -w1:, :].to(torch.float32)
     if tail.shape[1] < w1:  # the reference's slice is as short as S
@@ -169,17 +204,19 @@ def rglru_block_forward(p: Dict, x: torch.Tensor, policy, cfg: RGLRUConfig,
 def rglru_block_step(p: Dict, x_t: torch.Tensor,
                      state: Dict[str, torch.Tensor], policy,
                      cfg: RGLRUConfig, *, impl: str = "auto",
-                     serve: bool = True
+                     serve: bool = True, mesh=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token step: x_t (B, 1, D) -> (out (B, 1, D), new state);
-    ``serve=False`` runs the projections fake-quant."""
+    ``serve=False`` runs the projections fake-quant; ``mesh`` as
+    ``rglru_block_forward``'s."""
+    mesh = _tp(mesh, serve)
     xb = _proj(p["in_x"], x_t, policy, impl, "rnn_in", serve)[:, 0]
     gate = layers.gelu(_proj(p["in_gate"], x_t, policy, impl, "rnn_in",
                              serve))[:, 0]
     conv_cache, xbc = layers.causal_conv1d_step(
         p["conv"], state["conv"].to(xb.dtype), xb)
-    a, b = _gates(p, xbc, policy, impl, serve)
+    a, b = _gates(p, xbc, policy, impl, serve, mesh)
     h = a * state["h"] + b
     y = (h.to(x_t.dtype) * gate)[:, None, :]
-    out = _proj(p["out"], y, policy, impl, "rnn_out", serve)
+    out = _proj(p["out"], y, policy, impl, "rnn_out", serve, mesh)
     return out, {"h": h, "conv": conv_cache.to(torch.float32)}

@@ -28,6 +28,20 @@ products as elementwise products plus one sum over the last axis, so a
 row's bits do not depend on the batch it is served in (cuBLAS and torch's
 reductions pick their kernels by the shape); on the CPU the batched forms
 already compute each row alone.
+
+Tensor-parallel serving (``mesh=`` with a 'model' axis of M above 1): a
+rank holds the heads ``[r H/M, (r + 1) H/M)``: its x columns of
+``in_xbc`` and of the conv with B and C whole (``xbc_pieces``; every head
+reads B and C), its columns of ``in_z``, ``in_dt``, ``A_log``, ``D`` and
+``dt_bias``, the norm whole and its rows of ``out``, and its heads' part
+of the state (``ssm_state_spec(model=M)``).  The chunk math and the
+decode step's contraction run at the one-device head count, the rank's
+heads at their own index and the rest zeros, so each head's bits are the
+one-device head's (the kernels, and their sums' order, are picked by the
+shape).  The gated norm spans all of ``d_inner``: the gated rows are
+all-gathered over 'model', normed whole, and the rank's block goes into
+``out`` as a row shard (K1 accumulator-only, int32 sums); the fp baseline
+multiplies its whole ``out`` by the whole row instead.
 """
 from __future__ import annotations
 
@@ -37,12 +51,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import layers
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["SSMConfig", "ssm_spec", "ssd_forward", "ssd_decode_step",
-           "ssm_state_spec"]
+           "ssm_state_spec", "xbc_pieces"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,16 +109,29 @@ def ssm_spec(cfg: SSMConfig, *, serve: bool = False, policy=None) -> Dict:
     }
 
 
-def ssm_state_spec(cfg: SSMConfig, batch: int) -> Dict[str, ParamSpec]:
+def ssm_state_spec(cfg: SSMConfig, batch: int,
+                   model: int = 1) -> Dict[str, ParamSpec]:
+    """The decode state; ``model`` > 1: one tensor-parallel rank's, its
+    H/M heads and its conv channels (``xbc_pieces``)."""
+    gn = cfg.n_groups * cfg.d_state
     return {
-        "ssm": ParamSpec(shape=(batch, cfg.n_heads, cfg.d_state,
+        "ssm": ParamSpec(shape=(batch, cfg.n_heads // model, cfg.d_state,
                                 cfg.head_dim),
                          axes=("batch", "heads", "state", None),
                          init="zeros"),
         "conv": ParamSpec(shape=(batch, cfg.conv_width - 1,
-                                 cfg.conv_channels),
+                                 cfg.d_inner // model + 2 * gn),
                           axes=("batch", None, "mlp"), init="zeros"),
     }
+
+
+def xbc_pieces(cfg: SSMConfig, r: int, m: int):
+    """The ``in_xbc`` columns (and conv channels) rank ``r`` of ``m`` holds,
+    as ``((start, stop), ...)``: the x columns of its heads, then B and C
+    whole."""
+    di = cfg.d_inner
+    return ((r * di // m, (r + 1) * di // m),
+            (di, di + 2 * cfg.n_groups * cfg.d_state))
 
 
 def _proj(p, x, policy, impl, name, serve=True):
@@ -121,13 +149,59 @@ def _repeat_heads(t: torch.Tensor, reps: int) -> torch.Tensor:
 
 
 def _split_xbc(xbc, cfg: SSMConfig):
-    di, gn = cfg.d_inner, cfg.n_groups * cfg.d_state
+    """x, B and C of the (local) fused columns: x is all but the last
+    2 G N."""
+    gn = cfg.n_groups * cfg.d_state
+    di = xbc.shape[-1] - 2 * gn
     return xbc[..., :di], xbc[..., di:di + gn], xbc[..., di + gn:]
 
 
-def _gated_norm(pn, y, z):
-    return layers.rmsnorm_apply(
-        pn, y * F.silu(z.to(torch.float32)).to(y.dtype))
+def _pad_heads(t: torch.Tensor, axis: int, r: int, m: int) -> torch.Tensor:
+    """A rank's heads (``axis``) at their own index among the one-device
+    count, zeros elsewhere; ``t`` itself on one device."""
+    if m == 1:
+        return t
+    h = t.shape[axis]
+    pad = [0, 0] * (t.ndim - 1 - axis % t.ndim) + [r * h, (m - 1 - r) * h]
+    return F.pad(t, pad)
+
+
+def _own_heads(t: torch.Tensor, axis: int, r: int, m: int) -> torch.Tensor:
+    """The rank's heads of a one-device-sized ``axis``."""
+    if m == 1:
+        return t
+    h = t.shape[axis] // m
+    return t.narrow(axis, r * h, h)
+
+
+def _gated_out(p, y, z, policy, impl, serve, mesh):
+    """The gated norm over all of ``d_inner``, then ``out``: y, z (..., di
+    / M) -> (..., D).  On a tensor-parallel mesh the gated rows are
+    all-gathered and normed whole; the rank's block runs ``out`` as a row
+    shard, or the fp baseline's whole ``out`` takes the whole row."""
+    g = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    r, m = mesh_lib.model_coords(mesh)
+    if m == 1:
+        return _proj(p["out"], layers.rmsnorm_apply(p["norm"], g), policy,
+                     impl, "out", serve)
+    whole = layers.rmsnorm_apply(
+        p["norm"], mesh_lib.all_gather_model(mesh, g, dim=-1))
+    if "w" in p["out"]:
+        return _proj(p["out"], whole, policy, impl, "out")
+    di = g.shape[-1]
+    return Q.qlinear_serve_apply(p["out"], whole[..., r * di:(r + 1) * di],
+                                 policy, impl=impl, name="out",
+                                 row_mesh=mesh)
+
+
+def _heads(cfg: SSMConfig, mesh, serve: bool):
+    """(this rank's 'model' coordinate, the axis' size), checked: tensor
+    parallelism serves only, over whole heads."""
+    r, m = mesh_lib.model_coords(mesh)
+    if m > 1 and (not serve or cfg.n_heads % m):
+        raise ValueError(f"a tensor-parallel SSD block serves (serve=True) "
+                         f"{cfg.n_heads} heads split evenly over {m} ranks")
+    return r, m
 
 
 def _ssd_chunks(xh, bm, cm, dtp, a, q: int):
@@ -171,15 +245,19 @@ def _ssd_chunks(xh, bm, cm, dtp, a, q: int):
 
 def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
                 impl: str = "auto", valid: Optional[int] = None,
-                serve: bool = True
+                serve: bool = True, mesh=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x_in (B, S, D), S a multiple of ``cfg.chunk`` -> (out (B, S, D), the
     recurrent state after the first ``valid`` positions (all of S by
     default): ``{"ssm": (B, H, N, P), "conv": (B, W-1, C)}``, f32).
     Positions at or past ``valid`` are padding and leave the state alone.
-    ``serve=False`` runs the projections fake-quant (the QAT forward)."""
+    ``serve=False`` runs the projections fake-quant (the QAT forward).
+    ``mesh``: tensor-parallel over this rank's heads (module doc); the
+    state is the rank's."""
     b, s, _ = x_in.shape
     h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
+    r, m = _heads(cfg, mesh, serve)
+    h_l = h // m
     if s % cfg.chunk:
         raise ValueError(f"S={s} is not a multiple of chunk {cfg.chunk}")
     valid = s if valid is None else valid
@@ -189,7 +267,8 @@ def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
     pre_conv = F.silu(xbc.to(torch.float32)).to(xbc.dtype)
     xbc = layers.causal_conv1d(p["conv"], pre_conv)
     xr, bmat, cmat = _split_xbc(xbc, cfg)
-    xh = xr.reshape(b, s, h, pdim).to(torch.float32)
+    xh = xr.reshape(b, s, h_l, pdim).to(torch.float32)
+    # B and C of every head: the chunk math runs at the one-device count
     bm = _repeat_heads(bmat.reshape(b, s, g, n).to(torch.float32), h // g)
     cm = _repeat_heads(cmat.reshape(b, s, g, n).to(torch.float32), h // g)
     a = -torch.exp(p["A_log"].to(torch.float32))
@@ -198,17 +277,19 @@ def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
     if valid < s:  # the pad tokens: decay 1, input 0
         dtp = torch.cat([dtp[:, :valid], torch.zeros_like(dtp[:, valid:])],
                         dim=1)
+    xw, dw, aw = (_pad_heads(xh, 2, r, m), _pad_heads(dtp, 2, r, m),
+                  _pad_heads(a, 0, r, m))
     if x_in.is_cuda:  # one row at a time: the same bits in any batch
-        parts = [_ssd_chunks(xh[i:i + 1], bm[i:i + 1], cm[i:i + 1],
-                             dtp[i:i + 1], a, cfg.chunk) for i in range(b)]
+        parts = [_ssd_chunks(xw[i:i + 1], bm[i:i + 1], cm[i:i + 1],
+                             dw[i:i + 1], aw, cfg.chunk) for i in range(b)]
         y = torch.cat([pt[0] for pt in parts])
         final = torch.cat([pt[1] for pt in parts])
     else:
-        y, final = _ssd_chunks(xh, bm, cm, dtp, a, cfg.chunk)
+        y, final = _ssd_chunks(xw, bm, cm, dw, aw, cfg.chunk)
+    y, final = _own_heads(y, 2, r, m), _own_heads(final, 1, r, m)
     y = y + p["D"].to(torch.float32)[None, None, :, None] * xh
-    y = y.reshape(b, s, cfg.d_inner).to(x_in.dtype)
-    y = _gated_norm(p["norm"], y, z)
-    out = _proj(p["out"], y, policy, impl, "out", serve)
+    y = y.reshape(b, s, h_l * pdim).to(x_in.dtype)
+    out = _gated_out(p, y, z, policy, impl, serve, mesh)
     w1 = cfg.conv_width - 1
     tail = pre_conv[:, max(0, valid - w1):valid, :].to(torch.float32)
     if tail.shape[1] < w1:
@@ -216,10 +297,16 @@ def ssd_forward(p: Dict, x_in: torch.Tensor, policy, cfg: SSMConfig, *,
     return out, {"ssm": final, "conv": tail}
 
 
-def _contract_n(cv: torch.Tensor, s_new: torch.Tensor) -> torch.Tensor:
+def _contract_n(cv: torch.Tensor, s_new: torch.Tensor, r: int = 0,
+                m: int = 1) -> torch.Tensor:
     """einsum('bhn,bhnp->bhp') in f32.  On a card: the elementwise product
     into a buffer laid out with N last, then one sum over that axis (the
-    decode attention's fixed-order form); on the CPU the einsum."""
+    decode attention's fixed-order form); on the CPU the einsum.  A
+    tensor-parallel rank (``r`` of ``m``) runs it at the one-device head
+    count, its heads at their own index."""
+    if m > 1:
+        return _own_heads(_contract_n(_pad_heads(cv, 1, r, m),
+                                      _pad_heads(s_new, 1, r, m)), 1, r, m)
     if not cv.is_cuda:
         return torch.einsum("bhn,bhnp->bhp", cv, s_new)
     a, bb = cv[:, :, None, :], s_new.transpose(-1, -2)
@@ -230,13 +317,16 @@ def _contract_n(cv: torch.Tensor, s_new: torch.Tensor) -> torch.Tensor:
 
 def ssd_decode_step(p: Dict, x_t: torch.Tensor, state: Dict[str, torch.Tensor],
                     policy, cfg: SSMConfig, *, impl: str = "auto",
-                    serve: bool = True
+                    serve: bool = True, mesh=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence: x_t (B, 1, D), ``state`` from
     ``ssm_state_spec`` -> (out (B, 1, D), the new state); ``serve=False``
-    runs the projections fake-quant."""
+    runs the projections fake-quant; ``mesh`` as ``ssd_forward``'s, the
+    state the rank's (``ssm_state_spec(model=M)``)."""
     b = x_t.shape[0]
     h, pdim, n, g = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
+    r, m = _heads(cfg, mesh, serve)
+    h_l = h // m
     xbc = _proj(p["in_xbc"], x_t, policy, impl, "in_xbc", serve)[:, 0]
     z = _proj(p["in_z"], x_t, policy, impl, "in_z", serve)[:, 0]
     dt = _proj(p["in_dt"], x_t, policy, impl, "in_dt", serve)[:, 0]
@@ -244,9 +334,11 @@ def ssd_decode_step(p: Dict, x_t: torch.Tensor, state: Dict[str, torch.Tensor],
         p["conv"], state["conv"].to(xbc.dtype),
         F.silu(xbc.to(torch.float32)).to(xbc.dtype))
     xr, bvec, cvec = _split_xbc(xbc, cfg)
-    xh = xr.reshape(b, h, pdim).to(torch.float32)
-    bv = _repeat_heads(bvec.reshape(b, g, n).to(torch.float32), h // g)
-    cv = _repeat_heads(cvec.reshape(b, g, n).to(torch.float32), h // g)
+    xh = xr.reshape(b, h_l, pdim).to(torch.float32)
+    bv = _own_heads(_repeat_heads(bvec.reshape(b, g, n).to(torch.float32),
+                                  h // g), 1, r, m)
+    cv = _own_heads(_repeat_heads(cvec.reshape(b, g, n).to(torch.float32),
+                                  h // g), 1, r, m)
     a = -torch.exp(p["A_log"].to(torch.float32))
     dtp = layers.softplus(dt.to(torch.float32)
                           + p["dt_bias"].to(torch.float32))
@@ -254,9 +346,8 @@ def ssd_decode_step(p: Dict, x_t: torch.Tensor, state: Dict[str, torch.Tensor],
     # einsum('bh,bhn,bhp->bhnp') is an outer product: (dt * B) then * x
     s_new = (state["ssm"] * decay[:, :, None, None]
              + (dtp[:, :, None] * bv)[:, :, :, None] * xh[:, :, None, :])
-    y = _contract_n(cv, s_new)
+    y = _contract_n(cv, s_new, r, m)
     y = y + p["D"].to(torch.float32)[None, :, None] * xh
-    y = y.reshape(b, 1, cfg.d_inner).to(x_t.dtype)
-    y = _gated_norm(p["norm"], y, z[:, None, :])
-    out = _proj(p["out"], y, policy, impl, "out", serve)
+    y = y.reshape(b, 1, h_l * pdim).to(x_t.dtype)
+    out = _gated_out(p, y, z[:, None, :], policy, impl, serve, mesh)
     return out, {"ssm": s_new, "conv": conv_cache.to(torch.float32)}

@@ -25,22 +25,24 @@ the outputs over 'data', so every rank returns the whole result, as the
 reference's single controller does.  Batch entries never mix.  On a
 (D, 1) mesh every rank holds a full replica of the packed tree
 (``pack_for_serving(mesh=)``) and a meshed run is bitwise the
-single-device run.  With a 'model' axis above 1 (tensor-parallel serving:
-the dense decoders -- granite-8b/34b, yi-34b, chameleon-34b,
-nemotron-4-340b --, olmoe-1b-7b and deepseek-v2-lite-16b with expert
-parallelism and MLA's sharded latent cache, whisper-base, and the ResNets)
-an LM rank holds its ``SERVE_RULES`` slice of the packed tree
-(``nn.partitioning.shard_tree``: an MoE bank by whole experts) and its
-block of every decode cache's sequence (``max_len`` rounded up to a
-multiple of the model axis, as the reference rounds it; whisper's cross
-cache its block of the ``n_audio`` frames); the ranks of one data
-coordinate compute the same rows together (``models.transformer``,
-``models.whisper``), and prefill and decode logits and generated tokens are
-the single-device port's, bitwise.  A CNN's packed tree stays whole on
-every rank (``part.replicated``).  mamba2, recurrentgemma and the fp
-baseline raise ``NotImplementedError`` on a 'model' axis above 1: what is
-left of ROADMAP 16b (ii-b).  A ``Generator``'s decode cache stays
-rank-local.
+single-device run.  With a 'model' axis above 1 (tensor-parallel serving
+of every arch: the dense decoders -- granite-8b/34b, yi-34b,
+chameleon-34b, nemotron-4-340b --, olmoe-1b-7b and deepseek-v2-lite-16b
+with expert parallelism and MLA's sharded latent cache, whisper-base,
+mamba2-1.3b, recurrentgemma-9b, each also as the fp baseline, and the
+ResNets) an LM rank holds its ``SERVE_RULES`` slice of the packed tree
+(``nn.partitioning.shard_tree``: an MoE bank by whole experts; mamba2's
+``in_xbc`` and conv by its heads' x channels with B and C whole, the
+RG-LRU's conv by its channels; the fp baseline's contraction axes whole,
+``nn.quantized.fp_serve_axes``) and its block of every decode cache's
+sequence (``max_len`` rounded up to a multiple of the model axis, as the
+reference rounds it; whisper's cross cache its block of the ``n_audio``
+frames, recurrentgemma's ring its block of the slots), or of an SSM or
+RG-LRU state's heads and channels; the ranks of one data coordinate
+compute the same rows together, and prefill and decode logits and
+generated tokens are the single-device port's, bitwise.  A CNN's packed
+tree stays whole on every rank (``part.replicated``).  A ``Generator``'s
+decode cache stays rank-local.
 """
 from __future__ import annotations
 
@@ -86,12 +88,12 @@ def serve_shardings(api, mesh):
 
 def require_tensor_parallel(api, mesh) -> None:
     """Raise unless ``api`` serves on ``mesh``'s 'model' axis (``mesh`` a
-    mesh or its {axis: size}): any arch at size 1; above 1 the ResNets,
-    packed, and every arch of ``models.transformer`` (the dense decoders,
-    olmoe's and deepseek's MoE and MLA blocks) and whisper --
-    ``NotImplementedError`` for mamba2, recurrentgemma and the fp baseline
-    (ROADMAP 16b (ii-b)), ``ValueError`` where the heads, an MoE block's
-    experts or whisper's ``n_audio`` frames do not split evenly."""
+    mesh or its {axis: size}): every arch, packed or as the fp baseline,
+    serves at any size whose splits are even -- ``ValueError`` where the
+    heads (mamba2's SSM heads), an MoE block's experts, whisper's
+    ``n_audio`` frames or recurrentgemma's local-attention window (its
+    ring's slots) do not split evenly; ``NotImplementedError`` for a
+    multi-pod mesh (``nn.partitioning.require_serve_mesh``)."""
     if mesh is None:
         return
     sizes = mesh if isinstance(mesh, dict) else part.axis_sizes(mesh)
@@ -100,48 +102,86 @@ def require_tensor_parallel(api, mesh) -> None:
     if m == 1 or api.family == "cnn":
         return
     cfg = api.cfg
-    if api.mod.__name__ not in ("repro_torch.models.transformer",
-                                "repro_torch.models.whisper"):
-        raise NotImplementedError(
-            f"{api.name} on a 'model' axis above 1: tensor-parallel serving "
-            f"covers the decoders of models.transformer (dense, MoE, MLA), "
-            f"whisper and the ResNets; mamba2, recurrentgemma and the fp "
-            f"baseline are ROADMAP 16b (ii-b)")
-    if not getattr(api.policy, "quantize", True):
-        raise NotImplementedError(
-            "the fp baseline (quantize=False) is not served on a 'model' "
-            "axis above 1: its row shards would add bf16 partial sums "
-            "(ROADMAP 16b (ii-b))")
-    counts = [("heads", cfg.n_heads)]
+    counts = [("heads", cfg.ssm.n_heads if api.family == "ssm"
+               else cfg.n_heads)]
     if getattr(cfg, "moe", None) is not None:
         counts.append(("experts", cfg.moe.n_experts))
     if api.needs_frames:
         counts.append(("n_audio frames", cfg.n_audio))
+    if api.family == "hybrid":
+        counts.append(("window slots", cfg.window))
     for what, n in counts:
         if n % m:
             raise ValueError(f"{api.name}: {n} {what} do not split evenly "
                              f"over a 'model' axis of {m}")
 
 
+def _shard_fp(tree, axes, mesh):
+    """``nn.partitioning.shard_tree`` of the fp baseline's tree under
+    ``nn.quantized.fp_serve_axes``: a bf16 weight cut on a dimension (its
+    columns, or a bank's experts) becomes an ``nn.quantized.fp_shard``,
+    which runs at the one-device shape."""
+    if isinstance(tree, dict) and isinstance(tree.get("w"), torch.Tensor):
+        w = tree["w"]
+        spec = part.logical_to_spec(axes["w"], part.SERVE_RULES, mesh)
+        cut = [d for d, e in enumerate(spec)
+               if e == "model" or (isinstance(e, tuple) and "model" in e)]
+        if not cut:
+            return part.shard_tree(tree, axes, mesh, part.SERVE_RULES)
+        r, m = mesh_lib.model_coords(mesh)
+        n = w.shape[cut[0]] // m
+        if n * m != w.shape[cut[0]]:
+            raise ValueError(f"an fp weight's dimension {cut[0]} "
+                             f"({w.shape[cut[0]]}) does not split over "
+                             f"{m} 'model' ranks")
+        return Q.fp_shard(tree, cut[0] - w.ndim, ((r * n, (r + 1) * n),))
+    if isinstance(tree, dict):
+        return {k: _shard_fp(v, axes[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shard_fp(v, a, mesh) for v, a in zip(tree, axes)]
+    return part.shard_tree(tree, axes, mesh, part.SERVE_RULES)
+
+
+def _shard(tree, axes, mesh):
+    """This rank's ``SERVE_RULES`` slice of a (sub)tree whose logical axes
+    are ``axes``: the fp baseline's (a bf16 ``"w"`` in its head) through
+    ``_shard_fp``."""
+    if _is_fp(tree):
+        return _shard_fp(tree, axes, mesh)
+    return part.shard_tree(tree, axes, mesh, part.SERVE_RULES)
+
+
+def _is_fp(tree) -> bool:
+    return isinstance(tree, dict) and "w" in tree.get("head", {})
+
+
 def local_params(api, params, mesh):
     """This rank's part of a packed tree on ``mesh``: an LM's whole tree
-    is cut to its ``SERVE_RULES`` slice (``nn.partitioning.shard_tree``)
-    where the 'model' axis is above 1, and a tree already cut (its head
-    holds ``pad_vocab(vocab) / M`` columns) is kept; everything else, a
-    CNN's tree among it, is whole on every rank."""
+    is cut to its ``SERVE_RULES`` slice (``nn.partitioning.shard_tree``;
+    the fp baseline's under ``nn.quantized.fp_serve_axes``; an arch's own
+    cuts by its module's ``shard_serve_tree``) where the 'model' axis is
+    above 1, and a tree already cut (its head holds ``pad_vocab(vocab) /
+    M`` columns) is kept; everything else, a CNN's tree among it, is whole
+    on every rank."""
     if mesh is None or api.family == "cnn" \
             or mesh_lib.model_coords(mesh)[1] == 1:
         return params
     m = mesh_lib.model_coords(mesh)[1]
-    cols = params["head"]["planes"].shape[-1]
+    head = params["head"]
+    cols = (head["w"] if "w" in head else head["planes"]).shape[-1]
     vp = pad_vocab(api.cfg.vocab)
     if cols == vp // m:
         return params
     if cols != vp:
         raise ValueError(f"a head of {cols} columns is neither the whole "
                          f"{vp} nor a 'model' shard of {vp // m}")
-    return part.shard_tree(params, api.param_axes("serve"), mesh,
-                           part.SERVE_RULES)
+    specs = api.specs("serve")
+    axes = (Q.fp_serve_axes(specs) if _is_fp(params)
+            else nnp.axes_tree(specs))
+    own = getattr(api.mod, "shard_serve_tree", None)
+    if own is not None:
+        return own(api.cfg, params, axes, mesh, _shard)
+    return _shard(params, axes, mesh)
 
 
 def pack_for_serving(api, train_params, mesh=None):
@@ -397,7 +437,9 @@ class Generator:
         batch and the cache this rank's ``b / n`` rows; on a 'model' axis
         of M above 1 ``max_len`` rounds up to a multiple of M and the
         cache is this rank's block of ``max_len / M`` positions, holding
-        the prompt's positions that fall in it."""
+        the prompt's positions that fall in it (a ring: its block of the
+        ``min(window, max_len)`` slots, the one-device count wherever the
+        window fits ``max_len`` or M divides it)."""
         b //= self.rows.n
         family = self.api.family
         if family == "ssm":
@@ -407,7 +449,8 @@ class Generator:
         specs = self.api.cache_specs(b, max_len, model=m)
         if family == "hybrid":
             return self.api.mod.ring_cache(self.api.cfg, pre_cache, s, specs,
-                                           self.device)
+                                           self.device,
+                                           rank=self.model_rank, ranks=m)
         def grow(spec, pre):
             buf = torch.zeros(spec.shape, dtype=spec.dtype, device=self.device)
             if m > 1:  # this rank's block of the sequence axis

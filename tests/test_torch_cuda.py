@@ -1083,3 +1083,102 @@ def test_ppg_on_card_equals_cpu(cuda_device, m, kdim, n):
             _, cpu_stats = fn(a[:1], w, w_bits, *extra, k)
             assert torch.equal(got.cpu(), want), (name, w_bits, k)
             assert stats == cpu_stats
+
+
+# --- tensor-parallel mamba2, recurrentgemma and the fp baseline -------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [0, 1])
+def test_k3_over_a_ranks_heads_d256_bitwise_on_card(cuda_device, r):
+    """K3 at recurrentgemma's attention (D 256, one KV head, window 2048,
+    2 x 2100 tokens) over a rank's 8 of the 16 heads is the 16-head call's
+    heads, bitwise: each block of K3 computes one head."""
+    from repro_torch.kernels.flashattn import ops as fops
+    gen = torch.Generator().manual_seed(81)
+    mk = lambda h: torch.randn((2, 2100, h, 256), generator=gen).to(  # noqa
+        torch.bfloat16).to(cuda_device)
+    q, k, v = mk(16), mk(1), mk(1)
+    run = lambda qq: fops.flash_attention(  # noqa: E731
+        qq, k, v, window=2048, block_k=1024, impl="cuda")
+    whole = run(q)
+    part = run(q[:, :, 8 * r:8 * (r + 1)].contiguous())
+    assert torch.equal(part, whole[:, :, 8 * r:8 * (r + 1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_ssd_chunk_math_at_the_padded_head_count_on_card(cuda_device, m):
+    """The SSD chunk math (mamba2-1.3b's 64 heads, head dim 64, state 128,
+    2 chunks of 256, one row as the card path runs it) and the decode
+    step's contraction over a rank's H/M heads, zero-padded to all 64 at
+    their own index, are the one-device heads, bitwise."""
+    from repro_torch.nn import ssm
+    gen = torch.Generator().manual_seed(82 + m)
+    h, p, n, s = 64, 64, 128, 512
+    dev = cuda_device
+    xh = torch.randn((1, s, h, p), generator=gen).to(dev)
+    bm = torch.randn((1, s, h, n), generator=gen).to(dev)
+    cm = torch.randn((1, s, h, n), generator=gen).to(dev)
+    dtp = (torch.rand((1, s, h), generator=gen) * 0.1).to(dev)
+    a = -torch.rand((h,), generator=gen).to(dev)
+    y, final = ssm._ssd_chunks(xh, bm, cm, dtp, a, 256)
+    cv = torch.randn((4, h, n), generator=gen).to(dev)
+    st = torch.randn((4, h, n, p), generator=gen).to(dev)
+    yc = ssm._contract_n(cv, st)
+    hl = h // m
+    for r in range(m):
+        own = slice(r * hl, (r + 1) * hl)
+
+        def pad(t, ax):
+            return ssm._pad_heads(t[(slice(None),) * ax + (own,)], ax, r, m)
+        y_r, f_r = ssm._ssd_chunks(pad(xh, 2), bm, cm, pad(dtp, 2),
+                                   pad(a, 0), 256)
+        assert torch.equal(ssm._own_heads(y_r, 2, r, m), y[:, :, own])
+        assert torch.equal(ssm._own_heads(f_r, 1, r, m), final[:, own])
+        assert torch.equal(ssm._contract_n(cv[:, own], st[:, own], r, m),
+                           yc[:, own])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1024, 4])
+def test_fp_column_shard_at_the_padded_n_on_card(cuda_device, rows):
+    """The fp baseline's column shard (granite-8b's gate, 4096 x 14336,
+    bf16) at the one-device N, its weight zero-padded
+    (``nn.quantized.fp_shard``), gives the whole product's columns,
+    bitwise, for each half."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.nn import quantized as Q
+    gen = torch.Generator().manual_seed(83 + rows)
+    x = torch.randn((rows, 4096), generator=gen).to(torch.bfloat16).to(
+        cuda_device)
+    w = (torch.randn((4096, 14336), generator=gen) * 0.02).to(
+        torch.bfloat16).to(cuda_device)
+    fp = PrecisionPolicy(quantize=False)
+    whole = Q.qlinear_serve_apply({"w": w}, x, fp)
+    n = 14336 // 2
+    for r in range(2):
+        shard = Q.fp_shard({"w": w}, -1, ((r * n, (r + 1) * n),))
+        got = Q.qlinear_serve_apply(shard, x, fp)
+        assert torch.equal(got, whole[:, r * n:(r + 1) * n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kdim,n", [(1024, 2048, 2048), (4, 2048, 2048),
+                                      (4080, 2048, 4096), (2, 2048, 4096)])
+def test_k1_acc_only_at_the_ssm_and_rglru_row_shards_on_card(cuda_device, m,
+                                                             kdim, n):
+    """K1's accumulator-only mode at a rank's row shards -- mamba2-1.3b's
+    ``out`` (K 4096 / 2, N 2048) and recurrentgemma-9b's ``w_a`` (K 4096 /
+    2, N 4096), at prefill and decode rows, w4k4 -- bitwise
+    ``mpmm_torch_acc``."""
+    gen = torch.Generator().manual_seed(m + kdim + n)
+    fmt, planes, _, _ = _weights(gen, kdim, n, 4, 4)
+    a = torch.randint(-128, 128, (m, kdim), generator=gen,
+                      dtype=torch.int32).to(torch.int8)
+    before = kernel.mpmm_cuda.acc_launches
+    got = ops.mpmm_acc(a.to(cuda_device), planes.to(cuda_device), fmt=fmt,
+                       impl="cuda")
+    torch.cuda.synchronize()
+    assert kernel.mpmm_cuda.acc_launches == before + 1
+    assert torch.equal(got.cpu(), kernel.mpmm_torch_acc(a, planes, fmt=fmt))

@@ -140,11 +140,12 @@ def test_flags_waiting_for_modules_are_absent(flag, capsys):
 
 
 def test_mesh_model_axis_refused():
-    """A 'model' axis above 1 serves every transformer decoder, whisper
-    and the ResNets; mamba2 exits before any rank starts (what is left of
-    ROADMAP 16b (ii-b))."""
-    with pytest.raises(SystemExit, match="16b \\(ii-b\\)"):
-        serve.main(["--arch", "mamba2-1.3b", *CPU, "--mesh", "2x2"])
+    """A 'model' axis above 1 serves every arch; one its heads do not
+    split over (mamba2's 8 SSD heads over 3 ranks) exits before any rank
+    starts, naming both numbers."""
+    with pytest.raises(SystemExit, match="8 heads do not split evenly .* "
+                                         "of 3"):
+        serve.main(["--arch", "mamba2-1.3b", *CPU, "--mesh", "1x3"])
 
 
 def test_mesh_needs_its_ranks():

@@ -8,10 +8,11 @@ every rank returns the whole result -- must equal the port's single-device
 run of the same case bitwise.  Mixed layer-wise plans (w8/w4/w2) on the CNN
 and LM serving shapes, ragged and odd batches, the packed KV cache, the
 schedulers, speculative decoding, a frontier behind ``SLOScheduler`` and a
-seeded sampler.  A mesh larger than the world raises, and an arch that
-tensor-parallel serving does not cover raises on a 'model' axis above 1
-(mamba2: what is left of ROADMAP 16b (ii-b); ``test_torch_tensor_parallel``
-and ``test_torch_tensor_parallel_moe`` serve the rest).
+seeded sampler.  A mesh larger than the world raises, and so does an arch
+whose heads do not split over a 'model' axis above 1 (a mamba2 of 3 SSD
+heads on M = 2; ``test_torch_tensor_parallel``,
+``test_torch_tensor_parallel_moe`` and ``test_torch_tensor_parallel_ssm``
+serve the archs).
 
 The module imports no JAX: the spawned ranks import it to find the case
 functions.  Every process computes on one thread.
@@ -328,11 +329,14 @@ def _rank(rank, names):
             errors[shape] = str(e)
     tp = mesh_lib.make_serve_mesh(2, 2, device="cpu")
     ssm = configs.get("mamba2-1.3b", reduced=True)
+    ssm = dataclasses.replace(ssm, cfg=dataclasses.replace(
+        ssm.cfg, ssm=dataclasses.replace(ssm.cfg.ssm, expand=3,
+                                         head_dim=64)))   # 3 SSD heads
     train = ssm.init_params(torch.Generator().manual_seed(0), "train",
                             device="cpu")
     try:
         pack_for_serving(ssm, train, mesh=tp)
-    except NotImplementedError as e:
+    except ValueError as e:
         errors[(2, 2, "mamba2-1.3b")] = str(e)
     out["_errors"] = errors
     out["_coords"] = mesh_lib.data_coords(mesh)
@@ -491,10 +495,11 @@ def test_sampled_rows_draw_as_single_device(meshed, single):
 
 
 def test_model_axis_raises_16b_ii(meshed):
-    """A (4, 2) mesh on a world of 4 is too large for it; mamba2 on a
-    (2, 2) mesh waits for what is left of ROADMAP 16b (ii-b)."""
+    """A (4, 2) mesh on a world of 4 is too large for it; a mamba2 of 3
+    SSD heads on a (2, 2) mesh does not split them."""
     errs = _meshed(meshed, "_errors")
-    assert "16b (ii-b)" in errs[(2, 2, "mamba2-1.3b")]
+    assert "3 heads do not split evenly over a 'model' axis of 2" in errs[
+        (2, 2, "mamba2-1.3b")]
     assert "needs 8 ranks" in errs[(4, 2)]
     assert "needs 8 ranks" in errs[(8, 1)]
     assert "covers 2 ranks" in errs[(2, 1)]

@@ -678,11 +678,16 @@ def test_entry_points_accept_the_three(arch):
     ("mamba2-1.3b", None), ("recurrentgemma-9b", None),
     ("granite-8b", "fp")])
 def test_what_is_left_of_16b_ii_b_is_refused(arch, policy):
+    """What was left of 16b (ii-b) -- mamba2, recurrentgemma and the fp
+    baseline -- serves at M = 2 now (``test_torch_tensor_parallel_ssm``)
+    and is refused only where its heads do not split (M = 3)."""
     from repro_torch.core.precision import PrecisionPolicy
     pol = PrecisionPolicy(quantize=False) if policy == "fp" else None
     api = configs.get(arch, reduced=True, policy=pol)
-    with pytest.raises(NotImplementedError, match="16b \\(ii-b\\)"):
-        require_tensor_parallel(api, {"data": 1, "model": 2})
+    require_tensor_parallel(api, {"data": 1, "model": 2})
+    with pytest.raises(ValueError, match="heads do not split evenly .* "
+                                         "of 3"):
+        require_tensor_parallel(api, {"data": 1, "model": 3})
 
 
 @pytest.mark.parametrize("what,m", [("heads", 3), ("experts", 4),
