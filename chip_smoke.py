@@ -369,6 +369,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one device (host clock), the bytes and host ms of each kind of
    collective, those K1 and K3 calls against their bounds, plain versions
    and ``torch._int_mm`` / SDPA.
+22. Data-parallel and FSDP training (slice 17; the train path reaches no
+   kernel): whisper-base at full width and depth (6 + 6), 4 x 64 tokens +
+   1536 frames, M = 2.  The one-device ``Trainer`` runs to step 4 here,
+   checkpointing at 2 and 4; a world of two gloo ranks sharing cuda:0 on
+   a (2, 1) mesh (M = n) trains to step 2 and saves; a fresh world
+   restores that checkpoint and trains to step 4; then this process
+   restores the ranks' step-2 checkpoint on one device and trains to
+   step 4.  Every loss, ``grad_norm`` and lr bitwise; the ranks'
+   checkpoints of steps 2 and 4 (the gathered state) byte for byte the
+   one device's; both restarts bitwise; each rank's resident state its
+   FSDP blocks.  ``[p22-time]``: a rank's step ms against one device, its
+   forward and backward, the parameter gathers and the gradient sum
+   (bytes and ms), AdamW on the rank's blocks, save and restore (host
+   clock, the card synchronized around each part).
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -387,6 +401,7 @@ unless every phase passed.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -6584,6 +6599,313 @@ def phase_p21(sm, card):
     return launches, acc_rows, k3_row
 
 
+# --- phase 22: data-parallel and FSDP training over ('pod', 'data') ---------
+
+P22_ARCH = "whisper-base"
+P22_BATCH, P22_SEQ, P22_MB = 4, 64, 2   # phase 16's batch, M = n = 2
+P22_RANKS = 2
+P22_STEPS, P22_CKPT_EVERY = 4, 2
+P22_ABANDON = "abandon"   # tells a waiting world that the first one failed
+
+
+def p22_api():
+    return dataclasses.replace(family_api(P22_ARCH), microbatches=P22_MB)
+
+
+def p22_trainer(api, ckpt_dir, total, **kw):
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime.train import TrainLoopConfig, Trainer
+    cfg = api.cfg
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=P22_SEQ,
+                       global_batch=P22_BATCH, seed=SEED, with_frames=True,
+                       n_audio=cfg.n_audio, d_model=cfg.d_model)
+    return Trainer(api, pipe, TrainLoopConfig(
+        total_steps=total, ckpt_every=P22_CKPT_EVERY, ckpt_dir=str(ckpt_dir),
+        log_every=100, async_ckpt=False, peak_lr=P14_LR), **kw)
+
+
+def p22_run(tr, device):
+    """``tr.run`` from the seeded generator -> (final state, metrics a
+    step as floats)."""
+    import torch as t
+    metrics = []
+    state, _ = tr.run(t.Generator(device=device).manual_seed(SEED),
+                      on_metrics=lambda step, m: metrics.append(dict(m)))
+    return state, metrics
+
+
+def p22_same_files(a, b, step):
+    """Whether checkpoint ``step`` holds the same files, byte for byte,
+    under ``a`` and ``b``."""
+    import filecmp
+    pa, pb = Path(a) / f"step_{step:010d}", Path(b) / f"step_{step:010d}"
+    names = sorted(f.name for f in pa.iterdir())
+    return names == sorted(f.name for f in pb.iterdir()) and all(
+        filecmp.cmp(pa / n, pb / n, shallow=False) for n in names)
+
+
+def p22_want_held(api, rank):
+    """The bytes of rank ``rank``'s FSDP blocks of the train state, from
+    the state's shapes and ``train_state_shardings``."""
+    from types import SimpleNamespace
+    import numpy as np
+    import torch as t
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.nn import partitioning as part
+    from repro_torch.tree import flatten_with_paths
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           devices=np.zeros((P22_RANKS, 1)),
+                           get_local_rank=lambda ax: rank)
+    sh = flatten_with_paths(steps_lib.train_state_shardings(api, mesh))
+    total = 0
+    for path, spec in flatten_with_paths(
+            steps_lib.train_state_specs(api)).items():
+        shape = tuple(spec.shape)
+        idx = part.local_index(shape, sh[path])
+        n = 1
+        for i, d in zip(idx, shape):
+            n *= len(range(*i.indices(d)))
+        total += n * t.empty((), dtype=spec.dtype).element_size()
+    return total
+
+
+def p22_bytes(state):
+    from repro_torch.tree import leaves
+    return sum(x.numel() * x.element_size() for x in leaves(state))
+
+
+class P22Timers:
+    """The meshed step's parts, timed on the host clock with the card
+    synchronized around each: forward and backward
+    (``launch.steps.value_and_grad``), the parameter gathers
+    (``nn.partitioning.gather_by`` inside a step; bytes received), the
+    gradient sum (``launch.steps._sum_over_batch``; the rank's f32
+    gradient bytes, sent once and received once at n = 2) and AdamW
+    (``adamw_update`` on the rank's blocks), each step's apart."""
+
+    def __init__(self, trainer):
+        import torch as t
+        from repro_torch.launch import steps as steps_lib
+        from repro_torch.nn import partitioning as part
+        from repro_torch.tree import leaves
+        self.steps = []   # per step: {part: [seconds, bytes]}
+        self.active = False
+
+        def timed(name, fn, nbytes=None):
+            def run(*a, **kw):
+                if not self.active:
+                    return fn(*a, **kw)
+                t.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                t.cuda.synchronize()
+                acc = self.steps[-1].setdefault(name, [0.0, 0])
+                acc[0] += time.perf_counter() - t0
+                acc[1] += nbytes(a, out) if nbytes else 0
+                return out
+            return run
+
+        def size(tree):
+            return sum(x.numel() * x.element_size() for x in leaves(tree))
+        steps_lib.value_and_grad = timed("fwd_bwd", steps_lib.value_and_grad)
+        part.gather_by = timed("gather", part.gather_by,
+                               lambda a, out: size(out) - size(a[0]))
+        steps_lib._sum_over_batch = timed(
+            "grad_sum", steps_lib._sum_over_batch,
+            lambda a, out: sum(4 * x.numel() for x in leaves(out)))
+        steps_lib.adamw_update = timed("adamw", steps_lib.adamw_update)
+        step = trainer.train_step
+
+        def train_step(state, batch):
+            self.steps.append({})
+            self.active = True
+            try:
+                return step(state, batch)
+            finally:
+                self.active = False
+        trainer.train_step = train_step
+
+    def last(self):
+        """{part: (ms, bytes)} of the last step."""
+        return {k: (1e3 * v[0], v[1]) for k, v in self.steps[-1].items()}
+
+
+def p22_rank(rank, args):
+    """One rank of a phase-22 world: two ranks on cuda:0 over gloo, a (2,
+    1) training mesh; the ``Trainer`` under ``ckpt_dir`` to step
+    ``total``, after ``wait_for`` (a checkpoint's folder) appears, where
+    given.  No kernel runs on this path: a rank that would build one
+    fails."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    ckpt_dir, total, wait_for = args
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_train_mesh((P22_RANKS, 1),
+                                    devices=["cuda:0"] * P22_RANKS)
+    device = mesh_lib.local_device(mesh)
+    waited = 0.0
+    if wait_for is not None:
+        # what a first step imports (torch._dynamo, for the remat's
+        # checkpoint), while the other world trains
+        import torch._dynamo  # noqa: F401
+        t1 = time.perf_counter()
+        while not Path(wait_for).exists():
+            if (Path(ckpt_dir) / P22_ABANDON).exists() or \
+                    time.perf_counter() - t1 > 280:
+                raise RuntimeError(f"rank {rank}: no {wait_for}")
+            time.sleep(0.1)
+        waited = time.perf_counter() - t1
+    tr = p22_trainer(p22_api(), ckpt_dir, total, mesh=mesh)
+    timers = P22Timers(tr)
+    state, metrics = p22_run(tr, device)
+    return {"metrics": metrics, "step_s": tr.step_seconds,
+            "save_s": tr.save_seconds, "restore_s": tr.restore_seconds,
+            "held": p22_bytes(state), "parts": timers.last(),
+            "backend": mesh_lib.mesh_info(mesh).backend,
+            "coords": mesh_lib.data_coords(mesh), "waited": waited,
+            "s": time.perf_counter() - t0}
+
+
+def phase_p22(sm, card):
+    """Phase 22 -> its results: the one-device run to step 4, a world of
+    two ranks to step 2, a fresh world from its checkpoint to step 4, and
+    this process from the ranks' step-2 checkpoint to step 4."""
+    import shutil
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.tree import leaves
+    t = sm.torch
+    t0 = time.perf_counter()
+    release(sm)
+    api = p22_api()
+    # five checkpoints of the f32 state (parameters and two moments)
+    root = ckpt_root("p22", api.total_params() * 12 * 5)
+    one_dir, mesh_dir, back_dir = root / "one", root / "mesh", root / "back"
+    store = str(ROOT / "build" / "p22")
+    step2 = f"step_{P22_CKPT_EVERY:010d}"
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    # world A (two ranks to step 2) and world B (two fresh ranks, which
+    # wait for A's checkpoint, restore it and train to step 4) start at
+    # once, beside the one-device run to step 4 with checkpoints at 2 and
+    # 4: a rank's start-up (torch, the card's context, what the first
+    # step imports) is most of a world's time.  The one-device restart
+    # waits for world B: three processes restoring at once slowed B more
+    # than the overlap saved
+    world_a = pool.submit(mesh_lib.spawn, p22_rank, P22_RANKS,
+                          ((str(mesh_dir), P22_CKPT_EVERY, None),),
+                          store_dir=store, backend="gloo", timeout_s=300)
+    world_b = pool.submit(mesh_lib.spawn, p22_rank, P22_RANKS,
+                          ((str(mesh_dir), P22_STEPS,
+                            str(mesh_dir / step2)),),
+                          store_dir=store, backend="gloo", timeout_s=300)
+    try:
+        one = p22_trainer(api, one_dir, P22_STEPS, device=sm.device)
+        s_one, m_one = p22_run(one, sm.device)
+        one_held = p22_bytes(s_one)
+        t1 = time.perf_counter()
+        a = world_a.result()
+    except BaseException:
+        mesh_dir.mkdir(parents=True, exist_ok=True)
+        (mesh_dir / P22_ABANDON).touch()
+        raise
+    t2 = time.perf_counter()
+    same2 = p22_same_files(mesh_dir, one_dir, P22_CKPT_EVERY)
+    shutil.rmtree(back_dir, ignore_errors=True)
+    back_dir.mkdir(parents=True)
+    shutil.copytree(mesh_dir / step2, back_dir / step2)
+    b = world_b.result()
+    t3 = time.perf_counter()
+    pool.shutdown()
+    # this process restores the ranks' step-2 checkpoint on one device and
+    # trains to step 4, once world B is done with the card
+    back = save_only_at(p22_trainer(api, back_dir, P22_STEPS,
+                                    device=sm.device), ())
+    s_back, m_back = p22_run(back, sm.device)
+    t4 = time.perf_counter()
+    same_back = m_back == m_one[P22_CKPT_EVERY:] and all(
+        t.equal(x, y) for x, y in zip(leaves(s_back), leaves(s_one)))
+    ok = {
+        "world A metrics": all(r["metrics"] == m_one[:P22_CKPT_EVERY]
+                               for r in a),
+        "world B metrics": all(r["metrics"] == m_one[P22_CKPT_EVERY:]
+                               for r in b),
+        "step 2 files": same2,
+        "step 4 files": p22_same_files(mesh_dir, one_dir, P22_STEPS),
+        "one-device restart": same_back,
+        "restored": all(r["restore_s"] is not None for r in b),
+        "blocks": [r["held"] for r in a] == [r["held"] for r in b]
+        == [p22_want_held(api, r) for r in range(P22_RANKS)],
+        "gloo on cuda:0": all(r["backend"] == "gloo" for r in a + b)
+        and [r["coords"] for r in a] == [(0, 2), (1, 2)]}
+    del s_one, s_back
+    shutil.rmtree(root, ignore_errors=True)
+    release(sm)
+    for name, good in ok.items():
+        if not good:
+            sm.failures.append(f"phase 22: {name}")
+    log(f"[p22] whisper-base x{api.cfg.n_layers} (6 + 6, "
+        f"{api.total_params() / 1e6:.1f} M parameters), {P22_BATCH} x "
+        f"{P22_SEQ} + {api.cfg.n_audio} frames, M = {P22_MB}: losses "
+        f"{[m['loss'] for m in m_one]}, grad_norm "
+        f"{[m['grad_norm'] for m in m_one]}; checks {ok}")
+    sm.check_phase("22 data-parallel and FSDP training of whisper-base, (2, "
+                   "1) mesh on cuda:0: metrics, checkpoints of steps 2 and "
+                   "4 and both restarts bitwise one device, each rank its "
+                   "blocks")
+    out = {"one": {"step_s": one.step_seconds, "save_s": one.save_seconds,
+                   "held": one_held},
+           "back": {"restore_s": back.restore_seconds,
+                    "step_s": back.step_seconds},
+           "a": a, "b": b, "s": (t1 - t0, t2 - t1, t3 - t2, t4 - t3),
+           "params": api.total_params()}
+    ends = [sum(out["s"][:i + 1]) for i in range(4)]
+    log(f"[p22] phase 22 took {time.perf_counter() - t0:.1f} s: the one "
+        f"device run {ends[0]:.1f} s and world A {ends[1]:.1f} s from the "
+        f"phase's start; world B started with them, waited "
+        f"{b[0]['waited']:.1f} s for A's checkpoint and ended at "
+        f"{ends[2]:.1f} s; then the one-device restart {out['s'][3]:.1f} s")
+    print_p22(out, card)
+    return out
+
+
+def print_p22(p22, card):
+    """Phase 22's ``[p22-time]`` lines."""
+    one, a, b = p22["one"], p22["a"], p22["b"]
+    ms = lambda v: [round(x * 1e3, 1) for x in v]  # noqa: E731
+    log(f"[p22-time] whisper-base one device, {P22_MB} microbatches (beside "
+        f"the worlds' start-up): steps {ms(one['step_s'])} ms, saves "
+        f"{ms(one['save_s'])} ms (state {one['held'] / 1e6:.1f} MB); restart "
+        f"from the ranks' step-2 checkpoint (after world B): "
+        f"restore {p22['back']['restore_s'] * 1e3:.1f} ms, steps "
+        f"{ms(p22['back']['step_s'])} ms  (host clock; {card})")
+    for label, world in (("A (steps 0-1)", a), ("B (steps 2-3)", b)):
+        for r in world:
+            rank = r["coords"][0]
+            parts = r["parts"]
+            log(f"[p22-time] world {label} rank {rank} (1 microbatch a "
+                f"step): steps {ms(r['step_s'])} ms; the last step's "
+                f"forward and backward {parts['fwd_bwd'][0]:.1f} ms, "
+                f"parameter gathers {parts['gather'][0]:.1f} ms for "
+                f"{parts['gather'][1] / 1e6:.1f} MB received, gradient sum "
+                f"{parts['grad_sum'][0]:.1f} ms over "
+                f"{parts['grad_sum'][1] / 1e6:.1f} MB of f32 gradients, "
+                f"AdamW on its blocks {parts['adamw'][0]:.1f} ms; save "
+                f"{ms(r['save_s'])} ms"
+                + (f", restore {r['restore_s'] * 1e3:.1f} ms"
+                   if r["restore_s"] is not None else "")
+                + f"; resident state {r['held'] / 1e6:.1f} MB against "
+                f"{one['held'] / 1e6:.1f} MB on one device "
+                f"({r['held'] / one['held']:.3f})  (host clock, card "
+                f"synchronized around each part, gloo through the host; "
+                f"{card})")
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -6792,6 +7114,8 @@ def run_phases(torch) -> int:
     k1_routes = {k: k1_routes[k] + p21_launches.get(f"route:{k}", 0)
                  for k in k1_routes}
     log(f"[p21] phase 21 done at {time.perf_counter() - t_start:.1f} s")
+    phase_p22(sm, card)
+    log(f"[p22] phase 22 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
     acc_only["launches"] += (p20_launches.get("acc_only", 0)

@@ -2,9 +2,8 @@
 ``repro.data.pipeline``; numpy only, the same batches bit for bit).
 
 A batch is a pure function of (seed, step), so resuming from checkpoint
-step S needs no replay.  ``sharded_batch_at`` (a batch put onto a device
-mesh) waits for multi-device training (ROADMAP 16b (iii)): the caller moves a
-batch to its one device.
+step S needs no replay.  ``SyntheticLM.sharded_batch_at`` gives a rank of
+a training mesh its own rows of ``batch_at(step)`` on its device.
 """
 from __future__ import annotations
 
@@ -12,6 +11,10 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
+
+from repro_torch.launch.mesh import local_device
+from repro_torch.nn.partitioning import local_index
 
 __all__ = ["SyntheticLM", "SyntheticImages"]
 
@@ -41,6 +44,20 @@ class SyntheticLM:
             out["frames"] = rng.standard_normal(
                 (self.global_batch, self.n_audio, self.d_model),
                 dtype=np.float32)
+        return out
+
+    def sharded_batch_at(self, step: int, shardings
+                         ) -> Dict[str, torch.Tensor]:
+        """This rank's block of every array of ``batch_at(step)`` (tokens,
+        labels, whisper's frames) by ``shardings`` ({name:
+        ``NamedSharding``}, ``nn.partitioning``; the rows of the 'batch'
+        axis), as tensors of the arrays' dtypes on the rank's device
+        (``launch.mesh.local_device``)."""
+        out = {}
+        for k, v in self.batch_at(step).items():
+            sh = shardings[k]
+            block = np.array(v[local_index(v.shape, sh, k)], order="C")
+            out[k] = torch.from_numpy(block).to(local_device(sh.mesh))
         return out
 
 

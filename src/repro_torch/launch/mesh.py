@@ -21,6 +21,15 @@ above 1) has two collectives over 'model', both in rank order:
 where the backend is gloo and the tensor lies on a card (NCCL refuses
 two ranks on one card, so such a world is gloo).
 
+Data-parallel and FSDP training (a (data, 1) or (pod, data, 1) mesh,
+``make_train_mesh``) has two more, over the batch axes ('pod', 'data'):
+``all_gather_axes`` concatenates a leaf's FSDP blocks in rank order, and
+``all_reduce_batch`` sums f32 gradients, gathered and then added in rank
+order from a zero tensor, as ``launch.steps.make_train_step`` adds its
+microbatches.  ``any_rank`` and ``broadcast_value`` are the host-side
+agreements a training loop takes its decisions by, and ``barrier`` waits
+for every rank.
+
 Nothing here touches ``torch.distributed`` until a mesh is made.
 """
 from __future__ import annotations
@@ -38,10 +47,12 @@ import torch
 from repro_torch.nn import partitioning as part
 
 __all__ = ["make_production_mesh", "make_local_mesh", "make_serve_mesh",
-           "parse_mesh_spec", "mesh_axes", "chips", "MeshInfo", "mesh_info",
-           "local_device", "data_coords", "model_coords", "gather_rows",
-           "all_reduce_model", "all_gather_model", "broadcast_value",
-           "DataRows",
+           "make_train_mesh", "parse_mesh_spec", "mesh_axes", "chips",
+           "MeshInfo", "mesh_info", "local_device", "data_coords",
+           "model_coords", "rank_of", "gather_rows", "all_reduce_model",
+           "all_gather_model", "all_gather_parts", "all_gather_axes",
+           "all_reduce_batch",
+           "broadcast_value", "any_rank", "barrier", "DataRows",
            "shared_clock", "spawn", "INIT_TIMEOUT_S"]
 
 INIT_TIMEOUT_S = 300.0  # every process-group init and collective
@@ -169,6 +180,22 @@ def make_local_mesh(*, device="cuda", devices=None):
     return _make_mesh((_world_size(), 1), ("data", "model"), device, devices)
 
 
+def make_train_mesh(shape: Tuple[int, ...] = None, *, device="cuda",
+                    devices=None):
+    """A training mesh over the world's ranks: ``shape`` (data, model) or
+    (pod, data, model), default (world, 1).  A 'model' axis above 1
+    raises ``NotImplementedError`` naming ROADMAP 16b (iv) before any
+    process group is touched; rank r sits at its row-major coordinates."""
+    shape = tuple(shape) if shape is not None else (_world_size(), 1)
+    names = (("data", "model") if len(shape) == 2
+             else ("pod", "data", "model"))
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a training mesh is (data, model) or (pod, data, "
+                         f"model), got {shape}")
+    part.require_train_mesh(dict(zip(names, shape)))
+    return _make_mesh(shape, names, device, devices)
+
+
 def parse_mesh_spec(spec: str) -> Tuple[int, int]:
     """'8x1' -> (data=8, model=1) (the serve-CLI ``--mesh`` format)."""
     try:
@@ -259,8 +286,12 @@ def _gather(mesh, axis: str, n: int, x: torch.Tensor) -> List[torch.Tensor]:
     via_host = mesh_info(mesh).backend == "gloo" and flat.is_cuda
     src = flat.cpu() if via_host else flat
     parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=mesh.get_group(axis))
-    return [p.to(x.device).view(x.dtype).reshape(t.shape) for p in parts]
+    group = mesh.get_group(axis)
+    dist.all_gather(parts, src, group=group)
+    me = dist.get_group_rank(group, dist.get_rank()) if via_host else -1
+    # the rank's own part is ``x`` itself: no copy back to the card
+    return [t if i == me else p.to(x.device).view(x.dtype).reshape(t.shape)
+            for i, p in enumerate(parts)]
 
 
 def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
@@ -296,6 +327,62 @@ def all_reduce_model(mesh, x: torch.Tensor) -> torch.Tensor:
     out = parts[0].clone()
     for p in parts[1:]:
         out += p
+    return out
+
+
+def rank_of(mesh) -> int:
+    """This rank's place in the world (0 without a mesh)."""
+    if mesh is None or chips(mesh) == 1:
+        return 0
+    return _dist().get_rank()
+
+
+def all_gather_parts(mesh, x: torch.Tensor,
+                     names: Sequence[str]) -> List[torch.Tensor]:
+    """Every rank's ``x`` over the mesh axes ``names`` (the first the major
+    one), in their row-major rank order: gathered over the minor axis
+    first, then those copies over each major one."""
+    parts = [x]
+    sizes = part.axis_sizes(mesh)
+    for ax in reversed(tuple(names)):
+        n = sizes[ax]
+        if n == 1:
+            continue
+        if len(parts) == 1:
+            parts = _gather(mesh, ax, n, parts[0])
+        else:
+            got = _gather(mesh, ax, n, torch.stack(parts))
+            parts = [p for block in got for p in block.unbind(0)]
+    return parts
+
+
+def all_gather_axes(mesh, x: torch.Tensor, dim: int,
+                    names: Sequence[str]) -> torch.Tensor:
+    """Each rank's block of a tensor over the mesh axes ``names``,
+    concatenated along ``dim`` in rank order (the first name the major
+    one): the whole tensor on every rank, bit for bit."""
+    parts = all_gather_parts(mesh, x, names)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def all_reduce_batch(mesh, x: torch.Tensor,
+                     names: Sequence[str] = ("pod", "data")) -> torch.Tensor:
+    """The sum over the ranks of the mesh axes ``names`` of an f32 tensor:
+    every rank's ``x`` gathered, then added in rank order into a zero
+    tensor, as ``launch.steps.make_train_step`` adds its microbatches (so
+    a -0.0 and the order of the additions are the one-device step's).
+    Every rank gets the same bits; it holds at most one copy of ``x`` a
+    rank at a time."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"all_reduce_batch sums f32 gradients, got "
+                        f"{x.dtype}")
+    names = tuple(ax for ax in names if ax in part.axis_sizes(mesh))
+    parts = all_gather_parts(mesh, x, names)
+    if len(parts) == 1:
+        return x
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for p in parts:
+        out.add_(p)
     return out
 
 
@@ -338,6 +425,27 @@ def broadcast_value(mesh, value: float) -> float:
     buf = torch.tensor([value], dtype=torch.float64)
     dist.broadcast(buf, src=0, group=mesh_info(mesh).host_group)
     return float(buf.item())
+
+
+def any_rank(mesh, flag: bool) -> bool:
+    """True on every rank where ``flag`` is true on any rank of the mesh
+    (one max over the host group): a decision that every rank must take
+    alike, such as stopping after a signal one rank received."""
+    if mesh is None or chips(mesh) == 1:
+        return bool(flag)
+    dist = _dist()
+    buf = torch.tensor([1 if flag else 0], dtype=torch.int32)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX,
+                    group=mesh_info(mesh).host_group)
+    return bool(buf.item())
+
+
+def barrier(mesh) -> None:
+    """Wait until every rank of the mesh reaches this call (the host
+    group)."""
+    if mesh is None or chips(mesh) == 1:
+        return
+    _dist().barrier(group=mesh_info(mesh).host_group)
 
 
 def shared_clock(clock: Callable[[], float], mesh) -> Callable[[], float]:

@@ -12,8 +12,22 @@ reference's restart contract).  That needs ``CUBLAS_WORKSPACE_CONFIG``
 ``launch.train`` sets it, and without it torch raises at the step's first
 product, naming the variable.  ``input_specs``, ``input_axes`` and
 ``batch_rules_for`` describe a cell's inputs and their logical axes for
-``nn.partitioning``; ``train_state_axes`` waits for multi-device training
-(ROADMAP 16b (iii)).
+``nn.partitioning``, and ``train_state_axes`` the train state's.
+
+On a training mesh (``make_train_step(..., mesh=)``, a (data, 1) or (pod,
+data, 1) mesh) the state holds each rank's FSDP blocks
+(``train_state_shardings``) and the batch each rank's rows; a step gathers
+the parameters whole, runs the rank's microbatches, sums the f32
+gradients over the batch axes in rank order from zero
+(``launch.mesh.all_reduce_batch``) and divides once, clips by the whole
+gradients' norm and runs AdamW on the rank's blocks.  M is the global
+``api.microbatches`` and n the ranks the batch is split over: where n
+divides M rank r runs microbatches r M/n ... (r+1) M/n - 1 (M = n: bitwise
+the one-device step; M > n: the f32 sums in another order); where M < n
+and n is a multiple of M, each rank runs its B/n rows as one forward and
+the sum is divided by n; any other n and M raise.  Where the batch is not
+split (``batch_rules_for`` picked no axis) every rank runs the one-device
+step on the whole batch.
 """
 from __future__ import annotations
 
@@ -23,8 +37,9 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.shapes import ShapeSpec
-
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.nn import param as nnp
+from repro_torch.nn import partitioning as part
 from repro_torch.nn.partitioning import axis_sizes
 from repro_torch.optim import (adamw_init, adamw_update, compress_decompress,
                                warmup_cosine)
@@ -32,7 +47,9 @@ from repro_torch.optim.adamw import global_norm
 from repro_torch.tree import leaves, tree_map, unflatten
 
 __all__ = ["cross_entropy", "deterministic", "value_and_grad",
-           "make_train_step", "train_state_specs", "init_train_state",
+           "make_train_step", "train_state_specs", "train_state_axes",
+           "train_state_shardings", "microbatch_layout",
+           "init_train_state",
            "make_prefill_fn", "make_decode_fn", "make_verify_fn",
            "batch_rules_for", "input_specs", "input_axes"]
 
@@ -75,9 +92,70 @@ def value_and_grad(loss_fn, params, *args):
         for g, p in zip(grads, ps)])
 
 
+def _batch_axes(mesh, rules) -> tuple:
+    """The mesh axes of size above 1 that the batch is split over under
+    ``rules`` (the 'batch' rule, as ``batch_rules_for`` left it), the
+    major one first."""
+    spec = part.logical_to_spec(("batch",), rules, mesh)
+    names = () if not spec else (
+        (spec[0],) if isinstance(spec[0], str) else tuple(spec[0]))
+    sizes = axis_sizes(mesh)
+    return tuple(ax for ax in names if sizes[ax] > 1)
+
+
+def microbatch_layout(rows: int, microbatches: int, n: int):
+    """(microbatches a rank runs, microbatches summed in all) of a global
+    batch of ``rows`` in ``microbatches`` over ``n`` batch ranks: M/n of
+    M where n divides M, one of n where M < n and n is a multiple of M.
+    Any other layout raises, naming B, M and n."""
+    m = max(microbatches, 1)
+    if n == 1 or m % n == 0:
+        k, total = m // n, m
+    elif n % m == 0:
+        k, total = 1, n
+    else:
+        raise ValueError(
+            f"a global batch of B = {rows} rows in M = {m} microbatches "
+            f"does not lay out over n = {n} batch ranks: n must divide M, "
+            f"or be a multiple of it")
+    if rows % (n * k):
+        raise ValueError(f"a global batch of B = {rows} rows does not split "
+                         f"into {n * k} equal blocks (M = {m} microbatches "
+                         f"over n = {n} batch ranks)")
+    return k, total
+
+
+def _sum_over_batch(mesh, grads, axes, total):
+    """The gradients summed over the batch ranks (f32, from zero, in rank
+    order: ``launch.mesh.all_reduce_batch``) and divided by ``total``.
+    Consecutive leaves go as one flat f32 tensor of at most
+    ``nn.partitioning.BUCKET_BYTES`` or the largest leaf (the sum is
+    elementwise, so the bits are a leaf's own); each rank's own gradients
+    are freed as their sums replace them."""
+    flat = leaves(grads)
+    sizes = [g.numel() for g in flat]
+    for group in part.bucket(sizes, max(max(sizes),
+                                        part.BUCKET_BYTES // 4)):
+        parts = [flat[i].to(torch.float32).reshape(-1) for i in group]
+        shapes = [flat[i].shape for i in group]
+        for i in group:
+            flat[i] = None
+        summed = mesh_lib.all_reduce_batch(
+            mesh, parts[0] if len(parts) == 1 else torch.cat(parts),
+            axes).div_(total)
+        del parts
+        off = 0
+        for i, shape in zip(group, shapes):
+            n = sizes[i]
+            flat[i] = summed[off:off + n].view(shape)
+            off += n
+    return unflatten(grads, flat)
+
+
 def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
                     grad_compression: bool = False,
-                    donate: bool = False) -> Callable:
+                    donate: bool = False, mesh=None,
+                    rules=None) -> Callable:
     """train_step(state, batch) -> (new state, metrics {loss, lr,
     grad_norm}), with ``api.microbatches``-way gradient accumulation.
 
@@ -88,55 +166,85 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
     ``donate``: AdamW writes the new parameters and moments into
     ``state``'s own tensors (``optim.adamw_update``), as the reference's
     Trainer donates the state to its jitted step; the caller's ``state``
-    then holds the new values."""
+    then holds the new values.
+
+    ``mesh``: a training mesh (``launch.mesh.make_train_mesh``; a 'model'
+    axis above 1 raises naming ROADMAP 16b (iv)).  ``state`` then holds
+    the rank's blocks by ``train_state_shardings(api, mesh, rules)``
+    (``rules`` default ``TRAIN_RULES``; ``state["gc"]``, when compressing,
+    is whole on every rank) and ``batch`` the rank's rows
+    (``data.pipeline.SyntheticLM.sharded_batch_at``); the metrics are the
+    whole batch's, the same on every rank (see the module's docstring for
+    the layout)."""
     mb = max(api.microbatches, 1)
+    n, axes = 1, ()
+    if mesh is not None:
+        part.require_train_mesh(axis_sizes(mesh))
+        rules = part.TRAIN_RULES if rules is None else rules
+        axes = _batch_axes(mesh, rules)
+        for ax in axes:
+            n *= axis_sizes(mesh)[ax]
+        param_sh = train_state_shardings(api, mesh, rules)["params"]
 
     def loss_fn(params, tokens, labels, frames):
         kw = {"frames": frames} if api.needs_frames else {}
         logits = api.forward(params, tokens, mode="train", **kw)
         return cross_entropy(logits, labels)
 
+    def local_grads(params, tokens, labels, frames, k, divide):
+        """(losses, gradients) of ``k`` microbatches over these rows:
+        summed in f32 from zero in order and divided by ``k`` if
+        ``divide``; one microbatch's gradients as they are."""
+        if k == 1:
+            loss, grads = value_and_grad(loss_fn, params, tokens, labels,
+                                         frames)
+            return [loss], grads
+        n_rows = tokens.shape[0] // k
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        losses = []
+        for i in range(k):
+            sl = slice(i * n_rows, (i + 1) * n_rows)
+            loss, g = value_and_grad(
+                loss_fn, params, tokens[sl], labels[sl],
+                frames[sl] if frames is not None else None)
+            for acc, gi in zip(leaves(grads), leaves(g)):
+                acc.add_(gi.to(torch.float32))
+            losses.append(loss)
+            del g
+        if divide:
+            for g in leaves(grads):  # in place: the sums are ours
+                g.div_(k)
+        return losses, grads
+
     def train_step(state, batch):
-        params = state["params"]
         tokens, labels = batch["tokens"], batch["labels"]
         frames = batch.get("frames")
-        b = tokens.shape[0]
-        if b % mb:
-            raise ValueError(f"batch {b} is not a multiple of {mb} "
-                             f"microbatches")
+        k, total = microbatch_layout(tokens.shape[0] * n, mb, n)
         with deterministic(tokens.device):
-            if mb == 1:
-                loss, grads = value_and_grad(loss_fn, params, tokens,
-                                              labels, frames)
-                losses = [loss]
-            else:
-                n = b // mb
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
-                losses = []
-                for i in range(mb):
-                    sl = slice(i * n, (i + 1) * n)
-                    loss, g = value_and_grad(
-                        loss_fn, params, tokens[sl], labels[sl],
-                        frames[sl] if frames is not None else None)
-                    for acc, gi in zip(leaves(grads), leaves(g)):
-                        acc.add_(gi.to(torch.float32))
-                    losses.append(loss)
-                    del g
-                for g in leaves(grads):  # in place: the sums are ours
-                    g.div_(mb)
+            params = (state["params"] if mesh is None
+                      else part.gather_by(state["params"], param_sh))
+            losses, grads = local_grads(params, tokens, labels, frames, k,
+                                        n == 1)
+            del params
+            loss = torch.stack(losses)
+            if n > 1:
+                grads = _sum_over_batch(mesh, grads, axes, total)
+                loss = mesh_lib.all_gather_axes(mesh, loss, 0, axes)
             new_state = {}
             if grad_compression:
                 grads, new_state["gc"] = compress_decompress(grads,
                                                              state["gc"])
             lr = warmup_cosine(state["step"], peak_lr=peak_lr,
                                total=total_steps)
-            new_params, new_opt = adamw_update(grads, state["opt"], params,
-                                               lr=lr, donate=donate)
-            metrics = {"loss": torch.mean(torch.stack(losses)), "lr": lr,
-                       "grad_norm": global_norm(grads)}
-        new_state.update({"params": new_params, "opt": new_opt,
-                          "step": state["step"] + 1})
+            norm = global_norm(grads)
+            if mesh is not None:
+                grads = part.shard_by(grads, param_sh)
+            new_state["params"], new_state["opt"] = adamw_update(
+                grads, state["opt"], state["params"], lr=lr, donate=donate,
+                norm=norm)
+        new_state["step"] = state["step"] + 1
+        metrics = {"loss": torch.mean(loss), "lr": lr, "grad_norm": norm}
         return new_state, metrics
 
     return train_step
@@ -152,6 +260,27 @@ def train_state_specs(api) -> Dict[str, Any]:
     return {"params": params,
             "opt": {"m": mom(params), "v": mom(params), "count": scalar},
             "step": scalar}
+
+
+def train_state_axes(api) -> Dict[str, Any]:
+    """The train state's logical axes (the reference's tree): the
+    parameters' ``param_axes("train")`` for them and both moments, ``()``
+    for the counts."""
+    axes = api.param_axes("train")
+    return {"params": axes,
+            "opt": {"m": axes, "v": axes, "count": ()},
+            "step": ()}
+
+
+def train_state_shardings(api, mesh, rules=None) -> Dict[str, Any]:
+    """The train state's ``NamedSharding`` tree on a training mesh under
+    ``rules`` (default ``TRAIN_RULES``: FSDP of 'embed' over ('pod',
+    'data')), a leaf kept whole where its dimension does not split
+    (``nn.partitioning.fit_shardings``)."""
+    rules = part.TRAIN_RULES if rules is None else rules
+    return part.fit_shardings(
+        part.tree_shardings(train_state_axes(api), mesh, rules),
+        train_state_specs(api))
 
 
 def init_train_state(api, generator: torch.Generator, device="cuda"):

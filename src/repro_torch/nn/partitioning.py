@@ -41,6 +41,18 @@ Activations are replicated over
 'model' by explicit collectives (``launch.mesh.all_reduce_model``,
 ``all_gather_model``), so ``constrain`` stays a no-op.  A 'pod' axis above
 1 is described by these rules but not served.
+
+And training on a (data, model = 1) or (pod, data, model = 1) mesh
+(``runtime.train``, ``launch.steps.make_train_step``): under
+``TRAIN_RULES`` each rank keeps its block of every leaf's 'embed'
+dimension over ('pod', 'data') (FSDP) in the train state, parameters and
+both moments alike (``shard_by``, by a tree of ``NamedSharding``s), and a
+step gathers the parameters whole (``gather_by``, the inverse: the blocks
+all-gathered in rank order, bit for bit).  ``fit_shardings`` keeps a leaf
+whole where its dimension does not split evenly over the ranks (the
+ResNets' 147-row stem), where the reference refuses the leaf.  A 'model'
+axis above 1 in training (tensor-parallel training, ROADMAP 16b (iv))
+raises ``NotImplementedError`` (``require_train_mesh``).
 """
 from __future__ import annotations
 
@@ -48,6 +60,10 @@ import contextlib
 import dataclasses
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.tree import leaves, unflatten
 
 __all__ = [
     "TRAIN_RULES",
@@ -65,7 +81,14 @@ __all__ = [
     "tree_shardings",
     "constrain",
     "require_serve_mesh",
+    "require_train_mesh",
     "shard_tree",
+    "fit_shardings",
+    "shard_by",
+    "gather_by",
+    "local_index",
+    "bucket",
+    "BUCKET_BYTES",
 ]
 
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
@@ -257,13 +280,30 @@ def require_serve_mesh(sizes: Dict[str, int]) -> None:
             f"a multi-pod serve mesh is not ported")
 
 
+def require_train_mesh(sizes: Dict[str, int]) -> None:
+    """Raise unless the mesh (``sizes``: {axis: size}) is one the port
+    trains on: 'model' of size 1 ('pod' and 'data', the batch and FSDP
+    axes, of any size).  Tensor-parallel training waits for ROADMAP 16b
+    (iv)."""
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a training mesh with a 'model' axis of {sizes['model']}: "
+            f"tensor-parallel training is not ported (ROADMAP Queue 1, "
+            f"label 16b (iv)); train on a (data, 1) or (pod, data, 1) mesh")
+
+
 def constrain(x, axes: Sequence[Optional[str]]):
     """The sharding constraint by logical names: a no-op.  Each rank holds
     its own rows of every activation, replicated over 'model' by the
-    explicit collectives of the tensor-parallel layers."""
+    explicit collectives of the tensor-parallel layers.  The installed
+    mesh must be one the port runs: a training mesh under rules that
+    shard 'embed' (FSDP), a serving mesh otherwise."""
     mesh = getattr(_local, "mesh", None)
     if mesh is not None:
-        require_serve_mesh(axis_sizes(mesh))
+        if current_rules().get("embed") is not None:
+            require_train_mesh(axis_sizes(mesh))
+        else:
+            require_serve_mesh(axis_sizes(mesh))
     return x
 
 
@@ -273,10 +313,49 @@ def _coords(mesh) -> Dict[str, Tuple[int, int]]:
             for ax, n in axis_sizes(mesh).items()}
 
 
+def _entry_axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _blocks(shape, spec: Spec, coords, path: str = ""):
+    """[(dim, block index, blocks)] of a leaf of ``shape`` under ``spec`` at
+    the rank's ``coords``: each dimension that names mesh axes of size
+    above 1, the first named axis the major one.  An uneven split raises
+    naming the leaf and the axis."""
+    out = []
+    for dim, entry in enumerate(spec):
+        names = _entry_axes(entry)
+        idx, n = 0, 1
+        for ax in names:
+            r, size = coords[ax]
+            idx, n = idx * size + r, n * size
+        if n == 1:
+            continue
+        if shape[dim] % n:
+            raise ValueError(
+                f"{path or '<root>'}: dimension {dim} ({shape[dim]}) does "
+                f"not split evenly over mesh axes {names} of {n} ranks")
+        out.append((dim, idx, n))
+    return out
+
+
+def local_index(shape, sharding: "NamedSharding", path: str = "") -> tuple:
+    """This rank's block of a whole leaf of ``shape`` under ``sharding``, as
+    a tuple of slices (numpy and torch indexing alike)."""
+    index = [slice(None)] * len(shape)
+    for dim, idx, n in _blocks(shape, sharding.spec,
+                               _coords(sharding.mesh), path):
+        per = shape[dim] // n
+        index[dim] = slice(idx * per, (idx + 1) * per)
+    return tuple(index)
+
+
 def shard_tree(tree, axes_tree, mesh, rules: Optional[Rules] = None):
     """This rank's slice of every leaf of ``tree`` (dicts and lists of
     tensors, leaf for leaf the logical ``axes_tree``) by its spec under
-    ``rules`` (default ``SERVE_RULES``) at this rank's mesh coordinates:
+    ``rules`` (default ``SERVE_RULES``; ``TRAIN_RULES`` gives training's
+    FSDP cut) at this rank's mesh coordinates:
     a dimension that names mesh axes is cut into equal blocks, rank
     order, the first named axis the major one, each slice a copy of its
     own (the whole leaf is not kept alive by it).  An uneven split raises
@@ -287,36 +366,140 @@ def shard_tree(tree, axes_tree, mesh, rules: Optional[Rules] = None):
 
     def leaf(x, axes, path):
         spec = logical_to_spec(axes, rules, mesh)
-        for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            names = (entry,) if isinstance(entry, str) else tuple(entry)
-            idx, n = 0, 1
-            for ax in names:
-                r, size = coords[ax]
-                idx, n = idx * size + r, n * size
-            if n == 1:
-                continue
-            if x.shape[dim] % n:
-                raise ValueError(
-                    f"{path or '<root>'}: dimension {dim} ({axes[dim]!r}, "
-                    f"{x.shape[dim]}) does not split evenly over mesh axes "
-                    f"{names} of {n} ranks")
+        try:
+            blocks = _blocks(x.shape, spec, coords, path)
+        except ValueError as e:
+            raise ValueError(f"{e} (logical axes {axes})") from None
+        for dim, idx, n in blocks:
             per = x.shape[dim] // n
             x = x.narrow(dim, idx * per, per).clone()  # frees the whole
         return x
 
-    def walk(t, a, path):
-        if _is_axes(a):
-            return leaf(t, a, path)
-        if isinstance(a, dict):
-            extra = sorted(set(t) - set(a))
-            if extra:
-                raise ValueError(f"{path or '<root>'}: leaves {extra} have "
-                                 f"no logical axes to shard them by")
-            return {k: walk(v, a[k], f"{path}.{k}" if path else str(k))
-                    for k, v in t.items()}
-        return type(t)(walk(x, ax, f"{path}[{i}]")
-                       for i, (x, ax) in enumerate(zip(t, a)))
+    return _walk2(tree, axes_tree, leaf, _is_axes)
 
-    return walk(tree, axes_tree, "")
+
+def _walk2(tree, other, fn, is_leaf, path=""):
+    """``fn(leaf, other's leaf, path)`` over ``tree`` and the tree
+    ``other`` of its structure, whose leaves ``is_leaf`` tells."""
+    if is_leaf(other):
+        return fn(tree, other, path)
+    if isinstance(other, dict):
+        extra = sorted(set(tree) - set(other))
+        if extra:
+            raise ValueError(f"{path or '<root>'}: leaves {extra} have "
+                             f"no logical axes to shard them by")
+        return {k: _walk2(v, other[k], fn, is_leaf,
+                          f"{path}.{k}" if path else str(k))
+                for k, v in tree.items()}
+    return type(tree)(_walk2(x, o, fn, is_leaf, f"{path}[{i}]")
+                      for i, (x, o) in enumerate(zip(tree, other)))
+
+
+def _is_sharding(x) -> bool:
+    return isinstance(x, NamedSharding)
+
+
+def fit_shardings(shardings, template):
+    """``shardings`` (a ``NamedSharding`` tree) with every spec entry whose
+    dimension of the ``template`` leaf (anything with a ``shape``) does
+    not split evenly over its mesh axes set to ``None``: that dimension
+    stays whole on every rank, as ``launch.steps.batch_rules_for``
+    replicates a batch that does not split."""
+    def fit(t, sh, path):
+        sizes = axis_sizes(sh.mesh)
+        spec = []
+        for dim, entry in enumerate(sh.spec):
+            n = 1
+            for ax in _entry_axes(entry):
+                n *= sizes.get(ax, 1)
+            spec.append(entry if tuple(t.shape)[dim] % n == 0 else None)
+        while spec and spec[-1] is None:
+            spec.pop()
+        return NamedSharding(sh.mesh, tuple(spec))
+    return _walk2(template, shardings, fit, _is_sharding)
+
+
+def shard_by(tree, shardings):
+    """This rank's block of every leaf of ``tree`` (tensors) by the
+    ``NamedSharding`` tree ``shardings``, each a copy of its own; a leaf
+    that no axis of size above 1 cuts is returned as it is."""
+    def cut(x, sh, path):
+        index = local_index(tuple(x.shape), sh, path)
+        if all(i == slice(None) for i in index):
+            return x
+        return x[index].clone()
+    return _walk2(tree, shardings, cut, _is_sharding)
+
+
+# the bytes of other ranks' blocks that a collective over many leaves moves
+# at once (a leaf larger than that moves alone)
+BUCKET_BYTES = 32 << 20
+
+
+def bucket(sizes, cap):
+    """Consecutive index groups of ``sizes`` whose sums stay within
+    ``cap`` (a size above it alone)."""
+    out, cur, total = [], [], 0
+    for i, n in enumerate(sizes):
+        if cur and total + n > cap:
+            out.append(cur)
+            cur, total = [], 0
+        cur.append(i)
+        total += n
+    return out + ([cur] if cur else [])
+
+
+def gather_by(tree, shardings):
+    """The inverse of ``shard_by``: every leaf whole on every rank, its
+    blocks all-gathered in rank order (``launch.mesh.all_gather_parts``),
+    bit for bit.  Leaves cut along one dimension over the same mesh axes
+    move together as bytes, in groups of whole leaves no larger than
+    ``BUCKET_BYTES`` or the largest whole leaf, so a rank holds at most
+    that many bytes of other ranks' blocks at a time.  Collective: every
+    rank calls it with the same tree; a leaf stored whole is returned as
+    it is."""
+    from repro_torch.launch.mesh import all_gather_parts
+    xs, shs = leaves(tree), leaves(shardings)
+    if len(xs) != len(shs):
+        raise ValueError(f"{len(xs)} leaves but {len(shs)} shardings")
+    cuts = [_cut_dims(sh) for sh in shs]
+    out = list(xs)
+    groups: Dict[tuple, list] = {}
+    for i, cut in enumerate(cuts):
+        if len(cut) == 1:  # moved with the leaves of its axes and dtype
+            groups.setdefault((cut[0][1], xs[i].dtype), []).append(i)
+        for dim, names in (cut if len(cut) > 1 else ()):
+            out[i] = _cat(all_gather_parts(shs[i].mesh, out[i], names), dim)
+    for (names, _), idx in groups.items():
+        n_ranks = 1
+        for ax in names:
+            n_ranks *= axis_sizes(shs[idx[0]].mesh)[ax]
+        blobs = [xs[i].contiguous().reshape(-1).view(torch.uint8)
+                 for i in idx]
+        cap = max(max(b.numel() for b in blobs) * n_ranks, BUCKET_BYTES)
+        for group in bucket([b.numel() * n_ranks for b in blobs], cap):
+            parts = all_gather_parts(shs[idx[0]].mesh, _cat(
+                [blobs[j] for j in group], 0), names)
+            off = 0
+            for j in group:
+                x, nb = xs[idx[j]], blobs[j].numel()
+                blocks = [p[off:off + nb].view(x.dtype).reshape(x.shape)
+                          for p in parts]
+                out[idx[j]] = _cat(blocks, cuts[idx[j]][0][0])
+                off += nb
+    return unflatten(tree, out)
+
+
+def _cut_dims(sharding):
+    """[(dim, the mesh axes of size above 1 that cut it)] of a spec."""
+    sizes = axis_sizes(sharding.mesh)
+    out = []
+    for dim, entry in enumerate(sharding.spec):
+        names = tuple(ax for ax in _entry_axes(entry) if sizes[ax] > 1)
+        if names:
+            out.append((dim, names))
+    return out
+
+
+def _cat(parts, dim):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)

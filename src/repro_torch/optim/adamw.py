@@ -43,8 +43,8 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, *, lr, donate: bool = False
-                 ) -> Tuple[Any, Dict[str, Any]]:
+def adamw_update(grads, state, params, *, lr, donate: bool = False,
+                 norm=None) -> Tuple[Any, Dict[str, Any]]:
     """-> (new params, new state): gradients clipped to global norm
     ``MAX_NORM``, bias-corrected moments (``B1``, ``B2``, ``EPS``),
     decoupled weight decay ``WEIGHT_DECAY``.  New tensors are returned
@@ -52,8 +52,11 @@ def adamw_update(grads, state, params, *, lr, donate: bool = False
     parameter and moments are written into ``params``' and ``state``'s own
     tensors as soon as they are computed, and those tensors are returned
     (the same bits; a step then holds one train state, not two, as the
-    reference's Trainer gets by donating its state to the jitted step)."""
-    scale = torch.clamp(MAX_NORM / (global_norm(grads) + 1e-12), max=1.0)
+    reference's Trainer gets by donating its state to the jitted step).
+    ``norm``: the gradients' global norm when ``grads`` are only a
+    rank's blocks of them (FSDP), so the clip is the whole gradients'."""
+    norm = global_norm(grads) if norm is None else norm
+    scale = torch.clamp(MAX_NORM / (norm + 1e-12), max=1.0)
     count = state["count"] + 1
     c1 = 1.0 - B1 ** count.to(torch.float32)
     c2 = 1.0 - B2 ** count.to(torch.float32)

@@ -3,8 +3,10 @@
 
 Each leaf of g + residual is quantized to int8 codes with one scale (max
 |v| / 127) and dequantized; the quantization error is carried to the next
-step.  On one device this is the arithmetic of a compressed all-reduce,
-the all-reduce itself waits for multi-device training (ROADMAP 16b (iii)).
+step.  As in the reference, it is applied to the gradients the step hands
+to AdamW: on a training mesh those are the sums over the batch axes
+(``launch.steps.make_train_step``), each leaf whole, with the residual
+kept whole on every rank; the all-reduce itself moves f32.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Fault-tolerant training loop (port of ``repro.runtime.train``), on one
-device:
+device or on a training mesh:
 
 * restart-safe: ``run`` restores the latest atomic checkpoint and resumes
   the data stream by pure skip-ahead (``data.pipeline`` batches are a
@@ -14,10 +14,18 @@ device:
   ``async_ckpt``;
 * the step updates the train state in place (``make_train_step(...,
   donate=True)``), as the reference donates it to its jitted step, so a
-  step holds one state and its gradients, not two states.
-
-The reference's device mesh, its sharded state and the elastic re-shard on
-restore wait for multi-device training (ROADMAP 16b (iii)).
+  step holds one state and its gradients, not two states;
+* on a mesh (``mesh=``, a (data, 1) or (pod, data, 1) training mesh, one
+  process a rank): the batch over ('pod', 'data') as ``batch_rules_for``
+  fits it to the pipeline's global batch, each rank's train state its
+  FSDP blocks (``launch.steps.train_state_shardings``), made by cutting
+  the whole state every rank initialises from the one generator (so the
+  blocks are the one-device init's bits), checkpoints gathered and
+  written by rank 0, and a restore that re-shards onto whatever mesh the
+  run has (elastic).  The loop's decisions are collective: a signal any
+  rank received stops every rank after the same step
+  (``launch.mesh.any_rank``), and rank 0, once its writes are done, says
+  whether the final state still needs a save (``broadcast_value``).
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ import torch
 
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
+from repro_torch.nn import partitioning as part
 
 __all__ = ["TrainLoopConfig", "Trainer"]
 
@@ -49,18 +59,40 @@ class TrainLoopConfig:
 class Trainer:
     """Train ``api`` on ``pipeline`` (``batch_at(step)`` -> numpy arrays)
     on ``device``: CUDA by default, which raises without a card unless
-    ``device="cpu"``.  ``step_seconds``, ``save_seconds`` and
-    ``restore_seconds`` hold the host time of this run's steps (each ends
-    when its metrics reach the host), of its checkpoint saves (the
-    caller's share of an asynchronous one) and of its restore."""
+    ``device="cpu"``; with ``mesh`` (``launch.mesh.make_train_mesh``) on
+    this rank's device of it, under ``rules`` (default ``TRAIN_RULES``; a
+    'model' axis above 1 raises naming ROADMAP 16b (iv)).
+    ``step_seconds``, ``save_seconds`` and ``restore_seconds`` hold the
+    host time of this run's steps (each ends when its metrics reach the
+    host), of its checkpoint saves (the caller's share of an asynchronous
+    one) and of its restore."""
 
     def __init__(self, api, pipeline, cfg: TrainLoopConfig, *,
-                 device="cuda",
+                 device="cuda", mesh=None, rules: Optional[Dict] = None,
                  straggler_hook: Optional[Callable[[int, float], None]] = None):
         self.api = api
         self.pipe = pipeline
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.state_sharding = self.batch_sharding = None
+        if mesh is not None:
+            part.require_train_mesh(part.axis_sizes(mesh))
+            self.device = mesh_lib.local_device(mesh)
+            self.rules = steps_lib.batch_rules_for(
+                part.TRAIN_RULES if rules is None else rules,
+                pipeline.global_batch, mesh)
+            self.state_sharding = steps_lib.train_state_shardings(
+                api, mesh, self.rules)
+            in_axes = {"tokens": ("batch", "seq"),
+                       "labels": ("batch", "seq")}
+            if api.needs_frames:
+                in_axes["frames"] = ("batch", "frames", "act_embed")
+            self.batch_sharding = part.tree_shardings(in_axes, mesh,
+                                                      self.rules)
+        else:
+            self.device = resolve_device(device)
+            self.rules = None
+        self.rank = mesh_lib.rank_of(mesh)
         self.store = CheckpointStore(cfg.ckpt_dir)
         self.straggler_hook = straggler_hook or (
             lambda step, dt: print(f"[watchdog] step {step} straggling: "
@@ -69,7 +101,7 @@ class Trainer:
         # (``donate_argnums``): the new state takes the old one's memory
         self.train_step = steps_lib.make_train_step(
             api, peak_lr=cfg.peak_lr, total_steps=cfg.total_steps,
-            donate=True)
+            donate=True, mesh=mesh, rules=self.rules)
         self.step_seconds = []
         self.save_seconds = []
         self.restore_seconds: Optional[float] = None
@@ -88,30 +120,44 @@ class Trainer:
                 pass  # not on the main thread
         return previous
 
+    def _log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg)
+
     def init_or_restore(self, generator: torch.Generator) -> Dict[str, Any]:
         """The latest checkpoint's state, else a fresh one from
-        ``generator``."""
+        ``generator``; on a mesh, this rank's blocks of it."""
+        mesh_lib.barrier(self.mesh)  # no rank reads while rank 0 writes
         if self.store.latest_step() is not None:
             t0 = time.perf_counter()
             _, state = self.store.restore(
-                steps_lib.train_state_specs(self.api), device=self.device)
+                steps_lib.train_state_specs(self.api), device=self.device,
+                shardings=self.state_sharding)
             self.restore_seconds = time.perf_counter() - t0
-            print(f"[trainer] restored step {int(state['step'])} from "
-                  f"{self.cfg.ckpt_dir}")
+            self._log(f"[trainer] restored step {int(state['step'])} from "
+                      f"{self.cfg.ckpt_dir}")
             return state
-        return steps_lib.init_train_state(self.api, generator,
-                                          device=self.device)
+        state = steps_lib.init_train_state(self.api, generator,
+                                           device=self.device)
+        if self.mesh is not None:
+            state = part.shard_by(state, self.state_sharding)
+        return state
 
     def _save(self, step: int, state, blocking: bool) -> None:
         t0 = time.perf_counter()
-        self.store.save(step, state, blocking=blocking)
+        self.store.save(step, state, blocking=blocking,
+                        shardings=self.state_sharding)
         self.save_seconds.append(time.perf_counter() - t0)
 
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
-        host = self.pipe.batch_at(step)  # skip-ahead by construction
-        return {k: torch.as_tensor(v, device=self.device).to(
-                    torch.long if v.dtype.kind in "iu" else torch.float32)
-                for k, v in host.items()}
+        # skip-ahead by construction
+        if self.mesh is not None:
+            got = self.pipe.sharded_batch_at(step, self.batch_sharding)
+        else:
+            got = {k: torch.as_tensor(v, device=self.device)
+                   for k, v in self.pipe.batch_at(step).items()}
+        return {k: v.to(torch.long if not v.is_floating_point()
+                        else torch.float32) for k, v in got.items()}
 
     # -- loop ------------------------------------------------------------------
 
@@ -126,7 +172,7 @@ class Trainer:
             ema = None
             history = []
             for step in range(start, self.cfg.total_steps):
-                if self._stop:
+                if mesh_lib.any_rank(self.mesh, self._stop):
                     break
                 batch = self._batch(step)
                 t0 = time.perf_counter()
@@ -144,16 +190,21 @@ class Trainer:
                 if on_metrics:
                     on_metrics(step, metrics)
                 if step % self.cfg.log_every == 0:
-                    print(f"[trainer] step {step} loss {metrics['loss']:.4f} "
-                          f"({dt * 1e3:.0f} ms)")
+                    self._log(f"[trainer] step {step} loss "
+                              f"{metrics['loss']:.4f} ({dt * 1e3:.0f} ms)")
                 if (step + 1) % self.cfg.ckpt_every == 0:
                     self._save(step + 1, state,
                                blocking=not self.cfg.async_ckpt)
             self.store.wait()
             final = int(state["step"])
             # the reference saves the final state again even when the last
-            # periodic save holds it; the port skips that second copy
-            if self.store.latest_step() != final:
+            # periodic save holds it; the port skips that second copy.  Rank
+            # 0 alone writes, so its answer, taken once its writes are done,
+            # is every rank's
+            need = self.rank == 0 and self.store.latest_step() != final
+            if self.mesh is not None:
+                need = bool(mesh_lib.broadcast_value(self.mesh, float(need)))
+            if need:
                 self._save(final, state, blocking=True)
             return state, history
         finally:

@@ -17,6 +17,9 @@ at ``reduced=True``:
   the largest |logit| (the LM contract), against the JAX package run op by
   op (``jax.disable_jit``; its jitted run fuses differently), and the
   greedy tokens are equal.
+
+``repro``'s side of each arch is computed once, in a pool of three
+processes started with the first case (``references``).
 """
 import dataclasses
 
@@ -138,9 +141,9 @@ class Case:
     jtokens: np.ndarray
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def case(request):
-    arch = request.param
+def _apis(arch):
+    """(``repro``'s ``ModelAPI``, the port's) of ``arch`` at reduced size,
+    under ``_plan``'s plan where it has one."""
     japi = jconfigs.get(arch, reduced=True)
     tapi = configs.get(arch, reduced=True)
     jp = _plan(arch)
@@ -148,11 +151,18 @@ def case(request):
         japi = dataclasses.replace(japi, policy=jp)
         tapi = dataclasses.replace(
             tapi, policy=tplan.PrecisionPlan.from_json(jp.to_json()))
+    return japi, tapi
+
+
+def _reference(arch):
+    """``repro``'s side of ``arch``, in a process of its own: float train
+    weights (numpy's step sizes), their jitted packing, the prompt, and
+    the prefill and three greedy decode steps op by op -> numpy."""
+    japi, _ = _apis(arch)
     rng = np.random.default_rng(5)
     jtrain = _randomize(japi.init_params(jax.random.PRNGKey(7), "train"),
                         rng)
     jpacked = jax.jit(lambda t: jserve.pack_for_serving(japi, t))(jtrain)
-    packed = convert.from_jax_lm_serve_tree(_np_tree(jpacked), device="cpu")
     tokens = rng.integers(0, japi.cfg.vocab, (BATCH, PROMPT))
     gen = jserve.Generator(japi, jpacked)
     with jax.disable_jit():
@@ -166,8 +176,32 @@ def case(request):
                                         jnp.asarray(PROMPT + i, jnp.int32))
             jlogits.append(logits)
             jtokens.append(np.asarray(jnp.argmax(logits, -1)))
-    return Case(arch, japi, tapi, jtrain, packed, tokens, jlogits,
-                np.stack(jtokens, axis=1))
+    return (_np_tree(jtrain), _np_tree(jpacked), tokens,
+            [np.array(x) for x in jlogits], np.stack(jtokens, axis=1))
+
+
+@pytest.fixture(scope="module")
+def references():
+    """``_reference`` of every arch, three processes at a time, started
+    once for the module: {arch: its pending result}."""
+    import torch.multiprocessing as mp
+    pool = mp.get_context("spawn").Pool(3)
+    try:
+        yield {arch: pool.apply_async(_reference, (arch,))
+               for arch in ARCHS}
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request, references):
+    arch = request.param
+    japi, tapi = _apis(arch)
+    jtrain, jpacked, tokens, jlogits, jtokens = \
+        references[arch].get(timeout=900)
+    packed = convert.from_jax_lm_serve_tree(jpacked, device="cpu")
+    return Case(arch, japi, tapi, jtrain, packed, tokens, jlogits, jtokens)
 
 
 def test_pack_for_serving_matches(case):

@@ -44,7 +44,8 @@ Contracts, and why:
 * ``launch.train --reduced --device cpu`` then ``launch.serve
   --ckpt-dir``.
 
-The reference's side runs once per module.
+The reference's side runs once per module; the whole model's, in a
+process of its own started with the module's first test.
 """
 import dataclasses
 
@@ -300,11 +301,10 @@ def test_ssd_gradient_finite_where_the_reference_overflows():
 # --- the model -----------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def model():
+def _model_reference():
     """The reference's train and serve forwards over SEQ tokens, and its
     train prefill of PROMPT tokens with DECODE_T train decode steps, op
-    by op (once)."""
+    by op, in a process of its own -> numpy."""
     japi = jconfigs.get(ARCH, reduced=True)
     params = np_params(japi, seed=2)
     jp = jax.tree.map(jnp.asarray, params)
@@ -325,10 +325,33 @@ def model():
     pre = [{k: np.asarray(v[i]) for k, v in states.items()}
            for i in range(japi.cfg.n_layers)]
     return {"params": params, "toks": toks, "train": train, "serve": serve,
-            "packed": convert.from_jax_lm_serve_tree(
-                jax.tree.map(np.asarray, jpacked), device="cpu"),
-            "tp": convert.from_jax_lm_train_params(params, device="cpu"),
+            "jpacked": jax.tree.map(np.asarray, jpacked),
             "last": _f32(last), "states": pre, "steps": steps}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _model_started():
+    """``_model_reference``, started with the module's first test so that
+    it runs beside the block's and the step's cases."""
+    import torch.multiprocessing as mp
+    pool = mp.get_context("spawn").Pool(1)
+    try:
+        yield pool.apply_async(_model_reference)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+@pytest.fixture(scope="module")
+def model(_model_started):
+    """``_model_reference``'s result (once), with the port's trees of its
+    weights."""
+    out = _model_started.get(timeout=600)
+    out["packed"] = convert.from_jax_lm_serve_tree(out.pop("jpacked"),
+                                                   device="cpu")
+    out["tp"] = convert.from_jax_lm_train_params(out["params"],
+                                                 device="cpu")
+    return out
 
 
 def test_train_forward_logits_bitwise(model):

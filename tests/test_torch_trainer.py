@@ -330,7 +330,12 @@ class TestLaunchers:
     @pytest.mark.parametrize("argv,match", [
         (["--arch", "resnet18"], "R7"),
         (["--arch", "granite-8b", "--production-mesh"], "label 16"),
-        (["--arch", "granite-8b", "--multipod"], "label 16")])
+        (["--arch", "granite-8b", "--multipod"], "label 16"),
+        (["--arch", "granite-8b", "--production-mesh"],
+         r"'model' axis of 16.*16b \(iv\)"),
+        (["--arch", "granite-8b", "--multipod"],
+         r"'model' axis of 16.*16b \(iv\)"),
+        (["--arch", "granite-8b", "--devices", "0"], "--devices")])
     def test_train_refusals(self, argv, match):
         with pytest.raises(SystemExit, match=match):
             launch_train.main(argv + ["--device", "cpu"])
