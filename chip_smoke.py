@@ -383,6 +383,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward and backward, the parameter gathers and the gradient sum
    (bytes and ms), AdamW on the rank's blocks, save and restore (host
    clock, the card synchronized around each part).
+23. Tensor-parallel QAT training over 'model' (slice 18; no kernel on the
+   path): granite-8b at full width, 2 layers, 2 x 256 tokens, and
+   ResNet-18 at 224, batch 8, 3 steps each at peak lr 0.1, on one device
+   here and by two gloo ranks sharing cuda:0 on a (1, 2) mesh (spawned
+   once for both, starting while this process runs the one-device
+   steps).  The losses before any update within ``P23_FORWARD_RTOL``;
+   every parameter leaf after 3 steps within ``P23_LEAF_RTOL`` (relative
+   L2, each rank's block against the one-device leaf); the leaves no
+   'model' axis cuts bitwise across the ranks after every step; the
+   ResNet's mesh save restored on one device and saved again, byte for
+   byte.  ``[p23-time]``: each rank's step ms against one device and its
+   last step's collectives by kind (calls, bytes, ms).
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -6906,6 +6918,531 @@ def print_p22(p22, card):
                 f"{card})")
 
 
+# --- phase 23: tensor-parallel QAT training over 'model' ---------------------
+
+P23_RANKS = 2
+P23_LM = ("granite-8b", 2, 2, 256)   # arch, layers, batch, sequence
+P23_CNN = ("resnet18", 8)            # arch, batch (224 x 224)
+P23_STEPS, P23_LR = 3, 0.1           # lr 0 at step 0, 1e-3 at step 1
+# The contract against the one-device step on the same batch, as
+# tests/test_torch_tensor_parallel_train.py holds it on the CPU: the losses
+# before any update (steps 0 and 1); every leaf's first moment after step 0
+# (0.1 x the first clipped gradient: only the order of the sums differs
+# there) but the step sizes'; every parameter leaf after 3 steps, relative
+# L2.  A step size's gradient (ga, gw) is a sum of LSQ terms that cancel to
+# a few ulps of the terms, so the ulp by which a product of another shape
+# rounds an element of a cotangent moves it by as much as itself: the step
+# sizes are held after 3 steps and bitwise across the ranks.  A leaf that
+# starts at zero (ResNet's BN biases) is, after 3 steps, two small AdamW
+# steps whose signs follow gradients of cancelling sums, so it is bounded
+# apart (P23_ZERO_RTOL).  One device on each batch's rows reversed, the
+# same arithmetic in another order, is printed beside them as their noise
+# floor.  Measured on an H100 80GB HBM3 at 700 W (granite / ResNet): first
+# moments 3.3e-3 / 1.6e-2, leaves after 3 steps 2.9e-2 / 4.6e-2, BN biases
+# 0.49; one device on reversed rows 0.37, 6.5e-2, 0.77.  A column shard's
+# input cotangent left partial reads 0.76 / 1.4, 0.24 / 0.13, 1.6; its gw
+# gradient left unsummed 4.0e-2 / 0.11 after 3 steps, BN biases 0.63.  Both
+# faults break the whole leaves' equality across the ranks.
+P23_FORWARD_RTOL = 1e-5
+P23_FIRST_RTOL = 5e-2
+P23_LEAF_RTOL = {"lm": 7e-2, "cnn": 7e-2}
+P23_ZERO_RTOL = 0.55
+P23_ABANDON = "abandon"
+P23_KINDS = {  # the collective's caller -> what it moves
+    "_SumModel.forward": "row sums (f32 partial products)",
+    "_CopyModel.backward": "copy sums (step-size and k/v gradients)",
+    "_ColumnProduct.backward": "column input cotangent sums (f32)",
+    "_GatherModel.forward": "channel all-gathers (conv outputs)",
+    "_OwnedModel.forward": "owned sums (embedding rows)",
+    "_VocabParallelCE.forward": "vocabulary-parallel loss",
+    "_model_global_norm": "clip norm",
+}
+
+
+def p23_api(cell):
+    from repro_torch import configs
+    if cell == "lm":
+        arch, depth, _, _ = P23_LM
+        api = family_api(arch, depth=depth)
+    else:
+        api = configs.get(P23_CNN[0])
+    return dataclasses.replace(api, microbatches=1)
+
+
+def p23_batches(api, cell, device):
+    """The cell's ``P23_STEPS`` batches (whole: a (1, 2) mesh's ranks
+    share one data row) on ``device``."""
+    import torch as t
+    from repro_torch.data.pipeline import SyntheticImages, SyntheticLM
+    out = []
+    for i in range(P23_STEPS):
+        if cell == "lm":
+            _, _, b, s_ = P23_LM
+            host = SyntheticLM(vocab=api.cfg.vocab, seq_len=s_,
+                               global_batch=b, seed=SEED).batch_at(i)
+        else:
+            host = SyntheticImages(n_classes=api.cfg.n_classes,
+                                   img_size=api.cfg.img_size,
+                                   global_batch=P23_CNN[1],
+                                   seed=SEED).batch_at(i)
+            host = {"tokens": host["images"], "labels": host["labels"]}
+        out.append({k: t.as_tensor(v).to(device).to(
+            t.long if v.dtype.kind in "iu" else t.float32)
+            for k, v in host.items()})
+    return out
+
+
+def p23_sync(device):
+    import torch as t
+    if t.device(device).type == "cuda":
+        t.cuda.synchronize()
+
+
+def p23_state(api, device, sh=None):
+    """The seeded init on ``device`` (the same bits on every process of
+    the card), cut to the rank's blocks by ``sh``; zero moments."""
+    import torch as t
+    from repro_torch.nn import partitioning as part
+    from repro_torch.optim import adamw_init
+    params = api.init_params(t.Generator(device=device).manual_seed(SEED),
+                             "train", device=device)
+    if sh is not None:
+        params = part.shard_by(params, sh["params"])
+    return {"params": params,
+            "opt": adamw_init(params, state_dtype=api.opt_dtype),
+            "step": t.zeros((), dtype=t.int32, device=device)}
+
+
+class P23Collectives:
+    """Counts every collective of a tensor-parallel step on a rank while
+    ``active``: (kind, bytes of the rank's part, host ms with the card
+    synchronized around it), the kind read off the outermost calling
+    frame that ``P23_KINDS`` names (a column product's backward sums
+    through ``sum_model``)."""
+
+    def __init__(self, device):
+        from repro_torch.launch import mesh as mesh_lib
+        self.calls, self.active = [], False
+        orig = mesh_lib._gather
+
+        def counted(mesh, axis, n, x):
+            if not self.active:
+                return orig(mesh, axis, n, x)
+            frame, kind = sys._getframe(1), "other"
+            while frame is not None:  # the outermost caller named
+                kind = P23_KINDS.get(frame.f_code.co_qualname, kind)
+                frame = frame.f_back
+            p23_sync(device)
+            t0 = time.perf_counter()
+            out = orig(mesh, axis, n, x)
+            p23_sync(device)
+            self.calls.append((kind, x.numel() * x.element_size(),
+                               (time.perf_counter() - t0) * 1e3))
+            return out
+        mesh_lib._gather = counted
+
+    def by_kind(self):
+        kinds = {}
+        for kind, nb, ms in self.calls:
+            k = kinds.setdefault(kind, [0, 0, 0.0])
+            k[0] += 1
+            k[1] += nb
+            k[2] += ms
+        return kinds
+
+
+def p23_digests(state, sh):
+    """{path: sha256} of the leaves no 'model' axis cuts."""
+    import hashlib
+    import torch as t
+    from repro_torch.nn import partitioning as part
+    from repro_torch.tree import flatten_with_paths
+    shs = flatten_with_paths(sh)
+    return {k: hashlib.sha256(v.detach().contiguous().reshape(-1).view(
+        t.uint8).cpu().numpy()).hexdigest()
+        for k, v in flatten_with_paths(state).items()
+        if not part.is_cut(shs[k], "model")}
+
+
+def p23_saved(api, cell):
+    """What a cell saves: the ResNet's whole train state; granite's
+    parameters and step (its moments share their shardings and gathers,
+    and would triple the phase's 10 GB of writes) -> (the keys, the
+    template of their whole shapes)."""
+    from repro_torch.launch import steps as steps_lib
+    keys = ("params", "opt", "step") if cell == "cnn" else ("params", "step")
+    specs = steps_lib.train_state_specs(api)
+    return keys, {k: specs[k] for k in keys}
+
+
+def p23_sq(tree, ref, shp, device):
+    """{path: (squared L2 of the difference over the rank's block, squared
+    L2 of the reference's block, whether 'model' cuts the leaf)} of
+    ``tree`` (the rank's blocks) against ``ref`` (whole, on the host)."""
+    import torch as t
+    from repro_torch.nn import partitioning as part
+    from repro_torch.tree import flatten_with_paths
+    out = {}
+    for k, v in flatten_with_paths(tree).items():
+        r = ref[k]
+        r = r[part.local_index(tuple(r.shape), shp[k])].to(device).to(
+            t.float64)
+        d = v.to(t.float64) - r
+        out[k] = (float((d * d).sum()), float((r * r).sum()),
+                  part.is_cut(shp[k], "model"))
+    return out
+
+
+def p23_cell_rank(cell, mesh, device, root):
+    """One cell on this rank: the tensor-parallel step 3 times (the last
+    one's collectives counted), the whole leaves' digests after each step,
+    each parameter leaf's squared difference from the one-device result
+    (``one-{cell}.pt``, the parent's) over the rank's block, after 3
+    steps and, for the first moments, after step 0; then the mesh save
+    (``p23_saved``) read back onto the mesh, each rank's blocks against
+    its own."""
+    import torch as t
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.tree import flatten_with_paths, leaves
+    api = p23_api(cell)
+    sh = steps_lib.train_state_shardings(api, mesh)
+    state = p23_state(api, device, sh)
+    held = sum(x.numel() * x.element_size()
+               for x in flatten_with_paths(state).values())
+    step = steps_lib.make_train_step(api, peak_lr=P23_LR,
+                                     total_steps=P23_STEPS, donate=True,
+                                     mesh=mesh)
+    coll = P23Collectives(device)
+    one = t.load(root / f"one-{cell}.pt", mmap=True)
+    shp = flatten_with_paths(sh["params"])
+    out = {"losses": [], "step_ms": [], "digests": [], "held": held}
+    for i, batch in enumerate(p23_batches(api, cell, device)):
+        coll.active = i == P23_STEPS - 1
+        p23_sync(device)
+        t0 = time.perf_counter()
+        state, mt = step(state, batch)
+        out["losses"].append(float(mt["loss"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        coll.active = False
+        out["digests"].append(p23_digests(state, sh))
+        if i == 0:
+            out["sq_first"] = p23_sq(state["opt"]["m"], one["first"], shp,
+                                     device)
+    out["collectives"] = coll.by_kind()
+    out["sq"] = p23_sq(state["params"], one["params"], shp, device)
+    del one
+    keys, template = p23_saved(api, cell)
+    tree, tsh = {k: state[k] for k in keys}, {k: sh[k] for k in keys}
+    store = CheckpointStore(str(root / f"ckpt-mesh-{cell}"))
+    t0 = time.perf_counter()
+    store.save(P23_STEPS, tree, shardings=tsh)
+    mesh_lib.barrier(mesh)   # rank 0 has written
+    _, back = store.restore(template, step=P23_STEPS, shardings=tsh)
+    out["read_back"] = all(t.equal(a, b) for a, b in
+                           zip(leaves(back), leaves(tree)))
+    out["save_s"] = time.perf_counter() - t0
+    del back
+    mesh_lib.barrier(mesh)
+    if mesh_lib.rank_of(mesh) == 0:
+        (root / f"saved-{cell}").touch()
+    return out
+
+
+def p23_rank(rank, args):
+    """One rank of phase 23: two ranks on the parent's card (``args``: the
+    results' folder, the device) over gloo, a (1, 2) training mesh; each
+    cell once the parent's one-device results of it are written.  The
+    training path builds no kernel: a rank that would run nvcc fails."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    root, dev = Path(args[0]), args[1]
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_train_mesh((1, P23_RANKS),
+                                    devices=[dev] * P23_RANKS)
+    device = mesh_lib.local_device(mesh)
+    import torch._dynamo  # noqa: F401 -- the remat's import, while waiting
+    out, waited = {}, 0.0
+    for cell in ("lm", "cnn"):
+        t1 = time.perf_counter()
+        while not (root / f"one-{cell}.pt").exists():
+            if (root / P23_ABANDON).exists() or time.perf_counter() - t1 > 240:
+                raise RuntimeError(f"rank {rank}: no one-device results")
+            time.sleep(0.1)
+        waited += time.perf_counter() - t1
+        out[cell] = p23_cell_rank(cell, mesh, device, root)
+    out.update(coords=mesh_lib.model_coords(mesh), waited=waited,
+               backend=mesh_lib.mesh_info(mesh).backend,
+               s=time.perf_counter() - t0)
+    return out
+
+
+def p23_run_one(sm, api, batches):
+    """The one-device step over ``batches`` -> (losses, step ms, state,
+    the first moments after step 0 on the host, the parameter leaves
+    that start at zero)."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.tree import flatten_with_paths
+    state = p23_state(api, sm.device)
+    zero = sorted(k for k, v in flatten_with_paths(state["params"]).items()
+                  if not bool(v.any()))
+    step = steps_lib.make_train_step(api, peak_lr=P23_LR,
+                                     total_steps=P23_STEPS, donate=True)
+    losses, ms, first = [], [], None
+    for batch in batches:
+        p23_sync(sm.device)
+        t0 = time.perf_counter()
+        state, mt = step(state, batch)
+        losses.append(float(mt["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if first is None:   # a copy: the next steps write the moments
+            first = {k: v.to("cpu", copy=True) for k, v in
+                     flatten_with_paths(state["opt"]["m"]).items()}
+    del step
+    return losses, ms, state, first, zero
+
+
+def p23_step_size(path):
+    """Whether a parameter leaf is an LSQ step size (``ga``, ``gw``)."""
+    return path.endswith(("['ga']", "['gw']"))
+
+
+def p23_gaps(got, want, keys=None):
+    """{path: relative L2 of ``got`` against ``want``} (host tensors)."""
+    import torch as t
+    out = {}
+    for k in (want if keys is None else keys):
+        a, b = got[k].to(t.float64), want[k].to(t.float64)
+        out[k] = float(t.linalg.vector_norm(a - b)
+                       / max(float(t.linalg.vector_norm(b)), 1e-300))
+    return out
+
+
+def p23_one(sm, cell, root):
+    """The cell's one-device run here -> losses, step ms, the parameter
+    leaves that start at zero; its final parameters and first moments
+    written to ``one-{cell}.pt`` for the ranks.  The ResNet runs a second
+    time on each batch's rows reversed: the same arithmetic summed in
+    another order, whose gaps from the first run are the noise floor of
+    its leaves (``witness``)."""
+    import torch as t
+    from repro_torch.tree import flatten_with_paths
+    api = p23_api(cell)
+    batches = p23_batches(api, cell, sm.device)
+    losses, ms, state, first, zero = p23_run_one(sm, api, batches)
+    out = {"losses": losses, "step_ms": ms, "zero": zero,
+           "held": sum(x.numel() * x.element_size()
+                       for x in flatten_with_paths(state).values())}
+    params = {k: v.cpu() for k, v in
+              flatten_with_paths(state["params"]).items()}
+    del state
+    t.save({"params": params, "first": first}, root / f"one-{cell}.tmp")
+    os.replace(root / f"one-{cell}.tmp", root / f"one-{cell}.pt")
+    if cell == "cnn":
+        flip = [{k: v.flip(0) for k, v in b.items()} for b in batches]
+        w_losses, _, w_state, w_first, _ = p23_run_one(sm, api, flip)
+        w_params = {k: v.cpu() for k, v in
+                    flatten_with_paths(w_state["params"]).items()}
+        del w_state
+        leaf = p23_gaps(w_params, params)
+        w_first = p23_gaps(w_first, first)
+        out["witness"] = {
+            "losses": w_losses,
+            "first": max((v, k) for k, v in w_first.items()
+                         if not p23_step_size(k)),
+            "first_ga": max((v, k) for k, v in w_first.items()
+                            if p23_step_size(k)),
+            "leaf": max((v, k) for k, v in leaf.items() if k not in zero),
+            "zero": max(((leaf[k], k) for k in zero), default=(0.0, None))}
+    del params, first
+    release(sm)
+    return out
+
+
+def p23_check_files(sm, api, cell, root):
+    """The cell's mesh save restored onto this device and saved again by
+    one device: whether the two saves' files are the same bytes."""
+    from repro_torch.checkpoint import CheckpointStore
+    _, template = p23_saved(api, cell)
+    _, st = CheckpointStore(str(root / f"ckpt-mesh-{cell}")).restore(
+        template, device=sm.device)
+    CheckpointStore(str(root / f"ckpt-one-{cell}")).save(P23_STEPS, st)
+    del st
+    same = p22_same_files(root / f"ckpt-mesh-{cell}",
+                          root / f"ckpt-one-{cell}", P23_STEPS)
+    release(sm)
+    return same
+
+
+def p23_wait(root, name, world):
+    """Wait for ``root / name`` while the ranks run; their failure
+    raises."""
+    while not (root / name).exists():
+        if world.done():
+            world.result()
+            raise RuntimeError(f"the ranks ended without {name}")
+        time.sleep(0.05)
+
+
+def p23_worst(got, key, keys=None):
+    """(worst relative L2, path) over the ranks' ``key`` sums
+    (``p23_sq``), a cut leaf's blocks summed over the ranks."""
+    leaf = {}
+    for k, (d, ref, cut) in got[0][key].items():
+        if keys is not None and k not in keys:
+            continue
+        if cut:
+            d += sum(g[key][k][0] for g in got[1:])
+            ref += sum(g[key][k][1] for g in got[1:])
+        leaf[k] = (d / max(ref, 1e-300)) ** 0.5
+    return max(((v, k) for k, v in leaf.items()), default=(0.0, None))
+
+
+def phase_p23(sm, card):
+    """Phase 23: granite-8b (full width, 2 layers) and ResNet-18 at 224
+    trained tensor-parallel on a (1, 2) mesh of two ranks sharing cuda:0,
+    against the one-device step of each -> what was measured."""
+    import shutil
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    release(sm)
+    lm = p23_api("lm")
+    root = ckpt_root("p23", (lm.total_params() + 2 * lm.cfg.vocab
+                             * lm.cfg.d_model) * 4 * 2)
+    root.mkdir(parents=True, exist_ok=True)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    # the ranks start (torch, the card's context, the first step's
+    # imports) while this process runs both cells on one device
+    world = pool.submit(mesh_lib.spawn, p23_rank, P23_RANKS,
+                        ((str(root), str(sm.device)),),
+                        store_dir=str(ROOT / "build" / "p23"),
+                        backend="gloo", timeout_s=400)
+    same_files = {}
+    try:
+        # each cell's ranks start once its one-device results are written
+        one = {cell: p23_one(sm, cell, root) for cell in ("lm", "cnn")}
+        t1 = time.perf_counter()
+        # granite's files while the ranks train the ResNet
+        p23_wait(root, "saved-lm", world)
+        same_files["lm"] = p23_check_files(sm, lm, "lm", root)
+        t_lm = time.perf_counter() - t1
+        ranks = world.result()
+    except BaseException:
+        (root / P23_ABANDON).touch()
+        raise
+    finally:
+        pool.shutdown()
+    t2 = time.perf_counter()
+    same_files["cnn"] = p23_check_files(sm, p23_api("cnn"), "cnn", root)
+    shutil.rmtree(root, ignore_errors=True)
+    release(sm)
+    res = {"one": one, "ranks": ranks,
+           "s": (t1 - t0, t2 - t1, time.perf_counter() - t2, t_lm)}
+    for cell in ("lm", "cnn"):
+        got = [r[cell] for r in ranks]
+        want = one[cell]["losses"]
+        zero = set(one[cell]["zero"])
+        fwd = max(abs(a - b) / abs(b) for a, b in
+                  zip(got[0]["losses"][:2], want[:2]))
+        steps = {k for k in got[0]["sq_first"] if p23_step_size(k)}
+        first = p23_worst(got, "sq_first", set(got[0]["sq_first"]) - steps)
+        first_ga = p23_worst(got, "sq_first", steps)
+        nonzero = set(got[0]["sq"]) - zero
+        worst = p23_worst(got, "sq", nonzero)
+        worst_zero = p23_worst(got, "sq", zero)
+        worst_w = p23_worst(got, "sq", {k for k in nonzero
+                                        if k.endswith("['w']")})
+        res[cell] = {"forward_gap": fwd, "first": first,
+                     "first_ga": first_ga, "worst": worst,
+                     "worst_zero": worst_zero, "worst_w": worst_w}
+        ok = {
+            "ranks' losses alike": all(g["losses"] == got[0]["losses"]
+                                       for g in got),
+            "losses before any update": fwd <= P23_FORWARD_RTOL,
+            "first moments after step 0": first[0] <= P23_FIRST_RTOL,
+            "every leaf after 3 steps": worst[0] <= P23_LEAF_RTOL[cell]
+            and worst_zero[0] <= P23_ZERO_RTOL,
+            "whole leaves bitwise across the ranks": all(
+                g["digests"] == got[0]["digests"] for g in got)
+            and all(len(d) for d in got[0]["digests"]),
+            "mesh save read back: each rank's blocks": all(
+                g["read_back"] for g in got),
+            "mesh save == one-device save of it": same_files[cell]}
+        for name, good in ok.items():
+            if not good:
+                sm.failures.append(f"phase 23 {cell}: {name}")
+        zero_txt = (f", of the leaves zero at init {worst_zero[0]:.3e} "
+                    f"{worst_zero[1]} (bound {P23_ZERO_RTOL})"
+                    if zero else "")
+        log(f"[p23] {cell}: losses one device {want}, (1, 2) "
+            f"{got[0]['losses']}; before any update relative gap {fwd:.3e} "
+            f"(bound {P23_FORWARD_RTOL}); worst first moment after step 0 "
+            f"{first[0]:.3e} {first[1]} (bound {P23_FIRST_RTOL}; of the "
+            f"step sizes {first_ga[0]:.3e} {first_ga[1]}); worst "
+            f"parameter leaf after {P23_STEPS} steps {worst[0]:.3e} "
+            f"{worst[1]} (bound {P23_LEAF_RTOL[cell]}){zero_txt}, worst "
+            f"weight leaf {worst_w[0]:.3e} {worst_w[1]}; checks {ok}")
+        wit = one[cell].get("witness")
+        if wit is not None:
+            log(f"[p23] {cell} noise floor, one device on each batch's rows "
+                f"reversed against one device (the same arithmetic in "
+                f"another order): losses {wit['losses']}; worst first "
+                f"moment {wit['first'][0]:.3e} {wit['first'][1]} (of the "
+                f"step sizes {wit['first_ga'][0]:.3e} "
+                f"{wit['first_ga'][1]}); worst "
+                f"leaf after {P23_STEPS} steps {wit['leaf'][0]:.3e} "
+                f"{wit['leaf'][1]}, of the leaves zero at init "
+                f"{wit['zero'][0]:.3e} {wit['zero'][1]}")
+    log(f"[p23] phase 23 took {time.perf_counter() - t0:.1f} s: one device "
+        f"both cells {res['s'][0]:.1f} s (the ranks starting meanwhile), "
+        f"then the ranks {res['s'][1]:.1f} s more (they waited "
+        f"{ranks[0]['waited']:.1f} s in all for one-device results; granite's "
+        f"save {ranks[0]['lm']['save_s']:.1f} s and its files checked "
+        f"{res['s'][3]:.1f} s after the one-device runs, the ResNet's save "
+        f"{ranks[0]['cnn']['save_s']:.1f} s), the ResNet's files "
+        f"{res['s'][2]:.1f} s")
+    print_p23(res, card)
+    sm.check_phase("23 tensor-parallel QAT training, (1, 2) mesh on cuda:0: "
+                   "granite-8b x2 and ResNet-18 held to the one-device "
+                   "step, whole leaves bitwise across the ranks, the mesh "
+                   "saves' files")
+    return res
+
+
+def print_p23(res, card):
+    """Phase 23's ``[p23-time]`` lines."""
+    arch, depth, b, s_ = P23_LM
+    labels = {"lm": f"{arch} x{depth} {b} x {s_}",
+              "cnn": f"{P23_CNN[0]} batch {P23_CNN[1]} at 224"}
+    for cell, label in labels.items():
+        one = res["one"][cell]
+        log(f"[p23-time] {label} one device: steps "
+            f"{[round(x, 1) for x in one['step_ms']]} ms, state "
+            f"{one['held'] / 1e9:.2f} GB  (host clock; {card})")
+        for r in res["ranks"]:
+            got = r[cell]
+            kinds = got["collectives"]
+            tot_mb = sum(v[1] for v in kinds.values()) / 1e6
+            tot_ms = sum(v[2] for v in kinds.values())
+            log(f"[p23-time] {label} (1, 2) rank {r['coords'][0]}: steps "
+                f"{[round(x, 1) for x in got['step_ms']]} ms; state "
+                f"{got['held'] / 1e9:.2f} GB ({got['held'] / one['held']:.3f}"
+                f" of one device's); the last step's collectives "
+                f"{sum(v[0] for v in kinds.values())} calls, {tot_mb:.1f} MB "
+                f"of the rank's parts, {tot_ms:.1f} ms (card synchronized "
+                f"around each, gloo through the host): " + "; ".join(
+                    f"{k} {v[0]} calls {v[1] / 1e6:.1f} MB {v[2]:.1f} ms"
+                    for k, v in sorted(kinds.items())) + f"  ({card})")
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -7116,6 +7653,8 @@ def run_phases(torch) -> int:
     log(f"[p21] phase 21 done at {time.perf_counter() - t_start:.1f} s")
     phase_p22(sm, card)
     log(f"[p22] phase 22 done at {time.perf_counter() - t_start:.1f} s")
+    phase_p23(sm, card)
+    log(f"[p23] phase 23 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
     acc_only["launches"] += (p20_launches.get("acc_only", 0)

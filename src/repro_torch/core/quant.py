@@ -124,7 +124,7 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant(v: torch.Tensor, gamma: torch.Tensor, spec: QuantSpec, *,
-               lead: int = 0) -> torch.Tensor:
+               lead: int = 0, whole=None, spread=None) -> torch.Tensor:
     """Eq. 5 quant-dequant with LSQ gradients (the QAT forward), in v's
     dtype: an activation in bf16 divides, clips, rounds and multiplies in
     bf16 (8-bit codes are exact there), a weight in f32.
@@ -135,20 +135,34 @@ def fake_quant(v: torch.Tensor, gamma: torch.Tensor, spec: QuantSpec, *,
     ``lead`` leading axes of ``v`` index independent tensors, each with its
     own step: an expert bank, whose weight (E, K, N) and activations (E,
     M, K) take gamma (E,) -- or (E, N) channel-wise -- as the reference's
-    ``jax.vmap`` over the experts gives, N counted per expert."""
+    ``jax.vmap`` over the experts gives, N counted per expert.
+
+    ``whole``: the shape of the tensor whose values share the steps when
+    ``v`` is one rank's shard of it (a tensor-parallel layer's columns or
+    rows): N is counted over the whole, as on one device -- a shard's own
+    count would make the step's gradient sqrt(M) times too large.
+
+    ``spread``: a function (step, shape) -> the step broadcast to
+    ``shape``, called once for each of the step's two uses (the division
+    and the product), whose backward gives the use's whole gradient in
+    the step's dtype (a row shard's activation step: summed over the
+    ranks before it is rounded, ``nn.quantized``)."""
     qn, qp = qrange(spec)
-    n = v.numel() // max(math.prod(v.shape[:lead]), 1)
+    shape = tuple(v.shape) if whole is None else tuple(whole)
+    n = math.prod(shape) // max(math.prod(shape[:lead]), 1)
     if spec.channel_axis is not None:
-        n //= v.shape[spec.channel_axis % v.ndim]
+        n //= shape[spec.channel_axis % len(shape)]
     gs = 1.0 / torch.sqrt(torch.tensor(float(max(n, 1)) * float(max(qp, 1)),
                                        dtype=torch.float32, device=v.device))
     gamma = grad_scale(gamma, gs)
     g = _broadcast_gamma(gamma, v, spec, lead).to(v.dtype)
-    vs = v / g
+    g_div, g_mul = ((g, g) if spread is None
+                    else (spread(g, v.shape), spread(g, v.shape)))
+    vs = v / g_div
     bound = lambda b: torch.tensor(b, dtype=vs.dtype,  # noqa: E731
                                    device=vs.device)
     vc = torch.minimum(torch.maximum(vs, bound(qn)), bound(qp))
-    return round_ste(vc) * g
+    return round_ste(vc) * g_mul
 
 
 def _broadcast_gamma(gamma: torch.Tensor, v: torch.Tensor, spec: QuantSpec,

@@ -30,6 +30,15 @@ microbatches.  ``any_rank`` and ``broadcast_value`` are the host-side
 agreements a training loop takes its decisions by, and ``barrier`` waits
 for every rank.
 
+Tensor-parallel training (a 'model' axis above 1 on a training mesh) has
+four collectives over 'model' under autograd, each sum gathered and then
+added in rank order from a zero f32 tensor: ``sum_model`` (a row shard's
+partial product; backward the identity), ``copy_model`` (the identity;
+backward that sum), ``gather_model`` (an all-gather along a dim; backward
+the rank's block) and ``owned_model`` (one rank owns each element: the
+embedding's lookup and the loss's label logit, exact).
+``all_reduce_model`` stays int32-only, for serving.
+
 Nothing here touches ``torch.distributed`` until a mesh is made.
 """
 from __future__ import annotations
@@ -51,9 +60,9 @@ __all__ = ["make_production_mesh", "make_local_mesh", "make_serve_mesh",
            "MeshInfo", "mesh_info", "local_device", "data_coords",
            "model_coords", "rank_of", "gather_rows", "all_reduce_model",
            "all_gather_model", "all_gather_parts", "all_gather_axes",
-           "all_reduce_batch",
-           "broadcast_value", "any_rank", "barrier", "DataRows",
-           "shared_clock", "spawn", "INIT_TIMEOUT_S"]
+           "all_reduce_batch", "sum_model", "copy_model", "gather_model",
+           "owned_model", "broadcast_value", "any_rank", "barrier",
+           "DataRows", "shared_clock", "spawn", "INIT_TIMEOUT_S"]
 
 INIT_TIMEOUT_S = 300.0  # every process-group init and collective
 
@@ -183,9 +192,11 @@ def make_local_mesh(*, device="cuda", devices=None):
 def make_train_mesh(shape: Tuple[int, ...] = None, *, device="cuda",
                     devices=None):
     """A training mesh over the world's ranks: ``shape`` (data, model) or
-    (pod, data, model), default (world, 1).  A 'model' axis above 1
-    raises ``NotImplementedError`` naming ROADMAP 16b (iv) before any
-    process group is touched; rank r sits at its row-major coordinates."""
+    (pod, data, model), default (world, 1); rank r sits at its row-major
+    coordinates, so the ranks of one data row are consecutive.  A 'model'
+    axis above 1 is tensor-parallel training, which ``make_train_step``
+    and the ``Trainer`` take for the archs that have it
+    (``nn.partitioning.require_train_mesh``)."""
     shape = tuple(shape) if shape is not None else (_world_size(), 1)
     names = (("data", "model") if len(shape) == 2
              else ("pod", "data", "model"))
@@ -328,6 +339,117 @@ def all_reduce_model(mesh, x: torch.Tensor) -> torch.Tensor:
     for p in parts[1:]:
         out += p
     return out
+
+
+# --- tensor-parallel training: collectives over 'model' under autograd -------
+
+
+def _sum_parts(parts, like: torch.Tensor) -> torch.Tensor:
+    """``parts`` added in order into a zero f32 tensor, cast to ``like``'s
+    dtype."""
+    out = torch.zeros(like.shape, dtype=torch.float32, device=like.device)
+    for p in parts:
+        out.add_(p)
+    return out.to(like.dtype)
+
+
+def _model_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every 'model' rank's ``x`` gathered and added in rank order from
+    zero in f32 (``all_reduce_batch``'s order), in ``x``'s dtype."""
+    _, n = model_coords(mesh)
+    return _sum_parts(_gather(mesh, "model", n, x), x)
+
+
+class _SumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _model_sum(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum(ctx.mesh, g), None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.block = dim, x.shape[dim]
+        ctx.rank = model_coords(mesh)[0]
+        return all_gather_model(mesh, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.block,
+                        ctx.block).contiguous(), None, None
+
+
+class _OwnedModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, owner):
+        r, n = model_coords(mesh)
+        ctx.save_for_backward(owner == r)
+        parts = _gather(mesh, "model", n, x)
+        out = parts[0]
+        for i, p in enumerate(parts[1:], 1):
+            out = torch.where(owner == i, p, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mine, = ctx.saved_tensors
+        return torch.where(mine, g, torch.zeros_like(g)), None, None
+
+
+def sum_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """(a) The sum over the 'model' ranks of a float tensor (a row shard's
+    f32 partial product): gathered, added in rank order from zero in f32
+    on every rank, so every rank gets the same bits.  Backward: the
+    identity -- the sum's cotangent is whole on every rank, and so is each
+    partial's."""
+    return x if model_coords(mesh)[1] == 1 else _SumModel.apply(x, mesh)
+
+
+def copy_model(mesh, x: torch.Tensor) -> torch.Tensor:
+    """(b) The identity, whose backward is ``sum_model``'s sum: a tensor
+    whole on every 'model' rank that each rank uses in part (the input of
+    a column shard, a step size whose gradient each rank holds a share
+    of), its partial cotangents summed in f32 in rank order and cast back
+    to its dtype (Megatron's copy to the tensor-parallel region)."""
+    return x if model_coords(mesh)[1] == 1 else _CopyModel.apply(x, mesh)
+
+
+def gather_model(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """(c) ``all_gather_model`` along ``dim`` under autograd: backward
+    keeps the rank's block of the cotangent.  Every consumer of the
+    gathered tensor runs whole on every rank and hands back a whole
+    cotangent (each column shard sums its partial input cotangents first,
+    ``copy_model``), so a sum over the ranks here would count the gradient
+    once a rank."""
+    if model_coords(mesh)[1] == 1:
+        return x
+    return _GatherModel.apply(x, mesh, dim)
+
+
+def owned_model(mesh, x: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
+    """(d) The sum over the 'model' ranks where exactly one rank owns each
+    element (``owner``: the owning rank, broadcast against ``x``; the
+    others hold zeros there): each element taken from its owner's ``x``,
+    exactly (a -0.0 stays -0.0).  Backward: the cotangent where this rank
+    owns the element, zero elsewhere."""
+    if model_coords(mesh)[1] == 1:
+        return x
+    return _OwnedModel.apply(x, mesh, owner)
 
 
 def rank_of(mesh) -> int:

@@ -28,6 +28,19 @@ and n is a multiple of M, each rank runs its B/n rows as one forward and
 the sum is divided by n; any other n and M raise.  Where the batch is not
 split (``batch_rules_for`` picked no axis) every rank runs the one-device
 step on the whole batch.
+
+On a mesh whose 'model' axis is above 1 (tensor-parallel training of the
+dense decoders and the ResNets) the state holds each rank's 'model'
+blocks as well; the step gathers only the FSDP blocks (over the mesh's
+other axes), so the forward runs over the rank's shards
+(``models.transformer``, ``models.resnet``), its logits a
+``nn.layers.VocabShard`` for the vocabulary-parallel ``cross_entropy``.
+Every 'model' rank of a data row runs that row's batch; the clip's norm
+sums each shard's squares over 'model' and takes a whole leaf once
+(``_model_global_norm``).  The contract is against the one-device step on
+the same global batch: the losses before any update and each leaf after
+three steps within the bounds ``tests/test_torch_tensor_parallel_train.py``
+states, whole leaves bitwise equal across the 'model' ranks.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ import torch
 
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.nn import layers as nnl
 from repro_torch.nn import param as nnp
 from repro_torch.nn import partitioning as part
 from repro_torch.nn.partitioning import axis_sizes
@@ -54,12 +68,64 @@ __all__ = ["cross_entropy", "deterministic", "value_and_grad",
            "batch_rules_for", "input_specs", "input_axes"]
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy, in f32 whatever the logits' dtype."""
+def cross_entropy(logits, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, in f32 whatever the logits' dtype.
+
+    ``logits`` a ``nn.layers.VocabShard`` (a tensor-parallel rank's
+    columns of the vocabulary): vocabulary-parallel, the same loss on
+    every 'model' rank -- the max over the shards (exact), the f32 sums of
+    exp gathered and added in rank order, the label's logit taken from
+    the rank that owns it; columns past the real vocabulary (the table's
+    padding) enter neither the max nor the sum, as one device's
+    ``[:vocab]`` cut leaves them out.  Its backward is softmax - onehot
+    over the rank's own columns (zero on the padding)."""
+    if isinstance(logits, nnl.VocabShard):
+        return _VocabParallelCE.apply(logits.logits, labels, logits.mesh,
+                                      logits.start, logits.vocab)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels[..., None].to(torch.long))[..., 0]
     return torch.mean(lse - ll)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """``cross_entropy`` over a ``VocabShard`` (its docstring).  The
+    forward runs ``launch.mesh``'s collectives (no autograd inside a
+    ``Function``); the backward is one device's ``logsumexp`` backward,
+    exp(logits - lse) scaled, over the rank's columns, minus the label's
+    share on its owner."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh, start, vocab):
+        n = logits.shape[-1]
+        lf = logits.to(torch.float32)
+        cols = start + torch.arange(n, device=lf.device)
+        lf = lf.masked_fill(cols >= vocab, float("-inf"))
+        mx = mesh_lib.gather_model(mesh, lf.amax(dim=-1)[..., None],
+                                   -1).amax(dim=-1)
+        total = mesh_lib.sum_model(
+            mesh, torch.exp(lf - mx[..., None]).sum(dim=-1))
+        lse = mx + torch.log(total)
+        labels = labels.to(torch.long)
+        local = labels - start
+        mine = (local >= 0) & (local < n)
+        ll = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        ll = mesh_lib.owned_model(
+            mesh, torch.where(mine, ll, torch.zeros_like(ll)),
+            torch.div(labels, n, rounding_mode="floor"))
+        ctx.save_for_backward(lf, lse, local, mine)
+        ctx.dtype = logits.dtype
+        return torch.mean(lse - ll)
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, local, mine = ctx.saved_tensors
+        c = g / lse.numel()
+        grad = torch.exp(lf - lse[..., None]) * c
+        hit = torch.where(mine, -c, torch.zeros_like(lse))
+        grad.scatter_add_(-1, local.clamp(0, lf.shape[-1] - 1)[..., None],
+                          hit[..., None])
+        return grad.to(ctx.dtype), None, None, None, None
 
 
 @contextlib.contextmanager
@@ -152,6 +218,22 @@ def _sum_over_batch(mesh, grads, axes, total):
     return unflatten(grads, flat)
 
 
+def _model_global_norm(mesh, grads, shardings) -> torch.Tensor:
+    """``global_norm`` of gradients whose leaves a tensor-parallel rank
+    holds as 'model' shards or whole: each leaf's f32 sum of squares, a
+    shard's summed over the 'model' ranks (``sum_model``, rank order from
+    zero), a whole leaf's taken once (not once a rank), the leaves added
+    in order from zero -- the same norm, so the same clip, on every
+    rank."""
+    sq = torch.stack([torch.sum(torch.square(g.to(torch.float32)))
+                      for g in leaves(grads)])
+    summed = mesh_lib.sum_model(mesh, sq)
+    total = 0
+    for i, sh in enumerate(leaves(shardings)):
+        total = total + (summed[i] if part.is_cut(sh, "model") else sq[i])
+    return torch.sqrt(total)
+
+
 def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
                     grad_compression: bool = False,
                     donate: bool = False, mesh=None,
@@ -169,7 +251,8 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
     then holds the new values.
 
     ``mesh``: a training mesh (``launch.mesh.make_train_mesh``; a 'model'
-    axis above 1 raises naming ROADMAP 16b (iv)).  ``state`` then holds
+    axis above 1 trains tensor-parallel, for the families
+    ``nn.partitioning.require_train_mesh`` takes).  ``state`` then holds
     the rank's blocks by ``train_state_shardings(api, mesh, rules)``
     (``rules`` default ``TRAIN_RULES``; ``state["gc"]``, when compressing,
     is whole on every rank) and ``batch`` the rank's rows
@@ -177,18 +260,27 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
     whole batch's, the same on every rank (see the module's docstring for
     the layout)."""
     mb = max(api.microbatches, 1)
-    n, axes = 1, ()
+    n, axes, fsdp, tp = 1, (), None, {}
     if mesh is not None:
-        part.require_train_mesh(axis_sizes(mesh))
+        part.require_train_mesh(axis_sizes(mesh), api.family)
         rules = part.TRAIN_RULES if rules is None else rules
         axes = _batch_axes(mesh, rules)
         for ax in axes:
             n *= axis_sizes(mesh)[ax]
         param_sh = train_state_shardings(api, mesh, rules)["params"]
+        if axis_sizes(mesh).get("model", 1) > 1:
+            if grad_compression:
+                raise NotImplementedError(
+                    "grad_compression on a tensor-parallel mesh: its error "
+                    "feedback is kept whole, the gradients are 'model' "
+                    "shards; not ported")
+            tp = {"mesh": mesh}
+            fsdp = tuple(ax for ax in part.axis_names(mesh)
+                         if ax != "model")
 
     def loss_fn(params, tokens, labels, frames):
         kw = {"frames": frames} if api.needs_frames else {}
-        logits = api.forward(params, tokens, mode="train", **kw)
+        logits = api.forward(params, tokens, mode="train", **kw, **tp)
         return cross_entropy(logits, labels)
 
     def local_grads(params, tokens, labels, frames, k, divide):
@@ -223,7 +315,7 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
         k, total = microbatch_layout(tokens.shape[0] * n, mb, n)
         with deterministic(tokens.device):
             params = (state["params"] if mesh is None
-                      else part.gather_by(state["params"], param_sh))
+                      else part.gather_by(state["params"], param_sh, fsdp))
             losses, grads = local_grads(params, tokens, labels, frames, k,
                                         n == 1)
             del params
@@ -237,9 +329,10 @@ def make_train_step(api, *, peak_lr: float = 3e-4, total_steps: int = 10_000,
                                                              state["gc"])
             lr = warmup_cosine(state["step"], peak_lr=peak_lr,
                                total=total_steps)
-            norm = global_norm(grads)
+            norm = (global_norm(grads) if not tp
+                    else _model_global_norm(mesh, grads, param_sh))
             if mesh is not None:
-                grads = part.shard_by(grads, param_sh)
+                grads = part.shard_by(grads, param_sh, fsdp)
             new_state["params"], new_state["opt"] = adamw_update(
                 grads, state["opt"], state["params"], lr=lr, donate=donate,
                 norm=norm)

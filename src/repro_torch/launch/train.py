@@ -16,13 +16,17 @@ recurrentgemma-9b (RG-LRU and local attention) and whisper-base (on
 synthetic frames as well as tokens).
 
 Under ``torchrun`` (``WORLD_SIZE`` set) every rank trains on
-``launch.mesh.make_local_mesh()``, a (world, 1) mesh; alone, ``--devices
-N`` starts N ranks (``launch.mesh.spawn``, one process each, ranks sharing
-the cards round-robin over gloo where N exceeds them).  Rank 0 prints and
+``launch.mesh.make_train_mesh``'s mesh, (world, 1) by default; alone,
+``--devices N`` starts N ranks (``launch.mesh.spawn``, one process each,
+ranks sharing the cards round-robin over gloo where N exceeds them).
+``--mesh DATAxMODEL`` lays the world out as (data, model): a 'model'
+axis above 1 trains tensor-parallel, which the dense decoders
+(granite-8b/34b, yi-34b, chameleon-34b, nemotron-4-340b) do; the other
+archs refuse, naming ROADMAP 16b (iv) (b) or (c).  Rank 0 prints and
 writes the checkpoints; ``--ckpt-dir`` restores onto any mesh.
 ``--production-mesh``/``--multipod`` build the reference's 16 x 16 and 2
-x 16 x 16 meshes, whose 'model' axis of 16 is tensor-parallel training
-(ROADMAP 16b (iv)): they refuse, naming it.  The ResNets are not trained here: the
+x 16 x 16 meshes (256 and 512 ranks, under ``torchrun``); a world of
+another size is told the world it needs.  The ResNets are not trained here: the
 reference lists them but its launcher reads ``cfg.vocab``, which a ResNet
 config lacks (ROADMAP Queue 3, R7); train them with
 ``launch.steps.make_train_step`` on ``data.pipeline.SyntheticImages``.
@@ -30,6 +34,7 @@ config lacks (ROADMAP Queue 3, R7); train them with
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 
@@ -63,21 +68,29 @@ def main(argv=None) -> int:
     ap.add_argument("--devices", type=int, default=None, metavar="N",
                     help="train data-parallel over N local ranks (one "
                          "process each); under torchrun the world is used")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="lay the world out as (data, model), e.g. 1x2: "
+                         "tensor-parallel over 'model' (default: all "
+                         "ranks data-parallel)")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 (data, model) mesh: refuses, naming "
-                         "tensor-parallel training (ROADMAP 16b (iv))")
+                    help="the 16x16 (data, model) mesh of 256 ranks")
     ap.add_argument("--multipod", action="store_true",
-                    help="the 2x16x16 (pod, data, model) mesh: refuses "
-                         "likewise")
+                    help="the 2x16x16 (pod, data, model) mesh of 512 ranks")
     args = ap.parse_args(argv)
 
+    shape = None
     if args.production_mesh or args.multipod:
         shape = (2, 16, 16) if args.multipod else (16, 16)
+    elif args.mesh is not None:
+        shape = mesh_lib.parse_mesh_spec(args.mesh)
+    if shape is not None and args.arch not in configs.RESNET_NAMES:
         names = ("pod", "data", "model")[-len(shape):]
         try:
-            part.require_train_mesh(dict(zip(names, shape)))
+            part.require_train_mesh(dict(zip(names, shape)),
+                                    configs.get(args.arch).family)
         except NotImplementedError as e:
-            raise SystemExit(f"--production-mesh/--multipod: {e}") from None
+            raise SystemExit(f"--mesh/--production-mesh/--multipod: {e}"
+                             ) from None
     if args.arch in configs.RESNET_NAMES:
         raise SystemExit(
             f"{args.arch}: launch.train trains LM archs on synthetic tokens; "
@@ -91,6 +104,16 @@ def main(argv=None) -> int:
     # before spawned ranks start, which inherit it)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     env = os.environ.get("WORLD_SIZE")
+    if shape is not None:
+        need = math.prod(shape)
+        world = int(env) if env is not None else (args.devices or 1)
+        if world != need:
+            raise SystemExit(
+                f"the {'x'.join(map(str, shape))} mesh ('model' axis of "
+                f"{shape[-1]}, tensor-parallel training, ROADMAP Queue 1, "
+                f"label 16b (iv) (a)) needs a world of {need} ranks; this "
+                f"one has {world}: start them under torchrun "
+                f"--nproc-per-node (and --nnodes), or with --devices {need}")
     if env is None and (args.devices or 1) > 1:
         return _spawn(args, argv)
     if env is not None and args.devices not in (None, int(env)):
@@ -98,7 +121,7 @@ def main(argv=None) -> int:
                          f"has {env} ranks")
     mesh = None
     if env is not None or args.devices is not None:
-        mesh = mesh_lib.make_local_mesh(device=args.device,
+        mesh = mesh_lib.make_train_mesh(shape, device=args.device,
                                         devices=_rank_devices(args))
         print(f"[train] mesh {dict(mesh_lib.mesh_axes(mesh))} over "
               f"{mesh_lib.chips(mesh)} ranks, this rank on "

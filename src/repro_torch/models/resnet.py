@@ -30,6 +30,8 @@ from repro_torch.core.dse import Gemm
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mpmm import ref as mpmm_ref
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.nn import layers as nnl
 from repro_torch.nn import quantized as Q
 from repro_torch.nn.param import ParamSpec
 
@@ -189,75 +191,106 @@ def bn_apply(p, state, x: torch.Tensor, *, training: bool):
     return y.to(x.dtype), new_state
 
 
-def _basic_fwd(p, st, x, policy, stride, training, lname):
-    h = Q.qconv_apply(p["conv1"], x, policy, k=3, stride=stride,
-                      name=lname + "c1")
-    h, st1 = bn_apply(p["bn1"], st["bn1"], h, training=training)
-    h = torch.relu(h)
-    h = Q.qconv_apply(p["conv2"], h, policy, k=3, name=lname + "c2")
-    h, st2 = bn_apply(p["bn2"], st["bn2"], h, training=training)
+def _conv_bn(p, st, conv, bn, x, policy, *, k, stride=1, training, name,
+             mesh=None, **kw):
+    """Conv ``p[conv]`` then BN ``p[bn]`` -> (y, BN state).  On a
+    tensor-parallel ``mesh`` the conv is column-parallel over its output
+    channels and all-gathered before the BN
+    (``nn.quantized.qconv_apply``), so BN and its batch statistics run
+    whole on every rank."""
+    h = Q.qconv_apply(p[conv], x, policy, k=k, stride=stride, name=name,
+                      mesh=mesh, cout=p[bn]["scale"].shape[0], **kw)
+    return bn_apply(p[bn], st[bn], h, training=training)
+
+
+def _shortcut_train(p, st, x, policy, stride, training, lname, mesh,
+                    new_st):
+    if "proj" not in p:
+        return x
+    x, new_st["bn_proj"] = _conv_bn(p, st, "proj", "bn_proj", x, policy,
+                                    k=1, stride=stride, training=training,
+                                    name=lname + "p", mesh=mesh)
+    return x
+
+
+def _basic_fwd(p, st, x, policy, stride, training, lname, mesh=None):
+    kw = dict(policy=policy, training=training, mesh=mesh)
+    h, st1 = _conv_bn(p, st, "conv1", "bn1", x, k=3, stride=stride,
+                      name=lname + "c1", **kw)
+    h, st2 = _conv_bn(p, st, "conv2", "bn2", torch.relu(h), k=3,
+                      name=lname + "c2", **kw)
     new_st = {"bn1": st1, "bn2": st2}
-    if "proj" in p:
-        x = Q.qconv_apply(p["proj"], x, policy, k=1, stride=stride,
-                          name=lname + "p")
-        x, new_st["bn_proj"] = bn_apply(p["bn_proj"], st["bn_proj"], x,
-                                        training=training)
+    x = _shortcut_train(p, st, x, policy, stride, training, lname, mesh,
+                        new_st)
     return torch.relu(x + h), new_st
 
 
-def _bottleneck_fwd(p, st, x, policy, stride, training, lname):
-    h = Q.qconv_apply(p["conv1"], x, policy, k=1, name=lname + "c1")
-    h, st1 = bn_apply(p["bn1"], st["bn1"], h, training=training)
-    h = torch.relu(h)
-    h = Q.qconv_apply(p["conv2"], h, policy, k=3, stride=stride,
-                      name=lname + "c2")
-    h, st2 = bn_apply(p["bn2"], st["bn2"], h, training=training)
-    h = torch.relu(h)
-    h = Q.qconv_apply(p["conv3"], h, policy, k=1, name=lname + "c3")
-    h, st3 = bn_apply(p["bn3"], st["bn3"], h, training=training)
+def _bottleneck_fwd(p, st, x, policy, stride, training, lname, mesh=None):
+    kw = dict(policy=policy, training=training, mesh=mesh)
+    h, st1 = _conv_bn(p, st, "conv1", "bn1", x, k=1, name=lname + "c1",
+                      **kw)
+    h, st2 = _conv_bn(p, st, "conv2", "bn2", torch.relu(h), k=3,
+                      stride=stride, name=lname + "c2", **kw)
+    h, st3 = _conv_bn(p, st, "conv3", "bn3", torch.relu(h), k=1,
+                      name=lname + "c3", **kw)
     new_st = {"bn1": st1, "bn2": st2, "bn3": st3}
-    if "proj" in p:
-        x = Q.qconv_apply(p["proj"], x, policy, k=1, stride=stride,
-                          name=lname + "p")
-        x, new_st["bn_proj"] = bn_apply(p["bn_proj"], st["bn_proj"], x,
-                                        training=training)
+    x = _shortcut_train(p, st, x, policy, stride, training, lname, mesh,
+                        new_st)
     return torch.relu(x + h), new_st
 
 
 def apply_with_state(cfg: ResNetConfig, params, state, images: torch.Tensor,
-                     policy, *, training: bool = False):
+                     policy, *, training: bool = False, mesh=None):
     """QAT forward: images (B, H, W, 3) -> (logits (B, classes) bf16, new
-    BN state).  The stem quantizes its weights but not the raw pixels."""
-    x = Q.qconv_apply(params["stem"], images, policy, k=7, stride=2,
-                      layer_class="boundary", quantize_act=False, name="stem")
-    x, st_stem = bn_apply(params["bn_stem"], state["bn_stem"], x,
-                          training=training)
+    BN state).  The stem quantizes its weights but not the raw pixels.
+
+    ``mesh`` with a 'model' axis above 1 (tensor-parallel training):
+    ``params`` holds the rank's 'model' blocks under ``TRAIN_RULES``.
+    Every conv is column-parallel over its output channels, which are
+    all-gathered before its BN (BN, its state and the residual stream
+    whole on every rank); the classifier is column-parallel over the
+    classes and returns the rank's ``nn.layers.VocabShard`` for the
+    vocabulary-parallel loss.  A leaf kept whole (its channels or classes
+    do not split) runs as on one device."""
+    if mesh_lib.model_coords(mesh)[1] == 1:
+        mesh = None
+    x, st_stem = _conv_bn(params, state, "stem", "bn_stem", images, policy,
+                          k=7, stride=2, training=training, name="stem",
+                          mesh=mesh, layer_class="boundary",
+                          quantize_act=False)
     x = max_pool_same(torch.relu(x))
     new_state = {"bn_stem": st_stem}
     fwd = _bottleneck_fwd if cfg.block == "bottleneck" else _basic_fwd
     for si, bi, cin, cmid, stride in _block_channels(cfg):
         key = f"s{si}b{bi}"
         x, new_state[key] = fwd(params[key], state[key], x, policy, stride,
-                                training, key)
+                                training, key, mesh)
     # jnp.mean on bf16 sums in f32 and returns bf16
     x = x.to(torch.float32).mean(dim=(1, 2)).to(x.dtype)
-    logits = Q.qlinear_apply(
-        {k: v for k, v in params["fc"].items() if k != Q.QMARK}, x, policy,
-        layer_class="boundary", name="fc")
+    fc = {k: v for k, v in params["fc"].items() if k != Q.QMARK}
+    n = fc["w"].shape[-1]
+    cut = mesh is not None and n != cfg.n_classes
+    logits = Q.qlinear_apply(fc, x, policy, layer_class="boundary",
+                             name="fc", col_mesh=mesh if cut else None)
+    if cut:
+        logits = nnl.VocabShard(logits, mesh,
+                                mesh_lib.model_coords(mesh)[0] * n,
+                                cfg.n_classes)
     return logits, new_state
 
 
 def forward(cfg: ResNetConfig, params, images: torch.Tensor, policy, *,
-            mode: str = "train", impl: str = "auto", state=None):
+            mode: str = "train", impl: str = "auto", state=None, mesh=None):
     """Logits only: batch statistics under ``mode="train"``, else the
     running ones of ``state`` (a fresh state, zeros and ones, on the
     images' device when none is given).  ``impl`` is unused: the QAT
-    forward runs no kernel."""
+    forward runs no kernel.  ``mesh``: tensor-parallel training
+    (``apply_with_state``)."""
     del impl
     if state is None:
         state = init_bn_state(specs(cfg), device=images.device)
     logits, _ = apply_with_state(cfg, params, state, images, policy,
-                                 training=(mode == "train"))
+                                 training=(mode == "train"), mesh=mesh)
     return logits
 
 

@@ -49,6 +49,22 @@ row shards' int32 accumulators are summed over 'model', the head's columns
 all-gathered, so every rank holds the same residual stream and the same
 logits, and prefill and decode logits are the one-device logits bitwise
 (``nn.attention`` for the split decode, ``nn.moe`` for the combine).
+
+Tensor-parallel training (``forward(mode="train", mesh=)``, the dense
+decoders; MoE and MLA layers raise naming ROADMAP 16b (iv) (b)):
+``params`` holds the rank's 'model' blocks under ``TRAIN_RULES`` -- q,
+gate, up and the head by columns, o and down by rows, the embedding by
+vocabulary rows, k/v and the norms whole.  The embedding's rows come from
+their owning rank, q/gate/up are column-parallel over the whole residual
+stream, o/down row-parallel with f32 partial products summed in rank
+order, k/v whole weights of which the rank's q heads use their KV heads,
+and the head returns the rank's vocabulary columns
+(``nn.layers.VocabShard``) to the vocabulary-parallel loss.  Where the
+heads (or d_ff) do not split, the attention block (or the MLP) runs whole
+on every rank.  Every collective runs under autograd
+(``launch.mesh.{sum_model, copy_model, gather_model, owned_model}``), and
+``remat`` recomputes a layer's collectives in its backward, alike on
+every rank.
 """
 from __future__ import annotations
 
@@ -321,17 +337,26 @@ def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
                                impl=impl, lname=lname,
                                mesh=mesh).reshape(b, s, d)
     nm = lname + "mlp"
-    fn = lambda w, h: Q.qlinear_any(  # noqa: E731
-        w, h, policy, serve=serve, impl=impl, name=nm)
     mp = p["mlp"]
+    col = {}
+    if mesh is not None and not serve:
+        # training: gate/up column-parallel, down row-parallel where the
+        # leaves hold shards of d_ff; where d_ff does not split over the
+        # ranks they are whole and the MLP runs as on one device
+        if mp["up"]["w"].shape[-1] == cfg.d_ff:
+            mesh = None
+        else:
+            col = {"col_mesh": mesh}
+    fn = lambda w, h, **kw: Q.qlinear_any(  # noqa: E731
+        w, h, policy, serve=serve, impl=impl, name=nm, **kw)
     if cfg.act == "swiglu":
-        h = nnl.swiglu_combine(fn(mp["gate"], x), fn(mp["up"], x))
+        h = nnl.swiglu_combine(fn(mp["gate"], x, **col),
+                               fn(mp["up"], x, **col))
     else:
-        h = fn(mp["up"], x)
+        h = fn(mp["up"], x, **col)
         h = nnl.squared_relu(h) if cfg.act == "sq_relu" else nnl.gelu(h)
     if mesh is not None:
-        return Q.qlinear_serve_apply(mp["down"], h, policy, impl=impl,
-                                     name=nm, row_mesh=mesh)
+        return fn(mp["down"], h, row_mesh=mesh)
     return fn(mp["down"], h)
 
 
@@ -370,21 +395,29 @@ def _serve_mode(mode: str) -> bool:
     return mode == "serve"
 
 
-def _tp_mesh(cfg, mesh, serve: bool = True):
-    """``mesh`` where its 'model' axis is above 1, else None; raises for
-    the train path, which tensor parallelism does not serve."""
+def _tp_mesh(cfg, mesh, serve: bool = True, forward: bool = False):
+    """``mesh`` where its 'model' axis is above 1, else None.  In training
+    (``serve=False``) only the full-sequence ``forward`` of the dense
+    decoders runs tensor-parallel: MoE and MLA layers raise naming ROADMAP
+    16b (iv) (b), and so does the train-mode cache path."""
     if mesh_lib.model_coords(mesh)[1] == 1:
         return None
     if not serve:
-        raise ValueError("a 'model' axis above 1 serves packed trees only "
-                         "(mode='serve')")
+        if cfg.moe is not None or cfg.mla is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor-parallel training of MoE and MLA "
+                f"layers is not ported (ROADMAP Queue 1, label 16b (iv) "
+                f"(b))")
+        if not forward:
+            raise ValueError("a 'model' axis above 1 in training runs the "
+                             "full-sequence forward(mode='train') only")
     return mesh
 
 
 def _embed(params, tokens, serve=True, mesh=None):
     if serve:
         return nnl.embed_serve_apply(params["embed"], tokens, mesh=mesh)
-    return nnl.embed_apply(params["embed"], tokens)
+    return nnl.embed_apply(params["embed"], tokens, mesh=mesh)
 
 
 def _head_input(cfg, params, x):
@@ -395,12 +428,20 @@ def _head_input(cfg, params, x):
 
 def _head(cfg, params, x, policy, impl, serve=True, mesh=None):
     """Final norm and head -> logits over the vocabulary; on a
-    tensor-parallel ``mesh`` the rank's vocabulary columns, all-gathered
-    over 'model' in rank order (every rank the same logits)."""
+    tensor-parallel ``mesh`` the rank's vocabulary columns: all-gathered
+    over 'model' in rank order when serving (every rank the same logits),
+    in training a ``nn.layers.VocabShard`` of the padded vocabulary for
+    the vocabulary-parallel loss (the head column-parallel)."""
     h = _head_input(cfg, params, x)
+    n = None if serve else params["head"]["w"].shape[-1]
+    if mesh is not None and not serve and n != nnl.pad_vocab(cfg.vocab):
+        logits = Q.qlinear_apply(params["head"], h, policy, name="head",
+                                 layer_class="boundary", col_mesh=mesh)
+        return nnl.VocabShard(logits, mesh, mesh_lib.model_coords(mesh)[0]
+                              * n, cfg.vocab)
     logits = Q.qlinear_any(params["head"], h, policy, serve=serve, impl=impl,
                            name="head", layer_class="boundary")
-    if mesh is not None:
+    if mesh is not None and serve:
         logits = mesh_lib.all_gather_model(mesh, logits, dim=-1)
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
@@ -427,20 +468,21 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
     return (start + torch.arange(s, device=device)).expand(b, s)
 
 
-def _train_forward(cfg, params, tokens, policy):
+def _train_forward(cfg, params, tokens, policy, mesh=None):
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
     kv_info = kv_formats(cfg, policy)
     store = kv_info[0] if kv_info is not None else "packed"
-    x = _embed(params, tokens, serve=False)
+    cut = params["embed"]["table"].shape[0] != nnl.pad_vocab(cfg.vocab)
+    x = _embed(params, tokens, serve=False, mesh=mesh if cut else None)
     for i, lp in enumerate(params["layers"]):
         def layer(h, lp=lp, i=i):
             return _layer_fwd(
                 cfg, lp, h, policy, sin, cos, impl="torch", lname=f"l{i}.",
                 kv_fmts=kv_info[1][i] if kv_info is not None else None,
-                kv_store=store, serve=False)[0]
+                kv_store=store, serve=False, mesh=mesh)[0]
         x = remat(cfg, layer, x)
-    return _head(cfg, params, x, policy, "torch", serve=False)
+    return _head(cfg, params, x, policy, "torch", serve=False, mesh=mesh)
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
@@ -452,10 +494,11 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor, policy, *,
     tree; ``impl`` unused, no kernel runs).  ``mode`` defaults to "serve"
     here, where the reference's ``forward`` defaults to "train";
     ``ModelAPI.forward`` defaults to "train" in both packages.  ``mesh``:
-    tensor-parallel serving (module doc)."""
-    mesh = _tp_mesh(cfg, mesh, _serve_mode(mode))
+    tensor-parallel serving, or training, whose logits are then the
+    rank's ``nn.layers.VocabShard`` (module doc)."""
+    mesh = _tp_mesh(cfg, mesh, _serve_mode(mode), forward=True)
     if not _serve_mode(mode):
-        return _train_forward(cfg, params, tokens, policy)
+        return _train_forward(cfg, params, tokens, policy, mesh)
     b, s = tokens.shape
     sin, cos = _rotary(cfg, _positions(b, s, 0, tokens.device))
     x, _ = _run_layers(cfg, params, _embed(params, tokens, mesh=mesh),

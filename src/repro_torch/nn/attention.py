@@ -369,22 +369,27 @@ def gqa_serve_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int, *,
     }
 
 
-def _proj(p, x, policy, *, serve, impl, name, row_mesh=None):
+def _proj(p, x, policy, *, serve, impl, name, row_mesh=None, **kw):
     """One projection: packed (serve) or fake-quant (train); ``row_mesh``
-    (serve only) makes it a row shard over that mesh's 'model' axis."""
-    kw = {} if row_mesh is None else {"row_mesh": row_mesh}
+    makes it a row shard over that mesh's 'model' axis; ``kw`` (train
+    only): ``col_mesh`` (``qlinear_apply``)."""
+    if row_mesh is not None:
+        kw["row_mesh"] = row_mesh
     return Q.qlinear_any(p, x, policy, serve=serve, impl=impl, name=name,
                          **kw)
 
 
 def _model(mesh, n_heads: int, serve: bool):
-    """(this rank's 'model' coordinate, the axis' size) of an attention
-    block, checked: tensor parallelism serves only, over whole heads."""
+    """(this rank's 'model' coordinate, the axis' size) of a serving
+    attention block, checked: over whole heads; a tensor-parallel train
+    block is ``gqa_prefill(serve=False)``'s alone (the full-sequence
+    forward)."""
     r, m = mesh_lib.model_coords(mesh)
     if m > 1 and (not serve or n_heads % m):
         raise ValueError(f"a tensor-parallel attention block serves "
                          f"(serve=True) {n_heads} heads split evenly over "
-                         f"{m} ranks")
+                         f"{m} ranks; tensor-parallel training runs the "
+                         f"full-sequence forward (gqa_prefill)")
     return r, m
 
 
@@ -421,14 +426,37 @@ def _kv_select_axis(t: torch.Tensor, heads, axis: int) -> torch.Tensor:
     return torch.index_select(t, axis, heads.to(t.device))
 
 
+def _train_heads(p, mesh, n_heads: int, head_dim: int):
+    """(p, r, m) of a training block on ``mesh``: as they are where the
+    heads split over the 'model' axis (q column-parallel by heads, o
+    row-parallel); where they do not (nor, then, M whole heads a rank),
+    q's columns and o's rows are all-gathered where the rules cut them
+    (``launch.mesh.gather_model``: the rank's block of each gradient) and
+    the block runs whole on every rank, as on one device (r 0, m 1)."""
+    r, m = mesh_lib.model_coords(mesh)
+    if m == 1 or n_heads % m == 0:
+        return p, r, m
+    if p["q"]["w"].shape[-1] != n_heads * head_dim:
+        q = dict(p["q"], w=mesh_lib.gather_model(mesh, p["q"]["w"], -1))
+        if q["gw"].ndim:
+            q["gw"] = mesh_lib.gather_model(mesh, q["gw"], -1)
+        p = dict(p, q=q, o=dict(p["o"], w=mesh_lib.gather_model(
+            mesh, p["o"]["w"], -2)))
+    return p, 0, 1
+
+
 def _qkv(p, x, policy, *, n_heads, n_kv, head_dim, sin, cos, impl, nm,
-         rope=True, serve=True):
+         rope=True, serve=True, train_mesh=None):
     """The q/k/v projections, rotary applied to q and k (``rope``);
-    ``n_heads`` counts the q heads this rank holds."""
+    ``n_heads`` counts the q heads this rank holds.  ``train_mesh``
+    (tensor-parallel training): q column-parallel; k and v whole on every
+    rank, as on one device (``gqa_prefill`` sums their cotangents)."""
     b, s, _ = x.shape
+    tp = lambda key: ({"col_mesh": train_mesh}  # noqa: E731
+                      if train_mesh is not None and key == "q" else {})
     proj = lambda key, n: _proj(  # noqa: E731
-        p[key], x, policy, serve=serve, impl=impl,
-        name=nm[key]).reshape(b, s, n, head_dim)
+        p[key], x, policy, serve=serve, impl=impl, name=nm[key],
+        **tp(key)).reshape(b, s, n, head_dim)
     q, k, v = proj("q", n_heads), proj("k", n_kv), proj("v", n_kv)
     if not rope:
         return q, k, v
@@ -468,19 +496,22 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     caller keeps the rank's sequence block (``runtime.serve``)."""
     b, s, _ = x.shape
     nm = _gqa_names(lname, names)
-    r, m = _model(mesh, n_heads, serve)
+    if serve:
+        r, m = _model(mesh, n_heads, serve)
+    else:
+        p, r, m = _train_heads(p, mesh, n_heads, head_dim)
     h_l = n_heads // m
     q, k, v = _qkv(p, x, policy, n_heads=h_l, n_kv=n_kv,
                    head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
-                   rope=rope, serve=serve)
+                   rope=rope, serve=serve,
+                   train_mesh=mesh if not serve and m > 1 else None)
     fmt_k, fmt_v = kv_fmts if kv_fmts is not None else (None, None)
     packed = kv_fmts is not None and kv_store == "packed"
     kq = kvcache.pack_kv(k, fmt_k) if packed and fmt_k is not None else None
     vq = kvcache.pack_kv(v, fmt_v) if packed and fmt_v is not None else None
-    if not serve:
-        attn_impl = "xla"  # the reference's flash kernels serve only
     heads = _local_kv_heads(r, h_l, n_heads // n_kv)
-    if attn_impl == "flash" and kq is not None and vq is not None:
+    # the reference's flash kernels serve only
+    if serve and attn_impl == "flash" and kq is not None and vq is not None:
         # K4: the codes travel to the kernel, never bf16 K/V
         o = flash_ops.flash_attention_packed(
             q, _kv_select(kq, heads), _kv_select(vq, heads), fmt_k, fmt_v,
@@ -493,12 +524,25 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
         if fmt_v is not None:
             v = (kvcache.unpack_kv(vq, fmt_v) if vq is not None
                  else kvcache.qdq_kv(v, fmt_v))
-        k_l, v_l = _kv_select(k, heads), _kv_select(v, heads)
-        if attn_impl == "flash":
-            o = flash_ops.flash_attention(q, k_l, v_l, causal=causal,
-                                          window=window, block_k=chunk,
-                                          impl=impl)
+        if not serve:
+            # the rank's q heads' KV heads (all of them on one device),
+            # broadcast then cut (no index_select, whose backward adds
+            # with atomics on a card), and attention over those heads.
+            # k and v are whole on every rank: their cotangents are
+            # summed over 'model' where one device's broadcast sums its
+            # group, so all that precedes (the projections, rotary, the
+            # cache's quantization) runs one device's backward
+            g, tp = n_heads // n_kv, mesh if m > 1 else None
+            k_l, v_l = (_repeat_kv(mesh_lib.copy_model(tp, t), g)
+                        [:, :, r * h_l:(r + 1) * h_l] for t in (k, v))
+            o = chunked_attention(q, k_l, v_l, causal=causal,
+                                  window=window, chunk=chunk)
+        elif attn_impl == "flash":
+            o = flash_ops.flash_attention(
+                q, _kv_select(k, heads), _kv_select(v, heads),
+                causal=causal, window=window, block_k=chunk, impl=impl)
         elif attn_impl == "xla":
+            k_l, v_l = _kv_select(k, heads), _kv_select(v, heads)
             g = h_l // k_l.shape[2]
             o = sharded_heads_attention(
                 q, _repeat_kv(k_l, g), _repeat_kv(v_l, g), r, m,

@@ -18,6 +18,7 @@ elements come out different.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
@@ -31,7 +32,8 @@ from repro_torch.nn.param import ParamSpec
 __all__ = [
     "rmsnorm_spec", "rmsnorm_apply",
     "layernorm_spec", "layernorm_apply",
-    "pad_vocab", "embed_spec", "embed_apply", "embed_serve_spec",
+    "pad_vocab", "embed_spec", "embed_apply", "VocabShard",
+    "embed_serve_spec",
     "embed_serve_apply",
     "pack_embed",
     "rotary_cache", "apply_rotary",
@@ -99,10 +101,40 @@ def embed_spec(vocab: int, dim: int) -> Dict[str, ParamSpec]:
                                init="embed")}
 
 
-def embed_apply(p, ids: torch.Tensor) -> torch.Tensor:
+def embed_apply(p, ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """The float table's rows in bf16 (the QAT forward; the table is not
-    quantized in training)."""
-    return F.embedding(ids, p["table"]).to(torch.bfloat16)
+    quantized in training).  ``mesh``: the table is this rank's block of
+    the (padded) vocabulary's rows on the mesh's 'model' axis: the rank
+    looks up the ids in its block, zeros elsewhere, and the rows are taken
+    from their owning rank (``launch.mesh.owned_model``: the one-device
+    rows exactly); the backward adds into the rank's own rows only."""
+    r, m = mesh_lib.model_coords(mesh)
+    if m == 1:
+        return F.embedding(ids, p["table"]).to(torch.bfloat16)
+    rows = p["table"].shape[0]
+    local = ids - r * rows
+    hit = (local >= 0) & (local < rows)
+    got = F.embedding(local.clamp(0, rows - 1),
+                      p["table"]).to(torch.bfloat16)
+    got = torch.where(hit[..., None], got, torch.zeros_like(got))
+    return mesh_lib.owned_model(mesh, got,
+                                torch.div(ids, rows,
+                                          rounding_mode="floor")[..., None])
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """A tensor-parallel rank's block of logits over a vocabulary split on
+    the mesh's 'model' axis (the training head, the ResNet classifier):
+    ``logits`` (..., n) are columns ``[start, start + n)`` of the whole,
+    whose first ``vocab`` columns are real (the rest the table's padding,
+    ``pad_vocab``).  The vocabulary-parallel loss
+    (``launch.steps.cross_entropy``) takes it as it is."""
+
+    logits: torch.Tensor
+    mesh: object
+    start: int
+    vocab: int
 
 
 def embed_serve_spec(vocab: int, dim: int,

@@ -42,7 +42,7 @@ Activations are replicated over
 ``all_gather_model``), so ``constrain`` stays a no-op.  A 'pod' axis above
 1 is described by these rules but not served.
 
-And training on a (data, model = 1) or (pod, data, model = 1) mesh
+And training on a (data, model) or (pod, data, model) mesh
 (``runtime.train``, ``launch.steps.make_train_step``): under
 ``TRAIN_RULES`` each rank keeps its block of every leaf's 'embed'
 dimension over ('pod', 'data') (FSDP) in the train state, parameters and
@@ -50,9 +50,17 @@ both moments alike (``shard_by``, by a tree of ``NamedSharding``s), and a
 step gathers the parameters whole (``gather_by``, the inverse: the blocks
 all-gathered in rank order, bit for bit).  ``fit_shardings`` keeps a leaf
 whole where its dimension does not split evenly over the ranks (the
-ResNets' 147-row stem), where the reference refuses the leaf.  A 'model'
-axis above 1 in training (tensor-parallel training, ROADMAP 16b (iv))
-raises ``NotImplementedError`` (``require_train_mesh``).
+ResNets' 147-row stem), where the reference refuses the leaf.
+
+A 'model' axis above 1 in training (tensor-parallel training of the
+dense decoders and the ResNets, ``TP_TRAIN_FAMILIES``): each rank keeps
+also its 'model' block of every leaf the rules cut over 'model' (q, gate,
+up and the head by columns, o and down by rows, the embedding by
+vocabulary rows, a conv by output channels, the classifier by classes),
+k/v, the norms and BN whole; a step gathers only the FSDP blocks
+(``gather_by(..., axes=)``) and keeps the 'model' shards.  Other families
+raise ``NotImplementedError`` naming ROADMAP 16b (iv) (b) or (c)
+(``require_train_mesh``).
 """
 from __future__ import annotations
 
@@ -86,7 +94,9 @@ __all__ = [
     "fit_shardings",
     "shard_by",
     "gather_by",
+    "is_cut",
     "local_index",
+    "TP_TRAIN_FAMILIES",
     "bucket",
     "BUCKET_BYTES",
 ]
@@ -280,16 +290,31 @@ def require_serve_mesh(sizes: Dict[str, int]) -> None:
             f"a multi-pod serve mesh is not ported")
 
 
-def require_train_mesh(sizes: Dict[str, int]) -> None:
-    """Raise unless the mesh (``sizes``: {axis: size}) is one the port
-    trains on: 'model' of size 1 ('pod' and 'data', the batch and FSDP
-    axes, of any size).  Tensor-parallel training waits for ROADMAP 16b
-    (iv)."""
-    if sizes.get("model", 1) > 1:
+# model families (``ModelAPI.family``) that train tensor-parallel over
+# 'model' (ROADMAP 16b (iv) (a)), and the part of 16b (iv) the others wait
+# for
+TP_TRAIN_FAMILIES = ("dense", "vlm", "cnn")
+TP_TRAIN_LATER = {"moe": "(b)", "audio": "(b)", "ssm": "(c)",
+                  "hybrid": "(c)"}
+
+
+def require_train_mesh(sizes: Dict[str, int],
+                       family: Optional[str] = None) -> None:
+    """Raise unless the port trains ``family`` (a ``ModelAPI.family``;
+    None: the mesh alone) on a mesh of ``sizes`` ({axis: size}): 'pod'
+    and 'data' (the batch and FSDP axes) of any size; 'model' above 1
+    (tensor-parallel) for the dense decoders and the ResNets
+    (``TP_TRAIN_FAMILIES``).  Any other family raises
+    ``NotImplementedError`` naming the part of ROADMAP 16b (iv) it waits
+    for."""
+    m = sizes.get("model", 1)
+    if m > 1 and family is not None and family not in TP_TRAIN_FAMILIES:
+        part_ = TP_TRAIN_LATER.get(family, "(b)")
         raise NotImplementedError(
-            f"a training mesh with a 'model' axis of {sizes['model']}: "
-            f"tensor-parallel training is not ported (ROADMAP Queue 1, "
-            f"label 16b (iv)); train on a (data, 1) or (pod, data, 1) mesh")
+            f"a training mesh with a 'model' axis of {m}: tensor-parallel "
+            f"training of the {family!r} family is not ported (ROADMAP "
+            f"Queue 1, label 16b (iv) {part_}); train it on a (data, 1) or "
+            f"(pod, data, 1) mesh")
 
 
 def constrain(x, axes: Sequence[Optional[str]]):
@@ -340,11 +365,29 @@ def _blocks(shape, spec: Spec, coords, path: str = ""):
     return out
 
 
-def local_index(shape, sharding: "NamedSharding", path: str = "") -> tuple:
+def _only(spec: Spec, axes) -> Spec:
+    """``spec`` with every mesh axis outside ``axes`` dropped (None: all
+    kept); a dimension that names kept and dropped axes at once raises."""
+    if axes is None:
+        return spec
+    out = []
+    for entry in spec:
+        names = _entry_axes(entry)
+        kept = tuple(ax for ax in names if ax in axes)
+        if kept and len(kept) != len(names):
+            raise ValueError(f"spec entry {entry!r} mixes mesh axes {axes} "
+                             f"with others")
+        out.append(kept or None)
+    return tuple(out)
+
+
+def local_index(shape, sharding: "NamedSharding", path: str = "",
+                axes=None) -> tuple:
     """This rank's block of a whole leaf of ``shape`` under ``sharding``, as
-    a tuple of slices (numpy and torch indexing alike)."""
+    a tuple of slices (numpy and torch indexing alike); ``axes``: cut only
+    over these mesh axes (None: all)."""
     index = [slice(None)] * len(shape)
-    for dim, idx, n in _blocks(shape, sharding.spec,
+    for dim, idx, n in _blocks(shape, _only(sharding.spec, axes),
                                _coords(sharding.mesh), path):
         per = shape[dim] // n
         index[dim] = slice(idx * per, (idx + 1) * per)
@@ -419,12 +462,15 @@ def fit_shardings(shardings, template):
     return _walk2(template, shardings, fit, _is_sharding)
 
 
-def shard_by(tree, shardings):
+def shard_by(tree, shardings, axes=None):
     """This rank's block of every leaf of ``tree`` (tensors) by the
     ``NamedSharding`` tree ``shardings``, each a copy of its own; a leaf
-    that no axis of size above 1 cuts is returned as it is."""
+    that no axis of size above 1 cuts is returned as it is.  ``axes``: cut
+    only over these mesh axes (None: all), as a tensor-parallel step cuts
+    its gradients, which hold the rank's 'model' blocks already, over the
+    FSDP axes."""
     def cut(x, sh, path):
-        index = local_index(tuple(x.shape), sh, path)
+        index = local_index(tuple(x.shape), sh, path, axes)
         if all(i == slice(None) for i in index):
             return x
         return x[index].clone()
@@ -449,10 +495,12 @@ def bucket(sizes, cap):
     return out + ([cur] if cur else [])
 
 
-def gather_by(tree, shardings):
+def gather_by(tree, shardings, axes=None):
     """The inverse of ``shard_by``: every leaf whole on every rank, its
     blocks all-gathered in rank order (``launch.mesh.all_gather_parts``),
-    bit for bit.  Leaves cut along one dimension over the same mesh axes
+    bit for bit; ``axes``: over these mesh axes only (None: all), so a
+    tensor-parallel step gathers the FSDP blocks and keeps the rank's
+    'model' shards.  Leaves cut along one dimension over the same mesh axes
     move together as bytes, in groups of whole leaves no larger than
     ``BUCKET_BYTES`` or the largest whole leaf, so a rank holds at most
     that many bytes of other ranks' blocks at a time.  Collective: every
@@ -462,7 +510,7 @@ def gather_by(tree, shardings):
     xs, shs = leaves(tree), leaves(shardings)
     if len(xs) != len(shs):
         raise ValueError(f"{len(xs)} leaves but {len(shs)} shardings")
-    cuts = [_cut_dims(sh) for sh in shs]
+    cuts = [_cut_dims(sh, axes) for sh in shs]
     out = list(xs)
     groups: Dict[tuple, list] = {}
     for i, cut in enumerate(cuts):
@@ -490,15 +538,25 @@ def gather_by(tree, shardings):
     return unflatten(tree, out)
 
 
-def _cut_dims(sharding):
-    """[(dim, the mesh axes of size above 1 that cut it)] of a spec."""
+def _cut_dims(sharding, axes=None):
+    """[(dim, the mesh axes of size above 1 that cut it)] of a spec (of
+    ``axes`` only, where given)."""
     sizes = axis_sizes(sharding.mesh)
     out = []
-    for dim, entry in enumerate(sharding.spec):
+    for dim, entry in enumerate(_only(sharding.spec, axes)):
         names = tuple(ax for ax in _entry_axes(entry) if sizes[ax] > 1)
         if names:
             out.append((dim, names))
     return out
+
+
+def is_cut(sharding, axis: str) -> bool:
+    """Whether mesh axis ``axis`` (of size above 1) cuts the leaf that
+    ``sharding`` places: a tensor-parallel layer reads whether its leaf is
+    a shard from here or from its shape, never from the rules alone
+    (``fit_shardings`` keeps a leaf whole where its dimension does not
+    split)."""
+    return any(axis in names for _, names in _cut_dims(sharding))
 
 
 def _cat(parts, dim):

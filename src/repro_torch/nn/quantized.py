@@ -6,6 +6,9 @@ in their own dtype (bf16), weights signed w_Q bit in f32 with trained step
 sizes -- then a bf16 product, as ``jnp.einsum`` computes it
 (``qlinear_apply``); a conv is im2col + that (``qconv_apply``).  Plain
 torch under autograd: the reference's train path reaches no Pallas kernel.
+On a tensor-parallel training mesh a projection is column-parallel
+(``col_mesh``) or row-parallel (``row_mesh``), its collectives under
+autograd (``launch.mesh``).
 
 Serve mode: weights live as packed k-bit digit planes (uint8), activations are
 quantized on the fly to biased int8 codes, and the product runs through
@@ -167,10 +170,68 @@ def _layer_name_of(sub: Dict) -> str:
     return sub[QMARK].axes[1] or ""
 
 
+class _ColumnProduct(torch.autograd.Function):
+    """x (..., K) @ w (K, N) in bf16, x whole on every 'model' rank and w
+    the rank's block of columns: forward the bf16 product; backward x's
+    cotangent as the rank's f32 partial product, summed over 'model' in
+    rank order (``sum_model``) and rounded to bf16 once, as one device's
+    bf16 product rounds its f32 sum once -- a partial rounded on each
+    rank first would round twice -- and w's as torch's product gives
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh):
+        ctx.save_for_backward(x, w)
+        ctx.mesh = mesh
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        f32 = torch.float32
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = torch.matmul(g2.to(f32), w.to(f32).mT)
+        dx = mesh_lib.sum_model(ctx.mesh, dx).to(x.dtype)
+        dw = x.reshape(-1, x.shape[-1]).mT.mm(g2)
+        return dx.reshape(x.shape), dw, None
+
+
+class _RowStep(torch.autograd.Function):
+    """A row shard's activation step (0-d, in the activation's dtype)
+    broadcast to the shard's ``shape``.  Backward: its cotangent summed
+    over the shard in f32, over 'model' in rank order (``sum_model``),
+    and rounded to the step's dtype once, as one device's reduction over
+    the whole activation rounds once.  LSQ's step gradient is a sum of
+    cancelling terms: each rank's partial rounded to bf16 first would
+    carry an error of the order of the sum itself."""
+
+    @staticmethod
+    def forward(ctx, g, shape, mesh):
+        ctx.mesh = mesh
+        return g.expand(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = mesh_lib.sum_model(ctx.mesh, grad.sum(dtype=torch.float32))
+        return total.to(grad.dtype), None, None
+
+
+def _whole(shape) -> Dict:
+    """``fake_quant``'s ``whole=`` where a shard's tensor has one, else
+    nothing (one device calls it as before)."""
+    return {} if shape is None else {"whole": shape}
+
+
+def _grown(shape, dim: int, m: int) -> tuple:
+    shape = list(shape)
+    shape[dim] *= m
+    return tuple(shape)
+
+
 def qlinear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   policy: PolicyOrPlan, *, layer_class: str = "inner",
-                  quantize_act: bool = True,
-                  name: str = "") -> torch.Tensor:
+                  quantize_act: bool = True, name: str = "",
+                  col_mesh=None, row_mesh=None) -> torch.Tensor:
     """QAT forward: fake-quant(x) @ fake-quant(w) (+ b), the product in
     bf16.  The weight quantizes in f32 (channel-wise where the
     layer's ``gw`` is a vector and the policy asks for it), the activation
@@ -180,20 +241,62 @@ def qlinear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     An expert bank (``p`` with ``lead=(E,)``) takes x (E, M, K): each
     expert's weight and rows are fake-quantized with its own steps, and
     the product is one batched bf16 product -> (E, M, N), as the
-    reference's ``jax.vmap`` over the experts computes it."""
+    reference's ``jax.vmap`` over the experts computes it.
+
+    Tensor-parallel training over the 'model' axis of the mesh given (M
+    ranks; LSQ's N is always the whole tensor's count, ``fake_quant(...,
+    whole=)``):
+
+    * ``col_mesh``: column-parallel.  ``w`` holds the rank's block of
+      output columns, x is whole on every rank and is fake-quantized
+      there; d(x_q) is summed over the ranks before the LSQ backward
+      (the f32 partial products, summed and rounded once:
+      ``_ColumnProduct``), so x's and ``ga``'s gradients are whole and
+      the same on every rank.  A per-tensor ``gw``'s gradient is
+      summed over 'model' in f32; a channel-wise one is the rank's own.
+      -> the rank's columns.
+    * ``row_mesh``: row-parallel.  ``w`` holds the rank's block of rows, x
+      the rank's block of K.  ``gw``'s gradient is partial and summed in
+      f32; ``ga``'s, a bf16 reduction, is summed in f32 before it is
+      rounded (``_RowStep``).  The partial product runs in f32 (bf16
+      operands, exact products), is summed over the ranks in rank order
+      (``sum_model``) and rounded to bf16 once; the bias is added once,
+      after it."""
     policy = plan_lib.resolve_policy(policy, name)
     w, gw, ga = p["w"], p["gw"], p["ga"]
     lead = w.ndim - 2
+    mesh = col_mesh or row_mesh
+    m = mesh_lib.model_coords(mesh)[1]
+    if m == 1:
+        mesh = col_mesh = row_mesh = None
+    w_whole = (_grown(w.shape, -1, m) if col_mesh is not None else
+               _grown(w.shape, -2, m) if row_mesh is not None else None)
     if policy.quantize:
-        wspec = quant.weight_spec(
-            policy.bits_for(layer_class),
-            channel_axis=-1 if gw.ndim > lead and policy.channel_wise
-            else None)
-        w = quant.fake_quant(w.to(torch.float32), gw, wspec, lead=lead)
+        channel = gw.ndim > lead and policy.channel_wise
+        wspec = quant.weight_spec(policy.bits_for(layer_class),
+                                  channel_axis=-1 if channel else None)
+        if row_mesh is not None or (col_mesh is not None and not channel):
+            gw = mesh_lib.copy_model(mesh, gw)  # a share of its gradient
+        w = quant.fake_quant(w.to(torch.float32), gw, wspec, lead=lead,
+                             **_whole(w_whole))
         if quantize_act:
+            kw = {}
+            if row_mesh is not None:
+                kw = {"whole": _grown(x.shape, -1, m),
+                      "spread": lambda g, shape: _RowStep.apply(g, shape,
+                                                                mesh)}
             x = quant.fake_quant(x, ga, quant.act_spec(policy.a_bits),
-                                 lead=lead)
-    y = torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
+                                 lead=lead, **kw)
+    if col_mesh is not None:
+        y = _ColumnProduct.apply(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                                 mesh)
+    elif row_mesh is not None:
+        f32 = torch.float32
+        y = torch.matmul(x.to(torch.bfloat16).to(f32),
+                         w.to(torch.bfloat16).to(f32))
+        y = mesh_lib.sum_model(mesh, y).to(torch.bfloat16)
+    else:
+        y = torch.matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
     if "b" in p:
         y = y + p["b"].to(torch.bfloat16)
     return y
@@ -212,13 +315,23 @@ def qlinear_any(p, x: torch.Tensor, policy: PolicyOrPlan, *, serve: bool,
 def qconv_apply(p, x: torch.Tensor, policy: PolicyOrPlan, *, k: int,
                 stride: int = 1, padding: str = "SAME",
                 layer_class: str = "inner", quantize_act: bool = True,
-                name: str = "") -> torch.Tensor:
+                name: str = "", mesh=None, cout: int = 0) -> torch.Tensor:
     """QAT conv forward: im2col (NHWC, (kh, kw, C) patches,
-    ``im2col_train``) + the fake-quant linear."""
+    ``im2col_train``) + the fake-quant linear.
+
+    ``mesh`` (tensor-parallel training over its 'model' axis) where the
+    weight holds a block of its ``cout`` output channels: the linear is
+    column-parallel (``qlinear_apply``'s ``col_mesh``) and its channels
+    are all-gathered (``launch.mesh.gather_model``), so what follows (BN
+    and its batch statistics) runs whole on every rank.  A weight kept
+    whole (its channels do not split) runs as on one device."""
+    cut = mesh is not None and p["w"].shape[-1] != cout
     cols = im2col_train(x, k, k, stride, padding)
-    return qlinear_apply({kk: v for kk, v in p.items() if kk != QMARK},
-                         cols, policy, layer_class=layer_class,
-                         quantize_act=quantize_act, name=name)
+    y = qlinear_apply({kk: v for kk, v in p.items() if kk != QMARK},
+                      cols, policy, layer_class=layer_class,
+                      quantize_act=quantize_act, name=name,
+                      col_mesh=mesh if cut else None)
+    return mesh_lib.gather_model(mesh, y, -1) if cut else y
 
 
 def _fold_bias(p, epilogue, scale, shift):

@@ -15,10 +15,13 @@ device or on a training mesh:
 * the step updates the train state in place (``make_train_step(...,
   donate=True)``), as the reference donates it to its jitted step, so a
   step holds one state and its gradients, not two states;
-* on a mesh (``mesh=``, a (data, 1) or (pod, data, 1) training mesh, one
-  process a rank): the batch over ('pod', 'data') as ``batch_rules_for``
-  fits it to the pipeline's global batch, each rank's train state its
-  FSDP blocks (``launch.steps.train_state_shardings``), made by cutting
+* on a mesh (``mesh=``, a (data, model) or (pod, data, model) training
+  mesh, one process a rank): the batch over ('pod', 'data') as
+  ``batch_rules_for`` fits it to the pipeline's global batch (every
+  'model' rank of a data row gets that row's batch), each rank's train
+  state its FSDP blocks and, on a 'model' axis above 1, its
+  tensor-parallel shards (``launch.steps.train_state_shardings``), made by
+  cutting
   the whole state every rank initialises from the one generator (so the
   blocks are the one-device init's bits), checkpoints gathered and
   written by rank 0, and a restore that re-shards onto whatever mesh the
@@ -61,7 +64,9 @@ class Trainer:
     on ``device``: CUDA by default, which raises without a card unless
     ``device="cpu"``; with ``mesh`` (``launch.mesh.make_train_mesh``) on
     this rank's device of it, under ``rules`` (default ``TRAIN_RULES``; a
-    'model' axis above 1 raises naming ROADMAP 16b (iv)).
+    'model' axis above 1 trains tensor-parallel where
+    ``nn.partitioning.require_train_mesh`` takes the arch's family, and
+    raises naming ROADMAP 16b (iv) (b) or (c) elsewhere).
     ``step_seconds``, ``save_seconds`` and ``restore_seconds`` hold the
     host time of this run's steps (each ends when its metrics reach the
     host), of its checkpoint saves (the caller's share of an asynchronous
@@ -76,7 +81,7 @@ class Trainer:
         self.mesh = mesh
         self.state_sharding = self.batch_sharding = None
         if mesh is not None:
-            part.require_train_mesh(part.axis_sizes(mesh))
+            part.require_train_mesh(part.axis_sizes(mesh), api.family)
             self.device = mesh_lib.local_device(mesh)
             self.rules = steps_lib.batch_rules_for(
                 part.TRAIN_RULES if rules is None else rules,

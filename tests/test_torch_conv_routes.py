@@ -426,6 +426,18 @@ def test_split_staging_covers_the_tile(bn):
 # --- split partials ----------------------------------------------------------
 
 
+def int_mm(a, b):
+    """The exact integer product of two integer matrices, through a
+    float64 BLAS product: every partial sum is an integer below 2^53
+    (asserted), so the float64 result is exact -- the same integers as
+    an int64 product, which numpy computes without BLAS, tens of times
+    slower at these shapes."""
+    bound = (float(np.abs(a).max(initial=0)) * float(np.abs(b).max(initial=0))
+             * a.shape[-1])
+    assert bound < 2.0 ** 53, bound
+    return (a.astype(np.float64) @ b.astype(np.float64)).astype(np.int64)
+
+
 def split_partials(a, planes, fmt, plan, variant):
     """Each split's int32 partial as the kernel accumulates it: K-step by
     K-step, one product of the combined codes (Sum-Together) or one per
@@ -439,10 +451,10 @@ def split_partials(a, planes, fmt, plan, variant):
         for t in range(t0, t1):
             sl = slice(t * BK, min((t + 1) * BK, fmt.k_dim))
             if variant == "st":
-                acc += a[:, sl] @ w8[sl]
+                acc += int_mm(a[:, sl], w8[sl])
             else:
                 for p in range(fmt.planes):
-                    acc += (a[:, sl] @ digits[p, sl]) * (1 << (fmt.k * p))
+                    acc += int_mm(a[:, sl], digits[p, sl]) * (1 << (fmt.k * p))
         parts.append(acc)
     return parts
 
@@ -465,7 +477,7 @@ def test_split_partials_add_up_to_the_accumulator(batch, h, cin, cout, kk,
     codes, fmt, planes = k1twin.random_planes(rng, kdim, cout, w, k)
     ho = -(-h // stride)
     a = oracle_patches(x, kk, kk, stride, "SAME", 128)
-    want = a.astype(np.int64) @ codes.astype(np.int64)
+    want = int_mm(a, codes)
     # the plain version's accumulator is the same integers
     acc = ref.mpmm_ref_codes(torch.from_numpy(a), planes, fmt, act_zero=0)
     np.testing.assert_array_equal(acc.numpy(), want)

@@ -591,20 +591,24 @@ def test_sharded_batch_at_equals_repros_batch_at():
 
 
 def test_model_axis_refused_naming_16b_iv(tmp_path):
-    api = _api(GRANITE, 2)
+    """A 'model' axis above 1 trains the dense decoders and the ResNets
+    tensor-parallel (test_torch_tensor_parallel_train.py); the MoE family
+    still refuses, naming ROADMAP 16b (iv) (b)."""
+    api = _api("olmoe-1b-7b", 2)
     fake = _stand_in((2, 2))
-    with pytest.raises(NotImplementedError, match=r"16b \(iv\)"):
-        part.require_train_mesh({"data": 2, "model": 2})
+    with pytest.raises(NotImplementedError, match=r"16b \(iv\) \(b\)"):
+        part.require_train_mesh({"data": 2, "model": 2}, "moe")
+    part.require_train_mesh({"data": 2, "model": 2}, "dense")
+    part.require_train_mesh({"data": 2, "model": 2})   # the mesh alone
     with pytest.raises(NotImplementedError, match=r"16b \(iv\)"):
         steps_lib.make_train_step(api, mesh=fake)
     with pytest.raises(NotImplementedError, match=r"16b \(iv\)"):
         Trainer(api, _pipe(api, 4), TrainLoopConfig(ckpt_dir=str(tmp_path)),
                 mesh=fake)
-    with pytest.raises(NotImplementedError, match=r"16b \(iv\)"):
+    with pytest.raises(ValueError, match="covers 2 ranks but the world"):
         mesh_lib.make_train_mesh((1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"16b \(iv\)"):
-        with part.axis_rules(part.TRAIN_RULES, fake):
-            part.constrain(torch.ones(2), ("batch",))
+    with part.axis_rules(part.TRAIN_RULES, fake):
+        part.constrain(torch.ones(2), ("batch",))
     # a training mesh takes a 'pod' axis; serving keeps its refusal
     pod = _stand_in((2, 2, 1))
     with part.axis_rules(part.TRAIN_RULES, pod):
