@@ -395,6 +395,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ResNet's mesh save restored on one device and saved again, byte for
    byte.  ``[p23-time]``: each rank's step ms against one device and its
    last step's collectives by kind (calls, bytes, ms).
+24. Tensor-parallel QAT training of the MoE archs and whisper (slice 19;
+   no kernel on the path): olmoe-1b-7b and deepseek-v2-lite-16b at full
+   width, 2 layers (expert parallelism; deepseek's dense first layer,
+   MLA by heads and shared experts), 2 x 256 tokens, and whisper-base at
+   full width, 6 + 6 layers, 2 x 64 tokens and 1536 frames a row; phase
+   23's contract, bounds and collectives by kind (the router's, gated
+   rows', slot cotangents', head-broadcast and cut gathers added; whisper
+   under bounds of its own, ``P24_WHISPER_*``), each cell beside one
+   device on its batches' rows reversed.
 
 Kernel outputs of K1 and K2 are compared bitwise with the plain version run
 on the CPU copy of the inputs -- the version the CPU tests hold bitwise
@@ -7017,10 +7026,11 @@ class P23Collectives:
     """Counts every collective of a tensor-parallel step on a rank while
     ``active``: (kind, bytes of the rank's part, host ms with the card
     synchronized around it), the kind read off the outermost calling
-    frame that ``P23_KINDS`` names (a column product's backward sums
-    through ``sum_model``)."""
+    frame that ``kinds`` (default ``P23_KINDS``) names (a column product's
+    backward sums through ``sum_model``)."""
 
-    def __init__(self, device):
+    def __init__(self, device, kinds=None):
+        kinds = P23_KINDS if kinds is None else kinds
         from repro_torch.launch import mesh as mesh_lib
         self.calls, self.active = [], False
         orig = mesh_lib._gather
@@ -7030,7 +7040,7 @@ class P23Collectives:
                 return orig(mesh, axis, n, x)
             frame, kind = sys._getframe(1), "other"
             while frame is not None:  # the outermost caller named
-                kind = P23_KINDS.get(frame.f_code.co_qualname, kind)
+                kind = kinds.get(frame.f_code.co_qualname, kind)
                 frame = frame.f_back
             p23_sync(device)
             t0 = time.perf_counter()
@@ -7215,12 +7225,14 @@ def p23_step_size(path):
     return path.endswith(("['ga']", "['gw']"))
 
 
-def p23_gaps(got, want, keys=None):
-    """{path: relative L2 of ``got`` against ``want``} (host tensors)."""
+def p23_gaps(got, want, keys=None, device="cpu"):
+    """{path: relative L2 of ``got`` against ``want``} (flat trees on any
+    device), each leaf in f64 on ``device``."""
     import torch as t
     out = {}
     for k in (want if keys is None else keys):
-        a, b = got[k].to(t.float64), want[k].to(t.float64)
+        a = got[k].to(device, t.float64)
+        b = want[k].to(device, t.float64)
         out[k] = float(t.linalg.vector_norm(a - b)
                        / max(float(t.linalg.vector_norm(b)), 1e-300))
     return out
@@ -7443,6 +7455,337 @@ def print_p23(res, card):
                     for k, v in sorted(kinds.items())) + f"  ({card})")
 
 
+# --- phase 24: tensor-parallel QAT training of MoE, MLA and whisper ----------
+
+P24_RANKS = 2
+# arch, layers (None: all), batch, tokens: olmoe's two MoE layers,
+# deepseek's dense first layer and one MoE layer, whisper-base whole (its
+# 1536 frames a row)
+P24_CELLS = (("olmoe-1b-7b", 2, 2, 256), ("deepseek-v2-lite-16b", 2, 2, 256),
+             ("whisper-base", None, 2, 64))
+# phase 23's contract and bounds (P23_STEPS steps at P23_LR): the losses
+# before any update; every first moment after step 0 but the step sizes';
+# every parameter leaf after 3 steps, the leaves that start at zero
+# (whisper's layernorm biases) apart; the whole leaves bitwise across the
+# ranks.  One device on each batch's rows reversed is printed beside
+# every cell as its noise floor.
+P24_FORWARD_RTOL = 1e-5
+P24_FIRST_RTOL = 5e-2
+# whisper-base's own: a row shard's two f32 partial sums and one device's
+# bf16 product round about one element in a million apart, and whisper
+# spreads such an element (``tools/tp_whisper_trace.py``: its encoder's
+# bidirectional attention over 1536 frames turns a few into thousands, the
+# cross attention carries them into every decoder layer).  Measured on an
+# H100 at 700 W: losses before any update 2.04e-5 apart, first moments
+# 7.7e-2 (a decoder k), against 0.0 and 4.5e-3 for olmoe and deepseek.
+# The planted faults of tests/test_torch_tensor_parallel_train_families.py
+# read 1.0 and more in the first moments on the CPU, or break a bitwise
+# check.
+P24_WHISPER_FORWARD_RTOL = 1e-4
+P24_WHISPER_FIRST_RTOL = 0.1
+P24_LEAF_RTOL = 7e-2
+P24_ZERO_RTOL = 0.55
+P24_KINDS = {  # phase 23's, and what expert parallelism and MLA add
+    **P23_KINDS,
+    "whole_router": "router gathers (d x E f32)",
+    "gather_gated": "gated-row gathers (B x E/M x C x D bf16)",
+    "_Dispatch.backward": "slot-cotangent gathers",
+    "_HeadBroadcast.backward": "head-broadcast sums (k_rope's cotangent, "
+                               "gathered by heads)",
+    "_CutModel.backward": "cut cotangent gathers (the gates, whisper's "
+                          "cross K/V)",
+}
+
+
+def p24_name(cell):
+    return cell[0].split("-")[0]
+
+
+def p24_api(cell):
+    arch, depth, _, _ = cell
+    return dataclasses.replace(family_api(arch, depth=depth),
+                               microbatches=1)
+
+
+def p24_batches(api, cell, device, reverse=False):
+    """The cell's ``P23_STEPS`` batches (whole: the (1, 2) mesh's ranks
+    share one data row) on ``device``, whisper's with its frames; each
+    batch's rows reversed with ``reverse``."""
+    import torch as t
+    from repro_torch.data.pipeline import SyntheticLM
+    _, _, b, s_ = cell
+    pipe = SyntheticLM(vocab=api.cfg.vocab, seq_len=s_, global_batch=b,
+                       seed=SEED, with_frames=api.needs_frames,
+                       n_audio=getattr(api.cfg, "n_audio", 0),
+                       d_model=api.cfg.d_model)
+    out = []
+    for i in range(P23_STEPS):
+        host = pipe.batch_at(i)
+        got = {k: t.as_tensor(v).to(device).to(
+            t.long if v.dtype.kind in "iu" else t.float32)
+            for k, v in host.items()}
+        out.append({k: v.flip(0) for k, v in got.items()} if reverse
+                   else got)
+    return out
+
+
+def p24_one(sm, cell, root):
+    """The cell's one-device run here, and again on each batch's rows
+    reversed (the noise floor) -> losses, step ms, the leaves that start
+    at zero, the floor's gaps; the first run's final parameters and first
+    moments written to ``one-{name}.pt`` for the ranks."""
+    import torch as t
+    from repro_torch.tree import flatten_with_paths
+    api = p24_api(cell)
+    name = p24_name(cell)
+    batches = p24_batches(api, cell, sm.device)
+    t0 = time.perf_counter()
+    losses, ms, state, first, zero = p23_run_one(sm, api, batches)
+    out = {"losses": losses, "step_ms": ms, "zero": zero,
+           "held": sum(x.numel() * x.element_size()
+                       for x in flatten_with_paths(state).values())}
+    params = {k: v.cpu() for k, v in
+              flatten_with_paths(state["params"]).items()}
+    del state
+    t1 = time.perf_counter()
+    t.save({"params": params, "first": first}, root / f"one-{name}.tmp")
+    os.replace(root / f"one-{name}.tmp", root / f"one-{name}.pt")
+    release(sm)
+    t2 = time.perf_counter()
+    w_losses, _, w_state, w_first, _ = p23_run_one(
+        sm, api, p24_batches(api, cell, sm.device, reverse=True))
+    # the floor's gaps leaf by leaf on the card (13 GB of f64 on the host
+    # took most of a cell's time)
+    leaf = p23_gaps(flatten_with_paths(w_state["params"]), params,
+                    device=sm.device)
+    del w_state
+    w_first = p23_gaps(w_first, first, device=sm.device)
+    out["s"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    out["witness"] = {
+        "losses": w_losses,
+        "first": max((v, k) for k, v in w_first.items()
+                     if not p23_step_size(k)),
+        "first_ga": max((v, k) for k, v in w_first.items()
+                        if p23_step_size(k)),
+        "leaf": max((v, k) for k, v in leaf.items() if k not in zero),
+        "zero": max(((leaf[k], k) for k in zero), default=(0.0, None))}
+    del params, first
+    release(sm)
+    return out
+
+
+def p24_cell_rank(cell, mesh, device, root):
+    """One cell on this rank: the tensor-parallel step 3 times (the last
+    one's collectives counted), the whole leaves' digests after each step,
+    each parameter leaf's squared difference from the one-device result
+    over the rank's block, after 3 steps and, for the first moments,
+    after step 0."""
+    import torch as t
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.tree import flatten_with_paths
+    api = p24_api(cell)
+    sh = steps_lib.train_state_shardings(api, mesh)
+    state = p23_state(api, device, sh)
+    held = sum(x.numel() * x.element_size()
+               for x in flatten_with_paths(state).values())
+    step = steps_lib.make_train_step(api, peak_lr=P23_LR,
+                                     total_steps=P23_STEPS, donate=True,
+                                     mesh=mesh)
+    coll = P23Collectives(device, P24_KINDS)
+    one = t.load(root / f"one-{p24_name(cell)}.pt", mmap=True)
+    shp = flatten_with_paths(sh["params"])
+    out = {"losses": [], "step_ms": [], "digests": [], "held": held}
+    for i, batch in enumerate(p24_batches(api, cell, device)):
+        coll.active = i == P23_STEPS - 1
+        p23_sync(device)
+        t0 = time.perf_counter()
+        state, mt = step(state, batch)
+        out["losses"].append(float(mt["loss"]))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        coll.active = False
+        out["digests"].append(p23_digests(state, sh))
+        if i == 0:
+            out["sq_first"] = p23_sq(state["opt"]["m"], one["first"], shp,
+                                     device)
+    out["collectives"] = coll.by_kind()
+    out["sq"] = p23_sq(state["params"], one["params"], shp, device)
+    del one, state, step
+    return out
+
+
+def p24_rank(rank, args):
+    """One rank of phase 24: two ranks on the parent's card (``args``: the
+    results' folder, the device) over gloo, a (1, 2) training mesh; each
+    cell once the parent's one-device results of it are written, rank 0
+    marking it done (``done-{name}``) when both ranks have read them.  The
+    training path builds no kernel: a rank that would run nvcc fails."""
+    import torch as t
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    root, dev = Path(args[0]), args[1]
+
+    def refuse(name, nvcc):
+        raise RuntimeError(f"rank {rank} would run nvcc for {name}")
+    _build._start = refuse
+    t.backends.cuda.matmul.allow_tf32 = False
+    t.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_train_mesh((1, P24_RANKS),
+                                    devices=[dev] * P24_RANKS)
+    device = mesh_lib.local_device(mesh)
+    import torch._dynamo  # noqa: F401 -- the remat's import, while waiting
+    out, waited = {}, 0.0
+    for cell in P24_CELLS:
+        name = p24_name(cell)
+        t1 = time.perf_counter()
+        while not (root / f"one-{name}.pt").exists():
+            if (root / P23_ABANDON).exists() or time.perf_counter() - t1 > 300:
+                raise RuntimeError(f"rank {rank}: no one-device results")
+            time.sleep(0.1)
+        waited += time.perf_counter() - t1
+        out[name] = p24_cell_rank(cell, mesh, device, root)
+        t.cuda.empty_cache()
+        mesh_lib.barrier(mesh)
+        if mesh_lib.rank_of(mesh) == 0:
+            (root / f"done-{name}").touch()
+    out.update(coords=mesh_lib.model_coords(mesh), waited=waited,
+               s=time.perf_counter() - t0)
+    return out
+
+
+def phase_p24(sm, card):
+    """Phase 24: olmoe-1b-7b x2, deepseek-v2-lite-16b x2 and whisper-base
+    whole trained tensor-parallel on a (1, 2) mesh of two ranks sharing
+    cuda:0, against the one-device step of each -> what was measured."""
+    import shutil
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    release(sm)
+    need = sum(p24_api(c).total_params() for c in P24_CELLS) * 4 * 2
+    root = ckpt_root("p24", need)
+    root.mkdir(parents=True, exist_ok=True)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    world = pool.submit(mesh_lib.spawn, p24_rank, P24_RANKS,
+                        ((str(root), str(sm.device)),),
+                        store_dir=str(ROOT / "build" / "p24"),
+                        backend="gloo", timeout_s=500)
+    one = {}
+    try:
+        # each cell's ranks start once its one-device results are
+        # written; a file is removed once the ranks have read it
+        for cell in P24_CELLS:
+            one[p24_name(cell)] = p24_one(sm, cell, root)
+            for c in P24_CELLS:
+                n = p24_name(c)
+                if (root / f"done-{n}").exists():
+                    (root / f"one-{n}.pt").unlink(missing_ok=True)
+        t1 = time.perf_counter()
+        ranks = world.result()
+    except BaseException:
+        (root / P23_ABANDON).touch()
+        raise
+    finally:
+        pool.shutdown()
+    shutil.rmtree(root, ignore_errors=True)
+    release(sm)
+    res = {"one": one, "ranks": ranks,
+           "s": (t1 - t0, time.perf_counter() - t1)}
+    for cell in P24_CELLS:
+        name = p24_name(cell)
+        got = [r[name] for r in ranks]
+        want = one[name]["losses"]
+        zero = set(one[name]["zero"])
+        fwd = max(abs(a - b) / abs(b) for a, b in
+                  zip(got[0]["losses"][:2], want[:2]))
+        steps = {k for k in got[0]["sq_first"] if p23_step_size(k)}
+        first = p23_worst(got, "sq_first", set(got[0]["sq_first"]) - steps)
+        first_ga = p23_worst(got, "sq_first", steps)
+        nonzero = set(got[0]["sq"]) - zero
+        worst = p23_worst(got, "sq", nonzero)
+        worst_zero = p23_worst(got, "sq", zero)
+        worst_w = p23_worst(got, "sq", {k for k in nonzero
+                                        if k.endswith("['w']")})
+        res[name] = {"forward_gap": fwd, "first": first,
+                     "first_ga": first_ga, "worst": worst,
+                     "worst_zero": worst_zero, "worst_w": worst_w}
+        whisper = name == "whisper"
+        fwd_rtol = P24_WHISPER_FORWARD_RTOL if whisper else P24_FORWARD_RTOL
+        first_rtol = P24_WHISPER_FIRST_RTOL if whisper else P24_FIRST_RTOL
+        ok = {
+            "ranks' losses alike": all(g["losses"] == got[0]["losses"]
+                                       for g in got),
+            "losses before any update": fwd <= fwd_rtol,
+            "first moments after step 0": first[0] <= first_rtol,
+            "every leaf after 3 steps": worst[0] <= P24_LEAF_RTOL
+            and worst_zero[0] <= P24_ZERO_RTOL,
+            "whole leaves bitwise across the ranks": all(
+                g["digests"] == got[0]["digests"] for g in got)
+            and all(len(d) for d in got[0]["digests"])}
+        for what, good in ok.items():
+            if not good:
+                sm.failures.append(f"phase 24 {name}: {what}")
+        zero_txt = (f", of the leaves zero at init {worst_zero[0]:.3e} "
+                    f"{worst_zero[1]} (bound {P24_ZERO_RTOL})"
+                    if zero else "")
+        wit = one[name]["witness"]
+        log(f"[p24] {cell[0]}: losses one device {want}, (1, 2) "
+            f"{got[0]['losses']}; before any update relative gap {fwd:.3e} "
+            f"(bound {fwd_rtol}); worst first moment after step 0 "
+            f"{first[0]:.3e} {first[1]} (bound {first_rtol}; of the "
+            f"step sizes {first_ga[0]:.3e} {first_ga[1]}); worst "
+            f"parameter leaf after {P23_STEPS} steps {worst[0]:.3e} "
+            f"{worst[1]} (bound {P24_LEAF_RTOL}){zero_txt}, worst weight "
+            f"leaf {worst_w[0]:.3e} {worst_w[1]}; checks {ok}")
+        log(f"[p24] {cell[0]} one device: run {one[name]['s'][0]:.1f} s, "
+            f"its results written {one[name]['s'][1]:.1f} s, the floor's "
+            f"run and gaps {one[name]['s'][2]:.1f} s")
+        log(f"[p24] {cell[0]} noise floor, one device on each batch's rows "
+            f"reversed against one device: losses {wit['losses']}; worst "
+            f"first moment {wit['first'][0]:.3e} {wit['first'][1]} (of the "
+            f"step sizes {wit['first_ga'][0]:.3e} {wit['first_ga'][1]}); "
+            f"worst leaf after {P23_STEPS} steps {wit['leaf'][0]:.3e} "
+            f"{wit['leaf'][1]}, of the leaves zero at init "
+            f"{wit['zero'][0]:.3e} {wit['zero'][1]}")
+    log(f"[p24] phase 24 took {time.perf_counter() - t0:.1f} s: one device "
+        f"every cell and its floor {res['s'][0]:.1f} s (the ranks starting "
+        f"and training meanwhile), then the ranks {res['s'][1]:.1f} s more "
+        f"(they waited {ranks[0]['waited']:.1f} s in all for one-device "
+        f"results)")
+    print_p24(res, card)
+    sm.check_phase("24 tensor-parallel QAT training, (1, 2) mesh on cuda:0: "
+                   "olmoe-1b-7b x2, deepseek-v2-lite-16b x2 and whisper-base "
+                   "held to the one-device step, whole leaves bitwise "
+                   "across the ranks")
+    return res
+
+
+def print_p24(res, card):
+    """Phase 24's ``[p24-time]`` lines."""
+    for cell in P24_CELLS:
+        arch, depth, b, s_ = cell
+        name = p24_name(cell)
+        label = (f"{arch} x{depth} {b} x {s_}" if depth
+                 else f"{arch} {b} x {s_}")
+        one = res["one"][name]
+        log(f"[p24-time] {label} one device: steps "
+            f"{[round(x, 1) for x in one['step_ms']]} ms, state "
+            f"{one['held'] / 1e9:.2f} GB  (host clock; {card})")
+        for r in res["ranks"]:
+            got = r[name]
+            kinds = got["collectives"]
+            tot_mb = sum(v[1] for v in kinds.values()) / 1e6
+            tot_ms = sum(v[2] for v in kinds.values())
+            log(f"[p24-time] {label} (1, 2) rank {r['coords'][0]}: steps "
+                f"{[round(x, 1) for x in got['step_ms']]} ms; state "
+                f"{got['held'] / 1e9:.2f} GB ({got['held'] / one['held']:.3f}"
+                f" of one device's); the last step's collectives "
+                f"{sum(v[0] for v in kinds.values())} calls, {tot_mb:.1f} MB "
+                f"of the rank's parts, {tot_ms:.1f} ms (card synchronized "
+                f"around each, gloo through the host): " + "; ".join(
+                    f"{k} {v[0]} calls {v[1] / 1e6:.1f} MB {v[2]:.1f} ms"
+                    for k, v in sorted(kinds.items())) + f"  ({card})")
+
+
 def summarize(rows, launches, max_err, k1_routes):
     """One entry per kernel.  K1 and K2: times summed over one batch-8
     ResNet-18 forward (K2's batch-1 rows are printed, not summed); K3 and
@@ -7655,6 +7998,8 @@ def run_phases(torch) -> int:
     log(f"[p22] phase 22 done at {time.perf_counter() - t_start:.1f} s")
     phase_p23(sm, card)
     log(f"[p23] phase 23 done at {time.perf_counter() - t_start:.1f} s")
+    phase_p24(sm, card)
+    log(f"[p24] phase 24 done at {time.perf_counter() - t_start:.1f} s")
     rows += attn_rows
     kernels = summarize(rows, launches, sm.max_err, k1_routes)
     acc_only["launches"] += (p20_launches.get("acc_only", 0)

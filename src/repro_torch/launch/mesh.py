@@ -31,12 +31,14 @@ agreements a training loop takes its decisions by, and ``barrier`` waits
 for every rank.
 
 Tensor-parallel training (a 'model' axis above 1 on a training mesh) has
-four collectives over 'model' under autograd, each sum gathered and then
+five collectives over 'model' under autograd, each sum gathered and then
 added in rank order from a zero f32 tensor: ``sum_model`` (a row shard's
 partial product; backward the identity), ``copy_model`` (the identity;
 backward that sum), ``gather_model`` (an all-gather along a dim; backward
-the rank's block) and ``owned_model`` (one rank owns each element: the
-embedding's lookup and the loss's label logit, exact).
+the rank's block), ``cut_model`` (its inverse: the rank's block of a
+whole tensor; backward the blocks' cotangents all-gathered, exact) and
+``owned_model`` (one rank owns each element: the embedding's lookup and
+the loss's label logit, exact).
 ``all_reduce_model`` stays int32-only, for serving.
 
 Nothing here touches ``torch.distributed`` until a mesh is made.
@@ -61,8 +63,8 @@ __all__ = ["make_production_mesh", "make_local_mesh", "make_serve_mesh",
            "model_coords", "rank_of", "gather_rows", "all_reduce_model",
            "all_gather_model", "all_gather_parts", "all_gather_axes",
            "all_reduce_batch", "sum_model", "copy_model", "gather_model",
-           "owned_model", "broadcast_value", "any_rank", "barrier",
-           "DataRows", "shared_clock", "spawn", "INIT_TIMEOUT_S"]
+           "cut_model", "owned_model", "broadcast_value", "any_rank",
+           "barrier", "DataRows", "shared_clock", "spawn", "INIT_TIMEOUT_S"]
 
 INIT_TIMEOUT_S = 300.0  # every process-group init and collective
 
@@ -394,6 +396,19 @@ class _GatherModel(torch.autograd.Function):
                         ctx.block).contiguous(), None, None
 
 
+class _CutModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        r, n = model_coords(mesh)
+        ctx.mesh, ctx.dim = mesh, dim
+        block = x.shape[dim] // n
+        return x.narrow(dim, r * block, block).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_model(ctx.mesh, g, ctx.dim), None, None
+
+
 class _OwnedModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, owner):
@@ -441,8 +456,24 @@ def gather_model(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
     return _GatherModel.apply(x, mesh, dim)
 
 
+def cut_model(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """(d) The inverse of ``gather_model``: this rank's block along ``dim``
+    of a tensor whole and the same on every 'model' rank, of which each
+    rank uses its own block alone (an expert's gates, whisper's cross K/V
+    by heads).  Backward: the blocks' cotangents all-gathered in rank
+    order, the whole tensor's cotangent on every rank, exactly (each
+    element has one rank that uses it; a sum would add zeros)."""
+    r, m = model_coords(mesh)
+    if m == 1:
+        return x
+    if x.shape[dim] % m:
+        raise ValueError(f"dimension {dim} ({x.shape[dim]}) does not split "
+                         f"over {m} 'model' ranks")
+    return _CutModel.apply(x, mesh, dim)
+
+
 def owned_model(mesh, x: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:
-    """(d) The sum over the 'model' ranks where exactly one rank owns each
+    """(e) The sum over the 'model' ranks where exactly one rank owns each
     element (``owner``: the owning rank, broadcast against ``x``; the
     others hold zeros there): each element taken from its owner's ``x``,
     exactly (a -0.0 stays -0.0).  Backward: the cotangent where this rank

@@ -30,17 +30,19 @@ split (``batch_rules_for`` picked no axis) every rank runs the one-device
 step on the whole batch.
 
 On a mesh whose 'model' axis is above 1 (tensor-parallel training of the
-dense decoders and the ResNets) the state holds each rank's 'model'
-blocks as well; the step gathers only the FSDP blocks (over the mesh's
-other axes), so the forward runs over the rank's shards
-(``models.transformer``, ``models.resnet``), its logits a
-``nn.layers.VocabShard`` for the vocabulary-parallel ``cross_entropy``.
+dense decoders, the ResNets, the MoE archs and whisper) the state holds
+each rank's 'model' blocks as well; the step gathers only the FSDP blocks
+(over the mesh's other axes), so the forward runs over the rank's shards
+(``models.transformer``, ``models.resnet``, ``models.whisper``), its
+logits a ``nn.layers.VocabShard`` for the vocabulary-parallel
+``cross_entropy``.
 Every 'model' rank of a data row runs that row's batch; the clip's norm
 sums each shard's squares over 'model' and takes a whole leaf once
 (``_model_global_norm``).  The contract is against the one-device step on
 the same global batch: the losses before any update and each leaf after
 three steps within the bounds ``tests/test_torch_tensor_parallel_train.py``
-states, whole leaves bitwise equal across the 'model' ranks.
+and ``tests/test_torch_tensor_parallel_train_families.py`` state, whole
+leaves bitwise equal across the 'model' ranks.
 """
 from __future__ import annotations
 

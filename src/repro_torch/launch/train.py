@@ -21,9 +21,11 @@ Under ``torchrun`` (``WORLD_SIZE`` set) every rank trains on
 ranks sharing the cards round-robin over gloo where N exceeds them).
 ``--mesh DATAxMODEL`` lays the world out as (data, model): a 'model'
 axis above 1 trains tensor-parallel, which the dense decoders
-(granite-8b/34b, yi-34b, chameleon-34b, nemotron-4-340b) do; the other
-archs refuse, naming ROADMAP 16b (iv) (b) or (c).  Rank 0 prints and
-writes the checkpoints; ``--ckpt-dir`` restores onto any mesh.
+(granite-8b/34b, yi-34b, chameleon-34b, nemotron-4-340b), olmoe-1b-7b
+(expert parallelism), deepseek-v2-lite-16b (MLA by heads) and
+whisper-base do; mamba2-1.3b and recurrentgemma-9b refuse, naming
+ROADMAP 16b (iv) (c).  Rank 0 prints and writes the checkpoints;
+``--ckpt-dir`` restores onto any mesh.
 ``--production-mesh``/``--multipod`` build the reference's 16 x 16 and 2
 x 16 x 16 meshes (256 and 512 ranks, under ``torchrun``); a world of
 another size is told the world it needs.  The ResNets are not trained here: the
@@ -111,7 +113,7 @@ def main(argv=None) -> int:
             raise SystemExit(
                 f"the {'x'.join(map(str, shape))} mesh ('model' axis of "
                 f"{shape[-1]}, tensor-parallel training, ROADMAP Queue 1, "
-                f"label 16b (iv) (a)) needs a world of {need} ranks; this "
+                f"label 16b (iv)) needs a world of {need} ranks; this "
                 f"one has {world}: start them under torchrun "
                 f"--nproc-per-node (and --nnodes), or with --devices {need}")
     if env is None and (args.devices or 1) > 1:

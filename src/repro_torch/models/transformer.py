@@ -51,17 +51,20 @@ logits, and prefill and decode logits are the one-device logits bitwise
 (``nn.attention`` for the split decode, ``nn.moe`` for the combine).
 
 Tensor-parallel training (``forward(mode="train", mesh=)``, the dense
-decoders; MoE and MLA layers raise naming ROADMAP 16b (iv) (b)):
-``params`` holds the rank's 'model' blocks under ``TRAIN_RULES`` -- q,
-gate, up and the head by columns, o and down by rows, the embedding by
-vocabulary rows, k/v and the norms whole.  The embedding's rows come from
+decoders and the MoE archs): ``params`` holds the rank's 'model' blocks
+under ``TRAIN_RULES`` -- q, gate, up and the head by columns, o and down
+by rows, the embedding by vocabulary rows, MLA's uk/uv by heads, the
+router by its experts' columns and each expert bank by whole experts;
+k/v, MLA's dkv and the norms whole.  The embedding's rows come from
 their owning rank, q/gate/up are column-parallel over the whole residual
 stream, o/down row-parallel with f32 partial products summed in rank
 order, k/v whole weights of which the rank's q heads use their KV heads,
-and the head returns the rank's vocabulary columns
-(``nn.layers.VocabShard``) to the vocabulary-parallel loss.  Where the
-heads (or d_ff) do not split, the attention block (or the MLP) runs whole
-on every rank.  Every collective runs under autograd
+an MoE block expert-parallel (``nn.moe``: the routed block one device's
+bits), MLA by heads (``nn.attention.mla_prefill``), and the head returns
+the rank's vocabulary columns (``nn.layers.VocabShard``) to the
+vocabulary-parallel loss.  Where the heads (or a dense MLP's width, the
+dense prefix's own) do not split, the attention block (or the MLP) runs
+whole on every rank.  Every collective runs under autograd
 (``launch.mesh.{sum_model, copy_model, gather_model, owned_model}``), and
 ``remat`` recomputes a layer's collectives in its backward, alike on
 every rank.
@@ -88,10 +91,10 @@ from repro_torch.nn import param as nnp
 from repro_torch.nn.param import ParamSpec
 
 __all__ = ["MLAConfig", "TransformerConfig", "plan_layer_names",
-           "kv_layer_names", "kv_cache_workload", "scan_format_groups",
-           "specs", "forward", "prefill", "decode_step", "decode_steps",
-           "cache_specs", "kv_formats", "gemm_workload", "total_params",
-           "active_params", "model_flops"]
+           "mlp_width", "kv_layer_names", "kv_cache_workload",
+           "scan_format_groups", "specs", "forward", "prefill",
+           "decode_step", "decode_steps", "cache_specs", "kv_formats",
+           "gemm_workload", "total_params", "active_params", "model_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +159,13 @@ def _layer_bases(cfg: TransformerConfig, dense_mlp: bool) -> Tuple[str, ...]:
 
 def _dense_mlp(cfg: TransformerConfig, i: int) -> bool:
     return i < cfg.dense_first_n
+
+
+def mlp_width(cfg: TransformerConfig, i: int) -> int:
+    """The hidden width of layer i's dense MLP: ``dense_ff`` in the dense
+    prefix where the config sets one (deepseek's first layer), else
+    ``d_ff``."""
+    return cfg.dense_ff if _dense_mlp(cfg, i) and cfg.dense_ff else cfg.d_ff
 
 
 def plan_layer_names(cfg: TransformerConfig) -> List[str]:
@@ -286,14 +296,12 @@ def layer_spec(cfg: TransformerConfig, i: int, mode: str = "train",
     lname = f"l{i}."
     spec = {"ln1": nspec(cfg.d_model), "ln2": nspec(cfg.d_model),
             "attn": _attn_spec(cfg, serve=serve, policy=policy, lname=lname)}
-    dense = _dense_mlp(cfg, i)
-    if cfg.moe is not None and not dense:
+    if cfg.moe is not None and not _dense_mlp(cfg, i):
         spec["moe"] = nnmoe.moe_spec(cfg.moe, serve=serve, policy=policy,
                                      lname=lname)
     else:
-        ff = cfg.dense_ff if dense and cfg.dense_ff else cfg.d_ff
-        spec["mlp"] = _mlp_spec(cfg, ff, serve=serve, policy=policy,
-                                lname=lname)
+        spec["mlp"] = _mlp_spec(cfg, mlp_width(cfg, i), serve=serve,
+                                policy=policy, lname=lname)
     return spec
 
 
@@ -322,14 +330,16 @@ def specs(cfg: TransformerConfig, mode: str = "train",
 
 
 def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
-               serve=True, mesh=None):
+               serve=True, mesh=None, ff=None):
     """The layer's MLP, packed (``serve``) or fake-quant (the QAT
     forward).  ``per_token``: an MoE block routes each token as a group of
     its own (capacity 1, every expert runs it), as a decode step routes its
     one token -- so a verify's T tokens are T decode steps.  On a
     tensor-parallel ``mesh`` gate/up hold this rank's columns and down its
     rows (a row shard, summed over 'model'), an MoE block runs expert
-    parallel."""
+    parallel.  ``ff``: the dense MLP's whole hidden width (``mlp_width``;
+    default ``d_ff``), which a training leaf of that width is not cut
+    from."""
     if "moe" in p:
         b, s, d = x.shape
         xg = x.reshape(b * s, 1, d) if per_token else x
@@ -343,7 +353,7 @@ def _apply_mlp(cfg, p, x, policy, impl, lname, per_token=False,
         # training: gate/up column-parallel, down row-parallel where the
         # leaves hold shards of d_ff; where d_ff does not split over the
         # ranks they are whole and the MLP runs as on one device
-        if mp["up"]["w"].shape[-1] == cfg.d_ff:
+        if mp["up"]["w"].shape[-1] == (ff or cfg.d_ff):
             mesh = None
         else:
             col = {"col_mesh": mesh}
@@ -367,9 +377,10 @@ def _mla_kw(cfg):
 
 
 def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
-               kv_store="packed", serve=True, mesh=None):
+               kv_store="packed", serve=True, mesh=None, ff=None):
     """Pre-norm block -> (x, this layer's cache); ``serve=False`` is its
-    QAT forward (GQA or MLA, a dense MLP or MoE)."""
+    QAT forward (GQA or MLA, a dense MLP or MoE); ``ff``: its dense MLP's
+    width (``_apply_mlp``)."""
     _, napply = cfg.norm_fns
     h = napply(p["ln1"], x)
     if cfg.mla is not None:
@@ -385,7 +396,7 @@ def _layer_fwd(cfg, p, x, policy, sin, cos, *, impl, lname, kv_fmts=None,
             kv_fmts=kv_fmts, kv_store=kv_store, serve=serve, mesh=mesh)
     x = x + o
     x = x + _apply_mlp(cfg, p, napply(p["ln2"], x), policy, impl, lname,
-                       serve=serve, mesh=mesh)
+                       serve=serve, mesh=mesh, ff=ff)
     return x, cache
 
 
@@ -397,20 +408,14 @@ def _serve_mode(mode: str) -> bool:
 
 def _tp_mesh(cfg, mesh, serve: bool = True, forward: bool = False):
     """``mesh`` where its 'model' axis is above 1, else None.  In training
-    (``serve=False``) only the full-sequence ``forward`` of the dense
-    decoders runs tensor-parallel: MoE and MLA layers raise naming ROADMAP
-    16b (iv) (b), and so does the train-mode cache path."""
+    (``serve=False``) only the full-sequence ``forward`` runs
+    tensor-parallel; the train-mode cache path raises."""
+    del cfg
     if mesh_lib.model_coords(mesh)[1] == 1:
         return None
-    if not serve:
-        if cfg.moe is not None or cfg.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor-parallel training of MoE and MLA "
-                f"layers is not ported (ROADMAP Queue 1, label 16b (iv) "
-                f"(b))")
-        if not forward:
-            raise ValueError("a 'model' axis above 1 in training runs the "
-                             "full-sequence forward(mode='train') only")
+    if not serve and not forward:
+        raise ValueError("a 'model' axis above 1 in training runs the "
+                         "full-sequence forward(mode='train') only")
     return mesh
 
 
@@ -459,7 +464,7 @@ def _run_layers(cfg, params, x, policy, sin, cos, *, impl, serve=True,
         x, cache = _layer_fwd(
             cfg, lp, x, policy, sin, cos, impl=impl, lname=f"l{i}.",
             kv_fmts=kv_info[1][i] if kv_info is not None else None,
-            kv_store=store, serve=serve, mesh=mesh)
+            kv_store=store, serve=serve, mesh=mesh, ff=mlp_width(cfg, i))
         caches.append(cache)
     return x, caches
 
@@ -480,7 +485,8 @@ def _train_forward(cfg, params, tokens, policy, mesh=None):
             return _layer_fwd(
                 cfg, lp, h, policy, sin, cos, impl="torch", lname=f"l{i}.",
                 kv_fmts=kv_info[1][i] if kv_info is not None else None,
-                kv_store=store, serve=False, mesh=mesh)[0]
+                kv_store=store, serve=False, mesh=mesh,
+                ff=mlp_width(cfg, i))[0]
         x = remat(cfg, layer, x)
     return _head(cfg, params, x, policy, "torch", serve=False, mesh=mesh)
 
@@ -608,7 +614,8 @@ def _extend(cfg, params, cache, tokens, length, policy, *, impl, attn_impl,
                 kv_store=store, serve=serve, mesh=mesh)
         x = x + o
         x = x + _apply_mlp(cfg, lp, napply(lp["ln2"], x), policy, impl, lname,
-                           per_token=True, serve=serve, mesh=mesh)
+                           per_token=True, serve=serve, mesh=mesh,
+                           ff=mlp_width(cfg, i))
     return _head(cfg, params, x, policy, impl, serve, mesh), cache
 
 

@@ -37,6 +37,22 @@ attention are split-sequence (``nn.attention._split_decode``: the scores
 and the V blocks all-gathered, the one-device routine on the whole row),
 so prefill and decode logits are the one-device logits bitwise on every
 rank.
+
+Tensor-parallel training (``forward(mode="train", mesh=)``): ``params``
+is this rank's ``TRAIN_RULES`` slice, cut as for serving (q by heads' and
+up by hidden columns, o and down by rows, the embedding and the head by
+vocabulary; k/v, the norms whole).  Both stacks' self attention runs
+``nn.attention.gqa_prefill(serve=False, mesh=)``; the cross attention's q
+is column-parallel and o row-parallel, and its K/V are computed whole
+from the encoder output on every rank and cut to the rank's heads by
+``launch.mesh.cut_model``, whose backward gathers the heads' cotangents,
+so the encoder output's cotangent that reaches ``_CrossFanout`` (and
+through it every encoder layer) is whole and the same on every rank.  The
+MLPs' up is column-parallel and down row-parallel, and the head returns
+the rank's vocabulary columns (``nn.layers.VocabShard``).  Where the
+heads do not split (whisper-base's 8 over 16 ranks) the attention blocks
+run whole on every rank (``nn.attention._train_heads``); where d_ff does
+not, the MLPs do.
 """
 from __future__ import annotations
 
@@ -163,11 +179,19 @@ def _proj(p, x, policy, impl, name, serve=True, row_mesh=None, **kw):
                          **kw)
 
 
-def _mlp(p, h, policy, impl, name, serve=True, mesh=None):
+def _mlp(p, h, policy, impl, name, serve=True, mesh=None, d_ff=0):
     """up, gelu, down; on a tensor-parallel ``mesh`` up holds this rank's
-    columns and down its rows."""
+    columns and down its rows (in training up column-parallel, where its
+    leaf is a shard of ``d_ff`` columns; a whole one runs as on one
+    device)."""
+    col = {}
+    if mesh is not None and not serve:
+        if p["up"]["w"].shape[-1] == d_ff:
+            mesh = None
+        else:
+            col = {"col_mesh": mesh}
     return _proj(p["down"], nnl.gelu(_proj(p["up"], h, policy, impl, name,
-                                           serve)),
+                                           serve, **col)),
                  policy, impl, name, serve, row_mesh=mesh)
 
 
@@ -191,7 +215,7 @@ def _enc_layer_fwd(cfg, lp, x, policy, *, impl, serve=True, mesh=None):
                             serve=serve, mesh=mesh)
     x = x + o
     return x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy,
-                    impl, "enc_mlp", serve, mesh)
+                    impl, "enc_mlp", serve, mesh, cfg.d_ff)
 
 
 def _enc_inputs(cfg, frames: torch.Tensor) -> torch.Tensor:
@@ -207,7 +231,7 @@ def encode(cfg: WhisperConfig, params, frames: torch.Tensor, policy, *,
     """frames (B, T, D) stub embeddings -> encoder output (B, T, D);
     ``serve=False`` is the QAT forward, each layer under remat; ``mesh``
     tensor-parallel (module doc), the output whole on every rank."""
-    mesh = _tp_mesh(cfg, mesh, serve)
+    mesh = _tp_mesh(cfg, mesh, serve, forward=True)
     x = _enc_inputs(cfg, frames)
     for lp in params["enc_layers"]:
         x = remat(cfg, lambda h, lp=lp: _enc_layer_fwd(
@@ -215,11 +239,33 @@ def encode(cfg: WhisperConfig, params, frames: torch.Tensor, policy, *,
     return nnl.layernorm_apply(params["enc_norm"], x)
 
 
-def _cross_kv(cfg, lp, enc_out, policy, impl, serve=True):
+def _cross_kv(cfg, xp, enc_out, policy, impl, serve=True):
     b, t, _ = enc_out.shape
-    return tuple(_proj(lp["xattn"][key], enc_out, policy, impl,
+    return tuple(_proj(xp[key], enc_out, policy, impl,
                        X_ATTN[key], serve).reshape(b, t, cfg.n_heads, cfg.hd)
                  for key in ("k", "v"))
+
+
+def _cross_train(cfg, xp, h, enc_out, policy, impl, mesh):
+    """The cross attention's QAT forward on a tensor-parallel ``mesh`` (or
+    None): q column-parallel by heads, K/V whole and cut to the rank's
+    heads (``cut_model``), attention over those heads, o row-parallel;
+    the block whole where the heads do not split -> (out (B, S, D), the
+    whole K, V)."""
+    width = cfg.n_heads * cfg.hd
+    xp, _, m = attn._train_heads(xp, mesh, cfg.n_heads, {"q": width},
+                                 {"o": width})
+    tp = mesh if m > 1 else None
+    col = {} if tp is None else {"col_mesh": tp}
+    b, s, _ = h.shape
+    q = _proj(xp["q"], h, policy, impl, X_ATTN["q"], False,
+              **col).reshape(b, s, cfg.n_heads // m, cfg.hd)
+    k, v = _cross_kv(cfg, xp, enc_out, policy, impl, False)
+    o = attn.chunked_attention(q, mesh_lib.cut_model(tp, k, 2),
+                               mesh_lib.cut_model(tp, v, 2), causal=False,
+                               chunk=cfg.attn_chunk)
+    return _proj(xp["o"], o.reshape(b, s, -1), policy, impl, X_ATTN["o"],
+                 False, row_mesh=tp), k, v
 
 
 def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True, mesh=None):
@@ -236,17 +282,24 @@ def _layer_fwd(cfg, i, lp, x, policy, aux, *, impl, serve=True, mesh=None):
                              serve=serve, mesh=mesh)
     x = x + o
     h = nnl.layernorm_apply(lp["ln_x"], x)
-    heads = _local_heads(cfg, mesh)
-    q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"],
-              serve).reshape(*h.shape[:2], heads.stop - heads.start, cfg.hd)
-    k, v = _cross_kv(cfg, lp, aux["enc_out"], policy, impl, serve)
-    o = attn.sharded_heads_attention(
-        q, k[:, :, heads], v[:, :, heads], *mesh_lib.model_coords(mesh),
-        causal=False, chunk=cfg.attn_chunk)
-    x = x + _proj(lp["xattn"]["o"], o.reshape(*h.shape[:2], -1), policy,
-                  impl, X_ATTN["o"], serve, row_mesh=mesh)
+    if not serve:
+        o, k, v = _cross_train(cfg, lp["xattn"], h, aux["enc_out"], policy,
+                               impl, mesh)
+        x = x + o
+    else:
+        heads = _local_heads(cfg, mesh)
+        q = _proj(lp["xattn"]["q"], h, policy, impl, X_ATTN["q"],
+                  serve).reshape(*h.shape[:2], heads.stop - heads.start,
+                                 cfg.hd)
+        k, v = _cross_kv(cfg, lp["xattn"], aux["enc_out"], policy, impl,
+                         serve)
+        o = attn.sharded_heads_attention(
+            q, k[:, :, heads], v[:, :, heads], *mesh_lib.model_coords(mesh),
+            causal=False, chunk=cfg.attn_chunk)
+        x = x + _proj(lp["xattn"]["o"], o.reshape(*h.shape[:2], -1), policy,
+                      impl, X_ATTN["o"], serve, row_mesh=mesh)
     x = x + _mlp(lp["mlp"], nnl.layernorm_apply(lp["ln2"], x), policy, impl,
-                 "dec_mlp", serve, mesh)
+                 "dec_mlp", serve, mesh, cfg.d_ff)
     return x, (kv, (k, v))
 
 
@@ -263,6 +316,9 @@ def _prefill_inputs(cfg, params, tokens, frames, policy, impl, serve=True,
         frames = _zero_frames(cfg, b, tokens.device)
     enc_out = encode(cfg, params, frames, policy, impl=impl, serve=serve,
                      mesh=mesh)
+    if not serve and mesh is not None \
+            and params["embed"]["table"].shape[0] == nnl.pad_vocab(cfg.vocab):
+        mesh = None   # a whole table (a vocabulary that does not split)
     x = _embed(params, tokens, serve, mesh)
     x = x + _sinusoid(_positions(b, s, tokens.device),
                       cfg.d_model).to(x.dtype)
@@ -271,11 +327,20 @@ def _prefill_inputs(cfg, params, tokens, frames, policy, impl, serve=True,
 
 def _head(cfg, params, x, policy, impl, serve=True, mesh=None):
     """Final norm and head -> logits; on a tensor-parallel ``mesh`` the
-    rank's vocabulary columns, all-gathered over 'model' in rank order."""
+    rank's vocabulary columns: all-gathered over 'model' in rank order
+    when serving, in training a ``nn.layers.VocabShard`` for the
+    vocabulary-parallel loss (the head column-parallel), as
+    ``models.transformer``'s head."""
     x = nnl.layernorm_apply(params["dec_norm"], x)
+    n = None if serve else params["head"]["w"].shape[-1]
+    if mesh is not None and not serve and n != nnl.pad_vocab(cfg.vocab):
+        logits = Q.qlinear_apply(params["head"], x, policy, name="head",
+                                 layer_class="boundary", col_mesh=mesh)
+        return nnl.VocabShard(logits, mesh,
+                              mesh_lib.model_coords(mesh)[0] * n, cfg.vocab)
     logits = _proj(params["head"], x, policy, impl, "head", serve,
                    layer_class="boundary")
-    if mesh is not None:
+    if mesh is not None and serve:
         logits = mesh_lib.all_gather_model(mesh, logits, dim=-1)
     return logits[..., :cfg.vocab]  # drop the vocab padding
 
@@ -306,9 +371,10 @@ def forward(cfg: WhisperConfig, params, tokens: torch.Tensor, policy, *,
     given frames (B, n_audio, D) (zeros when None): the packed serve
     forward (``mode="serve"``) or the QAT training forward
     (``mode="train"``, over an ``init_params("train")`` tree, no
-    kernel).  ``mesh``: tensor-parallel serving (module doc)."""
+    kernel).  ``mesh``: tensor-parallel serving, or training, whose
+    logits are then the rank's ``nn.layers.VocabShard`` (module doc)."""
     serve = _serve_mode(mode)
-    mesh = _tp_mesh(cfg, mesh, serve)
+    mesh = _tp_mesh(cfg, mesh, serve, forward=True)
     x, aux = _prefill_inputs(cfg, params, tokens, frames, policy, impl,
                              serve, mesh)
     layers = params["dec_layers"]

@@ -382,14 +382,14 @@ def _proj(p, x, policy, *, serve, impl, name, row_mesh=None, **kw):
 def _model(mesh, n_heads: int, serve: bool):
     """(this rank's 'model' coordinate, the axis' size) of a serving
     attention block, checked: over whole heads; a tensor-parallel train
-    block is ``gqa_prefill(serve=False)``'s alone (the full-sequence
-    forward)."""
+    block is the full-sequence forward's alone (``gqa_prefill`` and
+    ``mla_prefill`` with ``serve=False``, ``_train_heads``)."""
     r, m = mesh_lib.model_coords(mesh)
     if m > 1 and (not serve or n_heads % m):
         raise ValueError(f"a tensor-parallel attention block serves "
                          f"(serve=True) {n_heads} heads split evenly over "
                          f"{m} ranks; tensor-parallel training runs the "
-                         f"full-sequence forward (gqa_prefill)")
+                         f"full-sequence forward (gqa_prefill, mla_prefill)")
     return r, m
 
 
@@ -426,22 +426,30 @@ def _kv_select_axis(t: torch.Tensor, heads, axis: int) -> torch.Tensor:
     return torch.index_select(t, axis, heads.to(t.device))
 
 
-def _train_heads(p, mesh, n_heads: int, head_dim: int):
+def _train_heads(p, mesh, n_heads: int, cols: Dict[str, int],
+                 rows: Dict[str, int]):
     """(p, r, m) of a training block on ``mesh``: as they are where the
-    heads split over the 'model' axis (q column-parallel by heads, o
-    row-parallel); where they do not (nor, then, M whole heads a rank),
-    q's columns and o's rows are all-gathered where the rules cut them
-    (``launch.mesh.gather_model``: the rank's block of each gradient) and
-    the block runs whole on every rank, as on one device (r 0, m 1)."""
+    heads split over the 'model' axis (``cols``' projections, q among
+    them, column-parallel by heads, ``rows``' row-parallel); where they do
+    not (nor, then, M whole heads a rank), the columns of ``cols``' and
+    the rows of ``rows``' projections ({key: the whole width}) are
+    all-gathered where the rules cut them (``launch.mesh.gather_model``:
+    the rank's block of each gradient) and the block runs whole on every
+    rank, as on one device (r 0, m 1)."""
     r, m = mesh_lib.model_coords(mesh)
     if m == 1 or n_heads % m == 0:
         return p, r, m
-    if p["q"]["w"].shape[-1] != n_heads * head_dim:
-        q = dict(p["q"], w=mesh_lib.gather_model(mesh, p["q"]["w"], -1))
-        if q["gw"].ndim:
-            q["gw"] = mesh_lib.gather_model(mesh, q["gw"], -1)
-        p = dict(p, q=q, o=dict(p["o"], w=mesh_lib.gather_model(
-            mesh, p["o"]["w"], -2)))
+    p = dict(p)
+    for key, width in cols.items():
+        if p[key]["w"].shape[-1] != width:
+            got = dict(p[key], w=mesh_lib.gather_model(mesh, p[key]["w"], -1))
+            if got["gw"].ndim:
+                got["gw"] = mesh_lib.gather_model(mesh, got["gw"], -1)
+            p[key] = got
+    for key, width in rows.items():
+        if p[key]["w"].shape[-2] != width:
+            p[key] = dict(p[key], w=mesh_lib.gather_model(mesh, p[key]["w"],
+                                                          -2))
     return p, 0, 1
 
 
@@ -499,7 +507,8 @@ def gqa_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     if serve:
         r, m = _model(mesh, n_heads, serve)
     else:
-        p, r, m = _train_heads(p, mesh, n_heads, head_dim)
+        width = n_heads * head_dim
+        p, r, m = _train_heads(p, mesh, n_heads, {"q": width}, {"o": width})
     h_l = n_heads // m
     q, k, v = _qkv(p, x, policy, n_heads=h_l, n_kv=n_kv,
                    head_dim=head_dim, sin=sin, cos=cos, impl=impl, nm=nm,
@@ -771,18 +780,22 @@ def mla_spec(d_model: int, n_heads: int, *, kv_lora: int, qk_nope: int,
     }
 
 
-def _mla_proj(p, key, x, policy, *, serve, impl, lname):
-    return _proj(p[key], x, policy, serve=serve, impl=impl, name=lname + key)
+def _mla_proj(p, key, x, policy, *, serve, impl, lname, col_mesh=None):
+    kw = {} if col_mesh is None else {"col_mesh": col_mesh}
+    return _proj(p[key], x, policy, serve=serve, impl=impl, name=lname + key,
+                 **kw)
 
 
 def _mla_qkv(p, x, policy, *, n_heads, qk_nope, qk_rope, kv_lora, sin, cos,
-             impl, lname, serve=True):
+             impl, lname, serve=True, train_mesh=None):
     """-> q_nope, q_rope (rotary), the normed latent c_kv and the rotary
-    key k_rope of the tokens x (B, S, D)."""
+    key k_rope of the tokens x (B, S, D); ``n_heads`` counts the rank's q
+    heads.  ``train_mesh`` (tensor-parallel training): q column-parallel
+    by heads, dkv and ``kv_norm`` whole."""
     b, s, _ = x.shape
     kw = dict(serve=serve, impl=impl, lname=lname)
-    q = _mla_proj(p, "q", x, policy, **kw).reshape(b, s, n_heads,
-                                                   qk_nope + qk_rope)
+    q = _mla_proj(p, "q", x, policy, col_mesh=train_mesh,
+                  **kw).reshape(b, s, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     q_rope = layers.apply_rotary(q_rope, sin, cos)
     ckv = _mla_proj(p, "dkv", x, policy, **kw)
@@ -797,35 +810,53 @@ class _HeadBroadcast(torch.autograd.Function):
     (B, S, H, R).  Its backward adds the H heads' cotangents one at a time
     in their dtype, in head order, as XLA runs the reference's transpose of
     ``jnp.broadcast_to`` (a bf16 sum over a non-minor axis); ``expand``'s
-    backward would add them in f32 and round once."""
+    backward would add them in f32 and round once.
+
+    ``mesh`` with a 'model' axis of M above 1 (tensor-parallel training by
+    heads): the rank's H/M heads of the broadcast; the backward
+    all-gathers every rank's heads' cotangents in rank order -- the whole
+    (B, S, H, R) cotangent, exactly, on every rank -- and adds all H heads
+    in order, as one device does.  Each rank adding its own heads and the
+    partials then summed over 'model' would add them in another order."""
 
     @staticmethod
-    def forward(ctx, k, h):
+    def forward(ctx, k, h, mesh=None):
         b, s, r = k.shape
-        return k[:, :, None, :].expand(b, s, h, r).clone()
+        ctx.mesh = mesh
+        return k[:, :, None, :].expand(
+            b, s, h // mesh_lib.model_coords(mesh)[1], r).clone()
 
     @staticmethod
     def backward(ctx, g):
+        g = mesh_lib.all_gather_model(ctx.mesh, g.contiguous(), dim=2)
         acc = g[:, :, 0]
         for i in range(1, g.shape[2]):
             acc = acc + g[:, :, i]
-        return acc, None
+        return acc, None, None
 
 
 def _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy, *, n_heads,
-                qk_nope, qk_rope, v_head, impl, lname, serve=True):
+                qk_nope, qk_rope, v_head, impl, lname, serve=True,
+                train_mesh=None):
     """The latent (B, Sk, r) and rotary key up to per-head K (B, Sk, H,
-    qk_nope + qk_rope) and V (B, Sk, H, v_head); q joined the same way."""
+    qk_nope + qk_rope) and V (B, Sk, H, v_head); q joined the same way.
+    ``n_heads`` counts the rank's heads; ``train_mesh`` (tensor-parallel
+    training): uk and uv column-parallel by heads over the whole latent
+    (its cotangent summed over 'model', ``qlinear_apply``'s ``col_mesh``),
+    the rotary key broadcast to the rank's heads (``_HeadBroadcast``)."""
     b, sk = c_kv.shape[:2]
-    kw = dict(serve=serve, impl=impl, lname=lname)
+    kw = dict(serve=serve, impl=impl, lname=lname, col_mesh=train_mesh)
     k_nope = _mla_proj(p, "uk", c_kv, policy, **kw).reshape(b, sk, n_heads,
                                                             qk_nope)
     v = _mla_proj(p, "uv", c_kv, policy, **kw).reshape(b, sk, n_heads,
                                                        v_head)
     if serve:
         k_rope_b = k_rope[:, :, None, :].expand(b, sk, n_heads, qk_rope)
-    else:
+    elif train_mesh is None:
         k_rope_b = _HeadBroadcast.apply(k_rope, n_heads)
+    else:
+        m = mesh_lib.model_coords(train_mesh)[1]
+        k_rope_b = _HeadBroadcast.apply(k_rope, n_heads * m, train_mesh)
     k = torch.cat([k_nope, k_rope_b.to(k_nope.dtype)], dim=-1)
     q = torch.cat([q_nope, q_rope.to(q_nope.dtype)], dim=-1)
     return q, k, v
@@ -846,19 +877,35 @@ def mla_prefill(p: Dict, x: torch.Tensor, policy, *, n_heads: int,
     heads' rows (a row shard summed over 'model'); the rank attends over
     its heads at the one-device shape (``sharded_heads_attention``), and
     the returned latent cache is the whole prompt's (dkv is whole), of
-    which the caller keeps the rank's ``kv_seq`` block."""
+    which the caller keeps the rank's ``kv_seq`` block.  In training
+    (``serve=False``) q, uk and uv are column-parallel (the latent's
+    cotangent summed over 'model'), the rotary key's cotangent gathered
+    by heads and added in head order (``_HeadBroadcast``), attention
+    runs over the rank's heads (``chunked_attention``) and o is
+    row-parallel; where the heads do not split the block runs whole on
+    every rank (``_train_heads``)."""
     b, s, _ = x.shape
-    r, m = _model(mesh, n_heads, serve)
+    if serve:
+        r, m = _model(mesh, n_heads, serve)
+    else:
+        p, r, m = _train_heads(
+            p, mesh, n_heads, {"q": n_heads * (qk_nope + qk_rope),
+                               "uk": n_heads * qk_nope,
+                               "uv": n_heads * v_head},
+            {"o": n_heads * v_head})
     h_l = n_heads // m
-    kw = dict(n_heads=h_l, qk_nope=qk_nope, qk_rope=qk_rope, serve=serve)
+    tp = mesh if not serve and m > 1 else None
+    kw = dict(n_heads=h_l, qk_nope=qk_nope, qk_rope=qk_rope, serve=serve,
+              train_mesh=tp)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(
         p, x, policy, kv_lora=kv_lora, sin=sin, cos=cos, impl=impl,
         lname=lname, **kw)
     q, k, v = _mla_expand(p, q_nope, q_rope, c_kv, k_rope, policy,
                           v_head=v_head, impl=impl, lname=lname, **kw)
+    # training attends over the rank's heads alone (no bitwise claim)
     attend = lambda q, k, v: sharded_heads_attention(  # noqa: E731
-        q, k, v, r, m, causal=True, chunk=chunk,
-        softmax_scale=(qk_nope + qk_rope) ** -0.5)
+        q, k, v, r if serve else 0, m if serve else 1, causal=True,
+        chunk=chunk, softmax_scale=(qk_nope + qk_rope) ** -0.5)
     if x.is_cuda:  # one batch row at a time: the same bits in any batch
         o = torch.cat([attend(q[i:i + 1], k[i:i + 1], v[i:i + 1])
                        for i in range(b)])

@@ -32,8 +32,8 @@ Numerics, against the reference and across batches:
   which is never -0 -- or NaN where ``h`` is not finite, and is added after
   in any order (atomics on a card) with the same result.
 
-Expert parallelism (``moe_apply(mesh=)``, serve only, a 'model' axis of M
-above 1): the rank holds E/M columns of the router and E/M whole experts
+Expert parallelism (``moe_apply(mesh=)``, a 'model' axis of M above 1):
+the rank holds E/M columns of the router and E/M whole experts
 of each bank (``nn.partitioning.shard_tree`` on the 'experts' axis), the
 shared experts' gate/up columns and ``shared_down``'s rows.  The router's
 column shards are all-gathered over 'model', so every rank routes every
@@ -47,6 +47,23 @@ runs the one-device ``_combine`` on them: bitwise the one-device block.
 That moves B E C D bf16 values a layer, of which a rank receives (M - 1) /
 M; the alternative, passing each token's f32 running sum rank to rank,
 moves B S D f32 values a hop but serializes the ranks.
+
+Expert-parallel training (``moe_apply(serve=False, mesh=)``) keeps that
+scheme under autograd, and every gradient of the routed block -- x's, the
+router's, each expert's ``w``/``gw``/``ga`` -- bitwise one device's on
+every rank: the router's column shards are all-gathered (d x E f32) and
+every rank routes with the whole router (``gather_model``: its backward
+keeps the rank's columns of the whole router's gradient, which every rank
+computes alike); the rank dispatches its experts' slots, runs its E/M
+experts as a bank and gates its rows with its experts' gates
+(``cut_model``: the gate cotangents, nonzero on one rank each, all-gathered
+before the router's softmax backward); the gated rows are all-gathered and
+combined as on one device.  The dispatch's backward all-gathers every
+rank's slot cotangents (B, E/M, C, D) bf16 in rank order and adds each
+token's in ascending expert order as one device does (``_Dispatch``): rank
+partials added over 'model' would add them in another order.  The shared
+experts are column-parallel gate/up and a row-parallel down, as the dense
+MLP.
 
 The train forward runs the same routing under autograd, with the experts
 as fake-quant banks (``nn.quantized.qlinear_apply`` over ``lead=(E,)``:
@@ -77,7 +94,8 @@ from repro_torch.nn.param import ParamSpec
 
 __all__ = ["MoEConfig", "moe_spec", "moe_apply", "capacity",
            "router_logits", "top_k", "route", "dispatch", "gate_and_combine",
-           "expert_coords", "expert_parallel_combine"]
+           "expert_coords", "expert_parallel_combine", "whole_router",
+           "gather_gated"]
 
 # Tokens of one fixed-order router product on a card: its (rows, E, D)
 # buffer stays near 2^25 values at olmoe's and deepseek's widths.
@@ -222,14 +240,21 @@ def _ffn(p, x, policy, cfg: MoEConfig, impl: str, name: str, prefix="",
     projection over the bank) or fake-quant (the QAT forward, one batched
     bf16 product a projection).  ``row_mesh``: the shared experts
     tensor-parallel, gate/up by columns and down a row shard summed over
-    'model'."""
-    fn = lambda key, h: Q.qlinear_any(  # noqa: E731
-        p[prefix + key], h, policy, serve=serve, impl=impl, name=name)
-    u = fn("up", x) if cfg.act == "swiglu" else None
-    h = _act(cfg, fn("gate", x), u)
+    'model' (in training where the leaves hold shards of the shared
+    hidden width; where it does not split they are whole and run as on
+    one device)."""
+    col = {}
+    if row_mesh is not None and not serve:
+        if p[prefix + "up"]["w"].shape[-1] == cfg.shared_hidden:
+            row_mesh = None
+        else:
+            col = {"col_mesh": row_mesh}
+    fn = lambda key, h, **kw: Q.qlinear_any(  # noqa: E731
+        p[prefix + key], h, policy, serve=serve, impl=impl, name=name, **kw)
+    u = fn("up", x, **col) if cfg.act == "swiglu" else None
+    h = _act(cfg, fn("gate", x, **col), u)
     if row_mesh is not None:
-        return Q.qlinear_serve_apply(p[prefix + "down"], h, policy,
-                                     impl=impl, name=name, row_mesh=row_mesh)
+        return fn("down", h, row_mesh=row_mesh)
     return fn("down", h)
 
 
@@ -289,21 +314,31 @@ class _Dispatch(torch.autograd.Function):
     order, as XLA runs the reference's transpose (a scatter-add in bf16,
     in index order); a plain gather's backward would add them in f32 and
     round once.  The gate-0 padding slots are left out: their cotangents
-    are zeros (h times a zero gate), which change no sum."""
+    are zeros (h times a zero gate), which change no sum.
+
+    ``mesh`` with a 'model' axis of M above 1: the rank's E/M experts'
+    slots (B, E/M, C, D) of every expert's routing; the backward
+    all-gathers every rank's slot cotangents in rank order (the experts in
+    ascending order) and runs the one-device sum over all of them, so x's
+    cotangent is one device's on every rank."""
 
     @staticmethod
-    def forward(ctx, x, tok_idx, idx):
-        b, e, c = tok_idx.shape
+    def forward(ctx, x, tok_idx, idx, mesh=None):
+        b, _, c = tok_idx.shape
         d = x.shape[-1]
         ctx.save_for_backward(_token_slots(tok_idx, idx, x.shape[1]))
-        return torch.gather(x, 1, tok_idx.reshape(b, e * c, 1).expand(
-            b, e * c, d)).reshape(b, e, c, d)
+        ctx.mesh = mesh
+        first, e = expert_coords(mesh, tok_idx.shape[1])
+        mine = tok_idx[:, first:first + e].reshape(b, e * c, 1)
+        return torch.gather(x, 1, mine.expand(b, e * c, d)).reshape(
+            b, e, c, d)
 
     @staticmethod
     def backward(ctx, g):
         (flat,) = ctx.saved_tensors
+        g = mesh_lib.all_gather_model(ctx.mesh, g.contiguous(), dim=1)
         b, e, c, d = g.shape
-        return _sum_slots(g.reshape(b, e * c, d), flat), None, None
+        return _sum_slots(g.reshape(b, e * c, d), flat), None, None, None
 
 
 def _xla_row_sum(t: torch.Tensor) -> torch.Tensor:
@@ -355,11 +390,12 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
 
 
 def dispatch(x: torch.Tensor, tok_idx: torch.Tensor, idx: torch.Tensor, *,
-             serve: bool) -> torch.Tensor:
+             serve: bool, mesh=None) -> torch.Tensor:
     """x (B, S, D) gathered into the expert slots (B, E, C, D); the train
-    path's backward is ``_Dispatch``'s."""
+    path's backward is ``_Dispatch``'s.  ``mesh`` (training): the slots of
+    this rank's experts of every expert's ``tok_idx``."""
     if not serve:
-        return _Dispatch.apply(x, tok_idx, idx)
+        return _Dispatch.apply(x, tok_idx, idx, mesh)
     b, e, c = tok_idx.shape
     d = x.shape[-1]
     return torch.gather(x, 1, tok_idx.reshape(b, e * c, 1).expand(
@@ -402,6 +438,23 @@ def expert_parallel_combine(h: torch.Tensor, vals: torch.Tensor,
                     idx, s)
 
 
+def whole_router(router: torch.Tensor, mesh) -> torch.Tensor:
+    """The training router: this rank's (D, E/M) column shard all-gathered
+    over 'model' in rank order into the whole (D, E) f32 router, under
+    autograd (``launch.mesh.gather_model``: its backward keeps the rank's
+    columns).  Not ``router_logits``' gather of scores, which serving
+    uses: it has no backward, so the router's columns would get no
+    gradient through the other ranks' tokens' scores."""
+    return mesh_lib.gather_model(mesh, router, -1)
+
+
+def gather_gated(gated: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's gated rows (B, E/M, C, D) all-gathered over 'model' in
+    rank order into every expert's (B, E, C, D), under autograd (its
+    backward keeps the rank's experts' cotangents)."""
+    return mesh_lib.gather_model(mesh, gated, 1)
+
+
 def moe_apply(p: Dict, x: torch.Tensor, policy, cfg: MoEConfig, *,
               serve: bool = True, impl: str = "auto",
               lname: str = "", mesh=None) -> torch.Tensor:
@@ -412,17 +465,19 @@ def moe_apply(p: Dict, x: torch.Tensor, policy, cfg: MoEConfig, *,
     ``route``, ``dispatch``, the fake-quant banks and ``gate_and_combine``,
     each with the reference's gradient.  ``mesh`` with a 'model' axis
     above 1: expert parallelism over this rank's slice of ``p`` (module
-    doc), bitwise the one-device block on every rank."""
+    doc), the routed block's output bitwise the one-device block's on
+    every rank, and in training each of its gradients too."""
     b, s, d = x.shape
     first, e = expert_coords(mesh, cfg.n_experts)
     tp = e < cfg.n_experts
-    if tp and not serve:
-        raise ValueError("expert parallelism serves packed trees only "
-                         "(serve=True)")
-    idx, vals, tok_idx = route(x, p["router"], cfg, mesh)
-    cap = tok_idx.shape[-1]
     mine = slice(first, first + e)
-    xg = dispatch(x, tok_idx[:, mine], idx, serve=serve)
+    if tp and not serve:
+        idx, vals, tok_idx = route(x, whole_router(p["router"], mesh), cfg)
+        xg = dispatch(x, tok_idx, idx, serve=False, mesh=mesh)
+    else:
+        idx, vals, tok_idx = route(x, p["router"], cfg, mesh)
+        xg = dispatch(x, tok_idx[:, mine], idx, serve=serve)
+    cap = tok_idx.shape[-1]
     # the bank: (E, B*C, D), one product per projection
     xe = xg.transpose(0, 1).reshape(e, b * cap, d)
     h = _ffn(p, xe, policy, cfg, impl, lname + "expert", serve=serve)
@@ -430,6 +485,9 @@ def moe_apply(p: Dict, x: torch.Tensor, policy, cfg: MoEConfig, *,
     if serve:
         y = expert_parallel_combine(h, vals, tok_idx, idx, s,
                                     mesh).to(x.dtype)
+    elif tp:
+        gated = _Gate.apply(h, mesh_lib.cut_model(mesh, vals, 1))
+        y = _combine(gather_gated(gated, mesh), tok_idx, idx, s).to(x.dtype)
     else:
         y = gate_and_combine(h, vals, tok_idx, idx, s,
                              serve=False).to(x.dtype)

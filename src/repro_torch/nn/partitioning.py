@@ -53,13 +53,15 @@ whole where its dimension does not split evenly over the ranks (the
 ResNets' 147-row stem), where the reference refuses the leaf.
 
 A 'model' axis above 1 in training (tensor-parallel training of the
-dense decoders and the ResNets, ``TP_TRAIN_FAMILIES``): each rank keeps
-also its 'model' block of every leaf the rules cut over 'model' (q, gate,
-up and the head by columns, o and down by rows, the embedding by
-vocabulary rows, a conv by output channels, the classifier by classes),
-k/v, the norms and BN whole; a step gathers only the FSDP blocks
-(``gather_by(..., axes=)``) and keeps the 'model' shards.  Other families
-raise ``NotImplementedError`` naming ROADMAP 16b (iv) (b) or (c)
+dense decoders, the ResNets, the MoE archs and whisper,
+``TP_TRAIN_FAMILIES``): each rank keeps also its 'model' block of every
+leaf the rules cut over 'model' (q, gate, up, MLA's uk/uv and the head by
+columns, o and down by rows, the embedding by vocabulary rows, a conv by
+output channels, the classifier by classes, the router by experts' columns
+and each expert bank by whole experts), k/v, MLA's dkv, the norms and BN
+whole; a step gathers only the FSDP blocks (``gather_by(..., axes=)``) and
+keeps the 'model' shards.  The SSM and hybrid families raise
+``NotImplementedError`` naming ROADMAP 16b (iv) (c)
 (``require_train_mesh``).
 """
 from __future__ import annotations
@@ -291,11 +293,10 @@ def require_serve_mesh(sizes: Dict[str, int]) -> None:
 
 
 # model families (``ModelAPI.family``) that train tensor-parallel over
-# 'model' (ROADMAP 16b (iv) (a)), and the part of 16b (iv) the others wait
-# for
-TP_TRAIN_FAMILIES = ("dense", "vlm", "cnn")
-TP_TRAIN_LATER = {"moe": "(b)", "audio": "(b)", "ssm": "(c)",
-                  "hybrid": "(c)"}
+# 'model' (ROADMAP 16b (iv) (a) and (b)), and the part of 16b (iv) the
+# others wait for
+TP_TRAIN_FAMILIES = ("dense", "vlm", "cnn", "moe", "audio")
+TP_TRAIN_LATER = {"ssm": "(c)", "hybrid": "(c)"}
 
 
 def require_train_mesh(sizes: Dict[str, int],
@@ -303,13 +304,13 @@ def require_train_mesh(sizes: Dict[str, int],
     """Raise unless the port trains ``family`` (a ``ModelAPI.family``;
     None: the mesh alone) on a mesh of ``sizes`` ({axis: size}): 'pod'
     and 'data' (the batch and FSDP axes) of any size; 'model' above 1
-    (tensor-parallel) for the dense decoders and the ResNets
-    (``TP_TRAIN_FAMILIES``).  Any other family raises
+    (tensor-parallel) for the dense decoders, the ResNets, the MoE archs
+    and whisper (``TP_TRAIN_FAMILIES``).  Any other family raises
     ``NotImplementedError`` naming the part of ROADMAP 16b (iv) it waits
     for."""
     m = sizes.get("model", 1)
     if m > 1 and family is not None and family not in TP_TRAIN_FAMILIES:
-        part_ = TP_TRAIN_LATER.get(family, "(b)")
+        part_ = TP_TRAIN_LATER.get(family, "(c)")
         raise NotImplementedError(
             f"a training mesh with a 'model' axis of {m}: tensor-parallel "
             f"training of the {family!r} family is not ported (ROADMAP "

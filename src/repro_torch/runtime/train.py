@@ -66,7 +66,7 @@ class Trainer:
     this rank's device of it, under ``rules`` (default ``TRAIN_RULES``; a
     'model' axis above 1 trains tensor-parallel where
     ``nn.partitioning.require_train_mesh`` takes the arch's family, and
-    raises naming ROADMAP 16b (iv) (b) or (c) elsewhere).
+    raises naming ROADMAP 16b (iv) (c) elsewhere).
     ``step_seconds``, ``save_seconds`` and ``restore_seconds`` hold the
     host time of this run's steps (each ends when its metrics reach the
     host), of its checkpoint saves (the caller's share of an asynchronous

@@ -591,14 +591,18 @@ def test_sharded_batch_at_equals_repros_batch_at():
 
 
 def test_model_axis_refused_naming_16b_iv(tmp_path):
-    """A 'model' axis above 1 trains the dense decoders and the ResNets
-    tensor-parallel (test_torch_tensor_parallel_train.py); the MoE family
-    still refuses, naming ROADMAP 16b (iv) (b)."""
-    api = _api("olmoe-1b-7b", 2)
+    """A 'model' axis above 1 trains the dense decoders, the ResNets, the
+    MoE archs and whisper tensor-parallel
+    (test_torch_tensor_parallel_train*.py); the SSM and hybrid families
+    still refuse, naming ROADMAP 16b (iv) (c)."""
+    api = _api("mamba2-1.3b", 2)
     fake = _stand_in((2, 2))
-    with pytest.raises(NotImplementedError, match=r"16b \(iv\) \(b\)"):
-        part.require_train_mesh({"data": 2, "model": 2}, "moe")
-    part.require_train_mesh({"data": 2, "model": 2}, "dense")
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError,
+                           match=r"16b \(iv\) \(c\)"):
+            part.require_train_mesh({"data": 2, "model": 2}, family)
+    for family in ("dense", "moe", "audio"):
+        part.require_train_mesh({"data": 2, "model": 2}, family)
     part.require_train_mesh({"data": 2, "model": 2})   # the mesh alone
     with pytest.raises(NotImplementedError, match=r"16b \(iv\)"):
         steps_lib.make_train_step(api, mesh=fake)
